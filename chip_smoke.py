@@ -14,9 +14,15 @@ J=50 clients, Dirichlet alpha 0.01, the registry's lr / lr_p / lambda,
 points with every launch counter reset just before each algorithm and
 read just after, checks that run against the same run through the plain
 versions on the card (same seed, so the same shuffles and init) and that
-each run learns, profiles one more FedAMW run (device time by kernel and
-the device's busy share of the wall time), and times each kernel beside
-its plain version and its bound. Output is one JSON object per line; the
+each run learns, times the host's per-round shuffle draw alone
+(``host_draw_ms_per_round``), profiles one more FedAMW run (device time
+by kernel and the device's busy share of the wall time), and times each
+kernel beside its plain version and its bound. ``client_epoch``'s entry
+also shows its critical path: the largest client's non-empty steps
+(``steps_max``), ``us_per_step``, the launch plan's ``cluster`` size,
+the compiler's ``spill_bytes`` for the instantiation that runs (it must
+be 0), and its time at every cluster size that fits (``ms_by_cluster``).
+Output is one JSON object per line; the
 line before the last lists the kernels; the last line is the contract
 line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -26,7 +32,6 @@ that line. Without a CUDA card it exits 1 and prints no result.
 from __future__ import annotations
 
 import json
-import math
 import os
 import subprocess
 import sys
@@ -95,7 +100,9 @@ def main():
     from fedamw_tpu_torch.fedcore import (
         client_epoch, client_epoch_plain, client_logits, p_epoch,
         p_epoch_plain)
+    from fedamw_tpu_torch.algorithms.core import _draw_client_positions
     from fedamw_tpu_torch.fedcore import cuda_build
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
     from fedamw_tpu_torch.fedcore.batching import batch_valid, epoch_batches
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -299,6 +306,14 @@ def main():
                  f"{chance:.2f}% of the largest test class")
 
     # -- 5. where a FedAMW run's time goes (device time by kernel) ----------
+    # the host's shuffle draw of one round, alone and before the profiler
+    # starts: the round loop's _draw_client_positions at the main
+    # configuration, host clock
+    draw_gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    for _ in range(ROUNDS):
+        _draw_client_positions(draw_gen, mask_cpu, EPOCHS, B)
+    draw_ms = 1e3 * (time.perf_counter() - t0) / ROUNDS
     from torch.profiler import ProfilerActivity, profile
 
     saved = (client_epoch.launches, p_epoch.launches)
@@ -315,7 +330,7 @@ def main():
     device_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     emit({"phase": "profile", "algorithm": "FedAMW", "rounds": ROUNDS,
-          "wall_ms": 1e3 * secs,
+          "wall_ms": 1e3 * secs, "host_draw_ms_per_round": draw_ms,
           "device_ms": device_ms if device_ms > 0 else "not measured",
           "device_busy_share": (device_ms / (1e3 * secs) if device_ms > 0
                                 else "not measured"),
@@ -333,6 +348,17 @@ def main():
     S2 = int(ppos.shape[0])
     k2_bytes = 4 * (n_val * J * C + n_val + 2 * S2 * VB + 5 * J + 3)
     k2_ops = 4 * n_val * J * C + 4 * J * S2
+    # the critical path of kernel 1: the largest client's non-empty steps,
+    # the cluster the launch plan gives the main path, and the compiler's
+    # spills of the instantiation it runs
+    steps_max = int(ek.client_order(valid)[1].max())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ek.launch_plan(J, B, C, D, sms)
+    symbol = ek.kernel_symbol(plan, C)
+    usage = [u for f, u in cuda_build.ptxas_usage("client_epoch").items()
+             if symbol in f]
+    if len(usage) != 1:
+        fail(f"no single ptxas entry for {symbol}: {usage}")
     kernels = []
     for name, fn, plain, a, nbytes, ops, err, src, repl in (
             ("client_epoch", client_epoch, client_epoch_plain, args,
@@ -359,6 +385,20 @@ def main():
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "bound_fp32_ops": ops,
             "library_ms": None})
+    k1 = kernels[0]
+    saved = client_epoch.launches
+    by_cluster = {k: cuda_ms(lambda: client_epoch(*args, cluster=k), 10)
+                  for k in (1, 2, 4, 8)
+                  if ek.staged_smem_bytes(B, C, D, k) <= cuda_build.SMEM_LIMIT}
+    client_epoch.launches = saved
+    k1.update({"steps_max": steps_max, "us_per_step": 1e3 * k1["ms"]
+               / steps_max, "cluster": plan.cluster,
+               "spill_bytes": usage[0]["spill_bytes"],
+               "registers": usage[0]["registers"],
+               "smem_bytes": plan.smem_bytes, "ctas": plan.ctas,
+               "ms_by_cluster": by_cluster})
+    if plan.cluster == 0 or usage[0]["spill_bytes"] != 0:
+        fail(f"client_epoch main path: plan {plan}, ptxas {usage[0]}")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -81,6 +82,38 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return seconds
+
+
+def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
+    """Per compiled function of an ``nvcc -Xptxas -v`` log: its
+    ``registers``, ``stack_bytes`` and ``spill_bytes`` (spill stores plus
+    spill loads), keyed by the mangled name."""
+    usage: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        m = m or re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[fn]["stack_bytes"] = int(m.group(1))
+            usage[fn]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
+
+
+def ptxas_usage(name: str) -> dict[str, dict[str, int]]:
+    """``parse_ptxas`` of the build log of ``csrc/<name>.cu`` (kept beside
+    its library by ``build``)."""
+    return parse_ptxas(library_path(name).with_suffix(".log").read_text())
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,17 +3,30 @@
 Replaces the JAX package's Pallas TPU kernel
 ``fedcore/pallas_kernel.py:_epoch_kernel`` (built by
 ``make_pallas_epoch``). The hand-written CUDA kernel is
-``csrc/client_epoch.cu``: one CTA per client, one launch per local epoch
-for all J clients, the client's ``(C, D)`` weights and the round's prox
-anchor resident in shared memory while the CTA loops over the S batch
-steps and gathers its own rows of ``X`` through ``rows``.
+``csrc/client_epoch.cu``, one launch per local epoch for all J clients.
 
-What bounds it on an H100: the gathered feature rows (bytes) — about
-``4 C`` fp32 flops per feature element read, far below the card's fp32
-ridge — and, in practice, the serial dependence of one client's steps
-(one CTA per client, J of 132 SMs busy). The design keeps W, the anchor
-and every per-step intermediate on chip and skips padded rows and empty
-steps, so device memory sees only the valid rows' features.
+What bounds it on an H100 is not the bytes of the gathered rows (about
+``4 C`` fp32 flops per element read, far below the fp32 ridge) but the
+longest client's serial chain of steps: under a Dirichlet split one
+client walks several times the mean client's steps, and the launch lasts
+that client's non-empty steps times one step's latency. The design cuts
+that latency (``launch_plan`` chooses its shape):
+
+- a thread-block cluster of ``k`` CTAs owns one client, each CTA holding
+  a ``D/k`` slice of W and of the prox anchor in shared memory; one
+  exchange of the partial logits and sums of squares through
+  distributed shared memory per step;
+- each step's valid rows are staged into shared memory asynchronously
+  (``cp.async.bulk`` per row, or element-wise ``cp.async`` when rows are
+  not 16-byte aligned), the next step's copies in flight while the
+  current one computes, and both passes read the staged rows;
+- clusters run the clients with the most non-empty steps first
+  (``client_order``), so a second wave holds only short clients;
+- the class count is a template parameter, exact for the registry's
+  datasets.
+
+Batches too large to stage at any cluster size run an unstaged kernel
+(one CTA per client, rows read from global memory in both passes).
 
 ``client_epoch`` is the wrapper: CPU tensors go to ``client_epoch_plain``,
 the plain PyTorch version of the same function; CUDA tensors launch the
@@ -23,11 +36,20 @@ kernel or raise. ``client_epoch.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from . import cuda_build
+
+WARPS = 8                  # of a CTA (kThreads / 32 in client_epoch.cu)
+MAX_CLUSTER = 8            # the portable cluster size
+HEADER_BYTES = 48          # mbarriers and per-stage counts (client_epoch.cu)
+MAX_CLASSES = 32
+# class counts with an exact instantiation; any other C runs the next bound
+EXACT_CLASSES = (1, 2, 3, 6, 10, 26)
+CLASS_BOUNDS = (4, 8, 16, 32)
 
 
 def client_epoch_plain(W, anchor, X, y, rows, valid, lr, mu, lam, task):
@@ -118,24 +140,164 @@ def _check(W, anchor, X, y, rows, valid, task):
                 f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def instantiated_classes(C: int) -> int:
+    """The class count of the kernel instantiation that runs ``C``
+    classes: ``C`` itself when it is one of ``EXACT_CLASSES``, else the
+    next of ``CLASS_BOUNDS`` (its classes from ``C`` on are skipped)."""
+    if not 1 <= C <= MAX_CLASSES:
+        raise ValueError(f"client_epoch kernel takes 1 to {MAX_CLASSES} "
+                         f"classes, got {C}")
+    if C in EXACT_CLASSES:
+        return C
+    return next(nc for nc in CLASS_BOUNDS if C <= nc)
+
+
+def slice_width(D: int, k: int) -> int:
+    """Columns of D one CTA of a k-cluster holds: ``ceil(D / k)`` rounded
+    up to 4 floats (16-byte aligned slices); the last may be narrower."""
+    return _round_up(-(-D // k), 4)
+
+
+def staged_smem_bytes(B: int, C: int, D: int, k: int) -> int:
+    """Shared memory of one CTA of the staged kernel (the layout of
+    ``staged_smem_bytes`` in ``client_epoch.cu``): the W and anchor
+    slices, two stages of ``(B, Dk)`` rows, the double-buffered exchange
+    of partial logits, the logits, per-row scratch and row ids."""
+    Dk = slice_width(D, k)
+    Bp, CP = _round_up(B, 8), _round_up(instantiated_classes(C), 4)
+    floats = (2 * C * Dk + 2 * Bp * Dk + 2 * (4 + Bp * CP) + Bp * CP
+              + 4 * Bp + 2 * WARPS)
+    return HEADER_BYTES + 4 * (floats + 2 * Bp)
+
+
+def unstaged_smem_bytes(B: int, C: int, D: int) -> int:
+    """Shared memory of the unstaged kernel's CTA: W and the anchor
+    whole, the logits and per-row scratch."""
+    return 4 * (2 * C * D + B * C + 3 * B + 2 * WARPS) + 4 * B
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochPlan:
+    """How one launch runs. ``cluster`` CTAs per client (0: the unstaged
+    kernel, one CTA per client), each holding ``slice_width`` columns of
+    D; ``classes`` is the instantiated class count, ``smem_bytes`` one
+    CTA's dynamic shared memory, ``ctas`` the grid."""
+
+    cluster: int
+    slice_width: int
+    classes: int
+    smem_bytes: int
+    ctas: int
+
+
+def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
+                smem_limit: int = cuda_build.SMEM_LIMIT,
+                cluster: int | None = None) -> EpochPlan:
+    """The launch shape for ``J`` clients of batch ``B``, ``C`` classes
+    and ``D`` features on a card of ``num_sms`` SMs.
+
+    The cluster size ``k`` (1, 2, 4 or 8) is the larger of the smallest
+    that fits two step tiles in ``smem_limit`` and the largest whose
+    ``J * k`` CTAs still fit the SMs in one wave (more SMs per client
+    shorten the critical chain), halved while a slice would be empty.
+    ``cluster`` forces ``k`` (it must fit). When no ``k`` fits, the
+    unstaged kernel runs if W and the anchor fit whole; else the shape is
+    refused with ``ValueError``.
+    """
+    if J < 0 or B < 1 or D < 1:
+        raise ValueError(f"bad shape J={J}, B={B}, D={D}")
+    classes = instantiated_classes(C)
+    sizes = [k for k in (1, 2, 4, MAX_CLUSTER)
+             if staged_smem_bytes(B, C, D, k) <= smem_limit]
+    if cluster is not None:
+        if cluster not in sizes:
+            raise ValueError(
+                f"cluster {cluster} does not fit: the sizes that fit "
+                f"C={C}, D={D}, B={B} are {sizes}")
+        k = cluster
+    elif sizes:
+        fill = max(k for k in (1, 2, 4, MAX_CLUSTER)
+                   if k == 1 or J * k <= num_sms)
+        k = max(sizes[0], fill)
+        while k > sizes[0] and (k - 1) * slice_width(D, k) >= D:
+            k //= 2
+    else:
+        smem = unstaged_smem_bytes(B, C, D)
+        if smem > smem_limit:
+            raise ValueError(
+                f"client_epoch kernel needs {smem} bytes of shared memory "
+                f"for C={C}, D={D}, B={B}; a block has {smem_limit}")
+        return EpochPlan(0, D, 8 if C <= 8 else MAX_CLASSES, smem, J)
+    return EpochPlan(k, slice_width(D, k), classes,
+                     staged_smem_bytes(B, C, D, k), J * k)
+
+
+def kernel_symbol(plan: EpochPlan, C: int) -> str:
+    """The part of the mangled name that picks out the instantiation
+    ``plan`` runs for ``C`` classes in the compiler's report
+    (``cuda_build.ptxas_usage``)."""
+    if plan.cluster:
+        name, args = "staged_epoch_kernel", (
+            f"ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E")
+    else:
+        name, args = "unstaged_epoch_kernel", f"ILi{plan.classes}E"
+    return f"{len(name)}{name}{args}"
+
+
+def client_order(valid):
+    """``(order, nsteps)`` from ``valid (J, S, B)``: each client's count
+    of non-empty steps, and the clients by that count, largest first
+    (ties in client order). Both int32 on ``valid``'s device, computed
+    there without a host sync."""
+    nsteps = (valid != 0).any(-1).sum(-1, dtype=torch.int32)
+    order = torch.argsort(nsteps, descending=True, stable=True)
+    return order.to(torch.int32), nsteps
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("client_epoch")
-    lib.client_epoch_launch.restype = ctypes.c_int
-    lib.client_epoch_launch.argtypes = (
+    lib.client_epoch_launch_staged.restype = ctypes.c_int
+    lib.client_epoch_launch_staged.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    lib.client_epoch_launch_unstaged.restype = ctypes.c_int
+    lib.client_epoch_launch_unstaged.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    lib.client_epoch_smem_bytes.restype = ctypes.c_size_t
-    lib.client_epoch_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.client_epoch_max_classes.restype = ctypes.c_int
+    lib.client_epoch_staged_smem_bytes.restype = ctypes.c_size_t
+    lib.client_epoch_staged_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.client_epoch_unstaged_smem_bytes.restype = ctypes.c_size_t
+    lib.client_epoch_unstaged_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.client_epoch_instantiated_classes.restype = ctypes.c_int
+    lib.client_epoch_instantiated_classes.argtypes = [ctypes.c_int]
     return lib
 
 
-def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task):
+def _check_plan(lib, plan: EpochPlan, B: int, C: int, D: int) -> None:
+    """The plan's layout must be the kernel's: same shared memory, same
+    instantiation."""
+    if plan.cluster:
+        smem = lib.client_epoch_staged_smem_bytes(B, C, D, plan.cluster)
+        nc = lib.client_epoch_instantiated_classes(C)
+    else:
+        smem, nc = lib.client_epoch_unstaged_smem_bytes(B, C, D), plan.classes
+    if (smem, nc) != (plan.smem_bytes, plan.classes):
+        raise RuntimeError(
+            f"launch plan {plan} disagrees with csrc/client_epoch.cu "
+            f"({smem} bytes, {nc} classes)")
+
+
+def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
+                 cluster=None):
     """One local epoch of all J clients; same contract as
     ``client_epoch_plain``. CPU tensors run the plain version; CUDA
-    tensors launch ``csrc/client_epoch.cu`` (one CTA per client) or
-    raise."""
+    tensors launch ``csrc/client_epoch.cu`` as ``launch_plan`` says, or
+    raise. ``cluster`` forces the cluster size (for measurement)."""
     _check(W, anchor, X, y, rows, valid, task)
     if W.device.type == "cpu":
         return client_epoch_plain(W, anchor, X, y, rows, valid, lr, mu, lam,
@@ -144,26 +306,30 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task):
         raise ValueError(f"client_epoch runs on cpu or cuda, not {W.device}")
     J, C, D = W.shape
     S, B = rows.shape[1:]
+    sms = torch.cuda.get_device_properties(W.device).multi_processor_count
+    plan = launch_plan(J, B, C, D, sms, cluster=cluster)
     lib = _library()
-    if C > lib.client_epoch_max_classes():
-        raise ValueError(f"client_epoch kernel takes at most "
-                         f"{lib.client_epoch_max_classes()} classes, got {C}")
-    smem = lib.client_epoch_smem_bytes(B, C, D)
-    if smem > cuda_build.SMEM_LIMIT:
-        raise ValueError(
-            f"client_epoch kernel needs {smem} bytes of shared memory for "
-            f"C={C}, D={D}, B={B}; a block has {cuda_build.SMEM_LIMIT}")
+    _check_plan(lib, plan, B, C, D)
     W_out = torch.empty_like(W)
     metrics = torch.zeros((J, 3), dtype=torch.float32, device=W.device)
     if J == 0:
         return W_out, metrics
     stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = lib.client_epoch_launch(
-        W.data_ptr(), anchor.data_ptr(), X.data_ptr(), y.data_ptr(),
-        rows.data_ptr(), valid.data_ptr(), W_out.data_ptr(),
-        metrics.data_ptr(), J, S, B, C, D,
-        int(task == "classification"), float(lr), float(mu), float(lam),
-        stream)
+    is_cls = int(task == "classification")
+    scalars = (float(lr), float(mu), float(lam), stream)
+    if plan.cluster:
+        order, nsteps = client_order(valid)
+        bulk = int(D % 4 == 0 and X.data_ptr() % 16 == 0)
+        err = lib.client_epoch_launch_staged(
+            W.data_ptr(), anchor.data_ptr(), X.data_ptr(), y.data_ptr(),
+            rows.data_ptr(), valid.data_ptr(), order.data_ptr(),
+            nsteps.data_ptr(), W_out.data_ptr(), metrics.data_ptr(), J, S,
+            B, C, D, plan.cluster, is_cls, bulk, *scalars)
+    else:
+        err = lib.client_epoch_launch_unstaged(
+            W.data_ptr(), anchor.data_ptr(), X.data_ptr(), y.data_ptr(),
+            rows.data_ptr(), valid.data_ptr(), W_out.data_ptr(),
+            metrics.data_ptr(), J, S, B, C, D, is_cls, *scalars)
     cuda_build.check(err, "client_epoch launch", lib)
     client_epoch.launches += 1
     return W_out, metrics

@@ -12,7 +12,12 @@ and a vmapped round. Tolerances are those of
 atol 1e-4, accuracy atol 1e-3.
 
 The CUDA kernel itself needs a card; the ``cuda``-marked tests hold it
-against the plain version there and skip on a machine without one.
+against the plain version there, over a grid of shapes (both tasks, C in
+{1, 3, 10, 32}, D in {256, 250, 2000}, B in {32, 17}, J in {5, 70}),
+every cluster size, unaligned rows, the unstaged kernel and a bitwise
+determinism check, and skip on a machine without one. The launch plan
+(cluster size, client order, shared-memory bytes, refused shapes) is
+pure Python and tested here on the CPU.
 """
 
 import jax
@@ -28,15 +33,17 @@ from fedamw_tpu.models import linear_model as jlinear_model
 from fedamw_tpu_torch.fedcore import (
     client_epoch,
     client_epoch_plain,
+    cuda_build,
     make_client_round,
     make_local_update,
 )
+from fedamw_tpu_torch.fedcore import epoch_kernel as ek
 
 N, D, C, B, EPOCHS, N_MAX = 300, 256, 3, 32, 2, 64
 W_TOL = dict(atol=2e-5, rtol=1e-5)
 
 
-def _data(task, seed=0):
+def _data(task, seed=0, C=C, D=D):
     rng = np.random.RandomState(seed)
     X = rng.randn(N, D).astype(np.float32)
     if task == "classification":
@@ -126,13 +133,19 @@ def test_plain_round_matches_jax_vmapped_round(impl):
     np.testing.assert_array_equal(st["w"][4].numpy(), w0)
 
 
-def _epoch_inputs(task, device, J=5, S=3, seed=0):
-    X, y, w0 = _data(task, seed)
+def _epoch_inputs(task, device, J=5, S=3, seed=0, C=C, D=D, B=B):
+    X, y, w0 = _data(task, seed, C, D)
+    # rows keep the squared norm of D=256's (~256) at every D, so lr-0.1
+    # SGD stays as well-posed as there instead of diverging (a diverging
+    # run amplifies summation-order differences past any tolerance)
+    X = X * np.float32(np.sqrt(256.0 / D))
     rng = np.random.RandomState(seed + 1)
     rows = rng.randint(0, N, size=(J, S, B)).astype(np.int32)
     valid = (rng.rand(J, S, B) < 0.7).astype(np.float32)
     valid[1] = 0.0          # an empty client
     valid[2, 1:] = 0.0      # empty trailing steps
+    if S > 3:
+        valid[3, 1] = 0.0   # an empty step between non-empty ones
     W = np.repeat(w0[None], J, 0) + rng.randn(J, C, D).astype(np.float32) * 0.01
     return [torch.from_numpy(a).to(device) for a in (W, w0, X, y, rows, valid)]
 
@@ -162,16 +175,191 @@ def test_wrapper_rejects_bad_inputs():
                      "classification")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("task", ["classification", "regression"])
-def test_cuda_kernel_matches_plain_version(task):
+# -- the launch plan (pure Python, no card) ---------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("J,B,C,D,k", [
+    (50, 32, 10, 2000, 4),   # main path: the smallest k with two tiles
+    (50, 32, 1, 2000, 4),    # its regression twin
+    (50, 16, 1, 2000, 2),    # half the batch: k = 2 double-buffers
+    (5, 32, 10, 2000, 8),    # few clients: more SMs per client
+    (70, 32, 3, 256, 1),     # small slices fit whole, J fills the card
+    (70, 32, 3, 2000, 4),    # J * k > 132: a second wave
+    (50, 32, 26, 2000, 8),   # letter's 26 classes need the largest cluster
+    (5, 32, 1, 4, 1),        # a slice of 4 columns: no empty CTA
+])
+def test_plan_chooses_cluster_size(J, B, C, D, k):
+    plan = ek.launch_plan(J, B, C, D, H100_SMS)
+    assert plan.cluster == k
+    assert plan.ctas == J * k
+    assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
+    assert plan.slice_width % 4 == 0
+    assert (k - 1) * plan.slice_width < D  # every CTA holds columns
+
+
+def test_plan_main_path_layout():
+    plan = ek.launch_plan(50, 32, 10, 2000, H100_SMS)
+    # header 48 B; floats: w, anchor 2*10*500; two tiles 2*32*500; two
+    # exchange buffers 2*(4 + 32*12); logits 32*12; row scratch 4*32;
+    # block sums 16; then 2*32 row ids
+    floats = 2 * 10 * 500 + 2 * 32 * 500 + 2 * (4 + 32 * 12) + 32 * 12 \
+        + 4 * 32 + 16
+    assert plan == ek.EpochPlan(cluster=4, slice_width=500, classes=10,
+                                smem_bytes=48 + 4 * (floats + 64), ctas=200)
+    # k = 2 cannot double-buffer the step tile
+    assert ek.staged_smem_bytes(32, 10, 2000, 2) > cuda_build.SMEM_LIMIT
+    assert ek.kernel_symbol(plan, 10) == "19staged_epoch_kernelILi10ELb1E"
+
+
+@pytest.mark.parametrize("C,nc", [(1, 1), (2, 2), (3, 3), (4, 4), (5, 8),
+                                  (6, 6), (10, 10), (11, 16), (26, 26),
+                                  (27, 32), (32, 32)])
+def test_plan_instantiated_classes(C, nc):
+    assert ek.instantiated_classes(C) == nc
+    assert ek.launch_plan(5, 32, C, 256, H100_SMS).classes == nc
+
+
+def test_plan_refuses_what_fits_nowhere():
+    for C in (0, 33):
+        with pytest.raises(ValueError, match="classes"):
+            ek.launch_plan(5, 32, C, 256, H100_SMS)
+    with pytest.raises(ValueError, match="shared memory"):
+        ek.launch_plan(5, 4096, 32, 4000, H100_SMS)
+    with pytest.raises(ValueError, match="does not fit"):
+        ek.launch_plan(50, 32, 10, 2000, H100_SMS, cluster=2)
+    with pytest.raises(ValueError, match="bad shape"):
+        ek.launch_plan(5, 0, 10, 256, H100_SMS)
+
+
+def test_plan_falls_back_to_unstaged_kernel_for_huge_batches():
+    plan = ek.launch_plan(50, 1024, 10, 2000, H100_SMS)
+    assert plan.cluster == 0 and plan.ctas == 50 and plan.classes == 32
+    assert plan.smem_bytes == ek.unstaged_smem_bytes(1024, 10, 2000)
+    assert ek.kernel_symbol(plan, 10) == "21unstaged_epoch_kernelILi32E"
+
+
+def test_plan_takes_every_shape_the_unstaged_kernel_takes():
+    for B in (1, 16, 17, 32, 64, 256, 1024, 4096):
+        for C in (1, 3, 10, 16, 32):
+            for D in (1, 4, 250, 256, 784, 2000, 3000):
+                if ek.unstaged_smem_bytes(B, C, D) > cuda_build.SMEM_LIMIT:
+                    continue
+                plan = ek.launch_plan(50, B, C, D, H100_SMS)
+                assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
+
+
+def test_client_order_largest_first_stable():
+    J, S, B = 6, 5, 4
+    valid = torch.zeros(J, S, B)
+    for j, steps in enumerate((2, 5, 0, 5, 1, 3)):
+        valid[j, :steps, 0] = 1.0
+    valid[5, 4, 2] = 1.0  # a fourth non-empty step after an empty one
+    order, nsteps = ek.client_order(valid)
+    assert nsteps.dtype == torch.int32 and order.dtype == torch.int32
+    assert nsteps.tolist() == [2, 5, 0, 5, 1, 4]
+    assert order.tolist() == [1, 3, 5, 0, 4, 2]
+
+
+def test_parse_ptxas_report():
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119staged_epoch_kernelILi10ELb1EEEvNS_4ArgsE' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_119staged_epoch_kernelILi10ELb1EEEvNS_4ArgsE\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 90 registers, used 1 barriers\n"
+        "ptxas info    : Function properties for _Zfoo\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads\n"
+        "ptxas info    : Used 255 registers\n")
+    usage = cuda_build.parse_ptxas(log)
+    (name,) = [n for n in usage if "19staged_epoch_kernelILi10ELb1E" in n]
+    assert usage[name] == {"stack_bytes": 0, "spill_bytes": 0,
+                           "registers": 90}
+    assert usage["_Zfoo"] == {"stack_bytes": 8, "spill_bytes": 32,
+                              "registers": 255}
+
+
+# -- the kernel on the card ---------------------------------------------------
+
+
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    args = _epoch_inputs(task, "cuda")
+
+
+def _kernel_vs_plain(task, args, **kw):
     before = client_epoch.launches
-    wk, mk = client_epoch(*args, 0.1, 0.05, 0.01, task)
+    wk, mk = client_epoch(*args, 0.1, 0.05, 0.01, task, **kw)
     torch.cuda.synchronize()
     assert client_epoch.launches == before + 1
     wp, mp = client_epoch_plain(*args, 0.1, 0.05, 0.01, task)
     torch.testing.assert_close(wk, wp, **W_TOL)
     torch.testing.assert_close(mk, mp, atol=1e-3, rtol=1e-5)
+    return wk, mk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", [5, 70])
+@pytest.mark.parametrize("B_", [32, 17])
+@pytest.mark.parametrize("D_", [256, 250, 2000])
+@pytest.mark.parametrize("C_", [1, 3, 10, 32])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_cuda_kernel_matches_plain_version(task, C_, D_, B_, J):
+    _need_card()
+    args = _epoch_inputs(task, "cuda", J=J, S=6, C=C_, D=D_, B=B_)
+    wk, _ = _kernel_vs_plain(task, args)
+    torch.testing.assert_close(wk[1], args[0][1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("D_", [256, 250])
+def test_cuda_kernel_every_cluster_size(D_, cluster):
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", S=6, C=10, D=D_)
+    _kernel_vs_plain("classification", args, cluster=cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_", [64, 100])
+def test_cuda_kernel_batch_wider_than_a_warp(B_):
+    """The row packing walks B in chunks of 32 lanes."""
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", S=6, C=10, D=2000, B=B_)
+    _kernel_vs_plain("classification", args)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_unaligned_rows():
+    """X 4 bytes off a 16-byte boundary: element-wise copies, D % 4 == 0."""
+    _need_card()
+    W, w0, X, y, rows, valid = _epoch_inputs("classification", "cuda", S=6)
+    buf = torch.empty(X.numel() + 1, device="cuda")
+    Xu = buf[1:].view(X.shape)
+    Xu.copy_(X)
+    assert Xu.data_ptr() % 16 != 0
+    _kernel_vs_plain("classification", [W, w0, Xu, y, rows, valid])
+
+
+@pytest.mark.cuda
+def test_cuda_unstaged_kernel_matches_plain_version():
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", J=3, S=2, C=10, D=2000,
+                         B=1024)
+    assert ek.launch_plan(3, 1024, 10, 2000, H100_SMS).cluster == 0
+    _kernel_vs_plain("classification", args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_cuda_kernel_is_deterministic(task):
+    _need_card()
+    args = _epoch_inputs(task, "cuda", J=70, S=6, C=10 if task ==
+                         "classification" else 1, D=2000)
+    w1, m1 = client_epoch(*args, 0.1, 0.05, 0.01, task)
+    w2, m2 = client_epoch(*args, 0.1, 0.05, 0.01, task)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2) and torch.equal(m1, m2)
