@@ -22,6 +22,13 @@ also shows its critical path: the largest client's non-empty steps
 (``steps_max``), ``us_per_step``, the launch plan's ``cluster`` size,
 the compiler's ``spill_bytes`` for the instantiation that runs (it must
 be 0), and its time at every cluster size that fits (``ms_by_cluster``).
+``p_epoch``'s entry shows its serial steps (``steps``, ``us_per_step``),
+the launch plan (``plan``: the staged kernel on the main path, which the
+counted run must have launched), the staged kernel's registers and
+``spill_bytes`` (it must be 0), and the staged and the unstaged kernel
+timed on the same inputs (``ms_by_plan``). A ``p_solve_100_epochs_ms``
+line times ``make_p_solver``'s solve over 100 epochs on the main path's
+logits: the p-solve of one round of the paper's 100-round run.
 Output is one JSON object per line; the
 line before the last lists the kernels; the last line is the contract
 line
@@ -31,6 +38,7 @@ that line. Without a CUDA card it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -98,11 +106,13 @@ def main():
     from fedamw_tpu_torch.config import get_parameter
     from fedamw_tpu_torch.data import load_dataset
     from fedamw_tpu_torch.fedcore import (
-        client_epoch, client_epoch_plain, client_logits, p_epoch,
-        p_epoch_plain)
-    from fedamw_tpu_torch.algorithms.core import _draw_client_positions
+        client_epoch, client_epoch_plain, client_logits, make_p_solver,
+        p_epoch, p_epoch_plain)
+    from fedamw_tpu_torch.algorithms.core import (
+        _draw_client_positions, _draw_p_positions)
     from fedamw_tpu_torch.fedcore import cuda_build
     from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+    from fedamw_tpu_torch.fedcore import psolver_kernel as pk
     from fedamw_tpu_torch.fedcore.batching import batch_valid, epoch_batches
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -198,30 +208,41 @@ def main():
     ppos = ppos.to(dev, torch.int32)
     yv_reg = torch.randn(n_val, generator=gen).to(dev)
     cv = (setup.sizes > 0).to(torch.float32)
+    # a third case: momentum 0 and a few more clients masked out
+    cv_masked = cv.clone()
+    cv_masked[::7] = 0.0
     p_in = {}
     for task, yv in (("classification", setup.y_val), ("regression", yv_reg)):
         logits = client_logits(setup.model.apply, {"w": stacked[task]},
                                setup.X_val)
-        p_in[task] = (setup.p_fixed.contiguous(), torch.zeros_like(
-            setup.p_fixed), cv, logits, yv, ppos, pvalid, float(prm["lr_p"]),
-            0.9, task)
+        p_in[task, "momentum 0.9"] = (
+            setup.p_fixed.contiguous(), torch.zeros_like(setup.p_fixed), cv,
+            logits, yv, ppos, pvalid, float(prm["lr_p"]), 0.9, task)
+    p_in["classification", "momentum 0, cv masked"] = (
+        p_in["classification", "momentum 0.9"][:2] + (cv_masked,)
+        + p_in["classification", "momentum 0.9"][3:8] + (0.0,
+                                                          "classification"))
     k2_err = 0.0
-    for task, args in p_in.items():
-        pk, bk, mk = p_epoch(*args)
+    for (task, case), args in p_in.items():
+        pk_, bk, mk = p_epoch(*args)
         torch.cuda.synchronize()
         pp, bp, mp = p_epoch_plain(*args)
-        ok_p, err_p = close(pk, pp, **TOL_P)
+        ok_p, err_p = close(pk_, pp, **TOL_P)
         ok_b, err_b = close(bk, bp, **TOL_P)
         ok_m, err_m = close(mk[:2] / mk[2], mp[:2] / mp[2], 0, 2e-5)
+        frozen = bool((pk_[args[2] == 0] == args[0][args[2] == 0]).all())
         emit({"phase": "kernel_check", "kernel": "p_epoch", "task": task,
+              "case": case, "clients_masked": int((args[2] == 0).sum()),
               "shape": {"n_val": n_val, "J": J,
                         "C": int(args[3].shape[2]), "B": VB,
                         "S": int(ppos.shape[0])},
+              "plan": pk.launch_plan(VB, J, int(args[3].shape[2])).kernel,
               "max_abs_err_p": err_p, "max_abs_err_buf": err_b,
               "max_abs_err_metrics": err_m, "tol": TOL_P,
-              "ok": ok_p and ok_b and ok_m})
-        if not (ok_p and ok_b and ok_m):
-            fail(f"p_epoch ({task}) disagrees with its plain version")
+              "masked_clients_frozen": frozen,
+              "ok": ok_p and ok_b and ok_m and frozen})
+        if not (ok_p and ok_b and ok_m and frozen):
+            fail(f"p_epoch ({task}, {case}) disagrees with its plain version")
         k2_err = max(k2_err, err_p, err_b)
 
     # -- 4. the main path, counted ----------------------------------------
@@ -246,13 +267,15 @@ def main():
     # every count is set to 0 just before each algorithm and read just after
     refs = {name: timed(fn, kernel_impl="plain", **fkw)
             for name, fn, fkw in algos}
-    runs, counted = {}, {}
+    runs, counted, p_by_kernel = {}, {}, {}
     for name, fn, fkw in algos:
         client_epoch.launches = 0
         p_epoch.launches = 0
+        p_epoch.launches_by_kernel = dict.fromkeys(pk.KERNELS, 0)
         runs[name] = timed(fn, **fkw)
         counted[name] = {"client_epoch": client_epoch.launches,
                          "p_epoch": p_epoch.launches}
+        p_by_kernel[name] = dict(p_epoch.launches_by_kernel)
     launches = {k: sum(c[k] for c in counted.values())
                 for k in ("client_epoch", "p_epoch")}
     # per round, from the counts: every algorithm runs the client epochs,
@@ -262,9 +285,13 @@ def main():
                  "p_epoch": counted["FedAMW"]["p_epoch"] / ROUNDS}
     emit({"phase": "main_path", "launches": launches,
           "by_algorithm": counted, "launches_per_round": per_round,
+          "p_epoch_by_kernel": p_by_kernel,
           "rounds_per_algorithm": ROUNDS, "local_epochs": EPOCHS})
     if launches["client_epoch"] == 0 or launches["p_epoch"] == 0:
         fail(f"the main path did not go through every kernel: {launches}")
+    if p_by_kernel["FedAMW"]["staged"] != counted["FedAMW"]["p_epoch"]:
+        fail(f"FedAMW's p-epochs did not all run the staged kernel: "
+             f"{p_by_kernel}")
     if counted["FedAvg"]["p_epoch"] != 0:
         fail(f"FedAvg launched the p-solver: {counted['FedAvg']}")
     if not all(float(v).is_integer() for v in per_round.values()):
@@ -344,7 +371,7 @@ def main():
     k1_bytes = 4 * (n_rows * (D + 1) + 2 * J * C * D + C * D
                     + 2 * rows.numel() + 3 * J)
     k1_ops = 4 * C * D * n_rows + 12 * C * D * steps
-    k2 = p_in["classification"]
+    k2 = p_in["classification", "momentum 0.9"]
     S2 = int(ppos.shape[0])
     k2_bytes = 4 * (n_val * J * C + n_val + 2 * S2 * VB + 5 * J + 3)
     k2_ops = 4 * n_val * J * C + 4 * J * S2
@@ -359,6 +386,14 @@ def main():
              if symbol in f]
     if len(usage) != 1:
         fail(f"no single ptxas entry for {symbol}: {usage}")
+    # kernel 2's plan at the main path's shapes and the compiler's report
+    # of the staged instantiation it runs
+    plan2 = pk.launch_plan(VB, J, C)
+    symbol2 = pk.kernel_symbol(plan2, C)
+    usage2 = [u for f, u in cuda_build.ptxas_usage("p_epoch").items()
+              if symbol2 in f]
+    if len(usage2) != 1:
+        fail(f"no single ptxas entry for {symbol2}: {usage2}")
     kernels = []
     for name, fn, plain, a, nbytes, ops, err, src, repl in (
             ("client_epoch", client_epoch, client_epoch_plain, args,
@@ -399,6 +434,39 @@ def main():
                "ms_by_cluster": by_cluster})
     if plan.cluster == 0 or usage[0]["spill_bytes"] != 0:
         fail(f"client_epoch main path: plan {plan}, ptxas {usage[0]}")
+    k2e = kernels[1]
+    # both kernels on the same inputs, in turns (staged, unstaged,
+    # unstaged, staged): the mean of each kernel's two readings
+    saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
+    readings = {kern: [] for kern in pk.KERNELS}
+    for kern in ("staged", "unstaged", "unstaged", "staged"):
+        readings[kern].append(cuda_ms(lambda: p_epoch(*k2, kernel=kern), 10))
+    by_plan = {kern: sum(r) / len(r) for kern, r in readings.items()}
+    p_epoch.launches, p_epoch.launches_by_kernel = saved
+    k2e.update({"steps": S2, "us_per_step": 1e3 * k2e["ms"] / S2,
+                "plan": dataclasses.asdict(plan2),
+                "bulk_rows": pk.bulk_rows(k2[3]),
+                "spill_bytes": usage2[0]["spill_bytes"],
+                "registers": usage2[0]["registers"],
+                "ms_by_plan": by_plan})
+    if plan2.kernel != "staged" or usage2[0]["spill_bytes"] != 0:
+        fail(f"p_epoch main path: plan {plan2}, ptxas {usage2[0]}")
+
+    # the p-solve of one round of the paper's 100-round run: 100 epochs
+    # (algorithms/core.py draws `rounds` p-epochs per round) through
+    # make_p_solver on the main path's logits, CUDA events
+    solve, init_opt = make_p_solver("classification", n_val, VB,
+                                    float(prm["lr_p"]), momentum=0.9)
+    ppos100 = _draw_p_positions(torch.Generator().manual_seed(SEED), n_val,
+                                100, VB).to(dev)
+    solve_args = (k2[3], k2[4], k2[0], init_opt(k2[0]), ppos100)
+    saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
+    solve_ms = cuda_ms(lambda: solve(*solve_args, client_valid=cv), 2)
+    p_epoch.launches, p_epoch.launches_by_kernel = saved
+    emit({"phase": "p_solve_100_epochs_ms", "ms": solve_ms,
+          "epochs": 100, "ms_per_epoch": solve_ms / 100,
+          "shape": {"n_val": n_val, "J": J, "C": C, "B": VB, "S": S2},
+          "plan": plan2.kernel})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

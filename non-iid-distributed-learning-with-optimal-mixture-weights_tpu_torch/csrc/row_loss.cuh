@@ -47,6 +47,63 @@ __device__ __forceinline__ float row_loss_grad(float* zb, int C,
   return per / C;
 }
 
+// row_loss_grad for one row held in registers by a whole warp: every lane
+// holds the same z (NC; the row's C logits, NC == C when EXACT, else the
+// entries from C on are ignored) and ends with the same d loss / d z times
+// `scale` in z and the same loss and *hit. Same semantics and the same
+// arithmetic in the same order as row_loss_grad; for cross-entropy the
+// C exponentials and quotients are split over lanes (lane c takes class c)
+// and the sum over classes is gathered in class order. cls selects
+// cross-entropy against `label` or the squared error against `target`.
+template <int NC, bool EXACT>
+__device__ __forceinline__ float row_loss_grad_warp(float (&z)[NC], int C,
+                                                    bool cls, int label,
+                                                    float target, float scale,
+                                                    float* hit) {
+  static_assert(NC <= 32, "a lane per class");
+  if (EXACT) C = NC;
+  if (cls) {
+    const int lane = threadIdx.x & 31;
+    float zmax = z[0], zc = z[0], zl = 0.f;
+    int pred = 0;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (!EXACT && c >= C) break;
+      if (z[c] > zmax) {
+        zmax = z[c];
+        pred = c;
+      }
+      if (c == lane) zc = z[c];
+      if (c == label) zl = z[c];
+    }
+    const float e = expf(zc - zmax);  // lane c's class
+    float Z = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (!EXACT && c >= C) break;
+      Z += __shfl_sync(0xffffffffu, e, c);
+    }
+    const float d = (e / Z - (lane == label ? 1.f : 0.f)) * scale;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (!EXACT && c >= C) break;
+      z[c] = __shfl_sync(0xffffffffu, d, c);
+    }
+    *hit = (pred == label) ? 1.f : 0.f;
+    return (logf(Z) + zmax) - zl;
+  }
+  float per = 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (!EXACT && c >= C) break;
+    const float e = z[c] - target;
+    per = fmaf(e, e, per);
+    z[c] = e * (2.f / C) * scale;
+  }
+  *hit = 0.f;
+  return per / C;
+}
+
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

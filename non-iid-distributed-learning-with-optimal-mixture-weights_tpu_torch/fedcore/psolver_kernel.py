@@ -3,32 +3,47 @@
 Replaces the JAX package's Pallas TPU kernel
 ``fedcore/pallas_psolver.py:_p_epoch_kernel`` (built by
 ``make_pallas_p_epoch``, wrapped by ``aggregate.py:_make_pallas_solve``).
-The hand-written CUDA kernel is ``csrc/p_epoch.cu``: the steps are
-serial, so one CTA runs the whole epoch with ``p``, its momentum buffer
-and the client-validity mask in shared memory, gathering each step's
-``(B, J, C)`` block of the pooled validation logits through
-``positions``. One launch per p-epoch.
+The hand-written CUDA kernels are in ``csrc/p_epoch.cu``, one launch per
+p-epoch; each step gathers its ``(B, J, C)`` block of the pooled
+validation logits through ``positions``.
 
-What bounds it on an H100: bytes, in principle — one read of the
-``(n_val, J, C)`` logits per epoch against 4 flops per element — but
-those logits fit in L2 and the epoch is S serial steps, each a few
-block-wide barriers, so latency bounds it in practice. The design keeps
-everything except the gathered rows on chip and stages each step's block
-in shared memory with coalesced loads.
+What bounds it on an H100 is not bytes — one read of the ``(n_val, J,
+C)`` logits per epoch, which sit in L2, against 4 flops per element — but
+the latency of S serial steps, each needing the ``p`` of the step before.
+The staged kernel cuts one step's latency: one CTA, one warp per batch
+row (at most 16 warps); each warp copies its rows of the next step into
+a two-stage shared-memory ring (``cp.async.bulk`` per row when rows are
+16-byte aligned, element-wise ``cp.async`` otherwise) with the row ids
+loaded two steps ahead, so no global load is on a step's critical path;
+the logits, loss and ``h[b, j] = sum_c L[b, j, c] d[b, c]`` of a row are
+warp-local, and two block barriers per step frame the ``p`` update.
+
+Shapes it cannot take (two stages of rows plus ``h`` beyond shared
+memory, ``B > 512`` or ``C > 32``) run the unstaged kernel, the port's
+first design (one CTA of 256 threads, five barriers per step).
+``launch_plan`` picks the kernel by shape alone.
 
 ``p_epoch`` is the wrapper: CPU tensors go to ``p_epoch_plain``, the
-plain PyTorch version; CUDA tensors launch the kernel or raise.
-``p_epoch.launches`` counts kernel launches.
+plain PyTorch version; CUDA tensors launch the kernel the plan names or
+raise. ``p_epoch.launches`` counts kernel launches,
+``p_epoch.launches_by_kernel`` the same by kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from . import cuda_build
+from .epoch_kernel import CLASS_BOUNDS, EXACT_CLASSES
+
+MAX_WARPS = 16             # of the staged kernel's CTA (kMaxWarps in p_epoch.cu)
+MAX_STAGED_BATCH = 32 * MAX_WARPS  # a lane of its warp per row
+UNSTAGED_WARPS = 8         # kThreads / 32 of the unstaged kernel
+KERNELS = ("staged", "unstaged")
 
 
 def p_epoch_plain(p, buf, cv, logits, y_val, positions, valid, lr, momentum,
@@ -113,22 +128,141 @@ def _check(p, buf, cv, logits, y_val, positions, valid, task):
                 f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
+def staged_classes(C: int) -> int:
+    """The class count of the staged kernel's instantiation that runs
+    ``C`` classes (``C`` itself for ``EXACT_CLASSES``, else the next of
+    ``CLASS_BOUNDS``); 0 when none does (``C > 32``)."""
+    if C in EXACT_CLASSES:
+        return C
+    return next((nc for nc in CLASS_BOUNDS if C <= nc), 0)
+
+
+def staged_warps(B: int) -> int:
+    """Warps of the staged kernel's CTA: one per row, at most 16."""
+    return min(B, MAX_WARPS)
+
+
+def staged_smem_bytes(B: int, J: int, C: int) -> int:
+    """Shared memory of the staged kernel (``staged_smem_bytes`` in
+    ``p_epoch.cu``): two mbarriers per warp, two stages of ``B`` rows of
+    ``J*C`` floats each padded to 4, ``h (B, J)``, ``p``, ``buf``, ``cv``
+    and the per-warp metric sums."""
+    nw, jcp = staged_warps(B), -(-J * C // 4) * 4
+    return 16 * nw + 4 * (2 * B * jcp + B * J + 3 * J + 2 * nw)
+
+
+def unstaged_smem_bytes(B: int, J: int, C: int) -> int:
+    """Shared memory of the unstaged kernel: the step's ``(B, J, C)``
+    block, ``p``, ``buf``, ``cv``, the logits and per-row scratch."""
+    return 4 * (B * J * C + 3 * J + B * C + 3 * B) + 4 * B
+
+
+@dataclasses.dataclass(frozen=True)
+class PEpochPlan:
+    """How one launch runs: ``kernel`` ``"staged"`` or ``"unstaged"``,
+    the ``warps`` of its one CTA, the instantiated ``classes`` (0 for
+    the unstaged kernel, which takes C at run time) and its dynamic
+    ``smem_bytes``."""
+
+    kernel: str
+    warps: int
+    classes: int
+    smem_bytes: int
+
+
+def launch_plan(B: int, J: int, C: int,
+                kernel: str | None = None) -> PEpochPlan:
+    """The kernel for batch ``B``, ``J`` clients and ``C`` classes, by
+    shape alone: the staged kernel when ``B <= 512``, ``C <= 32`` and
+    its two stages plus ``h`` fit a block's shared memory
+    (``cuda_build.SMEM_LIMIT``); else the unstaged kernel when its step
+    block fits; else ``ValueError``. ``kernel`` forces one of
+    ``KERNELS`` (it must fit)."""
+    smem_limit = cuda_build.SMEM_LIMIT
+    if B < 1 or J < 1 or C < 1:
+        raise ValueError(f"bad shape B={B}, J={J}, C={C}")
+    if kernel not in (None,) + KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    fits = {}
+    nc = staged_classes(C)
+    smem = staged_smem_bytes(B, J, C)
+    if B <= MAX_STAGED_BATCH and nc and smem <= smem_limit:
+        fits["staged"] = PEpochPlan("staged", staged_warps(B), nc, smem)
+    smem = unstaged_smem_bytes(B, J, C)
+    if smem <= smem_limit:
+        fits["unstaged"] = PEpochPlan("unstaged", UNSTAGED_WARPS, 0, smem)
+    if kernel is not None:
+        if kernel not in fits:
+            raise ValueError(f"the {kernel} p_epoch kernel does not fit "
+                             f"B={B}, J={J}, C={C}; these do: {list(fits)}")
+        return fits[kernel]
+    if not fits:
+        raise ValueError(
+            f"p_epoch kernels need {staged_smem_bytes(B, J, C)} (staged) or "
+            f"{smem} (unstaged) bytes of shared memory for B={B}, J={J}, "
+            f"C={C}; a block has {smem_limit}")
+    return next(iter(fits.values()))
+
+
+def kernel_symbol(plan: PEpochPlan, C: int) -> str:
+    """The part of the mangled name that picks out the kernel ``plan``
+    runs for ``C`` classes in the compiler's report
+    (``cuda_build.ptxas_usage``)."""
+    if plan.kernel == "staged":
+        return (f"21staged_p_epoch_kernelILi{plan.classes}ELb"
+                f"{int(C in EXACT_CLASSES)}E")
+    return "23unstaged_p_epoch_kernel"
+
+
+def bulk_rows(logits) -> bool:
+    """Whether the staged kernel copies rows with ``cp.async.bulk``: a
+    row's ``J*C`` floats a multiple of 16 bytes and the logits 16-byte
+    aligned; else it copies them element-wise with ``cp.async``."""
+    _, J, C = logits.shape
+    return (J * C) % 4 == 0 and logits.data_ptr() % 16 == 0
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("p_epoch")
-    lib.p_epoch_launch.restype = ctypes.c_int
-    lib.p_epoch_launch.argtypes = (
+    lib.p_epoch_launch_staged.restype = ctypes.c_int
+    lib.p_epoch_launch_staged.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    lib.p_epoch_launch_unstaged.restype = ctypes.c_int
+    lib.p_epoch_launch_unstaged.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
         + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    lib.p_epoch_smem_bytes.restype = ctypes.c_size_t
-    lib.p_epoch_smem_bytes.argtypes = [ctypes.c_int] * 3
+    for name in ("p_epoch_staged_smem_bytes", "p_epoch_unstaged_smem_bytes"):
+        getattr(lib, name).restype = ctypes.c_size_t
+        getattr(lib, name).argtypes = [ctypes.c_int] * 3
+    for name in ("p_epoch_staged_warps", "p_epoch_instantiated_classes"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_int]
     return lib
 
 
-def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task):
+def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
+    """The plan's layout must be the kernel's: same shared memory, warps
+    and instantiation."""
+    if plan.kernel == "staged":
+        got = (lib.p_epoch_staged_smem_bytes(B, J, C),
+               lib.p_epoch_staged_warps(B),
+               lib.p_epoch_instantiated_classes(C))
+    else:
+        got = (lib.p_epoch_unstaged_smem_bytes(B, J, C), UNSTAGED_WARPS, 0)
+    if got != (plan.smem_bytes, plan.warps, plan.classes):
+        raise RuntimeError(
+            f"launch plan {plan} disagrees with csrc/p_epoch.cu "
+            f"(bytes, warps, classes = {got})")
+
+
+def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
+            kernel=None):
     """One p-solver epoch; same contract as ``p_epoch_plain``. CPU
-    tensors run the plain version; CUDA tensors launch
-    ``csrc/p_epoch.cu`` (one CTA) or raise."""
+    tensors run the plain version; CUDA tensors launch the kernel of
+    ``launch_plan`` from ``csrc/p_epoch.cu`` (one CTA) or raise.
+    ``kernel`` forces ``"staged"`` or ``"unstaged"`` (for measurement)."""
     _check(p, buf, cv, logits, y_val, positions, valid, task)
     if p.device.type == "cpu":
         return p_epoch_plain(p, buf, cv, logits, y_val, positions, valid,
@@ -137,25 +271,29 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task):
         raise ValueError(f"p_epoch runs on cpu or cuda, not {p.device}")
     S, B = positions.shape
     _, J, C = logits.shape
+    plan = launch_plan(B, J, C, kernel=kernel)
     lib = _library()
-    smem = lib.p_epoch_smem_bytes(B, J, C)
-    if smem > cuda_build.SMEM_LIMIT:
-        raise ValueError(
-            f"p_epoch kernel needs {smem} bytes of shared memory for B={B}, "
-            f"J={J}, C={C}; a block has {cuda_build.SMEM_LIMIT}")
+    _check_plan(lib, plan, B, J, C)
     p_out = torch.empty_like(p)
     buf_out = torch.empty_like(buf)
     metrics = torch.empty(3, dtype=torch.float32, device=p.device)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = lib.p_epoch_launch(
-        p.data_ptr(), buf.data_ptr(), cv.data_ptr(), logits.data_ptr(),
-        y_val.data_ptr(), positions.data_ptr(), valid.data_ptr(),
-        p_out.data_ptr(), buf_out.data_ptr(), metrics.data_ptr(),
-        S, B, J, C, int(task == "classification"), float(lr),
-        float(momentum), stream)
+    ptrs = (p.data_ptr(), buf.data_ptr(), cv.data_ptr(), logits.data_ptr(),
+            y_val.data_ptr(), positions.data_ptr(), valid.data_ptr(),
+            p_out.data_ptr(), buf_out.data_ptr(), metrics.data_ptr())
+    is_cls = int(task == "classification")
+    if plan.kernel == "staged":
+        err = lib.p_epoch_launch_staged(
+            *ptrs, S, B, J, C, is_cls, int(bulk_rows(logits)), float(lr),
+            float(momentum), stream)
+    else:
+        err = lib.p_epoch_launch_unstaged(
+            *ptrs, S, B, J, C, is_cls, float(lr), float(momentum), stream)
     cuda_build.check(err, "p_epoch launch", lib)
     p_epoch.launches += 1
+    p_epoch.launches_by_kernel[plan.kernel] += 1
     return p_out, buf_out, metrics
 
 
 p_epoch.launches = 0
+p_epoch.launches_by_kernel = dict.fromkeys(KERNELS, 0)

@@ -9,6 +9,10 @@ Both tasks, momentum 0.9 and 0, a partial last batch, and
 ``client_valid`` freezing padded clients. Tolerances are those of
 ``tests/test_pallas_psolver.py``: rtol 2e-5, atol 2e-6. The reference is
 the XLA solve and interpret-mode Pallas on the CPU, never TPU artifacts.
+
+``launch_plan`` (which kernel of ``csrc/p_epoch.cu`` runs, by shape) is
+tested here on the CPU. The kernels need a card: the ``cuda``-marked
+tests hold both against ``p_epoch_plain`` over a grid of shapes.
 """
 
 import jax
@@ -19,8 +23,10 @@ import torch
 
 from fedamw_tpu.fedcore.aggregate import make_p_solver as jmake_p_solver
 from fedamw_tpu.fedcore.batching import epoch_batches as jepoch_batches
+from fedamw_tpu_torch.fedcore import cuda_build
 from fedamw_tpu_torch.fedcore import make_p_solver, p_epoch, p_epoch_plain
-from fedamw_tpu_torch.fedcore.batching import batch_valid
+from fedamw_tpu_torch.fedcore import psolver_kernel as pk
+from fedamw_tpu_torch.fedcore.batching import batch_valid, epoch_batches
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 
@@ -110,6 +116,191 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
 def test_guards_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_p_solver("classification", 10, p_guard="simplex")
+
+
+# -- the launch plan (CPU) -----------------------------------------------------
+
+
+def test_plan_main_path_layout():
+    plan = pk.launch_plan(16, 50, 10)
+    # 2 mbarriers per warp (16 B); floats: two stages of 16 rows of
+    # 500, h 16*50, p/buf/cv 3*50, per-warp metric sums 2*16
+    assert plan == pk.PEpochPlan(
+        kernel="staged", warps=16, classes=10,
+        smem_bytes=16 * 16 + 4 * (2 * 16 * 500 + 16 * 50 + 150 + 32))
+    assert pk.kernel_symbol(plan, 10) == "21staged_p_epoch_kernelILi10ELb1E"
+    # the main path's regression twin, and a batch wider than 16 warps
+    assert pk.launch_plan(16, 50, 1).classes == 1
+    assert pk.launch_plan(33, 50, 10).warps == 16
+
+
+@pytest.mark.parametrize("B,J,C,kernel", [
+    (16, 170, 10, "staged"),    # the widest J two stages hold at B=16
+    (16, 171, 10, "unstaged"),  # past two stages: the unstaged kernel
+    (16, 355, 10, "unstaged"),  # the widest J the unstaged kernel holds
+    (16, 50, 33, "unstaged"),   # no staged instantiation above 32 classes
+    (513, 2, 1, "unstaged"),    # more rows than 16 warps' lanes
+])
+def test_plan_chooses_kernel(B, J, C, kernel):
+    plan = pk.launch_plan(B, J, C)
+    assert plan.kernel == kernel
+    assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
+    if kernel == "unstaged":
+        assert plan == pk.PEpochPlan("unstaged", 8, 0,
+                                     pk.unstaged_smem_bytes(B, J, C))
+        assert pk.kernel_symbol(plan, C) == "23unstaged_p_epoch_kernel"
+
+
+@pytest.mark.parametrize("C,nc", [(1, 1), (2, 2), (3, 3), (4, 4), (5, 8),
+                                  (10, 10), (11, 16), (26, 26), (27, 32),
+                                  (33, 0)])
+def test_plan_instantiated_classes(C, nc):
+    assert pk.staged_classes(C) == nc
+
+
+def test_plan_refuses_what_fits_nowhere():
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.launch_plan(16, 356, 10)
+    with pytest.raises(ValueError, match="does not fit"):
+        pk.launch_plan(16, 200, 10, kernel="staged")
+    with pytest.raises(ValueError, match="kernel must be"):
+        pk.launch_plan(16, 50, 10, kernel="fast")
+    with pytest.raises(ValueError, match="bad shape"):
+        pk.launch_plan(0, 50, 10)
+
+
+def test_plan_takes_every_shape_the_first_kernel_took():
+    """Every (B, J, C) the port's first p_epoch kernel (now the unstaged
+    one) fits in shared memory still gets a plan."""
+    for B in (1, 2, 15, 16, 17, 32, 33, 64, 256, 512, 513, 1024, 4096):
+        for J in (1, 2, 7, 50, 100, 170, 171, 200, 355, 1000):
+            for C in (1, 2, 3, 10, 26, 32, 33, 100):
+                if pk.unstaged_smem_bytes(B, J, C) > cuda_build.SMEM_LIMIT:
+                    continue
+                plan = pk.launch_plan(B, J, C)
+                assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
+                assert pk.launch_plan(B, J, C, kernel="unstaged")
+
+
+def test_bulk_rows_needs_aligned_rows():
+    base = torch.zeros(4 * 50 * 10 + 1)
+    assert pk.bulk_rows(base[:2000].view(4, 50, 10))
+    assert not pk.bulk_rows(base[1:2001].view(4, 50, 10))  # 4 B off
+    assert not pk.bulk_rows(base[:4 * 7 * 3].view(4, 7, 3))  # 84 B rows
+
+
+# -- the kernels on the card ----------------------------------------------------
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+def _p_inputs(task, n_val, J, C, B, seed=7, masked=3):
+    """CUDA inputs of one p-epoch: logits, labels or targets, p, a
+    nonzero momentum buffer, ``cv`` with the last ``masked`` clients
+    zeroed (none when J is smaller), and one shuffled epoch.
+
+    The logits are scaled by 1/sqrt(J) so that an SGD step at lr 1e-2
+    stays well conditioned at every J: unscaled, lr * |L_b|^2 reaches ~4
+    at J=200 and the iteration diverges, and the plain version's own
+    fp32 rounding then exceeds TOL against fp64."""
+    logits, y, p0 = _mk(task, n_val, J, C, seed=seed)
+    logits = (logits / np.sqrt(J)).astype(np.float32)
+    rng = np.random.RandomState(seed + 1)
+    buf = (0.1 * rng.randn(J)).astype(np.float32)
+    cv = np.ones(J, np.float32)
+    if J > masked:
+        cv[J - masked:] = 0.0
+    pos = epoch_batches(n_val, B, generator=torch.Generator().manual_seed(
+        seed))[0]
+    args = [_t(a).cuda() for a in (p0, buf, cv, logits, y)]
+    return args + [pos.to(torch.int32).cuda(),
+                   batch_valid(pos, n_val).cuda()]
+
+
+def _kernel_vs_plain(args, task, momentum=0.9, kernel=None):
+    before = p_epoch.launches
+    pk_, bk, mk = p_epoch(*args, 1e-2, momentum, task, kernel=kernel)
+    torch.cuda.synchronize()
+    assert p_epoch.launches == before + 1
+    pp, bp, mp = p_epoch_plain(*args, 1e-2, momentum, task)
+    torch.testing.assert_close(pk_, pp, **TOL)
+    torch.testing.assert_close(bk, bp, **TOL)
+    torch.testing.assert_close(mk, mp, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 33])
+@pytest.mark.parametrize("J", [1, 7, 50, 200])
+@pytest.mark.parametrize("C", [1, 2, 3, 10, 26])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_cuda_kernel_grid_matches_plain_version(task, C, J, B):
+    """The kernel the plan names, or its refusal, over a shape grid; the
+    last batch is partial (n_val = 3B + 5) and some clients masked."""
+    _need_card()
+    n_val = 3 * B + 5
+    args = _p_inputs(task, n_val, J, C, B)
+    try:
+        pk.launch_plan(B, J, C)
+    except ValueError:
+        with pytest.raises(ValueError, match="shared memory"):
+            p_epoch(*args, 1e-2, 0.9, task)
+        return
+    _kernel_vs_plain(args, task)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum", [0.9, 0.0])
+@pytest.mark.parametrize("task,C", [("classification", 10), ("regression", 1)])
+def test_cuda_kernel_main_shapes(task, C, momentum):
+    """n_val 11983, J 50, B 16: 749 steps, the last one of 15 rows."""
+    _need_card()
+    args = _p_inputs(task, 11983, 50, C, 16)
+    assert pk.launch_plan(16, 50, C).kernel == "staged"
+    assert float(args[-1][-1].sum()) == 15.0
+    before = dict(p_epoch.launches_by_kernel)
+    _kernel_vs_plain(args, task, momentum)
+    assert p_epoch.launches_by_kernel["staged"] == before["staged"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,C", [(7, 3), (50, 10)])
+def test_cuda_kernel_unaligned_rows(J, C):
+    """Element-wise cp.async: J*C odd (7*3), or the logits 4 bytes off a
+    16-byte boundary (50*10)."""
+    _need_card()
+    args = _p_inputs("classification", 200, J, C, 16)
+    logits = args[3]
+    if (J * C) % 4 == 0:
+        buf = torch.empty(logits.numel() + 1, device="cuda")
+        args[3] = buf[1:].view(logits.shape)
+        args[3].copy_(logits)
+    assert not pk.bulk_rows(args[3])
+    _kernel_vs_plain(args, "classification")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["staged", "unstaged"])
+def test_cuda_both_kernels_on_one_shape(kernel):
+    _need_card()
+    args = _p_inputs("classification", 500, 50, 10, 16)
+    before = dict(p_epoch.launches_by_kernel)
+    _kernel_vs_plain(args, "classification", kernel=kernel)
+    assert p_epoch.launches_by_kernel[kernel] == before[kernel] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task,C", [("classification", 10), ("regression", 1)])
+def test_cuda_kernel_is_deterministic(task, C):
+    _need_card()
+    args = _p_inputs(task, 2000, 50, C, 16)
+    a = p_epoch(*args, 1e-2, 0.9, task)
+    b = p_epoch(*args, 1e-2, 0.9, task)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 @pytest.mark.cuda
