@@ -7,46 +7,66 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per
 source, all at once), holds each kernel against its plain PyTorch version
-on the card at the main path's shapes, drives the main path — FedAvg and
-FedAMW on the mnist-shaped data (60000 x 784 -> RFF D=2000, 10 classes,
-J=50 clients, Dirichlet alpha 0.01, the registry's lr / lr_p / lambda,
-3 rounds of 2 local epochs at a constant lr) — through the public entry
-points with every launch counter reset just before each algorithm and
-read just after, checks that run against the same run through the plain
-versions on the card (same seed, so the same shuffles and init) and that
-each run learns, times the host's per-round shuffle draw alone
-(``host_draw_ms_per_round``), profiles one more FedAMW run (device time
-by kernel and the device's busy share of the wall time), and times each
-kernel beside its plain version and its bound. ``client_epoch``'s entry
-also shows its critical path: the largest client's non-empty steps
-(``steps_max``), ``us_per_step``, the launch plan's ``cluster`` size,
-the compiler's ``spill_bytes`` for the instantiation that runs (it must
-be 0), and its time at every cluster size that fits (``ms_by_cluster``).
-``p_epoch``'s entry shows its serial steps (``steps``, ``us_per_step``),
-the launch plan (``plan``: the staged kernel on the main path, which the
-counted run must have launched), the staged kernel's registers and
-``spill_bytes`` (it must be 0), and the staged and the unstaged kernel
-timed on the same inputs (``ms_by_plan``). A ``p_solve_100_epochs_ms``
-line times ``make_p_solver``'s solve over 100 epochs on the main path's
-logits: the p-solve of one round of the paper's 100-round run.
-Output is one JSON object per line; the
-line before the last lists the kernels; the last line is the contract
-line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before
-that line. Without a CUDA card it exits 1 and prints no result.
+on the card at the main path's shapes (kernel 1 also at Centralized's
+one-client shape), and drives the paper's experiment through the public
+entry points on the mnist-shaped data (60000 x 784 -> RFF D=2000, 10
+classes, J=50 clients, Dirichlet alpha 0.01, the registry's
+hyper-parameters), every launch counter reset just before each algorithm
+and read just after:
+
+- ``main_path``: FedAvg and FedAMW, 3 rounds of 2 local epochs at a
+  constant lr, each held against the same run through the plain versions
+  on the card (same seed, so the same init and shuffles) and required to
+  learn;
+- ``paper_algorithms``: Centralized, Distributed, FedAMW_OneShot (one
+  local phase of 6 epochs) and FedNova (3 rounds), each held against its
+  plain run and its launch counts checked, with Centralized's launch
+  shape (``centralized_plan``: cluster, steps, time per step, spills,
+  time at every cluster size);
+- ``driver``: ``fedamw_tpu_torch.exp.main`` at R=3, its pickle checked
+  against ``exp.py``'s schema;
+- ``profile``: the device shuffle draw of one round alone
+  (``draw_ms_per_round``, CUDA events), then one profiled FedAMW run
+  (device time by kernel, the device's busy share of the wall time);
+- the ``kernels`` line: each kernel timed beside its plain version and
+  its bound. ``client_epoch``'s entry also shows its critical path: the
+  largest client's non-empty steps (``steps_max``), ``us_per_step``, the
+  launch plan's ``cluster`` size, the compiler's ``spill_bytes`` for the
+  instantiation that runs (it must be 0), and its time at every cluster
+  size that fits (``ms_by_cluster``). ``p_epoch``'s entry shows its
+  serial steps (``steps``, ``us_per_step``), the launch plan (``plan``:
+  the staged kernel on the main path, which the counted runs must have
+  launched), the staged kernel's registers and ``spill_bytes`` (it must
+  be 0), and the staged and the unstaged kernel timed on the same inputs
+  (``ms_by_plan``); a ``p_solve_100_epochs_ms`` line times
+  ``make_p_solver``'s solve over 100 epochs (the p-solve of one round of
+  the paper's 100-round run);
+- ``paper_run``: the driver's six algorithms at the paper's length (100
+  rounds of 2 local epochs, one repeat), each one's wall seconds beside
+  the card's name and power limit, with no plain reference.
+
+Output is one JSON object per line; the line before the last lists the
+kernels; the last line is the contract line ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero before that line. Without a CUDA
+card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 100                 # the JAX package's experiment seed (exp.py)
 J, D, ROUNDS, EPOCHS, B, VB = 50, 2000, 3, 2, 32, 16
+PAPER_ROUNDS = 100         # the paper's run length (exp.py --round)
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -102,18 +122,20 @@ def main():
         fail("no CUDA device: this script runs the port's kernels on the card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fedamw_tpu_torch  # noqa: F401  (the alias module of this repo)
-    from fedamw_tpu_torch.algorithms import FedAMW, FedAvg, prepare_setup
+    from fedamw_tpu_torch import exp
+    from fedamw_tpu_torch.algorithms import (
+        Centralized, Distributed, FedAMW, FedAMW_OneShot, FedAvg, FedNova,
+        prepare_setup)
     from fedamw_tpu_torch.config import get_parameter
     from fedamw_tpu_torch.data import load_dataset
     from fedamw_tpu_torch.fedcore import (
         client_epoch, client_epoch_plain, client_logits, make_p_solver,
         p_epoch, p_epoch_plain)
-    from fedamw_tpu_torch.algorithms.core import (
-        _draw_client_positions, _draw_p_positions)
     from fedamw_tpu_torch.fedcore import cuda_build
     from fedamw_tpu_torch.fedcore import epoch_kernel as ek
     from fedamw_tpu_torch.fedcore import psolver_kernel as pk
-    from fedamw_tpu_torch.fedcore.batching import batch_valid, epoch_batches
+    from fedamw_tpu_torch.fedcore.batching import (
+        batch_valid, draw_epoch_positions)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -152,10 +174,9 @@ def main():
 
     # -- 3. each kernel against its plain version, main-path shapes -------
     gen = torch.Generator().manual_seed(SEED)
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
     w0 = setup.model.init(gen, D, C)["w"].to(dev)
-    mask_cpu = setup.mask.cpu()
-    pos = torch.stack([epoch_batches(setup.n_max, B, m, generator=gen)[0]
-                       for m in mask_cpu]).to(dev)
+    pos = draw_epoch_positions(dgen, setup.n_max, B, setup.mask, lead=(J,))
     valid = batch_valid(pos, setup.n_max, setup.mask)
     rows = torch.gather(setup.idx, 1, pos.reshape(J, -1)).reshape(
         pos.shape).to(torch.int32).contiguous()
@@ -177,6 +198,16 @@ def main():
                 (J, Ct, D), generator=gen).to(dev)
             k1_in[task, pen] = (W.contiguous(), anchor, setup.X, y_all,
                                 rows, valid, lr, mu, lam, task)
+    # Centralized's launch: one client holding every valid train row
+    # (J=1, S ~ 1501 steps), no penalties
+    all_idx = setup.all_train_idx
+    n_all = int(all_idx.numel())
+    cpos = draw_epoch_positions(dgen, n_all, B, lead=(1,))
+    cvalid = batch_valid(cpos, n_all)
+    crows = all_idx[cpos].to(torch.int32).contiguous()
+    k1_in["classification", "centralized"] = (
+        w0[None].contiguous(), w0, setup.X, setup.y, crows, cvalid, lr, 0.0,
+        0.0, "classification")
     k1_err, stacked = 0.0, {}
     for (task, pen), args in k1_in.items():
         wk, mk = client_epoch(*args)
@@ -189,8 +220,9 @@ def main():
                             1e-3, 0)
         emit({"phase": "kernel_check", "kernel": "client_epoch",
               "task": task, "penalties": pen, "mu": args[7],
-              "lam": args[8], "shape": {"J": J, "C": int(wk.shape[1]), "D": D,
-                                      "S": int(rows.shape[1]), "B": B},
+              "lam": args[8], "shape": {"J": int(wk.shape[0]),
+                                      "C": int(wk.shape[1]), "D": D,
+                                      "S": int(args[4].shape[1]), "B": B},
               "max_abs_err_w": err_w, "max_abs_err_loss": err_l,
               "max_abs_err_acc": err_a, "tol_w": TOL_W,
               "tol_loss_atol": 1e-4, "tol_acc_atol": 1e-3,
@@ -203,9 +235,9 @@ def main():
             stacked[task] = wk
 
     n_val = int(setup.X_val.shape[0])
-    ppos = epoch_batches(n_val, VB, generator=gen)[0]
-    pvalid = batch_valid(ppos, n_val).to(dev)
-    ppos = ppos.to(dev, torch.int32)
+    ppos = draw_epoch_positions(dgen, n_val, VB)
+    pvalid = batch_valid(ppos, n_val)
+    ppos = ppos.to(torch.int32)
     yv_reg = torch.randn(n_val, generator=gen).to(dev)
     cv = (setup.sizes > 0).to(torch.float32)
     # a third case: momentum 0 and a few more clients masked out
@@ -301,17 +333,29 @@ def main():
     # class scores it
     chance = 100.0 * float(torch.bincount(setup.y_test.long()).max()
                            / setup.y_test.numel())
+    def vs_plain(res, ref):
+        """(ok, {max_rel_loss, max_abs_acc, max_abs_w}) of a kernel run
+        against its plain run under TOL_RUN; the weights only where the
+        algorithm returns them."""
+        finite = all(np.all(np.isfinite(res[k]))
+                     for k in ("train_loss", "test_loss", "test_acc"))
+        d = {"max_rel_loss": max(
+                float(np.max(np.abs(res[k] - ref[k]) / np.abs(ref[k])))
+                for k in ("train_loss", "test_loss")),
+             "max_abs_acc": float(np.max(np.abs(res["test_acc"]
+                                                - ref["test_acc"])))}
+        ok = (finite and d["max_rel_loss"] <= TOL_RUN["loss_rtol"]
+              and d["max_abs_acc"] <= TOL_RUN["acc_atol"])
+        if "params" in res:
+            d["max_abs_w"] = float((res["params"]["w"]
+                                    - ref["params"]["w"]).abs().max())
+            ok = ok and d["max_abs_w"] <= TOL_RUN["w_atol"]
+        return ok, d
+
     for name, _, _ in algos:
         res, secs = runs[name]
         ref, plain_secs = refs[name]
-        finite = all(np.all(np.isfinite(res[k]))
-                     for k in ("train_loss", "test_loss", "test_acc"))
-        d_loss = max(float(np.max(np.abs(res[k] - ref[k]) / np.abs(ref[k])))
-                     for k in ("train_loss", "test_loss"))
-        d_acc = float(np.max(np.abs(res["test_acc"] - ref["test_acc"])))
-        d_w = float((res["params"]["w"] - ref["params"]["w"]).abs().max())
-        ok = (finite and d_loss <= TOL_RUN["loss_rtol"]
-              and d_acc <= TOL_RUN["acc_atol"] and d_w <= TOL_RUN["w_atol"])
+        ok, diffs = vs_plain(res, ref)
         acc, tloss = res["test_acc"], res["test_loss"]
         learns = bool(np.all(np.diff(tloss) < 0) and acc[-1] > acc[0]
                       and acc[-1] >= chance + ACC_MARGIN)
@@ -323,8 +367,7 @@ def main():
               "round_ms": 1e3 * secs / ROUNDS,
               "p_sum": float(res["p"].sum()),
               "chance_acc": chance, "learns": learns,
-              "vs_plain": {"max_rel_loss": d_loss, "max_abs_acc": d_acc,
-                           "max_abs_w": d_w}, "tol": TOL_RUN, "ok": ok})
+              "vs_plain": diffs, "tol": TOL_RUN, "ok": ok})
         if not ok:
             fail(f"{name} on the kernels does not match its plain run")
         if not learns:
@@ -332,15 +375,115 @@ def main():
                  f"and the accuracy rise to {ACC_MARGIN} points above the "
                  f"{chance:.2f}% of the largest test class")
 
-    # -- 5. where a FedAMW run's time goes (device time by kernel) ----------
-    # the host's shuffle draw of one round, alone and before the profiler
-    # starts: the round loop's _draw_client_positions at the main
-    # configuration, host clock
-    draw_gen = torch.Generator().manual_seed(SEED)
-    t0 = time.perf_counter()
-    for _ in range(ROUNDS):
-        _draw_client_positions(draw_gen, mask_cpu, EPOCHS, B)
-    draw_ms = 1e3 * (time.perf_counter() - t0) / ROUNDS
+    # -- 5. the rest of the paper's experiment, counted --------------------
+    # Centralized (J=1 over every train row), Distributed and
+    # FedAMW_OneShot (one local phase of EPOCHS * ROUNDS epochs) and
+    # FedNova (the round loop), each held against its plain run with the
+    # same seed; counts set to 0 just before each and read just after
+    long_kw = dict(lr=prm["lr"], epoch=EPOCHS * ROUNDS, batch_size=B,
+                   seed=SEED)
+    paper = (
+        ("Centralized", Centralized, long_kw, (EPOCHS * ROUNDS, 0)),
+        ("Distributed", Distributed, long_kw, (EPOCHS * ROUNDS, 0)),
+        ("FedAMW_OneShot", FedAMW_OneShot,
+         dict(long_kw, lambda_reg=prm["lambda_reg_os"], round=ROUNDS,
+              lr_p=prm["lr_p_os"], val_batch_size=VB),
+         (EPOCHS * ROUNDS, ROUNDS)),
+        ("FedNova", FedNova, kw, (EPOCHS * ROUNDS, 0)),
+    )
+    paper_counted, paper_rows = {}, []
+    for name, fn, fkw, want in paper:
+        ref, plain_secs = timed(fn, kernel_impl="plain", **fkw)
+        client_epoch.launches = 0
+        p_epoch.launches = 0
+        p_epoch.launches_by_kernel = dict.fromkeys(pk.KERNELS, 0)
+        res, secs = timed(fn, **fkw)
+        got = (client_epoch.launches, p_epoch.launches)
+        staged = p_epoch.launches_by_kernel["staged"]
+        paper_counted[name] = {"client_epoch": got[0], "p_epoch": got[1]}
+        ok, diffs = vs_plain(res, ref)
+        paper_rows.append({
+            "algorithm": name,
+            **{k: np.ravel(res[k]).tolist()
+               for k in ("train_loss", "test_loss", "test_acc")},
+            "seconds": secs, "seconds_plain": plain_secs,
+            "launches": paper_counted[name], "launches_expected":
+            {"client_epoch": want[0], "p_epoch": want[1]},
+            "p_epoch_staged": staged, "vs_plain": diffs, "ok": ok})
+        if not ok:
+            fail(f"{name} on the kernels does not match its plain run: "
+                 f"{diffs}")
+        if got != want or staged != got[1]:
+            fail(f"{name} launched {got} kernels ({staged} staged p-epochs), "
+                 f"expected {want}, all staged")
+    # Centralized's launch shape: one client over every valid train row
+    cargs = k1_in["classification", "centralized"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cplan = ek.launch_plan(1, B, C, D, sms)
+    csteps = int(ek.client_order(cargs[5])[1].max())
+    cusage = [u for f, u in cuda_build.ptxas_usage("client_epoch").items()
+              if ek.kernel_symbol(cplan, C) in f]
+    saved = client_epoch.launches
+    c_ms = cuda_ms(lambda: client_epoch(*cargs), 5)
+    c_by_cluster = {k: cuda_ms(lambda: client_epoch(*cargs, cluster=k), 5)
+                    for k in (1, 2, 4, 8) if ek.staged_smem_bytes(
+                        B, C, D, k) <= cuda_build.SMEM_LIMIT}
+    client_epoch.launches = saved
+    central = {"J": 1, "rows": n_all, "S": int(cargs[4].shape[1]),
+               "cluster": cplan.cluster, "ctas": cplan.ctas,
+               "steps_max": csteps, "ms": c_ms,
+               "us_per_step": 1e3 * c_ms / csteps,
+               "ms_by_cluster": c_by_cluster,
+               "spill_bytes": cusage[0]["spill_bytes"] if len(cusage) == 1
+               else None}
+    emit({"phase": "paper_algorithms", "rounds": ROUNDS,
+          "local_epochs": EPOCHS, "algorithms": paper_rows,
+          "centralized_plan": central, "tol": TOL_RUN})
+    if len(cusage) != 1 or cusage[0]["spill_bytes"] != 0:
+        fail(f"Centralized's client_epoch plan {cplan}: ptxas {cusage}")
+
+    # -- 6. the driver: exp.py's six algorithms and result pickle ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            path = exp.main(["--dataset", "mnist", "--round", str(ROUNDS),
+                             "--seed", str(SEED), "--result_dir", tmp])
+        drv_secs = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+    keys = {"epochs", "train_loss", "test_loss", "test_acc",
+            "heterogeneity", "name", "task"}
+    shapes = {k: list(data[k].shape) for k in
+              ("train_loss", "test_loss", "test_acc", "heterogeneity")}
+    finite = all(bool(np.all(np.isfinite(data[k]))) for k in shapes)
+    drv_ok = (set(data) == keys and data["name"] == exp.NAMES
+              and data["task"] == "classification" and finite
+              and all(shapes[k] == [6, ROUNDS, 1]
+                      for k in ("train_loss", "test_loss", "test_acc"))
+              and shapes["heterogeneity"] == [1])
+    emit({"phase": "driver", "seconds": drv_secs, "keys": sorted(data),
+          "shapes": shapes, "name": data["name"], "task": data["task"],
+          "heterogeneity": data["heterogeneity"].tolist(),
+          "final_acc": dict(zip(data["name"],
+                                data["test_acc"][:, -1, 0].tolist())),
+          "finite": finite, "log_tail": log.getvalue().splitlines()[-8:],
+          "ok": drv_ok})
+    if not drv_ok:
+        fail("the driver's pickle is not exp.py's (6, R, 1) schema")
+
+    # -- 7. where a FedAMW run's time goes (device time by kernel) ----------
+    # the device shuffle draw of one round, alone and before the profiler
+    # starts: EPOCHS client draws of all J clients and one p-solve's draw
+    # (ROUNDS epochs; 100 at the paper's length), CUDA events
+    def round_draw(p_epochs):
+        for _ in range(EPOCHS):
+            draw_epoch_positions(dgen, setup.n_max, B, setup.mask, lead=(J,))
+        draw_epoch_positions(dgen, n_val, VB, lead=(p_epochs,))
+
+    draw_ms = cuda_ms(lambda: round_draw(ROUNDS), 10)
+    draw_ms_r100 = cuda_ms(lambda: round_draw(100), 10)
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     saved = (client_epoch.launches, p_epoch.launches)
@@ -348,23 +491,29 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         _, secs = timed(FedAMW, **amw_kw)
     client_epoch.launches, p_epoch.launches = saved
-    by_kernel = {}
+    # the device rows only (kernels, copies): an operator row's self
+    # device time is that of the kernels it launched, which have rows of
+    # their own, so summing every row counts those kernels twice
+    by_kernel, all_rows_ms = {}, 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
+        all_rows_ms += us / 1e3
+        if us > 0 and ev.device_type == DeviceType.CUDA:
             by_kernel[ev.key] = (us / 1e3, ev.count)
     device_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     emit({"phase": "profile", "algorithm": "FedAMW", "rounds": ROUNDS,
-          "wall_ms": 1e3 * secs, "host_draw_ms_per_round": draw_ms,
+          "wall_ms": 1e3 * secs, "draw_ms_per_round": draw_ms,
+          "draw_ms_per_round_p_epochs_100": draw_ms_r100,
           "device_ms": device_ms if device_ms > 0 else "not measured",
+          "device_ms_all_rows": all_rows_ms,
           "device_busy_share": (device_ms / (1e3 * secs) if device_ms > 0
                                 else "not measured"),
           "top": [{"kernel": k[:80], "device_ms": ms, "calls": n}
                   for k, (ms, n) in top]})
 
-    # -- 6. times and bounds at the main-path shapes ------------------------
+    # -- 8. times and bounds at the main-path shapes ------------------------
     args = k1_in["classification", "registry"]
     n_rows = float(valid.sum())
     steps = int((valid.sum(-1) > 0).sum())
@@ -379,7 +528,6 @@ def main():
     # the cluster the launch plan gives the main path, and the compiler's
     # spills of the instantiation it runs
     steps_max = int(ek.client_order(valid)[1].max())
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = ek.launch_plan(J, B, C, D, sms)
     symbol = ek.kernel_symbol(plan, C)
     usage = [u for f, u in cuda_build.ptxas_usage("client_epoch").items()
@@ -394,6 +542,12 @@ def main():
               if symbol2 in f]
     if len(usage2) != 1:
         fail(f"no single ptxas entry for {symbol2}: {usage2}")
+    # launches of every counted run: the main path and the paper's
+    # other algorithms
+    paper_launches = {k: sum(c[k] for c in paper_counted.values())
+                      for k in ("client_epoch", "p_epoch")}
+    launches_all = {k: launches[k] + paper_launches[k]
+                    for k in ("client_epoch", "p_epoch")}
     kernels = []
     for name, fn, plain, a, nbytes, ops, err, src, repl in (
             ("client_epoch", client_epoch, client_epoch_plain, args,
@@ -413,7 +567,9 @@ def main():
             "name": name, "route": "cuda",
             "source": "non-iid-distributed-learning-with-optimal-mixture-"
                       f"weights_tpu_torch/{src}",
-            "replaces": repl, "launches": launches[name],
+            "replaces": repl, "launches": launches_all[name],
+            "launches_by_path": {"main_path": launches[name],
+                                 "paper_algorithms": paper_launches[name]},
             "launches_per_round": int(per_round[name]), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -457,8 +613,7 @@ def main():
     # make_p_solver on the main path's logits, CUDA events
     solve, init_opt = make_p_solver("classification", n_val, VB,
                                     float(prm["lr_p"]), momentum=0.9)
-    ppos100 = _draw_p_positions(torch.Generator().manual_seed(SEED), n_val,
-                                100, VB).to(dev)
+    ppos100 = draw_epoch_positions(dgen, n_val, VB, lead=(100,))
     solve_args = (k2[3], k2[4], k2[0], init_opt(k2[0]), ppos100)
     saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
     solve_ms = cuda_ms(lambda: solve(*solve_args, client_valid=cv), 2)
@@ -467,6 +622,40 @@ def main():
           "epochs": 100, "ms_per_epoch": solve_ms / 100,
           "shape": {"n_val": n_val, "J": J, "C": C, "B": VB, "S": S2},
           "plan": plan2.kernel})
+
+    # -- 9. the paper's run: the driver's six algorithms at R=100 ---------
+    # one repeat at the paper's length (100 rounds of 2 local epochs, the
+    # reference lr schedule) on the main setup, with no plain reference:
+    # what a user's run costs on the card. Counted over the six at once.
+    client_epoch.launches = 0
+    p_epoch.launches = 0
+    t0 = time.perf_counter()
+    paper_runs = exp.run_paper_algorithms(
+        setup, rounds=PAPER_ROUNDS, local_epoch=EPOCHS, batch_size=B,
+        seed=SEED, lr=prm["lr"], lr_p=prm["lr_p"], lr_p_os=prm["lr_p_os"],
+        mu=prm["lambda_prox"], lam=prm["lambda_reg"],
+        lam_os=prm["lambda_reg_os"])
+    total = time.perf_counter() - t0
+    run_launches = {"client_epoch": client_epoch.launches,
+                    "p_epoch": p_epoch.launches}
+    # client epochs: 2R for each of the six (Centralized's at J=1); p-epochs:
+    # R per round for FedAMW, one per iteration for FedAMW_OneShot
+    want = {"client_epoch": 6 * EPOCHS * PAPER_ROUNDS,
+            "p_epoch": PAPER_ROUNDS * PAPER_ROUNDS + PAPER_ROUNDS}
+    finite = all(bool(np.all(np.isfinite(res[k])))
+                 for _, res, _ in paper_runs
+                 for k in ("train_loss", "test_loss", "test_acc"))
+    emit({"phase": "paper_run", "rounds": PAPER_ROUNDS,
+          "local_epochs": EPOCHS, "card": card,
+          "seconds": {name: secs for name, _, secs in paper_runs},
+          "total_seconds": total,
+          "final_test_acc": {name: float(np.ravel(res["test_acc"])[-1])
+                             for name, res, _ in paper_runs},
+          "launches": run_launches, "launches_expected": want,
+          "finite": finite})
+    if run_launches != want or not finite:
+        fail(f"the paper run launched {run_launches} (expected {want}) "
+             f"or gave non-finite metrics (finite={finite})")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,24 @@
 from .common import FedSetup, prepare_setup, result_tuple
-from .core import FedAMW, FedAvg, FedProx
+from .core import (
+    Centralized,
+    Distributed,
+    FedAMW,
+    FedAMW_OneShot,
+    FedAvg,
+    FedNova,
+    FedProx,
+)
 
 # Function-per-algorithm registry, mirroring the reference's import
-# surface (``from functions.tools import ...``, exp.py:4). The JAX
-# package's Centralized, Distributed, FedAMW_OneShot and FedNova are not
-# ported yet (ROADMAP.md, queue 1).
+# surface (``from functions.tools import ...``, exp.py:4) and the JAX
+# package's names.
 ALGORITHMS = {
+    "Centralized": Centralized,
+    "Distributed": Distributed,
+    "FedAMW_OneShot": FedAMW_OneShot,
     "FedAvg": FedAvg,
     "FedProx": FedProx,
+    "FedNova": FedNova,
     "FedAMW": FedAMW,
 }
 
@@ -16,7 +27,11 @@ __all__ = [
     "prepare_setup",
     "result_tuple",
     "ALGORITHMS",
+    "Centralized",
+    "Distributed",
     "FedAMW",
+    "FedAMW_OneShot",
     "FedAvg",
+    "FedNova",
     "FedProx",
 ]

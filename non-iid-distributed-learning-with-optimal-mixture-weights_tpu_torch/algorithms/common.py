@@ -53,6 +53,12 @@ class FedSetup:
     def n_max(self) -> int:
         return int(self.idx.shape[1])
 
+    @property
+    def all_train_idx(self) -> torch.Tensor:
+        """Every valid train row once, client-major: the pooled index set
+        of Centralized. ``(n,)`` int64 on the setup's device."""
+        return self.idx.reshape(-1)[self.mask.reshape(-1) > 0]
+
 
 def prepare_setup(
     ds: FederatedDataset,

@@ -1,4 +1,9 @@
-from .aggregate import client_logits, make_p_solver, weighted_average
+from .aggregate import (
+    client_logits,
+    fednova_effective_weights,
+    make_p_solver,
+    weighted_average,
+)
 from .client import make_client_round, make_local_update
 from .epoch_kernel import client_epoch, client_epoch_plain
 from .evaluate import make_evaluator
@@ -8,6 +13,7 @@ __all__ = [
     "client_epoch",
     "client_epoch_plain",
     "client_logits",
+    "fednova_effective_weights",
     "make_client_round",
     "make_evaluator",
     "make_local_update",

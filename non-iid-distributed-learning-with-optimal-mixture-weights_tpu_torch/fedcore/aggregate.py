@@ -29,6 +29,28 @@ def weighted_average(stacked_params: dict, p: torch.Tensor) -> dict:
             for k, w in stacked_params.items()}
 
 
+def fednova_effective_weights(sizes: torch.Tensor, p: torch.Tensor,
+                              epochs: int, batch_size: int,
+                              tau_frac: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """FedNova normalized-averaging weights (reference ``tools.py:388-405``,
+    the JAX package's ``fedcore/aggregate.py:66-92``).
+
+    ``tau_j = n_j * epochs / batch_size`` (float, the reference's exact
+    expression, not the true step count), ``tau_eff = sum_j tau_j p_j``;
+    the effective weight is ``p_j tau_eff / tau_j``. ``tau_frac`` (a
+    ``(J,)`` fraction of the local work each client completed) rescales
+    each tau; ``None`` is full work. Padded clients (``tau = 0``) get
+    weight 0 instead of 0/0.
+    """
+    tau = sizes.to(torch.float32) * epochs / batch_size
+    if tau_frac is not None:
+        tau = tau * tau_frac
+    tau_eff = torch.sum(tau * p)
+    safe_tau = torch.where(tau > 0, tau, 1.0)
+    return torch.where(tau > 0, p * tau_eff / safe_tau, 0.0)
+
+
 def client_logits(apply_fn: Callable, stacked_params: dict,
                   X: torch.Tensor) -> torch.Tensor:
     """Per-client predictions on a shared matrix, ``(n, J, C)``.

@@ -5,10 +5,12 @@ Both the client update and the mixture-weight solver iterate
 (torch ``DataLoader(shuffle=True)`` semantics with the last partial batch
 kept, reference ``tools.py:178-179`` / ``exp.py:99``).
 
-The shuffle order is an input: ``epoch_batches`` draws it from a
+The shuffle order is an input: ``epoch_batches`` draws one epoch from a
 ``torch.Generator``, or takes injected ``positions`` (for instance the
-ones the JAX package drew), and ``batch_valid`` derives the validity
-mask from the positions alone, so both routes give the same batches.
+ones the JAX package drew); ``draw_epoch_positions`` draws many epochs
+or clients at once on the generator's device, with the same layout; and
+``batch_valid`` derives the validity mask from the positions alone, so
+every route gives the same batches.
 """
 
 from __future__ import annotations
@@ -79,6 +81,28 @@ def epoch_batches(
             f"{(num_batches, batch_size)} for n={n}, batch={batch_size}")
     positions = positions.long()
     return positions, batch_valid(positions, n, mask)
+
+
+def draw_epoch_positions(generator: torch.Generator, n: int, batch_size: int,
+                         mask: torch.Tensor | None = None,
+                         lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """``(*lead, S, B)`` int64 shuffles on the generator's device, each
+    of ``lead``'s entries one ``epoch_batches`` epoch: valid rows first in
+    random order, masked-out rows after them, padding zeros at the back.
+
+    One ``torch.rand`` of ``(*lead, n)`` keys and one stable ``argsort``
+    draw every entry at once (all J clients of an epoch, or all epochs of
+    a p-solve). ``mask`` is ``(n,)`` or ``(*lead, n)``, on that device.
+    """
+    num_batches, pad = batch_counts(n, batch_size)
+    key = torch.rand((*lead, n), generator=generator, dtype=torch.float32,
+                     device=generator.device)
+    if mask is not None:
+        key = key + (1.0 - mask) * 2.0
+    perm = torch.argsort(key, dim=-1, stable=True)
+    if pad:
+        perm = torch.nn.functional.pad(perm, (0, pad))
+    return perm.reshape(*lead, num_batches, batch_size)
 
 
 def weighted_epoch_metrics(losses, corrects, cnts):

@@ -9,7 +9,12 @@ from .losses import (
     training_loss,
 )
 from .metrics import top1_correct
-from .rff import rff_map, rff_params
+from .rff import (
+    data_heterogeneity,
+    heterogeneity_from_parts,
+    rff_map,
+    rff_params,
+)
 from .schedule import lr_schedule_array
 
 __all__ = [
@@ -22,6 +27,8 @@ __all__ = [
     "ridge_penalty",
     "training_loss",
     "top1_correct",
+    "data_heterogeneity",
+    "heterogeneity_from_parts",
     "rff_map",
     "rff_params",
     "lr_schedule_array",

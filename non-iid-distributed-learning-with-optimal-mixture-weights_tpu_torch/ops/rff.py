@@ -6,12 +6,17 @@ Reference: ``functions/tools.py:15-31``. ``W ~ N(0, sigma)`` of shape
 ``torch.Generator``; a caller that must reproduce another run's features
 injects its ``(W, b)`` instead (``algorithms.prepare_setup(rff=...)``).
 The ``(N, d) x (d, D)`` product is a plain ``torch.matmul``.
+
+``data_heterogeneity`` / ``heterogeneity_from_parts`` give the driver's
+non-IIDness score (reference ``exp.py:66-76``, the JAX package's
+``ops/rff.py:103-139``); their Gram products are plain matmuls too.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -30,3 +35,41 @@ def rff_map(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     D = W.shape[1]
     scale = torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
     return torch.cos(X @ W + b) / scale.to(X.device)
+
+
+@torch.no_grad()
+def data_heterogeneity(X: torch.Tensor, idx: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Dataset-level non-IIDness score: ``sum_j (n_j/n) * ||C - C_j||_F``
+    with ``C = X^T X / n`` the global second moment and ``C_j`` client
+    j's, from packed client index sets ``idx``/``mask`` ``(J, n_max)``.
+
+    One client at a time, so no ``(J, D, D)`` tensor is built. Returns
+    a 0-d float32 tensor on ``X``'s device.
+    """
+    n = X.shape[0]
+    C = X.T @ X / n
+    total = torch.zeros((), dtype=torch.float32, device=X.device)
+    for idx_j, mask_j in zip(idx, mask):
+        Xj = X[idx_j] * mask_j[:, None]
+        nj = mask_j.sum()
+        Cj = Xj.T @ Xj / torch.clamp(nj, min=1.0)
+        total = total + nj / n * torch.linalg.norm(C - Cj)
+    return total
+
+
+def heterogeneity_from_parts(X, parts) -> float:
+    """``data_heterogeneity`` on FULL client partitions (ragged index
+    arrays into the rows of ``X``), as the reference computes it before
+    the 80/20 validation split (``exp.py:66-76`` precedes ``:80-99``), so
+    the weights ``n_j/n`` sum to 1 over all rows. ``X`` is a tensor (the
+    score is computed on its device) or an array."""
+    X = torch.as_tensor(X, dtype=torch.float32)
+    n_max = max(len(p) for p in parts)
+    idx = np.zeros((len(parts), n_max), np.int64)
+    mask = np.zeros((len(parts), n_max), np.float32)
+    for j, p in enumerate(parts):
+        idx[j, : len(p)] = np.asarray(p)
+        mask[j, : len(p)] = 1.0
+    return float(data_heterogeneity(X, torch.from_numpy(idx).to(X.device),
+                                    torch.from_numpy(mask).to(X.device)))
