@@ -25,6 +25,21 @@ and read just after:
   time at every cluster size);
 - ``driver``: ``fedamw_tpu_torch.exp.main`` at R=3, its pickle checked
   against ``exp.py``'s schema;
+- ``options``: the round loop's options at the main configuration, 2
+  rounds (3 where a run is split), each held against its plain run and
+  its launches counted by kernel: FedAvg ``sequential=True`` (one J = 1
+  launch per client and epoch), FedAMW on 4 size buckets (one launch per
+  bucket and epoch), FedAMW at ``participation=0.5`` (absent clients end
+  every round with p exactly 0), FedAvg with ``server_opt="adam"`` and
+  FedProx with ``"yogi"``, FedAMW split at round 2 through a checkpoint
+  (bitwise the uninterrupted run) and the driver's ``--resume`` (a
+  one-repeat run continued to two, bitwise the uninterrupted two-repeat
+  pickle); and two runs the card refuses at their first p-solve, before
+  any p-epoch launch: FedAMW with ``p_guard="simplex"`` (kernel 2 runs
+  the unconstrained update) and FedAMW at 400 partitions (more clients
+  than kernel 2's plans hold), each then run on the plain versions
+  (``kernel_impl="plain"``, as the refusal says) and timed, the guarded
+  p required on the simplex;
 - ``profile``: the device shuffle draw of one round alone
   (``draw_ms_per_round``, CUDA events), then one profiled FedAMW run
   (device time by kernel, the device's busy share of the wall time);
@@ -67,6 +82,8 @@ import time
 SEED = 100                 # the JAX package's experiment seed (exp.py)
 J, D, ROUNDS, EPOCHS, B, VB = 50, 2000, 3, 2, 32, 16
 PAPER_ROUNDS = 100         # the paper's run length (exp.py --round)
+OPT_ROUNDS = 2             # rounds of an options case
+MANY_CLIENTS = 400         # more clients than kernel 2's plans hold at C=10
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -99,6 +116,24 @@ def close(a, b, atol, rtol):
     return bool((err <= atol + rtol * b.abs()).all()), float(err.max())
 
 
+def counts():
+    """Launches of both wrappers since their last reset, in all and by
+    kernel."""
+    from fedamw_tpu_torch.fedcore import client_epoch, p_epoch
+
+    return {"client_epoch": client_epoch.launches,
+            "p_epoch": p_epoch.launches,
+            "client_epoch_by_kernel": dict(client_epoch.launches_by_kernel),
+            "p_epoch_by_kernel": dict(p_epoch.launches_by_kernel)}
+
+
+def reset_counts():
+    from fedamw_tpu_torch.fedcore import epoch_kernel, psolver_kernel
+
+    epoch_kernel.reset_counts()
+    psolver_kernel.reset_counts()
+
+
 def cuda_ms(fn, reps):
     """Mean device time of fn() over reps calls, after one warm-up."""
     import torch
@@ -112,6 +147,197 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
+    """The ``options`` phase: each case is run on the plain versions and
+    then counted on the kernels (counts reset just before, read just
+    after), held against its plain run at ``TOL_RUN``, and its launches
+    checked; then the two runs the card refuses, each required to raise
+    at its first p-solve with no p-epoch launched."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch import exp
+    from fedamw_tpu_torch.algorithms import (
+        FedAMW, FedAvg, FedProx, prepare_setup)
+    from fedamw_tpu_torch.algorithms.core import round_seed
+    from fedamw_tpu_torch.data import load_dataset
+    from fedamw_tpu_torch.utils import load_checkpoint, save_checkpoint
+
+    dev = setup.device
+    R2 = OPT_ROUNDS
+    base = dict(kw, round=R2)
+    amw = dict(amw_kw, round=R2)
+
+    def build(**opts):
+        t0 = time.perf_counter()
+        s = prepare_setup(opts.pop("ds", ds), D=D,
+                          kernel_par=prm["kernel_par"], seed=SEED,
+                          rng=np.random.RandomState(SEED), **opts)
+        return s, time.perf_counter() - t0
+
+    bucketed, bucket_s = build(buckets=4)
+    many_ds = load_dataset("mnist", num_partitions=MANY_CLIENTS,
+                           alpha=prm["alpha_Dirk"])
+    many, many_s = build(ds=many_ds)
+    emit({"phase": "options_setup", "buckets": {
+        "n_maxes": list(bucketed.n_maxes),
+        "clients": list(bucketed.bucket_counts), "seconds": bucket_s},
+        "many_clients": {"J": many.num_clients, "n_max": many.n_max,
+                         "seconds": many_s}})
+
+    # name, algorithm, setup, keywords, expected client_epoch and
+    # p_epoch launches
+    cases = [
+        ("FedAvg sequential", FedAvg, setup, dict(base, sequential=True),
+         (R2 * J * EPOCHS, 0)),
+        ("FedAMW buckets=4", FedAMW, bucketed, amw,
+         (R2 * 4 * EPOCHS, R2 * R2)),
+        ("FedAMW participation=0.5", FedAMW, setup,
+         dict(amw, participation=0.5), (R2 * EPOCHS, R2 * R2)),
+        ("FedAvg server_opt=adam", FedAvg, setup,
+         dict(base, server_opt="adam", server_lr=0.01), (R2 * EPOCHS, 0)),
+        ("FedProx server_opt=yogi", FedProx, setup,
+         dict(base, mu=prm["lambda_prox"], server_opt="yogi",
+              server_lr=0.01), (R2 * EPOCHS, 0)),
+        ("FedAMW resume", FedAMW, setup, dict(amw_kw, round=3),
+         (3 * EPOCHS, 9)),
+    ]
+    runs = {}
+    for name, fn, s, fkw, want in cases:
+        ref, plain_secs = timed(fn, s, kernel_impl="plain", **fkw)
+        reset_counts()
+        res, secs = timed(fn, s, **fkw)
+        c = counts()
+        runs[name] = res
+        got = (c["client_epoch"], c["p_epoch"])
+        ok, diffs = vs_plain(res, ref)
+        emit({"phase": "options", "case": name, "card": card,
+              "seconds": secs, "seconds_plain": plain_secs,
+              "round_ms": 1e3 * secs / len(res["test_loss"]),
+              "launches": c, "expected": {
+                  "client_epoch": want[0], "p_epoch": want[1]},
+              "test_acc": res["test_acc"].tolist(),
+              "test_loss": res["test_loss"].tolist(),
+              "p_sum": float(res["p"].sum()), "vs_plain": diffs,
+              "tol": TOL_RUN, "ok": ok})
+        if not ok:
+            fail(f"options case {name!r} does not match its plain run: "
+                 f"{diffs}")
+        if got != want:
+            fail(f"options case {name!r} launched {c}, expected {want}")
+
+    # refused on the card, at the first p-solve: round 0's client epochs
+    # launch, no p-epoch does (a guard inside kernel 2 and a J split
+    # across a cluster are ROADMAP.md queue 2 items 5 and 3); then the
+    # run the refusal points to, on the plain versions, timed
+    refused = [
+        ("FedAMW p_guard=simplex", setup, dict(amw, p_guard="simplex"),
+         "cannot run with an active p_guard"),
+        (f"FedAMW num_partitions={MANY_CLIENTS}", many, amw,
+         "shared memory"),
+    ]
+    for name, s, fkw, match in refused:
+        reset_counts()
+        try:
+            FedAMW(s, **fkw)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            fail(f"options case {name!r} ran on the card; it must be "
+                 "refused")
+        c = counts()
+        ref, plain_secs = timed(FedAMW, s, kernel_impl="plain", **fkw)
+        p = ref["p"]
+        ok = (match in msg and (c["client_epoch"], c["p_epoch"]) == (EPOCHS, 0)
+              and all(np.all(np.isfinite(ref[k]))
+                      for k in ("train_loss", "test_loss", "test_acc")))
+        if "simplex" in name:
+            ok = ok and float(p.min()) >= 0 and abs(float(p.sum()) - 1) <= 1e-6
+        emit({"phase": "options", "case": name, "card": card, "refused": msg,
+              "launches": c, "seconds_plain": plain_secs,
+              "round_ms_plain": 1e3 * plain_secs / len(ref["test_loss"]),
+              "p_sum_plain": float(p.sum()), "p_min_plain": float(p.min()),
+              "ok": ok})
+        if not ok:
+            fail(f"options case {name!r}: refusal {msg!r} after {c} "
+                 f"(expected {match!r} after {EPOCHS} client epochs and no "
+                 "p-epoch), or its plain run is non-finite or, guarded, "
+                 "off the simplex")
+
+    # partial participation, round by round: absent clients end every
+    # round with p exactly 0, and the replay is the counted run bitwise
+    valid = (setup.sizes > 0).to(torch.float32)
+    state, absent_p, n_absent = None, [], []
+    for t in range(R2):
+        r = FedAMW(setup, **dict(amw, participation=0.5), start_round=t,
+                   stop_round=t + 1, resume_from=state)
+        drawn = torch.rand(valid.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(round_seed(SEED + 2, t))) < 0.5
+        absent = (valid * drawn) == 0
+        n_absent.append(int(absent.sum()))
+        absent_p.append(float(r["p"][absent].abs().max()))
+        state = {k: r[k] for k in ("params", "p", "p_opt")}
+    same = (torch.equal(state["p"], runs["FedAMW participation=0.5"]["p"])
+            and torch.equal(state["params"]["w"],
+                            runs["FedAMW participation=0.5"]["params"]["w"]))
+    emit({"phase": "options", "case": "participation by round",
+          "absent_clients": n_absent, "max_abs_p_absent": absent_p,
+          "replay_bitwise": same, "ok": same and not any(absent_p)})
+    if any(absent_p) or not same:
+        fail(f"participation: absent clients' p {absent_p}, replay "
+             f"bitwise {same}")
+
+    # round resume through a checkpoint: rounds [0, 2), saved and loaded
+    # through utils/checkpoint.py, then [2, 3): the uninterrupted run
+    full = runs["FedAMW resume"]
+    rkw = dict(amw_kw, round=3)
+    first = FedAMW(setup, **rkw, stop_round=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, first["params"], p=first["p"], round_idx=2,
+                        extra={"p_opt": first["p_opt"]})
+        second = FedAMW(setup, **rkw, start_round=2,
+                        resume_from=load_checkpoint(tmp))
+    split_ok = (all(np.array_equal(np.concatenate([first[k], second[k]]),
+                                   full[k])
+                    for k in ("train_loss", "test_loss", "test_acc"))
+                and torch.equal(second["params"]["w"], full["params"]["w"])
+                and torch.equal(second["p"], full["p"])
+                and torch.equal(second["p_opt"][0], full["p_opt"][0]))
+    emit({"phase": "options", "case": "resume split at round 2",
+          "bitwise": split_ok, "ok": split_ok})
+    if not split_ok:
+        fail("a FedAMW run split at round 2 through a checkpoint is not "
+             "the uninterrupted run bit for bit")
+
+    # the driver's --resume: one repeat, then continued to two, against
+    # an uninterrupted two-repeat run
+    def drive(out, *extra):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            path = exp.main(["--dataset", "mnist", "--round", str(ROUNDS),
+                             "--seed", str(SEED), "--result_dir", out,
+                             *extra])
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = drive(os.path.join(tmp, "whole"), "--n_repeats", "2")
+        drive(os.path.join(tmp, "split"), "--n_repeats", "1")
+        resumed = drive(os.path.join(tmp, "split"), "--n_repeats", "2",
+                        "--resume")
+    drv_ok = set(whole) == set(resumed) and all(
+        np.array_equal(whole[k], resumed[k]) if isinstance(whole[k],
+                                                           np.ndarray)
+        else whole[k] == resumed[k] for k in whole)
+    emit({"phase": "options", "case": "driver --resume",
+          "seconds": time.perf_counter() - t0, "repeats": 2,
+          "bitwise": drv_ok, "ok": drv_ok})
+    if not drv_ok:
+        fail("the driver's --resume pickle is not the uninterrupted "
+             "two-repeat run's")
 
 
 def main():
@@ -287,10 +513,10 @@ def main():
                   val_batch_size=VB)
     algos = (("FedAvg", FedAvg, kw), ("FedAMW", FedAMW, amw_kw))
 
-    def timed(fn, **fkw):
+    def timed(fn, s=None, **fkw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = fn(setup, **fkw)
+        res = fn(setup if s is None else s, **fkw)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
@@ -301,13 +527,11 @@ def main():
             for name, fn, fkw in algos}
     runs, counted, p_by_kernel = {}, {}, {}
     for name, fn, fkw in algos:
-        client_epoch.launches = 0
-        p_epoch.launches = 0
-        p_epoch.launches_by_kernel = dict.fromkeys(pk.KERNELS, 0)
+        reset_counts()
         runs[name] = timed(fn, **fkw)
-        counted[name] = {"client_epoch": client_epoch.launches,
-                         "p_epoch": p_epoch.launches}
-        p_by_kernel[name] = dict(p_epoch.launches_by_kernel)
+        c = counts()
+        counted[name] = {k: c[k] for k in ("client_epoch", "p_epoch")}
+        p_by_kernel[name] = c["p_epoch_by_kernel"]
     launches = {k: sum(c[k] for c in counted.values())
                 for k in ("client_epoch", "p_epoch")}
     # per round, from the counts: every algorithm runs the client epochs,
@@ -394,12 +618,11 @@ def main():
     paper_counted, paper_rows = {}, []
     for name, fn, fkw, want in paper:
         ref, plain_secs = timed(fn, kernel_impl="plain", **fkw)
-        client_epoch.launches = 0
-        p_epoch.launches = 0
-        p_epoch.launches_by_kernel = dict.fromkeys(pk.KERNELS, 0)
+        reset_counts()
         res, secs = timed(fn, **fkw)
-        got = (client_epoch.launches, p_epoch.launches)
-        staged = p_epoch.launches_by_kernel["staged"]
+        c = counts()
+        got = (c["client_epoch"], c["p_epoch"])
+        staged = c["p_epoch_by_kernel"]["staged"]
         paper_counted[name] = {"client_epoch": got[0], "p_epoch": got[1]}
         ok, diffs = vs_plain(res, ref)
         paper_rows.append({
@@ -472,7 +695,10 @@ def main():
     if not drv_ok:
         fail("the driver's pickle is not exp.py's (6, R, 1) schema")
 
-    # -- 7. where a FedAMW run's time goes (device time by kernel) ----------
+    # -- 7. the round loop's options, each against its plain run ----------
+    options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card)
+
+    # -- 8. where a FedAMW run's time goes (device time by kernel) ----------
     # the device shuffle draw of one round, alone and before the profiler
     # starts: EPOCHS client draws of all J clients and one p-solve's draw
     # (ROUNDS epochs; 100 at the paper's length), CUDA events
@@ -513,7 +739,7 @@ def main():
           "top": [{"kernel": k[:80], "device_ms": ms, "calls": n}
                   for k, (ms, n) in top]})
 
-    # -- 8. times and bounds at the main-path shapes ------------------------
+    # -- 9. times and bounds at the main-path shapes ------------------------
     args = k1_in["classification", "registry"]
     n_rows = float(valid.sum())
     steps = int((valid.sum(-1) > 0).sum())
@@ -623,12 +849,11 @@ def main():
           "shape": {"n_val": n_val, "J": J, "C": C, "B": VB, "S": S2},
           "plan": plan2.kernel})
 
-    # -- 9. the paper's run: the driver's six algorithms at R=100 ---------
+    # -- 10. the paper's run: the driver's six algorithms at R=100 --------
     # one repeat at the paper's length (100 rounds of 2 local epochs, the
     # reference lr schedule) on the main setup, with no plain reference:
     # what a user's run costs on the card. Counted over the six at once.
-    client_epoch.launches = 0
-    p_epoch.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     paper_runs = exp.run_paper_algorithms(
         setup, rounds=PAPER_ROUNDS, local_epoch=EPOCHS, batch_size=B,
@@ -636,8 +861,8 @@ def main():
         mu=prm["lambda_prox"], lam=prm["lambda_reg"],
         lam_os=prm["lambda_reg_os"])
     total = time.perf_counter() - t0
-    run_launches = {"client_epoch": client_epoch.launches,
-                    "p_epoch": p_epoch.launches}
+    c = counts()
+    run_launches = {k: c[k] for k in ("client_epoch", "p_epoch")}
     # client epochs: 2R for each of the six (Centralized's at J=1); p-epochs:
     # R per round for FedAMW, one per iteration for FedAMW_OneShot
     want = {"client_epoch": 6 * EPOCHS * PAPER_ROUNDS,

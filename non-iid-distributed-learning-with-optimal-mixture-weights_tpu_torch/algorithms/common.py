@@ -3,8 +3,9 @@
 ``prepare_setup`` performs the reference scripts' preamble
 (``exp.py:60-99``): load -> RFF-map once with a single draw -> per-client
 80/20 split with the 20% pooled for mixture-weight fitting -> pack the
-clients into the dense index layout. Everything lands on the device
-once; the algorithms then run there.
+clients into the dense index layout, or into size buckets
+(``buckets > 1``). Everything lands on the device once; the algorithms
+then run there.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..data import FederatedDataset, pack_partitions, split_train_val
+from ..data.pack import bucket_partitions
 from ..device import resolve_device
 from ..models import Model, get_model
 from ..ops.rff import rff_map, rff_params
@@ -35,11 +37,15 @@ class FedSetup:
     y_test: torch.Tensor
     X_val: torch.Tensor          # pooled validation (n_val, D)
     y_val: torch.Tensor
-    idx: torch.Tensor            # (J, n_max) int64 client row indices
-    mask: torch.Tensor           # (J, n_max) float32
+    idx: torch.Tensor | None     # (J, n_max) int64 client row indices
+    mask: torch.Tensor | None    # (J, n_max) float32 (both None when bucketed)
     sizes: torch.Tensor          # (J,) int32 true client sizes
     p_fixed: torch.Tensor        # (J,) sample-count mixture weights
     rff: tuple | None = None     # (W, b) draw, for mapping new data
+    # size-bucketed view (prepare_setup(buckets>1)): clients sorted by
+    # size, descending; every client-indexed array above is in that order
+    bucket_idx: tuple | None = None   # (J_g, n_max_g) int64 per bucket
+    bucket_mask: tuple | None = None
 
     @property
     def device(self) -> torch.device:
@@ -50,14 +56,32 @@ class FedSetup:
         return int(self.sizes.shape[0])
 
     @property
+    def n_maxes(self) -> tuple[int, ...]:
+        """Per-bucket padded capacities (one when unbucketed)."""
+        return tuple(int(i.shape[1]) for i in self.round_arrays()[0])
+
+    @property
+    def bucket_counts(self) -> tuple[int, ...]:
+        return tuple(int(i.shape[0]) for i in self.round_arrays()[0])
+
+    @property
     def n_max(self) -> int:
-        return int(self.idx.shape[1])
+        return max(self.n_maxes)
+
+    def round_arrays(self) -> tuple[tuple, tuple]:
+        """``(idx_tuple, mask_tuple)``, one entry per bucket, for
+        ``fedcore.make_bucketed_round``."""
+        if self.bucket_idx is None:
+            return (self.idx,), (self.mask,)
+        return self.bucket_idx, self.bucket_mask
 
     @property
     def all_train_idx(self) -> torch.Tensor:
-        """Every valid train row once, client-major: the pooled index set
-        of Centralized. ``(n,)`` int64 on the setup's device."""
-        return self.idx.reshape(-1)[self.mask.reshape(-1) > 0]
+        """Every valid train row once, client-major in bucket order: the
+        pooled index set of Centralized. ``(n,)`` int64 on the setup's
+        device."""
+        return torch.cat([i.reshape(-1)[m.reshape(-1) > 0]
+                          for i, m in zip(*self.round_arrays())])
 
 
 def prepare_setup(
@@ -70,6 +94,10 @@ def prepare_setup(
     model: Model | str = "linear",
     rng: np.random.RandomState | None = None,
     rff: tuple | None = None,
+    pad_clients_to: int | None = None,
+    n_max: int | None = None,
+    buckets: int = 1,
+    client_multiple: int = 1,
     device=None,
 ) -> FedSetup:
     """Build the device-resident setup from a loaded dataset.
@@ -81,6 +109,14 @@ def prepare_setup(
     run reproduces the JAX package's features. Features are stored in
     float32. ``device`` defaults to the CUDA card and raises without one;
     pass ``device="cpu"`` to run on the CPU.
+
+    Packing (JAX ``common.py:106-220``): ``n_max`` forces a larger sample
+    padding and ``pad_clients_to`` appends empty clients;
+    ``buckets > 1`` packs clients into size buckets (sorted by size,
+    descending; every client-indexed array uses that order);
+    ``client_multiple > 1`` pads every bucket's client axis (or the one
+    unbucketed axis) with empty clients to a multiple of it. Empty
+    clients have zero weight and stay inert.
     """
     dev = resolve_device(device)
     if rng is None:
@@ -105,7 +141,29 @@ def prepare_setup(
         feat_dim = ds.d
 
     train_parts, val_idx = split_train_val(ds.parts, val_fraction, rng)
-    pack = pack_partitions(train_parts)
+
+    def put(a, dtype=None):
+        return torch.as_tensor(a).to(dev, dtype)
+
+    bucket_idx = bucket_mask = idx = mask = None
+    if buckets > 1:
+        if pad_clients_to is not None:
+            raise ValueError(
+                "buckets>1 is incompatible with pad_clients_to; "
+                "use client_multiple for mesh-even bucket padding")
+        packs, _ = bucket_partitions(train_parts, buckets, client_multiple)
+        bucket_idx = tuple(put(p.idx, torch.int64) for p in packs)
+        bucket_mask = tuple(put(p.mask) for p in packs)
+        sizes = np.concatenate([p.sizes for p in packs])
+        weights = (sizes.astype(np.float64) / sizes.sum()).astype(np.float32)
+    else:
+        if client_multiple > 1:
+            j = len(train_parts) if pad_clients_to is None else pad_clients_to
+            pad_clients_to = -(-j // client_multiple) * client_multiple
+        pack = pack_partitions(train_parts, n_max=n_max,
+                               pad_clients_to=pad_clients_to)
+        sizes, weights = pack.sizes, pack.weights
+        idx, mask = put(pack.idx, torch.int64), put(pack.mask)
     y_dtype = (torch.int32 if ds.task_type == "classification"
                else torch.float32)
     y = torch.as_tensor(np.asarray(ds.y_train)).to(dev, y_dtype)
@@ -121,11 +179,13 @@ def prepare_setup(
         y_test=torch.as_tensor(np.asarray(ds.y_test)).to(dev, y_dtype),
         X_val=X_train[val].contiguous(),
         y_val=y[val].contiguous(),
-        idx=torch.as_tensor(pack.idx).to(dev, torch.int64),
-        mask=torch.as_tensor(pack.mask).to(dev),
-        sizes=torch.as_tensor(pack.sizes).to(dev),
-        p_fixed=torch.as_tensor(pack.weights).to(dev),
+        idx=idx,
+        mask=mask,
+        sizes=put(sizes),
+        p_fixed=put(weights),
         rff=rff,
+        bucket_idx=bucket_idx,
+        bucket_mask=bucket_mask,
     )
 
 

@@ -25,9 +25,10 @@ def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
 def setup_from_arrays(*, task: str, num_classes: int, X, y, X_val, y_val,
                       X_test, y_test, idx, mask, sizes, p_fixed, rff=None,
                       model: str = "linear", device=None) -> FedSetup:
-    """A ``FedSetup`` from numpy copies of a JAX ``FedSetup``'s arrays
-    (unbucketed: ``idx``/``mask`` are ``(J, n_max)``). ``rff`` is its
-    ``(W, b)`` draw or None. ``device`` as in ``prepare_setup``."""
+    """A ``FedSetup`` from numpy copies of a JAX ``FedSetup``'s arrays:
+    ``idx``/``mask`` are ``(J, n_max)``, or for a bucketed setup tuples
+    of its ``bucket_idx``/``bucket_mask``. ``rff`` is its ``(W, b)`` draw
+    or None. ``device`` as in ``prepare_setup``."""
     dev = resolve_device(device)
     y_dtype = torch.int32 if task == "classification" else torch.float32
 
@@ -35,6 +36,9 @@ def setup_from_arrays(*, task: str, num_classes: int, X, y, X_val, y_val,
         return torch.from_numpy(np.array(a)).to(dev, dtype).contiguous()
 
     X = put(X, torch.float32)
+    bucketed = isinstance(idx, (list, tuple))
+    buckets = (tuple(put(a, torch.int64) for a in idx),
+               tuple(put(a, torch.float32) for a in mask)) if bucketed else None
     return FedSetup(
         model=get_model(model),
         task=task,
@@ -46,9 +50,11 @@ def setup_from_arrays(*, task: str, num_classes: int, X, y, X_val, y_val,
         y_test=put(y_test, y_dtype),
         X_val=put(X_val, torch.float32),
         y_val=put(y_val, y_dtype),
-        idx=put(idx, torch.int64),
-        mask=put(mask, torch.float32),
+        idx=None if bucketed else put(idx, torch.int64),
+        mask=None if bucketed else put(mask, torch.float32),
         sizes=put(sizes, torch.int32),
         p_fixed=put(p_fixed, torch.float32),
         rff=None if rff is None else tuple(put(t, torch.float32) for t in rff),
+        bucket_idx=buckets and buckets[0],
+        bucket_mask=buckets and buckets[1],
     )

@@ -68,6 +68,38 @@ def pack_partitions(
     return ClientPack(idx=idx, mask=mask, sizes=sizes)
 
 
+def bucket_partitions(
+    parts: list[np.ndarray],
+    num_buckets: int,
+    client_multiple: int = 1,
+) -> tuple[list[ClientPack], np.ndarray]:
+    """Group clients into size buckets, each packed to its own ``N_max``
+    (JAX ``data/pack.py:77-116``).
+
+    Clients are sorted by size, descending and stable, and split into
+    ``num_buckets`` contiguous groups of equal count (at most one per
+    client). Under heavy Dirichlet skew this keeps the short clients'
+    epochs from running the largest client's step count.
+    ``client_multiple > 1`` pads every bucket's client axis with empty
+    clients up to a multiple of it.
+
+    Returns ``(packs, order)``: one ``ClientPack`` per bucket, and the
+    original index of every output slot in concatenated bucket order,
+    ``-1`` for padded slots.
+    """
+    sizes = np.array([len(p) for p in parts])
+    order = np.argsort(-sizes, kind="stable")
+    num_buckets = max(1, min(num_buckets, len(parts)))
+    packs, slots = [], []
+    for g in np.array_split(order, num_buckets):
+        j_padded = -(-len(g) // client_multiple) * client_multiple
+        packs.append(
+            pack_partitions([parts[i] for i in g], pad_clients_to=j_padded))
+        slots.append(
+            np.concatenate([g, np.full(j_padded - len(g), -1, g.dtype)]))
+    return packs, np.concatenate(slots)
+
+
 def split_train_val(
     parts: list[np.ndarray],
     val_fraction: float = 0.2,

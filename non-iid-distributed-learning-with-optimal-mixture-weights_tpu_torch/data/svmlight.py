@@ -2,8 +2,9 @@
 
 Replicates the data semantics of the reference's ``svmlight_data`` Dataset
 (``functions/utils.py:36-65``): features densified to float32, labels
-canonicalized by task type. Files are parsed with sklearn's reader; the
-JAX package's native C++ parser is not part of this package yet.
+canonicalized by task type. Files are parsed with the repository's
+native C++ parser (``native_io.py``) when it builds, else with sklearn's
+reader; both give the same float32 values.
 """
 
 from __future__ import annotations
@@ -44,18 +45,33 @@ def canonicalize_labels(y: np.ndarray, dataset_name: str) -> np.ndarray:
     return np.rint(y).astype(np.int32)
 
 
-def load_svmlight(dataset_name: str, data_dir: str = "datasets"):
+def _parse_with_sklearn(path: str):
+    from sklearn.datasets import load_svmlight_file
+
+    X, y = load_svmlight_file(path)
+    return np.asarray(X.todense(), dtype=np.float32), np.asarray(y)
+
+
+def load_svmlight(dataset_name: str, data_dir: str = "datasets",
+                  use_native: bool = True):
     """Load ``{data_dir}/{dataset_name}`` and canonicalize labels.
 
     Returns ``(X (n, d) float32, y (n,))``. Raises FileNotFoundError if
     the file is absent (callers decide whether to fall back to synthetic
-    data).
+    data). ``use_native`` tries the native parser first (JAX
+    ``data/svmlight.py:55-58``).
     """
-    from sklearn.datasets import load_svmlight_file
-
     path = os.path.join(data_dir, dataset_name)
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    X, y = load_svmlight_file(path)
-    X = np.asarray(X.todense(), dtype=np.float32)
+    X = None
+    if use_native:
+        from .. import native_io
+
+        try:
+            X, y = native_io.load_svmlight(path)
+        except (ImportError, OSError):
+            X = None
+    if X is None:
+        X, y = _parse_with_sklearn(path)
     return X, canonicalize_labels(np.asarray(y), dataset_name)

@@ -18,9 +18,22 @@ Run from the repository root::
         --num_partitions 4 --round 2
 
 It runs on the CUDA card unless ``--device`` names another device, and
-raises without a card rather than falling back to the CPU. The JAX
-package's extension flags (sharding, faults, checkpoints, ...) are not
-carried yet: each is refused with a pointer to its ROADMAP.md item.
+raises without a card rather than falling back to the CPU.
+
+The JAX driver's round-loop extensions are carried with its semantics:
+``--sequential`` (every algorithm but Centralized), ``--participation``
+(FedAvg, FedProx, FedAMW), ``--server_opt``/``--server_lr`` (FedAvg,
+FedProx), ``--p_guard`` (FedAMW and FedAMW_OneShot, passed as an
+argument: the port reads no ``FEDAMW_P_GUARD``; refused on the card,
+whose p-solver kernel runs the unconstrained update), ``--save_models DIR``
+(a checkpoint of each round-based algorithm's final state per repeat,
+``utils/checkpoint.py``'s pickle layout) and ``--resume``: after every
+repeat the driver writes ``exp1_{dataset}.partial.pkl`` with the
+finished repeats and the run's configuration signature, and
+``--resume`` continues from it (a mismatched signature is an error); a
+fresh run sets an earlier partial aside as ``.bak``. The other extension
+flags (sharding, faults, ...) are refused with a pointer to their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import sys
 import time
 
 import numpy as np
@@ -37,7 +51,10 @@ from .config import get_parameter
 from .data import load_dataset
 from .data.svmlight import is_regression
 from .device import resolve_device
+from .fedcore.aggregate import resolve_p_guard
+from .fedcore.server_opt import SERVER_OPTS
 from .ops.rff import heterogeneity_from_parts
+from .utils.checkpoint import save_checkpoint
 
 NAMES = ["CL", "DL", "FedAMW_OneShot", "FedAvg", "FedProx", "FedAMW"]
 
@@ -49,22 +66,15 @@ _REFUSED = {
     "--coordinator": "queue 1 item 10 (multi-GPU)",
     "--num_processes": "queue 1 item 10 (multi-GPU)",
     "--process_id": "queue 1 item 10 (multi-GPU)",
-    "--model": "queue 1 items j and 13 (the model zoo)",
-    "--participation": "queue 1 item d (partial participation)",
+    "--model": "queue 1 item 13 (the model zoo)",
     "--faults": "queue 1 item 8 (faults and defenses)",
     "--robust_agg": "queue 1 item 8 (faults and defenses)",
     "--cohort_shards": "queue 1 item 9 (the cohort plane)",
     "--stream_cohort": "queue 1 item 9 (the cohort plane)",
     "--feature_dtype": "queue 1 item b (bf16 feature storage)",
-    "--server_opt": "queue 1 item e (server optimizers)",
-    "--server_lr": "queue 1 item e (server optimizers)",
-    "--p_guard": "queue 1 item c (p-guards)",
-    "--save_models": "queue 1 item 7 (checkpoints)",
-    "--publish_every": "queue 1 item 7 (checkpoints)",
-    "--resume": "queue 1 item f (round resume)",
+    "--publish_every": "queue 1 item 11 (serving's model registry)",
     "--profile": "queue 1 item 7 (trace and telemetry)",
     "--trace_dir": "queue 1 item 7 (trace and telemetry)",
-    "--sequential": "queue 1 item j (sequential=True)",
 }
 
 
@@ -112,9 +122,46 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", type=str, default=None,
                     help="torch device to run on (default: the CUDA card; "
                          "'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--sequential", action="store_true",
+                    help="the reference's client-contamination chain: "
+                         "client j+1 starts from client j's weights")
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="per-round Bernoulli client sampling for FedAvg, "
+                         "FedProx and FedAMW (FedAMW's p-solve runs "
+                         "masked over the present clients)")
+    ap.add_argument("--server_opt", type=str, default="none",
+                    choices=list(SERVER_OPTS),
+                    help="FedOpt server optimizer on the pseudo-gradient "
+                         "for FedAvg/FedProx (none = the reference's "
+                         "overwrite rule)")
+    ap.add_argument("--server_lr", type=float, default=1.0)
+    ap.add_argument("--p_guard", type=str, default="none",
+                    metavar="none|simplex|clip[:R]",
+                    help="opt-in mixture-weight guard for FedAMW and "
+                         "FedAMW_OneShot (projected SGD on p); default "
+                         "keeps the reference's unconstrained update")
+    ap.add_argument("--save_models", type=str, default=None, metavar="DIR",
+                    help="checkpoint each round-based algorithm's final "
+                         "weights, p and optimizer state under "
+                         "DIR/{dataset}_{algorithm}_repeat{t}")
+    ap.add_argument("--resume", action="store_true",
+                    help="load exp1_{dataset}.partial.pkl (written after "
+                         "every completed repeat) and skip the finished "
+                         "repeats; a partial written under another "
+                         "configuration is an error")
     for flag, item in _REFUSED.items():
         ap.add_argument(flag, action=_Refused, item=item)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    try:
+        guard = resolve_p_guard(args.p_guard)
+    except ValueError as e:
+        ap.error(str(e))
+    if guard != "none" and (args.device or "cuda").startswith("cuda"):
+        ap.error("--p_guard cannot run on the card: kernel 2 runs the "
+                 "reference's unconstrained update (a guard inside it is "
+                 "ROADMAP.md queue 2 item 5); run the guarded experiment "
+                 "with --device cpu")
+    return args
 
 
 def _task_type(dataset: str, params: dict) -> str:
@@ -126,25 +173,33 @@ def _task_type(dataset: str, params: dict) -> str:
 
 def run_paper_algorithms(setup, *, rounds, local_epoch, batch_size, seed, lr,
                          lr_p, lr_p_os, mu, lam, lam_os, lr_mode="reference",
-                         verbose=False):
+                         verbose=False, sequential=False, participation=1.0,
+                         server_opt="none", server_lr=1.0, p_guard="none",
+                         return_state=False):
     """The six algorithms of one repeat in the driver's row order
-    (``NAMES``), with ``exp.py``'s arguments (``exp.py:819-835,902-914``).
+    (``NAMES``), with ``exp.py``'s arguments (``exp.py:813-914``): the
+    extensions go where the JAX driver sends them (module docstring).
     Returns ``[(name, result, wall_seconds), ...]``; each result has come
     back to the host, so its seconds include the device's work."""
-    common = dict(batch_size=batch_size, seed=seed)
+    common = dict(batch_size=batch_size, seed=seed, sequential=sequential)
     long_epoch = local_epoch * rounds
     round_common = dict(common, epoch=local_epoch, round=rounds,
-                        lr_mode=lr_mode, verbose=verbose)
+                        lr_mode=lr_mode, verbose=verbose,
+                        participation=participation,
+                        return_state=return_state)
+    fixed = dict(round_common, server_opt=server_opt, server_lr=server_lr)
     calls = [
         ("CL", "Centralized", dict(common, lr=lr, epoch=long_epoch)),
         ("DL", "Distributed", dict(common, lr=lr, epoch=long_epoch)),
         ("FedAMW_OneShot", "FedAMW_OneShot",
          dict(common, lr=lr, epoch=long_epoch, lambda_reg_if=True,
-              lambda_reg=lam_os, round=rounds, lr_p=lr_p_os)),
-        ("FedAvg", "FedAvg", dict(round_common, lr=lr)),
-        ("FedProx", "FedProx", dict(round_common, lr=lr, prox=True, mu=mu)),
+              lambda_reg=lam_os, round=rounds, lr_p=lr_p_os,
+              p_guard=p_guard)),
+        ("FedAvg", "FedAvg", dict(fixed, lr=lr)),
+        ("FedProx", "FedProx", dict(fixed, lr=lr, prox=True, mu=mu)),
         ("FedAMW", "FedAMW", dict(round_common, lr=lr, lambda_reg_if=True,
-                                  lambda_reg=lam, lr_p=lr_p)),
+                                  lambda_reg=lam, lr_p=lr_p,
+                                  p_guard=p_guard)),
     ]
     out = []
     for name, algo, kw in calls:
@@ -152,6 +207,80 @@ def run_paper_algorithms(setup, *, rounds, local_epoch, batch_size, seed, lr,
         res = ALGORITHMS[algo](setup, **kw)
         out.append((name, res, time.perf_counter() - t0))
     return out
+
+
+def resume_config(args) -> dict:
+    """The configuration a partial result file is valid under: every flag
+    that shapes a repeat's trajectory, with the JAX driver's keys
+    (``exp.py:581-612``) for the flags this driver takes. ``backend``
+    names this package, so a partial of the JAX driver (other random
+    streams) is never continued here, nor the reverse. The guard is
+    canonical (``clip`` is ``clip:1.0``); the device is left out, as the
+    JAX driver leaves out ``--shard``."""
+    guard = resolve_p_guard(args.p_guard)
+    if guard.startswith("clip"):
+        guard = f"clip:{float(guard.split(':', 1)[1]) if ':' in guard else 1.0}"
+    cfg = {k: getattr(args, k) for k in (
+        "dataset", "D", "num_partitions", "local_epoch", "round",
+        "batch_size", "alpha_Dirk", "seed", "lr_mode", "sequential",
+        "participation", "server_opt", "server_lr", "data_dir", "lr",
+        "lr_p")}
+    cfg.update(backend="fedamw_tpu_torch", p_guard=guard)
+    return cfg
+
+
+def _resume_start(args, partial_path, mats, hete) -> int:
+    """Where the repeat loop starts (JAX ``exp.py:615-665``): under
+    ``--resume`` the finished repeats of a partial with this run's
+    signature are copied into ``mats``/``hete``; a partial under another
+    signature exits with status 2; without ``--resume`` an existing
+    partial is moved aside to a fresh ``.bak`` name."""
+    if not args.resume and os.path.exists(partial_path):
+        bak, n = partial_path + ".bak", 1
+        while os.path.exists(bak):
+            n += 1
+            bak = f"{partial_path}.bak{n}"
+        os.replace(partial_path, bak)
+        print(f"warning: {partial_path} exists from an earlier "
+              "(interrupted?) run but --resume was not given; moved it "
+              f"to {bak} so this fresh run cannot clobber that "
+              "progress", file=sys.stderr)
+        return 0
+    if not args.resume:
+        return 0
+    if not os.path.exists(partial_path):
+        print(f"--resume: no partial file at {partial_path}; "
+              "starting fresh")
+        return 0
+    with open(partial_path, "rb") as f:
+        part = pickle.load(f)
+    if part["config"] != resume_config(args):
+        print(f"--resume: {partial_path} was written under a "
+              f"different configuration\n  saved: {part['config']}\n"
+              f"  now:   {resume_config(args)}\nRemove the partial "
+              "file to start over.", file=sys.stderr)
+        raise SystemExit(2)
+    k = min(int(part["done"]), args.n_repeats)
+    for key, mat in zip(("train_loss", "test_loss", "test_acc"), mats):
+        mat[:, :, :k] = part[key][:, :, :k]
+    hete[:k] = part["heterogeneity"][:k]
+    print(f"--resume: {k} completed repeat(s) loaded from "
+          f"{partial_path}; continuing at repeat {k}")
+    return k
+
+
+def _save_models(args, setup, name, res, t) -> None:
+    """``--save_models``: one round-based algorithm's final state, with
+    the optimizer state that makes a resume exact and the final
+    accuracy (JAX ``exp.py:668-680,927-960``)."""
+    extra = {k: res[k] for k in ("p_opt", "server_opt", "server_opt_kind")
+             if k in res}
+    extra["eval_acc"] = float(np.asarray(res["test_acc"])[-1])
+    where = save_checkpoint(
+        os.path.join(args.save_models, f"{args.dataset}_{name}_repeat{t}"),
+        res["params"], p=res["p"], round_idx=args.round, extra=extra,
+        rff=setup.rff)
+    print(f"{name}: checkpoint -> {where}")
 
 
 def main(argv=None) -> str:
@@ -167,7 +296,11 @@ def main(argv=None) -> str:
     error_mat = np.empty((6, R, args.n_repeats))
     acc_mat = np.empty((6, R, args.n_repeats))
     hete = np.empty(args.n_repeats)
-    for t in range(args.n_repeats):
+    partial_path = os.path.join(args.result_dir,
+                                f"exp1_{args.dataset}.partial.pkl")
+    start = _resume_start(args, partial_path,
+                          (train_mat, error_mat, acc_mat), hete)
+    for t in range(start, args.n_repeats):
         rng = np.random.RandomState(args.seed + t)
         ds = load_dataset(args.dataset, args.num_partitions, args.alpha_Dirk,
                           data_dir=args.data_dir, rng=rng, verbose=True)
@@ -185,15 +318,31 @@ def main(argv=None) -> str:
             lr_p=lr_p, lr_p_os=params.get("lr_p_os", lr_p),
             mu=params["lambda_prox"], lam=params["lambda_reg"],
             lam_os=params.get("lambda_reg_os", params["lambda_reg"]),
-            lr_mode=args.lr_mode, verbose=args.verbose)
+            lr_mode=args.lr_mode, verbose=args.verbose,
+            sequential=args.sequential, participation=args.participation,
+            server_opt=args.server_opt, server_lr=args.server_lr,
+            p_guard=args.p_guard, return_state=bool(args.save_models))
         for row, (name, res, secs) in enumerate(runs):
             train_mat[row, :, t] = res["train_loss"]
             error_mat[row, :, t] = res["test_loss"]
             acc_mat[row, :, t] = res["test_acc"]
             print(f"{name}: final acc {np.ravel(res['test_acc'])[-1]:.2f} "
                   f"({secs:.2f} s)")
+            if "params" in res:
+                _save_models(args, setup, name, res, t)
         print(f"[repeat {t}] wall time {time.perf_counter() - t0:.1f}s "
               f"(device={device})")
+        # every finished repeat is recoverable through --resume (each
+        # repeat reseeds from seed + t, so skipping finished ones is exact)
+        os.makedirs(args.result_dir, exist_ok=True)
+        tmp = partial_path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump({"config": resume_config(args), "done": t + 1,
+                         "train_loss": train_mat[:, :, :t + 1].copy(),
+                         "test_loss": error_mat[:, :, :t + 1].copy(),
+                         "test_acc": acc_mat[:, :, :t + 1].copy(),
+                         "heterogeneity": hete[:t + 1].copy()}, f)
+        os.replace(tmp, partial_path)
 
     data_ = {
         "epochs": R,
@@ -209,6 +358,9 @@ def main(argv=None) -> str:
     with open(out, "wb") as f:
         pickle.dump(data_, f)
     print(f"results -> {out}")
+    # the partial is kept: it carries the configuration signature the
+    # result pickle cannot, so a later --resume with a larger
+    # --n_repeats extends the experiment
     return out
 
 

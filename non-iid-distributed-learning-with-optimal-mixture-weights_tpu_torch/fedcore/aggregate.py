@@ -8,11 +8,16 @@ are fixed during the solve) and runs its ``round x |val|/16`` tiny SGD
 steps on ``p`` over that cached ``(n_val, J, C)`` tensor; each epoch is
 one call of ``psolver_kernel.p_epoch`` — on CUDA tensors one launch of
 the hand-written kernel. Mixture weights stay UNCONSTRAINED, as in the
-reference (``tools.py:417-423``).
+reference (``tools.py:417-423``), unless the caller opts into a p-guard
+(``resolve_p_guard``): a projection of p after every step, run by the
+plain p-epoch (CPU tensors, or ``kernel_impl="plain"``; the card's
+kernel refuses it). The guard is an explicit argument; the JAX
+package's ``FEDAMW_P_GUARD`` environment variable is not read.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -51,6 +56,20 @@ def fednova_effective_weights(sizes: torch.Tensor, p: torch.Tensor,
     return torch.where(tau > 0, p * tau_eff / safe_tau, 0.0)
 
 
+def participation_weights(agg_w: torch.Tensor,
+                          part: torch.Tensor) -> torch.Tensor:
+    """Aggregation weights restricted to a participation mask (the JAX
+    package's ``aggregate.py:95-123``, without its reputation ``trust``):
+    the weights of absent clients are zeroed and the rest rescaled to
+    carry the full mass ``sum(agg_w)``. An all-absent round returns all
+    zeros (callers keep the old global weights then)."""
+    masked = agg_w * part
+    total = torch.sum(masked)
+    scale = torch.where(total > 0,
+                        torch.sum(agg_w) / torch.clamp(total, min=1e-30), 0.0)
+    return masked * scale
+
+
 def client_logits(apply_fn: Callable, stacked_params: dict,
                   X: torch.Tensor) -> torch.Tensor:
     """Per-client predictions on a shared matrix, ``(n, J, C)``.
@@ -62,6 +81,67 @@ def client_logits(apply_fn: Callable, stacked_params: dict,
     """
     preds = apply_fn(stacked_params, X)          # (J, n, C)
     return preds.permute(1, 0, 2).contiguous()
+
+
+def resolve_p_guard(p_guard: str = "none") -> str:
+    """Validate the opt-in mixture-weight guard: ``"none"`` (the
+    reference's unconstrained p), ``"simplex"`` (Euclidean projection
+    onto the probability simplex after every p step) or ``"clip"`` /
+    ``"clip:R"`` (rescale p to L2 norm <= R, default 1, when above it).
+    Raises ``ValueError`` for anything else, with the JAX package's
+    messages (``aggregate.py:176-216``)."""
+    if p_guard.startswith("clip:"):
+        try:
+            radius = float(p_guard.split(":", 1)[1])
+        except ValueError:
+            radius = -1.0
+        if not (radius > 0) or math.isinf(radius):
+            raise ValueError(
+                f"p_guard={p_guard!r}: the clip radius must be a positive "
+                "finite number, e.g. 'clip:2.5'")
+    elif p_guard not in ("none", "simplex", "clip"):
+        raise ValueError(
+            f"p_guard={p_guard!r}; expected 'none', 'simplex', 'clip' "
+            "or 'clip:R'")
+    return p_guard
+
+
+def project_simplex(v: torch.Tensor, valid=None) -> torch.Tensor:
+    """Euclidean projection of ``v (J,)`` onto the probability simplex
+    (sort-based). With a 0/1 ``valid`` mask it runs over the valid
+    entries only: invalid ones project to exactly 0 and the valid ones
+    sum to 1 (``aggregate.py:219-241`` of the JAX package)."""
+    J = v.shape[0]
+    if valid is None:
+        valid = torch.ones_like(v)
+    u = torch.sort(torch.where(valid > 0, v, -math.inf),
+                   descending=True).values
+    finite = torch.isfinite(u)
+    css = torch.cumsum(torch.where(finite, u, 0.0), 0)
+    k = torch.arange(1, J + 1, dtype=v.dtype, device=v.device)
+    rho = torch.sum((u + (1.0 - css) / k > 0) & finite)
+    # a gather, not css[rho - 1]: a 0-d tensor index reads it on the host
+    last = torch.gather(css, 0, torch.clamp(rho - 1, min=0).reshape(1))[0]
+    theta = (last - 1.0) / torch.clamp(rho.to(v.dtype), min=1.0)
+    return torch.where(valid > 0, torch.clamp(v - theta, min=0.0), 0.0)
+
+
+def make_guard(p_guard: str):
+    """None for ``"none"``; else ``guard(p, valid) -> p``, applied after
+    every p step (projected SGD)."""
+    p_guard = resolve_p_guard(p_guard)
+    if p_guard == "none":
+        return None
+    if p_guard == "simplex":
+        return project_simplex
+    radius = float(p_guard.split(":", 1)[1]) if ":" in p_guard else 1.0
+
+    def clip(p, valid=None):
+        norm = torch.sqrt(torch.sum(torch.square(p)))
+        return p * torch.clamp(radius / torch.clamp(norm, min=1e-30),
+                               max=1.0)
+
+    return clip
 
 
 def make_p_solver(
@@ -89,14 +169,13 @@ def make_p_solver(
     (a ``(J,)`` 0/1 mask) zeroes the gradient, and so the momentum, of
     invalid clients every step.
 
-    ``p_guard`` other than ``"none"`` raises: the simplex and clip guards
-    are not ported yet (ROADMAP.md, queue 1). ``kernel_impl`` as in
-    ``client.make_client_round``.
+    ``p_guard`` (``resolve_p_guard``) projects p after every step, with
+    ``client_valid`` as the simplex's mask; the kernels implement the
+    reference's unconstrained update, so a guarded solve runs on CPU
+    tensors or with ``kernel_impl="plain"`` and is refused on the card.
+    ``kernel_impl`` as in ``client.make_client_round``.
     """
-    if p_guard != "none":
-        raise NotImplementedError(
-            f"p_guard={p_guard!r} is not ported yet; only 'none' is (see "
-            "ROADMAP.md, queue 1)")
+    guard = make_guard(p_guard)
     epoch_fn = cuda_build.kernel_or_plain(kernel_impl, p_epoch, p_epoch_plain)
     S, _ = batch_counts(n_val, batch_size)
 
@@ -121,7 +200,7 @@ def make_p_solver(
                                    logits, y_val,
                                    positions[e].contiguous(),
                                    valid[e].contiguous(), lr_p, momentum,
-                                   task)
+                                   task, guard=guard)
         state = {"trace": buf} if momentum > 0 else {}
         return (p, state) + weighted_epoch_metrics(met[0], met[1], met[2])
 

@@ -30,7 +30,12 @@ Batches too large to stage at any cluster size run an unstaged kernel
 
 ``client_epoch`` is the wrapper: CPU tensors go to ``client_epoch_plain``,
 the plain PyTorch version of the same function; CUDA tensors launch the
-kernel or raise. ``client_epoch.launches`` counts kernel launches.
+kernel ``launch_plan`` names or raise. A shape no plan takes (more than
+32 classes, or a D whose W and anchor fit no block's shared memory) is
+refused on the card before any launch; it runs there through
+``kernel_impl="plain"``. ``client_epoch.launches`` counts kernel
+launches, ``client_epoch.launches_by_kernel`` the same by kernel
+(``"staged"``, ``"unstaged"``).
 """
 
 from __future__ import annotations
@@ -196,7 +201,7 @@ class EpochPlan:
 
 def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
                 smem_limit: int = cuda_build.SMEM_LIMIT,
-                cluster: int | None = None) -> EpochPlan:
+                cluster: int | None = None) -> EpochPlan | None:
     """The launch shape for ``J`` clients of batch ``B``, ``C`` classes
     and ``D`` features on a card of ``num_sms`` SMs.
 
@@ -204,12 +209,18 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
     that fits two step tiles in ``smem_limit`` and the largest whose
     ``J * k`` CTAs still fit the SMs in one wave (more SMs per client
     shorten the critical chain), halved while a slice would be empty.
-    ``cluster`` forces ``k`` (it must fit). When no ``k`` fits, the
-    unstaged kernel runs if W and the anchor fit whole; else the shape is
-    refused with ``ValueError``.
+    ``cluster`` forces ``k`` (``ValueError`` when it does not fit). When
+    no ``k`` fits, the unstaged kernel runs if W and the anchor fit
+    whole; else, and for more than ``MAX_CLASSES`` classes, the result is
+    None: no kernel takes the shape.
     """
-    if J < 0 or B < 1 or D < 1:
-        raise ValueError(f"bad shape J={J}, B={B}, D={D}")
+    if J < 0 or B < 1 or C < 1 or D < 1:
+        raise ValueError(f"bad shape J={J}, B={B}, C={C}, D={D}")
+    if C > MAX_CLASSES:
+        if cluster is not None:
+            raise ValueError(f"cluster {cluster} does not fit C={C}: the "
+                             f"kernel takes at most {MAX_CLASSES} classes")
+        return None
     classes = instantiated_classes(C)
     sizes = [k for k in (1, 2, 4, MAX_CLUSTER)
              if staged_smem_bytes(B, C, D, k) <= smem_limit]
@@ -228,9 +239,7 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
     else:
         smem = unstaged_smem_bytes(B, C, D)
         if smem > smem_limit:
-            raise ValueError(
-                f"client_epoch kernel needs {smem} bytes of shared memory "
-                f"for C={C}, D={D}, B={B}; a block has {smem_limit}")
+            return None
         return EpochPlan(0, D, 8 if C <= 8 else MAX_CLASSES, smem, J)
     return EpochPlan(k, slice_width(D, k), classes,
                      staged_smem_bytes(B, C, D, k), J * k)
@@ -297,7 +306,8 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     """One local epoch of all J clients; same contract as
     ``client_epoch_plain``. CPU tensors run the plain version; CUDA
     tensors launch ``csrc/client_epoch.cu`` as ``launch_plan`` says, or
-    raise. ``cluster`` forces the cluster size (for measurement)."""
+    raise where no plan takes the shape. ``cluster`` forces the cluster
+    size (for measurement)."""
     _check(W, anchor, X, y, rows, valid, task)
     if W.device.type == "cpu":
         return client_epoch_plain(W, anchor, X, y, rows, valid, lr, mu, lam,
@@ -308,6 +318,12 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     S, B = rows.shape[1:]
     sms = torch.cuda.get_device_properties(W.device).multi_processor_count
     plan = launch_plan(J, B, C, D, sms, cluster=cluster)
+    if plan is None:
+        raise ValueError(
+            f"no client_epoch kernel takes C={C}, D={D}, B={B}: it needs "
+            f"C <= {MAX_CLASSES} and {unstaged_smem_bytes(B, C, D)} bytes "
+            f"of shared memory at most {cuda_build.SMEM_LIMIT} (ROADMAP.md "
+            "queue 2 item 3): run it with kernel_impl='plain'")
     lib = _library()
     _check_plan(lib, plan, B, C, D)
     W_out = torch.empty_like(W)
@@ -332,7 +348,15 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
             metrics.data_ptr(), J, S, B, C, D, is_cls, *scalars)
     cuda_build.check(err, "client_epoch launch", lib)
     client_epoch.launches += 1
+    client_epoch.launches_by_kernel[
+        "staged" if plan.cluster else "unstaged"] += 1
     return W_out, metrics
 
 
-client_epoch.launches = 0
+def reset_counts() -> None:
+    """Set ``client_epoch``'s launch counts to 0."""
+    client_epoch.launches = 0
+    client_epoch.launches_by_kernel = dict.fromkeys(("staged", "unstaged"), 0)
+
+
+reset_counts()

@@ -25,8 +25,13 @@ first design (one CTA of 256 threads, five barriers per step).
 
 ``p_epoch`` is the wrapper: CPU tensors go to ``p_epoch_plain``, the
 plain PyTorch version; CUDA tensors launch the kernel the plan names or
-raise. ``p_epoch.launches`` counts kernel launches,
-``p_epoch.launches_by_kernel`` the same by kernel.
+raise. Two cases are refused on the card, before any launch: a shape no
+plan takes (ROADMAP.md queue 2 item 3, a J split across a cluster, would
+take it), and a guarded epoch (``guard``, the p-guards of
+``aggregate.py``: the kernels run the reference's unconstrained update,
+as the JAX package's Pallas kernel does; queue 2 item 5). Both run on the
+card through ``kernel_impl="plain"``. ``p_epoch.launches`` counts kernel
+launches, ``p_epoch.launches_by_kernel`` the same by kernel.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ KERNELS = ("staged", "unstaged")
 
 
 def p_epoch_plain(p, buf, cv, logits, y_val, positions, valid, lr, momentum,
-                  task):
+                  task, guard=None):
     """The epoch in plain PyTorch.
 
     ``p, buf, cv (J,)`` mixture weights, momentum buffer and client
@@ -55,8 +60,10 @@ def p_epoch_plain(p, buf, cv, logits, y_val, positions, valid, lr, momentum,
     or float32 targets; ``positions, valid (S, B)``. Each step:
     ``z = einsum('bjc,j->bc')``, masked-mean CE/MSE, ``g = einsum(
     'bjc,bc->j') * cv``, ``buf = m*buf + g``, ``p -= lr*buf`` (optax /
-    torch SGD momentum; no count guard). Returns ``(p, buf, metrics (3,))``
-    with ``(sum loss*cnt, sum correct, sum cnt)``.
+    torch SGD momentum; no count guard), then ``p = guard(p, cv)`` when a
+    ``guard`` is given (projected SGD: the momentum is left as it is).
+    Returns ``(p, buf, metrics (3,))`` with ``(sum loss*cnt, sum correct,
+    sum cnt)``.
 
     The epoch's gathered logits ``(S, B, J, C)`` are built in one index op
     when they fit ``client.EPOCH_GATHER_BYTES_LIMIT``, else per step.
@@ -97,6 +104,8 @@ def p_epoch_plain(p, buf, cv, logits, y_val, positions, valid, lr, momentum,
         g = torch.einsum("bjc,bc->j", lb, d) * cv
         buf = momentum * buf + g
         p = p - lr * buf
+        if guard is not None:
+            p = guard(p, cv)
         steps.append(torch.stack([loss * cnt, correct, cnt]))
     return p, buf, torch.stack(steps).sum(0)
 
@@ -170,15 +179,14 @@ class PEpochPlan:
     smem_bytes: int
 
 
-def launch_plan(B: int, J: int, C: int,
-                kernel: str | None = None) -> PEpochPlan:
+def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
+                smem_limit: int = cuda_build.SMEM_LIMIT) -> PEpochPlan | None:
     """The kernel for batch ``B``, ``J`` clients and ``C`` classes, by
     shape alone: the staged kernel when ``B <= 512``, ``C <= 32`` and
     its two stages plus ``h`` fit a block's shared memory
-    (``cuda_build.SMEM_LIMIT``); else the unstaged kernel when its step
-    block fits; else ``ValueError``. ``kernel`` forces one of
-    ``KERNELS`` (it must fit)."""
-    smem_limit = cuda_build.SMEM_LIMIT
+    (``smem_limit``); else the unstaged kernel when its step block fits;
+    else None (no kernel takes the shape). ``kernel`` forces one of
+    ``KERNELS``, and ``ValueError`` says when it does not fit."""
     if B < 1 or J < 1 or C < 1:
         raise ValueError(f"bad shape B={B}, J={J}, C={C}")
     if kernel not in (None,) + KERNELS:
@@ -196,12 +204,7 @@ def launch_plan(B: int, J: int, C: int,
             raise ValueError(f"the {kernel} p_epoch kernel does not fit "
                              f"B={B}, J={J}, C={C}; these do: {list(fits)}")
         return fits[kernel]
-    if not fits:
-        raise ValueError(
-            f"p_epoch kernels need {staged_smem_bytes(B, J, C)} (staged) or "
-            f"{smem} (unstaged) bytes of shared memory for B={B}, J={J}, "
-            f"C={C}; a block has {smem_limit}")
-    return next(iter(fits.values()))
+    return next(iter(fits.values()), None)
 
 
 def kernel_symbol(plan: PEpochPlan, C: int) -> str:
@@ -258,20 +261,36 @@ def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
 
 
 def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
-            kernel=None):
+            kernel=None, guard=None):
     """One p-solver epoch; same contract as ``p_epoch_plain``. CPU
     tensors run the plain version; CUDA tensors launch the kernel of
-    ``launch_plan`` from ``csrc/p_epoch.cu`` (one CTA) or raise.
-    ``kernel`` forces ``"staged"`` or ``"unstaged"`` (for measurement)."""
+    ``launch_plan`` from ``csrc/p_epoch.cu`` (one CTA) or raise: a shape
+    no plan takes and a ``guard`` are refused there. ``kernel`` forces
+    ``"staged"`` or ``"unstaged"`` (for measurement); a forced kernel
+    with a guard is refused on every device, as the JAX package refuses
+    its pinned Pallas kernel with an active p-guard."""
     _check(p, buf, cv, logits, y_val, positions, valid, task)
+    if guard is not None and (kernel is not None or p.device.type == "cuda"):
+        raise ValueError(
+            "the p_epoch kernel cannot run with an active p_guard (it "
+            "implements the reference's unconstrained update; a guard "
+            "inside kernel 2 is ROADMAP.md queue 2 item 5): run the guarded "
+            "solve with kernel_impl='plain'")
     if p.device.type == "cpu":
         return p_epoch_plain(p, buf, cv, logits, y_val, positions, valid,
-                             lr, momentum, task)
+                             lr, momentum, task, guard)
     if p.device.type != "cuda":
         raise ValueError(f"p_epoch runs on cpu or cuda, not {p.device}")
     S, B = positions.shape
     _, J, C = logits.shape
     plan = launch_plan(B, J, C, kernel=kernel)
+    if plan is None:
+        raise ValueError(
+            f"p_epoch kernels need {staged_smem_bytes(B, J, C)} (staged) or "
+            f"{unstaged_smem_bytes(B, J, C)} (unstaged) bytes of shared "
+            f"memory for B={B}, J={J}, C={C}; a block has "
+            f"{cuda_build.SMEM_LIMIT} (a J split across a cluster is "
+            "ROADMAP.md queue 2 item 3): run it with kernel_impl='plain'")
     lib = _library()
     _check_plan(lib, plan, B, J, C)
     p_out = torch.empty_like(p)
@@ -295,5 +314,10 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
     return p_out, buf_out, metrics
 
 
-p_epoch.launches = 0
-p_epoch.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+def reset_counts() -> None:
+    """Set ``p_epoch``'s launch counts to 0."""
+    p_epoch.launches = 0
+    p_epoch.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+reset_counts()

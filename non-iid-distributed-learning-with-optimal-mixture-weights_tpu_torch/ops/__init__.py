@@ -8,7 +8,7 @@ from .losses import (
     ridge_penalty,
     training_loss,
 )
-from .metrics import top1_correct
+from .metrics import Meter, comp_accuracy, error_estimate, top1_correct
 from .rff import (
     data_heterogeneity,
     heterogeneity_from_parts,
@@ -27,6 +27,9 @@ __all__ = [
     "ridge_penalty",
     "training_loss",
     "top1_correct",
+    "Meter",
+    "comp_accuracy",
+    "error_estimate",
     "data_heterogeneity",
     "heterogeneity_from_parts",
     "rff_map",

@@ -1,0 +1,3 @@
+from .checkpoint import CheckpointError, load_checkpoint, save_checkpoint
+
+__all__ = ["CheckpointError", "load_checkpoint", "save_checkpoint"]

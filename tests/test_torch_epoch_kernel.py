@@ -222,15 +222,39 @@ def test_plan_instantiated_classes(C, nc):
 
 
 def test_plan_refuses_what_fits_nowhere():
-    for C in (0, 33):
-        with pytest.raises(ValueError, match="classes"):
-            ek.launch_plan(5, 32, C, 256, H100_SMS)
-    with pytest.raises(ValueError, match="shared memory"):
-        ek.launch_plan(5, 4096, 32, 4000, H100_SMS)
+    """No plan (None) past the instantiated classes or shared memory; a
+    bad shape or a forced cluster that does not fit raise."""
+    assert ek.launch_plan(5, 32, 33, 256, H100_SMS) is None
+    assert ek.launch_plan(5, 4096, 32, 4000, H100_SMS) is None
+    with pytest.raises(ValueError, match="bad shape"):
+        ek.launch_plan(5, 32, 0, 256, H100_SMS)
+    with pytest.raises(ValueError, match="at most 32 classes"):
+        ek.launch_plan(5, 32, 33, 256, H100_SMS, cluster=1)
     with pytest.raises(ValueError, match="does not fit"):
         ek.launch_plan(50, 32, 10, 2000, H100_SMS, cluster=2)
     with pytest.raises(ValueError, match="bad shape"):
         ek.launch_plan(5, 0, 10, 256, H100_SMS)
+
+
+@pytest.mark.parametrize("J,B,C,D,smem_limit,route", [
+    (50, 32, 10, 2000, cuda_build.SMEM_LIMIT, 4),   # the main path
+    (400, 32, 10, 2000, cuda_build.SMEM_LIMIT, 4),  # 400 partitions
+    (50, 1024, 10, 2000, cuda_build.SMEM_LIMIT, 0),  # the unstaged kernel
+    (5, 32, 33, 256, cuda_build.SMEM_LIMIT, None),  # more than 32 classes
+    (5, 4096, 32, 4000, cuda_build.SMEM_LIMIT, None),
+    (5, 32, 10, 20000, cuda_build.SMEM_LIMIT, None),  # W too wide to hold
+    (50, 32, 10, 2000, 100000, 8),   # a smaller block: a wider cluster
+    (50, 32, 10, 2000, 20000, None),
+])
+def test_plan_is_none_where_no_kernel_takes_the_shape(J, B, C, D,
+                                                      smem_limit, route):
+    """The plan by shape alone, with ``num_sms`` and ``smem_limit``
+    passed in: its cluster size, or None where no kernel takes the shape
+    (the wrapper then refuses CUDA tensors before any launch)."""
+    plan = ek.launch_plan(J, B, C, D, H100_SMS, smem_limit)
+    assert (plan.cluster if plan else None) == route
+    if plan is not None:
+        assert plan.smem_bytes <= smem_limit
 
 
 def test_plan_falls_back_to_unstaged_kernel_for_huge_batches():
@@ -342,6 +366,18 @@ def test_cuda_kernel_unaligned_rows():
     Xu.copy_(X)
     assert Xu.data_ptr() % 16 != 0
     _kernel_vs_plain("classification", [W, w0, Xu, y, rows, valid])
+
+
+@pytest.mark.cuda
+def test_cuda_shape_no_plan_takes_is_refused():
+    """33 classes: no instantiation takes them, so the wrapper refuses
+    CUDA tensors before any launch (``kernel_impl="plain"`` runs them)."""
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", J=5, S=3, C=33, D=256)
+    before = dict(client_epoch.launches_by_kernel)
+    with pytest.raises(ValueError, match="no client_epoch kernel takes"):
+        client_epoch(*args, 0.1, 0.05, 0.01, "classification")
+    assert client_epoch.launches_by_kernel == before
 
 
 @pytest.mark.cuda

@@ -4,8 +4,11 @@ sklearn ``digits``, RFF D=64, J=4 clients, R=2 rounds of 1 local epoch,
 one repeat, ``--device cpu``: the pickle has exactly the schema of the
 repository's ``exp.py`` and the JAX package's reader takes it, its rows
 are the port's algorithms called directly with the driver's arguments,
-every JAX-only extension flag is refused with its ROADMAP.md item, and
-without a card the driver raises instead of running on the CPU.
+the extension flags the port carries reach the algorithms the JAX
+driver sends them to (``--resume`` continues a partial run bit for bit,
+``--save_models`` writes checkpoints the JAX package reads), every flag
+it does not carry is refused with its ROADMAP.md item, and without a
+card the driver raises instead of running on the CPU.
 """
 
 import pickle
@@ -131,3 +134,119 @@ def test_module_entry_point_from_the_repo_root(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "results ->" in res.stdout
     assert load_results(str(tmp_path / "exp1_digits.pkl"))["epochs"] == 1
+
+
+# -- the extension flags the port carries ------------------------------------
+
+
+@pytest.mark.parametrize("flag,value,attr,want", [
+    ("--sequential", None, "sequential", True),
+    ("--participation", "0.5", "participation", 0.5),
+    ("--server_opt", "yogi", "server_opt", "yogi"),
+    ("--server_lr", "0.25", "server_lr", 0.25),
+    ("--p_guard", "clip:2", "p_guard", "clip:2"),
+    ("--save_models", "ckpts", "save_models", "ckpts"),
+    ("--resume", None, "resume", True)])
+def test_ported_flags_parse(flag, value, attr, want):
+    args = exp.parse_args(ARGV + [flag] + ([value] if value else []))
+    assert getattr(args, attr) == want
+    assert flag not in exp._REFUSED
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--p_guard", "auto"], "expected 'none'"),
+    (["--p_guard", "clip:0"], "clip radius"),
+    (["--server_opt", "rmsprop"], "invalid choice"),
+    (["--p_guard", "simplex", "--device", "cuda"], "queue 2 item 5")])
+def test_bad_extension_values_are_argparse_errors(argv, msg, capsys):
+    with pytest.raises(SystemExit) as err:
+        exp.parse_args(ARGV + argv)
+    assert err.value.code == 2 and msg in capsys.readouterr().err
+
+
+def _run(tmp, *extra):
+    path = exp.main(ARGV + ["--result_dir", str(tmp), *extra])
+    return load_results(path)
+
+
+def test_extensions_reach_the_algorithms_as_the_jax_driver_sends_them(
+        tmp_path):
+    """``--sequential`` to all but Centralized, ``--participation`` to
+    FedAvg, FedProx and FedAMW, ``--server_opt`` to FedAvg and FedProx,
+    ``--p_guard`` to FedAMW and FedAMW_OneShot."""
+    flags = ["--sequential", "--server_opt", "adam", "--server_lr", "0.1",
+             "--p_guard", "simplex"]
+    data = _run(tmp_path, *flags)
+    prm = get_parameter("digits")
+    rng = np.random.RandomState(SEED)
+    ds = load_dataset("digits", 4, 0.01, rng=rng)
+    setup = prepare_setup(ds, D=64, kernel_par=prm["kernel_par"],
+                          seed=SEED, rng=rng, device="cpu")
+    runs = exp.run_paper_algorithms(
+        setup, rounds=R, local_epoch=1, batch_size=32, seed=SEED,
+        lr=prm["lr"], lr_p=prm["lr_p"], lr_p_os=prm["lr_p_os"],
+        mu=prm["lambda_prox"], lam=prm["lambda_reg"],
+        lam_os=prm["lambda_reg_os"], sequential=True, server_opt="adam",
+        server_lr=0.1, p_guard="simplex")
+    for row, (name, res, _) in enumerate(runs):
+        np.testing.assert_array_equal(
+            data["test_loss"][row, :, 0],
+            np.broadcast_to(np.float64(res["test_loss"]), (R,)), err_msg=name)
+    plain = _run(tmp_path / "plain")
+    # Centralized takes none of them; every other row moved
+    np.testing.assert_array_equal(plain["test_loss"][0], data["test_loss"][0])
+    for row in range(1, 6):
+        assert not np.array_equal(plain["test_loss"][row],
+                                  data["test_loss"][row]), row
+
+
+def test_resume_extends_the_repeats_bitwise(tmp_path):
+    """A first run of one repeat, then ``--resume`` with two: the pickle
+    is the uninterrupted two-repeat run's, bit for bit, and the finished
+    repeat is not run again."""
+    full = _run(tmp_path / "full", "--participation", "0.7",
+                "--n_repeats", "2")
+    _run(tmp_path / "split", "--participation", "0.7")
+    partial = tmp_path / "split" / "exp1_digits.partial.pkl"
+    with open(partial, "rb") as f:
+        part = pickle.load(f)
+    assert part["done"] == 1 and part["config"]["participation"] == 0.7
+    resumed = _run(tmp_path / "split", "--participation", "0.7",
+                   "--n_repeats", "2", "--resume")
+    for k in ("train_loss", "test_loss", "test_acc", "heterogeneity"):
+        np.testing.assert_array_equal(resumed[k], full[k], err_msg=k)
+
+
+def test_resume_refuses_a_partial_of_another_configuration(tmp_path,
+                                                            capsys):
+    _run(tmp_path)
+    with pytest.raises(SystemExit) as err:
+        _run(tmp_path, "--resume", "--sequential", "--n_repeats", "2")
+    assert err.value.code == 2
+    assert "different configuration" in capsys.readouterr().err
+
+
+def test_fresh_run_sets_an_earlier_partial_aside(tmp_path):
+    _run(tmp_path)
+    _run(tmp_path)
+    _run(tmp_path)
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert names == ["exp1_digits.partial.pkl", "exp1_digits.partial.pkl.bak",
+                     "exp1_digits.partial.pkl.bak2", "exp1_digits.pkl"]
+
+
+def test_save_models_writes_checkpoints_the_jax_package_reads(tmp_path):
+    from fedamw_tpu.utils.checkpoint import load_checkpoint
+
+    _run(tmp_path / "res", "--save_models", str(tmp_path / "ck"),
+         "--server_opt", "sgd")
+    saved = sorted(p.name for p in (tmp_path / "ck").iterdir())
+    assert saved == [f"digits_{n}_repeat0" for n in
+                     ("FedAMW", "FedAvg", "FedProx")]
+    amw = load_checkpoint(str(tmp_path / "ck" / "digits_FedAMW_repeat0"))
+    assert amw["round"] == R and amw["params"]["w"].shape == (10, 64)
+    assert len(amw["p_opt"]) == 1 and amw["rff_W"].shape[1] == 64
+    avg = load_checkpoint(str(tmp_path / "ck" / "digits_FedAvg_repeat0"))
+    assert avg["server_opt_kind"] == "sgd" and avg["server_opt"] == ()
+    data = load_results(str(tmp_path / "res" / "exp1_digits.pkl"))
+    assert avg["eval_acc"] == pytest.approx(data["test_acc"][3, -1, 0])

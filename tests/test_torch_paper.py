@@ -322,8 +322,8 @@ def test_paper_algorithm_draws_its_own_randomness_deterministically(pair,
 @pytest.mark.parametrize("opt,value,exc", [
     ("participation", 0.5, ValueError), ("faults", "drop=0.1", ValueError),
     ("robust_agg", "median", ValueError),
-    ("sequential", True, NotImplementedError),
-    ("server_opt", "adam", NotImplementedError),
+    ("cohort_shards", 2, NotImplementedError),
+    ("stream_cohort", True, NotImplementedError),
     ("no_such_option", 1, TypeError)])
 def test_one_shot_options_are_refused(pair, algo, opt, value, exc):
     _, st, _ = pair

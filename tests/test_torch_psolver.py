@@ -113,9 +113,40 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
     assert float(a[2][2]) == n_val  # every validation row counted once
 
 
-def test_guards_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_p_solver("classification", 10, p_guard="simplex")
+@pytest.mark.parametrize("guard", ["simplex", "clip", "clip:0.3"])
+def test_guarded_solver_projects_every_step(guard):
+    """A guarded solve runs the plain epoch with the projection after
+    every step: the same as stepping ``p_epoch_plain`` with the guard by
+    hand, and the guard's constraint holds at the end."""
+    from fedamw_tpu_torch.fedcore.aggregate import make_guard
+
+    n_val, J, C, B, E = 40, 5, 4, 16, 2
+    logits, y, p0 = _mk("classification", n_val, J, C, seed=6)
+    pos = _t(_positions(jax.random.PRNGKey(2), n_val, B, E))
+    cv = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0])
+    solve, init = make_p_solver("classification", n_val, B, 0.5, 0.9,
+                                p_guard=guard)
+    p, state, _, _ = solve(_t(logits), _t(y), _t(p0), init(_t(p0)), pos,
+                           client_valid=cv)
+    g = make_guard(guard)
+    pp, buf = _t(p0), torch.zeros(J)
+    for e in range(E):
+        pp, buf, _ = p_epoch_plain(pp, buf, cv, _t(logits), _t(y),
+                                   pos[e].to(torch.int32),
+                                   batch_valid(pos[e], n_val), 0.5, 0.9,
+                                   "classification", guard=g)
+    torch.testing.assert_close(p, pp, rtol=0, atol=0)
+    torch.testing.assert_close(state["trace"], buf, rtol=0, atol=0)
+    if guard == "simplex":
+        assert float(p[2]) == 0.0 and abs(float(p.sum()) - 1) < 1e-6
+    else:
+        radius = float(guard.split(":")[1]) if ":" in guard else 1.0
+        assert float(torch.linalg.norm(p)) <= radius * (1 + 1e-6)
+
+
+def test_unknown_guard_is_refused():
+    with pytest.raises(ValueError, match="expected 'none', 'simplex'"):
+        make_p_solver("classification", 10, p_guard="box")
 
 
 # -- the launch plan (CPU) -----------------------------------------------------
@@ -132,6 +163,41 @@ def test_plan_main_path_layout():
     # the main path's regression twin, and a batch wider than 16 warps
     assert pk.launch_plan(16, 50, 1).classes == 1
     assert pk.launch_plan(33, 50, 10).warps == 16
+
+
+@pytest.mark.parametrize("B,J,C,smem_limit,route", [
+    (16, 50, 10, cuda_build.SMEM_LIMIT, "staged"),     # the main path
+    (16, 355, 10, cuda_build.SMEM_LIMIT, "unstaged"),
+    (16, 356, 10, cuda_build.SMEM_LIMIT, None),        # 400 partitions, say
+    (16, 400, 10, cuda_build.SMEM_LIMIT, None),
+    (16, 137, 26, cuda_build.SMEM_LIMIT, "unstaged"),
+    (16, 138, 26, cuda_build.SMEM_LIMIT, None),
+    (16, 50, 10, 40000, "unstaged"),  # a smaller block: staged no longer fits
+    (16, 50, 10, 20000, None),
+])
+def test_plan_is_none_where_no_kernel_takes_the_shape(B, J, C,
+                                                      smem_limit, route):
+    """The plan by shape alone, with ``smem_limit`` passed in: its
+    kernel, or None where no kernel takes the shape (the wrapper then
+    refuses CUDA tensors before any launch)."""
+    plan = pk.launch_plan(B, J, C, smem_limit=smem_limit)
+    assert (plan.kernel if plan else None) == route
+    if plan is not None:
+        assert plan.smem_bytes <= smem_limit
+
+
+def test_wrapper_counts_no_launch_on_the_cpu():
+    """On the CPU every call is the plain version, even at a shape no
+    plan takes on the card: nothing is counted."""
+    n_val, J, C, B = 40, 400, 10, 16
+    logits, y, p0 = _mk("classification", n_val, J, C, seed=1)
+    pos = _t(_positions(jax.random.PRNGKey(0), n_val, B, 1)[0])
+    pk.reset_counts()
+    p_epoch(_t(p0), torch.zeros(J), torch.ones(J), _t(logits), _t(y),
+            pos.to(torch.int32), batch_valid(pos, n_val), 1e-2, 0.9,
+            "classification")
+    assert p_epoch.launches == 0
+    assert p_epoch.launches_by_kernel == {"staged": 0, "unstaged": 0}
 
 
 @pytest.mark.parametrize("B,J,C,kernel", [
@@ -159,8 +225,7 @@ def test_plan_instantiated_classes(C, nc):
 
 
 def test_plan_refuses_what_fits_nowhere():
-    with pytest.raises(ValueError, match="shared memory"):
-        pk.launch_plan(16, 356, 10)
+    assert pk.launch_plan(16, 356, 10) is None
     with pytest.raises(ValueError, match="does not fit"):
         pk.launch_plan(16, 200, 10, kernel="staged")
     with pytest.raises(ValueError, match="kernel must be"):
@@ -242,13 +307,28 @@ def test_cuda_kernel_grid_matches_plain_version(task, C, J, B):
     _need_card()
     n_val = 3 * B + 5
     args = _p_inputs(task, n_val, J, C, B)
-    try:
-        pk.launch_plan(B, J, C)
-    except ValueError:
+    if pk.launch_plan(B, J, C) is None:
         with pytest.raises(ValueError, match="shared memory"):
             p_epoch(*args, 1e-2, 0.9, task)
         return
     _kernel_vs_plain(args, task)
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_epoch_is_refused():
+    """The kernel runs the unconstrained update, so a guard on CUDA
+    tensors is refused before any launch; the plain version runs it."""
+    from fedamw_tpu_torch.fedcore.aggregate import project_simplex
+
+    _need_card()
+    args = _p_inputs("classification", 40, 5, 3, 16)
+    before = dict(p_epoch.launches_by_kernel)
+    with pytest.raises(ValueError, match="cannot run with an active p_guard"):
+        p_epoch(*args, 1e-2, 0.9, "classification", guard=project_simplex)
+    assert p_epoch.launches_by_kernel == before
+    p, _, _ = p_epoch_plain(*args, 1e-2, 0.9, "classification",
+                            guard=project_simplex)
+    assert abs(float(p.sum()) - 1) < 1e-6
 
 
 @pytest.mark.cuda

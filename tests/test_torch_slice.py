@@ -105,7 +105,7 @@ def test_port_round_loop_matches_jax(pair, algo, jax_kernels, monkeypatch):
         # the learned p moved away from the sample-count weights
         assert not np.allclose(rt["p"].numpy(), st.p_fixed.numpy())
         np.testing.assert_allclose(
-            rt["p_opt"]["trace"].numpy(),
+            rt["p_opt"][0].numpy(),
             np.asarray(jax.tree_util.tree_leaves(rj["p_opt"])[0]), **TOL)
 
 
@@ -124,9 +124,8 @@ def test_port_draws_its_own_randomness_deterministically(pair):
 
 
 @pytest.mark.parametrize("opt,value", [
-    ("participation", 0.5), ("faults", "drop=0.1"), ("robust_agg", "median"),
-    ("server_opt", "adam"), ("resume_from", {}), ("sequential", True),
-    ("cohort_shards", 2)])
+    ("faults", "drop=0.1"), ("robust_agg", "median"), ("cohort_shards", 2),
+    ("stream_cohort", True), ("analyze_memory", True)])
 def test_waiting_options_raise(pair, opt, value):
     _, st, _, _ = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
