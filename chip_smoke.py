@@ -6,9 +6,12 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per
-source, all at once), holds each kernel against its plain PyTorch version
-on the card at the main path's shapes (kernel 1 also at Centralized's
-one-client shape), and drives the paper's experiment through the public
+library, all at once: kernel 1 once per row type), holds each kernel
+against its plain PyTorch version on the card at the main path's shapes
+(kernel 1 also at Centralized's one-client shape and with bfloat16 and
+float16 rows; kernel 2 also on its split plan at J = 400, 1000 and 4096,
+and with each p-guard on each plan), and drives the paper's experiment
+through the public
 entry points on the mnist-shaped data (60000 x 784 -> RFF D=2000, 10
 classes, J=50 clients, Dirichlet alpha 0.01, the registry's
 hyper-parameters), every launch counter reset just before each algorithm
@@ -34,12 +37,13 @@ and read just after:
   FedProx with ``"yogi"``, FedAMW split at round 2 through a checkpoint
   (bitwise the uninterrupted run) and the driver's ``--resume`` (a
   one-repeat run continued to two, bitwise the uninterrupted two-repeat
-  pickle); and two runs the card refuses at their first p-solve, before
-  any p-epoch launch: FedAMW with ``p_guard="simplex"`` (kernel 2 runs
-  the unconstrained update) and FedAMW at 400 partitions (more clients
-  than kernel 2's plans hold), each then run on the plain versions
-  (``kernel_impl="plain"``, as the refusal says) and timed, the guarded
-  p required on the simplex;
+  pickle); FedAMW with ``p_guard="simplex"`` (the guard in kernel 2's
+  epilogue; p required on the simplex) and FedAMW at 400 partitions
+  (kernel 2's split plan);
+- ``feature_dtype``: FedAvg and FedAMW on the main configuration with the
+  features stored in bfloat16 (kernel 1 reads 2-byte rows), 3 rounds,
+  each against its plain run, round ms beside the float32 main path's
+  and the feature matrices' bytes;
 - ``profile``: the device shuffle draw of one round alone
   (``draw_ms_per_round``, CUDA events), then one profiled FedAMW run
   (device time by kernel, the device's busy share of the wall time);
@@ -53,9 +57,14 @@ and read just after:
   the staged kernel on the main path, which the counted runs must have
   launched), the staged kernel's registers and ``spill_bytes`` (it must
   be 0), and the staged and the unstaged kernel timed on the same inputs
-  (``ms_by_plan``); a ``p_solve_100_epochs_ms`` line times
-  ``make_p_solver``'s solve over 100 epochs (the p-solve of one round of
-  the paper's 100-round run);
+  (``ms_by_plan``: staged, split and unstaged at J = 50); rows of their
+  own for the split plan (J = 400, C = 10, and J = 4096, C = 2), the
+  guarded epochs (clip and simplex at J = 50 and 400, with the simplex's
+  fixed-point rounds per step) and kernel 1's bfloat16 rows
+  (``ms_by_dtype`` beside float32 and float16 at the main shape and at
+  Centralized's), each launch count from the run of its own path; a
+  ``p_solve_100_epochs_ms`` line times ``make_p_solver``'s solve over 100
+  epochs (the p-solve of one round of the paper's 100-round run);
 - ``paper_run``: the driver's six algorithms at the paper's length (100
   rounds of 2 local epochs, one repeat), each one's wall seconds beside
   the card's name and power limit, with no plain reference.
@@ -83,7 +92,10 @@ SEED = 100                 # the JAX package's experiment seed (exp.py)
 J, D, ROUNDS, EPOCHS, B, VB = 50, 2000, 3, 2, 32, 16
 PAPER_ROUNDS = 100         # the paper's run length (exp.py --round)
 OPT_ROUNDS = 2             # rounds of an options case
-MANY_CLIENTS = 400         # more clients than kernel 2's plans hold at C=10
+MANY_CLIENTS = 400         # more clients than one CTA of kernel 2 holds at C=10
+# kernel 2's split plan: (J, C) past one CTA (B = VB, the main n_val)
+SPLIT_SHAPES = ((MANY_CLIENTS, 10), (1000, 26), (4096, 2))
+GUARDS = ("clip", "clip:0.5", "simplex")
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -153,8 +165,9 @@ def options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
     """The ``options`` phase: each case is run on the plain versions and
     then counted on the kernels (counts reset just before, read just
     after), held against its plain run at ``TOL_RUN``, and its launches
-    checked; then the two runs the card refuses, each required to raise
-    at its first p-solve with no p-epoch launched."""
+    checked, by kernel where a case names the p-epoch kernel it must run
+    (the guard in the staged kernel's epilogue, 400 clients on the split
+    plan)."""
     import numpy as np
     import torch
 
@@ -188,7 +201,7 @@ def options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
                          "seconds": many_s}})
 
     # name, algorithm, setup, keywords, expected client_epoch and
-    # p_epoch launches
+    # p_epoch launches (and, where named, the kernel every p-epoch runs)
     cases = [
         ("FedAvg sequential", FedAvg, setup, dict(base, sequential=True),
          (R2 * J * EPOCHS, 0)),
@@ -203,68 +216,48 @@ def options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
               server_lr=0.01), (R2 * EPOCHS, 0)),
         ("FedAMW resume", FedAMW, setup, dict(amw_kw, round=3),
          (3 * EPOCHS, 9)),
+        ("FedAMW p_guard=simplex", FedAMW, setup,
+         dict(amw, p_guard="simplex"), (R2 * EPOCHS, R2 * R2, "staged")),
+        (f"FedAMW num_partitions={MANY_CLIENTS}", FedAMW, many, amw,
+         (R2 * EPOCHS, R2 * R2, "split")),
     ]
-    runs = {}
+    runs, launched = {}, {}
     for name, fn, s, fkw, want in cases:
         ref, plain_secs = timed(fn, s, kernel_impl="plain", **fkw)
         reset_counts()
         res, secs = timed(fn, s, **fkw)
         c = counts()
-        runs[name] = res
+        runs[name], launched[name] = res, c
         got = (c["client_epoch"], c["p_epoch"])
         ok, diffs = vs_plain(res, ref)
-        emit({"phase": "options", "case": name, "card": card,
-              "seconds": secs, "seconds_plain": plain_secs,
-              "round_ms": 1e3 * secs / len(res["test_loss"]),
-              "launches": c, "expected": {
-                  "client_epoch": want[0], "p_epoch": want[1]},
-              "test_acc": res["test_acc"].tolist(),
-              "test_loss": res["test_loss"].tolist(),
-              "p_sum": float(res["p"].sum()), "vs_plain": diffs,
-              "tol": TOL_RUN, "ok": ok})
-        if not ok:
-            fail(f"options case {name!r} does not match its plain run: "
-                 f"{diffs}")
-        if got != want:
-            fail(f"options case {name!r} launched {c}, expected {want}")
-
-    # refused on the card, at the first p-solve: round 0's client epochs
-    # launch, no p-epoch does (a guard inside kernel 2 and a J split
-    # across a cluster are ROADMAP.md queue 2 items 5 and 3); then the
-    # run the refusal points to, on the plain versions, timed
-    refused = [
-        ("FedAMW p_guard=simplex", setup, dict(amw, p_guard="simplex"),
-         "cannot run with an active p_guard"),
-        (f"FedAMW num_partitions={MANY_CLIENTS}", many, amw,
-         "shared memory"),
-    ]
-    for name, s, fkw, match in refused:
-        reset_counts()
-        try:
-            FedAMW(s, **fkw)
-        except ValueError as e:
-            msg = str(e)
-        else:
-            fail(f"options case {name!r} ran on the card; it must be "
-                 "refused")
-        c = counts()
-        ref, plain_secs = timed(FedAMW, s, kernel_impl="plain", **fkw)
-        p = ref["p"]
-        ok = (match in msg and (c["client_epoch"], c["p_epoch"]) == (EPOCHS, 0)
-              and all(np.all(np.isfinite(ref[k]))
-                      for k in ("train_loss", "test_loss", "test_acc")))
+        p = res["p"]
+        row = {"phase": "options", "case": name, "card": card,
+               "seconds": secs, "seconds_plain": plain_secs,
+               "round_ms": 1e3 * secs / len(res["test_loss"]),
+               "round_ms_plain": 1e3 * plain_secs / len(ref["test_loss"]),
+               "launches": c, "expected": {
+                   "client_epoch": want[0], "p_epoch": want[1]},
+               "test_acc": res["test_acc"].tolist(),
+               "test_loss": res["test_loss"].tolist(),
+               "p_sum": float(p.sum()), "p_min": float(p.min()),
+               "vs_plain": diffs, "tol": TOL_RUN, "ok": ok}
+        if len(want) > 2:
+            # every p-epoch of the run went through the named kernel: none
+            # took a plain route on the card
+            row["p_epoch_kernel"] = want[2]
+            row["p_epochs_not_on_it"] = want[1] - c["p_epoch_by_kernel"][
+                want[2]]
+            ok = ok and row["p_epochs_not_on_it"] == 0
         if "simplex" in name:
-            ok = ok and float(p.min()) >= 0 and abs(float(p.sum()) - 1) <= 1e-6
-        emit({"phase": "options", "case": name, "card": card, "refused": msg,
-              "launches": c, "seconds_plain": plain_secs,
-              "round_ms_plain": 1e3 * plain_secs / len(ref["test_loss"]),
-              "p_sum_plain": float(p.sum()), "p_min_plain": float(p.min()),
-              "ok": ok})
+            ok = ok and float(p.min()) >= 0 and abs(float(p.sum()) - 1) <= 1e-5
+        row["ok"] = ok
+        emit(row)
         if not ok:
-            fail(f"options case {name!r}: refusal {msg!r} after {c} "
-                 f"(expected {match!r} after {EPOCHS} client epochs and no "
-                 "p-epoch), or its plain run is non-finite or, guarded, "
-                 "off the simplex")
+            fail(f"options case {name!r} does not match its plain run, or "
+                 f"its p-epochs did not all run {want[2:]}, or its guarded "
+                 f"p is off the simplex: {diffs}, {c}")
+        if got != want[:2]:
+            fail(f"options case {name!r} launched {c}, expected {want}")
 
     # partial participation, round by round: absent clients end every
     # round with p exactly 0, and the replay is the counted run bitwise
@@ -338,6 +331,7 @@ def options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
     if not drv_ok:
         fail("the driver's --resume pickle is not the uninterrupted "
              "two-repeat run's")
+    return launched
 
 
 def main():
@@ -357,7 +351,7 @@ def main():
     from fedamw_tpu_torch.fedcore import (
         client_epoch, client_epoch_plain, client_logits, make_p_solver,
         p_epoch, p_epoch_plain)
-    from fedamw_tpu_torch.fedcore import cuda_build
+    from fedamw_tpu_torch.fedcore import cuda_build, make_guard
     from fedamw_tpu_torch.fedcore import epoch_kernel as ek
     from fedamw_tpu_torch.fedcore import psolver_kernel as pk
     from fedamw_tpu_torch.fedcore.batching import (
@@ -374,14 +368,16 @@ def main():
     t0 = time.perf_counter()
     built = cuda_build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_s": built, "dir": str(cuda_build.BUILD_DIR)})
-    for name in cuda_build.KERNEL_SOURCES:
-        log = cuda_build.library_path(name).with_suffix(".log")
-        if log.exists():
-            used = [ln.strip() for ln in log.read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
-            emit({"phase": "ptxas", "source": f"csrc/{name}.cu",
-                  "report": used})
+          "per_library_s": built, "dir": str(cuda_build.BUILD_DIR)})
+    for name in cuda_build.BUILDS:
+        usage = cuda_build.ptxas_usage(name)
+        spills = {f: u for f, u in usage.items() if u.get("spill_bytes")}
+        emit({"phase": "ptxas", "library": name,
+              "source": f"csrc/{cuda_build.source_path(name).name}",
+              "flags": list(cuda_build.BUILDS[name][1]),
+              "kernels": len(usage), "max_registers": max(
+                  (u.get("registers", 0) for u in usage.values()),
+                  default=0), "spilling": spills})
 
     # -- 2. the main path's data and setup --------------------------------
     prm = get_parameter("mnist")
@@ -460,6 +456,36 @@ def main():
         if pen == "registry":
             stacked[task] = wk
 
+    # kernel 1 with 2-byte rows (feature_dtype): the main shape and
+    # Centralized's, against the plain version on the same narrow rows
+    k1_narrow_err = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        Xn = setup.X.to(dtype)
+        for shape in (("classification", "registry"),
+                      ("classification", "centralized")):
+            args = k1_in[shape]
+            args = args[:2] + (Xn,) + args[3:]
+            wk, mk = client_epoch(*args)
+            torch.cuda.synchronize()
+            wp, mp = client_epoch_plain(*args)
+            ok_w, err_w = close(wk, wp, **TOL_W)
+            tot = mp[:, 2].clamp(min=1)
+            ok_l, err_l = close(mk[:, 0] / tot, mp[:, 0] / tot, 1e-4, 0)
+            ok_a, err_a = close(100 * mk[:, 1] / tot, 100 * mp[:, 1] / tot,
+                                1e-3, 0)
+            name = str(dtype).removeprefix("torch.")
+            emit({"phase": "kernel_check", "kernel": "client_epoch",
+                  "rows": name, "case": shape[1],
+                  "shape": {"J": int(wk.shape[0]), "C": C, "D": D,
+                            "S": int(args[4].shape[1]), "B": B},
+                  "max_abs_err_w": err_w, "max_abs_err_loss": err_l,
+                  "max_abs_err_acc": err_a, "tol_w": TOL_W,
+                  "ok": ok_w and ok_l and ok_a})
+            if not (ok_w and ok_l and ok_a):
+                fail(f"client_epoch with {name} rows ({shape[1]}) disagrees "
+                     "with its plain version")
+            k1_narrow_err[name] = max(k1_narrow_err.get(name, 0.0), err_w)
+
     n_val = int(setup.X_val.shape[0])
     ppos = draw_epoch_positions(dgen, n_val, VB)
     pvalid = batch_valid(ppos, n_val)
@@ -502,6 +528,70 @@ def main():
         if not (ok_p and ok_b and ok_m and frozen):
             fail(f"p_epoch ({task}, {case}) disagrees with its plain version")
         k2_err = max(k2_err, err_p, err_b)
+
+    # kernel 2 past one CTA (the split plan) and with each p-guard on each
+    # plan: random logits scaled by 1/sqrt(J) (an SGD step stays well
+    # conditioned at every J), labels of C classes, every ninth client
+    # masked, the main path's shuffle; p starts at norm 3, off the
+    # simplex and past both clip radii, so every guard acts from the first
+    # step
+    k_max = pk.split_max_cluster(dev.index or 0)
+
+    def p_case(J2, C2):
+        logits = torch.randn((n_val, J2, C2), generator=dgen,
+                             device=dev) / J2 ** 0.5
+        y2 = torch.randint(0, C2, (n_val,), generator=dgen, device=dev,
+                           dtype=torch.int32)
+        p0 = torch.rand(J2, generator=dgen, device=dev)
+        cv2 = torch.ones(J2, device=dev)
+        cv2[::9] = 0.0
+        return ((3.0 * p0 / p0.norm()).contiguous(), torch.zeros_like(p0),
+                cv2, logits, y2, ppos, pvalid, float(prm["lr_p"]), 0.9,
+                "classification")
+
+    def p_check(args, label, kernel=None, guard=None):
+        g = make_guard(guard) if guard else None
+        pk_, bk, mk = p_epoch(*args, kernel=kernel, guard=g)
+        torch.cuda.synchronize()
+        pp, bp, mp = p_epoch_plain(*args, guard=g)
+        ok_p, err_p = close(pk_, pp, **TOL_P)
+        ok_b, err_b = close(bk, bp, **TOL_P)
+        ok_m, err_m = close(mk[:2] / mk[2], mp[:2] / mp[2], 0, 2e-5)
+        _, J2, C2 = args[3].shape
+        plan = pk.launch_plan(VB, J2, C2, kernel=kernel, max_cluster=k_max)
+        row = {"phase": "kernel_check", "kernel": "p_epoch", "case": label,
+               "guard": guard or "none",
+               "shape": {"n_val": n_val, "J": J2, "C": C2, "B": VB,
+                         "S": int(ppos.shape[0])},
+               "plan": dataclasses.asdict(plan),
+               "max_abs_err_p": err_p, "max_abs_err_buf": err_b,
+               "max_abs_err_metrics": err_m, "tol": TOL_P,
+               "p_sum": float(pk_.sum()), "p_norm": float(pk_.norm()),
+               "ok": ok_p and ok_b and ok_m}
+        emit(row)
+        if not row["ok"]:
+            fail(f"p_epoch ({label}, guard {guard}) disagrees with its "
+                 "plain version")
+        return max(err_p, err_b), plan
+
+    split_in, split_plans = {}, {}
+    for J2, C2 in SPLIT_SHAPES:
+        split_in[J2, C2] = p_case(J2, C2)
+        err, split_plans[J2, C2] = p_check(split_in[J2, C2],
+                                           f"split J={J2} C={C2}")
+        if split_plans[J2, C2].kernel != "split":
+            fail(f"J={J2}, C={C2} does not run the split plan: "
+                 f"{split_plans[J2, C2]}")
+        k2_err = max(k2_err, err)
+    guard_in = {"staged": p_case(J, C), "split": split_in[MANY_CLIENTS, C],
+                "unstaged": None}
+    guard_in["unstaged"] = guard_in["staged"]
+    k2_guard_err = 0.0
+    for kern, args in guard_in.items():
+        for guard in GUARDS:
+            err, _ = p_check(args, f"{kern} guarded", kernel=kern,
+                             guard=guard)
+            k2_guard_err = max(k2_guard_err, err)
 
     # -- 4. the main path, counted ----------------------------------------
     # lr_mode "constant": over a 3-round cut the reference schedule would
@@ -696,7 +786,48 @@ def main():
         fail("the driver's pickle is not exp.py's (6, R, 1) schema")
 
     # -- 7. the round loop's options, each against its plain run ----------
-    options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card)
+    option_launches = options(ds, setup, prm, kw, amw_kw, timed, vs_plain,
+                              card)
+
+    # -- 7b. the features stored in bfloat16 (feature_dtype) ---------------
+    # the main configuration's setup with its features mapped into
+    # bfloat16 (the same draw: each entry the float32 map rounded once);
+    # FedAvg and FedAMW against their plain runs on that setup, counted
+    t0 = time.perf_counter()
+    narrow = prepare_setup(ds, D=D, kernel_par=prm["kernel_par"], seed=SEED,
+                           rng=np.random.RandomState(SEED),
+                           feature_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    narrow_s = time.perf_counter() - t0
+
+    def feature_bytes(s):
+        return sum(t.numel() * t.element_size()
+                   for t in (s.X, s.X_val, s.X_test))
+
+    narrow_launches = {}
+    for name, fn, fkw in algos:
+        ref, plain_secs = timed(fn, narrow, kernel_impl="plain", **fkw)
+        reset_counts()
+        res, secs = timed(fn, narrow, **fkw)
+        c = counts()
+        narrow_launches[name] = c
+        ok, diffs = vs_plain(res, ref)
+        want = (ROUNDS * EPOCHS, ROUNDS * ROUNDS if name == "FedAMW" else 0)
+        got = (c["client_epoch"], c["p_epoch"])
+        emit({"phase": "feature_dtype", "algorithm": name,
+              "feature_dtype": "bfloat16", "card": card,
+              "setup_seconds": narrow_s,
+              "feature_bytes": feature_bytes(narrow),
+              "feature_bytes_float32": feature_bytes(setup),
+              "round_ms": 1e3 * secs / ROUNDS,
+              "round_ms_float32": 1e3 * runs[name][1] / ROUNDS,
+              "round_ms_plain": 1e3 * plain_secs / ROUNDS,
+              "test_acc": res["test_acc"].tolist(),
+              "test_acc_float32": runs[name][0]["test_acc"].tolist(),
+              "launches": c, "vs_plain": diffs, "tol": TOL_RUN, "ok": ok})
+        if not ok or got != want:
+            fail(f"{name} at bfloat16 launched {got} (expected {want}) or "
+                 f"does not match its plain run: {diffs}")
 
     # -- 8. where a FedAMW run's time goes (device time by kernel) ----------
     # the device shuffle draw of one round, alone and before the profiler
@@ -817,11 +948,12 @@ def main():
     if plan.cluster == 0 or usage[0]["spill_bytes"] != 0:
         fail(f"client_epoch main path: plan {plan}, ptxas {usage[0]}")
     k2e = kernels[1]
-    # both kernels on the same inputs, in turns (staged, unstaged,
-    # unstaged, staged): the mean of each kernel's two readings
+    # the three kernels on the same inputs, in turns (staged, split,
+    # unstaged, unstaged, split, staged): the mean of each one's two
+    # readings; the split plan forced at J = 50 is its smallest cluster
     saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
     readings = {kern: [] for kern in pk.KERNELS}
-    for kern in ("staged", "unstaged", "unstaged", "staged"):
+    for kern in pk.KERNELS + pk.KERNELS[::-1]:
         readings[kern].append(cuda_ms(lambda: p_epoch(*k2, kernel=kern), 10))
     by_plan = {kern: sum(r) / len(r) for kern, r in readings.items()}
     p_epoch.launches, p_epoch.launches_by_kernel = saved
@@ -833,6 +965,155 @@ def main():
                 "ms_by_plan": by_plan})
     if plan2.kernel != "staged" or usage2[0]["spill_bytes"] != 0:
         fail(f"p_epoch main path: plan {plan2}, ptxas {usage2[0]}")
+
+    def p_bound(J2, C2):
+        """(bytes, fp32 ops, bound ms, by) of one p-epoch at (J2, C2):
+        the logits, labels, positions, valid, p, buf, cv in and out."""
+        nbytes = 4 * (n_val * J2 * C2 + n_val + 2 * S2 * VB + 5 * J2 + 3)
+        ops = 4 * n_val * J2 * C2 + 4 * J2 * S2
+        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
+        return nbytes, ops, 1e3 * max(t_b, t_o), (
+            "bytes" if t_b >= t_o else "operations")
+
+    def spill(library, symbol):
+        used = [u for f, u in cuda_build.ptxas_usage(library).items()
+                if symbol in f]
+        if len(used) != 1:
+            fail(f"no single ptxas entry for {symbol} in {library}: {used}")
+        return used[0]
+
+    def timed_row(name, fn, plain, a, nbytes, ops, launches, err,
+                  replaces, src, reps=10, **extra):
+        saved = fn.launches, dict(fn.launches_by_kernel)
+        ms = cuda_ms(lambda: fn(*a, **extra), reps)
+        fn.launches, fn.launches_by_kernel = saved
+        plain_ms = cuda_ms(lambda: plain(*a, **{
+            k: v for k, v in extra.items() if k == "guard"}), 2)
+        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
+        return {"name": name, "route": "cuda",
+                "source": "non-iid-distributed-learning-with-optimal-"
+                          f"mixture-weights_tpu_torch/{src}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bound_bytes": nbytes, "bound_fp32_ops": ops,
+                "library_ms": None}
+
+    # kernel 2's split plan: launches from the 400-partition options run;
+    # timed at each split shape, the row's own time at J = 400, C = 10
+    many = f"FedAMW num_partitions={MANY_CLIENTS}"
+    by_shape = {}
+    for (J2, C2), a in split_in.items():
+        plan_s = split_plans[J2, C2]
+        saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
+        ms = cuda_ms(lambda: p_epoch(*a), 5)
+        p_epoch.launches, p_epoch.launches_by_kernel = saved
+        nbytes, ops, bound, by = p_bound(J2, C2)
+        used = spill("p_epoch", pk.kernel_symbol(plan_s, C2))
+        by_shape[f"J={J2} C={C2}"] = {
+            "ms": ms, "us_per_step": 1e3 * ms / S2, "bound_ms": bound,
+            "bound_by": by, "cluster": plan_s.cluster,
+            "slice": plan_s.slice_width, "stream": plan_s.stream,
+            "smem_bytes": plan_s.smem_bytes,
+            "registers": used["registers"],
+            "spill_bytes": used["spill_bytes"]}
+        if used["spill_bytes"] != 0:
+            fail(f"the split kernel spills at J={J2}, C={C2}: {used}")
+    nbytes, ops, _, _ = p_bound(MANY_CLIENTS, C)
+    split_row = timed_row(
+        "p_epoch.split", p_epoch, p_epoch_plain, split_in[MANY_CLIENTS, C],
+        nbytes, ops, option_launches[many]["p_epoch_by_kernel"]["split"],
+        k2_err, k2e["replaces"], "csrc/p_epoch.cu", reps=5)
+    split_row.update({"launches_path": f"options: {many}",
+                      "max_cluster": k_max, "by_shape": by_shape})
+
+    # the guarded epochs: launches from the simplex options run (staged);
+    # timed with each guard on the staged plan (J = 50) and the split plan
+    # (J = 400), the simplex's fixed-point rounds per step read from the
+    # kernel's counter
+    guarded, rounds = {}, torch.zeros(2, dtype=torch.int32, device=dev)
+    for kern, a in (("staged", guard_in["staged"]),
+                    ("split", guard_in["split"])):
+        J2 = a[3].shape[1]
+        cell = {}
+        for guard in (None, "clip", "simplex"):
+            g = make_guard(guard) if guard else None
+            saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
+            cell[guard or "none"] = cuda_ms(lambda: p_epoch(*a, guard=g), 5)
+            if guard == "simplex":
+                p_epoch(*a, guard=g, guard_rounds=rounds)
+                total, most = rounds.tolist()
+                cell["simplex_rounds_per_step"] = total / S2
+                cell["simplex_rounds_max"] = most
+            p_epoch.launches, p_epoch.launches_by_kernel = saved
+        guarded[f"{kern} J={J2}"] = cell
+    nbytes, ops, _, _ = p_bound(J, C)
+    guard_row = timed_row(
+        "p_epoch.guarded", p_epoch, p_epoch_plain, guard_in["staged"],
+        nbytes, ops,
+        option_launches["FedAMW p_guard=simplex"]["p_epoch_by_kernel"][
+            "staged"], k2_guard_err, k2e["replaces"], "csrc/p_epoch.cu",
+        reps=5, guard=make_guard("simplex"))
+    used_g = spill("p_epoch", pk.kernel_symbol(plan2, C, guarded=True))
+    guard_row.update({"launches_path": "options: FedAMW p_guard=simplex",
+                      "guard": "simplex", "registers": used_g["registers"],
+                      "spill_bytes": used_g["spill_bytes"],
+                      "ms_by_plan_and_guard": guarded})
+    if used_g["spill_bytes"] != 0:
+        fail(f"the guarded staged p_epoch kernel spills: {used_g}")
+
+    # kernel 1 with bfloat16 rows: launches from the feature_dtype phase;
+    # the bound counts 2 bytes a feature; ms_by_dtype times float32,
+    # bfloat16 and float16 rows on the same steps, in turns, at the main
+    # shape and at Centralized's
+    narrow_args = args[:2] + (setup.X.to(torch.bfloat16),) + args[3:]
+    n16 = (n_rows * (2 * D + 4) + 4 * (2 * J * C * D + C * D)
+           + 4 * (2 * rows.numel() + 3 * J))
+    bf16_row = timed_row(
+        "client_epoch.bf16", client_epoch, client_epoch_plain, narrow_args,
+        n16, k1_ops, sum(c["client_epoch"] for c in narrow_launches.values()),
+        k1_narrow_err["bfloat16"], k1["replaces"], "csrc/client_epoch.cu")
+    by_dtype = {}
+    for shape, a in (("main", args),
+                     ("centralized", k1_in["classification", "centralized"])):
+        xs = {"float32": a[2], "bfloat16": a[2].to(torch.bfloat16),
+              "float16": a[2].to(torch.float16)}
+        reads = {k: [] for k in xs}
+        saved = client_epoch.launches, dict(client_epoch.launches_by_kernel)
+        for k in list(xs) + list(xs)[::-1]:
+            aa = a[:2] + (xs[k],) + a[3:]
+            reads[k].append(cuda_ms(lambda: client_epoch(*aa), 5))
+        client_epoch.launches, client_epoch.launches_by_kernel = saved
+        Jx = int(a[0].shape[0])
+        by_dtype[shape] = {k: {
+            "ms": sum(r) / 2,
+            "cluster": ek.launch_plan(Jx, B, C, D, sms, row_bytes=xs[
+                k].element_size()).cluster} for k, r in reads.items()}
+    plan16 = ek.launch_plan(J, B, C, D, sms, row_bytes=2)
+    used16 = spill("client_epoch_bf16", ek.kernel_symbol(plan16, C))
+    usedf16 = spill("client_epoch_f16", ek.kernel_symbol(plan16, C))
+    saved = client_epoch.launches, dict(client_epoch.launches_by_kernel)
+    by_cluster16 = {k: cuda_ms(lambda: client_epoch(*narrow_args, cluster=k),
+                               10)
+                    for k in (1, 2, 4, 8) if ek.staged_smem_bytes(
+                        B, C, D, k, row_bytes=2) <= cuda_build.SMEM_LIMIT}
+    client_epoch.launches, client_epoch.launches_by_kernel = saved
+    bf16_row.update({"launches_path": "feature_dtype (FedAvg, FedAMW)",
+                     "cluster": plan16.cluster,
+                     "smem_bytes": plan16.smem_bytes,
+                     "registers": used16["registers"],
+                     "spill_bytes": used16["spill_bytes"],
+                     "registers_float16": usedf16["registers"],
+                     "spill_bytes_float16": usedf16["spill_bytes"],
+                     "ms_by_cluster": by_cluster16, "ms_by_dtype": by_dtype})
+    if used16["spill_bytes"] != 0 or usedf16["spill_bytes"] != 0:
+        fail(f"client_epoch with 2-byte rows spills: {used16}, {usedf16}")
+    kernels += [split_row, guard_row, bf16_row]
+    for row in kernels[2:]:
+        if row["launches"] == 0:
+            fail(f"{row['name']} was not launched on its path "
+                 f"({row['launches_path']})")
 
     # the p-solve of one round of the paper's 100-round run: 100 epochs
     # (algorithms/core.py draws `rounds` p-epochs per round) through

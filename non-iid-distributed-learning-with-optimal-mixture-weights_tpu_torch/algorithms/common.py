@@ -20,7 +20,11 @@ from ..data import FederatedDataset, pack_partitions, split_train_val
 from ..data.pack import bucket_partitions
 from ..device import resolve_device
 from ..models import Model, get_model
-from ..ops.rff import rff_map, rff_params
+from ..ops.rff import rff_map, rff_map_to, rff_params
+
+# the storage dtypes of the feature matrices (``feature_dtype``)
+FEATURE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                  "float32": torch.float32}
 
 
 @dataclasses.dataclass
@@ -32,6 +36,7 @@ class FedSetup:
     num_classes: int
     D: int                       # feature dim the model sees (post-RFF)
     X: torch.Tensor              # (N, D) mapped train features, shared
+    #                              (float32, or feature_dtype's 2 bytes)
     y: torch.Tensor              # (N,) int32 labels / float32 targets
     X_test: torch.Tensor
     y_test: torch.Tensor
@@ -99,6 +104,7 @@ def prepare_setup(
     buckets: int = 1,
     client_multiple: int = 1,
     device=None,
+    feature_dtype: torch.dtype | None = None,
 ) -> FedSetup:
     """Build the device-resident setup from a loaded dataset.
 
@@ -106,9 +112,16 @@ def prepare_setup(
     ``seed`` drives the RFF draw through ``torch.Generator(seed)`` on the
     CPU, so the draw is the same on every device. ``rff=(W, b)`` injects
     a draw instead (arrays or tensors, ``(d, D)`` and ``(1, D)``) — how a
-    run reproduces the JAX package's features. Features are stored in
-    float32. ``device`` defaults to the CUDA card and raises without one;
-    pass ``device="cpu"`` to run on the CPU.
+    run reproduces the JAX package's features. ``device`` defaults to the
+    CUDA card and raises without one; pass ``device="cpu"`` to run on the
+    CPU.
+
+    ``feature_dtype`` (``torch.bfloat16``, ``torch.float16`` or
+    ``torch.float32``; None keeps float32) stores ``X``, ``X_val`` and
+    ``X_test`` in that dtype (JAX ``common.py:119,138-168``): mapped in
+    row chunks (``ops.rff.rff_map_to``), or, for ``kernel_type="linear"``,
+    narrowed as they are. Labels, parameters and all compute stay float32:
+    the products widen the rows.
 
     Packing (JAX ``common.py:106-220``): ``n_max`` forces a larger sample
     padding and ``pad_clients_to`` appends empty clients;
@@ -119,6 +132,10 @@ def prepare_setup(
     clients have zero weight and stay inert.
     """
     dev = resolve_device(device)
+    if feature_dtype not in (None,) + tuple(FEATURE_DTYPES.values()):
+        raise ValueError(f"feature_dtype must be one of "
+                         f"{list(FEATURE_DTYPES.values())} or None, got "
+                         f"{feature_dtype!r}")
     if rng is None:
         rng = np.random.RandomState(seed)
     if isinstance(model, str):
@@ -132,13 +149,20 @@ def prepare_setup(
                              kernel_par)
         W, b = (torch.as_tensor(np.asarray(t), dtype=torch.float32).to(dev)
                 for t in rff)
-        X_train = rff_map(X_train, W, b)
-        X_test = rff_map(X_test, W, b)
+        if feature_dtype is None:
+            X_train = rff_map(X_train, W, b)
+            X_test = rff_map(X_test, W, b)
+        else:
+            X_train = rff_map_to(X_train, W, b, feature_dtype)
+            X_test = rff_map_to(X_test, W, b, feature_dtype)
         rff = (W, b)
         feat_dim = W.shape[1]
     else:
         rff = None
         feat_dim = ds.d
+        if feature_dtype is not None:
+            X_train = X_train.to(feature_dtype)
+            X_test = X_test.to(feature_dtype)
 
     train_parts, val_idx = split_train_val(ds.parts, val_fraction, rng)
 

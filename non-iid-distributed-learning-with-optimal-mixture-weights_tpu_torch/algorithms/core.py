@@ -633,15 +633,13 @@ def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
 
     ``p_guard`` (``"none"``, ``"simplex"``, ``"clip"`` or ``"clip:R"``;
     ``fedcore.aggregate.resolve_p_guard``) projects p after every p step
-    (over the present clients under partial participation). The p-solver
-    kernel runs the reference's unconstrained update, so on the card a
-    guarded solve is refused (a guard inside kernel 2 is ROADMAP.md
-    queue 2 item 5) and runs only with ``kernel_impl="plain"``. The round
-    loop's other options as in ``FedAvg``; ``server_opt`` is refused.
+    (over the present clients under partial participation); on the card
+    the p-solver kernel applies it in its epilogue. The round loop's
+    other options as in ``FedAvg``; ``server_opt`` is refused.
 
     ``kernel_impl="plain"`` runs the plain versions of both kernels on any
     device: the reference run a kernel run is held against
-    (``chip_smoke.py``), and what the card refuses to the kernels.
+    (``chip_smoke.py``).
     """
     _reject_waiting("FedAMW", waiting)
     return _round_based(

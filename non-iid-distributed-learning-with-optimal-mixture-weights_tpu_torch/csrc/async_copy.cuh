@@ -51,7 +51,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 
 // bytes (a multiple of 16) from global src to shared dst, both 16-byte
 // aligned, completing on bar
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           unsigned bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -60,7 +60,8 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
       : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+// 4 bytes from global src to shared dst, both 4-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)

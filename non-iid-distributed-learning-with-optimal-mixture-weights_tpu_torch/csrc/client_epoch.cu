@@ -44,11 +44,21 @@
 // Everything is fp32 FMA (no tensor cores, no TF32): the tolerances of
 // tests/test_pallas_kernel.py need it, and arithmetic is not the limit.
 //
+// Rows of X are read in the type they are stored in (RowT): float32, or,
+// under the JAX package's feature_dtype, bfloat16 or float16. This file is
+// built once per row type (cuda_build.BUILDS: -DCLIENT_EPOCH_ROWS_BF16,
+// -DCLIENT_EPOCH_ROWS_F16), the three builds in parallel. 2-byte rows are
+// staged as they are, which halves the ring, and widened to fp32 by the
+// intrinsics as they are read (the product is fp32, as JAX promotes
+// bf16 x f32); W, the anchor, z and the gradient stay fp32.
+//
 // Batches too large to stage (no cluster size up to 8 fits two step tiles
 // in shared memory) run the unstaged kernel below: one CTA per client that
 // gathers its rows from global memory in both passes.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -79,13 +89,73 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Reads of RowT elements widened to fp32: one, two (4 or 8 bytes aligned)
+// or four (8 or 16 bytes aligned) at a time.
+template <typename T>
+struct Rows;
+
+template <>
+struct Rows<float> {
+  static __device__ __forceinline__ float zero() { return 0.f; }
+  static __device__ __forceinline__ float one(const float* p) { return *p; }
+  static __device__ __forceinline__ float2 two(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ float4 four(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+};
+
+template <>
+struct Rows<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ T zero() { return __float2bfloat16(0.f); }
+  static __device__ __forceinline__ float one(const T* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ float2 two(const T* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ float4 four(const T* p) {
+    const float2 lo = two(p), hi = two(p + 2);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+template <>
+struct Rows<__half> {
+  using T = __half;
+  static __device__ __forceinline__ T zero() { return __float2half(0.f); }
+  static __device__ __forceinline__ float one(const T* p) {
+    return __half2float(*p);
+  }
+  static __device__ __forceinline__ float2 two(const T* p) {
+    return __half22float2(*reinterpret_cast<const __half2*>(p));
+  }
+  static __device__ __forceinline__ float4 four(const T* p) {
+    const float2 lo = two(p), hi = two(p + 2);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+#if defined(CLIENT_EPOCH_ROWS_BF16)
+using RowT = __nv_bfloat16;
+#elif defined(CLIENT_EPOCH_ROWS_F16)
+using RowT = __half;
+#else
+using RowT = float;
+#endif
+using R = Rows<RowT>;
+// elements of a row in 16 bytes: a slice of this many starts 16-byte aligned
+constexpr int kRowAlign = 16 / static_cast<int>(sizeof(RowT));
+
 // ---------------------------------------------------------------------------
 // The staged cluster kernel.
 
 struct Args {
   const float* W0;      // (J, C, D)
   const float* anchor;  // (C, D)
-  const float* X;       // (N, D)
+  const RowT* X;        // (N, D)
   const int* y_cls;     // (N,) or null
   const float* y_reg;   // (N,) or null
   const int* rows;      // (J, S, B)
@@ -107,23 +177,25 @@ struct Header {
 };
 static_assert(sizeof(Header) == kHeaderBytes, "header layout");
 
-// The slice width one CTA holds: ceil(D / k) rounded up to 4 floats, so
-// that every slice starts 16-byte aligned. The last slice may be narrower.
+// The slice width one CTA holds: ceil(D / k) rounded up to 16 bytes of
+// rows (4 floats, 8 2-byte elements), so that every slice starts 16-byte
+// aligned. The last slice may be narrower.
 __host__ __device__ int slice_width(int D, int k) {
-  return round_up((D + k - 1) / k, 4);
+  return round_up((D + k - 1) / k, kRowAlign);
 }
 
 // Shared memory of one CTA, in bytes. Layout after the header, in floats:
-// w (C*Dk), anchor (C*Dk), tile (2 stages * Bp * Dk), part (2 * PS),
-// z (Bp*CP), row_loss (Bp), row_hit (Bp), row_w (2*Bp), red (2*kWarps);
-// then row_id (2*Bp ints). Bp = B rounded up to 8, CP = the instantiated
-// class count rounded up to 4, PS = 4 + Bp*CP.
+// w (C*Dk), anchor (C*Dk); tile (2 stages * Bp * Dk RowT elements); in
+// floats part (2 * PS), z (Bp*CP), row_loss (Bp), row_hit (Bp), row_w
+// (2*Bp), red (2*kWarps); then row_id (2*Bp ints). Bp = B rounded up to 8,
+// CP = the instantiated class count rounded up to 4, PS = 4 + Bp*CP.
 size_t staged_smem_bytes(int B, int C, int NC, int D, int k) {
   const size_t Dk = slice_width(D, k), Bp = round_up(B, 8),
                CP = round_up(NC, 4), PS = 4 + Bp * CP;
-  const size_t floats = 2 * (size_t)C * Dk + 2 * Bp * Dk + 2 * PS + Bp * CP +
-                        2 * Bp + 2 * Bp + 2 * kWarps;
-  return kHeaderBytes + (floats + 2 * Bp) * sizeof(float);
+  const size_t floats = 2 * (size_t)C * Dk + 2 * PS + Bp * CP + 2 * Bp +
+                        2 * Bp + 2 * kWarps;
+  return kHeaderBytes + (floats + 2 * Bp) * sizeof(float) +
+         2 * Bp * Dk * sizeof(RowT);
 }
 
 // NC: the instantiated class count; EXACT: C == NC (no guard on the class
@@ -150,8 +222,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   Header* h = reinterpret_cast<Header*>(smem_raw);
   float* w = reinterpret_cast<float*>(smem_raw + kHeaderBytes);
   float* a = w + C * Dk;
-  float* tile = a + C * Dk;  // [2][Bp][Dk], valid rows packed
-  float* part = tile + 2 * Bp * Dk;  // [2][PS]: sp, sr, -, -, z (Bp, CP)
+  RowT* tile = reinterpret_cast<RowT*>(a + C * Dk);  // [2][Bp][Dk], packed
+  // [2][PS]: sp, sr, -, -, z (Bp, CP)
+  float* part = reinterpret_cast<float*>(tile + 2 * Bp * Dk);
   float* z = part + 2 * PS;          // [Bp][CP] logits, then dz
   float* row_loss = z + Bp * CP;
   float* row_hit = row_loss + Bp;
@@ -172,7 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int padw = Dk - wd;
   for (int i = tid; i < 2 * Bp * padw; i += kThreads) {
     const int r = i / padw;
-    tile[r * Dk + wd + (i - r * padw)] = 0.f;
+    tile[r * Dk + wd + (i - r * padw)] = R::zero();
   }
   if (tid == 0) {
     mbar_init(&h->mbar[0], 1);
@@ -235,7 +308,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (p.bulk) {
         if (lane == 0) {
           if (wd > 0)
-            mbar_expect_tx(&h->mbar[st], (unsigned)(n * wd * 4));
+            mbar_expect_tx(&h->mbar[st],
+                           (unsigned)(n * wd * sizeof(RowT)));
           else
             mbar_arrive(&h->mbar[st]);
         }
@@ -244,7 +318,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int q = lane; q < n; q += 32)
             bulk_copy(tile + (st * Bp + q) * Dk,
                       p.X + (size_t)row_id[st * Bp + q] * D + d0,
-                      (unsigned)(wd * 4), &h->mbar[st]);
+                      (unsigned)(wd * sizeof(RowT)), &h->mbar[st]);
       }
     }
     if (!p.bulk) {
@@ -252,8 +326,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int n = h->nrow[st];
       for (int i = tid; i < n * wd; i += kThreads) {
         const int q = i / wd, d = i - q * wd;
-        cp_async4(tile + (st * Bp + q) * Dk + d,
-                  p.X + (size_t)row_id[st * Bp + q] * D + d0 + d);
+        RowT* dst = tile + (st * Bp + q) * Dk + d;
+        const RowT* src = p.X + (size_t)row_id[st * Bp + q] * D + d0 + d;
+        if constexpr (sizeof(RowT) == 4)
+          cp_async4(dst, src);
+        else
+          *dst = *src;  // cp.async moves 4 bytes at least: a plain copy
       }
       cp_async_commit();
     }
@@ -278,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const int n = h->nrow[st];
     const float cnt = h->cnt[st];
-    const float* xt = tile + st * Bp * Dk;
+    const RowT* xt = tile + st * Bp * Dk;
     float* pc = part + (t & 1) * PS;
 
     // partial z over this slice: one warp per RB rows, lanes over float4
@@ -295,8 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         float4 xv[RB];
 #pragma unroll
         for (int r = 0; r < RB; ++r)
-          xv[r] = *reinterpret_cast<const float4*>(xt + (g * RB + r) * Dk +
-                                                   4 * q);
+          xv[r] = R::four(xt + (g * RB + r) * Dk + 4 * q);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           if (!EXACT && c >= C) break;
@@ -399,8 +476,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int c = 0; c < NC; ++c) g0[c] = g1[c] = 0.f;
       for (int b = 0; b < n; ++b) {
-        const float2 xv =
-            *reinterpret_cast<const float2*>(xt + b * Dk + 2 * pi);
+        const float2 xv = R::two(xt + b * Dk + 2 * pi);
 #pragma unroll
         for (int c4 = 0; c4 < CP / 4; ++c4) {
           const float4 dz4 =
@@ -545,7 +621,7 @@ template <int MAXC>
 __global__ void __launch_bounds__(kThreads)
     unstaged_epoch_kernel(const float* __restrict__ W0,
                           const float* __restrict__ anchor,
-                          const float* __restrict__ X,
+                          const RowT* __restrict__ X,
                           const int* __restrict__ y_cls,
                           const float* __restrict__ y_reg,
                           const int* __restrict__ rows,
@@ -588,12 +664,12 @@ __global__ void __launch_bounds__(kThreads)
 
     for (int b = warp; b < B; b += kWarps) {
       if (row_ok[b] == 0.f) continue;  // warp-uniform
-      const float* xr = X + (size_t)row_id[b] * D;
+      const RowT* xr = X + (size_t)row_id[b] * D;
       float acc[MAXC];
 #pragma unroll
       for (int c = 0; c < MAXC; ++c) acc[c] = 0.f;
       for (int d = lane; d < D; d += 32) {
-        const float xv = xr[d];
+        const float xv = R::one(xr + d);
 #pragma unroll
         for (int c = 0; c < MAXC; ++c)
           if (c < C) acc[c] = fmaf(xv, w[c * D + d], acc[c]);
@@ -651,7 +727,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < MAXC; ++c) g[c] = 0.f;
       for (int b = 0; b < B; ++b) {
         if (row_ok[b] == 0.f) continue;
-        const float xv = X[(size_t)row_id[b] * D + d];
+        const float xv = R::one(X + (size_t)row_id[b] * D + d);
 #pragma unroll
         for (int c = 0; c < MAXC; ++c)
           if (c < C) g[c] = fmaf(z[b * C + c], xv, g[c]);
@@ -699,9 +775,16 @@ int client_epoch_instantiated_classes(int C) {
   return instantiated_classes(C);
 }
 
+// Bytes of one element of X this build reads (4, or 2 for bf16 and f16).
+int client_epoch_row_bytes(void) { return static_cast<int>(sizeof(RowT)); }
+
+// The slice of D one CTA of a k-cluster holds in this build.
+int client_epoch_slice_width(int D, int k) { return slice_width(D, k); }
+
 // One launch of the staged kernel: J clusters of k CTAs, cluster i running
 // client order[i]. is_cls selects int32 labels or float32 targets behind y;
-// bulk selects cp.async.bulk row copies (D % 4 == 0 and X 16-byte aligned).
+// bulk selects cp.async.bulk row copies (a row a multiple of 16 bytes and X
+// 16-byte aligned).
 // Returns cudaGetLastError() after the launch.
 int client_epoch_launch_staged(const void* W0, const void* anchor,
                                const void* X, const void* y, const void* rows,
@@ -714,7 +797,7 @@ int client_epoch_launch_staged(const void* W0, const void* anchor,
   Args p;
   p.W0 = static_cast<const float*>(W0);
   p.anchor = static_cast<const float*>(anchor);
-  p.X = static_cast<const float*>(X);
+  p.X = static_cast<const RowT*>(X);
   p.y_cls = is_cls ? static_cast<const int*>(y) : nullptr;
   p.y_reg = is_cls ? nullptr : static_cast<const float*>(y);
   p.rows = static_cast<const int*>(rows);
@@ -758,7 +841,7 @@ int client_epoch_launch_unstaged(const void* W0, const void* anchor,
     unstaged_epoch_kernel<M><<<J, kThreads, smem,
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(W0), static_cast<const float*>(anchor),
-        static_cast<const float*>(X), yc, yr, static_cast<const int*>(rows),
+        static_cast<const RowT*>(X), yc, yr, static_cast<const int*>(rows),
         static_cast<const float*>(valid), static_cast<float*>(W_out),
         static_cast<float*>(metrics), S, B, C, D, lr, mu, lam);
     return cudaGetLastError();

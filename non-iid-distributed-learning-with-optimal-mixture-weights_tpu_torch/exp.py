@@ -24,10 +24,12 @@ The JAX driver's round-loop extensions are carried with its semantics:
 ``--sequential`` (every algorithm but Centralized), ``--participation``
 (FedAvg, FedProx, FedAMW), ``--server_opt``/``--server_lr`` (FedAvg,
 FedProx), ``--p_guard`` (FedAMW and FedAMW_OneShot, passed as an
-argument: the port reads no ``FEDAMW_P_GUARD``; refused on the card,
-whose p-solver kernel runs the unconstrained update), ``--save_models DIR``
-(a checkpoint of each round-based algorithm's final state per repeat,
-``utils/checkpoint.py``'s pickle layout) and ``--resume``: after every
+argument: the port reads no ``FEDAMW_P_GUARD``; on the card kernel 2
+applies it), ``--feature_dtype`` (the feature matrices stored in
+bfloat16, float16 or float32; compute stays float32), ``--save_models
+DIR`` (a checkpoint of each round-based algorithm's final state per
+repeat, ``utils/checkpoint.py``'s pickle layout, with the
+``feature_dtype`` marker) and ``--resume``: after every
 repeat the driver writes ``exp1_{dataset}.partial.pkl`` with the
 finished repeats and the run's configuration signature, and
 ``--resume`` continues from it (a mismatched signature is an error); a
@@ -47,6 +49,7 @@ import time
 import numpy as np
 
 from .algorithms import ALGORITHMS, prepare_setup
+from .algorithms.common import FEATURE_DTYPES
 from .config import get_parameter
 from .data import load_dataset
 from .data.svmlight import is_regression
@@ -71,7 +74,6 @@ _REFUSED = {
     "--robust_agg": "queue 1 item 8 (faults and defenses)",
     "--cohort_shards": "queue 1 item 9 (the cohort plane)",
     "--stream_cohort": "queue 1 item 9 (the cohort plane)",
-    "--feature_dtype": "queue 1 item b (bf16 feature storage)",
     "--publish_every": "queue 1 item 11 (serving's model registry)",
     "--profile": "queue 1 item 7 (trace and telemetry)",
     "--trace_dir": "queue 1 item 7 (trace and telemetry)",
@@ -140,6 +142,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="opt-in mixture-weight guard for FedAMW and "
                          "FedAMW_OneShot (projected SGD on p); default "
                          "keeps the reference's unconstrained update")
+    ap.add_argument("--feature_dtype", type=str, default=None,
+                    choices=list(FEATURE_DTYPES),
+                    help="store the mapped feature matrices in this dtype "
+                         "(the dominant device resident halves at 2 "
+                         "bytes; compute stays float32); the name is kept "
+                         "in --save_models checkpoints")
     ap.add_argument("--save_models", type=str, default=None, metavar="DIR",
                     help="checkpoint each round-based algorithm's final "
                          "weights, p and optimizer state under "
@@ -153,14 +161,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.add_argument(flag, action=_Refused, item=item)
     args = ap.parse_args(argv)
     try:
-        guard = resolve_p_guard(args.p_guard)
+        resolve_p_guard(args.p_guard)
     except ValueError as e:
         ap.error(str(e))
-    if guard != "none" and (args.device or "cuda").startswith("cuda"):
-        ap.error("--p_guard cannot run on the card: kernel 2 runs the "
-                 "reference's unconstrained update (a guard inside it is "
-                 "ROADMAP.md queue 2 item 5); run the guarded experiment "
-                 "with --device cpu")
     return args
 
 
@@ -215,8 +218,9 @@ def resume_config(args) -> dict:
     (``exp.py:581-612``) for the flags this driver takes. ``backend``
     names this package, so a partial of the JAX driver (other random
     streams) is never continued here, nor the reverse. The guard is
-    canonical (``clip`` is ``clip:1.0``); the device is left out, as the
-    JAX driver leaves out ``--shard``."""
+    canonical (``clip`` is ``clip:1.0``); ``feature_dtype`` is None for
+    float32 features unasked, as in the JAX driver's partials; the device
+    is left out, as the JAX driver leaves out ``--shard``."""
     guard = resolve_p_guard(args.p_guard)
     if guard.startswith("clip"):
         guard = f"clip:{float(guard.split(':', 1)[1]) if ':' in guard else 1.0}"
@@ -225,7 +229,8 @@ def resume_config(args) -> dict:
         "batch_size", "alpha_Dirk", "seed", "lr_mode", "sequential",
         "participation", "server_opt", "server_lr", "data_dir", "lr",
         "lr_p")}
-    cfg.update(backend="fedamw_tpu_torch", p_guard=guard)
+    cfg.update(backend="fedamw_tpu_torch", p_guard=guard,
+               feature_dtype=args.feature_dtype)
     return cfg
 
 
@@ -254,9 +259,11 @@ def _resume_start(args, partial_path, mats, hete) -> int:
         return 0
     with open(partial_path, "rb") as f:
         part = pickle.load(f)
-    if part["config"] != resume_config(args):
+    # a partial written before --feature_dtype was carried is a float32 run
+    saved = {"feature_dtype": None, **part["config"]}
+    if saved != resume_config(args):
         print(f"--resume: {partial_path} was written under a "
-              f"different configuration\n  saved: {part['config']}\n"
+              f"different configuration\n  saved: {saved}\n"
               f"  now:   {resume_config(args)}\nRemove the partial "
               "file to start over.", file=sys.stderr)
         raise SystemExit(2)
@@ -279,7 +286,7 @@ def _save_models(args, setup, name, res, t) -> None:
     where = save_checkpoint(
         os.path.join(args.save_models, f"{args.dataset}_{name}_repeat{t}"),
         res["params"], p=res["p"], round_idx=args.round, extra=extra,
-        rff=setup.rff)
+        rff=setup.rff, feature_dtype=args.feature_dtype)
     print(f"{name}: checkpoint -> {where}")
 
 
@@ -306,7 +313,9 @@ def main(argv=None) -> str:
                           data_dir=args.data_dir, rng=rng, verbose=True)
         setup = prepare_setup(ds, D=args.D, kernel_par=params["kernel_par"],
                               kernel_type=params["kernel_type"],
-                              seed=args.seed + t, rng=rng, device=device)
+                              seed=args.seed + t, rng=rng, device=device,
+                              feature_dtype=FEATURE_DTYPES.get(
+                                  args.feature_dtype))
         # on the FULL partitions, before the validation split
         # (reference exp.py:66-76)
         hete[t] = heterogeneity_from_parts(setup.X, ds.parts)

@@ -1,9 +1,11 @@
 from .aggregate import (
     client_logits,
     fednova_effective_weights,
+    make_guard,
     make_p_solver,
     participation_weights,
     project_simplex,
+    project_simplex_fixed_point,
     resolve_p_guard,
     weighted_average,
 )
@@ -23,12 +25,14 @@ __all__ = [
     "make_bucketed_round",
     "make_client_round",
     "make_evaluator",
+    "make_guard",
     "make_local_update",
     "make_p_solver",
     "p_epoch",
     "p_epoch_plain",
     "participation_weights",
     "project_simplex",
+    "project_simplex_fixed_point",
     "resolve_p_guard",
     "weighted_average",
 ]

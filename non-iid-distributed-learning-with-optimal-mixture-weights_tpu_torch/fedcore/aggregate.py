@@ -10,13 +10,14 @@ one call of ``psolver_kernel.p_epoch`` — on CUDA tensors one launch of
 the hand-written kernel. Mixture weights stay UNCONSTRAINED, as in the
 reference (``tools.py:417-423``), unless the caller opts into a p-guard
 (``resolve_p_guard``): a projection of p after every step, run by the
-plain p-epoch (CPU tensors, or ``kernel_impl="plain"``; the card's
-kernel refuses it). The guard is an explicit argument; the JAX
-package's ``FEDAMW_P_GUARD`` environment variable is not read.
+kernels' epilogue on the card and by the plain p-epoch on CPU tensors.
+The guard is an explicit argument; the JAX package's ``FEDAMW_P_GUARD``
+environment variable is not read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable
 
@@ -77,7 +78,8 @@ def client_logits(apply_fn: Callable, stacked_params: dict,
     For the linear model ``apply_fn`` broadcasts over the stacked client
     axis, so this is one batched product — the reference's
     ``matmul(W.permute(2,0,1), data.T)`` (``tools.py:448``) for the whole
-    validation set at once.
+    validation set at once. A 2-byte ``X`` (``feature_dtype``) is widened
+    to float32 chunk by chunk inside ``apply_fn``.
     """
     preds = apply_fn(stacked_params, X)          # (J, n, C)
     return preds.permute(1, 0, 2).contiguous()
@@ -126,22 +128,62 @@ def project_simplex(v: torch.Tensor, valid=None) -> torch.Tensor:
     return torch.where(valid > 0, torch.clamp(v - theta, min=0.0), 0.0)
 
 
-def make_guard(p_guard: str):
-    """None for ``"none"``; else ``guard(p, valid) -> p``, applied after
-    every p step (projected SGD)."""
+def project_simplex_fixed_point(v: torch.Tensor, valid=None) -> torch.Tensor:
+    """``project_simplex`` by Michelot's fixed point, the algorithm of the
+    kernels' guard epilogue (``csrc/p_epoch.cu:apply_guard``), kept beside
+    the sort-based one to hold the kernels' arithmetic: ``theta`` from
+    every valid entry, then ``theta = (sum of the support - 1) /
+    |support|`` with ``support = {valid j : v_j > theta}`` until its size
+    stops changing, and ``max(v - theta, 0)`` on the valid entries. The
+    final ``theta`` is the sort-based formula over the same support. The
+    support's size is read on the host every round."""
+    if valid is None:
+        valid = torch.ones_like(v)
+    ok = valid > 0
+    m = torch.sum(ok.to(v.dtype))
+    if float(m) == 0:
+        return torch.zeros_like(v)
+    theta = (torch.sum(torch.where(ok, v, 0.0)) - 1.0) / m
+    prev, rounds = float(m), 0
+    while rounds <= v.shape[0]:
+        sup = ok & (v > theta)
+        c = torch.sum(sup.to(v.dtype))
+        rounds += 1
+        if float(c) in (prev, 0.0):
+            break
+        theta = (torch.sum(torch.where(sup, v, 0.0)) - 1.0) / c
+        prev = float(c)
+    return torch.where(ok, torch.clamp(v - theta, min=0.0), 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class PGuard:
+    """A p-guard, ``guard(p, valid) -> p``, applied after every p step
+    (projected SGD): ``kind`` ``"clip"`` (rescale p to L2 norm ``radius``
+    when above it, the norm over every client) or ``"simplex"``
+    (``project_simplex`` over the valid clients). The kernels run the
+    same guard in their epilogue (``psolver_kernel.guard_code``)."""
+
+    kind: str
+    radius: float = 1.0
+
+    def __call__(self, p, valid=None):
+        if self.kind == "simplex":
+            return project_simplex(p, valid)
+        norm = torch.sqrt(torch.sum(torch.square(p)))
+        return p * torch.clamp(self.radius / torch.clamp(norm, min=1e-30),
+                               max=1.0)
+
+
+def make_guard(p_guard: str) -> PGuard | None:
+    """None for ``"none"``; else the ``PGuard`` of ``p_guard``."""
     p_guard = resolve_p_guard(p_guard)
     if p_guard == "none":
         return None
     if p_guard == "simplex":
-        return project_simplex
-    radius = float(p_guard.split(":", 1)[1]) if ":" in p_guard else 1.0
-
-    def clip(p, valid=None):
-        norm = torch.sqrt(torch.sum(torch.square(p)))
-        return p * torch.clamp(radius / torch.clamp(norm, min=1e-30),
-                               max=1.0)
-
-    return clip
+        return PGuard("simplex")
+    return PGuard("clip", float(p_guard.split(":", 1)[1])
+                  if ":" in p_guard else 1.0)
 
 
 def make_p_solver(
@@ -170,10 +212,10 @@ def make_p_solver(
     invalid clients every step.
 
     ``p_guard`` (``resolve_p_guard``) projects p after every step, with
-    ``client_valid`` as the simplex's mask; the kernels implement the
-    reference's unconstrained update, so a guarded solve runs on CPU
-    tensors or with ``kernel_impl="plain"`` and is refused on the card.
-    ``kernel_impl`` as in ``client.make_client_round``.
+    ``client_valid`` as the simplex's mask: in the kernel's epilogue on
+    the card, in the plain p-epoch on CPU tensors or with
+    ``kernel_impl="plain"``. ``kernel_impl`` as in
+    ``client.make_client_round``.
     """
     guard = make_guard(p_guard)
     epoch_fn = cuda_build.kernel_or_plain(kernel_impl, p_epoch, p_epoch_plain)

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels from ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own,
-with ``nvcc`` and no PyTorch headers, into
-``build/torch_kernels/lib<name>-<hash>.so`` at the repository root. The
-hash covers the source, the shared ``csrc/*.cuh`` headers and the flags,
-so an edited kernel is rebuilt and a stale library is never loaded. The build happens at first use;
-``build()`` starts one ``nvcc`` per source, all at once. Importing this
+Each library of ``BUILDS`` is one ``csrc/<source>.cu`` with a plain C
+interface, compiled on its own with ``nvcc``, its flags and no PyTorch
+headers, into ``build/torch_kernels/lib<name>-<hash>.so`` at the
+repository root; ``client_epoch.cu`` is built once per row type of the
+features (float32, bfloat16, float16). The hash covers the source, the
+shared ``csrc/*.cuh`` headers and the flags, so an edited kernel is
+rebuilt and a stale library is never loaded. The build happens at first
+use; ``build()`` starts one ``nvcc`` per library, all at once. Importing this
 module builds nothing, and nothing here runs on a machine without a
 card (the kernel wrappers only reach it for CUDA tensors).
 """
@@ -25,7 +27,13 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-KERNEL_SOURCES = ("client_epoch", "p_epoch")
+# each library: its csrc/ source and the nvcc flags it adds
+BUILDS = {
+    "client_epoch": ("client_epoch", ()),
+    "client_epoch_bf16": ("client_epoch", ("-DCLIENT_EPOCH_ROWS_BF16",)),
+    "client_epoch_f16": ("client_epoch", ("-DCLIENT_EPOCH_ROWS_F16",)),
+    "p_epoch": ("p_epoch", ()),
+}
 # bytes of dynamic shared memory one block may use on sm_90
 SMEM_LIMIT = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,19 +49,28 @@ def _nvcc() -> str:
                        "are built from csrc/ at first use")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + BUILDS[name][1]
+
+
+def source_path(name: str) -> Path:
+    """The ``csrc/`` source of library ``name``."""
+    return CSRC_DIR / f"{BUILDS[name][0]}.cu"
+
+
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` goes, keyed by its content
-    and that of the headers it may include."""
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    """Where library ``name`` of ``BUILDS`` goes, keyed by the content of
+    its source and of the headers it may include, and by its flags."""
+    h = hashlib.sha256(source_path(name).read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=KERNEL_SOURCES) -> dict[str, float]:
-    """Compile every named source whose library is missing, all ``nvcc``
-    processes started together. Returns seconds per source built (0 for
+def build(names=tuple(BUILDS)) -> dict[str, float]:
+    """Compile every named library that is missing, all ``nvcc``
+    processes started together. Returns seconds per library built (0 for
     one already there). The compiler's resource report (registers,
     shared memory, spills) is kept beside each library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,7 +83,7 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            [nvcc, *_flags(name), "-o", str(tmp), str(source_path(name))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
     seconds = {name: 0.0 for name in names}
@@ -76,7 +93,7 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
         seconds[name] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
@@ -111,14 +128,15 @@ def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
 
 
 def ptxas_usage(name: str) -> dict[str, dict[str, int]]:
-    """``parse_ptxas`` of the build log of ``csrc/<name>.cu`` (kept beside
-    its library by ``build``)."""
+    """``parse_ptxas`` of the build log of library ``name`` (kept beside
+    it by ``build``)."""
     return parse_ptxas(library_path(name).with_suffix(".log").read_text())
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library ``name`` of ``BUILDS``, built first if
+    needed."""
     path = library_path(name)
     if not path.exists():
         build((name,))

@@ -23,7 +23,11 @@ that latency (``launch_plan`` chooses its shape):
 - clusters run the clients with the most non-empty steps first
   (``client_order``), so a second wave holds only short clients;
 - the class count is a template parameter, exact for the registry's
-  datasets.
+  datasets;
+- rows are read in the type X is stored in: float32, or bfloat16 or
+  float16 under ``prepare_setup(feature_dtype=...)``, staged as they are
+  (2-byte rows halve the ring) and widened to fp32 as they are read; one
+  library per row type (``cuda_build.BUILDS``).
 
 Batches too large to stage at any cluster size run an unstaged kernel
 (one CTA per client, rows read from global memory in both passes).
@@ -55,6 +59,10 @@ MAX_CLASSES = 32
 # class counts with an exact instantiation; any other C runs the next bound
 EXACT_CLASSES = (1, 2, 3, 6, 10, 26)
 CLASS_BOUNDS = (4, 8, 16, 32)
+# the library (cuda_build.BUILDS) that reads rows of each feature dtype
+ROW_LIBRARIES = {torch.float32: "client_epoch",
+                 torch.bfloat16: "client_epoch_bf16",
+                 torch.float16: "client_epoch_f16"}
 
 
 def client_epoch_plain(W, anchor, X, y, rows, valid, lr, mu, lam, task):
@@ -62,14 +70,16 @@ def client_epoch_plain(W, anchor, X, y, rows, valid, lr, mu, lam, task):
 
     ``W (J, C, D)`` epoch-start weights, ``anchor (C, D)`` the
     round-incoming weights (the prox anchor of every local epoch,
-    ``pallas_kernel.py:55``), ``X (N, D)``, ``y (N,)`` int32 labels or
+    ``pallas_kernel.py:55``), ``X (N, D)`` float32, bfloat16 or float16
+    (gathered rows widened to float32, as JAX promotes them in the
+    product), ``y (N,)`` int32 labels or
     float32 targets, ``rows (J, S, B)`` global row ids, ``valid (J, S, B)``
     0/1. Returns ``(W (J, C, D), metrics (J, 3))`` with metrics
     ``(sum loss*cnt, sum correct, sum cnt)`` over the epoch's steps.
 
-    The whole epoch's gathered features ``(J, S, B, D)`` are built in one
-    index op when they fit ``client.EPOCH_GATHER_BYTES_LIMIT``, else one
-    step's ``(J, B, D)`` at a time.
+    The whole epoch's gathered features ``(J, S, B, D)``, in float32, are
+    built in one index op when they fit ``client.EPOCH_GATHER_BYTES_LIMIT``,
+    else one step's ``(J, B, D)`` at a time.
     """
     from .client import EPOCH_GATHER_BYTES_LIMIT
 
@@ -77,14 +87,14 @@ def client_epoch_plain(W, anchor, X, y, rows, valid, lr, mu, lam, task):
     C, D = anchor.shape
     cls = task == "classification"
     rows = rows.long()
-    whole = J * S * B * D * X.element_size() <= EPOCH_GATHER_BYTES_LIMIT
-    xs = X[rows] if whole else None
+    whole = J * S * B * D * 4 <= EPOCH_GATHER_BYTES_LIMIT
+    xs = X[rows].float() if whole else None
     ys = y[rows]
     lr, mu, lam = (torch.tensor(v, dtype=torch.float32, device=W.device)
                    for v in (lr, mu, lam))
     met = torch.zeros((J, 3), dtype=torch.float32, device=W.device)
     for s in range(S):
-        xb = xs[:, s] if whole else X[rows[:, s]]           # (J, B, D)
+        xb = xs[:, s] if whole else X[rows[:, s]].float()   # (J, B, D)
         yb, bv = ys[:, s], valid[:, s]                       # (J, B)
         cnt = bv.sum(1)
         inv_cnt = 1.0 / torch.clamp(cnt, min=1.0)
@@ -126,7 +136,7 @@ def _check(W, anchor, X, y, rows, valid, task):
     J, C, D = W.shape
     expect = {
         "anchor": (anchor, torch.float32, (C, D)),
-        "X": (X, torch.float32, (X.shape[0], D)),
+        "X": (X, X.dtype, (X.shape[0], D)),
         "y": (y, torch.int32 if task == "classification" else torch.float32,
               (X.shape[0],)),
         "rows": (rows, torch.int32, (J,) + tuple(rows.shape[1:])),
@@ -134,6 +144,9 @@ def _check(W, anchor, X, y, rows, valid, task):
     }
     if W.dtype != torch.float32 or not W.is_contiguous():
         raise ValueError("W must be a contiguous float32 (J, C, D) tensor")
+    if X.dtype not in ROW_LIBRARIES:
+        raise ValueError(f"X must be one of {list(ROW_LIBRARIES)}, got "
+                         f"{X.dtype}")
     if rows.dim() != 3:
         raise ValueError(f"rows must be (J, S, B), got {tuple(rows.shape)}")
     for name, (t, dtype, shape) in expect.items():
@@ -161,22 +174,25 @@ def instantiated_classes(C: int) -> int:
     return next(nc for nc in CLASS_BOUNDS if C <= nc)
 
 
-def slice_width(D: int, k: int) -> int:
+def slice_width(D: int, k: int, row_bytes: int = 4) -> int:
     """Columns of D one CTA of a k-cluster holds: ``ceil(D / k)`` rounded
-    up to 4 floats (16-byte aligned slices); the last may be narrower."""
-    return _round_up(-(-D // k), 4)
+    up to 16 bytes of rows (4 float32 or 8 2-byte elements: 16-byte
+    aligned slices); the last may be narrower."""
+    return _round_up(-(-D // k), 16 // row_bytes)
 
 
-def staged_smem_bytes(B: int, C: int, D: int, k: int) -> int:
+def staged_smem_bytes(B: int, C: int, D: int, k: int,
+                      row_bytes: int = 4) -> int:
     """Shared memory of one CTA of the staged kernel (the layout of
     ``staged_smem_bytes`` in ``client_epoch.cu``): the W and anchor
-    slices, two stages of ``(B, Dk)`` rows, the double-buffered exchange
-    of partial logits, the logits, per-row scratch and row ids."""
-    Dk = slice_width(D, k)
+    slices, two stages of ``(B, Dk)`` rows of ``row_bytes`` elements, the
+    double-buffered exchange of partial logits, the logits, per-row
+    scratch and row ids."""
+    Dk = slice_width(D, k, row_bytes)
     Bp, CP = _round_up(B, 8), _round_up(instantiated_classes(C), 4)
-    floats = (2 * C * Dk + 2 * Bp * Dk + 2 * (4 + Bp * CP) + Bp * CP
-              + 4 * Bp + 2 * WARPS)
-    return HEADER_BYTES + 4 * (floats + 2 * Bp)
+    floats = (2 * C * Dk + 2 * (4 + Bp * CP) + Bp * CP + 4 * Bp
+              + 2 * WARPS)
+    return HEADER_BYTES + 4 * (floats + 2 * Bp) + row_bytes * 2 * Bp * Dk
 
 
 def unstaged_smem_bytes(B: int, C: int, D: int) -> int:
@@ -201,9 +217,11 @@ class EpochPlan:
 
 def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
                 smem_limit: int = cuda_build.SMEM_LIMIT,
-                cluster: int | None = None) -> EpochPlan | None:
+                cluster: int | None = None,
+                row_bytes: int = 4) -> EpochPlan | None:
     """The launch shape for ``J`` clients of batch ``B``, ``C`` classes
-    and ``D`` features on a card of ``num_sms`` SMs.
+    and ``D`` features of ``row_bytes`` each (4, or 2 for bfloat16 and
+    float16 rows) on a card of ``num_sms`` SMs.
 
     The cluster size ``k`` (1, 2, 4 or 8) is the larger of the smallest
     that fits two step tiles in ``smem_limit`` and the largest whose
@@ -223,7 +241,7 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
         return None
     classes = instantiated_classes(C)
     sizes = [k for k in (1, 2, 4, MAX_CLUSTER)
-             if staged_smem_bytes(B, C, D, k) <= smem_limit]
+             if staged_smem_bytes(B, C, D, k, row_bytes) <= smem_limit]
     if cluster is not None:
         if cluster not in sizes:
             raise ValueError(
@@ -234,15 +252,15 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
         fill = max(k for k in (1, 2, 4, MAX_CLUSTER)
                    if k == 1 or J * k <= num_sms)
         k = max(sizes[0], fill)
-        while k > sizes[0] and (k - 1) * slice_width(D, k) >= D:
+        while k > sizes[0] and (k - 1) * slice_width(D, k, row_bytes) >= D:
             k //= 2
     else:
         smem = unstaged_smem_bytes(B, C, D)
         if smem > smem_limit:
             return None
         return EpochPlan(0, D, 8 if C <= 8 else MAX_CLASSES, smem, J)
-    return EpochPlan(k, slice_width(D, k), classes,
-                     staged_smem_bytes(B, C, D, k), J * k)
+    return EpochPlan(k, slice_width(D, k, row_bytes), classes,
+                     staged_smem_bytes(B, C, D, k, row_bytes), J * k)
 
 
 def kernel_symbol(plan: EpochPlan, C: int) -> str:
@@ -268,8 +286,9 @@ def client_order(valid):
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_build.load("client_epoch")
+def _library(name: str = "client_epoch"):
+    """The loaded library ``name`` (one of ``ROW_LIBRARIES``)."""
+    lib = cuda_build.load(name)
     lib.client_epoch_launch_staged.restype = ctypes.c_int
     lib.client_epoch_launch_staged.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
@@ -284,21 +303,30 @@ def _library():
     lib.client_epoch_unstaged_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.client_epoch_instantiated_classes.restype = ctypes.c_int
     lib.client_epoch_instantiated_classes.argtypes = [ctypes.c_int]
+    lib.client_epoch_row_bytes.restype = ctypes.c_int
+    lib.client_epoch_row_bytes.argtypes = []
+    lib.client_epoch_slice_width.restype = ctypes.c_int
+    lib.client_epoch_slice_width.argtypes = [ctypes.c_int] * 2
     return lib
 
 
-def _check_plan(lib, plan: EpochPlan, B: int, C: int, D: int) -> None:
-    """The plan's layout must be the kernel's: same shared memory, same
-    instantiation."""
+def _check_plan(lib, plan: EpochPlan, B: int, C: int, D: int,
+                row_bytes: int) -> None:
+    """The plan's layout must be the kernel's: same row type, shared
+    memory, instantiation and slice."""
     if plan.cluster:
         smem = lib.client_epoch_staged_smem_bytes(B, C, D, plan.cluster)
         nc = lib.client_epoch_instantiated_classes(C)
+        width = lib.client_epoch_slice_width(D, plan.cluster)
     else:
         smem, nc = lib.client_epoch_unstaged_smem_bytes(B, C, D), plan.classes
-    if (smem, nc) != (plan.smem_bytes, plan.classes):
+        width = D
+    got = (lib.client_epoch_row_bytes(), smem, nc, width)
+    if got != (row_bytes, plan.smem_bytes, plan.classes, plan.slice_width):
         raise RuntimeError(
-            f"launch plan {plan} disagrees with csrc/client_epoch.cu "
-            f"({smem} bytes, {nc} classes)")
+            f"launch plan {plan} for {row_bytes}-byte rows disagrees with "
+            f"csrc/client_epoch.cu (row bytes, smem bytes, classes, slice "
+            f"= {got})")
 
 
 def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
@@ -316,16 +344,17 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
         raise ValueError(f"client_epoch runs on cpu or cuda, not {W.device}")
     J, C, D = W.shape
     S, B = rows.shape[1:]
+    row_bytes = X.element_size()
     sms = torch.cuda.get_device_properties(W.device).multi_processor_count
-    plan = launch_plan(J, B, C, D, sms, cluster=cluster)
+    plan = launch_plan(J, B, C, D, sms, cluster=cluster, row_bytes=row_bytes)
     if plan is None:
         raise ValueError(
             f"no client_epoch kernel takes C={C}, D={D}, B={B}: it needs "
             f"C <= {MAX_CLASSES} and {unstaged_smem_bytes(B, C, D)} bytes "
             f"of shared memory at most {cuda_build.SMEM_LIMIT} (ROADMAP.md "
             "queue 2 item 3): run it with kernel_impl='plain'")
-    lib = _library()
-    _check_plan(lib, plan, B, C, D)
+    lib = _library(ROW_LIBRARIES[X.dtype])
+    _check_plan(lib, plan, B, C, D, row_bytes)
     W_out = torch.empty_like(W)
     metrics = torch.zeros((J, 3), dtype=torch.float32, device=W.device)
     if J == 0:
@@ -335,7 +364,7 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     scalars = (float(lr), float(mu), float(lam), stream)
     if plan.cluster:
         order, nsteps = client_order(valid)
-        bulk = int(D % 4 == 0 and X.data_ptr() % 16 == 0)
+        bulk = int((D * row_bytes) % 16 == 0 and X.data_ptr() % 16 == 0)
         err = lib.client_epoch_launch_staged(
             W.data_ptr(), anchor.data_ptr(), X.data_ptr(), y.data_ptr(),
             rows.data_ptr(), valid.data_ptr(), order.data_ptr(),

@@ -1,7 +1,8 @@
 """Evaluation (reference ``test_loop``, ``functions/tools.py:218-237``).
 
 The reference Meter-averages per-batch means weighted by batch size,
-which is exactly the full-set mean, so this is one batched forward pass.
+which is exactly the full-set mean, so this is one batched forward pass
+(a 2-byte feature matrix widened chunk by chunk by the model's apply).
 Accuracy for regression tasks is reported as 0.0 (SURVEY.md §2.2
 component 22).
 """

@@ -18,20 +18,27 @@ loaded two steps ahead, so no global load is on a step's critical path;
 the logits, loss and ``h[b, j] = sum_c L[b, j, c] d[b, c]`` of a row are
 warp-local, and two block barriers per step frame the ``p`` update.
 
-Shapes it cannot take (two stages of rows plus ``h`` beyond shared
-memory, ``B > 512`` or ``C > 32``) run the unstaged kernel, the port's
-first design (one CTA of 256 threads, five barriers per step).
-``launch_plan`` picks the kernel by shape alone.
+Where two stages of rows plus ``h`` exceed one block's shared memory, the
+split kernel runs the same step with J split over a thread-block cluster
+of ``k`` CTAs (2 to 16): each CTA owns a slice of ``p``, ``buf``, ``cv``
+and of every row, the partial logits meet through distributed shared
+memory in rank order, and each CTA holds its slices of a step's rows in
+a two-stage ring when they fit (``stream=False``), else reads them from
+global memory in both passes (``stream=True``). Shapes neither takes
+(``B > 512`` or ``C > 32``) run the unstaged kernel, the port's first
+design (one CTA of 256 threads, five barriers per step). ``launch_plan``
+picks the kernel by shape alone.
+
+Every kernel applies the p-guards of ``aggregate.make_guard`` (``clip:R``
+and the projection onto the simplex over the valid clients, by
+Michelot's fixed point) as an epilogue of its p update, selected at
+launch.
 
 ``p_epoch`` is the wrapper: CPU tensors go to ``p_epoch_plain``, the
 plain PyTorch version; CUDA tensors launch the kernel the plan names or
-raise. Two cases are refused on the card, before any launch: a shape no
-plan takes (ROADMAP.md queue 2 item 3, a J split across a cluster, would
-take it), and a guarded epoch (``guard``, the p-guards of
-``aggregate.py``: the kernels run the reference's unconstrained update,
-as the JAX package's Pallas kernel does; queue 2 item 5). Both run on the
-card through ``kernel_impl="plain"``. ``p_epoch.launches`` counts kernel
-launches, ``p_epoch.launches_by_kernel`` the same by kernel.
+raise (a shape no plan takes, or a guard that is not one of
+``make_guard``'s). ``p_epoch.launches`` counts kernel launches,
+``p_epoch.launches_by_kernel`` the same by kernel.
 """
 
 from __future__ import annotations
@@ -48,7 +55,10 @@ from .epoch_kernel import CLASS_BOUNDS, EXACT_CLASSES
 MAX_WARPS = 16             # of the staged kernel's CTA (kMaxWarps in p_epoch.cu)
 MAX_STAGED_BATCH = 32 * MAX_WARPS  # a lane of its warp per row
 UNSTAGED_WARPS = 8         # kThreads / 32 of the unstaged kernel
-KERNELS = ("staged", "unstaged")
+SPLIT_CLUSTERS = (2, 4, 8, 16)  # 16 is non-portable: where the card allows
+KERNELS = ("staged", "split", "unstaged")
+# the kernels' guard argument (kGuard* in p_epoch.cu)
+GUARD_CODES = {"clip": 1, "simplex": 2}
 
 
 def p_epoch_plain(p, buf, cv, logits, y_val, positions, valid, lr, momentum,
@@ -147,7 +157,8 @@ def staged_classes(C: int) -> int:
 
 
 def staged_warps(B: int) -> int:
-    """Warps of the staged kernel's CTA: one per row, at most 16."""
+    """Warps of the staged and split kernels' CTA: one per row, at most
+    16."""
     return min(B, MAX_WARPS)
 
 
@@ -155,47 +166,97 @@ def staged_smem_bytes(B: int, J: int, C: int) -> int:
     """Shared memory of the staged kernel (``staged_smem_bytes`` in
     ``p_epoch.cu``): two mbarriers per warp, two stages of ``B`` rows of
     ``J*C`` floats each padded to 4, ``h (B, J)``, ``p``, ``buf``, ``cv``
-    and the per-warp metric sums."""
+    and the per-warp sums (metrics and guard, 4 a warp)."""
     nw, jcp = staged_warps(B), -(-J * C // 4) * 4
-    return 16 * nw + 4 * (2 * B * jcp + B * J + 3 * J + 2 * nw)
+    return 16 * nw + 4 * (2 * B * jcp + B * J + 3 * J + 4 * nw)
+
+
+def split_slice(J: int, k: int) -> int:
+    """Clients one CTA of a ``k``-cluster owns: ``ceil(J / k)`` rounded up
+    to 4, so that every slice of a row starts 16-byte aligned when
+    ``J*C`` is a multiple of 4; the last slices may be narrower, or
+    empty."""
+    per_cta = -(-J // k)
+    return -(-per_cta // 4) * 4
+
+
+def split_smem_bytes(B: int, J: int, C: int, k: int, stream: bool) -> int:
+    """Shared memory of one CTA of the split kernel (``split_smem_bytes``
+    in ``p_epoch.cu``): two mbarriers per warp, two stages of its slices
+    of ``B`` rows (``Jk*C`` floats each) unless it streams them, ``h (B,
+    Jk)``, its slices of ``p``, ``buf`` and ``cv``, the per-warp sums and
+    two cluster-exchange slots of ``B*C`` floats (at least 2, padded to
+    4)."""
+    nw, jk = staged_warps(B), split_slice(J, k)
+    ring = 0 if stream else 2 * B * jk * C
+    xs = -(-max(B * C, 2) // 4) * 4
+    return 16 * nw + 4 * (ring + B * jk + 3 * jk + 4 * nw + 2 * xs)
 
 
 def unstaged_smem_bytes(B: int, J: int, C: int) -> int:
     """Shared memory of the unstaged kernel: the step's ``(B, J, C)``
-    block, ``p``, ``buf``, ``cv``, the logits and per-row scratch."""
-    return 4 * (B * J * C + 3 * J + B * C + 3 * B) + 4 * B
+    block, ``p``, ``buf``, ``cv``, the logits, per-row scratch and the
+    guard's per-warp sums."""
+    return 4 * (B * J * C + 3 * J + B * C + 3 * B + 4 * UNSTAGED_WARPS) + 4 * B
 
 
 @dataclasses.dataclass(frozen=True)
 class PEpochPlan:
-    """How one launch runs: ``kernel`` ``"staged"`` or ``"unstaged"``,
-    the ``warps`` of its one CTA, the instantiated ``classes`` (0 for
-    the unstaged kernel, which takes C at run time) and its dynamic
-    ``smem_bytes``."""
+    """How one launch runs: ``kernel`` one of ``KERNELS``, the ``warps``
+    of each CTA, the instantiated ``classes`` (0 for the unstaged kernel,
+    which takes C at run time) and one CTA's dynamic ``smem_bytes``; for
+    the split kernel, the ``cluster`` of CTAs, the ``slice_width`` of J
+    each owns and whether it ``stream``s its rows from global memory
+    instead of holding them in a ring."""
 
     kernel: str
     warps: int
     classes: int
     smem_bytes: int
+    cluster: int = 1
+    slice_width: int = 0
+    stream: bool = False
+
+
+def _split_plan(B: int, J: int, C: int, nc: int, smem_limit: int,
+                max_cluster: int) -> PEpochPlan | None:
+    """The split kernel's plan: the smallest cluster whose CTAs hold two
+    stages of their row slices (fewer CTAs a barrier waits for), else the
+    largest whose CTAs fit streaming (the least each reads a step)."""
+    sizes = [k for k in SPLIT_CLUSTERS if k <= max_cluster]
+    for stream, order in ((False, sizes), (True, sizes[::-1])):
+        for k in order:
+            smem = split_smem_bytes(B, J, C, k, stream)
+            if smem <= smem_limit:
+                return PEpochPlan("split", staged_warps(B), nc, smem, k,
+                                  split_slice(J, k), stream)
+    return None
 
 
 def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
-                smem_limit: int = cuda_build.SMEM_LIMIT) -> PEpochPlan | None:
+                smem_limit: int = cuda_build.SMEM_LIMIT,
+                max_cluster: int = SPLIT_CLUSTERS[-1]) -> PEpochPlan | None:
     """The kernel for batch ``B``, ``J`` clients and ``C`` classes, by
-    shape alone: the staged kernel when ``B <= 512``, ``C <= 32`` and
-    its two stages plus ``h`` fit a block's shared memory
-    (``smem_limit``); else the unstaged kernel when its step block fits;
-    else None (no kernel takes the shape). ``kernel`` forces one of
-    ``KERNELS``, and ``ValueError`` says when it does not fit."""
+    shape alone: the staged kernel when ``B <= 512``, ``C <= 32`` and its
+    two stages plus ``h`` fit a block's shared memory (``smem_limit``);
+    else, with the same bounds on B and C, the split kernel over a
+    cluster of at most ``max_cluster`` CTAs (``_split_plan``); else the
+    unstaged kernel when its step block fits; else None (no kernel takes
+    the shape). ``kernel`` forces one of ``KERNELS``, and ``ValueError``
+    says when it does not fit."""
     if B < 1 or J < 1 or C < 1:
         raise ValueError(f"bad shape B={B}, J={J}, C={C}")
     if kernel not in (None,) + KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     fits = {}
     nc = staged_classes(C)
-    smem = staged_smem_bytes(B, J, C)
-    if B <= MAX_STAGED_BATCH and nc and smem <= smem_limit:
-        fits["staged"] = PEpochPlan("staged", staged_warps(B), nc, smem)
+    if B <= MAX_STAGED_BATCH and nc:
+        smem = staged_smem_bytes(B, J, C)
+        if smem <= smem_limit:
+            fits["staged"] = PEpochPlan("staged", staged_warps(B), nc, smem)
+        split = _split_plan(B, J, C, nc, smem_limit, max_cluster)
+        if split is not None:
+            fits["split"] = split
     smem = unstaged_smem_bytes(B, J, C)
     if smem <= smem_limit:
         fits["unstaged"] = PEpochPlan("unstaged", UNSTAGED_WARPS, 0, smem)
@@ -207,90 +268,135 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
     return next(iter(fits.values()), None)
 
 
-def kernel_symbol(plan: PEpochPlan, C: int) -> str:
+def kernel_symbol(plan: PEpochPlan, C: int, guarded: bool = False) -> str:
     """The part of the mangled name that picks out the kernel ``plan``
     runs for ``C`` classes in the compiler's report
-    (``cuda_build.ptxas_usage``)."""
+    (``cuda_build.ptxas_usage``); the staged kernel has an instantiation
+    with the guard epilogue (``guarded``) and one without."""
+    if plan.kernel == "unstaged":
+        return "23unstaged_p_epoch_kernel"
+    name = f"{plan.kernel}_p_epoch_kernel"
+    symbol = f"{len(name)}{name}ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
     if plan.kernel == "staged":
-        return (f"21staged_p_epoch_kernelILi{plan.classes}ELb"
-                f"{int(C in EXACT_CLASSES)}E")
-    return "23unstaged_p_epoch_kernel"
+        symbol += f"Lb{int(guarded)}E"
+    return symbol
 
 
 def bulk_rows(logits) -> bool:
-    """Whether the staged kernel copies rows with ``cp.async.bulk``: a
-    row's ``J*C`` floats a multiple of 16 bytes and the logits 16-byte
-    aligned; else it copies them element-wise with ``cp.async``."""
+    """Whether the staged and split kernels copy rows with
+    ``cp.async.bulk``: a row's ``J*C`` floats a multiple of 16 bytes and
+    the logits 16-byte aligned; else they copy them element-wise with
+    ``cp.async``."""
     _, J, C = logits.shape
     return (J * C) % 4 == 0 and logits.data_ptr() % 16 == 0
+
+
+def guard_code(guard) -> tuple[int, float]:
+    """``(code, radius)`` the kernels take for ``guard``: ``(0, 0.0)`` for
+    None, else the ``kind`` and ``radius`` of a guard made by
+    ``aggregate.make_guard``. Any other callable raises: the kernels run
+    only those guards."""
+    if guard is None:
+        return 0, 0.0
+    kind = getattr(guard, "kind", None)
+    if kind not in GUARD_CODES:
+        raise ValueError(
+            f"the p_epoch kernels run the guards of aggregate.make_guard "
+            f"({sorted(GUARD_CODES)}), not {guard!r}")
+    return GUARD_CODES[kind], float(getattr(guard, "radius", 0.0))
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("p_epoch")
-    lib.p_epoch_launch_staged.restype = ctypes.c_int
-    lib.p_epoch_launch_staged.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    lib.p_epoch_launch_unstaged.restype = ctypes.c_int
-    lib.p_epoch_launch_unstaged.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    for name in ("p_epoch_staged_smem_bytes", "p_epoch_unstaged_smem_bytes"):
+    ptrs = [ctypes.c_void_p] * 11
+    floats = [ctypes.c_float] * 3
+    for name, ints in (("staged", 7), ("split", 9), ("unstaged", 6)):
+        fn = getattr(lib, f"p_epoch_launch_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ptrs + [ctypes.c_int] * ints + floats + [ctypes.c_void_p]
+    for name, nargs in (("p_epoch_staged_smem_bytes", 3),
+                        ("p_epoch_unstaged_smem_bytes", 3),
+                        ("p_epoch_split_smem_bytes", 5)):
         getattr(lib, name).restype = ctypes.c_size_t
-        getattr(lib, name).argtypes = [ctypes.c_int] * 3
-    for name in ("p_epoch_staged_warps", "p_epoch_instantiated_classes"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * nargs
+    for name, nargs in (("p_epoch_staged_warps", 1),
+                        ("p_epoch_instantiated_classes", 1),
+                        ("p_epoch_split_slice", 2),
+                        ("p_epoch_split_max_cluster", 0)):
         getattr(lib, name).restype = ctypes.c_int
-        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).argtypes = [ctypes.c_int] * nargs
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def split_max_cluster(device_index: int) -> int:
+    """The largest cluster the split kernel launches on card
+    ``device_index``: 16 where the card schedules a 16-CTA cluster of the
+    largest CTA, else 8 (``p_epoch_split_max_cluster``)."""
+    with torch.cuda.device(device_index):
+        return _library().p_epoch_split_max_cluster()
+
+
 def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
-    """The plan's layout must be the kernel's: same shared memory, warps
-    and instantiation."""
+    """The plan's layout must be the kernel's: same shared memory, warps,
+    instantiation and, split, slice."""
     if plan.kernel == "staged":
         got = (lib.p_epoch_staged_smem_bytes(B, J, C),
                lib.p_epoch_staged_warps(B),
-               lib.p_epoch_instantiated_classes(C))
+               lib.p_epoch_instantiated_classes(C), 0)
+    elif plan.kernel == "split":
+        got = (lib.p_epoch_split_smem_bytes(B, J, C, plan.cluster,
+                                            int(not plan.stream)),
+               lib.p_epoch_staged_warps(B),
+               lib.p_epoch_instantiated_classes(C),
+               lib.p_epoch_split_slice(J, plan.cluster))
     else:
-        got = (lib.p_epoch_unstaged_smem_bytes(B, J, C), UNSTAGED_WARPS, 0)
-    if got != (plan.smem_bytes, plan.warps, plan.classes):
+        got = (lib.p_epoch_unstaged_smem_bytes(B, J, C), UNSTAGED_WARPS, 0,
+               0)
+    if got != (plan.smem_bytes, plan.warps, plan.classes, plan.slice_width):
         raise RuntimeError(
             f"launch plan {plan} disagrees with csrc/p_epoch.cu "
-            f"(bytes, warps, classes = {got})")
+            f"(bytes, warps, classes, slice = {got})")
 
 
 def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
-            kernel=None, guard=None):
+            kernel=None, guard=None, guard_rounds=None):
     """One p-solver epoch; same contract as ``p_epoch_plain``. CPU
     tensors run the plain version; CUDA tensors launch the kernel of
-    ``launch_plan`` from ``csrc/p_epoch.cu`` (one CTA) or raise: a shape
-    no plan takes and a ``guard`` are refused there. ``kernel`` forces
-    ``"staged"`` or ``"unstaged"`` (for measurement); a forced kernel
-    with a guard is refused on every device, as the JAX package refuses
-    its pinned Pallas kernel with an active p-guard."""
+    ``launch_plan`` from ``csrc/p_epoch.cu`` or raise where no plan takes
+    the shape. ``guard`` (``aggregate.make_guard``) runs in the kernel's
+    epilogue. ``kernel`` forces one of ``KERNELS`` (for measurement; a
+    guard runs on a forced kernel too, where the JAX package refuses its
+    pinned Pallas kernel with a guard). ``guard_rounds``, an int32 ``(2,)``
+    CUDA tensor, receives the simplex's fixed-point rounds summed over the
+    epoch's steps and in the step that took most."""
     _check(p, buf, cv, logits, y_val, positions, valid, task)
-    if guard is not None and (kernel is not None or p.device.type == "cuda"):
-        raise ValueError(
-            "the p_epoch kernel cannot run with an active p_guard (it "
-            "implements the reference's unconstrained update; a guard "
-            "inside kernel 2 is ROADMAP.md queue 2 item 5): run the guarded "
-            "solve with kernel_impl='plain'")
     if p.device.type == "cpu":
         return p_epoch_plain(p, buf, cv, logits, y_val, positions, valid,
                              lr, momentum, task, guard)
     if p.device.type != "cuda":
         raise ValueError(f"p_epoch runs on cpu or cuda, not {p.device}")
+    code, radius = guard_code(guard)
+    if guard_rounds is not None and (
+            guard_rounds.dtype != torch.int32 or guard_rounds.numel() != 2
+            or guard_rounds.device != p.device):
+        raise ValueError("guard_rounds must be an int32 (2,) tensor on "
+                         f"{p.device}")
     S, B = positions.shape
     _, J, C = logits.shape
-    plan = launch_plan(B, J, C, kernel=kernel)
+    k_max = split_max_cluster(p.device.index)
+    plan = launch_plan(B, J, C, kernel=kernel, max_cluster=k_max)
     if plan is None:
+        stream = min(split_smem_bytes(B, J, C, k, True)
+                     for k in SPLIT_CLUSTERS if k <= k_max)
         raise ValueError(
-            f"p_epoch kernels need {staged_smem_bytes(B, J, C)} (staged) or "
-            f"{unstaged_smem_bytes(B, J, C)} (unstaged) bytes of shared "
-            f"memory for B={B}, J={J}, C={C}; a block has "
-            f"{cuda_build.SMEM_LIMIT} (a J split across a cluster is "
-            "ROADMAP.md queue 2 item 3): run it with kernel_impl='plain'")
+            f"no p_epoch kernel takes B={B}, J={J}, C={C}: the staged and "
+            f"split kernels need B <= {MAX_STAGED_BATCH}, C <= 32 and, "
+            f"split, {stream} bytes of shared memory a CTA at a {k_max}-CTA "
+            f"cluster; the unstaged kernel "
+            f"{unstaged_smem_bytes(B, J, C)}; a block has "
+            f"{cuda_build.SMEM_LIMIT}: run it with kernel_impl='plain'")
     lib = _library()
     _check_plan(lib, plan, B, J, C)
     p_out = torch.empty_like(p)
@@ -299,15 +405,21 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
     stream = torch.cuda.current_stream(p.device).cuda_stream
     ptrs = (p.data_ptr(), buf.data_ptr(), cv.data_ptr(), logits.data_ptr(),
             y_val.data_ptr(), positions.data_ptr(), valid.data_ptr(),
-            p_out.data_ptr(), buf_out.data_ptr(), metrics.data_ptr())
+            p_out.data_ptr(), buf_out.data_ptr(), metrics.data_ptr(),
+            None if guard_rounds is None else guard_rounds.data_ptr())
     is_cls = int(task == "classification")
+    scalars = (float(lr), float(momentum), radius, stream)
     if plan.kernel == "staged":
         err = lib.p_epoch_launch_staged(
-            *ptrs, S, B, J, C, is_cls, int(bulk_rows(logits)), float(lr),
-            float(momentum), stream)
+            *ptrs, S, B, J, C, is_cls, int(bulk_rows(logits)), code,
+            *scalars)
+    elif plan.kernel == "split":
+        err = lib.p_epoch_launch_split(
+            *ptrs, S, B, J, C, is_cls, int(bulk_rows(logits)), code,
+            plan.cluster, int(not plan.stream), *scalars)
     else:
         err = lib.p_epoch_launch_unstaged(
-            *ptrs, S, B, J, C, is_cls, float(lr), float(momentum), stream)
+            *ptrs, S, B, J, C, is_cls, code, *scalars)
     cuda_build.check(err, "p_epoch launch", lib)
     p_epoch.launches += 1
     p_epoch.launches_by_kernel[plan.kernel] += 1

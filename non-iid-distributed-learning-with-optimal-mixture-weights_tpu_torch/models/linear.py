@@ -39,8 +39,19 @@ def _linear_init(generator, d, num_classes):
     return {"w": xavier_uniform(generator, (num_classes, d))}
 
 
+# rows of a 2-byte feature matrix widened to float32 at a time
+WIDEN_ROWS = 65536
+
+
 def _linear_apply(params, x):
-    return x @ params["w"].transpose(-1, -2)
+    """``x @ w^T``. A bfloat16 or float16 ``x`` (``feature_dtype``) is
+    widened to float32 for the product, as JAX promotes bf16 x f32, in
+    chunks of ``WIDEN_ROWS`` rows: no float32 copy of a large matrix."""
+    wt = params["w"].transpose(-1, -2)
+    if x.dtype == wt.dtype:
+        return x @ wt
+    return torch.cat([x[lo:lo + WIDEN_ROWS].to(wt.dtype) @ wt
+                      for lo in range(0, x.shape[0], WIDEN_ROWS)], dim=-2)
 
 
 def linear_model() -> Model:

@@ -5,7 +5,8 @@ Reference: ``functions/tools.py:15-31``. ``W ~ N(0, sigma)`` of shape
 ``phi(X) = cos(X W + b) / sqrt(D)``. The draw comes from a
 ``torch.Generator``; a caller that must reproduce another run's features
 injects its ``(W, b)`` instead (``algorithms.prepare_setup(rff=...)``).
-The ``(N, d) x (d, D)`` product is a plain ``torch.matmul``.
+The ``(N, d) x (d, D)`` product is a plain ``torch.matmul``;
+``rff_map_to`` stores the map narrow (``feature_dtype``), chunk by chunk.
 
 ``data_heterogeneity`` / ``heterogeneity_from_parts`` give the driver's
 non-IIDness score (reference ``exp.py:66-76``, the JAX package's
@@ -35,6 +36,21 @@ def rff_map(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     D = W.shape[1]
     scale = torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
     return torch.cos(X @ W + b) / scale.to(X.device)
+
+
+def rff_map_to(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+               out_dtype: torch.dtype, chunk: int = 65536) -> torch.Tensor:
+    """``rff_map`` stored in ``out_dtype`` (the JAX package's
+    ``ops/rff.py:rff_map_to``): mapped in row chunks of ``chunk``, each
+    written into the narrow result, so only one float32 chunk is live at a
+    time and no float32 copy of the whole matrix is built."""
+    n = X.shape[0]
+    if n <= chunk:
+        return rff_map(X, W, b).to(out_dtype)
+    out = torch.empty((n, W.shape[1]), dtype=out_dtype, device=X.device)
+    for lo in range(0, n, chunk):
+        out[lo:lo + chunk] = rff_map(X[lo:lo + chunk], W, b)
+    return out
 
 
 @torch.no_grad()

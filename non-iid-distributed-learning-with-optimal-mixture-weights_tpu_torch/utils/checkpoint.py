@@ -12,9 +12,12 @@ never read around.
 Keys: ``params`` (``{name: array}``), ``p``, ``round``, ``rff_W`` and
 ``rff_b`` (the setup's feature-map draw, for serving raw inputs), and
 what ``extra`` adds — the round loop's resume state ``p_opt``,
-``server_opt`` (tuples of arrays) and ``server_opt_kind``. The JAX
-package's ``feature_dtype`` marker and defense state (``reputation``,
-``defense_state``) belong to options this package does not carry yet.
+``server_opt`` (tuples of arrays) and ``server_opt_kind`` — and
+``feature_dtype``, the name of the features' storage dtype
+(``"bfloat16"``; the JAX package's marker, ``utils/checkpoint.py:87-91``)
+when the setup stored them narrow. The JAX package's defense state
+(``reputation``, ``defense_state``) belongs to options this package does
+not carry yet.
 """
 
 from __future__ import annotations
@@ -54,11 +57,14 @@ def _to_host(tree):
 
 
 def save_checkpoint(path: str, params, p=None, round_idx: int | None = None,
-                    extra: dict | None = None, rff=None) -> str:
+                    extra: dict | None = None, rff=None,
+                    feature_dtype=None) -> str:
     """Save a model's state under the directory ``path`` as
-    ``state.pkl``; returns that file's path. An orbax layout an earlier
-    save left under ``path`` is removed first, since the JAX package's
-    loader would prefer it to the fresh pickle."""
+    ``state.pkl``; returns that file's path. ``feature_dtype`` (a torch
+    dtype or its name) is stored as its name, ``"bfloat16"``,
+    ``"float16"`` or ``"float32"``, as the JAX package stores it. An
+    orbax layout an earlier save left under ``path`` is removed first,
+    since the JAX package's loader would prefer it to the fresh pickle."""
     state: dict[str, Any] = {"params": _to_host(params)}
     if p is not None:
         state["p"] = _to_host(p)
@@ -66,6 +72,8 @@ def save_checkpoint(path: str, params, p=None, round_idx: int | None = None,
         state["round"] = int(round_idx)
     if rff is not None:
         state["rff_W"], state["rff_b"] = _to_host(rff[0]), _to_host(rff[1])
+    if feature_dtype is not None:
+        state["feature_dtype"] = str(feature_dtype).removeprefix("torch.")
     if extra:
         state.update({k: _to_host(v) for k, v in extra.items()})
     os.makedirs(path, exist_ok=True)

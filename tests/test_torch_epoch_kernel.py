@@ -11,13 +11,18 @@ and a vmapped round. Tolerances are those of
 ``tests/test_pallas_kernel.py``: weights atol 2e-5 / rtol 1e-5, loss
 atol 1e-4, accuracy atol 1e-3.
 
+Rows stored in bfloat16 or float16 (``prepare_setup(feature_dtype=...)``)
+are widened to float32 for the product on both sides; the plain version
+is held against the JAX package on the same 2-byte matrix, at the same
+tolerances (the widening is exact).
+
 The CUDA kernel itself needs a card; the ``cuda``-marked tests hold it
 against the plain version there, over a grid of shapes (both tasks, C in
 {1, 3, 10, 32}, D in {256, 250, 2000}, B in {32, 17}, J in {5, 70}),
-every cluster size, unaligned rows, the unstaged kernel and a bitwise
-determinism check, and skip on a machine without one. The launch plan
-(cluster size, client order, shared-memory bytes, refused shapes) is
-pure Python and tested here on the CPU.
+every cluster size, unaligned rows, 2-byte rows, the unstaged kernel and
+a bitwise determinism check, and skip on a machine without one. The
+launch plan (cluster size, client order, shared-memory bytes, refused
+shapes) is pure Python and tested here on the CPU.
 """
 
 import jax
@@ -30,6 +35,7 @@ from fedamw_tpu.fedcore.batching import epoch_batches as jepoch_batches
 from fedamw_tpu.fedcore.client import make_client_round as jmake_client_round
 from fedamw_tpu.fedcore.client import make_local_update as jmake_local_update
 from fedamw_tpu.models import linear_model as jlinear_model
+from fedamw_tpu_torch.convert import features_from_jax
 from fedamw_tpu_torch.fedcore import (
     client_epoch,
     client_epoch_plain,
@@ -91,6 +97,34 @@ def test_plain_epoch_matches_jax_single_client(task, mu, lam, impl):
     lu_t = make_local_update(task, EPOCHS, B, N_MAX)
     wt, lt, at = lu_t({"w": _t(w0)}, _t(X), _t(y), _t(idx).long(), _t(mask),
                       _t(_positions(key, mask)), 0.1, mu, lam)
+    np.testing.assert_allclose(wt["w"].numpy(), np.asarray(wj["w"]), **W_TOL)
+    np.testing.assert_allclose(float(lt), float(lj), atol=1e-4)
+    np.testing.assert_allclose(float(at), float(aj), atol=1e-3)
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_plain_epoch_two_byte_rows_match_jax(task, dtype, impl):
+    """The same local update on a 2-byte feature matrix: the JAX package
+    promotes the rows to float32 in the product, the plain version widens
+    them; the same tolerances as float32 rows."""
+    X, y, w0 = _data(task)
+    Xn = np.asarray(jnp.asarray(X).astype(dtype))
+    Xt = features_from_jax(Xn)
+    assert Xt.dtype == getattr(torch, dtype)
+    idx, mask = _client(50)
+    key = jax.random.PRNGKey(9)
+    apply_fn = jlinear_model().apply if impl == "xla" else None
+    lu_j = jmake_local_update(apply_fn, task, EPOCHS, B, N_MAX,
+                              kernel_impl=impl)
+    wj, lj, aj = lu_j({"w": jnp.asarray(w0)}, jnp.asarray(Xn),
+                      jnp.asarray(y), jnp.asarray(idx), jnp.asarray(mask),
+                      key, jnp.float32(0.1), jnp.float32(0.05),
+                      jnp.float32(0.01))
+    lu_t = make_local_update(task, EPOCHS, B, N_MAX)
+    wt, lt, at = lu_t({"w": _t(w0)}, Xt, _t(y), _t(idx).long(), _t(mask),
+                      _t(_positions(key, mask)), 0.1, 0.05, 0.01)
     np.testing.assert_allclose(wt["w"].numpy(), np.asarray(wj["w"]), **W_TOL)
     np.testing.assert_allclose(float(lt), float(lj), atol=1e-4)
     np.testing.assert_allclose(float(at), float(aj), atol=1e-3)
@@ -162,8 +196,25 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
     assert float(ma[1, 2]) == 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wrapper_widens_two_byte_rows_on_the_cpu(dtype):
+    """A 2-byte X runs the plain version on the CPU: the same epoch as on
+    its float32 widening, bit for bit."""
+    W, w0, X, y, rows, valid = _epoch_inputs("classification", "cpu")
+    Xn = X.to(dtype)
+    a = client_epoch(W, w0, Xn, y, rows, valid, 0.1, 0.05, 0.01,
+                     "classification")
+    b = client_epoch_plain(W, w0, Xn.float(), y, rows, valid, 0.1, 0.05,
+                           0.01, "classification")
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
 def test_wrapper_rejects_bad_inputs():
     W, w0, X, y, rows, valid = _epoch_inputs("classification", "cpu")
+    with pytest.raises(ValueError, match="X must be one of"):
+        client_epoch(W, w0, X.to(torch.float64), y, rows, valid, 0.1, 0, 0,
+                     "classification")
     with pytest.raises(ValueError, match="rows"):
         client_epoch(W, w0, X, y, rows.long(), valid, 0.1, 0, 0,
                      "classification")
@@ -255,6 +306,28 @@ def test_plan_is_none_where_no_kernel_takes_the_shape(J, B, C, D,
     assert (plan.cluster if plan else None) == route
     if plan is not None:
         assert plan.smem_bytes <= smem_limit
+
+
+def test_plan_two_byte_rows_layout():
+    """2-byte rows: slices round to 8 elements (16 bytes), the two step
+    tiles take half the bytes, so a smaller cluster holds the main path
+    and the D limit of the largest cluster rises (C = 10, B = 32: 5,376
+    float32 columns, 8,704 2-byte ones)."""
+    assert ek.slice_width(2000, 4, 2) == 504 and ek.slice_width(250, 4, 2) == 64
+    assert ek.slice_width(2000, 4) == 500
+    f32 = ek.staged_smem_bytes(32, 10, 2000, 4)
+    b16 = ek.staged_smem_bytes(32, 10, 2000, 4, row_bytes=2)
+    # the tiles: 2 * 32 rows of 500 floats against 2 * 32 rows of 504
+    # 2-byte elements; W and the anchor slices grow by 2 * 10 * 4 floats
+    assert f32 - b16 == 4 * 2 * 32 * 500 - 2 * 2 * 32 * 504 - 4 * 2 * 10 * 4
+    plan = ek.launch_plan(50, 32, 10, 2000, H100_SMS, row_bytes=2)
+    assert (plan.cluster, plan.slice_width) == (2, 1000)
+    for D, f32_k, b16_k in ((5376, 8, 8), (5377, 0, 8), (8704, 0, 8),
+                            (8705, 0, 0)):
+        a = ek.launch_plan(5, 32, 10, D, H100_SMS)
+        b = ek.launch_plan(5, 32, 10, D, H100_SMS, row_bytes=2)
+        assert (a.cluster if a else 0) == f32_k, D
+        assert (b.cluster if b else 0) == b16_k, D
 
 
 def test_plan_falls_back_to_unstaged_kernel_for_huge_batches():
@@ -390,12 +463,60 @@ def test_cuda_unstaged_kernel_matches_plain_version():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("J", [5, 70])
+@pytest.mark.parametrize("D_", [256, 250, 2000])
+@pytest.mark.parametrize("C_", [1, 10, 26])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_cuda_kernel_two_byte_rows_match_plain_version(task, dtype, C_, D_,
+                                                       J):
+    """bf16 and f16 rows, staged as they are and widened as read: D = 256
+    and 2000 copy by cp.async.bulk, D = 250 element by element."""
+    _need_card()
+    args = _epoch_inputs(task, "cuda", J=J, S=6, C=C_, D=D_)
+    args[2] = args[2].to(getattr(torch, dtype))
+    wk, _ = _kernel_vs_plain(task, args)
+    torch.testing.assert_close(wk[1], args[0][1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_two_byte_rows_every_cluster_size(dtype, cluster):
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", S=6, C=10, D=256)
+    args[2] = args[2].to(getattr(torch, dtype))
+    _kernel_vs_plain("classification", args, cluster=cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_two_byte_rows_unstaged_and_unaligned(dtype):
+    """The unstaged kernel reads 2-byte rows from global memory; an X 2
+    bytes off a 16-byte boundary is copied element by element."""
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", J=3, S=2, C=10, D=2000,
+                         B=1024)
+    args[2] = args[2].to(getattr(torch, dtype))
+    _kernel_vs_plain("classification", args)
+    args = _epoch_inputs("classification", "cuda", S=6, C=10, D=256)
+    X = args[2].to(getattr(torch, dtype))
+    buf = torch.empty(X.numel() + 1, dtype=X.dtype, device="cuda")
+    args[2] = buf[1:].view(X.shape)
+    args[2].copy_(X)
+    assert args[2].data_ptr() % 16 != 0
+    _kernel_vs_plain("classification", args)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("task", ["classification", "regression"])
 def test_cuda_kernel_is_deterministic(task):
     _need_card()
     args = _epoch_inputs(task, "cuda", J=70, S=6, C=10 if task ==
                          "classification" else 1, D=2000)
-    w1, m1 = client_epoch(*args, 0.1, 0.05, 0.01, task)
-    w2, m2 = client_epoch(*args, 0.1, 0.05, 0.01, task)
-    torch.cuda.synchronize()
-    assert torch.equal(w1, w2) and torch.equal(m1, m2)
+    for X in (args[2], args[2].to(torch.bfloat16)):
+        args[2] = X
+        w1, m1 = client_epoch(*args, 0.1, 0.05, 0.01, task)
+        w2, m2 = client_epoch(*args, 0.1, 0.05, 0.01, task)
+        torch.cuda.synchronize()
+        assert torch.equal(w1, w2) and torch.equal(m1, m2)

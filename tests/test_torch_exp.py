@@ -146,7 +146,9 @@ def test_module_entry_point_from_the_repo_root(tmp_path):
     ("--server_lr", "0.25", "server_lr", 0.25),
     ("--p_guard", "clip:2", "p_guard", "clip:2"),
     ("--save_models", "ckpts", "save_models", "ckpts"),
-    ("--resume", None, "resume", True)])
+    ("--resume", None, "resume", True),
+    ("--feature_dtype", "bfloat16", "feature_dtype", "bfloat16"),
+    ("--feature_dtype", "float16", "feature_dtype", "float16")])
 def test_ported_flags_parse(flag, value, attr, want):
     args = exp.parse_args(ARGV + [flag] + ([value] if value else []))
     assert getattr(args, attr) == want
@@ -157,7 +159,7 @@ def test_ported_flags_parse(flag, value, attr, want):
     (["--p_guard", "auto"], "expected 'none'"),
     (["--p_guard", "clip:0"], "clip radius"),
     (["--server_opt", "rmsprop"], "invalid choice"),
-    (["--p_guard", "simplex", "--device", "cuda"], "queue 2 item 5")])
+    (["--feature_dtype", "int8"], "invalid choice")])
 def test_bad_extension_values_are_argparse_errors(argv, msg, capsys):
     with pytest.raises(SystemExit) as err:
         exp.parse_args(ARGV + argv)
@@ -250,3 +252,23 @@ def test_save_models_writes_checkpoints_the_jax_package_reads(tmp_path):
     assert avg["server_opt_kind"] == "sgd" and avg["server_opt"] == ()
     data = load_results(str(tmp_path / "res" / "exp1_digits.pkl"))
     assert avg["eval_acc"] == pytest.approx(data["test_acc"][3, -1, 0])
+
+
+@pytest.mark.cuda
+def test_p_guard_runs_on_the_card(tmp_path):
+    """``--p_guard simplex`` with ``--device cuda`` runs: kernel 2 applies
+    the guard in its epilogue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from fedamw_tpu_torch.fedcore import p_epoch
+
+    # the mnist-shaped stand-in: the card's machine has no sklearn digits
+    argv = ["--device", "cuda", "--dataset", "mnist", "--D", "64",
+            "--num_partitions", "8", "--round", "2", "--local_epoch", "1",
+            "--seed", str(SEED)]
+    before = dict(p_epoch.launches_by_kernel)
+    path = exp.main(argv + ["--p_guard", "simplex",
+                            "--result_dir", str(tmp_path)])
+    data = load_results(path)
+    assert np.all(np.isfinite(data["test_acc"]))
+    assert p_epoch.launches_by_kernel["staged"] > before["staged"]

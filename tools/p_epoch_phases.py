@@ -67,8 +67,8 @@ def main():
     lib = ctypes.CDLL(str(lib_path))
     lib.p_epoch_launch_staged.restype = ctypes.c_int
     lib.p_epoch_launch_staged.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.p_epoch_phase_clocks.restype = ctypes.c_int
     lib.p_epoch_phase_clocks.argtypes = [ctypes.c_void_p]
 
@@ -92,8 +92,8 @@ def main():
         err = lib.p_epoch_launch_staged(
             p.data_ptr(), buf.data_ptr(), cv.data_ptr(), logits.data_ptr(),
             y.data_ptr(), pos.data_ptr(), valid.data_ptr(),
-            *(o.data_ptr() for o in outs), S, B, J, C, 1,
-            int(pk.bulk_rows(logits)), 1e-3, 0.9, stream)
+            *(o.data_ptr() for o in outs), None, S, B, J, C, 1,
+            int(pk.bulk_rows(logits)), 0, 1e-3, 0.9, 0.0, stream)
         if err:
             sys.exit(f"p_epoch_phases: launch failed with CUDA error {err}")
 
