@@ -19,8 +19,10 @@ and read just after:
 
 - ``main_path``: FedAvg and FedAMW, 3 rounds of 2 local epochs at a
   constant lr, each held against the same run through the plain versions
-  on the card (same seed, so the same init and shuffles) and required to
-  learn;
+  on the card (same seed, so the same init and shuffles; FedAMW's
+  per-round ``mixture`` record too) and required to learn; FedAvg's
+  FLOPs per client-update and achieved GFLOP/s by ``bench.py``'s
+  definition, with the counting basis;
 - ``paper_algorithms``: Centralized, Distributed, FedAMW_OneShot (one
   local phase of 6 epochs) and FedNova (3 rounds), each held against its
   plain run and its launch counts checked, with Centralized's launch
@@ -28,6 +30,15 @@ and read just after:
   time at every cluster size);
 - ``driver``: ``fedamw_tpu_torch.exp.main`` at R=3, its pickle checked
   against ``exp.py``'s schema;
+- ``observability``: the driver again at R=3 with ``--trace_dir``, then
+  with ``--trace_dir --profile``, each pickle bitwise the untraced one;
+  the trace's spans (3 ``train_scan``, 9 ``round`` under them), the
+  telemetry dump's ``fed_p_entropy`` points, the profile read by
+  ``utils.telemetry.parse_profiler_trace`` (busy seconds, GPU events
+  against the launch counters, the trace's event categories);
+  ``attribute_device_time`` over one FedAMW round (it must read the
+  profiler); FedAMW's ``analyze_memory`` at the main configuration; the
+  three driver runs' seconds;
 - ``options``: the round loop's options at the main configuration, 2
   rounds (3 where a run is split), each held against its plain run and
   its launches counted by kernel: FedAvg ``sequential=True`` (one J = 1
@@ -46,7 +57,8 @@ and read just after:
   and the feature matrices' bytes;
 - ``profile``: the device shuffle draw of one round alone
   (``draw_ms_per_round``, CUDA events), then one profiled FedAMW run
-  (device time by kernel, the device's busy share of the wall time);
+  (device time by kernel, the device's busy share of the wall time,
+  printed beside ``attribute_device_time``'s compute fraction);
 - the ``kernels`` line: each kernel timed beside its plain version and
   its bound. ``client_epoch``'s entry also shows its critical path: the
   largest client's non-empty steps (``steps_max``), ``us_per_step``, the
@@ -334,6 +346,146 @@ def options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
     return launched
 
 
+def trace_categories(trace_dir):
+    """``{category: count}`` of the complete (``"X"``) events in the Chrome
+    trace under ``trace_dir``, and the kernel events of each hand kernel
+    by name, read here independently of ``parse_profiler_trace``."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    cats, by_kernel = {}, {"client_epoch": 0, "p_epoch": 0}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        name = str(e.get("name", ""))
+        if e.get("cat") == "kernel" and "epoch_kernel" in name:
+            by_kernel["p_epoch" if "p_epoch_kernel" in name
+                      else "client_epoch"] += 1
+    return cats, by_kernel
+
+
+def observability(setup, amw_kw, untraced, untraced_secs, timed, card):
+    """The ``observability`` phase: the driver at R=3 traced, then traced
+    and profiled, each pickle bitwise the untraced run's (``untraced``);
+    the trace, telemetry and profile files checked; then
+    ``attribute_device_time`` over one FedAMW round and FedAMW's
+    ``analyze_memory``. Returns the compute fraction."""
+    import numpy as np
+
+    from fedamw_tpu_torch import exp
+    from fedamw_tpu_torch.algorithms import FedAMW
+    from fedamw_tpu_torch.utils import read_jsonl
+    from fedamw_tpu_torch.utils.telemetry import (
+        attribute_device_time, parse_profiler_trace)
+
+    def same(a, b):
+        return set(a) == set(b) and all(
+            np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+            else a[k] == b[k] for k in a)
+
+    row = {"phase": "observability", "card": card, "rounds": ROUNDS,
+           "seconds": {"untraced": untraced_secs}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, extra in (("traced", ["--trace_dir", "tr1"]),
+                           ("profiled", ["--trace_dir", "tr2",
+                                         "--profile", "prof"])):
+            extra = [os.path.join(tmp, a) if a in ("tr1", "tr2", "prof")
+                     else a for a in extra]
+            log = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                path = exp.main(["--dataset", "mnist", "--round",
+                                 str(ROUNDS), "--seed", str(SEED),
+                                 "--result_dir", os.path.join(tmp, run),
+                                 *extra])
+            row["seconds"][run] = time.perf_counter() - t0
+            c = counts()
+            row.setdefault("launches", {})[run] = {
+                k: c[k] for k in ("client_epoch", "p_epoch")}
+            with open(path, "rb") as f:
+                row.setdefault("pickle_bitwise", {})[run] = same(
+                    pickle.load(f), untraced)
+            tdir = extra[1]
+            header, spans = read_jsonl(
+                os.path.join(tdir, "exp1_mnist_trace.jsonl"))
+            scans = {r["span_id"]: r for r in spans
+                     if r["name"] == "train_scan"}
+            rounds = [r for r in spans if r["name"] == "round"]
+            with open(os.path.join(tdir, "exp1_mnist_telemetry.json")) as f:
+                dump = json.load(f)
+            entropy = [m for m in dump["metrics"]
+                       if m["name"] == "fed_p_entropy"]
+            row.setdefault("trace", {})[run] = {
+                "schema": header["schema"], "spans": len(spans),
+                "train_scan": [r["attrs"]["aggregation"]
+                               for r in scans.values()],
+                "round": len(rounds),
+                "rounds_parented": sum(r["parent_id"] in scans
+                                       for r in rounds),
+                "telemetry_schema": dump["schema"],
+                "fed_p_entropy_points": [len(m["series"]) for m in entropy]}
+            if run == "profiled":
+                pdir = extra[3]
+                parsed = parse_profiler_trace(pdir)
+                cats, by_kernel = trace_categories(pdir)
+                row["profile"] = {
+                    "parsed": parsed, "categories": cats,
+                    "kernel_events_by_kernel": by_kernel,
+                    "device_busy_share": (
+                        parsed["device_busy_s"] / row["seconds"][run]
+                        if parsed else "not measured")}
+        log_tail = log.getvalue().splitlines()[-6:]
+    row["log_tail"] = log_tail
+    tr = row["trace"]
+    checks = {
+        "pickles_bitwise": all(row["pickle_bitwise"].values()),
+        "spans": all(t["schema"] == "TRACE.v1" and sorted(t["train_scan"])
+                     == ["fixed", "fixed", "learned"] and t["round"] == 3
+                     * ROUNDS and t["rounds_parented"] == 3 * ROUNDS
+                     for t in tr.values()),
+        "telemetry": all(t["telemetry_schema"] == "TELEMETRY.v1"
+                         and t["fed_p_entropy_points"] == [ROUNDS]
+                         for t in tr.values()),
+        "profile_parsed": row["profile"]["parsed"] is not None,
+    }
+    if checks["profile_parsed"]:
+        launched = row["launches"]["profiled"]
+        checks["kernel_events_cover_launches"] = (
+            row["profile"]["parsed"]["device_events"]
+            >= launched["client_epoch"] + launched["p_epoch"]
+            and all(row["profile"]["kernel_events_by_kernel"][k]
+                    >= launched[k] for k in launched))
+
+    # device-time attribution over one FedAMW round (round 0 of the main
+    # path's 3-round run: its 3 p-epochs)
+    def one_round():
+        return timed(FedAMW, **amw_kw, stop_round=1)[1]
+
+    attr = attribute_device_time(one_round, reps=3)
+    row["attribute_device_time"] = attr
+    frac = attr.get("compute_fraction")
+    checks["attribution_from_profiler"] = (
+        attr["source"] == "profiler" and frac is not None and 0 < frac <= 1)
+
+    # FedAMW's measured memory footprint of one round at the main config
+    mem = FedAMW(setup, **amw_kw, analyze_memory=True)
+    row["analyze_memory"] = mem
+    checks["analyze_memory"] = (
+        set(mem) == {"argument_size_in_bytes", "output_size_in_bytes",
+                     "temp_size_in_bytes", "peak_memory_in_bytes"}
+        and mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"] > 0)
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    emit(row)
+    if not row["ok"]:
+        fail(f"observability: {checks}")
+    return frac
+
+
 def main():
     import numpy as np
     import torch
@@ -356,6 +508,8 @@ def main():
     from fedamw_tpu_torch.fedcore import psolver_kernel as pk
     from fedamw_tpu_torch.fedcore.batching import (
         batch_valid, draw_epoch_positions)
+    from fedamw_tpu_torch.utils.flops import (
+        client_update_flops, fwd_flops_per_sample)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -664,8 +818,22 @@ def main():
             d["max_abs_w"] = float((res["params"]["w"]
                                     - ref["params"]["w"]).abs().max())
             ok = ok and d["max_abs_w"] <= TOL_RUN["w_atol"]
+        if "mixture" in ref:
+            # FedAMW's per-round entropy and largest mass of p, relative
+            # like the losses
+            d["max_rel_mixture"] = max(float(np.max(
+                np.abs(res["mixture"][k] - ref["mixture"][k])
+                / np.abs(ref["mixture"][k]))) for k in ref["mixture"])
+            ok = ok and d["max_rel_mixture"] <= TOL_RUN["loss_rtol"]
         return ok, d
 
+    # FedAvg's client-update FLOPs by bench.py's definition (bench.py:
+    # 685-712): the forward from the model's parameters, n_mean over all
+    # J clients' partitions x 0.8 for the validation split, fwd + bwd
+    fwd, basis = fwd_flops_per_sample(setup.model.init(
+        torch.Generator().manual_seed(0), D, C), with_provenance=True)
+    flops_upd = client_update_flops(
+        fwd, EPOCHS, 0.8 * float(np.mean([len(q) for q in ds.parts])))
     for name, _, _ in algos:
         res, secs = runs[name]
         ref, plain_secs = refs[name]
@@ -673,15 +841,26 @@ def main():
         acc, tloss = res["test_acc"], res["test_loss"]
         learns = bool(np.all(np.diff(tloss) < 0) and acc[-1] > acc[0]
                       and acc[-1] >= chance + ACC_MARGIN)
-        emit({"phase": "main_path", "algorithm": name,
-              "train_loss": res["train_loss"].tolist(),
-              "test_loss": res["test_loss"].tolist(),
-              "test_acc": res["test_acc"].tolist(),
-              "seconds": secs, "seconds_plain": plain_secs,
-              "round_ms": 1e3 * secs / ROUNDS,
-              "p_sum": float(res["p"].sum()),
-              "chance_acc": chance, "learns": learns,
-              "vs_plain": diffs, "tol": TOL_RUN, "ok": ok})
+        row = {"phase": "main_path", "algorithm": name, "card": card,
+               "train_loss": res["train_loss"].tolist(),
+               "test_loss": res["test_loss"].tolist(),
+               "test_acc": res["test_acc"].tolist(),
+               "seconds": secs, "seconds_plain": plain_secs,
+               "round_ms": 1e3 * secs / ROUNDS,
+               "p_sum": float(res["p"].sum()),
+               "chance_acc": chance, "learns": learns,
+               "vs_plain": diffs, "tol": TOL_RUN, "ok": ok}
+        if name == "FedAMW":
+            ok = ok and set(res["mixture"]) == {"p_entropy", "p_max"} and all(
+                v.shape == (ROUNDS,) for v in res["mixture"].values())
+            row["mixture"] = {k: v.tolist() for k, v in res["mixture"].items()}
+            row["ok"] = ok
+        else:
+            ups = J * ROUNDS / secs
+            row.update({"client_updates_per_s": ups,
+                        "flops_per_update": flops_upd, "flops_basis": basis,
+                        "achieved_gflops": ups * flops_upd / 1e9})
+        emit(row)
         if not ok:
             fail(f"{name} on the kernels does not match its plain run")
         if not learns:
@@ -785,6 +964,9 @@ def main():
     if not drv_ok:
         fail("the driver's pickle is not exp.py's (6, R, 1) schema")
 
+    # -- 6b. the observability plane: the driver traced and profiled ------
+    obs_frac = observability(setup, amw_kw, data, drv_secs, timed, card)
+
     # -- 7. the round loop's options, each against its plain run ----------
     option_launches = options(ds, setup, prm, kw, amw_kw, timed, vs_plain,
                               card)
@@ -861,12 +1043,14 @@ def main():
     device_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     emit({"phase": "profile", "algorithm": "FedAMW", "rounds": ROUNDS,
+          "card": card,
           "wall_ms": 1e3 * secs, "draw_ms_per_round": draw_ms,
           "draw_ms_per_round_p_epochs_100": draw_ms_r100,
           "device_ms": device_ms if device_ms > 0 else "not measured",
           "device_ms_all_rows": all_rows_ms,
           "device_busy_share": (device_ms / (1e3 * secs) if device_ms > 0
                                 else "not measured"),
+          "attribute_device_time_compute_fraction": obs_frac,
           "top": [{"kernel": k[:80], "device_ms": ms, "calls": n}
                   for k, (ms, n) in top]})
 

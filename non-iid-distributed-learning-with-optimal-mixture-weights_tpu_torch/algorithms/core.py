@@ -16,8 +16,13 @@ Centralized and Distributed, ``(round,)`` vectors for the others.
   ``participation < 1``, a server optimizer (``server_opt``, not with
   FedAMW), FedAMW's ``p_guard``, and round resume (``start_round``,
   ``stop_round``, ``resume_from``, ``return_state``) with its state keys
-  ``params``, ``p``, ``p_opt``, ``server_opt`` and ``server_opt_kind``.
-  It lacks the fault, robust-aggregation and cohort planes.
+  ``params``, ``p``, ``p_opt``, ``server_opt`` and ``server_opt_kind``,
+  and ``analyze_memory`` (a measured memory footprint of one round).
+  FedAMW's result carries the learned mixture's per-round entropy and
+  largest mass (``out["mixture"]``), and a traced run (``utils.trace``
+  configured) records one ``train_scan`` span, one ``round`` record per
+  round and the per-round telemetry series (``_emit_round_spans``). It
+  lacks the fault, robust-aggregation and cohort planes.
 - The one-shot phase (Distributed, FedAMW_OneShot): every client trains
   ``epoch`` epochs from one init (kernel 1, one launch per epoch, or per
   client and epoch under ``sequential``), then a fixed-weight aggregate,
@@ -29,8 +34,8 @@ Centralized and Distributed, ``(round,)`` vectors for the others.
 
 Passing an option the port does not carry raises (ROADMAP.md, queue 1);
 the one-shot algorithms refuse partial participation, faults and robust
-aggregation with ``ValueError`` and ignore ``server_opt``/``server_lr``,
-as the JAX package does.
+aggregation with ``ValueError`` and ignore ``server_opt``/``server_lr``
+and ``analyze_memory``, as the JAX package does.
 
 Randomness. ``jax.random`` cannot be reproduced in torch, so every
 random input is injectable: ``params0`` (initial weights);
@@ -68,6 +73,7 @@ No shuffle is drawn on the host.
 
 from __future__ import annotations
 
+import time
 import warnings
 
 import numpy as np
@@ -86,12 +92,13 @@ from ..fedcore import (
 from ..fedcore.batching import draw_epoch_positions
 from ..fedcore.server_opt import ServerOptimizer, check_server_opt
 from ..ops.schedule import lr_schedule_array
+from ..utils.telemetry import get_registry
+from ..utils.trace import get_tracer
 from .common import FedSetup, result_tuple
 
 # The JAX package's options this port does not carry yet, with the value
 # that means "off". Passing another value raises.
 _WAITING = {
-    "analyze_memory": False,
     "faults": None,
     "robust_agg": "mean",
     "cohort_shards": 0,
@@ -99,7 +106,10 @@ _WAITING = {
 }
 # round-loop options the one-shot algorithms take and ignore, as the JAX
 # package's do (they swallow every keyword, core.py:906-921)
-_ROUND_LOOP_ONLY = ("server_opt", "server_lr")
+_ROUND_LOOP_ONLY = ("server_opt", "server_lr", "analyze_memory")
+# the robust-aggregation spec every round of the port runs, in the JAX
+# package's canonical spelling (parse_robust_spec("mean").canonical())
+_ROBUST_CANONICAL = "mean"
 
 
 def _reject_waiting(algo: str, opts: dict, ignored=()) -> None:
@@ -196,6 +206,69 @@ def _where(cond, new: dict, old: dict) -> dict:
     return {k: torch.where(cond, new[k], old[k]) for k in new}
 
 
+def _mixture_stats(p):
+    """The learned mixture's entropy and largest mass, as 0-d tensors on
+    p's device (JAX ``core.py:546-555``): ``-sum p log p`` with the double
+    where, so a client of zero mass (absent under participation) adds an
+    exact 0 rather than ``0 * log 0``."""
+    pos = p > 0
+    entropy = -torch.sum(torch.where(
+        pos, p * torch.log(torch.where(pos, p, 1.0)), 0.0))
+    return entropy, torch.max(p)
+
+
+def _nbytes(*values) -> int:
+    """Bytes of the tensors in ``values`` (tensors, or lists, tuples and
+    dicts of them)."""
+    total = 0
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        elif isinstance(v, dict):
+            total += _nbytes(*v.values())
+        elif isinstance(v, (list, tuple)):
+            total += _nbytes(*v)
+    return total
+
+
+def _memory_analysis(setup, learned, round_inputs, params, p, n_metrics,
+                     entry):
+    """``analyze_memory``'s dict, under the JAX package's keys (its
+    ``memory_analysis`` of the compiled round program, ``core.py:1269-1281``)
+    that a measurement can fill:
+
+    - ``argument_size_in_bytes``: the tensors one round reads — the
+      setup's features, labels and index arrays (``round_inputs``), the
+      test set, the sizes and fixed weights, the params, and on FedAMW
+      the validation set and p;
+    - ``output_size_in_bytes``: the params, p and one row of metrics;
+    - on the card, ``peak_memory_in_bytes``: the argument bytes plus
+      ``torch.cuda.max_memory_allocated`` above the allocation at entry
+      (``entry``; the peak stats reset there), so the tensors already
+      resident count once, as arguments;
+    - ``temp_size_in_bytes``: the peak less the other two, floored at 0.
+
+    ``alias_size_in_bytes`` and ``generated_code_size_in_bytes`` have no
+    measured counterpart and are left out, as the JAX package leaves out
+    the keys its analysis does not fill; so are peak and temp on the
+    CPU."""
+    args = [setup.X, setup.y, round_inputs, setup.X_test, setup.y_test,
+            setup.sizes, setup.p_fixed, params]
+    if learned:
+        args += [setup.X_val, setup.y_val, p]
+    out = {"argument_size_in_bytes": _nbytes(*args),
+           "output_size_in_bytes": _nbytes(params, p) + 4 * n_metrics}
+    if entry is not None:
+        torch.cuda.synchronize(setup.device)
+        peak = (out["argument_size_in_bytes"]
+                + torch.cuda.max_memory_allocated(setup.device) - entry)
+        out["temp_size_in_bytes"] = max(
+            0, peak - out["argument_size_in_bytes"]
+            - out["output_size_in_bytes"])
+        out["peak_memory_in_bytes"] = peak
+    return out
+
+
 def _resume_state(resume_from, learned, server_opt, device):
     """``(params, p or None, optimizer state leaves or None)`` of a
     resume dict, with the JAX package's checks and warnings
@@ -273,6 +346,7 @@ def _round_based(
     p_positions=None,
     participation_masks=None,
     kernel_impl="auto",
+    analyze_memory=False,
 ):
     """Common skeleton of FedAvg/FedProx/FedNova/FedAMW
     (``tools.py:337-352``; JAX ``core.py:_round_based``).
@@ -299,6 +373,13 @@ def _round_based(
     bit. ``kernel_impl``: ``"auto"`` runs the kernels' wrappers (CUDA
     kernels on the card), ``"plain"`` their plain versions on any device
     (the reference run).
+
+    FedAMW's result carries ``mixture``: the per-round entropy and
+    largest mass of the p each round ends with (``_mixture_stats``),
+    computed on the device and copied to the host with the other metrics.
+    ``analyze_memory=True`` runs round ``start_round`` alone and returns
+    ``_memory_analysis``'s dict instead of the result: a measurement, not
+    the JAX package's ahead-of-time estimate of the compiled program.
     """
     if not 0.0 < participation <= 1.0:
         raise ValueError(f"participation must be in (0, 1], got "
@@ -327,6 +408,13 @@ def _round_based(
     check_server_opt(server_opt)
 
     dev = setup.device
+    entry = None
+    if analyze_memory:
+        stop = start_round + 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            entry = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
     params = _init_params(setup, seed, params0)
     p, opt0 = setup.p_fixed, None
     if resume_from is not None:
@@ -355,7 +443,10 @@ def _round_based(
                                         kernel_impl=kernel_impl)
         opt_state = init_opt(p) if opt0 is None else {"trace": opt0[0]}
 
-    train_loss, test_loss, test_acc = [], [], []
+    metrics = {"train_loss": [], "test_loss": [], "test_acc": []}
+    if learned:
+        metrics.update(p_entropy=[], p_max=[])
+    t_scan0 = time.perf_counter()
     for t in range(start_round, stop):
         pos_t = (_round_generator(setup, seed, t) if client_positions is None
                  else _at(client_positions, t))
@@ -416,17 +507,33 @@ def _round_based(
                 params = agg
             else:
                 params, server_state = server.step(params, agg, server_state)
+        if learned:
+            # the p this round ends with (the carried p of core.py:552-555)
+            for k, v in zip(("p_entropy", "p_max"), _mixture_stats(p)):
+                metrics[k].append(v)
         tl, ta = evaluate(params, setup.X_test, setup.y_test)
         if verbose:
             print(f"[round {t:3d}] train loss {float(train_loss_t):8.5f} | "
                   f"test loss {float(tl):8.5f} | test acc {float(ta):5.1f}%",
                   flush=True)
-        train_loss.append(train_loss_t)
-        test_loss.append(tl)
-        test_acc.append(ta)
+        metrics["train_loss"].append(train_loss_t)
+        metrics["test_loss"].append(tl)
+        metrics["test_acc"].append(ta)
 
-    out = result_tuple(*(torch.stack(m).cpu().numpy()
-                         for m in (train_loss, test_loss, test_acc)))
+    if analyze_memory:
+        return _memory_analysis(setup, learned, (idx_t, mask_t), params, p,
+                                len(metrics), entry)
+    # one host copy of every metric of every round
+    host = dict(zip(metrics, torch.stack(
+        [torch.stack(v) for v in metrics.values()]).cpu().numpy()))
+    scan_s = time.perf_counter() - t_scan0
+    out = result_tuple(host["train_loss"], host["test_loss"],
+                       host["test_acc"])
+    if learned:
+        out["mixture"] = {"p_entropy": host["p_entropy"],
+                          "p_max": host["p_max"]}
+    _emit_round_spans(out, host, aggregation, start_round, stop, t_scan0,
+                      scan_s)
     if return_state:
         out["params"] = params
         out["p"] = p
@@ -436,6 +543,69 @@ def _round_based(
             out["server_opt"] = server_state
             out["server_opt_kind"] = server_opt
     return out
+
+
+def _emit_round_spans(out, metrics, aggregation, start_round, stop, t_scan0,
+                      scan_s):
+    """The training side of the trace plane (JAX ``core.py:1548-1653``):
+    when the process-global tracer is enabled (the driver's
+    ``--trace_dir`` configures it), emit one ``"train_scan"`` span from
+    just before the first round to the metrics' host copy, and one
+    ``"round"`` record per round under it, carrying the round's metrics
+    (and FedAMW's mixture entropy and largest mass) as attributes. The
+    same per-round values land in the process-global telemetry registry
+    as gauges (``fed_train_loss``, ``fed_test_loss``, ``fed_test_acc``,
+    ``fed_p_entropy``, ``fed_p_max``, labelled ``{"agg": aggregation}``).
+
+    The rounds are queued on the device without a synchronisation between
+    them, so the host cannot see round boundaries: each round's duration
+    is the span's attributed uniformly, and every record says so
+    (``attrs["timing"] == "uniform"``). Measuring each boundary would add
+    a device synchronisation per round and change the timing of the path
+    being traced. Fault and defense counters join with those planes."""
+    tracer = get_tracer()
+    if not tracer.enabled:
+        return
+    n_r = stop - start_round
+    run_id = tracer.new_id("run")
+    scan_id = tracer.emit(
+        "train_scan", run_id, t_scan0, scan_s,
+        aggregation=aggregation, rounds=n_r, start_round=start_round,
+        robust_agg=_ROBUST_CANONICAL, faults=False, timing="host")
+    per = scan_s / max(1, n_r)
+    mix = out.get("mixture", {})
+    registry = get_registry()
+    labels = {"agg": aggregation}
+    gauges = {
+        k: registry.gauge(f"fed_{k}", h, labels=labels)
+        for k, h in (("train_loss", "per-round training loss"),
+                     ("test_loss", "per-round test loss"),
+                     ("test_acc", "per-round test accuracy"))}
+    mix_gauges = {
+        k: registry.gauge(f"fed_{k}", "FedAMW learned-mixture dynamics",
+                          labels=labels)
+        for k in mix}
+    # round timestamps on the REGISTRY's clock basis: the run ended
+    # "now", rounds attributed uniformly backwards — the same uniform
+    # attribution as the spans, stated in their timing attr
+    t_end = registry.clock()
+    for i in range(n_r):
+        attrs = {
+            "round": start_round + i,
+            "train_loss": float(metrics["train_loss"][i]),
+            "test_loss": float(metrics["test_loss"][i]),
+            "test_acc": float(metrics["test_acc"][i]),
+            "timing": "uniform",
+        }
+        t_i = t_end - scan_s + (i + 1) * per
+        for k, g in gauges.items():
+            g.set(attrs[k], t=t_i)
+        for k, g in mix_gauges.items():
+            v = float(mix[k][i])
+            attrs[k] = v
+            g.set(v, t=t_i)
+        tracer.emit("round", run_id, t_scan0 + i * per, per,
+                    parent_id=scan_id, **attrs)
 
 
 def _oneshot_local_phase(setup: FedSetup, epoch, batch_size, sequential,
@@ -556,12 +726,15 @@ def FedAvg(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
            return_state=False, participation=1.0, start_round=0,
            stop_round=None, resume_from=None, server_opt="none",
            server_lr=1.0, params0=None, client_positions=None,
-           participation_masks=None, kernel_impl="auto", **waiting):
+           participation_masks=None, kernel_impl="auto",
+           analyze_memory=False, **waiting):
     """Standard FedAvg (``tools.py:329-353``), with the round loop's
     options (``_round_based``).
 
     ``kernel_impl="plain"`` exists to build the reference run a kernel run
     is held against (``chip_smoke.py``); leave it at ``"auto"``.
+    ``analyze_memory=True`` returns the measured memory footprint of one
+    round instead of training (``_memory_analysis``).
     """
     _reject_waiting("FedAvg", waiting)
     return _round_based(
@@ -572,7 +745,8 @@ def FedAvg(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
         params0=params0, client_positions=client_positions,
-        participation_masks=participation_masks, kernel_impl=kernel_impl)
+        participation_masks=participation_masks, kernel_impl=kernel_impl,
+        analyze_memory=analyze_memory)
 
 
 def FedProx(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=True,
@@ -581,7 +755,8 @@ def FedProx(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=True,
             return_state=False, participation=1.0, start_round=0,
             stop_round=None, resume_from=None, server_opt="none",
             server_lr=1.0, params0=None, client_positions=None,
-            participation_masks=None, kernel_impl="auto", **waiting):
+            participation_masks=None, kernel_impl="auto",
+            analyze_memory=False, **waiting):
     """FedAvg skeleton + proximal term (``tools.py:356-380``); options
     and ``kernel_impl`` as in ``FedAvg``."""
     _reject_waiting("FedProx", waiting)
@@ -593,7 +768,8 @@ def FedProx(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=True,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
         params0=params0, client_positions=client_positions,
-        participation_masks=participation_masks, kernel_impl=kernel_impl)
+        participation_masks=participation_masks, kernel_impl=kernel_impl,
+        analyze_memory=analyze_memory)
 
 
 def FedNova(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
@@ -602,7 +778,8 @@ def FedNova(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
             return_state=False, participation=1.0, start_round=0,
             stop_round=None, resume_from=None, server_opt="none",
             server_lr=1.0, params0=None, client_positions=None,
-            participation_masks=None, kernel_impl="auto", **waiting):
+            participation_masks=None, kernel_impl="auto",
+            analyze_memory=False, **waiting):
     """Normalized averaging (``tools.py:383-410``): the FedAvg round with
     ``fednova_effective_weights`` as the aggregation weights; options
     and ``kernel_impl`` as in ``FedAvg``."""
@@ -615,7 +792,8 @@ def FedNova(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
         params0=params0, client_positions=client_positions,
-        participation_masks=participation_masks, kernel_impl=kernel_impl)
+        participation_masks=participation_masks, kernel_impl=kernel_impl,
+        analyze_memory=analyze_memory)
 
 
 def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
@@ -625,7 +803,7 @@ def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
            start_round=0, stop_round=None, resume_from=None,
            server_opt="none", server_lr=1.0, p_guard="none", params0=None,
            client_positions=None, p_positions=None, participation_masks=None,
-           kernel_impl="auto", **waiting):
+           kernel_impl="auto", analyze_memory=False, **waiting):
     """The paper's algorithm (``tools.py:413-463``): ridge-regularized
     local training; per round, ``round`` epochs of mixture-weight SGD
     (momentum 0.9) on the pooled validation set over cached per-client
@@ -652,4 +830,4 @@ def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
         p_guard=p_guard, params0=params0, client_positions=client_positions,
         p_positions=p_positions, participation_masks=participation_masks,
-        kernel_impl=kernel_impl)
+        kernel_impl=kernel_impl, analyze_memory=analyze_memory)

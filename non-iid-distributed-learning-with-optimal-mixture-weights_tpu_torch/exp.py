@@ -33,14 +33,26 @@ repeat, ``utils/checkpoint.py``'s pickle layout, with the
 repeat the driver writes ``exp1_{dataset}.partial.pkl`` with the
 finished repeats and the run's configuration signature, and
 ``--resume`` continues from it (a mismatched signature is an error); a
-fresh run sets an earlier partial aside as ``.bak``. The other extension
-flags (sharding, faults, ...) are refused with a pointer to their
-ROADMAP.md item.
+fresh run sets an earlier partial aside as ``.bak``. The observability
+flags: ``--trace_dir DIR`` turns on the trace plane (``utils.trace``)
+and the telemetry registry (``utils.telemetry``) for the run and writes
+``DIR/exp1_{dataset}_trace.jsonl`` (one ``train_scan`` span per
+round-based algorithm, one ``round`` record per round), a per-stage
+summary on stdout, and, where the registry recorded points,
+``DIR/exp1_{dataset}_telemetry.json`` (``TELEMETRY.v1``) with its
+Prometheus rendering beside it (``.prom``); ``tools/obs_export.py``
+converts both to OTLP. ``--profile DIR`` captures a ``torch.profiler``
+trace of the whole run (CPU activity, and CUDA activity on the card)
+into ``DIR/exp1_{dataset}.pt.trace.json``, a Chrome trace. Both are
+written even when a repeat raises; neither enters the partial's
+signature. The other extension flags (sharding, faults, ...) are refused
+with a pointer to their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import pickle
 import sys
@@ -57,7 +69,10 @@ from .device import resolve_device
 from .fedcore.aggregate import resolve_p_guard
 from .fedcore.server_opt import SERVER_OPTS
 from .ops.rff import heterogeneity_from_parts
+from .utils import telemetry as telemetry_mod
+from .utils import trace as trace_mod
 from .utils.checkpoint import save_checkpoint
+from .utils.reporting import format_trace_summary
 
 NAMES = ["CL", "DL", "FedAMW_OneShot", "FedAvg", "FedProx", "FedAMW"]
 
@@ -75,8 +90,6 @@ _REFUSED = {
     "--cohort_shards": "queue 1 item 9 (the cohort plane)",
     "--stream_cohort": "queue 1 item 9 (the cohort plane)",
     "--publish_every": "queue 1 item 11 (serving's model registry)",
-    "--profile": "queue 1 item 7 (trace and telemetry)",
-    "--trace_dir": "queue 1 item 7 (trace and telemetry)",
 }
 
 
@@ -157,6 +170,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "every completed repeat) and skip the finished "
                          "repeats; a partial written under another "
                          "configuration is an error")
+    ap.add_argument("--profile", type=str, default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the run to DIR "
+                         "(a Chrome trace; CUDA activity on the card)")
+    ap.add_argument("--trace_dir", type=str, default=None, metavar="DIR",
+                    help="emit per-round trace span records (utils.trace "
+                         "JSONL; one train_scan span per round-based "
+                         "algorithm run + one round record per round) to "
+                         "DIR/exp1_{dataset}_trace.jsonl and the telemetry "
+                         "registry's dump beside it, with a per-stage "
+                         "summary printed at the end")
     for flag, item in _REFUSED.items():
         ap.add_argument(flag, action=_Refused, item=item)
     args = ap.parse_args(argv)
@@ -290,9 +313,50 @@ def _save_models(args, setup, name, res, t) -> None:
     print(f"{name}: checkpoint -> {where}")
 
 
+def _start_profiler(device):
+    """``--profile``: a started ``torch.profiler`` capture of the whole
+    run, with CUDA activity when the run is on the card. A profiler that
+    cannot start raises: the run was asked to be profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _write_trace(args) -> None:
+    """``--trace_dir``: the run's spans as ``TRACE.v1`` JSONL, their
+    per-stage summary, and the telemetry registry's ``TELEMETRY.v1`` dump
+    and Prometheus rendering where it recorded points (JAX
+    ``exp.py:440-473``)."""
+    tracer = trace_mod.get_tracer()
+    os.makedirs(args.trace_dir, exist_ok=True)
+    tpath = os.path.join(args.trace_dir, f"exp1_{args.dataset}_trace.jsonl")
+    n_spans = tracer.export_jsonl(tpath)
+    print(format_trace_summary(f"exp1_{args.dataset}", tracer.records()))
+    print(f"trace ({n_spans} spans) -> {tpath}")
+    reg = telemetry_mod.get_registry()
+    if reg.points_recorded():
+        mpath = os.path.join(args.trace_dir,
+                             f"exp1_{args.dataset}_telemetry.json")
+        with open(mpath, "w") as f:
+            json.dump(reg.dump(), f)
+        with open(mpath[:-len(".json")] + ".prom", "w") as f:
+            f.write(telemetry_mod.render_prometheus(reg))
+        print(f"telemetry ({len(reg.instruments())} series, "
+              f"{reg.points_recorded()} points) -> {mpath} (+ .prom)")
+
+
 def main(argv=None) -> str:
     """Run the experiment and write its pickle; returns the pickle's
-    path."""
+    path.
+
+    ``--trace_dir`` installs a fresh process-global tracer and registry
+    for the run and puts the disabled tracer back when it ends, so a
+    process that calls ``main`` again, traced or not, starts clean."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     params = get_parameter(args.dataset)
@@ -307,6 +371,57 @@ def main(argv=None) -> str:
                                 f"exp1_{args.dataset}.partial.pkl")
     start = _resume_start(args, partial_path,
                           (train_mat, error_mat, acc_mat), hete)
+    if args.trace_dir:
+        trace_mod.configure()
+        telemetry_mod.reset_registry()
+    prof = None
+    try:
+        if args.profile:
+            prof = _start_profiler(device)
+        _run_repeats(args, device, params, lr, lr_p, start, partial_path,
+                     (train_mat, error_mat, acc_mat), hete)
+    finally:
+        # written even when a repeat raises: the trace of a failing run is
+        # the one you want most
+        if prof is not None:
+            prof.stop()
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                args.profile, f"exp1_{args.dataset}.pt.trace.json"))
+            print(f"profiler trace -> {args.profile}")
+        if args.trace_dir:
+            try:
+                _write_trace(args)
+            finally:
+                trace_mod.configure(False)
+
+    data_ = {
+        "epochs": R,
+        "train_loss": train_mat,
+        "test_loss": error_mat,
+        "test_acc": acc_mat,
+        "heterogeneity": hete,
+        "name": list(NAMES),
+        "task": _task_type(args.dataset, params),
+    }
+    os.makedirs(args.result_dir, exist_ok=True)
+    out = os.path.join(args.result_dir, f"exp1_{args.dataset}.pkl")
+    with open(out, "wb") as f:
+        pickle.dump(data_, f)
+    print(f"results -> {out}")
+    # the partial is kept: it carries the configuration signature the
+    # result pickle cannot, so a later --resume with a larger
+    # --n_repeats extends the experiment
+    return out
+
+
+def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
+                 hete) -> None:
+    """Repeats ``start .. n_repeats - 1``: each one's data, setup,
+    heterogeneity and six algorithms into ``mats``/``hete``, then the
+    partial pickle that ``--resume`` reads."""
+    train_mat, error_mat, acc_mat = mats
+    R = args.round
     for t in range(start, args.n_repeats):
         rng = np.random.RandomState(args.seed + t)
         ds = load_dataset(args.dataset, args.num_partitions, args.alpha_Dirk,
@@ -352,25 +467,6 @@ def main(argv=None) -> str:
                          "test_acc": acc_mat[:, :, :t + 1].copy(),
                          "heterogeneity": hete[:t + 1].copy()}, f)
         os.replace(tmp, partial_path)
-
-    data_ = {
-        "epochs": R,
-        "train_loss": train_mat,
-        "test_loss": error_mat,
-        "test_acc": acc_mat,
-        "heterogeneity": hete,
-        "name": list(NAMES),
-        "task": _task_type(args.dataset, params),
-    }
-    os.makedirs(args.result_dir, exist_ok=True)
-    out = os.path.join(args.result_dir, f"exp1_{args.dataset}.pkl")
-    with open(out, "wb") as f:
-        pickle.dump(data_, f)
-    print(f"results -> {out}")
-    # the partial is kept: it carries the configuration signature the
-    # result pickle cannot, so a later --resume with a larger
-    # --n_repeats extends the experiment
-    return out
 
 
 if __name__ == "__main__":

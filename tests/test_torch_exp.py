@@ -148,11 +148,23 @@ def test_module_entry_point_from_the_repo_root(tmp_path):
     ("--save_models", "ckpts", "save_models", "ckpts"),
     ("--resume", None, "resume", True),
     ("--feature_dtype", "bfloat16", "feature_dtype", "bfloat16"),
-    ("--feature_dtype", "float16", "feature_dtype", "float16")])
+    ("--feature_dtype", "float16", "feature_dtype", "float16"),
+    ("--trace_dir", "tr", "trace_dir", "tr"),
+    ("--profile", "prof", "profile", "prof")])
 def test_ported_flags_parse(flag, value, attr, want):
     args = exp.parse_args(ARGV + [flag] + ([value] if value else []))
     assert getattr(args, attr) == want
     assert flag not in exp._REFUSED
+
+
+def test_observability_flags_stay_out_of_the_resume_signature():
+    """Neither --trace_dir nor --profile shapes a trajectory, so a traced
+    run resumes an untraced partial and the reverse."""
+    plain = exp.resume_config(exp.parse_args(ARGV))
+    traced = exp.resume_config(exp.parse_args(
+        ARGV + ["--trace_dir", "tr", "--profile", "prof"]))
+    assert traced == plain
+    assert not {"trace_dir", "profile"} & set(plain)
 
 
 @pytest.mark.parametrize("argv,msg", [

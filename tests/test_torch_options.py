@@ -154,7 +154,20 @@ def _assert_match(rt, rj):
         np.testing.assert_allclose(rt[k], np.asarray(rj[k]), **TOL,
                                    err_msg=k)
         assert np.all(np.isfinite(rt[k])), k
+    _assert_mixture(rt, rj)
     _assert_state(rt, rj)
+
+
+def _assert_mixture(rt, rj):
+    """FedAMW's per-round mixture record, where the JAX run has one."""
+    assert ("mixture" in rt) == ("mixture" in rj)
+    if "mixture" in rj:
+        assert set(rt["mixture"]) == set(rj["mixture"]) == {"p_entropy",
+                                                            "p_max"}
+        for k, v in rj["mixture"].items():
+            assert rt["mixture"][k].shape == np.shape(v), k
+            np.testing.assert_allclose(rt["mixture"][k], np.asarray(v),
+                                       **TOL, err_msg=k)
 
 
 def _assert_state(rt, rj):
@@ -710,6 +723,100 @@ def test_return_state_keys_match_jax():
             if key in rt:
                 assert [tuple(a.shape) for a in rt[key]] == [
                     a.shape for a in _leaves(rj[key])]
+
+
+# -- g. FedAMW's mixture record --------------------------------------------
+
+
+@pytest.mark.parametrize("data", sorted(DATA))
+def test_mixture_matches_jax(data):
+    rt, rj = _both("FedAMW", data)
+    assert rt["mixture"]["p_entropy"].shape == (R,)
+    _assert_mixture(rt, rj)
+
+
+@pytest.mark.parametrize("data", ["cls10", "reg"])
+def test_mixture_with_participation_matches_jax(data):
+    """Absent clients end a round with p exactly 0; their term of the
+    entropy is exactly 0, not ``0 * log 0``."""
+    rt, rj = _both("FedAMW", data, participation=0.5)
+    _assert_mixture(rt, rj)
+    p = rt["p"].numpy().astype(np.float64)
+    assert np.any(p == 0)
+    pos = p[p > 0]
+    assert np.all(np.isfinite(rt["mixture"]["p_entropy"]))
+    np.testing.assert_allclose(rt["mixture"]["p_entropy"][-1],
+                               -np.sum(pos * np.log(pos)), rtol=1e-6)
+    np.testing.assert_allclose(rt["mixture"]["p_max"][-1], p.max(),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sequential", [False, True])
+def test_mixture_on_buckets_matches_jax(sequential):
+    rt, rj = _both("FedAMW", "cls10", buckets=3, sequential=sequential)
+    _assert_mixture(rt, rj)
+
+
+def test_mixture_on_the_sequential_chain_matches_jax():
+    rt, rj = _both("FedAMW", "cls3", sequential=True)
+    _assert_mixture(rt, rj)
+
+
+@pytest.mark.parametrize("extra", [{}, {"participation": 0.5}],
+                         ids=["plain", "participation"])
+def test_mixture_of_a_split_run(extra):
+    """Each segment records its own rounds [start, stop): together they
+    are the uninterrupted port run bit for bit, and the JAX run to 1e-5."""
+    sj, st = _jsetup("cls10"), _tsetup("cls10")
+    kw = _kwargs("FedAMW", "cls10", round=3, **extra)
+    rj = J.FedAMW(sj, **kw)
+    inject = _inject(sj, "FedAMW", rounds=3,
+                     participation=extra.get("participation"))
+    full = T.FedAMW(st, **kw, **inject)
+    first, second = _split(lambda s, **a: T.FedAMW(s, **a, **inject), st,
+                           kw, 1)
+    assert first["mixture"]["p_entropy"].shape == (1,)
+    assert second["mixture"]["p_entropy"].shape == (2,)
+    for k in ("p_entropy", "p_max"):
+        joined = np.concatenate([first["mixture"][k], second["mixture"][k]])
+        np.testing.assert_array_equal(joined, full["mixture"][k])
+        np.testing.assert_allclose(joined, np.asarray(rj["mixture"][k]),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("algo", ["Centralized", "Distributed",
+                                  "FedAMW_OneShot", "FedAvg", "FedProx",
+                                  "FedNova", "FedAMW"])
+def test_only_fedamw_carries_a_mixture_record_as_in_jax(algo):
+    sj, st = _jsetup("cls3"), _tsetup("cls3")
+    kw = dict(lr=0.5, epoch=1)
+    if algo not in ("Centralized", "Distributed"):
+        kw["round"] = 2
+    rj = getattr(J, algo)(sj, **kw)
+    rt = getattr(T, algo)(st, **kw)
+    assert ("mixture" in rt) == ("mixture" in rj) == (algo == "FedAMW")
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_mixture_stats_match_the_jax_formula(seed):
+    """Unconstrained p: negative and zero entries add exactly 0 to the
+    entropy, as the JAX package's double where makes them."""
+    from fedamw_tpu_torch.algorithms.core import _mixture_stats
+
+    r = np.random.RandomState(seed)
+    p = (r.rand(9) - 0.2).astype(np.float32)
+    p[r.rand(9) < 0.3] = 0.0
+    pj = jnp.asarray(p)
+    safe = jnp.where(pj > 0, pj, 1.0)
+    want = (-jnp.sum(jnp.where(pj > 0, pj * jnp.log(safe), 0.0)),
+            jnp.max(pj))
+    got = _mixture_stats(torch.from_numpy(p))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.dim() == 0
+        np.testing.assert_allclose(g.item(), float(w), rtol=1e-6, atol=0)
+    zeros = _mixture_stats(torch.tensor([0.5, 0.0, 0.5]))
+    assert zeros[0].item() == _mixture_stats(torch.tensor([0.5, 0.5]))[
+        0].item()
 
 
 # -- on the card ------------------------------------------------------------

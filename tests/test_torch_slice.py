@@ -101,7 +101,12 @@ def test_port_round_loop_matches_jax(pair, algo, jax_kernels, monkeypatch):
     np.testing.assert_allclose(rt["params"]["w"].numpy(),
                                np.asarray(rj["params"]["w"]), **TOL)
     np.testing.assert_allclose(rt["p"].numpy(), np.asarray(rj["p"]), **TOL)
+    assert ("mixture" in rt) == ("mixture" in rj) == (algo == "FedAMW")
     if algo == "FedAMW":
+        for k in ("p_entropy", "p_max"):
+            np.testing.assert_allclose(rt["mixture"][k],
+                                       np.asarray(rj["mixture"][k]), **TOL,
+                                       err_msg=k)
         # the learned p moved away from the sample-count weights
         assert not np.allclose(rt["p"].numpy(), st.p_fixed.numpy())
         np.testing.assert_allclose(
@@ -125,7 +130,7 @@ def test_port_draws_its_own_randomness_deterministically(pair):
 
 @pytest.mark.parametrize("opt,value", [
     ("faults", "drop=0.1"), ("robust_agg", "median"), ("cohort_shards", 2),
-    ("stream_cohort", True), ("analyze_memory", True)])
+    ("stream_cohort", True)])
 def test_waiting_options_raise(pair, opt, value):
     _, st, _, _ = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -192,4 +197,9 @@ def test_port_on_card_matches_jax_at_main_config():
                                    atol=1e-4)
         np.testing.assert_allclose(rt["p"].cpu().numpy(), np.asarray(rj["p"]),
                                    rtol=0, atol=1e-4)
+        if name == "FedAMW":
+            for k in ("p_entropy", "p_max"):
+                np.testing.assert_allclose(rt["mixture"][k],
+                                           np.asarray(rj["mixture"][k]),
+                                           rtol=1e-4, atol=0, err_msg=k)
     print(json.dumps({"main_config_vs_jax": report}), flush=True)
