@@ -51,6 +51,22 @@ and read just after:
   pickle); FedAMW with ``p_guard="simplex"`` (the guard in kernel 2's
   epilogue; p required on the simplex) and FedAMW at 400 partitions
   (kernel 2's split plan);
+- ``faults``: the fault and defense planes at the main configuration,
+  ``OPT_ROUNDS`` rounds a case, each against its plain run with every
+  verdict (fault counts, z-quarantines, reputation gates, clamped work
+  fractions, krum selections) required equal (the margins printed where
+  one differs) and its launches counted by kernel: FedAvg with drops,
+  stragglers and NaN reports under ``mean``; FedNova with lying clients
+  under ``rep``; FedAMW under ``quarantine:auto+rep`` (kernel 2 over a
+  ``cv`` that changes every round, recorded in a replay); FedAMW with
+  drops and the simplex guard; FedAvg under ``clip:R+median`` (R the
+  median delta norm of the first round's clean updates), ``trim:5``,
+  ``mkrum:10`` and ``geomed:8``; FedAMW with ``krum``; the defended
+  FedAMW run split at round 1 through a checkpoint with its defense
+  state (bitwise); the driver with ``--faults`` and ``--robust_agg``
+  (reports and pickle); then a clean FedAMW round beside the defended
+  one and the host synchronisations of each
+  (``torch.cuda.set_sync_debug_mode``);
 - ``feature_dtype``: FedAvg and FedAMW on the main configuration with the
   features stored in bfloat16 (kernel 1 reads 2-byte rows), 3 rounds,
   each against its plain run, round ms beside the float32 main path's
@@ -343,6 +359,338 @@ def options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
     if not drv_ok:
         fail("the driver's --resume pickle is not the uninterrupted "
              "two-repeat run's")
+    return launched
+
+
+# the fault and defense phase: case 1's faults (the non-finite quarantine
+# alone under "mean") and the defended FedAMW spec of cases 3 and 7
+FAULTS = "drop=0.1,straggle=0.2:0.5,corrupt=0.05:nan,seed=7"
+DEFENDED = "quarantine:auto+rep:0.5:0.2"
+VERDICTS = ("z_quarantined", "rep_gated", "frac_clamped", "krum_selected")
+# the defense's floats against the plain run (the relative loss tolerance,
+# with an absolute floor for the entries near 0)
+TOL_DEFENSE = dict(rtol=TOL_RUN["loss_rtol"], atol=1e-5)
+
+
+def verdicts(res):
+    """A run's verdicts: its fault counts and the defense's decisions."""
+    import numpy as np
+
+    out = {f"fault_counts.{k}": np.asarray(v).tolist()
+           for k, v in res.get("fault_counts", {}).items()}
+    d = res.get("defense", {})
+    out.update({k: np.asarray(d[k]).tolist() for k in VERDICTS if k in d})
+    return out
+
+
+def krum_margins(fn, s, fkw):
+    """Every krum/mkrum selection of a run with the scores it ranked (the
+    summed squared distances to the q closest present peers), from a
+    replay with ``krum_select`` recorded."""
+    import torch
+
+    from fedamw_tpu_torch.algorithms import core
+    from fedamw_tpu_torch.fedcore import robust
+
+    seen, real = [], robust.krum_select
+
+    def record(params, stacked, present, m):
+        x = robust._flat_deltas(params, stacked)
+        sq = (x * x).sum(1)
+        d2 = (sq[:, None] + sq[None, :] - 2 * x @ x.T).clamp(min=0)
+        pb = present > 0
+        eye = torch.eye(len(sq), dtype=torch.bool, device=x.device)
+        d2 = torch.where(pb[:, None] & pb[None, :] & ~eye, d2, float("inf"))
+        n = int(present.sum())
+        q = max(1, min(n - max((n - 3) // 2, 0) - 2, len(sq) - 1))
+        seen.append(torch.sort(d2, 1).values[:, :q].sum(1).tolist())
+        return real(params, stacked, present, m)
+
+    core.krum_select = robust.krum_select = record
+    try:
+        fn(s, **fkw)
+    finally:
+        core.krum_select = robust.krum_select = real
+    return seen
+
+
+def faults(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
+    """The ``faults`` phase: the fault and defense planes at the main
+    configuration, ``OPT_ROUNDS`` rounds per case, each case run on the
+    plain versions and then counted on the kernels (counts reset just
+    before, read just after), its floats held at ``TOL_RUN`` and every
+    verdict (fault counts, z-quarantines, reputation gates, clamped work
+    fractions, krum selections) required equal, the margins printed where
+    one differs. Then the defense's cost (a clean FedAMW round beside case
+    3's, in turns) and the host synchronisations of each. Returns the
+    phase's launches."""
+    import traceback
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch import exp
+    from fedamw_tpu_torch.algorithms import FedAMW, FedAvg, FedNova
+    from fedamw_tpu_torch.algorithms.core import (
+        _init_params, _round_generator)
+    from fedamw_tpu_torch.fedcore import aggregate as agg_mod
+    from fedamw_tpu_torch.fedcore import make_bucketed_round
+    from fedamw_tpu_torch.fedcore.robust import client_delta_norms
+    from fedamw_tpu_torch.utils import load_checkpoint, save_checkpoint
+
+    R2 = OPT_ROUNDS
+    base = dict(kw, round=R2, faults=FAULTS)
+    amw = dict(amw_kw, round=R2)
+    valid = setup.sizes > 0
+
+    # case 5's clip radius: the median delta norm of case 1's first round's
+    # clean client updates (the local epochs before any fault)
+    round_fn = make_bucketed_round(setup.task, EPOCHS, B, setup.n_maxes,
+                                   False, "auto")
+    params0 = _init_params(setup, SEED, None)
+    idx_t, mask_t = setup.round_arrays()
+    stacked, _, _ = round_fn(params0, setup.X, setup.y, idx_t, mask_t,
+                             _round_generator(setup, SEED, 0),
+                             float(prm["lr"]), 0.0, 0.0)
+    radius = float(client_delta_norms(params0, stacked)[valid].median())
+
+    # name, algorithm, keywords, the p-epoch kernel every p-epoch must run
+    cases = [
+        ("1 FedAvg faults, mean", FedAvg, base, None),
+        ("2 FedNova lie, rep", FedNova,
+         dict(kw, round=R2, faults="lie=0.1:0.01,seed=7",
+              robust_agg="rep:0.5:0.2"), None),
+        ("3 FedAMW faults, auto+rep", FedAMW,
+         dict(amw, faults=FAULTS, robust_agg=DEFENDED), "staged"),
+        ("4 FedAMW drop, simplex", FedAMW,
+         dict(amw, faults="drop=0.2,seed=3", p_guard="simplex"), "staged"),
+        ("5 FedAvg clip+median", FedAvg,
+         dict(base, robust_agg=f"clip:{radius}+median"), None),
+        ("5 FedAvg trim:5", FedAvg, dict(base, robust_agg="trim:5"), None),
+        ("5 FedAvg mkrum:10", FedAvg, dict(base, robust_agg="mkrum:10"),
+         None),
+        ("5 FedAvg geomed:8", FedAvg, dict(base, robust_agg="geomed:8"),
+         None),
+        ("6 FedAMW krum", FedAMW, dict(amw, robust_agg="krum"), "staged"),
+    ]
+    runs, launched = {}, {"client_epoch": 0, "p_epoch": 0}
+    for name, fn, fkw, kern in cases:
+        ref, plain_secs = timed(fn, kernel_impl="plain", **fkw)
+        reset_counts()
+        res, secs = timed(fn, **fkw)
+        c = counts()
+        runs[name] = res
+        for k in launched:
+            launched[k] += c[k]
+        want = (R2 * EPOCHS, R2 * R2 if fn is FedAMW else 0)
+        ok, diffs = vs_plain(res, ref)
+        d, dr = res.get("defense", {}), ref.get("defense", {})
+        for k in ("z_max", "z_threshold", "reputation", "geomed_residual"):
+            if k in dr:
+                a, b = np.asarray(d[k]), np.asarray(dr[k])
+                diffs[f"max_abs_{k}"] = float(np.max(np.abs(a - b)))
+                ok = ok and bool(np.allclose(a, b, **TOL_DEFENSE))
+        vk, vp = verdicts(res), verdicts(ref)
+        row = {"phase": "faults", "case": name, "card": card,
+               "robust_agg": fkw.get("robust_agg", "mean"),
+               "faults": fkw.get("faults"),
+               "round_ms": 1e3 * secs / R2,
+               "round_ms_plain": 1e3 * plain_secs / R2, "launches": c,
+               "expected": {"client_epoch": want[0], "p_epoch": want[1]},
+               "verdict_totals": {k: int(np.sum(v)) for k, v in vk.items()},
+               "verdicts_equal": vk == vp,
+               "test_acc": res["test_acc"].tolist(), "vs_plain": diffs,
+               "tol": TOL_RUN, "tol_defense": TOL_DEFENSE, "ok": ok}
+        if "clip" in name:
+            row["clip_radius"] = radius
+        if kern is not None:
+            row["p_epochs_not_on_" + kern] = (
+                c["p_epoch"] - c["p_epoch_by_kernel"][kern])
+            ok = ok and row["p_epochs_not_on_" + kern] == 0
+        if "simplex" in name:
+            p = res["p"]
+            row["p_sum"], row["p_min"] = float(p.sum()), float(p.min())
+            ok = ok and float(p.min()) >= 0 and abs(float(p.sum()) - 1) <= 1e-5
+        if "6 FedAMW krum" in name:
+            row["krum_selected_per_round"] = np.sum(
+                d["krum_selected"], axis=1).tolist()
+            ok = ok and row["krum_selected_per_round"] == [1] * R2
+        row["ok"] = ok
+        if vk != vp:
+            # the margins of the verdicts that differ: z against its
+            # threshold, reputation against the floor, krum's scores
+            row["margins"] = {
+                "kernels": {k: np.asarray(d[k]).tolist() for k in (
+                    "z_max", "z_threshold", "reputation") if k in d},
+                "plain": {k: np.asarray(dr[k]).tolist() for k in (
+                    "z_max", "z_threshold", "reputation") if k in dr}}
+            if "krum_selected" in d:
+                row["margins"]["krum_scores"] = {
+                    "kernels": krum_margins(fn, setup, fkw),
+                    "plain": krum_margins(fn, setup,
+                                          dict(fkw, kernel_impl="plain"))}
+            row["verdicts"] = {"kernels": vk, "plain": vp}
+        emit(row)
+        if vk != vp:
+            fail(f"faults case {name!r}: a verdict differs from the plain "
+                 f"run's (margins above)")
+        if not ok:
+            fail(f"faults case {name!r} does not match its plain run or "
+                 f"its checks: {diffs}")
+        if (c["client_epoch"], c["p_epoch"]) != want:
+            fail(f"faults case {name!r} launched {c}, expected {want}")
+
+    # case 3's p-solve: kernel 2 with a cv that changes over the rounds,
+    # zeros among the live clients (drops, quarantines, gates), recorded
+    # in a replay whose launches are not counted
+    c3 = cases[2][2]
+    cvs, real = [], agg_mod.p_epoch
+    saved = counts()
+
+    def record(p, buf, cv, *a, **k):
+        cvs.append(cv.clone())
+        return real(p, buf, cv, *a, **k)
+
+    agg_mod.p_epoch = record
+    try:
+        FedAMW(setup, **c3)
+    finally:
+        agg_mod.p_epoch = real
+    from fedamw_tpu_torch.fedcore import p_epoch
+    p_epoch.launches = saved["p_epoch"]
+    p_epoch.launches_by_kernel = saved["p_epoch_by_kernel"]
+    per_round = [cv for cv in cvs[::R2]]
+    masked_live = [int(((cv == 0) & valid).sum()) for cv in per_round]
+    distinct = len({tuple(cv.tolist()) for cv in per_round})
+    cv_ok = (len(cvs) == R2 * R2 and distinct == R2
+             and all(m > 0 for m in masked_live))
+    emit({"phase": "faults", "case": "3 kernel 2's cv by round",
+          "p_epochs": len(cvs), "live_clients_masked": masked_live,
+          "distinct_cv": distinct, "ok": cv_ok})
+    if not cv_ok:
+        fail(f"case 3 did not run kernel 2 over a cv that changes every "
+             f"round with live clients masked: {masked_live}, {distinct}")
+
+    # case 7: the defended FedAMW run split at round 1 through a
+    # checkpoint with the defense state, against case 3's run
+    full = runs[cases[2][0]]
+    first = FedAMW(setup, **c3, stop_round=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, first["params"], p=first["p"], round_idx=1,
+                        extra={"p_opt": first["p_opt"]},
+                        reputation=first["reputation"],
+                        defense_state={"zq": first["zq"]})
+        second = FedAMW(setup, **c3, start_round=1,
+                        resume_from=load_checkpoint(tmp))
+    split_ok = (
+        all(np.array_equal(np.concatenate([first[k], second[k]]), full[k])
+            for k in ("train_loss", "test_loss", "test_acc"))
+        and all(np.array_equal(np.concatenate(
+            [first["defense"][k], second["defense"][k]]), full["defense"][k])
+            for k in ("reputation", "z_threshold", "z_max"))
+        and torch.equal(second["params"]["w"], full["params"]["w"])
+        and torch.equal(second["p"], full["p"])
+        and torch.equal(second["p_opt"][0], full["p_opt"][0])
+        and np.array_equal(second["reputation"], full["reputation"])
+        and np.array_equal(second["zq"], full["zq"]))
+    emit({"phase": "faults", "case": "7 split at round 1, defended",
+          "bitwise": split_ok, "ok": split_ok})
+    if not split_ok:
+        fail("the defended FedAMW run split at round 1 through a checkpoint "
+             "is not the uninterrupted run bit for bit")
+
+    # case 8: the driver with both flags
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(log):
+            path = exp.main(["--dataset", "mnist", "--round", str(ROUNDS),
+                             "--seed", str(SEED), "--result_dir", tmp,
+                             "--faults", FAULTS, "--robust_agg", DEFENDED])
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+    drv_secs = time.perf_counter() - t0
+    text = log.getvalue()
+    reports = {n: (text.count(f"\n{n} faults: "),
+                   text.count(f"\n{n} defense [{DEFENDED}]"))
+               for n in ("FedAvg", "FedProx", "FedAMW")}
+    drv_ok = (all(v == (1, 1) for v in reports.values())
+              and data["test_acc"].shape == (6, ROUNDS, 1)
+              and bool(np.all(np.isfinite(data["test_loss"]))))
+    emit({"phase": "faults", "case": "8 driver --faults --robust_agg",
+          "seconds": drv_secs, "reports": reports,
+          "report_lines": [ln for ln in text.splitlines()
+                           if " faults: " in ln or " defense [" in ln],
+          "final_acc": dict(zip(data["name"],
+                                data["test_acc"][:, -1, 0].tolist())),
+          "ok": drv_ok})
+    if not drv_ok:
+        fail(f"the driver's fault and defense reports or pickle: {reports}")
+
+    # the defense's cost: a clean FedAMW round beside case 3's, in turns
+    reads = {"clean": [], "defended": []}
+    for which in ("clean", "defended", "defended", "clean"):
+        _, secs = timed(FedAMW, **(amw if which == "clean" else c3))
+        reads[which].append(1e3 * secs / R2)
+
+    # where the defense's cost goes: device compute against the host's
+    # dispatch of one round, each (torch.profiler, three calls)
+    from fedamw_tpu_torch.utils.telemetry import attribute_device_time
+    attr = {}
+    for which, fkw in (("clean", amw), ("defended", c3)):
+        attr[which] = attribute_device_time(
+            lambda fkw=fkw: timed(FedAMW, **fkw, stop_round=1)[1], reps=3)
+
+    # host synchronisations, by the sync debug mode: a whole one-round
+    # call and the increment of a second round, each call after a warm-up
+    # one; two turns, the fewer of each kept (a process's first counted
+    # call may synchronise once more), every call site named
+    def syncs(fkw, rounds):
+        FedAMW(setup, **fkw, stop_round=rounds)
+        torch.cuda.synchronize()
+        hits = []
+
+        def hook(message, *args, **kwargs):
+            if "synchroniz" in str(message):
+                frames = [f for f in traceback.extract_stack()[:-1]
+                          if not f.filename.endswith("warnings.py")][-3:]
+                hits.append(" < ".join(f"{os.path.basename(f.filename)}:"
+                                       f"{f.lineno}" for f in frames[::-1]))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                FedAMW(setup, **fkw, stop_round=rounds)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return hits
+
+    reads_sync = {"clean": [], "defended": []}
+    for _ in range(2):
+        for which, fkw in (("clean", amw), ("defended", c3)):
+            reads_sync[which].append((syncs(fkw, 1), syncs(fkw, 2)))
+    sync = {}
+    for which, turns in reads_sync.items():
+        one = min(len(a) for a, _ in turns)
+        two = min(len(b) for _, b in turns)
+        sync[which] = {"one_round_call": one, "per_round": two - one,
+                       "counts": [[len(a), len(b)] for a, b in turns],
+                       "sites": sorted({h for a, b in turns
+                                        for h in a + b})}
+    sync_ok = (sync["defended"]["one_round_call"]
+               <= sync["clean"]["one_round_call"]
+               and sync["defended"]["per_round"] <= sync["clean"]["per_round"])
+    emit({"phase": "faults", "case": "defense cost", "card": card,
+          "round_ms_clean": sum(reads["clean"]) / 2,
+          "round_ms_defended": sum(reads["defended"]) / 2,
+          "round_ms_readings": reads, "robust_agg": DEFENDED,
+          "faults": FAULTS, "attribute_device_time": attr,
+          "host_syncs": sync, "ok": sync_ok})
+    if not sync_ok:
+        fail(f"the defended FedAMW round adds host synchronisations: {sync}")
     return launched
 
 
@@ -971,6 +1319,10 @@ def main():
     option_launches = options(ds, setup, prm, kw, amw_kw, timed, vs_plain,
                               card)
 
+    # -- 7a. faults and defenses, each against its plain run ----------------
+    fault_launches = faults(ds, setup, prm, kw, amw_kw, timed, vs_plain,
+                            card)
+
     # -- 7b. the features stored in bfloat16 (feature_dtype) ---------------
     # the main configuration's setup with its features mapped into
     # bfloat16 (the same draw: each entry the float32 map rounded once);
@@ -1110,7 +1462,8 @@ def main():
                       f"weights_tpu_torch/{src}",
             "replaces": repl, "launches": launches_all[name],
             "launches_by_path": {"main_path": launches[name],
-                                 "paper_algorithms": paper_launches[name]},
+                                 "paper_algorithms": paper_launches[name],
+                                 "faults": fault_launches[name]},
             "launches_per_round": int(per_round[name]), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),

@@ -21,8 +21,10 @@ Centralized and Distributed, ``(round,)`` vectors for the others.
   FedAMW's result carries the learned mixture's per-round entropy and
   largest mass (``out["mixture"]``), and a traced run (``utils.trace``
   configured) records one ``train_scan`` span, one ``round`` record per
-  round and the per-round telemetry series (``_emit_round_spans``). It
-  lacks the fault, robust-aggregation and cohort planes.
+  round and the per-round telemetry series (``_emit_round_spans``). The
+  fault and defense planes (``faults=``, ``robust_agg=``;
+  ``fedcore.faults``, ``fedcore.robust``) run between the local epochs
+  and the aggregate (``_Defense``); the cohort plane is not carried.
 - The one-shot phase (Distributed, FedAMW_OneShot): every client trains
   ``epoch`` epochs from one init (kernel 1, one launch per epoch, or per
   client and epoch under ``sequential``), then a fixed-weight aggregate,
@@ -73,6 +75,7 @@ No shuffle is drawn on the host.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 
@@ -90,6 +93,26 @@ from ..fedcore import (
     weighted_average,
 )
 from ..fedcore.batching import draw_epoch_positions
+from ..fedcore.faults import inject_fault_row, resolve_fault_plan
+from ..fedcore.robust import (
+    Z_AUTO_BETA,
+    Z_AUTO_INIT,
+    Z_AUTO_MARGIN,
+    Z_AUTO_MAX,
+    Z_AUTO_MIN,
+    Z_EVIDENCE_REF,
+    client_delta_norms,
+    clip_update_norms,
+    directional_scores,
+    krum_select,
+    make_robust_aggregator,
+    parse_robust_spec,
+    reputation_update,
+    sanitize_updates,
+    trimmed_clean_basis,
+    trust_bounded_work_frac,
+    zscore_quarantine,
+)
 from ..fedcore.server_opt import ServerOptimizer, check_server_opt
 from ..ops.schedule import lr_schedule_array
 from ..utils.telemetry import get_registry
@@ -99,17 +122,12 @@ from .common import FedSetup, result_tuple
 # The JAX package's options this port does not carry yet, with the value
 # that means "off". Passing another value raises.
 _WAITING = {
-    "faults": None,
-    "robust_agg": "mean",
     "cohort_shards": 0,
     "stream_cohort": False,
 }
 # round-loop options the one-shot algorithms take and ignore, as the JAX
 # package's do (they swallow every keyword, core.py:906-921)
 _ROUND_LOOP_ONLY = ("server_opt", "server_lr", "analyze_memory")
-# the robust-aggregation spec every round of the port runs, in the JAX
-# package's canonical spelling (parse_robust_spec("mean").canonical())
-_ROBUST_CANONICAL = "mean"
 
 
 def _reject_waiting(algo: str, opts: dict, ignored=()) -> None:
@@ -190,20 +208,139 @@ def _scalar_row(train_loss, test_loss, test_acc) -> dict:
     return result_tuple(m[0], m[1], m[2])
 
 
-def _finite_reports(params, stacked, losses):
-    """The JAX package's ``sanitize_updates``: clients whose weights or
-    loss are not finite are replaced by the incoming weights and a zero
-    loss, and flagged 0 in the returned ``(J,)`` mask."""
-    ok = torch.isfinite(losses)
-    for w in stacked.values():
-        ok = ok & torch.isfinite(w).flatten(1).all(1)
-    clean = {k: torch.where(ok.reshape(-1, *[1] * (w.dim() - 1)), w,
-                            params[k]) for k, w in stacked.items()}
-    return clean, torch.where(ok, losses, 0.0), ok.to(torch.float32)
-
-
 def _where(cond, new: dict, old: dict) -> dict:
     return {k: torch.where(cond, new[k], old[k]) for k in new}
+
+
+class _Defense:
+    """The round loop's fault and defense stages, shared by the fixed,
+    nova and learned paths (JAX ``core.py:188-391``): the static flags of
+    the ``robust_agg`` spec, the cross-round state, ``guard`` (the fault
+    and quarantine prologue of a round) and ``aggregate`` (clip, robust
+    reduction, the all-absent gate). Everything is device tensors; no
+    stage reads a value on the host."""
+
+    def __init__(self, robust_agg, aggregation: str, faults_on: bool):
+        spec = parse_robust_spec(robust_agg)
+        self.spec = spec
+        self.canonical = spec.canonical()
+        self.on = not spec.is_default
+        self.faults_on = faults_on
+        self.rep_on = spec.rep_decay is not None
+        self.zauto_on = spec.zscore_auto
+        self.quarantine = spec.zscore is not None or self.zauto_on
+        # krum/mkrum on the learned path folds its selection into the
+        # present mask before the p-solve, and the aggregate stays the
+        # learned weighted average over the selected set
+        self.sel_m = spec.select_m if aggregation == "learned" else None
+        self.agg_spec = (dataclasses.replace(spec, agg="mean", mkrum_m=0)
+                         if self.sel_m is not None else spec)
+        self.reduce = make_robust_aggregator(self.agg_spec)
+
+    def init_state(self, num_clients: int, device, rep0=None,
+                   zq0=None) -> dict:
+        """The state carried across rounds (JAX ``core.py:228-251``):
+        ``rep`` (every client fully trusted, or ``rep0``), the krum
+        verdicts ``ksel``/``kcand`` that feed the next round's reputation,
+        and ``quarantine:auto``'s estimate ``zq`` (or ``zq0``). Empty for
+        a memoryless spec."""
+        st = {}
+        if self.rep_on:
+            st["rep"] = (torch.ones(num_clients, device=device)
+                         if rep0 is None else rep0)
+            if self.spec.select_m is not None:
+                st["ksel"] = torch.ones(num_clients, device=device)
+                st["kcand"] = torch.zeros(num_clients, device=device)
+        if self.zauto_on:
+            st["zq"] = (torch.full((), Z_AUTO_INIT, device=device)
+                        if zq0 is None else zq0)
+        return st
+
+    def guard(self, params, stacked, losses, present, drawn, row, dstate):
+        """The JAX package's ``guard_faults`` (``core.py:253-368``), in its
+        order: (1) participation, drops and the non-finite quarantine
+        decide who reported and who is finite; (2) the carried reputation
+        gates distrusted clients out of this round's statistics; (3) the
+        reported work fraction is trust-clamped; (4) the z-test runs on
+        work-normalized norms, scored over every finite reporter under
+        ``rep``; (5) reputation steps and its new verdict gates the
+        present mask. Returns ``(stacked, losses, present, aux, state,
+        work_frac)``; ``aux`` holds the round's defense telemetry."""
+        spec = self.spec
+        if drawn is not None:
+            present = present * drawn.to(torch.float32)
+        if self.faults_on:
+            stacked, losses = inject_fault_row(params, stacked, losses,
+                                               row[1], row[2], row[3])
+            present = present * (1.0 - row[0])
+        reported = present
+        stacked, losses, ok = sanitize_updates(params, stacked, losses)
+        present = present * ok
+        aux = {}
+        if self.faults_on:
+            aux["quarantined"] = torch.sum(reported * (1.0 - ok))
+        state = dict(dstate)
+        work_frac = row[4] if self.faults_on else None
+        rep_prev = dstate.get("rep")
+        # the finite reporters: reputation collects evidence over them
+        scoreable = reported * ok
+        if self.rep_on:
+            present = present * torch.where(rep_prev >= spec.rep_floor,
+                                            1.0, 0.0)
+        need_norms = self.quarantine or self.rep_on
+        norms = client_delta_norms(params, stacked) if need_norms else None
+        if self.rep_on and self.faults_on:
+            work_frac, aux["frac_clamped"] = trust_bounded_work_frac(
+                norms, work_frac, present, rep_prev)
+        z, z_ref = None, Z_EVIDENCE_REF
+        if need_norms:
+            if self.zauto_on:
+                z_ref = torch.clamp(Z_AUTO_MARGIN * dstate["zq"],
+                                    Z_AUTO_MIN, Z_AUTO_MAX)
+            elif spec.zscore is not None:
+                z_ref = spec.zscore
+            zok, z = zscore_quarantine(
+                params, stacked, present, z_ref, work_frac=work_frac,
+                norms=norms, score_mask=scoreable if self.rep_on else None)
+            if self.quarantine:
+                aux["z_quarantined"] = torch.sum(present * (1.0 - zok))
+                # over the quarantine's decision set only (rep scores
+                # gated clients too)
+                aux["z_max"] = torch.max(z * present)
+                if self.zauto_on:
+                    aux["z_threshold"] = z_ref
+                    clean = present * zok
+                    zq = dstate["zq"]
+                    q_t = torch.where(torch.sum(clean) > 0,
+                                      trimmed_clean_basis(z, clean, zq), zq)
+                    state["zq"] = ((1.0 - Z_AUTO_BETA) * zq
+                                   + Z_AUTO_BETA * q_t)
+                    aux["zq"] = state["zq"]
+                present = present * zok
+        if self.rep_on:
+            rep_new = reputation_update(
+                rep_prev, reported, scoreable,
+                directional_scores(params, stacked, present), present, z,
+                z_ref, spec.rep_decay, sel=dstate.get("ksel"),
+                sel_cand=dstate.get("kcand"))
+            gate = torch.where(rep_new >= spec.rep_floor, 1.0, 0.0)
+            aux["rep_gated"] = torch.sum(reported * (1.0 - gate))
+            aux["reputation"] = rep_new
+            state["rep"] = rep_new
+            present = present * gate
+        return stacked, losses, present, aux, state, work_frac
+
+    def aggregate(self, params, stacked, w_t, present):
+        """Clip, the robust reduction and the all-absent no-op gate (JAX
+        ``core.py:370-391``): on weight mass for the mean, on headcount for
+        the order statistics. Returns ``(params, aux)``."""
+        if self.spec.clip is not None:
+            stacked = clip_update_norms(params, stacked, self.spec.clip)
+        agg, aux = self.reduce(params, stacked, w_t, present)
+        ok_round = (torch.sum(torch.abs(w_t)) > 0
+                    if self.agg_spec.agg == "mean"
+                    else torch.sum(present) > 0)
+        return _where(ok_round, agg, params), aux
 
 
 def _mixture_stats(p):
@@ -232,16 +369,18 @@ def _nbytes(*values) -> int:
 
 
 def _memory_analysis(setup, learned, round_inputs, params, p, n_metrics,
-                     entry):
+                     entry, defense_inputs=()):
     """``analyze_memory``'s dict, under the JAX package's keys (its
     ``memory_analysis`` of the compiled round program, ``core.py:1269-1281``)
     that a measurement can fill:
 
     - ``argument_size_in_bytes``: the tensors one round reads — the
       setup's features, labels and index arrays (``round_inputs``), the
-      test set, the sizes and fixed weights, the params, and on FedAMW
-      the validation set and p;
-    - ``output_size_in_bytes``: the params, p and one row of metrics;
+      test set, the sizes and fixed weights, the params, on FedAMW the
+      validation set and p, and under faults or a stateful defense the
+      plan rows and the resumed defense state (``defense_inputs``);
+    - ``output_size_in_bytes``: the params, p and one round's metrics
+      (``n_metrics`` float32 values);
     - on the card, ``peak_memory_in_bytes``: the argument bytes plus
       ``torch.cuda.max_memory_allocated`` above the allocation at entry
       (``entry``; the peak stats reset there), so the tensors already
@@ -253,7 +392,7 @@ def _memory_analysis(setup, learned, round_inputs, params, p, n_metrics,
     the keys its analysis does not fill; so are peak and temp on the
     CPU."""
     args = [setup.X, setup.y, round_inputs, setup.X_test, setup.y_test,
-            setup.sizes, setup.p_fixed, params]
+            setup.sizes, setup.p_fixed, params, defense_inputs]
     if learned:
         args += [setup.X_val, setup.y_val, p]
     out = {"argument_size_in_bytes": _nbytes(*args),
@@ -318,6 +457,98 @@ def _resume_state(resume_from, learned, server_opt, device):
     return params, p0, opt0
 
 
+def _resume_defense(resume_from, spec, num_clients: int, device):
+    """``(rep0, zq0)``, the defense state a resume continues from, or
+    None each, with the JAX package's warnings and checks
+    (``core.py:1197-1248``): ``reputation`` under a ``rep`` spec (shape
+    ``(num_clients,)``), and ``quarantine:auto``'s ``zq`` from a
+    checkpoint's ``defense_state`` or a result's top-level ``zq`` (a
+    scalar)."""
+    rep0 = zq0 = None
+    if resume_from is None:
+        return rep0, zq0
+    if spec.rep_decay is not None:
+        rep_saved = resume_from.get("reputation")
+        if rep_saved is None:
+            warnings.warn(
+                "resuming a rep-defended run from a checkpoint without "
+                "'reputation': every client restarts fully trusted, so "
+                "the resumed run only approximates the uninterrupted "
+                "one (save with return_state=True and pass "
+                "res['reputation'] through the checkpoint — exp.py "
+                "--save_models does)", stacklevel=4)
+        else:
+            rep0 = _tensor(rep_saved, device, torch.float32)
+            if tuple(rep0.shape) != (num_clients,):
+                raise ValueError(
+                    f"checkpoint 'reputation' has shape {tuple(rep0.shape)}; "
+                    f"this run's cohort needs ({num_clients},) — "
+                    "resuming across a cohort change is undefined")
+    if spec.zscore_auto:
+        saved_ds = resume_from.get("defense_state") or {}
+        zq_saved = saved_ds.get("zq", resume_from.get("zq"))
+        if zq_saved is None:
+            warnings.warn(
+                "resuming a quarantine:auto run from a checkpoint "
+                "without a 'zq' defense state: the auto threshold "
+                "re-tunes from the Z=5 start instead of continuing the "
+                "carried estimate (save with return_state=True and "
+                "pass res['zq'] through save_checkpoint("
+                "defense_state={'zq': ...}) — exp.py --save_models "
+                "does)", stacklevel=4)
+        else:
+            zq0 = _tensor(zq_saved, device, torch.float32)
+            if zq0.numel() != 1:
+                raise ValueError(
+                    f"checkpoint 'zq' must be a scalar threshold "
+                    f"estimate, got shape {tuple(zq0.shape)}")
+            zq0 = zq0.reshape(())
+    return rep0, zq0
+
+
+def _host_metrics(metrics: dict, extra: dict | None = None) -> dict:
+    """Every per-round metric in one host copy: ``{name: (rounds,)`` or
+    ``(rounds, J)`` array``}``, and the tensors of ``extra`` under their
+    own names in the same copy."""
+    stacked = {k: torch.stack(v) for k, v in metrics.items()}
+    stacked.update(extra or {})
+    flat = torch.cat([v.reshape(-1) for v in stacked.values()]).cpu().numpy()
+    out, off = {}, 0
+    for k, v in stacked.items():
+        out[k] = flat[off:off + v.numel()].reshape(tuple(v.shape))
+        off += v.numel()
+    return out
+
+
+def _defense_record(host, defense: _Defense) -> dict:
+    """``out["defense"]``: the verdicts and telemetry the spec emitted per
+    round, with ``robust_agg`` and ``client_valid`` (JAX
+    ``core.py:1307-1350``); empty when the spec emitted none."""
+    rec = {}
+    if "z_quarantined" in host:
+        rec["z_quarantined"] = np.rint(host["z_quarantined"]).astype(int)
+        rec["z_max"] = host["z_max"]
+    if "z_threshold" in host:
+        rec["z_threshold"] = host["z_threshold"]
+    if "reputation" in host:
+        rec["reputation"] = host["reputation"]
+        rec["rep_gated"] = np.rint(host["rep_gated"]).astype(int)
+    if "frac_clamped" in host:
+        rec["frac_clamped"] = np.rint(host["frac_clamped"]).astype(int)
+    if "krum_selected" in host:
+        sel = np.rint(host["krum_selected"]).astype(int)
+        rec["krum_selected"] = sel
+        rec["krum_pick_counts"] = sel.sum(axis=0)
+    if "geomed_residual" in host:
+        rec["geomed_residual"] = host["geomed_residual"]
+    if rec:
+        rec["robust_agg"] = defense.canonical
+        # padded clients are never present: per-client statistics mask
+        # them out with this
+        rec["client_valid"] = host["client_valid"].astype(int)
+    return rec
+
+
 def _round_based(
     setup: FedSetup,
     aggregation: str,
@@ -341,6 +572,8 @@ def _round_based(
     server_opt="none",
     server_lr=1.0,
     p_guard="none",
+    faults=None,
+    robust_agg="mean",
     params0=None,
     client_positions=None,
     p_positions=None,
@@ -374,6 +607,23 @@ def _round_based(
     kernels on the card), ``"plain"`` their plain versions on any device
     (the reference run).
 
+    ``faults`` (None, a spec string, a ``FaultSpec`` or a ``FaultPlan``;
+    ``fedcore.faults``) injects the plan's faults into each round's
+    reports after local training; ``robust_agg`` (``fedcore.robust``)
+    picks the defense. With either on, a round runs ``_Defense.guard``
+    (participation, drops, the non-finite and z-score quarantines, the
+    reputation gate) and ``_Defense.aggregate`` (clip, the robust
+    reduction); FedNova's tau takes the plan's trust-clamped work
+    fraction; FedAMW's p-solve runs masked over the clients still
+    present (krum's selection folded in) and its aggregate weighs the
+    survivors by reputation. The plan's rows go to the device once,
+    before the first round. The result then carries ``fault_counts``
+    (per round: dropped, straggled, corrupted, lied, quarantined) and
+    ``defense`` (the spec's verdicts, ``_defense_record``), and
+    ``return_state`` adds the final ``reputation`` and ``zq``, which a
+    resume continues from. With ``faults=None`` and ``robust_agg="mean"``
+    the round is the one without the planes.
+
     FedAMW's result carries ``mixture``: the per-round entropy and
     largest mass of the p each round ends with (``_mixture_stats``),
     computed on the device and copied to the host with the other metrics.
@@ -406,6 +656,12 @@ def _round_based(
             "sequential contamination chain); use parallel semantics "
             "(sequential=False) for partial participation")
     check_server_opt(server_opt)
+    plan = resolve_fault_plan(faults, rounds, setup.num_clients)
+    defense = _Defense(robust_agg, aggregation, plan is not None)
+    # the rounds that run the fault and defense stages: every FedAMW round
+    # under partial participation too (its p-solve runs masked)
+    guarded = (defense.faults_on or defense.on
+               or (learned and participation < 1.0))
 
     dev = setup.device
     entry = None
@@ -422,6 +678,8 @@ def _round_based(
                                               server_opt, dev)
         if p_saved is not None:
             p = p_saved
+    rep0, zq0 = _resume_defense(resume_from, defense.spec,
+                                setup.num_clients, dev)
     round_fn = make_bucketed_round(setup.task, epoch, batch_size,
                                    setup.n_maxes, sequential, kernel_impl)
     idx_t, mask_t = setup.round_arrays()
@@ -442,6 +700,10 @@ def _round_based(
                                         lr_p, momentum=0.9, p_guard=p_guard,
                                         kernel_impl=kernel_impl)
         opt_state = init_opt(p) if opt0 is None else {"trace": opt0[0]}
+    # the run's plan rows, on the device before the first round
+    fault_rows = (plan.rows(start_round, stop, dev)
+                  if defense.faults_on else None)
+    dstate = defense.init_state(setup.num_clients, dev, rep0, zq0)
 
     metrics = {"train_loss": [], "test_loss": [], "test_acc": []}
     if learned:
@@ -453,21 +715,27 @@ def _round_based(
         stacked, losses, _ = round_fn(
             params, setup.X, setup.y, idx_t, mask_t, pos_t, float(lrs[t]),
             mu, lam)
-        part = None
+        drawn = None
         if participation < 1.0:
             drawn = (torch.rand(valid.shape, device=dev,
                                 generator=_round_generator(setup, seed + 2,
                                                            t))
                      < participation if participation_masks is None
                      else _tensor(participation_masks[t], dev) > 0)
-            part = valid * drawn.to(torch.float32)
+        row = (None if fault_rows is None
+               else tuple(a[t - start_round] for a in fault_rows))
+        dfaux = {}
+        if guarded:
+            (stacked, losses, present, dfaux, dstate,
+             work_frac) = defense.guard(params, stacked, losses, valid,
+                                        drawn, row, dstate)
         if learned:
             ppos_t = (draw_epoch_positions(_round_generator(setup, seed + 1,
                                                             t),
                                            n_val, val_batch_size,
                                            lead=(rounds,))
                       if p_positions is None else _tensor(p_positions[t], dev))
-            if part is None:
+            if not guarded:
                 train_loss_t = torch.sum(p * losses)  # current p (tools.py:434)
                 logits = client_logits(setup.model.apply, stacked,
                                        setup.X_val)
@@ -475,11 +743,18 @@ def _round_based(
                                            ppos_t, client_valid=valid)
                 params = weighted_average(stacked, p)
             else:
+                if defense.sel_m is not None:
+                    # krum's selection folds into the present mask: the
+                    # deselected carry zero mixture mass this round
+                    selected = krum_select(params, stacked, present,
+                                           defense.sel_m)
+                    if defense.rep_on:
+                        dstate = dict(dstate, ksel=selected, kcand=present)
+                    present = present * selected
+                    dfaux["krum_selected"] = selected
                 # absent clients carry exactly zero mixture mass: p and
                 # its momentum are masked before the solve and the
-                # masked gradient keeps both at zero (core.py:445-530)
-                stacked, losses, ok = _finite_reports(params, stacked, losses)
-                present = part * ok
+                # masked gradient keeps both at zero (core.py:492-525)
                 p_m = p * present
                 train_loss_t = torch.sum(p_m * losses)
                 logits = client_logits(setup.model.apply, stacked,
@@ -488,17 +763,40 @@ def _round_based(
                     logits, setup.y_val, p_m,
                     {"trace": opt_state["trace"] * present}, ppos_t,
                     client_valid=present)
+                # an all-absent round is a full no-op
                 any_p = torch.sum(present) > 0
                 p = torch.where(any_p, p_s, p)
                 opt_state = _where(any_p, opt_s, opt_state)
-                w_t = participation_weights(p_s, present)
-                params = _where(torch.sum(torch.abs(w_t)) > 0,
-                                weighted_average(stacked, w_t), params)
+                w_t = participation_weights(p_s, present,
+                                            trust=dstate.get("rep"))
+                params, agg_aux = defense.aggregate(params, stacked, w_t,
+                                                    present)
+                dfaux.update(agg_aux)
         else:
-            if part is None:
+            if guarded:
+                # FedNova's tau from the work each client reports (trust-
+                # clamped under rep): straggler-exact (core.py:647-657)
+                agg_w_t = (fednova_effective_weights(
+                    setup.sizes, setup.p_fixed, epoch, batch_size,
+                    tau_frac=work_frac)
+                    if aggregation == "nova" and defense.faults_on
+                    else agg_w)
+                w_t = participation_weights(agg_w_t, present,
+                                            trust=dstate.get("rep"))
+                agg, agg_aux = defense.aggregate(params, stacked, w_t,
+                                                 present)
+                if defense.rep_on and defense.agg_spec.select_m is not None:
+                    # the krum verdict feeds the next round's reputation
+                    dstate = dict(dstate, ksel=agg_aux["krum_selected"],
+                                  kcand=present)
+                dfaux.update(agg_aux)
+                train_loss_t = torch.sum(
+                    participation_weights(setup.p_fixed, present) * losses)
+            elif drawn is None:
                 train_loss_t = torch.sum(setup.p_fixed * losses)
                 agg = weighted_average(stacked, agg_w)
             else:
+                part = valid * drawn.to(torch.float32)
                 train_loss_t = torch.sum(
                     participation_weights(setup.p_fixed, part) * losses)
                 agg = _where(torch.sum(part) > 0, weighted_average(
@@ -519,21 +817,40 @@ def _round_based(
         metrics["train_loss"].append(train_loss_t)
         metrics["test_loss"].append(tl)
         metrics["test_acc"].append(ta)
+        for k, v in dfaux.items():
+            metrics.setdefault(k, []).append(v)
 
     if analyze_memory:
-        return _memory_analysis(setup, learned, (idx_t, mask_t), params, p,
-                                len(metrics), entry)
-    # one host copy of every metric of every round
-    host = dict(zip(metrics, torch.stack(
-        [torch.stack(v) for v in metrics.values()]).cpu().numpy()))
+        return _memory_analysis(
+            setup, learned, (idx_t, mask_t), params, p,
+            sum(v[0].numel() for v in metrics.values()), entry,
+            (fault_rows, rep0, zq0))
+    # under the planes the valid-client mask rides the same host copy
+    host = _host_metrics(metrics, {"client_valid": valid}
+                         if defense.faults_on or defense.on else None)
     scan_s = time.perf_counter() - t_scan0
     out = result_tuple(host["train_loss"], host["test_loss"],
                        host["test_acc"])
+    if defense.faults_on:
+        # the roles are plan facts over the real clients; quarantined is
+        # the non-finite quarantine's verdict
+        valid_np = host["client_valid"].astype(np.float64)
+        sl = slice(start_round, stop)
+        out["fault_counts"] = {
+            "dropped": (plan.drop[sl] * valid_np).sum(1).astype(int),
+            "straggled": (plan.straggle[sl] * valid_np).sum(1).astype(int),
+            "corrupted": (plan.corrupt[sl] * valid_np).sum(1).astype(int),
+            "lied": (plan.lie[sl] * valid_np).sum(1).astype(int),
+            "quarantined": np.rint(host["quarantined"]).astype(int),
+        }
+    record = _defense_record(host, defense)
+    if record:
+        out["defense"] = record
     if learned:
         out["mixture"] = {"p_entropy": host["p_entropy"],
                           "p_max": host["p_max"]}
-    _emit_round_spans(out, host, aggregation, start_round, stop, t_scan0,
-                      scan_s)
+    _emit_round_spans(out, host, aggregation, defense.canonical,
+                      defense.faults_on, start_round, stop, t_scan0, scan_s)
     if return_state:
         out["params"] = params
         out["p"] = p
@@ -542,27 +859,36 @@ def _round_based(
         elif server is not None:
             out["server_opt"] = server_state
             out["server_opt_kind"] = server_opt
+        # the final reputation and auto-threshold estimate (the last rows
+        # of their streams), checkpointable so a resume continues them
+        for k in ("reputation", "zq"):
+            if k in host:
+                out[k] = host[k][-1]
     return out
 
 
-def _emit_round_spans(out, metrics, aggregation, start_round, stop, t_scan0,
-                      scan_s):
+def _emit_round_spans(out, metrics, aggregation, robust_canonical,
+                      faults_on, start_round, stop, t_scan0, scan_s):
     """The training side of the trace plane (JAX ``core.py:1548-1653``):
     when the process-global tracer is enabled (the driver's
     ``--trace_dir`` configures it), emit one ``"train_scan"`` span from
-    just before the first round to the metrics' host copy, and one
-    ``"round"`` record per round under it, carrying the round's metrics
-    (and FedAMW's mixture entropy and largest mass) as attributes. The
-    same per-round values land in the process-global telemetry registry
-    as gauges (``fed_train_loss``, ``fed_test_loss``, ``fed_test_acc``,
-    ``fed_p_entropy``, ``fed_p_max``, labelled ``{"agg": aggregation}``).
+    just before the first round to the metrics' host copy, carrying the
+    run's ``robust_agg`` and ``faults``, and one ``"round"`` record per
+    round under it, carrying the round's metrics, fault counts, defense
+    verdicts (and FedAMW's mixture entropy and largest mass) as
+    attributes. The same per-round values land in the process-global
+    telemetry registry (labelled ``{"agg": aggregation}``): the gauges
+    ``fed_train_loss``, ``fed_test_loss``, ``fed_test_acc``,
+    ``fed_p_entropy``, ``fed_p_max``, ``fed_reputation_mean`` and
+    ``fed_reputation_min`` (over the real clients), and the counters
+    ``fed_faults_total`` and ``fed_defense_total`` (by ``kind``).
 
     The rounds are queued on the device without a synchronisation between
     them, so the host cannot see round boundaries: each round's duration
     is the span's attributed uniformly, and every record says so
     (``attrs["timing"] == "uniform"``). Measuring each boundary would add
     a device synchronisation per round and change the timing of the path
-    being traced. Fault and defense counters join with those planes."""
+    being traced."""
     tracer = get_tracer()
     if not tracer.enabled:
         return
@@ -571,8 +897,10 @@ def _emit_round_spans(out, metrics, aggregation, start_round, stop, t_scan0,
     scan_id = tracer.emit(
         "train_scan", run_id, t_scan0, scan_s,
         aggregation=aggregation, rounds=n_r, start_round=start_round,
-        robust_agg=_ROBUST_CANONICAL, faults=False, timing="host")
+        robust_agg=robust_canonical, faults=bool(faults_on), timing="host")
     per = scan_s / max(1, n_r)
+    fc = out.get("fault_counts", {})
+    dfz = out.get("defense", {})
     mix = out.get("mixture", {})
     registry = get_registry()
     labels = {"agg": aggregation}
@@ -581,6 +909,27 @@ def _emit_round_spans(out, metrics, aggregation, start_round, stop, t_scan0,
         for k, h in (("train_loss", "per-round training loss"),
                      ("test_loss", "per-round test loss"),
                      ("test_acc", "per-round test accuracy"))}
+    fault_counters = {
+        k: registry.counter("fed_faults_total",
+                            "per-round fault-plane counts, by kind",
+                            labels={**labels, "kind": k})
+        for k in fc}
+    defense_counters = {
+        k: registry.counter("fed_defense_total",
+                            "per-round defense verdicts, by kind",
+                            labels={**labels, "kind": k})
+        for k in ("z_quarantined", "rep_gated", "frac_clamped")
+        if k in dfz}
+    rep = dfz.get("reputation")
+    if rep is not None:
+        rep_valid = np.asarray(
+            dfz.get("client_valid", np.ones(rep.shape[1])), bool)
+        rep_mean = registry.gauge("fed_reputation_mean",
+                                  "mean reputation of real clients",
+                                  labels=labels)
+        rep_min = registry.gauge("fed_reputation_min",
+                                 "least-trusted real client's score",
+                                 labels=labels)
     mix_gauges = {
         k: registry.gauge(f"fed_{k}", "FedAMW learned-mixture dynamics",
                           labels=labels)
@@ -600,6 +949,22 @@ def _emit_round_spans(out, metrics, aggregation, start_round, stop, t_scan0,
         t_i = t_end - scan_s + (i + 1) * per
         for k, g in gauges.items():
             g.set(attrs[k], t=t_i)
+        for k in ("dropped", "straggled", "corrupted", "lied",
+                  "quarantined"):
+            if k in fc:
+                attrs[k] = int(fc[k][i])
+        for k, c in fault_counters.items():
+            c.inc(int(fc[k][i]), t=t_i)
+        for k in ("z_quarantined", "rep_gated", "frac_clamped"):
+            if k in dfz:
+                attrs[k] = int(dfz[k][i])
+        for k, c in defense_counters.items():
+            c.inc(int(dfz[k][i]), t=t_i)
+        if rep is not None:
+            row = np.asarray(rep[i], float)[rep_valid]
+            if row.size:
+                rep_mean.set(float(row.mean()), t=t_i)
+                rep_min.set(float(row.min()), t=t_i)
         for k, g in mix_gauges.items():
             v = float(mix[k][i])
             attrs[k] = v
@@ -725,11 +1090,13 @@ def FedAvg(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
            lr_mode="reference", sequential=False, verbose=False,
            return_state=False, participation=1.0, start_round=0,
            stop_round=None, resume_from=None, server_opt="none",
-           server_lr=1.0, params0=None, client_positions=None,
-           participation_masks=None, kernel_impl="auto",
+           server_lr=1.0, faults=None, robust_agg="mean", params0=None,
+           client_positions=None, participation_masks=None,
+           kernel_impl="auto",
            analyze_memory=False, **waiting):
     """Standard FedAvg (``tools.py:329-353``), with the round loop's
-    options (``_round_based``).
+    options (``_round_based``), ``faults=`` and ``robust_agg=`` among
+    them.
 
     ``kernel_impl="plain"`` exists to build the reference run a kernel run
     is held against (``chip_smoke.py``); leave it at ``"auto"``.
@@ -744,6 +1111,7 @@ def FedAvg(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         return_state=return_state, participation=participation,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
+        faults=faults, robust_agg=robust_agg,
         params0=params0, client_positions=client_positions,
         participation_masks=participation_masks, kernel_impl=kernel_impl,
         analyze_memory=analyze_memory)
@@ -754,8 +1122,9 @@ def FedProx(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=True,
             lr_mode="reference", sequential=False, verbose=False,
             return_state=False, participation=1.0, start_round=0,
             stop_round=None, resume_from=None, server_opt="none",
-            server_lr=1.0, params0=None, client_positions=None,
-            participation_masks=None, kernel_impl="auto",
+            server_lr=1.0, faults=None, robust_agg="mean", params0=None,
+            client_positions=None, participation_masks=None,
+            kernel_impl="auto",
             analyze_memory=False, **waiting):
     """FedAvg skeleton + proximal term (``tools.py:356-380``); options
     and ``kernel_impl`` as in ``FedAvg``."""
@@ -767,6 +1136,7 @@ def FedProx(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=True,
         return_state=return_state, participation=participation,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
+        faults=faults, robust_agg=robust_agg,
         params0=params0, client_positions=client_positions,
         participation_masks=participation_masks, kernel_impl=kernel_impl,
         analyze_memory=analyze_memory)
@@ -777,8 +1147,9 @@ def FedNova(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
             lr_mode="reference", sequential=False, verbose=False,
             return_state=False, participation=1.0, start_round=0,
             stop_round=None, resume_from=None, server_opt="none",
-            server_lr=1.0, params0=None, client_positions=None,
-            participation_masks=None, kernel_impl="auto",
+            server_lr=1.0, faults=None, robust_agg="mean", params0=None,
+            client_positions=None, participation_masks=None,
+            kernel_impl="auto",
             analyze_memory=False, **waiting):
     """Normalized averaging (``tools.py:383-410``): the FedAvg round with
     ``fednova_effective_weights`` as the aggregation weights; options
@@ -791,6 +1162,7 @@ def FedNova(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         return_state=return_state, participation=participation,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
+        faults=faults, robust_agg=robust_agg,
         params0=params0, client_positions=client_positions,
         participation_masks=participation_masks, kernel_impl=kernel_impl,
         analyze_memory=analyze_memory)
@@ -801,7 +1173,8 @@ def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
            val_batch_size=16, seed=0, lr_mode="reference", sequential=False,
            verbose=False, return_state=False, participation=1.0,
            start_round=0, stop_round=None, resume_from=None,
-           server_opt="none", server_lr=1.0, p_guard="none", params0=None,
+           server_opt="none", server_lr=1.0, p_guard="none", faults=None,
+           robust_agg="mean", params0=None,
            client_positions=None, p_positions=None, participation_masks=None,
            kernel_impl="auto", analyze_memory=False, **waiting):
     """The paper's algorithm (``tools.py:413-463``): ridge-regularized
@@ -828,6 +1201,7 @@ def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         return_state=return_state, participation=participation,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
+        faults=faults, robust_agg=robust_agg,
         p_guard=p_guard, params0=params0, client_positions=client_positions,
         p_positions=p_positions, participation_masks=participation_masks,
         kernel_impl=kernel_impl, analyze_memory=analyze_memory)

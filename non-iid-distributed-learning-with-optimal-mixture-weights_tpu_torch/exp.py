@@ -29,7 +29,8 @@ applies it), ``--feature_dtype`` (the feature matrices stored in
 bfloat16, float16 or float32; compute stays float32), ``--save_models
 DIR`` (a checkpoint of each round-based algorithm's final state per
 repeat, ``utils/checkpoint.py``'s pickle layout, with the
-``feature_dtype`` marker) and ``--resume``: after every
+``feature_dtype`` marker and a defended run's ``reputation`` and
+``defense_state``) and ``--resume``: after every
 repeat the driver writes ``exp1_{dataset}.partial.pkl`` with the
 finished repeats and the run's configuration signature, and
 ``--resume`` continues from it (a mismatched signature is an error); a
@@ -45,13 +46,20 @@ converts both to OTLP. ``--profile DIR`` captures a ``torch.profiler``
 trace of the whole run (CPU activity, and CUDA activity on the card)
 into ``DIR/exp1_{dataset}.pt.trace.json``, a Chrome trace. Both are
 written even when a repeat raises; neither enters the partial's
-signature. The other extension flags (sharding, faults, ...) are refused
-with a pointer to their ROADMAP.md item.
+signature. The fault and defense flags: ``--faults SPEC``
+(``fedcore.faults``; the plan's seed offset by the repeat, ``seed + t``)
+and ``--robust_agg SPEC`` (``fedcore.robust``) go to FedAvg, FedProx and
+FedAMW, as in the JAX driver; both are validated when the flags are
+parsed, sign the partial pickle, and a fault and a defense report is
+printed after each of those algorithms. The other extension flags
+(sharding, the cohort plane, ...) are refused with a pointer to their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import pickle
@@ -67,12 +75,15 @@ from .data import load_dataset
 from .data.svmlight import is_regression
 from .device import resolve_device
 from .fedcore.aggregate import resolve_p_guard
+from .fedcore.faults import FaultSpec
+from .fedcore.robust import parse_robust_spec
 from .fedcore.server_opt import SERVER_OPTS
 from .ops.rff import heterogeneity_from_parts
 from .utils import telemetry as telemetry_mod
 from .utils import trace as trace_mod
 from .utils.checkpoint import save_checkpoint
-from .utils.reporting import format_trace_summary
+from .utils.reporting import (format_defense_report, format_fault_report,
+                              format_trace_summary)
 
 NAMES = ["CL", "DL", "FedAMW_OneShot", "FedAvg", "FedProx", "FedAMW"]
 
@@ -85,8 +96,6 @@ _REFUSED = {
     "--num_processes": "queue 1 item 10 (multi-GPU)",
     "--process_id": "queue 1 item 10 (multi-GPU)",
     "--model": "queue 1 item 13 (the model zoo)",
-    "--faults": "queue 1 item 8 (faults and defenses)",
-    "--robust_agg": "queue 1 item 8 (faults and defenses)",
     "--cohort_shards": "queue 1 item 9 (the cohort plane)",
     "--stream_cohort": "queue 1 item 9 (the cohort plane)",
     "--publish_every": "queue 1 item 11 (serving's model registry)",
@@ -161,6 +170,38 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(the dominant device resident halves at 2 "
                          "bytes; compute stays float32); the name is kept "
                          "in --save_models checkpoints")
+    ap.add_argument("--faults", type=str, default=None, metavar="SPEC",
+                    help="deterministic per-round fault injection for "
+                         "FedAvg/FedProx/FedAMW — 'drop=0.1,straggle=0.2:"
+                         "0.5,corrupt=0.05:nan,lie=0.1:0.01,seed=7' "
+                         "(fedcore.faults; rates per kind, straggle takes "
+                         "an update fraction, corrupt a mode "
+                         "nan|inf|sign|scale[:S], lie a falsely REPORTED "
+                         "work fraction — the FedNova tau inflation "
+                         "attack the rep defense clamps). The plan seed "
+                         "is offset per repeat; per-round fault and "
+                         "quarantine counts are reported after each "
+                         "algorithm")
+    ap.add_argument("--robust_agg", type=str, default="mean",
+                    metavar="mean|median|trim:K|krum|mkrum:M|geomed[:T]"
+                            "|clip:R|quarantine:Z|auto"
+                            "|rep[:decay[:floor]][+...]",
+                    help="robust aggregation for FedAvg/FedProx/FedAMW "
+                         "(fedcore.robust) — non-finite reports are "
+                         "always quarantined under faults; this adds norm "
+                         "clipping, z-score quarantine of finite outliers "
+                         "(quarantine:Z, or quarantine:auto to tune Z from "
+                         "the observed clean-round z distribution), "
+                         "cross-round per-client reputation "
+                         "(rep[:decay[:floor]]: directional + norm "
+                         "evidence EWMA, soft down-weighting, hard gating "
+                         "below the floor, trust-bounded work fractions), "
+                         "and/or a Byzantine-robust reduction "
+                         "(coordinate-wise trimmed mean/median, "
+                         "krum/multi-Krum, geometric median) in place of "
+                         "the weighted average; defense telemetry (with "
+                         "reputation trajectories) is reported after each "
+                         "algorithm")
     ap.add_argument("--save_models", type=str, default=None, metavar="DIR",
                     help="checkpoint each round-based algorithm's final "
                          "weights, p and optimizer state under "
@@ -183,8 +224,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag, item in _REFUSED.items():
         ap.add_argument(flag, action=_Refused, item=item)
     args = ap.parse_args(argv)
-    try:
+    try:  # validated here, not after hours of repeats
         resolve_p_guard(args.p_guard)
+        if args.faults is not None:
+            FaultSpec.parse(args.faults)
+        parse_robust_spec(args.robust_agg)
     except ValueError as e:
         ap.error(str(e))
     return args
@@ -201,10 +245,11 @@ def run_paper_algorithms(setup, *, rounds, local_epoch, batch_size, seed, lr,
                          lr_p, lr_p_os, mu, lam, lam_os, lr_mode="reference",
                          verbose=False, sequential=False, participation=1.0,
                          server_opt="none", server_lr=1.0, p_guard="none",
-                         return_state=False):
+                         faults=None, robust_agg="mean", return_state=False):
     """The six algorithms of one repeat in the driver's row order
     (``NAMES``), with ``exp.py``'s arguments (``exp.py:813-914``): the
-    extensions go where the JAX driver sends them (module docstring).
+    extensions go where the JAX driver sends them (module docstring);
+    ``faults`` and ``robust_agg`` to FedAvg, FedProx and FedAMW.
     Returns ``[(name, result, wall_seconds), ...]``; each result has come
     back to the host, so its seconds include the device's work."""
     common = dict(batch_size=batch_size, seed=seed, sequential=sequential)
@@ -212,7 +257,8 @@ def run_paper_algorithms(setup, *, rounds, local_epoch, batch_size, seed, lr,
     round_common = dict(common, epoch=local_epoch, round=rounds,
                         lr_mode=lr_mode, verbose=verbose,
                         participation=participation,
-                        return_state=return_state)
+                        return_state=return_state, faults=faults,
+                        robust_agg=robust_agg)
     fixed = dict(round_common, server_opt=server_opt, server_lr=server_lr)
     calls = [
         ("CL", "Centralized", dict(common, lr=lr, epoch=long_epoch)),
@@ -253,7 +299,8 @@ def resume_config(args) -> dict:
         "participation", "server_opt", "server_lr", "data_dir", "lr",
         "lr_p")}
     cfg.update(backend="fedamw_tpu_torch", p_guard=guard,
-               feature_dtype=args.feature_dtype)
+               feature_dtype=args.feature_dtype, faults=args.faults,
+               robust_agg=args.robust_agg)
     return cfg
 
 
@@ -282,8 +329,10 @@ def _resume_start(args, partial_path, mats, hete) -> int:
         return 0
     with open(partial_path, "rb") as f:
         part = pickle.load(f)
-    # a partial written before --feature_dtype was carried is a float32 run
-    saved = {"feature_dtype": None, **part["config"]}
+    # a partial written before --feature_dtype, --faults and --robust_agg
+    # were carried is a float32, clean, mean-aggregated run
+    saved = {"feature_dtype": None, "faults": None, "robust_agg": "mean",
+             **part["config"]}
     if saved != resume_config(args):
         print(f"--resume: {partial_path} was written under a "
               f"different configuration\n  saved: {saved}\n"
@@ -301,15 +350,18 @@ def _resume_start(args, partial_path, mats, hete) -> int:
 
 def _save_models(args, setup, name, res, t) -> None:
     """``--save_models``: one round-based algorithm's final state, with
-    the optimizer state that makes a resume exact and the final
-    accuracy (JAX ``exp.py:668-680,927-960``)."""
+    the optimizer state and the defense state (``reputation``, ``zq``)
+    that make a resume exact and the final accuracy (JAX
+    ``exp.py:668-680,927-960``)."""
     extra = {k: res[k] for k in ("p_opt", "server_opt", "server_opt_kind")
              if k in res}
     extra["eval_acc"] = float(np.asarray(res["test_acc"])[-1])
     where = save_checkpoint(
         os.path.join(args.save_models, f"{args.dataset}_{name}_repeat{t}"),
         res["params"], p=res["p"], round_idx=args.round, extra=extra,
-        rff=setup.rff, feature_dtype=args.feature_dtype)
+        rff=setup.rff, feature_dtype=args.feature_dtype,
+        reputation=res.get("reputation"),
+        defense_state={"zq": res["zq"]} if "zq" in res else None)
     print(f"{name}: checkpoint -> {where}")
 
 
@@ -435,6 +487,11 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
         # (reference exp.py:66-76)
         hete[t] = heterogeneity_from_parts(setup.X, ds.parts)
         print(f"[repeat {t}] data heterogeneity: {hete[t]:.4f}")
+        faults = None
+        if args.faults is not None:
+            # repeats see independent fault draws, deterministically
+            spec = FaultSpec.parse(args.faults)
+            faults = dataclasses.replace(spec, seed=spec.seed + t)
         t0 = time.perf_counter()
         runs = run_paper_algorithms(
             setup, rounds=R, local_epoch=args.local_epoch,
@@ -445,13 +502,18 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
             lr_mode=args.lr_mode, verbose=args.verbose,
             sequential=args.sequential, participation=args.participation,
             server_opt=args.server_opt, server_lr=args.server_lr,
-            p_guard=args.p_guard, return_state=bool(args.save_models))
+            p_guard=args.p_guard, faults=faults, robust_agg=args.robust_agg,
+            return_state=bool(args.save_models))
         for row, (name, res, secs) in enumerate(runs):
             train_mat[row, :, t] = res["train_loss"]
             error_mat[row, :, t] = res["test_loss"]
             acc_mat[row, :, t] = res["test_acc"]
             print(f"{name}: final acc {np.ravel(res['test_acc'])[-1]:.2f} "
                   f"({secs:.2f} s)")
+            if "fault_counts" in res:
+                print(format_fault_report(name, res["fault_counts"]))
+            if "defense" in res:
+                print(format_defense_report(name, res["defense"]))
             if "params" in res:
                 _save_models(args, setup, name, res, t)
         print(f"[repeat {t}] wall time {time.perf_counter() - t0:.1f}s "

@@ -57,14 +57,18 @@ def fednova_effective_weights(sizes: torch.Tensor, p: torch.Tensor,
     return torch.where(tau > 0, p * tau_eff / safe_tau, 0.0)
 
 
-def participation_weights(agg_w: torch.Tensor,
-                          part: torch.Tensor) -> torch.Tensor:
+def participation_weights(agg_w: torch.Tensor, part: torch.Tensor,
+                          trust: torch.Tensor | None = None) -> torch.Tensor:
     """Aggregation weights restricted to a participation mask (the JAX
-    package's ``aggregate.py:95-123``, without its reputation ``trust``):
-    the weights of absent clients are zeroed and the rest rescaled to
-    carry the full mass ``sum(agg_w)``. An all-absent round returns all
-    zeros (callers keep the old global weights then)."""
+    package's ``aggregate.py:95-123``): the weights of absent clients are
+    zeroed and the rest rescaled to carry the full mass ``sum(agg_w)``.
+    ``trust`` (a per-client ``[0, 1]`` reputation) scales each survivor's
+    weight before the rescale, so only relative trust moves mass; None
+    keeps the weights without it. An all-absent round returns all zeros
+    (callers keep the old global weights then)."""
     masked = agg_w * part
+    if trust is not None:
+        masked = masked * trust
     total = torch.sum(masked)
     scale = torch.where(total > 0,
                         torch.sum(agg_w) / torch.clamp(total, min=1e-30), 0.0)

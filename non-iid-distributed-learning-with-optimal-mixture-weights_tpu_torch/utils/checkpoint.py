@@ -15,9 +15,12 @@ what ``extra`` adds — the round loop's resume state ``p_opt``,
 ``server_opt`` (tuples of arrays) and ``server_opt_kind`` — and
 ``feature_dtype``, the name of the features' storage dtype
 (``"bfloat16"``; the JAX package's marker, ``utils/checkpoint.py:87-91``)
-when the setup stored them narrow. The JAX package's defense state
-(``reputation``, ``defense_state``) belongs to options this package does
-not carry yet.
+when the setup stored them narrow. A defended run's cross-round state
+goes in the JAX package's layout (``utils/checkpoint.py:50-83``):
+``reputation`` (the final per-client trust vector, float32) and
+``defense_state`` (``{"zq": ...}``, ``quarantine:auto``'s threshold
+estimate, float32). ``load_checkpoint`` returns them under those keys,
+which is what the round loop's ``resume_from`` reads.
 """
 
 from __future__ import annotations
@@ -58,18 +61,28 @@ def _to_host(tree):
 
 def save_checkpoint(path: str, params, p=None, round_idx: int | None = None,
                     extra: dict | None = None, rff=None,
-                    feature_dtype=None) -> str:
+                    feature_dtype=None, reputation=None,
+                    defense_state: dict | None = None) -> str:
     """Save a model's state under the directory ``path`` as
     ``state.pkl``; returns that file's path. ``feature_dtype`` (a torch
     dtype or its name) is stored as its name, ``"bfloat16"``,
-    ``"float16"`` or ``"float32"``, as the JAX package stores it. An
-    orbax layout an earlier save left under ``path`` is removed first,
-    since the JAX package's loader would prefer it to the fresh pickle."""
+    ``"float16"`` or ``"float32"``, as the JAX package stores it.
+    ``reputation`` (a rep-defended run's ``res["reputation"]``) and
+    ``defense_state`` (``{"zq": res["zq"]}`` under ``quarantine:auto``)
+    are stored as float32 arrays; without them a resumed run restarts
+    every client at full trust and the threshold at its start. An orbax
+    layout an earlier save left under ``path`` is removed first, since
+    the JAX package's loader would prefer it to the fresh pickle."""
     state: dict[str, Any] = {"params": _to_host(params)}
     if p is not None:
         state["p"] = _to_host(p)
     if round_idx is not None:
         state["round"] = int(round_idx)
+    if reputation is not None:
+        state["reputation"] = np.asarray(_to_host(reputation), np.float32)
+    if defense_state:
+        state["defense_state"] = {k: np.asarray(_to_host(v), np.float32)
+                                  for k, v in defense_state.items()}
     if rff is not None:
         state["rff_W"], state["rff_b"] = _to_host(rff[0]), _to_host(rff[1])
     if feature_dtype is not None:
@@ -91,9 +104,10 @@ def save_checkpoint(path: str, params, p=None, round_idx: int | None = None,
 
 def load_checkpoint(path: str) -> dict:
     """Load a checkpoint saved in the pickle layout (here or by the JAX
-    package). ``CheckpointError`` names the file for a corrupt pickle and
-    the layout for an orbax one; a missing checkpoint raises
-    ``FileNotFoundError``."""
+    package): the saved dict, ``reputation`` and ``defense_state``
+    included where they were saved. ``CheckpointError`` names the file
+    for a corrupt pickle and the layout for an orbax one; a missing
+    checkpoint raises ``FileNotFoundError``."""
     orbax_dir = os.path.join(path, "orbax")
     if os.path.isdir(orbax_dir) or os.path.exists(
             os.path.join(path, "_CHECKPOINT_METADATA")):

@@ -1,0 +1,598 @@
+"""The round loop's fault and defense planes in the port against the JAX
+package, on the CPU.
+
+FedAvg, FedProx, FedNova and FedAMW with ``faults=`` and ``robust_agg=``
+on sklearn ``digits`` (10 classes, J=6, RFF D=64), 3 rounds of 2 local
+epochs, every random input injected as in ``tests/test_torch_options.py``
+(the RFF draw, the initial weights, the client and p-solver shuffles, the
+participation draws); the fault plans are host draws both packages make
+alike. Each case covers one spec family: the non-finite quarantine alone,
+clip + median, reputation with the FedNova lie, ``quarantine:auto`` +
+reputation on FedAMW (kernel 2's ``cv`` changing every round), the
+z-score quarantine, the trimmed mean, multi-Krum with reputation
+(the krum verdict as evidence), geomed, krum folded into FedAMW's present
+mask, FedAMW's masked simplex guard, all-absent rounds and a server
+optimizer on a clipped aggregate.
+
+Every returned vector matches to 1e-5 absolute and relative (the same
+float32 arithmetic in two summation orders): the metrics, the final
+weights, p and its momentum, ``mixture``, the defense's floats (``z_max``,
+the auto threshold, the reputation trajectory, geomed's residual) and the
+final ``reputation`` and ``zq``. Every verdict matches exactly:
+``fault_counts``, ``z_quarantined``, ``rep_gated``, ``frac_clamped``,
+``krum_selected``. No test here asserts the reputation dynamics that
+``tests/test_reputation.py`` asserts (five of those are red against the
+JAX package itself; ROADMAP.md queue 3): the port is held to the JAX
+package's values, not to those properties, in either direction.
+
+Also covered: a split run through a checkpoint is the uninterrupted run
+bit for bit; checkpoints carry ``reputation`` and ``defense_state`` both
+ways between the packages; the resume warnings and checks; the driver's
+``--faults`` and ``--robust_agg`` (validated at the flag boundary,
+reports printed, the partial signed, the plan seed offset per repeat,
+``--save_models`` writing the defense state); and the trace counters.
+"""
+
+import contextlib
+import dataclasses
+import functools
+import io
+import os
+import pickle
+import sys
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import fedamw_tpu.algorithms as J
+from fedamw_tpu.utils import telemetry as jtel
+from fedamw_tpu.utils import trace as jtrace
+from fedamw_tpu.utils.checkpoint import load_checkpoint as jload_checkpoint
+from fedamw_tpu.utils.checkpoint import save_checkpoint as jsave_checkpoint
+import fedamw_tpu_torch.algorithms as T
+from fedamw_tpu_torch import exp
+from fedamw_tpu_torch.fedcore import FaultSpec
+from fedamw_tpu_torch.utils import load_checkpoint, save_checkpoint
+from fedamw_tpu_torch.utils import telemetry as ttel
+from fedamw_tpu_torch.utils import trace as ttrace
+from test_torch_options import TOL, _inject, _jsetup, _kwargs, _tsetup
+
+R = 3
+DATA = "cls10"
+NAN = "drop=0.1,straggle=0.2:0.5,corrupt=0.15:nan,seed=7"
+# name -> (algorithm, faults, robust_agg, extra keywords)
+CASES = {
+    "avg-nonfinite": ("FedAvg", NAN, "mean", {}),
+    "prox-sign-clip-median": ("FedProx", "corrupt=0.3:sign,seed=3",
+                              "clip:0.2+median", {}),
+    "nova-lie-rep": ("FedNova", "lie=0.3:0.01,straggle=0.2:0.5,seed=5",
+                     "rep:0.5:0.2", {}),
+    "amw-auto-rep": ("FedAMW", NAN, "quarantine:auto+rep:0.5:0.2", {}),
+    "avg-scale-quarantine": ("FedAvg", "corrupt=0.2:scale:25,seed=2",
+                             "quarantine:3", {}),
+    "avg-inf-trim": ("FedAvg", "corrupt=0.2:inf,seed=9", "trim:1", {}),
+    "avg-sign-rep-mkrum": ("FedAvg", "corrupt=0.2:sign,seed=4",
+                           "rep:0.5:0.2+mkrum:3", {}),
+    "nova-straggle-geomed": ("FedNova", "straggle=0.4:0.5,seed=6",
+                             "geomed:4", {}),
+    "amw-krum": ("FedAMW", None, "krum", {}),
+    "amw-part-rep-mkrum": ("FedAMW", "corrupt=0.2:sign,seed=4",
+                           "rep:0.5:0.2+mkrum:3", {"participation": 0.5}),
+    "amw-drop-simplex": ("FedAMW", "drop=0.3,seed=1", "mean",
+                         {"p_guard": "simplex"}),
+    "avg-all-dropped-median": ("FedAvg", "drop=1.0", "median", {}),
+    "amw-all-dropped": ("FedAMW", "drop=1.0", "mean", {}),
+    "avg-adam-clip": ("FedAvg", "corrupt=0.2:scale:10,seed=8", "clip:0.2",
+                      {"server_opt": "adam", "server_lr": 0.1}),
+}
+FLOAT_DEFENSE = ("z_max", "z_threshold", "reputation", "geomed_residual")
+INT_DEFENSE = ("z_quarantined", "rep_gated", "frac_clamped", "krum_selected",
+               "krum_pick_counts", "client_valid")
+
+
+@contextlib.contextmanager
+def _jax_guard(p_guard):
+    """The JAX package takes the p-guard from ``FEDAMW_P_GUARD``."""
+    old = os.environ.get("FEDAMW_P_GUARD")
+    if p_guard is not None:
+        os.environ["FEDAMW_P_GUARD"] = p_guard
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("FEDAMW_P_GUARD", None)
+        else:
+            os.environ["FEDAMW_P_GUARD"] = old
+
+
+def _pair(algo, faults, robust_agg, extra, **kw):
+    """The JAX run and the port's on the same draws."""
+    extra = dict(extra)
+    p_guard = extra.pop("p_guard", None)
+    sj, st = _jsetup(DATA), _tsetup(DATA)
+    kwargs = _kwargs(algo, DATA, round=R, faults=faults,
+                     robust_agg=robust_agg, **extra, **kw)
+    with _jax_guard(p_guard):
+        rj = getattr(J, algo)(sj, **kwargs)
+    inject = _inject(sj, algo, rounds=R,
+                     participation=extra.get("participation"))
+    if p_guard is not None:
+        kwargs["p_guard"] = p_guard
+    rt = getattr(T, algo)(st, **kwargs, **inject)
+    return rt, rj
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Each case's JAX and port runs, computed once for the module."""
+    return functools.lru_cache(maxsize=None)(
+        lambda name: _pair(*CASES[name]))
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _assert_floats(rt, rj):
+    for k in ("train_loss", "test_loss", "test_acc"):
+        np.testing.assert_allclose(rt[k], np.asarray(rj[k]), **TOL,
+                                   err_msg=k)
+    for k, v in rj.get("mixture", {}).items():
+        np.testing.assert_allclose(rt["mixture"][k], np.asarray(v), **TOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(_np(rt["params"]["w"]),
+                               np.asarray(rj["params"]["w"]), **TOL)
+    np.testing.assert_allclose(_np(rt["p"]), np.asarray(rj["p"]), **TOL)
+    if "p_opt" in rj:
+        np.testing.assert_allclose(_np(rt["p_opt"][0]),
+                                   np.asarray(rj["p_opt"][0]), **TOL)
+    for k in FLOAT_DEFENSE:
+        if k in rj.get("defense", {}):
+            np.testing.assert_allclose(rt["defense"][k],
+                                       np.asarray(rj["defense"][k]), **TOL,
+                                       err_msg=k)
+    for k in ("reputation", "zq"):
+        assert (k in rt) == (k in rj), k
+        if k in rj:
+            np.testing.assert_allclose(_np(rt[k]), np.asarray(rj[k]), **TOL,
+                                       err_msg=k)
+
+
+def _assert_verdicts(rt, rj):
+    assert ("fault_counts" in rt) == ("fault_counts" in rj)
+    if "fault_counts" in rj:
+        assert set(rt["fault_counts"]) == set(rj["fault_counts"])
+        for k, v in rj["fault_counts"].items():
+            np.testing.assert_array_equal(rt["fault_counts"][k], v,
+                                          err_msg=k)
+    assert ("defense" in rt) == ("defense" in rj)
+    if "defense" in rj:
+        assert set(rt["defense"]) == set(rj["defense"])
+        assert rt["defense"]["robust_agg"] == rj["defense"]["robust_agg"]
+        for k in INT_DEFENSE:
+            if k in rj["defense"]:
+                np.testing.assert_array_equal(rt["defense"][k],
+                                              rj["defense"][k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_defended_run_matches_jax(case, runs):
+    rt, rj = runs(case)
+    _assert_floats(rt, rj)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_defended_verdicts_match_jax(case, runs):
+    rt, rj = runs(case)
+    _assert_verdicts(rt, rj)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_result_keys_match_jax(case, runs):
+    rt, rj = runs(case)
+    assert set(rt) == set(rj)
+
+
+def test_the_cases_exercise_their_defenses(runs):
+    """Each case reaches the path it names (facts of these inputs, the
+    same in both packages, not properties of a defense)."""
+    d = {name: runs(name)[0] for name in CASES}
+    assert d["avg-nonfinite"]["fault_counts"]["quarantined"].sum() > 0
+    assert d["amw-auto-rep"]["fault_counts"]["quarantined"].sum() > 0
+    assert d["nova-lie-rep"]["fault_counts"]["lied"].sum() > 0
+    assert d["amw-krum"]["defense"]["krum_selected"].sum(1).tolist() == [1] * R
+    assert np.all(d["amw-all-dropped"]["fault_counts"]["dropped"] == 6)
+    p = _np(d["amw-drop-simplex"]["p"])
+    assert p.min() >= 0 and abs(p.sum() - 1) < 1e-5
+    # an all-absent FedAMW round is a full no-op: p stays p_fixed
+    np.testing.assert_array_equal(_np(d["amw-all-dropped"]["p"]),
+                                  _np(_tsetup(DATA).p_fixed))
+
+
+@pytest.mark.parametrize("algo", ["FedAvg", "FedAMW"])
+def test_options_off_are_the_clean_round(algo):
+    """``faults=None`` and ``robust_agg="mean"`` (in any spelling) are the
+    round without the planes, bit for bit, with no fault or defense key."""
+    st = _tsetup(DATA)
+    kw = _kwargs(algo, DATA, seed=4)
+    base = getattr(T, algo)(st, **kw)
+    off = getattr(T, algo)(st, **kw, faults=None, robust_agg=" MEAN ")
+    assert set(off) == set(base)
+    assert not {"fault_counts", "defense", "reputation", "zq"} & set(off)
+    for k in ("train_loss", "test_loss", "test_acc"):
+        np.testing.assert_array_equal(off[k], base[k])
+    assert torch.equal(off["params"]["w"], base["params"]["w"])
+
+
+def test_one_shot_algorithms_still_refuse_the_planes():
+    st = _tsetup(DATA)
+    for algo in ("Centralized", "Distributed", "FedAMW_OneShot"):
+        for kw in ({"faults": "drop=0.1"}, {"robust_agg": "median"}):
+            with pytest.raises(ValueError, match="no communication rounds"):
+                getattr(T, algo)(st, epoch=1, **kw)
+
+
+def test_analyze_memory_counts_the_plan_rows():
+    """Under faults one round reads its plan row (five ``(J,)`` float32
+    vectors) besides the clean round's arguments; under a stateful spec
+    it also carries one round of defense metrics out."""
+    st = _tsetup(DATA)
+    kw = _kwargs("FedAvg", DATA)
+    clean = T.FedAvg(st, **kw, analyze_memory=True)
+    faulty = T.FedAvg(st, **kw, faults=NAN, analyze_memory=True)
+    J_ = st.num_clients
+    assert (faulty["argument_size_in_bytes"]
+            == clean["argument_size_in_bytes"] + 5 * J_ * 4)
+    defended = T.FedAvg(st, **kw, faults=NAN, robust_agg="rep:0.5:0.2",
+                        analyze_memory=True)
+    # quarantined, rep_gated, frac_clamped and the (J,) reputation row
+    assert (defended["output_size_in_bytes"]
+            == clean["output_size_in_bytes"] + 4 * (3 + J_))
+
+
+# -- resume, checkpoints ------------------------------------------------------
+
+SPLIT = {"amw-auto-rep": CASES["amw-auto-rep"][:3],
+         "nova-lie-rep": CASES["nova-lie-rep"][:3],
+         "avg-auto": ("FedAvg", "corrupt=0.2:scale:25,seed=2",
+                      "quarantine:auto")}
+
+
+def _state(res):
+    out = {k: res[k] for k in ("p_opt", "server_opt", "server_opt_kind")
+           if k in res}
+    out["eval_acc"] = float(np.asarray(res["test_acc"])[-1])
+    return out
+
+
+def _defense_kw(res):
+    return dict(reputation=res.get("reputation"),
+                defense_state={"zq": res["zq"]} if "zq" in res else None)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT))
+def test_split_run_through_a_checkpoint_is_bitwise(case, tmp_path):
+    algo, faults, spec = SPLIT[case]
+    st = _tsetup(DATA)
+    kw = _kwargs(algo, DATA, round=R, seed=11, faults=faults,
+                 robust_agg=spec)
+    full = getattr(T, algo)(st, **kw)
+    first = getattr(T, algo)(st, **kw, stop_round=1)
+    save_checkpoint(str(tmp_path / "ck"), first["params"], p=first["p"],
+                    round_idx=1, extra=_state(first), **_defense_kw(first))
+    state = load_checkpoint(str(tmp_path / "ck"))
+    assert ("reputation" in state) == ("reputation" in first)
+    assert ("defense_state" in state) == ("zq" in first)
+    second = getattr(T, algo)(st, **kw, start_round=1, resume_from=state)
+    for k in ("train_loss", "test_loss", "test_acc"):
+        np.testing.assert_array_equal(
+            np.concatenate([first[k], second[k]]), full[k])
+    for k, v in full["fault_counts"].items():
+        np.testing.assert_array_equal(
+            np.concatenate([first["fault_counts"][k],
+                            second["fault_counts"][k]]), v)
+    for k, v in full["defense"].items():
+        if isinstance(v, np.ndarray) and k not in ("client_valid",
+                                                   "krum_pick_counts"):
+            np.testing.assert_array_equal(
+                np.concatenate([first["defense"][k], second["defense"][k]]),
+                v, err_msg=k)
+    assert torch.equal(second["params"]["w"], full["params"]["w"])
+    assert torch.equal(second["p"], full["p"])
+    for k in ("reputation", "zq"):
+        if k in full:
+            np.testing.assert_array_equal(second[k], full[k])
+
+
+def _metrics(*parts):
+    return {k: np.concatenate([np.asarray(p[k]) for p in parts])
+            for k in ("train_loss", "test_loss", "test_acc")}
+
+
+@pytest.mark.parametrize("case", ["amw-auto-rep", "nova-lie-rep"])
+def test_port_checkpoint_resumes_the_jax_run(case, tmp_path):
+    """Rounds [0, 1) on the port, saved here with the defense state and
+    loaded by the JAX package, rounds [1, 3) in JAX."""
+    algo, faults, spec = SPLIT[case]
+    sj, st = _jsetup(DATA), _tsetup(DATA)
+    kw = _kwargs(algo, DATA, round=R, faults=faults, robust_agg=spec)
+    full = getattr(J, algo)(sj, **kw)
+    first = getattr(T, algo)(st, **kw, stop_round=1,
+                             **_inject(sj, algo, rounds=R))
+    save_checkpoint(str(tmp_path / "ck"), first["params"], p=first["p"],
+                    round_idx=1, extra=_state(first), **_defense_kw(first))
+    state = jload_checkpoint(str(tmp_path / "ck"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")   # nothing missing from the state
+        second = getattr(J, algo)(sj, **kw, start_round=1,
+                                  resume_from=state)
+    for k, v in _metrics(first, second).items():
+        np.testing.assert_allclose(v, np.asarray(full[k]), **TOL, err_msg=k)
+    np.testing.assert_allclose(
+        np.concatenate([first["defense"]["reputation"],
+                        np.asarray(second["defense"]["reputation"])]),
+        np.asarray(full["defense"]["reputation"]), **TOL)
+
+
+@pytest.mark.parametrize("case", ["amw-auto-rep", "nova-lie-rep"])
+def test_jax_checkpoint_resumes_the_port_run(case, tmp_path, monkeypatch):
+    """Rounds [0, 1) in JAX, saved in its pickle layout with the defense
+    state, loaded here, rounds [1, 3) on the port."""
+    algo, faults, spec = SPLIT[case]
+    sj, st = _jsetup(DATA), _tsetup(DATA)
+    kw = _kwargs(algo, DATA, round=R, faults=faults, robust_agg=spec)
+    full = getattr(J, algo)(sj, **kw)
+    first = getattr(J, algo)(sj, **kw, stop_round=1)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    where = jsave_checkpoint(str(tmp_path / "ck"), first["params"],
+                             p=first["p"], round_idx=1, extra=_state(first),
+                             **_defense_kw(first))
+    monkeypatch.undo()
+    assert where.endswith("state.pkl")
+    state = load_checkpoint(str(tmp_path / "ck"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        second = getattr(T, algo)(st, **kw, start_round=1, resume_from=state,
+                                  **_inject(sj, algo, rounds=R))
+    for k, v in _metrics(first, second).items():
+        np.testing.assert_allclose(v, np.asarray(full[k]), **TOL, err_msg=k)
+    np.testing.assert_allclose(_np(second["reputation"]),
+                               np.asarray(full["reputation"]), **TOL)
+    if "zq" in full:
+        np.testing.assert_allclose(_np(second["zq"]), np.asarray(full["zq"]),
+                                   **TOL)
+
+
+RESUME_CHECKS = {
+    "no reputation": ("rep:0.5:0.2", {}, UserWarning, "without 'reputation'"),
+    "no zq": ("quarantine:auto", {}, UserWarning, "without a 'zq'"),
+    "reputation shape": ("rep", {"reputation": np.ones(4, np.float32)},
+                         ValueError, "has shape"),
+    "zq shape": ("quarantine:auto", {"zq": np.ones(2, np.float32)},
+                 ValueError, "must be a scalar"),
+}
+
+
+@pytest.mark.parametrize("check", sorted(RESUME_CHECKS))
+def test_resume_checks_match_jax(check):
+    spec, extra, exc, msg = RESUME_CHECKS[check]
+    sj, st = _jsetup(DATA), _tsetup(DATA)
+    kw = _kwargs("FedAvg", DATA, round=2, robust_agg=spec)
+    jfirst = J.FedAvg(sj, **kw, stop_round=1)
+    tfirst = T.FedAvg(st, **kw, stop_round=1)
+    outcome = []
+    for pkg, setup, first in ((J, sj, jfirst), (T, st, tfirst)):
+        state = dict({k: first[k] for k in ("params", "p")}, **extra)
+        if exc is UserWarning:
+            with pytest.warns(UserWarning, match=msg) as rec:
+                pkg.FedAvg(setup, **kw, start_round=1, resume_from=state)
+            outcome.append(str([w.message for w in rec if msg in str(
+                w.message)][0]))
+        else:
+            with pytest.raises(exc, match=msg) as err:
+                pkg.FedAvg(setup, **kw, start_round=1, resume_from=state)
+            outcome.append(str(err.value))
+    assert outcome[0] == outcome[1]
+
+
+# -- the driver -------------------------------------------------------------
+
+ARGV = ["--device", "cpu", "--dataset", "digits", "--D", "64",
+        "--num_partitions", "4", "--round", "2", "--local_epoch", "1",
+        "--seed", "100"]
+DRV_FAULTS = "drop=0.2,corrupt=0.2:nan,lie=0.2:0.01,seed=3"
+DRV_SPEC = "quarantine:auto+rep:0.5:0.2"
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--faults", DRV_FAULTS), ("--faults", "corrupt=0.1:scale:25"),
+    ("--robust_agg", DRV_SPEC), ("--robust_agg", "clip:5+trim:1")])
+def test_fault_flags_parse(flag, value):
+    args = exp.parse_args(ARGV + [flag, value])
+    assert getattr(args, flag[2:]) == value
+    assert flag not in exp._REFUSED
+
+
+@pytest.mark.parametrize("argv", [["--faults", "drop=2"],
+                                  ["--faults", "bogus=1"],
+                                  ["--robust_agg", "median+mean"],
+                                  ["--robust_agg", "rep:1"]])
+def test_bad_fault_flags_are_argparse_errors_with_the_jax_message(argv,
+                                                                  capsys):
+    from fedamw_tpu.fedcore.faults import FaultSpec as JFaultSpec
+    from fedamw_tpu.fedcore.robust import parse_robust_spec
+
+    with pytest.raises(ValueError) as jerr:
+        if argv[0] == "--faults":
+            JFaultSpec.parse(argv[1])
+        else:
+            parse_robust_spec(argv[1])
+    with pytest.raises(SystemExit) as err:
+        exp.parse_args(ARGV + argv)
+    assert err.value.code == 2
+    assert str(jerr.value) in capsys.readouterr().err
+
+
+def test_the_fault_flags_sign_the_partial():
+    plain = exp.resume_config(exp.parse_args(ARGV))
+    assert plain["faults"] is None and plain["robust_agg"] == "mean"
+    faulty = exp.resume_config(exp.parse_args(
+        ARGV + ["--faults", DRV_FAULTS, "--robust_agg", DRV_SPEC]))
+    assert faulty["faults"] == DRV_FAULTS
+    assert faulty["robust_agg"] == DRV_SPEC
+    assert {k: v for k, v in faulty.items()
+            if k not in ("faults", "robust_agg")} == {
+        k: v for k, v in plain.items() if k not in ("faults", "robust_agg")}
+
+
+@pytest.fixture(scope="module")
+def driven(tmp_path_factory):
+    """The driver with both flags over two repeats, ``--save_models`` on,
+    the faults each round-loop algorithm received recorded."""
+    out = tmp_path_factory.mktemp("drv")
+    seen = []
+    real = exp.run_paper_algorithms
+
+    def spy(setup, **kw):
+        seen.append((kw["faults"], kw["robust_agg"]))
+        return real(setup, **kw)
+
+    exp.run_paper_algorithms = spy
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            path = exp.main(ARGV + [
+                "--faults", DRV_FAULTS, "--robust_agg", DRV_SPEC,
+                "--n_repeats", "2", "--result_dir", str(out / "res"),
+                "--save_models", str(out / "ck")])
+    finally:
+        exp.run_paper_algorithms = real
+    return out, path, seen, log.getvalue()
+
+
+def test_driver_prints_the_reports_and_writes_the_pickle(driven):
+    out, path, _, log = driven
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    assert data["train_loss"].shape == (6, 2, 2)
+    assert np.all(np.isfinite(data["test_loss"]))
+    for name in ("FedAvg", "FedProx", "FedAMW"):
+        assert log.count(f"\n{name} faults: ") == 2, name
+        assert log.count(f"\n{name} defense [{DRV_SPEC}]") == 2, name
+    assert "FedAMW_OneShot faults" not in log and "DL faults" not in log
+    with open(str(out / "res" / "exp1_digits.partial.pkl"), "rb") as f:
+        part = pickle.load(f)
+    assert part["config"]["faults"] == DRV_FAULTS
+    assert part["config"]["robust_agg"] == DRV_SPEC
+
+
+def test_driver_offsets_the_fault_seed_per_repeat(driven):
+    _, _, seen, _ = driven
+    spec = FaultSpec.parse(DRV_FAULTS)
+    assert seen == [(dataclasses.replace(spec, seed=spec.seed + t), DRV_SPEC)
+                    for t in range(2)]
+
+
+def test_driver_checkpoints_carry_the_defense_state(driven):
+    out = driven[0]
+    for name in ("FedAvg", "FedProx", "FedAMW"):
+        for t in range(2):
+            state = jload_checkpoint(str(out / "ck" /
+                                         f"digits_{name}_repeat{t}"))
+            assert state["reputation"].shape == (4,)
+            assert state["reputation"].dtype == np.float32
+            assert state["defense_state"]["zq"].shape == ()
+
+
+def test_driver_resume_continues_the_defended_run_bitwise(tmp_path):
+    flags = ["--faults", DRV_FAULTS, "--robust_agg", "rep:0.5:0.2"]
+    out = tmp_path / "res"
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        exp.main(ARGV + flags + ["--n_repeats", "1", "--result_dir",
+                                 str(out)])
+        with pytest.raises(SystemExit):   # another signature
+            exp.main(ARGV + ["--n_repeats", "2", "--resume",
+                             "--result_dir", str(out)])
+        resumed = exp.main(ARGV + flags + ["--n_repeats", "2", "--resume",
+                                           "--result_dir", str(out)])
+        whole = exp.main(ARGV + flags + ["--n_repeats", "2", "--result_dir",
+                                         str(tmp_path / "whole")])
+    with open(resumed, "rb") as f:
+        a = pickle.load(f)
+    with open(whole, "rb") as f:
+        b = pickle.load(f)
+    for k in ("train_loss", "test_loss", "test_acc", "heterogeneity"):
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_a_legacy_partial_resumes_as_a_clean_run(tmp_path):
+    """A partial signed before the flags were carried is a clean,
+    mean-aggregated run."""
+    out = tmp_path / "res"
+    with contextlib.redirect_stdout(io.StringIO()):
+        exp.main(ARGV + ["--n_repeats", "1", "--result_dir", str(out)])
+    ppath = out / "exp1_digits.partial.pkl"
+    with open(ppath, "rb") as f:
+        part = pickle.load(f)
+    for k in ("faults", "robust_agg"):
+        del part["config"][k]
+    with open(ppath, "wb") as f:
+        pickle.dump(part, f)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        exp.main(ARGV + ["--n_repeats", "1", "--resume", "--result_dir",
+                         str(out)])
+    assert "1 completed repeat(s) loaded" in log.getvalue()
+
+
+# -- the trace counters -----------------------------------------------------
+
+
+def _series(registry):
+    return {(inst.name, inst.labels): [v for _, v in inst.series_state()[0]]
+            for inst in registry.instruments()}
+
+
+def _round_attrs(recs):
+    return [{k: v for k, v in r["attrs"].items()} for r in recs]
+
+
+@pytest.mark.parametrize("case", ["amw-auto-rep", "nova-lie-rep"])
+def test_trace_counters_match_jax(case):
+    algo, faults, spec = SPLIT[case]
+    sj, st = _jsetup(DATA), _tsetup(DATA)
+    kw = _kwargs(algo, DATA, round=R, faults=faults, robust_agg=spec)
+    got = {}
+    for name, tmod, tel, run in (
+            ("jax", jtrace, jtel, lambda: getattr(J, algo)(sj, **kw)),
+            ("port", ttrace, ttel, lambda: getattr(T, algo)(
+                st, **kw, **_inject(sj, algo, rounds=R)))):
+        tmod.configure()
+        tel.reset_registry()
+        try:
+            run()
+            recs = tmod.get_tracer().records()
+            got[name] = (_series(tel.get_registry()), recs)
+        finally:
+            tmod.configure(False)
+            tel.reset_registry()
+    (js, jrecs), (ts, trecs) = got["jax"], got["port"]
+    assert set(ts) == set(js)
+    names = {n for n, _ in js}
+    assert {"fed_faults_total", "fed_defense_total", "fed_reputation_mean",
+            "fed_reputation_min"} <= names
+    for key, vals in js.items():
+        np.testing.assert_allclose(ts[key], vals, **TOL, err_msg=str(key))
+    assert [r["name"] for r in trecs] == [r["name"] for r in jrecs]
+    for a, b in zip(trecs, jrecs):
+        assert set(a["attrs"]) == set(b["attrs"])
+        for k, v in b["attrs"].items():
+            if isinstance(v, float):
+                np.testing.assert_allclose(a["attrs"][k], v, **TOL)
+            else:
+                assert a["attrs"][k] == v, k
+    scan = trecs[0]["attrs"]
+    assert scan["robust_agg"] == spec and scan["faults"] is True

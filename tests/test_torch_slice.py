@@ -129,8 +129,7 @@ def test_port_draws_its_own_randomness_deterministically(pair):
 
 
 @pytest.mark.parametrize("opt,value", [
-    ("faults", "drop=0.1"), ("robust_agg", "median"), ("cohort_shards", 2),
-    ("stream_cohort", True)])
+    ("cohort_shards", 2), ("stream_cohort", True)])
 def test_waiting_options_raise(pair, opt, value):
     _, st, _, _ = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
