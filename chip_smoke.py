@@ -67,6 +67,24 @@ and read just after:
   (reports and pickle); then a clean FedAMW round beside the defended
   one and the host synchronisations of each
   (``torch.cuda.set_sync_debug_mode``);
+- ``cohort``: the cohort plane. (a) In-graph ``cohort_shards`` at S = 1,
+  5 and 50 for FedAvg, FedNova and FedAMW under drops, NaN reports and
+  ``quarantine:3``, ``OPT_ROUNDS`` rounds, each against its plain run and
+  against the flat kernel run: every verdict and ``shard_present`` equal,
+  the aggregate at ``TOL_RUN``, the launches by kernel the flat run's, and
+  no library built or loaded across S; (b) FedAMW under
+  ``quarantine:auto+rep`` at S = 5 split at round 1 through a checkpoint
+  (bitwise); (c) streamed FedAvg and FedNova at S = 5 and the defended
+  streamed FedAvg (``clip:R+quarantine:3`` against 25x attackers), each
+  against its plain run, one kernel 1 launch per shard and epoch; (d) the
+  driver at R=3 with ``--cohort_shards 5 --stream_cohort`` (its launches
+  counted); (e) the 1M-client streamed round of ``scale_bench.py``'s
+  cohort leg (J = 1,000,000 padded to 256 shards of 3,907, 2 samples a
+  client, D=16, C=10, one epoch, drops, 25x attackers, ``quarantine:5``),
+  built directly with the features on the card and the client rows on
+  the host: its time, client-updates/s, the allocator's peak above the
+  round's entry (against the cohort's stacked weights), the compute
+  stream's wait on shard copies, and the round against its plain run;
 - ``feature_dtype``: FedAvg and FedAMW on the main configuration with the
   features stored in bfloat16 (kernel 1 reads 2-byte rows), 3 rounds,
   each against its plain run, round ms beside the float32 main path's
@@ -691,6 +709,335 @@ def faults(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
           "host_syncs": sync, "ok": sync_ok})
     if not sync_ok:
         fail(f"the defended FedAMW round adds host synchronisations: {sync}")
+    return launched
+
+
+# the cohort phase: in-graph shard counts (1, 5, one client a shard), the
+# defended split run and the streamed cases, at the main configuration,
+# then the 1M-client streamed round of scale_bench.py's cohort leg
+COHORT_SHARDS = (1, 5, J)
+COHORT_FAULTS = "drop=0.1,corrupt=0.05:nan,seed=7"
+STREAM_SHARDS = 5
+STREAM_FAULTS = "corrupt=0.2:scale:25,seed=2"
+# scale_bench.py:246-283: J clients of 2 samples padded to a multiple of
+# the shard count, D=16, C=10, batch 32, one local epoch, one round
+MILLION = dict(clients=1_000_000, shards=256, k=2, D=16, C=10,
+               faults="drop=0.01,corrupt=0.001:scale:25,seed=0",
+               robust_agg="quarantine:5")
+
+
+def cohort_verdicts(res):
+    """``verdicts`` plus the per-shard present counts of the hierarchy
+    record or the streamed record's present count per round."""
+    import numpy as np
+
+    out = verdicts(res)
+    if "hierarchy" in res:
+        out["shard_present"] = res["hierarchy"]["shard_present"].tolist()
+    if "streamed" in res:
+        out["present"] = np.asarray(res["streamed"]["present"]).tolist()
+    return out
+
+
+def million_client_round(card, vs_plain, dev):
+    """Case (e): the streamed round at the 1M-client shape, built directly
+    as ``scale_bench.py``'s ``cohort_stream`` builds it (the features,
+    labels and test rows on the card, the client rows on the host), one
+    warm-up round, then one counted round: its time, client-updates/s,
+    the allocator's peak above the round's entry, the compute stream's
+    wait on shard copies, and the round against its plain run."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch.algorithms import FedAvg
+    from fedamw_tpu_torch.algorithms import core
+    from fedamw_tpu_torch.algorithms.common import FedSetup
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+    from fedamw_tpu_torch.models import get_model
+
+    m = MILLION
+    Jm, S, k, Dm, Cm = m["clients"], m["shards"], m["k"], m["D"], m["C"]
+    t0 = time.perf_counter()
+    N = Jm * k
+    rng = np.random.RandomState(7)
+    X = rng.randn(N, Dm).astype(np.float32)
+    w_true = rng.randn(Dm, Cm).astype(np.float32)
+    y = np.argmax(X @ w_true + 0.5 * rng.randn(N, Cm).astype(np.float32),
+                  axis=1).astype(np.int32)
+    n_eval = min(4096, N)
+    J_pad = -(-Jm // S) * S
+    idx = np.zeros((J_pad, k), np.int64)
+    idx[:Jm] = np.arange(N, dtype=np.int64).reshape(Jm, k)
+    mask = np.zeros((J_pad, k), np.float32)
+    mask[:Jm] = 1.0
+    sizes = np.zeros(J_pad, np.int32)
+    sizes[:Jm] = k
+    weights = (sizes.astype(np.float64) / sizes.sum()).astype(np.float32)
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    setup = FedSetup(
+        model=get_model("linear"), task="classification", num_classes=Cm,
+        D=Dm, X=Xd, y=yd, X_test=Xd[:n_eval], y_test=yd[:n_eval],
+        X_val=Xd[:256], y_val=yd[:256], idx=torch.from_numpy(idx),
+        mask=torch.from_numpy(mask), sizes=torch.from_numpy(sizes),
+        p_fixed=torch.from_numpy(weights))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kw = dict(lr=0.2, epoch=1, batch_size=B, seed=0, lr_mode="constant",
+              cohort_shards=S, stream_cohort=True, faults=m["faults"],
+              robust_agg=m["robust_agg"], round=1, return_state=True)
+
+    def run(**extra):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = FedAvg(setup, **kw, **extra)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    run()                                   # warm-up round
+    tier = core._LAST_SHARD_TIER
+    torch.cuda.synchronize()
+    entry = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, secs = run()
+    c = counts()
+    peak = torch.cuda.max_memory_allocated() - entry
+    wait_ms = core._LAST_STREAM.copy_wait_ms()
+    memoized = tier is core._LAST_SHARD_TIER
+    ref, plain_secs = run(kernel_impl="plain")
+    ok, diffs = vs_plain(res, ref)
+    vk, vp = cohort_verdicts(res), cohort_verdicts(ref)
+    J_s = J_pad // S
+    # one shard's streamed rows (idx int64, mask, sizes, p_fixed and the
+    # five plan rows) and its stacked client weights
+    shard_rows = J_s * (k * 8 + k * 4 + 4 + 4 + 5 * 4)
+    shard_w = J_s * Cm * Dm * 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ek.launch_plan(J_s, B, Cm, Dm, sms)
+    row = {"phase": "cohort", "case": "e 1M-client streamed round",
+           "card": card, "clients": Jm, "padded_clients": J_pad,
+           "shards": S, "shard_clients": J_s, "samples_per_client": k,
+           "D": Dm, "C": Cm, "setup_seconds": setup_s,
+           "round_seconds": secs, "round_seconds_plain": plain_secs,
+           "client_updates_per_s": Jm / secs,
+           "peak_alloc_bytes_above_entry": peak,
+           "shard_rows_bytes": shard_rows, "shard_weights_bytes": shard_w,
+           "cohort_weights_bytes": J_pad * Cm * Dm * 4,
+           "copy_wait_ms": wait_ms, "launches": c,
+           "expected": {"client_epoch": S, "p_epoch": 0},
+           "kernel1_plan": dataclasses.asdict(plan),
+           "fault_counts": {k2: int(np.sum(v))
+                            for k2, v in res["fault_counts"].items()},
+           "test_acc": res["test_acc"].tolist(),
+           "verdicts_equal": vk == vp, "vs_plain": diffs, "tol": TOL_RUN,
+           "tier_memoized": memoized}
+    ok = (ok and vk == vp and c["client_epoch"] == S and c["p_epoch"] == 0
+          and peak < J_pad * Cm * Dm * 4 and memoized)
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        fail(f"the 1M-client streamed round: launches {c}, peak {peak} B, "
+             f"verdicts equal {vk == vp}, against its plain run {diffs}")
+    return c
+
+
+def cohort(setup, kw, amw_kw, timed, vs_plain, card):
+    """The ``cohort`` phase: (a) in-graph ``cohort_shards`` at S = 1, 5
+    and 50 for FedAvg, FedNova and FedAMW under the non-finite and z-score
+    quarantines, each against its plain run and against the flat kernel
+    run (every decision and ``shard_present`` equal, the aggregate at
+    ``TOL_RUN``, the launches by kernel the flat run's, no library built
+    across S); (b) the defended FedAMW run at S = 5 split at round 1
+    through a checkpoint, bitwise; (c) streamed FedAvg and FedNova at S =
+    5 and the defended streamed FedAvg, each against its plain run; (d)
+    the driver with ``--cohort_shards 5 --stream_cohort``; (e) the
+    1M-client streamed round. Counts are reset just before each counted
+    run and read just after. Returns the phase's launches."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch import exp
+    from fedamw_tpu_torch.algorithms import FedAMW, FedAvg, FedNova
+    from fedamw_tpu_torch.algorithms.core import _init_params, _round_generator
+    from fedamw_tpu_torch.fedcore import cuda_build, make_bucketed_round
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+    from fedamw_tpu_torch.fedcore import psolver_kernel as pk
+    from fedamw_tpu_torch.fedcore.robust import client_delta_norms
+    from fedamw_tpu_torch.utils import load_checkpoint, save_checkpoint
+
+    R2 = OPT_ROUNDS
+    launched = {"client_epoch": 0, "p_epoch": 0}
+
+    def counted(fn, **fkw):
+        reset_counts()
+        res, secs = timed(fn, **fkw)
+        c = counts()
+        for k in launched:
+            launched[k] += c[k]
+        return res, secs, c
+
+    def libraries():
+        return (sorted(p.name for p in cuda_build.BUILD_DIR.glob("*.so")),
+                cuda_build.load.cache_info().currsize,
+                ek._library.cache_info().currsize,
+                pk._library.cache_info().currsize)
+
+    # (a) in-graph shard counts against the flat kernel run; the libraries
+    # loaded after each flat run must be those after its sharded runs
+    libs = {}
+    fkw_a = dict(faults=COHORT_FAULTS, robust_agg="quarantine:3")
+    for name, fn, base in (("FedAvg", FedAvg, kw), ("FedNova", FedNova, kw),
+                           ("FedAMW", FedAMW, amw_kw)):
+        fkw = dict(base, round=R2, **fkw_a)
+        flat, flat_secs, c_flat = counted(fn, **fkw)
+        libs[name] = [libraries()]
+        for S in COHORT_SHARDS:
+            ref, plain_secs = timed(fn, kernel_impl="plain",
+                                    cohort_shards=S, **fkw)
+            res, secs, c = counted(fn, cohort_shards=S, **fkw)
+            ok_p, d_plain = vs_plain(res, ref)
+            ok_f, d_flat = vs_plain(res, flat)
+            v, v_flat, v_plain = (cohort_verdicts(r)
+                                  for r in (res, flat, ref))
+            sp = np.asarray(v.pop("shard_present"))
+            present_ok = (sp.shape == (R2, S) and v_plain.pop(
+                "shard_present") == sp.tolist())
+            ok = (ok_p and ok_f and present_ok and v == v_flat == v_plain
+                  and c == c_flat)
+            emit({"phase": "cohort", "case": f"a {name} cohort_shards={S}",
+                  "card": card, "round_ms": 1e3 * secs / R2,
+                  "round_ms_flat": 1e3 * flat_secs / R2,
+                  "round_ms_plain": 1e3 * plain_secs / R2,
+                  "launches": c, "launches_flat": c_flat,
+                  "shard_present_per_round": sp.sum(1).tolist(),
+                  "verdicts_equal_flat": v == v_flat,
+                  "verdict_totals": {k: int(np.sum(x)) for k, x in v.items()},
+                  "vs_flat": d_flat, "vs_plain": d_plain, "tol": TOL_RUN,
+                  "ok": ok})
+            if not ok:
+                fail(f"in-graph {name} at cohort_shards={S}: verdicts equal "
+                     f"{v == v_flat == v_plain}, shard_present {present_ok}, "
+                     f"launches {c} against the flat run's {c_flat}, "
+                     f"{d_flat}, {d_plain}")
+        libs[name].append(libraries())
+    libs_ok = all(a == b for a, b in libs.values())
+    emit({"phase": "cohort", "case": "a libraries across S",
+          "after_flat_and_after_shards": libs, "ok": libs_ok})
+    if not libs_ok:
+        fail(f"changing cohort_shards built or loaded a library: {libs}")
+
+    # (b) the defended FedAMW run at S = 5 split at round 1
+    c3 = dict(amw_kw, round=R2, faults=COHORT_FAULTS, robust_agg=DEFENDED,
+              cohort_shards=STREAM_SHARDS)
+    ref, _ = timed(FedAMW, kernel_impl="plain", **c3)
+    full, secs, c = counted(FedAMW, **c3)
+    ok_p, d_plain = vs_plain(full, ref)
+    first = FedAMW(setup, **c3, stop_round=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, first["params"], p=first["p"], round_idx=1,
+                        extra={"p_opt": first["p_opt"]},
+                        reputation=first["reputation"],
+                        defense_state={"zq": first["zq"]})
+        second = FedAMW(setup, **c3, start_round=1,
+                        resume_from=load_checkpoint(tmp))
+    split_ok = (
+        all(np.array_equal(np.concatenate([first[k], second[k]]), full[k])
+            for k in ("train_loss", "test_loss", "test_acc"))
+        and np.array_equal(np.concatenate(
+            [first["hierarchy"]["shard_present"],
+             second["hierarchy"]["shard_present"]]),
+            full["hierarchy"]["shard_present"])
+        and all(np.array_equal(np.concatenate(
+            [first["defense"][k], second["defense"][k]]), full["defense"][k])
+            for k in ("reputation", "z_threshold", "z_max"))
+        and torch.equal(second["params"]["w"], full["params"]["w"])
+        and torch.equal(second["p"], full["p"])
+        and np.array_equal(second["reputation"], full["reputation"]))
+    ok = split_ok and ok_p and cohort_verdicts(full) == cohort_verdicts(ref)
+    emit({"phase": "cohort", "case": "b FedAMW defended S=5 split at round 1",
+          "card": card, "robust_agg": DEFENDED, "faults": COHORT_FAULTS,
+          "bitwise": split_ok, "launches": c, "vs_plain": d_plain,
+          "ok": ok})
+    if not ok:
+        fail(f"the defended sharded FedAMW run: split bitwise {split_ok}, "
+             f"against its plain run {d_plain}")
+
+    # (c) streamed FedAvg and FedNova, and the defended streamed FedAvg
+    # under clip:R (R the median delta norm of the first round's clean
+    # updates) + quarantine:3
+    round_fn = make_bucketed_round(setup.task, EPOCHS, B, setup.n_maxes,
+                                   False, "auto")
+    params0 = _init_params(setup, SEED, None)
+    idx_t, mask_t = setup.round_arrays()
+    stacked, _, _ = round_fn(params0, setup.X, setup.y, idx_t, mask_t,
+                             _round_generator(setup, SEED, 0),
+                             float(kw["lr"]), 0.0, 0.0)
+    radius = float(client_delta_norms(params0, stacked)[
+        setup.sizes > 0].median())
+    st = dict(kw, round=R2, cohort_shards=STREAM_SHARDS, stream_cohort=True)
+    for name, fn, fkw in (
+            ("FedAvg", FedAvg, st), ("FedNova", FedNova, st),
+            ("FedAvg defended", FedAvg,
+             dict(st, faults=STREAM_FAULTS,
+                  robust_agg=f"clip:{radius}+quarantine:3"))):
+        ref, plain_secs = timed(fn, kernel_impl="plain", **fkw)
+        res, secs, c = counted(fn, **fkw)
+        ok, diffs = vs_plain(res, ref)
+        vk, vp = cohort_verdicts(res), cohort_verdicts(ref)
+        want = R2 * EPOCHS * STREAM_SHARDS
+        ok = ok and vk == vp and c["client_epoch"] == want and not c[
+            "p_epoch"]
+        emit({"phase": "cohort", "case": f"c streamed {name} S=5",
+              "card": card, "robust_agg": fkw.get("robust_agg", "mean"),
+              "faults": fkw.get("faults"), "round_ms": 1e3 * secs / R2,
+              "round_ms_plain": 1e3 * plain_secs / R2, "launches": c,
+              "expected": {"client_epoch": want, "p_epoch": 0},
+              "verdicts": vk, "verdicts_equal": vk == vp,
+              "test_acc": res["test_acc"].tolist(), "vs_plain": diffs,
+              "tol": TOL_RUN, "ok": ok})
+        if not ok:
+            fail(f"streamed {name}: launches {c}, verdicts equal "
+                 f"{vk == vp}, against its plain run {diffs}")
+
+    # (d) the driver at R=3 with --cohort_shards 5 --stream_cohort
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(log):
+            path = exp.main(["--dataset", "mnist", "--round", str(ROUNDS),
+                             "--seed", str(SEED), "--result_dir", tmp,
+                             "--cohort_shards", str(STREAM_SHARDS),
+                             "--stream_cohort"])
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+    drv_secs = time.perf_counter() - t0
+    c = counts()
+    for k in launched:
+        launched[k] += c[k]
+    long = EPOCHS * ROUNDS
+    # CL, DL and FedAMW_OneShot: one launch an epoch; FedAvg and FedProx
+    # one a shard and epoch; FedAMW one an epoch (in-graph)
+    want = {"client_epoch": 3 * long + 2 * STREAM_SHARDS * long + long,
+            "p_epoch": ROUNDS + ROUNDS * ROUNDS}
+    got = {k: c[k] for k in want}
+    drv_ok = (data["test_acc"].shape == (6, ROUNDS, 1)
+              and bool(np.all(np.isfinite(data["test_loss"])))
+              and "cohort plane: FedAvg/FedProx stream" in log.getvalue()
+              and got == want)
+    emit({"phase": "cohort", "case": "d driver --cohort_shards 5 "
+          "--stream_cohort", "seconds": drv_secs, "launches": got,
+          "expected": want, "final_acc": dict(zip(
+              data["name"], data["test_acc"][:, -1, 0].tolist())),
+          "ok": drv_ok})
+    if not drv_ok:
+        fail(f"the driver with --cohort_shards --stream_cohort: launches "
+             f"{got}, expected {want}")
+
+    # (e) the 1M-client streamed round
+    c = million_client_round(card, vs_plain, setup.device)
+    for k in launched:
+        launched[k] += c[k]
     return launched
 
 
@@ -1323,7 +1670,10 @@ def main():
     fault_launches = faults(ds, setup, prm, kw, amw_kw, timed, vs_plain,
                             card)
 
-    # -- 7b. the features stored in bfloat16 (feature_dtype) ---------------
+    # -- 7b. the cohort plane: in-graph shards, streamed shards, 1M clients --
+    cohort_launches = cohort(setup, kw, amw_kw, timed, vs_plain, card)
+
+    # -- 7c. the features stored in bfloat16 (feature_dtype) ---------------
     # the main configuration's setup with its features mapped into
     # bfloat16 (the same draw: each entry the float32 map rounded once);
     # FedAvg and FedAMW against their plain runs on that setup, counted
@@ -1463,7 +1813,8 @@ def main():
             "replaces": repl, "launches": launches_all[name],
             "launches_by_path": {"main_path": launches[name],
                                  "paper_algorithms": paper_launches[name],
-                                 "faults": fault_launches[name]},
+                                 "faults": fault_launches[name],
+                                 "cohort": cohort_launches[name]},
             "launches_per_round": int(per_round[name]), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),

@@ -24,7 +24,11 @@ Centralized and Distributed, ``(round,)`` vectors for the others.
   round and the per-round telemetry series (``_emit_round_spans``). The
   fault and defense planes (``faults=``, ``robust_agg=``;
   ``fedcore.faults``, ``fedcore.robust``) run between the local epochs
-  and the aggregate (``_Defense``); the cohort plane is not carried.
+  and the aggregate (``_Defense``). The cohort plane
+  (``fedcore.hierarchy``): ``cohort_shards=S`` re-associates the round's
+  mean reductions into per-shard partial sums (``hierarchy`` in the
+  result), and ``stream_cohort=True`` streams the client rows from the
+  host shard by shard (``_streamed_round_based``; not FedAMW).
 - The one-shot phase (Distributed, FedAMW_OneShot): every client trains
   ``epoch`` epochs from one init (kernel 1, one launch per epoch, or per
   client and epoch under ``sequential``), then a fixed-weight aggregate,
@@ -34,10 +38,10 @@ Centralized and Distributed, ``(round,)`` vectors for the others.
 - Centralized: one client holding every valid train row
   (``FedSetup.all_train_idx``), no prox and no ridge, a constant lr.
 
-Passing an option the port does not carry raises (ROADMAP.md, queue 1);
-the one-shot algorithms refuse partial participation, faults and robust
-aggregation with ``ValueError`` and ignore ``server_opt``/``server_lr``
-and ``analyze_memory``, as the JAX package does.
+The one-shot algorithms refuse partial participation, faults and robust
+aggregation with ``ValueError`` and ignore ``server_opt``/``server_lr``,
+``analyze_memory``, ``cohort_shards`` and ``stream_cohort``, as the JAX
+package does.
 
 Randomness. ``jax.random`` cannot be reproduced in torch, so every
 random input is injectable: ``params0`` (initial weights);
@@ -76,12 +80,14 @@ No shuffle is drawn on the host.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 
 import numpy as np
 import torch
 
+from ..data.stream import CohortShardStream
 from ..fedcore import (
     client_logits,
     fednova_effective_weights,
@@ -93,7 +99,16 @@ from ..fedcore import (
     weighted_average,
 )
 from ..fedcore.batching import draw_epoch_positions
+from ..fedcore.client import make_client_round
 from ..fedcore.faults import inject_fault_row, resolve_fault_plan
+from ..fedcore.hierarchy import (
+    fold_summaries,
+    make_shard_tier,
+    resolve_cohort_shards,
+    shard_histogram,
+    shard_ids,
+    two_tier_weighted_average,
+)
 from ..fedcore.robust import (
     Z_AUTO_BETA,
     Z_AUTO_INIT,
@@ -119,28 +134,17 @@ from ..utils.telemetry import get_registry
 from ..utils.trace import get_tracer
 from .common import FedSetup, result_tuple
 
-# The JAX package's options this port does not carry yet, with the value
-# that means "off". Passing another value raises.
-_WAITING = {
-    "cohort_shards": 0,
-    "stream_cohort": False,
-}
 # round-loop options the one-shot algorithms take and ignore, as the JAX
 # package's do (they swallow every keyword, core.py:906-921)
-_ROUND_LOOP_ONLY = ("server_opt", "server_lr", "analyze_memory")
+_ROUND_LOOP_ONLY = ("server_opt", "server_lr", "analyze_memory",
+                    "cohort_shards", "stream_cohort")
 
 
-def _reject_waiting(algo: str, opts: dict, ignored=()) -> None:
-    for k, v in opts.items():
-        if k in ignored:
-            continue
-        if k not in _WAITING:
+def _reject_unknown(algo: str, opts: dict) -> None:
+    for k in opts:
+        if k not in _ROUND_LOOP_ONLY:
             raise TypeError(f"{algo}() got an unexpected keyword argument "
                             f"{k!r}")
-        if v is not _WAITING[k] and v != _WAITING[k]:
-            raise NotImplementedError(
-                f"{algo}: {k}={v!r} is not ported yet (see ROADMAP.md, "
-                "queue 1)")
 
 
 def _reject_oneshot(algo: str, participation, faults, robust_agg) -> None:
@@ -330,13 +334,19 @@ class _Defense:
             present = present * gate
         return stacked, losses, present, aux, state, work_frac
 
-    def aggregate(self, params, stacked, w_t, present):
+    def aggregate(self, params, stacked, w_t, present, ids=None):
         """Clip, the robust reduction and the all-absent no-op gate (JAX
         ``core.py:370-391``): on weight mass for the mean, on headcount for
-        the order statistics. Returns ``(params, aux)``."""
+        the order statistics. With shard ``ids`` (in-graph
+        ``cohort_shards``) the mean goes through the two-tier partial sums;
+        the order statistics fold over every client as they are. Returns
+        ``(params, aux)``."""
         if self.spec.clip is not None:
             stacked = clip_update_norms(params, stacked, self.spec.clip)
-        agg, aux = self.reduce(params, stacked, w_t, present)
+        if ids is not None and self.agg_spec.agg == "mean":
+            agg, aux = two_tier_weighted_average(stacked, w_t, ids), {}
+        else:
+            agg, aux = self.reduce(params, stacked, w_t, present)
         ok_round = (torch.sum(torch.abs(w_t)) > 0
                     if self.agg_spec.agg == "mean"
                     else torch.sum(present) > 0)
@@ -574,6 +584,8 @@ def _round_based(
     p_guard="none",
     faults=None,
     robust_agg="mean",
+    cohort_shards=0,
+    stream_cohort=False,
     params0=None,
     client_positions=None,
     p_positions=None,
@@ -624,6 +636,15 @@ def _round_based(
     resume continues from. With ``faults=None`` and ``robust_agg="mean"``
     the round is the one without the planes.
 
+    ``cohort_shards=S`` (the cohort plane, ``fedcore.hierarchy``; JAX
+    ``core.py:1057-1085``) splits the client axis into ``S`` contiguous
+    shards and routes every mean-family weighted reduction through the
+    two-tier partial sums (``two_tier_weighted_average``); the evidence
+    and every decision are the flat round's, and the result carries
+    ``hierarchy`` (``cohort_shards`` and the per-round present clients of
+    each shard, ``shard_present``). ``stream_cohort=True`` runs
+    ``_streamed_round_based`` instead (not FedAMW).
+
     FedAMW's result carries ``mixture``: the per-round entropy and
     largest mass of the p each round ends with (``_mixture_stats``),
     computed on the device and copied to the host with the other metrics.
@@ -635,6 +656,30 @@ def _round_based(
         raise ValueError(f"participation must be in (0, 1], got "
                          f"{participation}")
     learned = aggregation == "learned"
+    n_shards = resolve_cohort_shards(cohort_shards, setup.num_clients,
+                                     streamed=bool(stream_cohort))
+    if stream_cohort:
+        if n_shards == 0:
+            raise ValueError(
+                "stream_cohort=True needs cohort_shards >= 1 (the "
+                "host->device shard size is the streaming knob)")
+        if learned:
+            raise ValueError(
+                "stream_cohort=True does not compose with FedAMW's "
+                "learned mixture weights yet: the p-solve consumes the "
+                "(n_val, J, C) logit tensor globally, which is exactly "
+                "the O(J) x O(n_val C) buffer streaming exists to "
+                "avoid — use in-graph cohort_shards for FedAMW "
+                "(ROADMAP follow-on)")
+        return _streamed_round_based(
+            setup, aggregation, lr, epoch, batch_size, rounds, mu, lam,
+            n_shards, seed=seed, lr_mode=lr_mode, verbose=verbose,
+            return_state=return_state, participation=participation,
+            sequential=sequential, start_round=start_round,
+            stop_round=stop_round, resume_from=resume_from,
+            server_opt=server_opt, analyze_memory=analyze_memory,
+            faults=faults, robust_agg=robust_agg, params0=params0,
+            client_positions=client_positions, kernel_impl=kernel_impl)
     if learned and server_opt != "none":
         raise ValueError(
             "FedAMW aggregates with LEARNED mixture weights; composing "
@@ -690,6 +735,14 @@ def _round_based(
     agg_w = (fednova_effective_weights(setup.sizes, setup.p_fixed, epoch,
                                        batch_size)
              if aggregation == "nova" else setup.p_fixed)
+    # the shard of each client (in-graph cohort_shards), in the stacked
+    # order: bucket by bucket on a bucketed setup
+    ids = shard_ids(setup.num_clients, n_shards, dev) if n_shards else None
+
+    def reduce_mean(stacked, w):
+        if ids is not None:
+            return two_tier_weighted_average(stacked, w, ids)
+        return weighted_average(stacked, w)
     server = server_state = None
     if server_opt != "none":
         server = ServerOptimizer(server_opt, server_lr)
@@ -741,7 +794,7 @@ def _round_based(
                                        setup.X_val)
                 p, opt_state, _, _ = solve(logits, setup.y_val, p, opt_state,
                                            ppos_t, client_valid=valid)
-                params = weighted_average(stacked, p)
+                params = reduce_mean(stacked, p)
             else:
                 if defense.sel_m is not None:
                     # krum's selection folds into the present mask: the
@@ -770,7 +823,7 @@ def _round_based(
                 w_t = participation_weights(p_s, present,
                                             trust=dstate.get("rep"))
                 params, agg_aux = defense.aggregate(params, stacked, w_t,
-                                                    present)
+                                                    present, ids)
                 dfaux.update(agg_aux)
         else:
             if guarded:
@@ -784,7 +837,7 @@ def _round_based(
                 w_t = participation_weights(agg_w_t, present,
                                             trust=dstate.get("rep"))
                 agg, agg_aux = defense.aggregate(params, stacked, w_t,
-                                                 present)
+                                                 present, ids)
                 if defense.rep_on and defense.agg_spec.select_m is not None:
                     # the krum verdict feeds the next round's reputation
                     dstate = dict(dstate, ksel=agg_aux["krum_selected"],
@@ -794,17 +847,23 @@ def _round_based(
                     participation_weights(setup.p_fixed, present) * losses)
             elif drawn is None:
                 train_loss_t = torch.sum(setup.p_fixed * losses)
-                agg = weighted_average(stacked, agg_w)
+                agg = reduce_mean(stacked, agg_w)
             else:
                 part = valid * drawn.to(torch.float32)
                 train_loss_t = torch.sum(
                     participation_weights(setup.p_fixed, part) * losses)
-                agg = _where(torch.sum(part) > 0, weighted_average(
+                agg = _where(torch.sum(part) > 0, reduce_mean(
                     stacked, participation_weights(agg_w, part)), params)
             if server is None:
                 params = agg
             else:
                 params, server_state = server.step(params, agg, server_state)
+        if ids is not None:
+            # the present clients of each shard (core.py:536-541,694-698):
+            # (MAX_COHORT_SHARDS,), the first n_shards rows real
+            dfaux["shard_present"] = shard_histogram(
+                present if guarded else valid if drawn is None
+                else valid * drawn.to(torch.float32), ids)
         if learned:
             # the p this round ends with (the carried p of core.py:552-555)
             for k, v in zip(("p_entropy", "p_max"), _mixture_stats(p)):
@@ -843,6 +902,11 @@ def _round_based(
             "lied": (plan.lie[sl] * valid_np).sum(1).astype(int),
             "quarantined": np.rint(host["quarantined"]).astype(int),
         }
+    if ids is not None:
+        out["hierarchy"] = {
+            "cohort_shards": n_shards,
+            "shard_present": np.rint(
+                host["shard_present"][:, :n_shards]).astype(int)}
     record = _defense_record(host, defense)
     if record:
         out["defense"] = record
@@ -864,6 +928,187 @@ def _round_based(
         for k in ("reputation", "zq"):
             if k in host:
                 out[k] = host[k][-1]
+    return out
+
+
+# The streamed tier and stream of the most recent streamed run (the JAX
+# package's _LAST_SHARD_TIER): tests pin the memoized tier across runs,
+# and the stream's copy_wait_ms reads how long the compute waited on
+# shard copies.
+_LAST_SHARD_TIER = None
+_LAST_STREAM = None
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_shard_tier(task, epoch, batch_size, n_max, aggregation,
+                       robust_canonical, faults_on, kernel_impl):
+    """The memoized streamed shard tier (JAX ``core.py:1393-1405``): one
+    tier serves every shard of every round of every run of the same
+    configuration. Its guard is ``_Defense.guard`` on the shard's slice
+    (stateless specs only: no carried state), its quarantine count the
+    non-finite reports under a fault plan plus the z-test's."""
+    defense = _Defense(robust_canonical, aggregation, faults_on)
+
+    def guard(params, stacked, losses, present, row):
+        stacked, losses, present, aux, _, work_frac = defense.guard(
+            params, stacked, losses, present, None, row, {})
+        quar = aux.get("quarantined", 0.0) + aux.get("z_quarantined", 0.0)
+        return stacked, losses, present, quar, work_frac
+
+    round_fn = make_client_round(task, epoch, batch_size, n_max,
+                                 kernel_impl)
+    return make_shard_tier(round_fn, epoch, batch_size, aggregation, guard,
+                           defense.spec.clip)
+
+
+def _streamed_round_based(setup, aggregation, lr, epoch, batch_size,
+                          rounds, mu, lam, n_shards, seed=0,
+                          lr_mode="reference", verbose=False,
+                          return_state=False, participation=1.0,
+                          sequential=False, start_round=0, stop_round=None,
+                          resume_from=None, server_opt="none",
+                          analyze_memory=False, faults=None,
+                          robust_agg="mean", params0=None,
+                          client_positions=None, kernel_impl="auto"):
+    """The streamed cohort driver (``stream_cohort=True``; JAX
+    ``core.py:1408-1528``): a host round loop over
+    ``CohortShardStream``'s double-buffered client shards, each through
+    the memoized shard tier (``_cached_shard_tier``: kernel 1 at ``J/S``
+    clients per local epoch, then ``_Defense.guard`` on the shard) into a
+    fixed-shape ``ShardSummary``; ``fold_summaries`` is the global tier.
+    Cohort size is bounded by host memory (the ``O(J)`` rows), not the
+    card's.
+
+    Each shard's shuffles come from the round's device generator, the
+    shards drawing in turn (so under the port's own draws a streamed run
+    matches the flat run statistically, not bitwise), or are sliced from
+    the injected ``client_positions``. The round's metrics stay on the
+    device until one host copy after the last round.
+
+    Supported surface, everything else refused as the JAX package refuses
+    it: the fixed-weight aggregations with the stateless mean-family
+    defenses (``clip:R``, ``quarantine:Z``; their evidence is
+    shard-local), full participation, parallel clients, the single-pack
+    layout, no server optimizer, no split runs. The result carries
+    ``streamed`` (``cohort_shards``, ``shard_clients`` and each round's
+    present count) and, under faults, ``fault_counts``.
+    """
+    if sequential:
+        raise ValueError(
+            "stream_cohort=True cannot compose with sequential=True "
+            "(the contamination chain threads one model through every "
+            "client in order; shards stream independently)")
+    if participation < 1.0:
+        raise ValueError(
+            "stream_cohort=True does not support participation<1 yet; "
+            "model dropout through the fault plane's drop= instead")
+    if server_opt != "none":
+        raise ValueError(
+            "stream_cohort=True does not compose with a FedOpt server "
+            "optimizer yet (server_opt applies to the flat and "
+            "in-graph paths)")
+    if start_round != 0 or stop_round is not None or resume_from is not None:
+        raise ValueError(
+            "stream_cohort=True does not support segmented/resumed "
+            "runs yet (start_round/stop_round/resume_from)")
+    if analyze_memory:
+        raise ValueError(
+            "analyze_memory reports one fused program's AOT footprint; "
+            "the streamed path is a host loop over shard programs — "
+            "measure the shard tier directly instead")
+    if setup.bucket_idx is not None:
+        raise ValueError(
+            "stream_cohort=True needs the single-pack layout "
+            "(prepare_setup(buckets=1)): the bucketed view re-sorts "
+            "clients and has per-bucket shapes, so contiguous "
+            "equal-shape shards cannot be sliced from it")
+    rspec = parse_robust_spec(robust_agg)
+    if (rspec.agg != "mean" or rspec.rep_decay is not None
+            or rspec.zscore_auto):
+        raise ValueError(
+            f"stream_cohort=True supports the mean-family defenses "
+            f"(clip:R, quarantine:Z) whose evidence is shard-local; "
+            f"robust_agg={rspec.canonical()!r} needs global statistics "
+            "— use the in-graph cohort_shards mode")
+
+    dev = setup.device
+    stream = CohortShardStream(n_shards, setup.idx, setup.mask, setup.sizes,
+                               setup.p_fixed, device=dev)
+    plan = resolve_fault_plan(faults, rounds, setup.num_clients)
+    faults_on = plan is not None
+    tier = _cached_shard_tier(setup.task, epoch, batch_size,
+                              int(setup.idx.shape[1]), aggregation,
+                              rspec.canonical(), faults_on, kernel_impl)
+    global _LAST_SHARD_TIER, _LAST_STREAM
+    _LAST_SHARD_TIER, _LAST_STREAM = tier, stream
+
+    params = _init_params(setup, seed, params0)
+    evaluate = make_evaluator(setup.model.apply, setup.task)
+    lrs = lr_schedule_array(lr, rounds, lr_mode)
+    mu, lam = _f32(mu), _f32(lam)
+    plan_rows = None
+    if faults_on:
+        # the whole plan's rows on the host once, pinned on the card; each
+        # round streams its row shard by shard
+        plan_rows = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            plan.drop, plan.scale, plan.poison, plan.fill, plan.report)]
+        if dev.type == "cuda":
+            plan_rows = [r.pin_memory() for r in plan_rows]
+    positions = client_positions
+    if isinstance(positions, (list, tuple)):
+        (positions,) = positions        # the single pack's one array
+
+    metrics = {"train_loss": [], "test_loss": [], "test_acc": [],
+               "present": []}
+    if faults_on:
+        metrics["quarantined"] = []
+    t_scan0 = time.perf_counter()
+    for t in range(rounds):
+        gen = _round_generator(setup, seed, t) if positions is None else None
+        summaries = []
+        for _, shard in stream.round_shards(
+                fault_rows=(None if plan_rows is None
+                            else [r[t] for r in plan_rows]),
+                positions=None if positions is None else positions[t]):
+            summaries.append(tier(
+                params, setup.X, setup.y, shard["idx"], shard["mask"],
+                shard.get("positions", gen), float(lrs[t]), mu, lam,
+                shard["sizes"], shard["p_fixed"], shard.get("fault_rows")))
+        params, train_loss_t, n_present, n_quar = fold_summaries(
+            params, summaries, aggregation)
+        tl, ta = evaluate(params, setup.X_test, setup.y_test)
+        if verbose:
+            print(f"[round {t:3d}] train loss {float(train_loss_t):8.5f} | "
+                  f"test loss {float(tl):8.5f} | test acc {float(ta):5.1f}%",
+                  flush=True)
+        metrics["train_loss"].append(train_loss_t)
+        metrics["test_loss"].append(tl)
+        metrics["test_acc"].append(ta)
+        metrics["present"].append(n_present)
+        if faults_on:
+            metrics["quarantined"].append(n_quar)
+
+    host = _host_metrics(metrics)
+    scan_s = time.perf_counter() - t_scan0
+    out = result_tuple(host["train_loss"], host["test_loss"],
+                       host["test_acc"])
+    out["streamed"] = {"cohort_shards": stream.n_shards,
+                       "shard_clients": stream.shard_clients,
+                       "present": host["present"]}
+    if faults_on:
+        valid_np = (setup.sizes > 0).cpu().numpy().astype(np.float64)
+        out["fault_counts"] = {
+            "dropped": (plan.drop * valid_np).sum(1).astype(int),
+            "straggled": (plan.straggle * valid_np).sum(1).astype(int),
+            "corrupted": (plan.corrupt * valid_np).sum(1).astype(int),
+            "lied": (plan.lie * valid_np).sum(1).astype(int),
+            "quarantined": np.rint(host["quarantined"]).astype(int),
+        }
+    _emit_round_spans(out, host, aggregation, rspec.canonical(), faults_on,
+                      0, rounds, t_scan0, scan_s)
+    if return_state:
+        out["params"] = params
+        out["p"] = setup.p_fixed
     return out
 
 
@@ -993,7 +1238,7 @@ def _oneshot_local_phase(setup: FedSetup, epoch, batch_size, sequential,
 def Centralized(setup: FedSetup, lr=0.01, epoch=200, batch_size=32, seed=0,
                 sequential=False, participation=1.0, faults=None,
                 robust_agg="mean", params0=None, client_positions=None,
-                kernel_impl="auto", **waiting):
+                kernel_impl="auto", **ignored):
     """Upper-bound baseline (``tools.py:240-255``; the driver calls it
     with ``local_epoch * round`` epochs): all clients' train rows pooled
     into one client, one long local run at a constant lr with no prox or
@@ -1001,7 +1246,7 @@ def Centralized(setup: FedSetup, lr=0.01, epoch=200, batch_size=32, seed=0,
     ``sequential`` is taken and has no effect (one client has no chain),
     as in the JAX package. ``kernel_impl`` as in ``FedAvg``."""
     _reject_oneshot("Centralized", participation, faults, robust_agg)
-    _reject_waiting("Centralized", waiting, _ROUND_LOOP_ONLY)
+    _reject_unknown("Centralized", ignored)
     all_idx = setup.all_train_idx
     n = int(all_idx.shape[0])
     local_update = make_local_update(setup.task, epoch, batch_size, n,
@@ -1021,12 +1266,12 @@ def Distributed(setup: FedSetup, lr=0.01, epoch=200, batch_size=32,
                 prox=False, mu=0.1, lambda_reg_if=False, lambda_reg=0.01,
                 seed=0, sequential=False, participation=1.0, faults=None,
                 robust_agg="mean", params0=None, client_positions=None,
-                kernel_impl="auto", **waiting):
+                kernel_impl="auto", **ignored):
     """One-shot FL with fixed sample-count weights (``tools.py:258-276``):
     the one-shot local phase, then one ``p_fixed`` aggregate and one
     evaluation. ``kernel_impl`` as in ``FedAvg``."""
     _reject_oneshot("Distributed", participation, faults, robust_agg)
-    _reject_waiting("Distributed", waiting, _ROUND_LOOP_ONLY)
+    _reject_unknown("Distributed", ignored)
     stacked, losses = _oneshot_local_phase(
         setup, epoch, batch_size, sequential, seed, lr, mu if prox else 0.0,
         lambda_reg if lambda_reg_if else 0.0, params0, client_positions,
@@ -1044,7 +1289,7 @@ def FedAMW_OneShot(setup: FedSetup, lr=0.01, epoch=200, batch_size=32,
                    sequential=False, participation=1.0, faults=None,
                    robust_agg="mean", p_guard="none", params0=None,
                    client_positions=None, p_positions=None,
-                   kernel_impl="auto", **waiting):
+                   kernel_impl="auto", **ignored):
     """The one-shot local phase, then ``round`` iterations of one
     mixture-weight SGD epoch each (plain, no momentum — ``tools.py:301``)
     over the validation logits computed once, re-aggregating and
@@ -1052,7 +1297,7 @@ def FedAMW_OneShot(setup: FedSetup, lr=0.01, epoch=200, batch_size=32,
     ``sum(p_fixed * losses)``. ``p_guard`` as in ``FedAMW``;
     ``kernel_impl`` as in ``FedAvg``."""
     _reject_oneshot("FedAMW_OneShot", participation, faults, robust_agg)
-    _reject_waiting("FedAMW_OneShot", waiting, _ROUND_LOOP_ONLY)
+    _reject_unknown("FedAMW_OneShot", ignored)
     stacked, losses = _oneshot_local_phase(
         setup, epoch, batch_size, sequential, seed, lr, mu if prox else 0.0,
         lambda_reg if lambda_reg_if else 0.0, params0, client_positions,
@@ -1090,20 +1335,19 @@ def FedAvg(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
            lr_mode="reference", sequential=False, verbose=False,
            return_state=False, participation=1.0, start_round=0,
            stop_round=None, resume_from=None, server_opt="none",
-           server_lr=1.0, faults=None, robust_agg="mean", params0=None,
-           client_positions=None, participation_masks=None,
-           kernel_impl="auto",
-           analyze_memory=False, **waiting):
+           server_lr=1.0, faults=None, robust_agg="mean", cohort_shards=0,
+           stream_cohort=False, params0=None, client_positions=None,
+           participation_masks=None, kernel_impl="auto",
+           analyze_memory=False):
     """Standard FedAvg (``tools.py:329-353``), with the round loop's
-    options (``_round_based``), ``faults=`` and ``robust_agg=`` among
-    them.
+    options (``_round_based``): ``faults=``, ``robust_agg=`` and the
+    cohort plane's ``cohort_shards=`` and ``stream_cohort=`` among them.
 
     ``kernel_impl="plain"`` exists to build the reference run a kernel run
     is held against (``chip_smoke.py``); leave it at ``"auto"``.
     ``analyze_memory=True`` returns the measured memory footprint of one
     round instead of training (``_memory_analysis``).
     """
-    _reject_waiting("FedAvg", waiting)
     return _round_based(
         setup, "fixed", lr, epoch, batch_size, round,
         mu if prox else 0.0, lambda_reg if lambda_reg_if else 0.0,
@@ -1111,8 +1355,9 @@ def FedAvg(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         return_state=return_state, participation=participation,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
-        faults=faults, robust_agg=robust_agg,
-        params0=params0, client_positions=client_positions,
+        faults=faults, robust_agg=robust_agg, cohort_shards=cohort_shards,
+        stream_cohort=stream_cohort, params0=params0,
+        client_positions=client_positions,
         participation_masks=participation_masks, kernel_impl=kernel_impl,
         analyze_memory=analyze_memory)
 
@@ -1122,13 +1367,12 @@ def FedProx(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=True,
             lr_mode="reference", sequential=False, verbose=False,
             return_state=False, participation=1.0, start_round=0,
             stop_round=None, resume_from=None, server_opt="none",
-            server_lr=1.0, faults=None, robust_agg="mean", params0=None,
-            client_positions=None, participation_masks=None,
-            kernel_impl="auto",
-            analyze_memory=False, **waiting):
+            server_lr=1.0, faults=None, robust_agg="mean", cohort_shards=0,
+            stream_cohort=False, params0=None, client_positions=None,
+            participation_masks=None, kernel_impl="auto",
+            analyze_memory=False):
     """FedAvg skeleton + proximal term (``tools.py:356-380``); options
     and ``kernel_impl`` as in ``FedAvg``."""
-    _reject_waiting("FedProx", waiting)
     return _round_based(
         setup, "fixed", lr, epoch, batch_size, round,
         mu if prox else 0.0, lambda_reg if lambda_reg_if else 0.0,
@@ -1136,8 +1380,9 @@ def FedProx(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=True,
         return_state=return_state, participation=participation,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
-        faults=faults, robust_agg=robust_agg,
-        params0=params0, client_positions=client_positions,
+        faults=faults, robust_agg=robust_agg, cohort_shards=cohort_shards,
+        stream_cohort=stream_cohort, params0=params0,
+        client_positions=client_positions,
         participation_masks=participation_masks, kernel_impl=kernel_impl,
         analyze_memory=analyze_memory)
 
@@ -1147,14 +1392,13 @@ def FedNova(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
             lr_mode="reference", sequential=False, verbose=False,
             return_state=False, participation=1.0, start_round=0,
             stop_round=None, resume_from=None, server_opt="none",
-            server_lr=1.0, faults=None, robust_agg="mean", params0=None,
-            client_positions=None, participation_masks=None,
-            kernel_impl="auto",
-            analyze_memory=False, **waiting):
+            server_lr=1.0, faults=None, robust_agg="mean", cohort_shards=0,
+            stream_cohort=False, params0=None, client_positions=None,
+            participation_masks=None, kernel_impl="auto",
+            analyze_memory=False):
     """Normalized averaging (``tools.py:383-410``): the FedAvg round with
     ``fednova_effective_weights`` as the aggregation weights; options
     and ``kernel_impl`` as in ``FedAvg``."""
-    _reject_waiting("FedNova", waiting)
     return _round_based(
         setup, "nova", lr, epoch, batch_size, round,
         mu if prox else 0.0, lambda_reg if lambda_reg_if else 0.0,
@@ -1162,8 +1406,9 @@ def FedNova(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         return_state=return_state, participation=participation,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
-        faults=faults, robust_agg=robust_agg,
-        params0=params0, client_positions=client_positions,
+        faults=faults, robust_agg=robust_agg, cohort_shards=cohort_shards,
+        stream_cohort=stream_cohort, params0=params0,
+        client_positions=client_positions,
         participation_masks=participation_masks, kernel_impl=kernel_impl,
         analyze_memory=analyze_memory)
 
@@ -1174,9 +1419,10 @@ def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
            verbose=False, return_state=False, participation=1.0,
            start_round=0, stop_round=None, resume_from=None,
            server_opt="none", server_lr=1.0, p_guard="none", faults=None,
-           robust_agg="mean", params0=None,
-           client_positions=None, p_positions=None, participation_masks=None,
-           kernel_impl="auto", analyze_memory=False, **waiting):
+           robust_agg="mean", cohort_shards=0, stream_cohort=False,
+           params0=None, client_positions=None, p_positions=None,
+           participation_masks=None, kernel_impl="auto",
+           analyze_memory=False):
     """The paper's algorithm (``tools.py:413-463``): ridge-regularized
     local training; per round, ``round`` epochs of mixture-weight SGD
     (momentum 0.9) on the pooled validation set over cached per-client
@@ -1185,14 +1431,16 @@ def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
     ``p_guard`` (``"none"``, ``"simplex"``, ``"clip"`` or ``"clip:R"``;
     ``fedcore.aggregate.resolve_p_guard``) projects p after every p step
     (over the present clients under partial participation); on the card
-    the p-solver kernel applies it in its epilogue. The round loop's
-    other options as in ``FedAvg``; ``server_opt`` is refused.
+    the p-solver kernel applies it in its epilogue. ``cohort_shards``
+    runs in-graph (the p-solve stays global, the aggregate goes through
+    the two-tier sums); ``stream_cohort=True`` is refused, as in the JAX
+    package. The round loop's other options as in ``FedAvg``;
+    ``server_opt`` is refused.
 
     ``kernel_impl="plain"`` runs the plain versions of both kernels on any
     device: the reference run a kernel run is held against
     (``chip_smoke.py``).
     """
-    _reject_waiting("FedAMW", waiting)
     return _round_based(
         setup, "learned", lr, epoch, batch_size, round,
         mu if prox else 0.0, lambda_reg if lambda_reg_if else 0.0,
@@ -1201,7 +1449,8 @@ def FedAMW(setup: FedSetup, lr=0.01, epoch=2, batch_size=32, prox=False,
         return_state=return_state, participation=participation,
         start_round=start_round, stop_round=stop_round,
         resume_from=resume_from, server_opt=server_opt, server_lr=server_lr,
-        faults=faults, robust_agg=robust_agg,
-        p_guard=p_guard, params0=params0, client_positions=client_positions,
-        p_positions=p_positions, participation_masks=participation_masks,
-        kernel_impl=kernel_impl, analyze_memory=analyze_memory)
+        faults=faults, robust_agg=robust_agg, cohort_shards=cohort_shards,
+        stream_cohort=stream_cohort, p_guard=p_guard, params0=params0,
+        client_positions=client_positions, p_positions=p_positions,
+        participation_masks=participation_masks, kernel_impl=kernel_impl,
+        analyze_memory=analyze_memory)

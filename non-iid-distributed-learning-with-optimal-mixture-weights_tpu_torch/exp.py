@@ -51,9 +51,15 @@ signature. The fault and defense flags: ``--faults SPEC``
 and ``--robust_agg SPEC`` (``fedcore.robust``) go to FedAvg, FedProx and
 FedAMW, as in the JAX driver; both are validated when the flags are
 parsed, sign the partial pickle, and a fault and a defense report is
-printed after each of those algorithms. The other extension flags
-(sharding, the cohort plane, ...) are refused with a pointer to their
-ROADMAP.md item.
+printed after each of those algorithms. The cohort plane:
+``--cohort_shards S`` splits the client axis into ``S`` contiguous shards
+and aggregates FedAvg, FedProx and FedAMW in two tiers
+(``fedcore.hierarchy``); with ``--stream_cohort`` FedAvg and FedProx
+stream their client shards from the host (``data.stream``) while FedAMW
+stays in-graph sharded, as in the JAX driver. Both are validated when the
+flags are parsed (the streamed surface's refusals included) and sign the
+partial pickle. The other extension flags (sharding over devices, ...)
+are refused with a pointer to their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ from .data.svmlight import is_regression
 from .device import resolve_device
 from .fedcore.aggregate import resolve_p_guard
 from .fedcore.faults import FaultSpec
+from .fedcore.hierarchy import MAX_COHORT_SHARDS
 from .fedcore.robust import parse_robust_spec
 from .fedcore.server_opt import SERVER_OPTS
 from .ops.rff import heterogeneity_from_parts
@@ -96,8 +103,6 @@ _REFUSED = {
     "--num_processes": "queue 1 item 10 (multi-GPU)",
     "--process_id": "queue 1 item 10 (multi-GPU)",
     "--model": "queue 1 item 13 (the model zoo)",
-    "--cohort_shards": "queue 1 item 9 (the cohort plane)",
-    "--stream_cohort": "queue 1 item 9 (the cohort plane)",
     "--publish_every": "queue 1 item 11 (serving's model registry)",
 }
 
@@ -221,6 +226,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "DIR/exp1_{dataset}_trace.jsonl and the telemetry "
                          "registry's dump beside it, with a per-stage "
                          "summary printed at the end")
+    ap.add_argument("--cohort_shards", type=int, default=0, metavar="S",
+                    help="split the client axis into S contiguous shards "
+                         "and aggregate in two tiers (fedcore.hierarchy): "
+                         "per-shard partial sums folded globally; "
+                         "aggregates match the flat run to float "
+                         "tolerance, quarantine and gating decisions are "
+                         "bitwise the same. 0 = the flat round")
+    ap.add_argument("--stream_cohort", action="store_true",
+                    help="(requires --cohort_shards) stream the client "
+                         "shards host->device double-buffered "
+                         "(data.stream.CohortShardStream), one shard tier "
+                         "per shard, so cohort size is bounded by host "
+                         "memory, not the card's. FedAvg/FedProx run "
+                         "streamed; FedAMW stays in-graph sharded (its "
+                         "p-solve needs every client's logits). Supports "
+                         "the mean-family defenses (clip:R, quarantine:Z), "
+                         "whose evidence is shard-local")
     for flag, item in _REFUSED.items():
         ap.add_argument(flag, action=_Refused, item=item)
     args = ap.parse_args(argv)
@@ -228,10 +250,45 @@ def parse_args(argv=None) -> argparse.Namespace:
         resolve_p_guard(args.p_guard)
         if args.faults is not None:
             FaultSpec.parse(args.faults)
-        parse_robust_spec(args.robust_agg)
+        spec = parse_robust_spec(args.robust_agg)
     except ValueError as e:
         ap.error(str(e))
+    _check_cohort_flags(ap, args, spec)
     return args
+
+
+def _check_cohort_flags(ap, args, spec) -> None:
+    """The cohort plane's flags, refused at the flag boundary as the JAX
+    driver refuses them (``exp.py:262-310``), not mid-run after earlier
+    algorithms finished."""
+    if args.cohort_shards < 0:
+        ap.error(f"--cohort_shards must be >= 0, got {args.cohort_shards}")
+    if not args.stream_cohort:
+        return
+    if not args.cohort_shards:
+        ap.error("--stream_cohort needs --cohort_shards S >= 1 (the "
+                 "host->device shard size is the streaming knob)")
+    if args.sequential:
+        ap.error("--stream_cohort is incompatible with --sequential (the "
+                 "contamination chain is serial by construction; shards "
+                 "stream independently)")
+    if args.participation < 1.0:
+        ap.error("--stream_cohort does not support --participation < 1 "
+                 "yet; model dropout through --faults drop= instead")
+    if args.server_opt != "none":
+        ap.error("--stream_cohort does not compose with --server_opt yet")
+    if args.cohort_shards > MAX_COHORT_SHARDS:
+        ap.error(f"--stream_cohort --cohort_shards {args.cohort_shards}: "
+                 f"FedAMW falls back to in-graph sharding (its p-solve "
+                 f"needs global logits), which caps at MAX_COHORT_SHARDS="
+                 f"{MAX_COHORT_SHARDS}; use <= {MAX_COHORT_SHARDS} shards, "
+                 "or drive the streamed algorithms alone through their "
+                 "entry points")
+    if spec.agg != "mean" or spec.rep_decay is not None or spec.zscore_auto:
+        ap.error(f"--stream_cohort supports the mean-family defenses "
+                 f"(clip:R, quarantine:Z); --robust_agg "
+                 f"{args.robust_agg!r} needs global statistics — use "
+                 "in-graph --cohort_shards without --stream_cohort")
 
 
 def _task_type(dataset: str, params: dict) -> str:
@@ -245,11 +302,14 @@ def run_paper_algorithms(setup, *, rounds, local_epoch, batch_size, seed, lr,
                          lr_p, lr_p_os, mu, lam, lam_os, lr_mode="reference",
                          verbose=False, sequential=False, participation=1.0,
                          server_opt="none", server_lr=1.0, p_guard="none",
-                         faults=None, robust_agg="mean", return_state=False):
+                         faults=None, robust_agg="mean", cohort_shards=0,
+                         stream_cohort=False, return_state=False):
     """The six algorithms of one repeat in the driver's row order
     (``NAMES``), with ``exp.py``'s arguments (``exp.py:813-914``): the
     extensions go where the JAX driver sends them (module docstring);
-    ``faults`` and ``robust_agg`` to FedAvg, FedProx and FedAMW.
+    ``faults`` and ``robust_agg`` to FedAvg, FedProx and FedAMW;
+    ``cohort_shards`` to the same three, ``stream_cohort`` to FedAvg and
+    FedProx only (``exp.py:855-869``).
     Returns ``[(name, result, wall_seconds), ...]``; each result has come
     back to the host, so its seconds include the device's work."""
     common = dict(batch_size=batch_size, seed=seed, sequential=sequential)
@@ -259,7 +319,9 @@ def run_paper_algorithms(setup, *, rounds, local_epoch, batch_size, seed, lr,
                         participation=participation,
                         return_state=return_state, faults=faults,
                         robust_agg=robust_agg)
-    fixed = dict(round_common, server_opt=server_opt, server_lr=server_lr)
+    round_common["cohort_shards"] = cohort_shards
+    fixed = dict(round_common, server_opt=server_opt, server_lr=server_lr,
+                 stream_cohort=stream_cohort)
     calls = [
         ("CL", "Centralized", dict(common, lr=lr, epoch=long_epoch)),
         ("DL", "Distributed", dict(common, lr=lr, epoch=long_epoch)),
@@ -300,7 +362,9 @@ def resume_config(args) -> dict:
         "lr_p")}
     cfg.update(backend="fedamw_tpu_torch", p_guard=guard,
                feature_dtype=args.feature_dtype, faults=args.faults,
-               robust_agg=args.robust_agg)
+               robust_agg=args.robust_agg,
+               cohort_shards=args.cohort_shards,
+               stream_cohort=args.stream_cohort)
     return cfg
 
 
@@ -329,10 +393,11 @@ def _resume_start(args, partial_path, mats, hete) -> int:
         return 0
     with open(partial_path, "rb") as f:
         part = pickle.load(f)
-    # a partial written before --feature_dtype, --faults and --robust_agg
-    # were carried is a float32, clean, mean-aggregated run
+    # a partial written before --feature_dtype, --faults, --robust_agg,
+    # --cohort_shards and --stream_cohort were carried is a float32,
+    # clean, mean-aggregated, flat run
     saved = {"feature_dtype": None, "faults": None, "robust_agg": "mean",
-             **part["config"]}
+             "cohort_shards": 0, "stream_cohort": False, **part["config"]}
     if saved != resume_config(args):
         print(f"--resume: {partial_path} was written under a "
               f"different configuration\n  saved: {saved}\n"
@@ -492,6 +557,12 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
             # repeats see independent fault draws, deterministically
             spec = FaultSpec.parse(args.faults)
             faults = dataclasses.replace(spec, seed=spec.seed + t)
+        if args.cohort_shards and t == 0:
+            print(f"cohort plane: FedAvg/FedProx stream {args.cohort_shards} "
+                  "client shards host->device; FedAMW runs in-graph sharded"
+                  if args.stream_cohort else
+                  "cohort plane: in-graph two-tier aggregation over "
+                  f"{args.cohort_shards} client shards")
         t0 = time.perf_counter()
         runs = run_paper_algorithms(
             setup, rounds=R, local_epoch=args.local_epoch,
@@ -503,6 +574,8 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
             sequential=args.sequential, participation=args.participation,
             server_opt=args.server_opt, server_lr=args.server_lr,
             p_guard=args.p_guard, faults=faults, robust_agg=args.robust_agg,
+            cohort_shards=args.cohort_shards,
+            stream_cohort=args.stream_cohort,
             return_state=bool(args.save_models))
         for row, (name, res, secs) in enumerate(runs):
             train_mat[row, :, t] = res["train_loss"]

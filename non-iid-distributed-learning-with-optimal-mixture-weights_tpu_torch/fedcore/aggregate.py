@@ -17,6 +17,7 @@ environment variable is not read.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -33,6 +34,41 @@ def weighted_average(stacked_params: dict, p: torch.Tensor) -> dict:
     (reference ``tools.py:345-349``)."""
     return {k: torch.tensordot(p, w, dims=([0], [0]))
             for k, w in stacked_params.items()}
+
+
+@contextlib.contextmanager
+def _fp32_matmul():
+    """Full fp32 products inside the block (no TF32 on the card), the
+    previous setting restored after it."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def segment_weighted_sums(stacked_params: dict, p: torch.Tensor,
+                          ids: torch.Tensor, num_segments: int) -> dict:
+    """Per-shard partial weighted sums (JAX ``aggregate.py:45-63``): leaf
+    ``(J, ...)`` becomes ``(num_segments, ...)`` whose row ``s`` is
+    ``sum_{j: ids_j == s} p_j * theta_j``, the shard tier of the two-tier
+    reduction (``fedcore.hierarchy``). Rows past the last shard are
+    exactly 0.
+
+    One product of the ``(num_segments, J)`` matrix holding ``p_j`` where
+    ``ids_j == s`` (0 elsewhere) with the ``(J, P)`` leaf, in full fp32
+    (``_fp32_matmul``): no atomics, so the card adds in one fixed order
+    and a rerun gives the same bits (``index_add_`` would add in any
+    order). Folding the partials over their leading axis is
+    ``weighted_average`` up to float re-association."""
+    seg = torch.arange(num_segments, device=p.device)
+    weights = torch.where(ids[None, :] == seg[:, None], p[None, :], 0.0)
+    J = p.shape[0]
+    with _fp32_matmul():
+        return {k: (weights @ w.reshape(J, -1)).reshape(
+                    (num_segments,) + tuple(w.shape[1:]))
+                for k, w in stacked_params.items()}
 
 
 def fednova_effective_weights(sizes: torch.Tensor, p: torch.Tensor,

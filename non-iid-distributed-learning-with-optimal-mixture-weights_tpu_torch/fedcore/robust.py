@@ -40,14 +40,13 @@ compares.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
 
 import torch
 
-from .aggregate import weighted_average
+from .aggregate import _fp32_matmul, weighted_average
 
 # geomed's default smoothed-Weiszfeld iteration count
 GEOMED_ITERS_DEFAULT = 8
@@ -301,18 +300,6 @@ def _at(s: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``s[i]`` along dim 0 for a device scalar ``i``, without reading
     ``i`` on the host."""
     return s.index_select(0, i.reshape(1))[0]
-
-
-@contextlib.contextmanager
-def _fp32_matmul():
-    """Full fp32 products inside the block (no TF32 on the card), the
-    previous setting restored after it."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def sanitize_updates(params: dict, stacked: dict, losses: torch.Tensor):

@@ -322,13 +322,27 @@ def test_paper_algorithm_draws_its_own_randomness_deterministically(pair,
 @pytest.mark.parametrize("opt,value,exc", [
     ("participation", 0.5, ValueError), ("faults", "drop=0.1", ValueError),
     ("robust_agg", "median", ValueError),
-    ("cohort_shards", 2, NotImplementedError),
-    ("stream_cohort", True, NotImplementedError),
     ("no_such_option", 1, TypeError)])
 def test_one_shot_options_are_refused(pair, algo, opt, value, exc):
     _, st, _ = pair
     with pytest.raises(exc):
         ALGOS[algo][1](st, epoch=1, **{opt: value})
+
+
+@pytest.mark.parametrize("algo", ONESHOT)
+@pytest.mark.parametrize("opt,value", [("cohort_shards", 2),
+                                       ("stream_cohort", True)])
+def test_one_shot_algorithms_ignore_the_cohort_plane(pair, algo, opt, value):
+    """The cohort plane is a round-loop option: the one-shot algorithms
+    take it and run as without it, as the JAX package's swallow it."""
+    _, st, _ = pair
+    fn = ALGOS[algo][1]
+    kw = dict(epoch=1, seed=3, **({"round": 2} if algo == "FedAMW_OneShot"
+                                  else {}))
+    a = fn(st, **kw)
+    b = fn(st, **kw, **{opt: value})
+    for k in ("train_loss", "test_loss", "test_acc"):
+        np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_registry_holds_all_seven_jax_names():

@@ -131,9 +131,16 @@ def test_port_draws_its_own_randomness_deterministically(pair):
 @pytest.mark.parametrize("opt,value", [
     ("cohort_shards", 2), ("stream_cohort", True)])
 def test_waiting_options_raise(pair, opt, value):
+    """The cohort plane's options are carried now: set alone, a shard count
+    past the cohort and streaming without a shard count still raise, with
+    the JAX package's messages."""
     _, st, _, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FedAvg(st, round=1, **{opt: value})
+    bad = {"cohort_shards": st.num_clients + value,
+           "stream_cohort": value}[opt]
+    msg = {"cohort_shards": "exceeds the cohort",
+           "stream_cohort": "needs cohort_shards >= 1"}[opt]
+    with pytest.raises(ValueError, match=msg):
+        FedAvg(st, round=1, **{opt: bad})
 
 
 def test_unknown_option_is_a_type_error(pair):
