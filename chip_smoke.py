@@ -85,6 +85,21 @@ and read just after:
   the host: its time, client-updates/s, the allocator's peak above the
   round's entry (against the cohort's stacked weights), the compute
   stream's wait on shard copies, and the round against its plain run;
+- ``ranks``: the client axis over ranks (``parallel``). (a) FedAvg and
+  FedAMW at the main configuration on a one-rank NCCL group
+  (``initialize_multihost``, ``make_mesh(1)``, ``shard_setup``), bitwise
+  the ungrouped kernel runs with the same launches by kernel, round ms
+  beside the ungrouped run's and the ``all_reduce``/``all_gather`` ms a
+  round (CUDA events around each collective; NCCL's communicator built
+  and timed first); (b) the driver at R=3 with
+  ``--shard 1`` (one spawned rank) and ``--multihost --num_processes 1
+  --process_id 0``, each pickle bitwise the ``driver`` phase's; (c) two
+  ranks sharing the card in a gloo group, J/2 clients each, FedAvg,
+  FedAMW, FedAMW under drops, NaN reports and ``quarantine:3+krum``, and
+  FedAvg streamed at S = 10 (each rank streams its 5 shards), each
+  within ``TOL_RUN`` of the single-process run with every verdict equal
+  and the two ranks bitwise equal, kernel 1's cluster size on each rank
+  ((c) runs last, after ``paper_run``);
 - ``feature_dtype``: FedAvg and FedAMW on the main configuration with the
   features stored in bfloat16 (kernel 1 reads 2-byte rows), 3 rounds,
   each against its plain run, round ms beside the float32 main path's
@@ -1041,6 +1056,342 @@ def cohort(setup, kw, amw_kw, timed, vs_plain, card):
     return launched
 
 
+# the ranks phase: the client axis over ranks (parallel/mesh.py) — the
+# faults of its defended case and the spec (krum gathers every update)
+RANK_FAULTS = "drop=0.1,corrupt=0.05:nan,seed=7"
+RANK_DEFENDED = "quarantine:3+krum"
+RANK_STREAM_SHARDS = 10    # 5 a rank of two: each rank streams its own
+HOST = "127.0.0.1"
+
+
+def _host_tree(x):
+    """A result with every tensor moved to the CPU."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host_tree(v) for v in x)
+    return x
+
+
+def _leaves(res, prefix=""):
+    """Every array of a result by path, as numpy."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for k in sorted(res):
+        v, path = res[k], f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_leaves(v, path + "/"))
+        elif isinstance(v, (list, tuple)):
+            out.update(_leaves(dict(enumerate(v)), path + "/"))
+        elif isinstance(v, torch.Tensor):
+            out[path] = v.cpu().numpy()
+        elif not isinstance(v, str):
+            out[path] = np.asarray(v)
+    return out
+
+
+def bitwise(a, b) -> bool:
+    """Two results hold the same bits in every returned array."""
+    import numpy as np
+
+    la, lb = _leaves(a), _leaves(b)
+    return la.keys() == lb.keys() and all(
+        np.array_equal(la[k], lb[k]) for k in la)
+
+
+@contextlib.contextmanager
+def fd_stdout_to(path):
+    """The process's file descriptor 1 (what spawned ranks inherit) into
+    ``path`` inside the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def _agent_store():
+    """A rendezvous store bound to port 0 and read back; ranks joining
+    through ``tcp://HOST:port`` connect to it as clients."""
+    import torch.distributed as dist
+
+    os.environ["TORCHELASTIC_USE_AGENT_STORE"] = "True"
+    return dist.TCPStore(HOST, 0, is_master=True, wait_for_workers=False)
+
+
+def rank_cases(kw, amw_kw):
+    """The runs of two ranks on one card: ``(name, algorithm,
+    keywords)``."""
+    from fedamw_tpu_torch.algorithms import FedAMW, FedAvg
+
+    return (("FedAvg", FedAvg, kw), ("FedAMW", FedAMW, amw_kw),
+            ("FedAMW defended", FedAMW, dict(
+                amw_kw, faults=RANK_FAULTS, robust_agg=RANK_DEFENDED)),
+            ("FedAvg streamed", FedAvg, dict(
+                kw, cohort_shards=RANK_STREAM_SHARDS, stream_cohort=True)))
+
+
+def _one_card_rank(rank, port, out):
+    """One of two ranks sharing ``cuda:0`` in a gloo group (the ranks
+    phase's (c)): the main setup, this rank's J/2 clients, the runs of
+    ``rank_cases``, each counted after a barrier (the two ranks build
+    their setups apart); results, launches and kernel 1's plan at J/2 to
+    ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fedamw_tpu_torch.algorithms import FedAvg, prepare_setup
+    from fedamw_tpu_torch.config import get_parameter
+    from fedamw_tpu_torch.data import load_dataset
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+    from fedamw_tpu_torch.parallel import make_mesh, shard_setup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{HOST}:{port}",
+                            world_size=2, rank=rank)
+    mesh = make_mesh(2, device="cuda:0")
+    for op in (mesh.all_gather, mesh.all_reduce):   # the first collectives
+        op(torch.zeros(1, device="cuda:0"))
+    prm = get_parameter("mnist")
+    ds = load_dataset("mnist", num_partitions=J, alpha=prm["alpha_Dirk"])
+    setup = shard_setup(prepare_setup(
+        ds, D=D, kernel_par=prm["kernel_par"], seed=SEED,
+        rng=np.random.RandomState(SEED), device="cuda:0"), mesh)
+    kw = dict(lr=prm["lr"], epoch=EPOCHS, batch_size=B, round=ROUNDS,
+              seed=SEED, lr_mode="constant", return_state=True)
+    amw_kw = dict(kw, lambda_reg=prm["lambda_reg"], lr_p=prm["lr_p"],
+                  val_batch_size=VB)
+    # this process's first kernel launches load the kernels' libraries:
+    # one uncounted round first, so the timed runs time the rounds
+    FedAvg(setup, **dict(kw, round=1))
+    res = {}
+    for name, fn, fkw in rank_cases(kw, amw_kw):
+        reset_counts()
+        torch.cuda.synchronize()
+        dist.barrier()      # both ranks start the timed run together
+        t0 = time.perf_counter()
+        r = fn(setup, **fkw)
+        torch.cuda.synchronize()
+        res[name] = {"result": _host_tree(r), "counts": counts(),
+                     "seconds": time.perf_counter() - t0}
+    J_rank = setup.idx.shape[0]
+    plan = ek.launch_plan(J_rank, B, setup.num_classes, D,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    with open(f"{out}/rank{rank}.pkl", "wb") as f:
+        pickle.dump({"runs": res, "clients": J_rank,
+                     "cluster": plan.cluster}, f)
+    dist.destroy_process_group()
+
+
+def ranks(setup, kw, amw_kw, timed, vs_plain, card, driver_data):
+    """The ``ranks`` phase, the client axis over ranks: (a) FedAvg and
+    FedAMW at the main configuration on a one-rank NCCL group
+    (``initialize_multihost``, ``make_mesh(1)``, ``shard_setup``) against
+    the ungrouped kernel runs, bitwise, launches by kernel equal, round ms
+    of each and the ``all_reduce``/``all_gather`` ms a round (CUDA events
+    around each collective); (b) the driver at R=3 with ``--shard 1`` and
+    with ``--multihost --num_processes 1 --process_id 0``, each pickle
+    bitwise the driver phase's ((c), two ranks on the card, runs last:
+    ``two_ranks_one_card``). Counts are reset just before each counted
+    run and read just after; returns the phase's launches and the
+    ungrouped runs, which (c) is held against."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fedamw_tpu_torch import exp
+    from fedamw_tpu_torch.algorithms import FedAMW, FedAvg
+    from fedamw_tpu_torch.parallel import (
+        initialize_multihost, make_mesh, shard_setup)
+
+    launched = {"client_epoch": 0, "p_epoch": 0}
+
+    def counted(fn, s=None, **fkw):
+        reset_counts()
+        res, secs = timed(fn, s, **fkw)
+        c = counts()
+        for k in launched:
+            launched[k] += c[k]
+        return res, secs, c
+
+    # (a) the one-rank NCCL group against the ungrouped runs
+    store = _agent_store()
+    try:
+        world = initialize_multihost(f"{HOST}:{store.port}", 1, 0)
+    finally:
+        del os.environ["TORCHELASTIC_USE_AGENT_STORE"]
+    backend = dist.get_backend()
+    grouped = shard_setup(setup, make_mesh(1))
+    # NCCL builds its communicator at the group's first collective: one
+    # of each here, timed apart, so the rounds below time the collectives
+    t0 = time.perf_counter()
+    for op in (grouped.mesh.all_gather, grouped.mesh.all_reduce):
+        op(torch.zeros(1, device=setup.device))
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    events = {"all_reduce": [], "all_gather": []}
+    real = {k: getattr(dist, k) for k in events}
+
+    def on_events(name):
+        def call(*a, **k):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            out = real[name](*a, **k)
+            stop.record()
+            events[name].append((start, stop))
+            return out
+        return call
+
+    flat_runs = {}
+    for name, fn, fkw in (("FedAvg", FedAvg, kw), ("FedAMW", FedAMW,
+                                                    amw_kw)):
+        flat, flat_secs, c_flat = counted(fn, **fkw)
+        flat_runs[name] = flat
+        for k in events:
+            events[k].clear()
+            setattr(dist, k, on_events(k))
+        try:
+            res, secs, c = counted(fn, grouped, **fkw)
+        finally:
+            for k in events:
+                setattr(dist, k, real[k])
+        torch.cuda.synchronize()
+        same = bitwise(res, flat)
+        ok = same and c == c_flat and world == 1 and backend == "nccl"
+        emit({"phase": "ranks", "case": f"a {name} one-rank group",
+              "card": card, "backend": backend, "world": world,
+              "bitwise": same, "communicator_startup_s": startup_s,
+              "launches": c, "launches_ungrouped": c_flat,
+              "round_ms": 1e3 * secs / ROUNDS,
+              "round_ms_ungrouped": 1e3 * flat_secs / ROUNDS,
+              "collective_ms_per_round": {
+                  k: sum(a.elapsed_time(b) for a, b in v) / ROUNDS
+                  for k, v in events.items()},
+              "collectives_per_round": {k: len(v) / ROUNDS
+                                        for k, v in events.items()},
+              "ok": ok})
+        if not ok:
+            fail(f"{name} on a one-rank {backend} group is not the ungrouped "
+                 f"run: bitwise {same}, launches {c} against {c_flat}")
+    dist.destroy_process_group()
+
+    # (b) the driver over one rank: spawned (--shard 1) and in this
+    # process (--multihost), each pickle the driver phase's
+    argv = ["--dataset", "mnist", "--round", str(ROUNDS), "--seed",
+            str(SEED)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with fd_stdout_to(f"{tmp}/shard.log"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                p_shard = exp.main(argv + ["--shard", "1", "--result_dir",
+                                           f"{tmp}/shard"])
+        shard_secs = time.perf_counter() - t0
+        store = _agent_store()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                p_multi = exp.main(argv + [
+                    "--multihost", "--coordinator", f"{HOST}:{store.port}",
+                    "--num_processes", "1", "--process_id", "0",
+                    "--result_dir", f"{tmp}/multi"])
+        finally:
+            del os.environ["TORCHELASTIC_USE_AGENT_STORE"]
+        multi_secs = time.perf_counter() - t0
+        with open(f"{tmp}/shard.log") as f:
+            shard_log = f.read()
+        pickles = {}
+        for name, path in (("shard 1", p_shard), ("multihost", p_multi)):
+            with open(path, "rb") as f:
+                pickles[name] = pickle.load(f)
+    same = {name: all(np.array_equal(d[k], driver_data[k]) for k in (
+                "train_loss", "test_loss", "test_acc", "heterogeneity"))
+            for name, d in pickles.items()}
+    ok = (all(same.values()) and not dist.is_initialized()
+          and "client axis split over 1 ranks (nccl" in shard_log
+          and "multihost: process 0/1, 1 global devices, --shard 1"
+          in log.getvalue())
+    emit({"phase": "ranks", "case": "b driver over one rank", "card": card,
+          "bitwise_driver_pickle": same, "seconds": {
+              "shard 1": shard_secs, "multihost": multi_secs},
+          "ok": ok})
+    if not ok:
+        fail(f"the driver over one rank: bitwise {same}; logs "
+             f"{shard_log[-500:]} {log.getvalue()[-500:]}")
+
+    return launched, flat_runs
+
+
+def two_ranks_one_card(setup, kw, amw_kw, timed, vs_plain, card,
+                       flat_runs):
+    """The ``ranks`` phase's (c), run last: two ranks sharing the card in
+    a gloo group (``_one_card_rank``), J/2 clients each, the runs of
+    ``rank_cases`` (FedAvg, FedAMW, FedAMW under ``RANK_FAULTS`` and
+    ``RANK_DEFENDED``, FedAvg streamed at ``RANK_STREAM_SHARDS``) against
+    the single-process kernel runs at ``TOL_RUN``, every verdict equal,
+    the two ranks bitwise equal, kernel 1's cluster on each rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+
+    refs = dict(flat_runs)
+    for name, fn, fkw in rank_cases(kw, amw_kw):
+        if name not in refs:
+            refs[name], _ = timed(fn, **fkw)
+    store = _agent_store()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            mp.start_processes(_one_card_rank, args=(store.port, tmp),
+                               nprocs=2, join=True, start_method="spawn")
+            spawn_secs = time.perf_counter() - t0
+            out = []
+            for r in range(2):
+                with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                    out.append(pickle.load(f))
+    finally:
+        del os.environ["TORCHELASTIC_USE_AGENT_STORE"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    whole_plan = ek.launch_plan(J, B, setup.num_classes, D, sms).cluster
+    for name, ref in refs.items():
+        got = [o["runs"][name] for o in out]
+        ok_p, diffs = vs_plain(got[0]["result"], _host_tree(ref))
+        same_ranks = bitwise(got[0]["result"], got[1]["result"])
+        v_ok = verdicts(got[0]["result"]) == verdicts(ref)
+        ok = ok_p and same_ranks and v_ok
+        emit({"phase": "ranks", "case": f"c {name} two ranks on one card",
+              "card": card, "backend": "gloo",
+              "clients_per_rank": [o["clients"] for o in out],
+              "kernel1_cluster_per_rank": [o["cluster"] for o in out],
+              "kernel1_cluster_single_process": whole_plan,
+              "launches_per_rank": [g["counts"] for g in got],
+              "round_ms_per_rank": [1e3 * g["seconds"] / ROUNDS
+                                    for g in got],
+              "ranks_bitwise": same_ranks, "verdicts_equal": v_ok,
+              "verdicts": verdicts(ref), "vs_single_process": diffs,
+              "tol": TOL_RUN, "spawn_seconds": spawn_secs, "ok": ok})
+        if not ok:
+            fail(f"{name} on two ranks of one card: within TOL_RUN {ok_p} "
+                 f"{diffs}, ranks bitwise {same_ranks}, verdicts {v_ok}")
+
+
 def trace_categories(trace_dir):
     """``{category: count}`` of the complete (``"X"``) events in the Chrome
     trace under ``trace_dir``, and the kernel events of each hand kernel
@@ -1673,6 +2024,11 @@ def main():
     # -- 7b. the cohort plane: in-graph shards, streamed shards, 1M clients --
     cohort_launches = cohort(setup, kw, amw_kw, timed, vs_plain, card)
 
+    # -- 7d. the client axis over ranks: one-rank NCCL group, the driver
+    # over one rank, two ranks sharing the card ------------------------------
+    rank_launches, rank_refs = ranks(setup, kw, amw_kw, timed, vs_plain,
+                                     card, data)
+
     # -- 7c. the features stored in bfloat16 (feature_dtype) ---------------
     # the main configuration's setup with its features mapped into
     # bfloat16 (the same draw: each entry the float32 map rounded once);
@@ -1814,7 +2170,8 @@ def main():
             "launches_by_path": {"main_path": launches[name],
                                  "paper_algorithms": paper_launches[name],
                                  "faults": fault_launches[name],
-                                 "cohort": cohort_launches[name]},
+                                 "cohort": cohort_launches[name],
+                                 "ranks": rank_launches[name]},
             "launches_per_round": int(per_round[name]), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -2050,6 +2407,9 @@ def main():
     if run_launches != want or not finite:
         fail(f"the paper run launched {run_launches} (expected {want}) "
              f"or gave non-finite metrics (finite={finite})")
+
+    # -- 11. two ranks sharing the card (the ranks phase's (c)) -------------
+    two_ranks_one_card(setup, kw, amw_kw, timed, vs_plain, card, rank_refs)
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

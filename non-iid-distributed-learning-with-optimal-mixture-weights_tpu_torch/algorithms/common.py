@@ -51,6 +51,11 @@ class FedSetup:
     # size, descending; every client-indexed array above is in that order
     bucket_idx: tuple | None = None   # (J_g, n_max_g) int64 per bucket
     bucket_mask: tuple | None = None
+    # the ranks the client axis is split over (parallel.shard_setup): then
+    # idx/mask (or each bucket's) hold this rank's block of clients, and
+    # every other tensor, the (J,) vectors included, stays whole
+    mesh_devices: int = 1
+    mesh: Any = None             # parallel.ClientMesh, or None
 
     @property
     def device(self) -> torch.device:
@@ -84,9 +89,15 @@ class FedSetup:
     def all_train_idx(self) -> torch.Tensor:
         """Every valid train row once, client-major in bucket order: the
         pooled index set of Centralized. ``(n,)`` int64 on the setup's
-        device."""
+        device. Over ranks the packs are all-gathered first (a
+        collective every rank reaches together, JAX ``common.py:78-100``),
+        so every rank gets the whole set."""
+        packs = self.round_arrays()
+        if self.mesh is not None:
+            packs = [[self.mesh.all_gather(a) for a in arrays]
+                     for arrays in packs]
         return torch.cat([i.reshape(-1)[m.reshape(-1) > 0]
-                          for i, m in zip(*self.round_arrays())])
+                          for i, m in zip(*packs)])
 
 
 def prepare_setup(

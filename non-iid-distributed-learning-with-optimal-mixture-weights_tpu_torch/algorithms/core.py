@@ -28,7 +28,10 @@ Centralized and Distributed, ``(round,)`` vectors for the others.
   (``fedcore.hierarchy``): ``cohort_shards=S`` re-associates the round's
   mean reductions into per-shard partial sums (``hierarchy`` in the
   result), and ``stream_cohort=True`` streams the client rows from the
-  host shard by shard (``_streamed_round_based``; not FedAMW).
+  host shard by shard (``_streamed_round_based``; not FedAMW). Every
+  path also runs on a setup split over ranks (``parallel.shard_setup``):
+  each rank trains its block of clients and meets the others in
+  all-reduces and all-gathers (``parallel.ClientAxis``).
 - The one-shot phase (Distributed, FedAMW_OneShot): every client trains
   ``epoch`` epochs from one init (kernel 1, one launch per epoch, or per
   client and epoch under ``sequential``), then a fixed-weight aggregate,
@@ -130,6 +133,7 @@ from ..fedcore.robust import (
 )
 from ..fedcore.server_opt import ServerOptimizer, check_server_opt
 from ..ops.schedule import lr_schedule_array
+from ..parallel.mesh import ClientAxis, validate_cohort_alignment
 from ..utils.telemetry import get_registry
 from ..utils.trace import get_tracer
 from .common import FedSetup, result_tuple
@@ -216,6 +220,10 @@ def _where(cond, new: dict, old: dict) -> dict:
     return {k: torch.where(cond, new[k], old[k]) for k in new}
 
 
+# the client axis of a single-process run (ClientAxis without a mesh)
+_FLAT = ClientAxis()
+
+
 class _Defense:
     """The round loop's fault and defense stages, shared by the fixed,
     nova and learned paths (JAX ``core.py:188-391``): the static flags of
@@ -240,6 +248,11 @@ class _Defense:
         self.agg_spec = (dataclasses.replace(spec, agg="mean", mkrum_m=0)
                          if self.sel_m is not None else spec)
         self.reduce = make_robust_aggregator(self.agg_spec)
+        # the spec reads every client's update: reputation's directional
+        # channel (a coordinate-wise median), krum, the order statistics;
+        # over ranks the stacked updates are then all-gathered in guard
+        self.every_update = (self.rep_on or self.agg_spec.agg != "mean"
+                             or self.sel_m is not None)
 
     def init_state(self, num_clients: int, device, rep0=None,
                    zq0=None) -> dict:
@@ -260,7 +273,8 @@ class _Defense:
                         if zq0 is None else zq0)
         return st
 
-    def guard(self, params, stacked, losses, present, drawn, row, dstate):
+    def guard(self, params, stacked, losses, present, drawn, row, dstate,
+              axis=_FLAT):
         """The JAX package's ``guard_faults`` (``core.py:253-368``), in its
         order: (1) participation, drops and the non-finite quarantine
         decide who reported and who is finite; (2) the carried reputation
@@ -269,16 +283,32 @@ class _Defense:
         work-normalized norms, scored over every finite reporter under
         ``rep``; (5) reputation steps and its new verdict gates the
         present mask. Returns ``(stacked, losses, present, aux, state,
-        work_frac)``; ``aux`` holds the round's defense telemetry."""
+        work_frac)``; ``aux`` holds the round's defense telemetry.
+
+        Over ranks (``axis``) ``stacked`` and ``losses`` come in as this
+        rank's block: the faults and the non-finite quarantine act on it,
+        then the losses, the finiteness verdicts and the delta norms of
+        every client are all-gathered in one collective, and under a spec
+        that reads every update (``every_update``) so are the stacked
+        updates. Every decision then runs replicated on whole vectors;
+        ``losses`` goes out whole, ``stacked`` whole or as the block."""
         spec = self.spec
         if drawn is not None:
             present = present * drawn.to(torch.float32)
         if self.faults_on:
-            stacked, losses = inject_fault_row(params, stacked, losses,
-                                               row[1], row[2], row[3])
+            stacked, losses = inject_fault_row(
+                params, stacked, losses, *map(axis.local, row[1:4]))
             present = present * (1.0 - row[0])
         reported = present
         stacked, losses, ok = sanitize_updates(params, stacked, losses)
+        need_norms = self.quarantine or self.rep_on
+        if need_norms:
+            losses, ok, norms = axis.gather_vectors(
+                losses, ok, client_delta_norms(params, stacked))
+        else:
+            (losses, ok), norms = axis.gather_vectors(losses, ok), None
+        if self.every_update:
+            stacked = axis.gather_tree(stacked)
         present = present * ok
         aux = {}
         if self.faults_on:
@@ -291,8 +321,6 @@ class _Defense:
         if self.rep_on:
             present = present * torch.where(rep_prev >= spec.rep_floor,
                                             1.0, 0.0)
-        need_norms = self.quarantine or self.rep_on
-        norms = client_delta_norms(params, stacked) if need_norms else None
         if self.rep_on and self.faults_on:
             work_frac, aux["frac_clamped"] = trust_bounded_work_frac(
                 norms, work_frac, present, rep_prev)
@@ -334,17 +362,18 @@ class _Defense:
             present = present * gate
         return stacked, losses, present, aux, state, work_frac
 
-    def aggregate(self, params, stacked, w_t, present, ids=None):
+    def aggregate(self, params, stacked, w_t, present, mean):
         """Clip, the robust reduction and the all-absent no-op gate (JAX
         ``core.py:370-391``): on weight mass for the mean, on headcount for
-        the order statistics. With shard ``ids`` (in-graph
-        ``cohort_shards``) the mean goes through the two-tier partial sums;
-        the order statistics fold over every client as they are. Returns
-        ``(params, aux)``."""
+        the order statistics. The mean is ``mean(stacked, w_t)`` (the flat
+        weighted average, in-graph ``cohort_shards``' two-tier partial
+        sums, or over ranks a partial sum and its all-reduce); the order
+        statistics fold over every client as they are. Returns ``(params,
+        aux)``."""
         if self.spec.clip is not None:
             stacked = clip_update_norms(params, stacked, self.spec.clip)
-        if ids is not None and self.agg_spec.agg == "mean":
-            agg, aux = two_tier_weighted_average(stacked, w_t, ids), {}
+        if self.agg_spec.agg == "mean":
+            agg, aux = mean(stacked, w_t), {}
         else:
             agg, aux = self.reduce(params, stacked, w_t, present)
         ok_round = (torch.sum(torch.abs(w_t)) > 0
@@ -362,6 +391,18 @@ def _mixture_stats(p):
     entropy = -torch.sum(torch.where(
         pos, p * torch.log(torch.where(pos, p, 1.0)), 0.0))
     return entropy, torch.max(p)
+
+
+def _check_ranks(setup: FedSetup, sequential: bool) -> None:
+    """A client axis split over ranks runs the clients in parallel: the
+    contamination chain threads one model through every client in order
+    (the JAX driver refuses ``--shard`` with ``--sequential``)."""
+    if sequential and setup.mesh_devices > 1:
+        raise ValueError(
+            "sequential=True cannot run over a client axis split across "
+            f"{setup.mesh_devices} ranks: the reference's contamination "
+            "chain threads one model through every client in order, "
+            "which is serial by construction")
 
 
 def _nbytes(*values) -> int:
@@ -645,6 +686,17 @@ def _round_based(
     each shard, ``shard_present``). ``stream_cohort=True`` runs
     ``_streamed_round_based`` instead (not FedAMW).
 
+    Over ranks (a ``parallel.shard_setup`` setup, ``setup.mesh``) each
+    rank runs kernel 1 on its block of clients, with its rows of each
+    whole draw or of the injected positions (``ClientAxis``); the losses,
+    FedAMW's validation logits and the guard's evidence are all-gathered,
+    so every decision and the p-solve run replicated on whole vectors;
+    the mean-family aggregate is the rank's weighted partial sum and an
+    all-reduce (``reduce_mean``); a spec that reads every update gathers
+    the stacked updates in the guard (``_Defense.every_update``).
+    ``cohort_shards`` must be a multiple of the ranks, and
+    ``sequential`` is refused.
+
     FedAMW's result carries ``mixture``: the per-round entropy and
     largest mass of the p each round ends with (``_mixture_stats``),
     computed on the device and copied to the host with the other metrics.
@@ -658,6 +710,10 @@ def _round_based(
     learned = aggregation == "learned"
     n_shards = resolve_cohort_shards(cohort_shards, setup.num_clients,
                                      streamed=bool(stream_cohort))
+    _check_ranks(setup, sequential)
+    if n_shards and setup.mesh_devices > 1:
+        # JAX core.py:1082-1085: each rank's shards are its own
+        validate_cohort_alignment(n_shards, setup.mesh_devices)
     if stream_cohort:
         if n_shards == 0:
             raise ValueError(
@@ -725,8 +781,10 @@ def _round_based(
             p = p_saved
     rep0, zq0 = _resume_defense(resume_from, defense.spec,
                                 setup.num_clients, dev)
+    axis = ClientAxis(setup)
     round_fn = make_bucketed_round(setup.task, epoch, batch_size,
-                                   setup.n_maxes, sequential, kernel_impl)
+                                   setup.n_maxes, sequential, kernel_impl,
+                                   client_blocks=axis.blocks)
     idx_t, mask_t = setup.round_arrays()
     evaluate = make_evaluator(setup.model.apply, setup.task)
     lrs = lr_schedule_array(lr, rounds, lr_mode)
@@ -739,10 +797,23 @@ def _round_based(
     # order: bucket by bucket on a bucketed setup
     ids = shard_ids(setup.num_clients, n_shards, dev) if n_shards else None
 
-    def reduce_mean(stacked, w):
+    def reduce_mean(stacked, w, full):
+        """The mean-family aggregate: of every client's updates (``full``),
+        or of this rank's block, whose weighted partial sum is
+        all-reduced over the ranks."""
+        if full:
+            return (two_tier_weighted_average(stacked, w, ids)
+                    if ids is not None else weighted_average(stacked, w))
         if ids is not None:
-            return two_tier_weighted_average(stacked, w, ids)
-        return weighted_average(stacked, w)
+            return two_tier_weighted_average(stacked, axis.local(w),
+                                             axis.local(ids), setup.mesh)
+        return weighted_average(stacked, axis.local(w), setup.mesh)
+
+    def val_logits(stacked, full):
+        """FedAMW's ``(n_val, J, C)`` validation logits of every client,
+        all-gathered along the client axis from a rank's block."""
+        logits = client_logits(setup.model.apply, stacked, setup.X_val)
+        return logits if full else axis.gather(logits, dim=1)
     server = server_state = None
     if server_opt != "none":
         server = ServerOptimizer(server_opt, server_lr)
@@ -764,7 +835,8 @@ def _round_based(
     t_scan0 = time.perf_counter()
     for t in range(start_round, stop):
         pos_t = (_round_generator(setup, seed, t) if client_positions is None
-                 else _at(client_positions, t))
+                 else axis.local_positions(_at(client_positions, t)))
+        # this rank's clients (every client in a single-process run)
         stacked, losses, _ = round_fn(
             params, setup.X, setup.y, idx_t, mask_t, pos_t, float(lrs[t]),
             mu, lam)
@@ -778,10 +850,17 @@ def _round_based(
         row = (None if fault_rows is None
                else tuple(a[t - start_round] for a in fault_rows))
         dfaux = {}
+        # is `stacked` every client's? (over ranks: only where the guard
+        # gathered it)
+        full = not axis.sharded
         if guarded:
             (stacked, losses, present, dfaux, dstate,
              work_frac) = defense.guard(params, stacked, losses, valid,
-                                        drawn, row, dstate)
+                                        drawn, row, dstate, axis)
+            full = full or defense.every_update
+        else:
+            losses = axis.gather(losses)
+        mean = functools.partial(reduce_mean, full=full)
         if learned:
             ppos_t = (draw_epoch_positions(_round_generator(setup, seed + 1,
                                                             t),
@@ -790,11 +869,10 @@ def _round_based(
                       if p_positions is None else _tensor(p_positions[t], dev))
             if not guarded:
                 train_loss_t = torch.sum(p * losses)  # current p (tools.py:434)
-                logits = client_logits(setup.model.apply, stacked,
-                                       setup.X_val)
-                p, opt_state, _, _ = solve(logits, setup.y_val, p, opt_state,
+                p, opt_state, _, _ = solve(val_logits(stacked, full),
+                                           setup.y_val, p, opt_state,
                                            ppos_t, client_valid=valid)
-                params = reduce_mean(stacked, p)
+                params = mean(stacked, p)
             else:
                 if defense.sel_m is not None:
                     # krum's selection folds into the present mask: the
@@ -810,10 +888,8 @@ def _round_based(
                 # masked gradient keeps both at zero (core.py:492-525)
                 p_m = p * present
                 train_loss_t = torch.sum(p_m * losses)
-                logits = client_logits(setup.model.apply, stacked,
-                                       setup.X_val)
                 p_s, opt_s, _, _ = solve(
-                    logits, setup.y_val, p_m,
+                    val_logits(stacked, full), setup.y_val, p_m,
                     {"trace": opt_state["trace"] * present}, ppos_t,
                     client_valid=present)
                 # an all-absent round is a full no-op
@@ -823,7 +899,7 @@ def _round_based(
                 w_t = participation_weights(p_s, present,
                                             trust=dstate.get("rep"))
                 params, agg_aux = defense.aggregate(params, stacked, w_t,
-                                                    present, ids)
+                                                    present, mean)
                 dfaux.update(agg_aux)
         else:
             if guarded:
@@ -837,7 +913,7 @@ def _round_based(
                 w_t = participation_weights(agg_w_t, present,
                                             trust=dstate.get("rep"))
                 agg, agg_aux = defense.aggregate(params, stacked, w_t,
-                                                 present, ids)
+                                                 present, mean)
                 if defense.rep_on and defense.agg_spec.select_m is not None:
                     # the krum verdict feeds the next round's reputation
                     dstate = dict(dstate, ksel=agg_aux["krum_selected"],
@@ -847,12 +923,12 @@ def _round_based(
                     participation_weights(setup.p_fixed, present) * losses)
             elif drawn is None:
                 train_loss_t = torch.sum(setup.p_fixed * losses)
-                agg = reduce_mean(stacked, agg_w)
+                agg = mean(stacked, agg_w)
             else:
                 part = valid * drawn.to(torch.float32)
                 train_loss_t = torch.sum(
                     participation_weights(setup.p_fixed, part) * losses)
-                agg = _where(torch.sum(part) > 0, reduce_mean(
+                agg = _where(torch.sum(part) > 0, mean(
                     stacked, participation_weights(agg_w, part)), params)
             if server is None:
                 params = agg
@@ -985,6 +1061,13 @@ def _streamed_round_based(setup, aggregation, lr, epoch, batch_size,
     the injected ``client_positions``. The round's metrics stay on the
     device until one host copy after the last round.
 
+    Over ranks (a ``parallel.shard_setup`` setup) a rank streams the
+    ``S/N`` contiguous shards its block of clients falls in (the count is
+    aligned, ``validate_cohort_alignment``), drawing its shards' shuffles
+    after dropping the draws of the shards of the ranks before it, so
+    each shard draws what it draws in one process; the folded partials
+    and masses are all-reduced (``fold_summaries``).
+
     Supported surface, everything else refused as the JAX package refuses
     it: the fixed-weight aggregations with the stateless mean-family
     defenses (``clip:R``, ``quarantine:Z``; their evidence is
@@ -1032,13 +1115,19 @@ def _streamed_round_based(setup, aggregation, lr, epoch, batch_size,
             "— use the in-graph cohort_shards mode")
 
     dev = setup.device
-    stream = CohortShardStream(n_shards, setup.idx, setup.mask, setup.sizes,
-                               setup.p_fixed, device=dev)
+    axis = ClientAxis(setup)
+    stream = CohortShardStream(n_shards // setup.mesh_devices, setup.idx,
+                               setup.mask, axis.local(setup.sizes),
+                               axis.local(setup.p_fixed), device=dev)
+    # the shard draws that come before this rank's shards in one process
+    n_max = int(setup.idx.shape[1])
+    skipped = (setup.mesh.rank * stream.n_shards * epoch if axis.sharded
+               else 0)
     plan = resolve_fault_plan(faults, rounds, setup.num_clients)
     faults_on = plan is not None
-    tier = _cached_shard_tier(setup.task, epoch, batch_size,
-                              int(setup.idx.shape[1]), aggregation,
-                              rspec.canonical(), faults_on, kernel_impl)
+    tier = _cached_shard_tier(setup.task, epoch, batch_size, n_max,
+                              aggregation, rspec.canonical(), faults_on,
+                              kernel_impl)
     global _LAST_SHARD_TIER, _LAST_STREAM
     _LAST_SHARD_TIER, _LAST_STREAM = tier, stream
 
@@ -1065,17 +1154,22 @@ def _streamed_round_based(setup, aggregation, lr, epoch, batch_size,
     t_scan0 = time.perf_counter()
     for t in range(rounds):
         gen = _round_generator(setup, seed, t) if positions is None else None
+        for _ in range(skipped if gen is not None else 0):
+            # one epoch's keys of one shard, as the shard tier draws them
+            torch.rand((stream.shard_clients, n_max), generator=gen,
+                       dtype=torch.float32, device=gen.device)
         summaries = []
         for _, shard in stream.round_shards(
                 fault_rows=(None if plan_rows is None
-                            else [r[t] for r in plan_rows]),
-                positions=None if positions is None else positions[t]):
+                            else [axis.local(r[t]) for r in plan_rows]),
+                positions=(None if positions is None
+                           else axis.local_positions(positions[t]))):
             summaries.append(tier(
                 params, setup.X, setup.y, shard["idx"], shard["mask"],
                 shard.get("positions", gen), float(lrs[t]), mu, lam,
                 shard["sizes"], shard["p_fixed"], shard.get("fault_rows")))
         params, train_loss_t, n_present, n_quar = fold_summaries(
-            params, summaries, aggregation)
+            params, summaries, aggregation, setup.mesh)
         tl, ta = evaluate(params, setup.X_test, setup.y_test)
         if verbose:
             print(f"[round {t:3d}] train loss {float(train_loss_t):8.5f} | "
@@ -1092,7 +1186,7 @@ def _streamed_round_based(setup, aggregation, lr, epoch, batch_size,
     scan_s = time.perf_counter() - t_scan0
     out = result_tuple(host["train_loss"], host["test_loss"],
                        host["test_acc"])
-    out["streamed"] = {"cohort_shards": stream.n_shards,
+    out["streamed"] = {"cohort_shards": n_shards,
                        "shard_clients": stream.shard_clients,
                        "present": host["present"]}
     if faults_on:
@@ -1223,16 +1317,20 @@ def _oneshot_local_phase(setup: FedSetup, epoch, batch_size, sequential,
                          kernel_impl):
     """Every client trains ``epoch`` epochs from the same init
     (``tools.py:261-267``), chained under ``sequential``. Returns
-    ``(stacked, losses)``."""
+    ``(stacked, losses, axis)``: over ranks ``stacked`` is this rank's
+    block and ``losses`` every client's."""
+    _check_ranks(setup, sequential)
+    axis = ClientAxis(setup)
     params = _init_params(setup, seed, params0)
     round_fn = make_bucketed_round(setup.task, epoch, batch_size,
-                                   setup.n_maxes, sequential, kernel_impl)
+                                   setup.n_maxes, sequential, kernel_impl,
+                                   client_blocks=axis.blocks)
     positions = (_device_generator(setup, seed) if client_positions is None
-                 else client_positions)
+                 else axis.local_positions(client_positions))
     idx_t, mask_t = setup.round_arrays()
     stacked, losses, _ = round_fn(params, setup.X, setup.y, idx_t, mask_t,
                                   positions, _f32(lr), _f32(mu), _f32(lam))
-    return stacked, losses
+    return stacked, axis.gather(losses), axis
 
 
 def Centralized(setup: FedSetup, lr=0.01, epoch=200, batch_size=32, seed=0,
@@ -1272,15 +1370,16 @@ def Distributed(setup: FedSetup, lr=0.01, epoch=200, batch_size=32,
     evaluation. ``kernel_impl`` as in ``FedAvg``."""
     _reject_oneshot("Distributed", participation, faults, robust_agg)
     _reject_unknown("Distributed", ignored)
-    stacked, losses = _oneshot_local_phase(
+    stacked, losses, axis = _oneshot_local_phase(
         setup, epoch, batch_size, sequential, seed, lr, mu if prox else 0.0,
         lambda_reg if lambda_reg_if else 0.0, params0, client_positions,
         kernel_impl)
     evaluate = make_evaluator(setup.model.apply, setup.task)
     return _scalar_row(
         torch.sum(setup.p_fixed * losses),
-        *evaluate(weighted_average(stacked, setup.p_fixed), setup.X_test,
-                  setup.y_test))
+        *evaluate(weighted_average(stacked, axis.local(setup.p_fixed),
+                                   setup.mesh),
+                  setup.X_test, setup.y_test))
 
 
 def FedAMW_OneShot(setup: FedSetup, lr=0.01, epoch=200, batch_size=32,
@@ -1298,13 +1397,14 @@ def FedAMW_OneShot(setup: FedSetup, lr=0.01, epoch=200, batch_size=32,
     ``kernel_impl`` as in ``FedAvg``."""
     _reject_oneshot("FedAMW_OneShot", participation, faults, robust_agg)
     _reject_unknown("FedAMW_OneShot", ignored)
-    stacked, losses = _oneshot_local_phase(
+    stacked, losses, axis = _oneshot_local_phase(
         setup, epoch, batch_size, sequential, seed, lr, mu if prox else 0.0,
         lambda_reg if lambda_reg_if else 0.0, params0, client_positions,
         kernel_impl)
     p = setup.p_fixed
     train_loss = torch.sum(p * losses)
-    logits = client_logits(setup.model.apply, stacked, setup.X_val)
+    logits = axis.gather(client_logits(setup.model.apply, stacked,
+                                       setup.X_val), dim=1)
     n_val = int(setup.X_val.shape[0])
     solve, init_opt = make_p_solver(setup.task, n_val, val_batch_size, lr_p,
                                     momentum=0.0, p_guard=p_guard,
@@ -1321,8 +1421,9 @@ def FedAMW_OneShot(setup: FedSetup, lr=0.01, epoch=200, batch_size=32,
                   else _tensor(p_positions[t], setup.device))
         p, opt_state, _, _ = solve(logits, setup.y_val, p, opt_state, ppos_t,
                                    client_valid=client_valid)
-        tl, ta = evaluate(weighted_average(stacked, p), setup.X_test,
-                          setup.y_test)
+        tl, ta = evaluate(weighted_average(stacked, axis.local(p),
+                                           setup.mesh),
+                          setup.X_test, setup.y_test)
         test_loss.append(tl)
         test_acc.append(ta)
     return result_tuple(train_loss.cpu().numpy(),

@@ -58,8 +58,18 @@ and aggregates FedAvg, FedProx and FedAMW in two tiers
 stream their client shards from the host (``data.stream``) while FedAMW
 stays in-graph sharded, as in the JAX driver. Both are validated when the
 flags are parsed (the streamed surface's refusals included) and sign the
-partial pickle. The other extension flags (sharding over devices, ...)
-are refused with a pointer to their ROADMAP.md item.
+partial pickle. The client axis over ranks (``parallel``): ``--shard N``
+spawns N local ranks (``parallel.spawn``: rank ``r`` on ``cuda:r`` with
+NCCL, or on the CPU with gloo under ``--device cpu``), each holding a
+block of the clients of a setup padded to a multiple of N
+(``prepare_setup(client_multiple=N)``); ``--multihost`` makes this
+process one rank of a group joined through ``--coordinator HOST:PORT``,
+``--num_processes`` and ``--process_id`` (or the environment), with
+``--shard`` defaulting to the world size. Only rank 0 writes the pickle,
+the partial, the checkpoints, the trace and the telemetry; rank 0's
+``--resume`` verdict is broadcast so every rank runs the same repeats.
+The other extension flags (``--model``, ``--publish_every``) are
+refused with a pointer to their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -73,6 +83,8 @@ import sys
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from .algorithms import ALGORITHMS, prepare_setup
 from .algorithms.common import FEATURE_DTYPES
@@ -86,6 +98,7 @@ from .fedcore.hierarchy import MAX_COHORT_SHARDS
 from .fedcore.robust import parse_robust_spec
 from .fedcore.server_opt import SERVER_OPTS
 from .ops.rff import heterogeneity_from_parts
+from .parallel import initialize_multihost, make_mesh, shard_setup, spawn
 from .utils import telemetry as telemetry_mod
 from .utils import trace as trace_mod
 from .utils.checkpoint import save_checkpoint
@@ -97,11 +110,6 @@ NAMES = ["CL", "DL", "FedAMW_OneShot", "FedAvg", "FedProx", "FedAMW"]
 # exp.py's flags that the port does not carry, and the ROADMAP.md item
 # that will bring each
 _REFUSED = {
-    "--shard": "queue 1 item 10 (multi-GPU)",
-    "--multihost": "queue 1 item 10 (multi-GPU)",
-    "--coordinator": "queue 1 item 10 (multi-GPU)",
-    "--num_processes": "queue 1 item 10 (multi-GPU)",
-    "--process_id": "queue 1 item 10 (multi-GPU)",
     "--model": "queue 1 item 13 (the model zoo)",
     "--publish_every": "queue 1 item 11 (serving's model registry)",
 }
@@ -243,6 +251,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "p-solve needs every client's logits). Supports "
                          "the mean-family defenses (clip:R, quarantine:Z), "
                          "whose evidence is shard-local")
+    ap.add_argument("--shard", type=int, default=0, metavar="N",
+                    help="split the client axis over N local ranks (one "
+                         "spawned process each: cuda:r with NCCL, or the "
+                         "CPU with gloo under --device cpu); the setup is "
+                         "padded to a multiple of N with inert clients. "
+                         "0 = one process")
+    ap.add_argument("--multihost", action="store_true",
+                    help="make this process one rank of a multi-process "
+                         "group (parallel.initialize_multihost); launch "
+                         "the SAME command on every rank; --shard defaults "
+                         "to the world size")
+    ap.add_argument("--coordinator", type=str, default=None,
+                    help="the rendezvous HOST:PORT of --multihost (rank 0 "
+                         "hosts it); omitted, it comes from the "
+                         "environment (MASTER_ADDR, MASTER_PORT)")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
     for flag, item in _REFUSED.items():
         ap.add_argument(flag, action=_Refused, item=item)
     args = ap.parse_args(argv)
@@ -254,7 +279,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     except ValueError as e:
         ap.error(str(e))
     _check_cohort_flags(ap, args, spec)
+    _check_rank_flags(ap, args)
     return args
+
+
+def _check_rank_flags(ap, args) -> None:
+    """``--shard``/``--multihost`` refused where the JAX driver refuses them
+    (``exp.py:214-224,337-346``)."""
+    if args.shard < 0:
+        ap.error(f"--shard must be >= 0, got {args.shard}")
+    if args.shard and args.sequential:
+        ap.error("--shard is incompatible with --sequential: the "
+                 "reference's contamination chain threads one model "
+                 "through every client in order, which is serial by "
+                 "construction")
+    if args.multihost and args.sequential:
+        ap.error("--multihost is incompatible with --sequential (the "
+                 "contamination chain is serial by construction; it "
+                 "cannot shard over hosts)")
 
 
 def _check_cohort_flags(ap, args, spec) -> None:
@@ -368,7 +410,27 @@ def resume_config(args) -> dict:
     return cfg
 
 
-def _resume_start(args, partial_path, mats, hete) -> int:
+def _resume_start(args, partial_path, mats, hete, mesh=None) -> int:
+    """Where the repeat loop starts (``_load_partial``). Over ranks rank 0
+    alone reads and moves the partial, and its verdict (the start, or a
+    refused signature, which exits every rank with status 2) is broadcast
+    so every rank runs the same repeats (JAX ``exp.py:615-680``); only
+    rank 0's matrices, which it alone writes, hold the loaded repeats."""
+    if mesh is None:
+        return _load_partial(args, partial_path, mats, hete)
+    verdict = [0, False]
+    if mesh.rank == 0:
+        try:
+            verdict[0] = _load_partial(args, partial_path, mats, hete)
+        except SystemExit:
+            verdict[1] = True
+    dist.broadcast_object_list(verdict, src=0)
+    if verdict[1]:
+        raise SystemExit(2)
+    return verdict[0]
+
+
+def _load_partial(args, partial_path, mats, hete) -> int:
     """Where the repeat loop starts (JAX ``exp.py:615-665``): under
     ``--resume`` the finished repeats of a partial with this run's
     signature are copied into ``mats``/``hete``; a partial under another
@@ -473,9 +535,54 @@ def main(argv=None) -> str:
 
     ``--trace_dir`` installs a fresh process-global tracer and registry
     for the run and puts the disabled tracer back when it ends, so a
-    process that calls ``main`` again, traced or not, starts clean."""
+    process that calls ``main`` again, traced or not, starts clean.
+    ``--shard N`` runs the experiment on N spawned ranks and returns when
+    they are done; ``--multihost`` runs this process's rank, leaving the
+    process group as it found it."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    if args.multihost:
+        return _multihost_main(args)
+    if args.shard:
+        device = resolve_device(args.device)
+        if (device.type == "cuda"
+                and args.shard > torch.cuda.device_count()):
+            raise ValueError(f"requested {args.shard} devices, have "
+                             f"{torch.cuda.device_count()}")
+        spawn(_rank_main, args.shard, device, (argv,))
+        return os.path.join(args.result_dir, f"exp1_{args.dataset}.pkl")
+    return _run(args)
+
+
+def _rank_main(rank, argv) -> None:
+    """One spawned rank of ``--shard N`` (``parallel.spawn`` has joined
+    the group)."""
+    args = parse_args(argv)
+    _run(args, make_mesh(args.shard, device=args.device))
+
+
+def _multihost_main(args) -> str:
+    """``--multihost``: join the group as one rank (JAX ``exp.py:375-390``)
+    and run the experiment over the mesh of ``--shard`` ranks."""
+    joined = not dist.is_initialized()
+    n_global = initialize_multihost(args.coordinator, args.num_processes,
+                                    args.process_id, device=args.device)
+    try:
+        if args.shard == 0:
+            args.shard = n_global
+        print(f"multihost: process {dist.get_rank()}/{n_global}, "
+              f"{n_global} global devices, --shard {args.shard}")
+        return _run(args, make_mesh(args.shard, device=args.device))
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh=None) -> str:
+    """The experiment on one process: the whole client axis, or over
+    ranks (``mesh``) this rank's block of it, rank 0 the only writer."""
+    writer = mesh is None or mesh.rank == 0
+    device = resolve_device(args.device) if mesh is None else mesh.device
     params = get_parameter(args.dataset)
     lr = params["lr"] if args.lr is None else args.lr
     lr_p = params.get("lr_p", 1e-3) if args.lr_p is None else args.lr_p
@@ -487,16 +594,16 @@ def main(argv=None) -> str:
     partial_path = os.path.join(args.result_dir,
                                 f"exp1_{args.dataset}.partial.pkl")
     start = _resume_start(args, partial_path,
-                          (train_mat, error_mat, acc_mat), hete)
+                          (train_mat, error_mat, acc_mat), hete, mesh)
     if args.trace_dir:
         trace_mod.configure()
         telemetry_mod.reset_registry()
     prof = None
     try:
-        if args.profile:
+        if args.profile and writer:
             prof = _start_profiler(device)
         _run_repeats(args, device, params, lr, lr_p, start, partial_path,
-                     (train_mat, error_mat, acc_mat), hete)
+                     (train_mat, error_mat, acc_mat), hete, mesh)
     finally:
         # written even when a repeat raises: the trace of a failing run is
         # the one you want most
@@ -508,7 +615,8 @@ def main(argv=None) -> str:
             print(f"profiler trace -> {args.profile}")
         if args.trace_dir:
             try:
-                _write_trace(args)
+                if writer:
+                    _write_trace(args)
             finally:
                 trace_mod.configure(False)
 
@@ -521,8 +629,10 @@ def main(argv=None) -> str:
         "name": list(NAMES),
         "task": _task_type(args.dataset, params),
     }
-    os.makedirs(args.result_dir, exist_ok=True)
     out = os.path.join(args.result_dir, f"exp1_{args.dataset}.pkl")
+    if not writer:
+        return out
+    os.makedirs(args.result_dir, exist_ok=True)
     with open(out, "wb") as f:
         pickle.dump(data_, f)
     print(f"results -> {out}")
@@ -533,10 +643,12 @@ def main(argv=None) -> str:
 
 
 def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
-                 hete) -> None:
+                 hete, mesh=None) -> None:
     """Repeats ``start .. n_repeats - 1``: each one's data, setup,
     heterogeneity and six algorithms into ``mats``/``hete``, then the
-    partial pickle that ``--resume`` reads."""
+    partial pickle that ``--resume`` reads (rank 0's alone over ranks,
+    whose setups are padded to a multiple of the ranks and split)."""
+    writer = mesh is None or mesh.rank == 0
     train_mat, error_mat, acc_mat = mats
     R = args.round
     for t in range(start, args.n_repeats):
@@ -547,7 +659,15 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
                               kernel_type=params["kernel_type"],
                               seed=args.seed + t, rng=rng, device=device,
                               feature_dtype=FEATURE_DTYPES.get(
-                                  args.feature_dtype))
+                                  args.feature_dtype),
+                              client_multiple=1 if mesh is None
+                              else mesh.size)
+        if mesh is not None:
+            setup = shard_setup(setup, mesh)
+            if t == start:
+                print(f"client axis split over {mesh.size} ranks "
+                      f"({dist.get_backend()}, this rank {mesh.rank} on "
+                      f"{device})")
         # on the FULL partitions, before the validation split
         # (reference exp.py:66-76)
         hete[t] = heterogeneity_from_parts(setup.X, ds.parts)
@@ -587,10 +707,12 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
                 print(format_fault_report(name, res["fault_counts"]))
             if "defense" in res:
                 print(format_defense_report(name, res["defense"]))
-            if "params" in res:
+            if "params" in res and writer:
                 _save_models(args, setup, name, res, t)
         print(f"[repeat {t}] wall time {time.perf_counter() - t0:.1f}s "
               f"(device={device})")
+        if not writer:
+            continue
         # every finished repeat is recoverable through --resume (each
         # repeat reseeds from seed + t, so skipping finished ones is exact)
         os.makedirs(args.result_dir, exist_ok=True)

@@ -29,11 +29,17 @@ from .batching import batch_counts, batch_valid, weighted_epoch_metrics
 from .psolver_kernel import p_epoch, p_epoch_plain
 
 
-def weighted_average(stacked_params: dict, p: torch.Tensor) -> dict:
+def weighted_average(stacked_params: dict, p: torch.Tensor,
+                     mesh=None) -> dict:
     """``sum_j p_j * theta_j`` over the leading client axis of every leaf
-    (reference ``tools.py:345-349``)."""
-    return {k: torch.tensordot(p, w, dims=([0], [0]))
-            for k, w in stacked_params.items()}
+    (reference ``tools.py:345-349``). Over ranks (``mesh``, a
+    ``parallel.ClientMesh``) ``stacked_params`` and ``p`` are this rank's
+    block and its slice of p, and the partial sum is all-reduced."""
+    out = {k: torch.tensordot(p, w, dims=([0], [0]))
+           for k, w in stacked_params.items()}
+    if mesh is not None:
+        out = {k: mesh.all_reduce(v) for k, v in out.items()}
+    return out
 
 
 @contextlib.contextmanager

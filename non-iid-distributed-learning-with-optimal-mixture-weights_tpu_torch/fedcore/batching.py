@@ -85,7 +85,8 @@ def epoch_batches(
 
 def draw_epoch_positions(generator: torch.Generator, n: int, batch_size: int,
                          mask: torch.Tensor | None = None,
-                         lead: tuple[int, ...] = ()) -> torch.Tensor:
+                         lead: tuple[int, ...] = (),
+                         rows: slice | None = None) -> torch.Tensor:
     """``(*lead, S, B)`` int64 shuffles on the generator's device, each
     of ``lead``'s entries one ``epoch_batches`` epoch: valid rows first in
     random order, masked-out rows after them, padding zeros at the back.
@@ -93,16 +94,22 @@ def draw_epoch_positions(generator: torch.Generator, n: int, batch_size: int,
     One ``torch.rand`` of ``(*lead, n)`` keys and one stable ``argsort``
     draw every entry at once (all J clients of an epoch, or all epochs of
     a p-solve). ``mask`` is ``(n,)`` or ``(*lead, n)``, on that device.
+    ``rows`` keeps only those entries of the leading axis (a rank's block
+    of clients): the whole draw is made and sliced, so each kept entry is
+    the one the whole draw gives it; ``mask`` then has the kept entries'
+    rows.
     """
     num_batches, pad = batch_counts(n, batch_size)
     key = torch.rand((*lead, n), generator=generator, dtype=torch.float32,
                      device=generator.device)
+    if rows is not None:
+        key = key[rows]
     if mask is not None:
         key = key + (1.0 - mask) * 2.0
     perm = torch.argsort(key, dim=-1, stable=True)
     if pad:
         perm = torch.nn.functional.pad(perm, (0, pad))
-    return perm.reshape(*lead, num_batches, batch_size)
+    return perm.reshape(*key.shape[:-1], num_batches, batch_size)
 
 
 def weighted_epoch_metrics(losses, corrects, cnts):

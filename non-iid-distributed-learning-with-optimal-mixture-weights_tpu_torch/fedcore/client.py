@@ -52,7 +52,8 @@ def _epoch_rows(pos, idx, mask, n_max):
 
 
 def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
-                      kernel_impl: str = "auto", sequential: bool = False):
+                      kernel_impl: str = "auto", sequential: bool = False,
+                      client_block: tuple | None = None):
     """Build the client round for the linear model.
 
     Returns ``round_fn(params, X, y, idx (J, n_max), mask (J, n_max),
@@ -76,6 +77,18 @@ def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
     the round's), and each of its epochs is one J = 1 call. Drawn
     shuffles then come client by client, epoch by epoch, each a ``(1, S,
     B)`` draw; injected ones keep the ``(J, epochs, S, B)`` layout.
+
+    ``client_block=(lo, hi, J)``: the round runs clients ``[lo, hi)`` of a
+    ``J``-client axis (a rank's block, ``parallel.client_spec``), and a
+    drawn epoch draws the keys of all ``J`` clients and keeps rows
+    ``[lo, hi)``, so each client gets the shuffle of the single-process
+    draw (the parallel clients only: the sequential chain draws client
+    by client, and a round split over ranks refuses it). The JAX
+    package's ``shard_factor`` has no counterpart: it
+    divides the traced global J for the gather-buffer check, while here a
+    rank's round sees only its own clients, so the plain path's buffer
+    (``EPOCH_GATHER_BYTES_LIMIT``) is already sized per rank and the
+    kernels gather their rows themselves.
     """
     epoch_fn = cuda_build.kernel_or_plain(kernel_impl, client_epoch,
                                           client_epoch_plain)
@@ -83,6 +96,11 @@ def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
 
     def epoch_positions(positions, mask, e):
         if isinstance(positions, torch.Generator):
+            if client_block is not None and not sequential:
+                lo, hi, whole = client_block
+                return draw_epoch_positions(positions, n_max, batch_size,
+                                            mask, lead=(whole,),
+                                            rows=slice(lo, hi))
             return draw_epoch_positions(positions, n_max, batch_size, mask,
                                         lead=(mask.shape[0],))
         return positions[:, e].to(mask.device, torch.int64)
@@ -129,7 +147,8 @@ def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
 
 def make_bucketed_round(task: str, epochs: int, batch_size: int,
                         n_maxes: tuple, sequential: bool = False,
-                        kernel_impl: str = "auto"):
+                        kernel_impl: str = "auto",
+                        client_blocks: tuple | None = None):
     """The client round over size-bucketed packs
     (``data.pack.bucket_partitions``; JAX ``client.py:267-325``).
 
@@ -141,10 +160,12 @@ def make_bucketed_round(task: str, epochs: int, batch_size: int,
     injected array per bucket, ``(J_g, epochs, S_g, B)``; with a single
     bucket a bare array is taken too. ``sequential`` chains across
     buckets as well: bucket g+1's first client starts from bucket g's
-    last client's weights.
+    last client's weights. ``client_blocks`` (one ``client_block`` per
+    bucket, ``parallel.ClientAxis.blocks``) runs a rank's block of each.
     """
+    blocks = client_blocks or (None,) * len(n_maxes)
     fns = [make_client_round(task, epochs, batch_size, m, kernel_impl,
-                             sequential) for m in n_maxes]
+                             sequential, b) for m, b in zip(n_maxes, blocks)]
 
     def round_fn(params, X, y, idx_tuple, mask_tuple, positions, lr, mu,
                  lam):

@@ -100,13 +100,21 @@ def shard_ids(num_clients: int, n_shards: int, device=None) -> torch.Tensor:
 
 
 def two_tier_weighted_average(stacked: dict, w: torch.Tensor,
-                              ids: torch.Tensor) -> dict:
+                              ids: torch.Tensor, mesh=None) -> dict:
     """``sum_j w_j theta_j`` re-associated into shard partial sums: the
     shard tier's ``(MAX_COHORT_SHARDS, ...)`` partials
     (``segment_weighted_sums``), then the global tier's fold over the
-    shard axis. ``aggregate.weighted_average`` to float tolerance."""
+    shard axis. ``aggregate.weighted_average`` to float tolerance.
+
+    Over ranks (``mesh``) ``stacked``, ``w`` and ``ids`` are this rank's
+    block, whose shards are its own (``parallel.validate_cohort_alignment``):
+    the rank folds its shards' partials, and the fold over the ranks is
+    the all-reduce."""
     partials = segment_weighted_sums(stacked, w, ids, MAX_COHORT_SHARDS)
-    return {k: torch.sum(v, dim=0) for k, v in partials.items()}
+    out = {k: torch.sum(v, dim=0) for k, v in partials.items()}
+    if mesh is not None:
+        out = {k: mesh.all_reduce(v) for k, v in out.items()}
+    return out
 
 
 def shard_histogram(v: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -205,7 +213,12 @@ def make_shard_tier(round_fn: Callable, epochs: int, batch_size: int,
     return shard_tier
 
 
-def fold_summaries(params: dict, summaries: list, aggregation: str):
+_MASSES = ("u_all", "u_present", "tau_p", "loss_num", "p_all",
+           "p_present", "n_present", "n_quarantined")
+
+
+def fold_summaries(params: dict, summaries: list, aggregation: str,
+                   mesh=None):
     """The streamed GLOBAL tier (JAX ``hierarchy.py:fold_summaries``): fold
     the shards' summaries into the round's aggregate and train loss.
 
@@ -213,7 +226,10 @@ def fold_summaries(params: dict, summaries: list, aggregation: str):
     renormalisation from the shard masses alone: the final weight of
     client ``j`` is ``u_j present_j * (sum u_all / sum u_present)`` (times
     FedNova's global ``tau_eff = sum tau_j p_j``). An all-absent round
-    keeps the incoming params (the flat round's no-op gate).
+    keeps the incoming params (the flat round's no-op gate). Over ranks
+    (``mesh``) ``summaries`` are this rank's shards: their partial sums
+    and masses are folded here and summed over the ranks by an
+    ``all_reduce`` (one for the masses, one a leaf for the partials).
 
     Returns ``(new_params, train_loss, n_present, n_quarantined)``, all on
     the device.
@@ -222,20 +238,22 @@ def fold_summaries(params: dict, summaries: list, aggregation: str):
     # field, not one per shard
     partial = {k: torch.stack([s.partial[k] for s in summaries]).sum(0)
                for k in summaries[0].partial}
-
-    def total(field):
-        return torch.stack([getattr(s, field) for s in summaries]).sum()
-
-    u_all, u_present = total("u_all"), total("u_present")
-    p_all, p_present = total("p_all"), total("p_present")
+    totals = [torch.stack([getattr(s, f) for s in summaries]).sum()
+              for f in _MASSES]
+    if mesh is not None:
+        partial = {k: mesh.all_reduce(v) for k, v in partial.items()}
+        totals = mesh.all_reduce(torch.stack(totals)).unbind(0)
+    total = dict(zip(_MASSES, totals))
+    u_all, u_present = total["u_all"], total["u_present"]
+    p_all, p_present = total["p_all"], total["p_present"]
     scale = torch.where(u_present > 0,
                         u_all / torch.clamp(u_present, min=1e-30), 0.0)
     if aggregation == "nova":
-        scale = scale * total("tau_p")
+        scale = scale * total["tau_p"]
     ok_round = u_present > 0
     new_params = {k: torch.where(ok_round, scale * partial[k], params[k])
                   for k in params}
     loss_scale = torch.where(p_present > 0,
                              p_all / torch.clamp(p_present, min=1e-30), 0.0)
-    return (new_params, loss_scale * total("loss_num"), total("n_present"),
-            total("n_quarantined"))
+    return (new_params, loss_scale * total["loss_num"], total["n_present"],
+            total["n_quarantined"])

@@ -8,14 +8,21 @@ from .losses import (
     ridge_penalty,
     training_loss,
 )
-from .metrics import Meter, comp_accuracy, error_estimate, top1_correct
+from .metrics import (
+    Meter,
+    comp_accuracy,
+    error_estimate,
+    masked_accuracy,
+    top1_correct,
+)
 from .rff import (
     data_heterogeneity,
+    feature_mapping,
     heterogeneity_from_parts,
     rff_map,
     rff_params,
 )
-from .schedule import lr_schedule_array
+from .schedule import lr_schedule_array, update_learning_rate
 
 __all__ = [
     "ce_per_example",
@@ -27,12 +34,15 @@ __all__ = [
     "ridge_penalty",
     "training_loss",
     "top1_correct",
+    "masked_accuracy",
     "Meter",
     "comp_accuracy",
     "error_estimate",
     "data_heterogeneity",
+    "feature_mapping",
     "heterogeneity_from_parts",
     "rff_map",
     "rff_params",
     "lr_schedule_array",
+    "update_learning_rate",
 ]

@@ -18,6 +18,15 @@ def top1_correct(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
 
 
+def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Top-1 accuracy in percent over the ``mask == 1`` entries (the JAX
+    package's ``ops/metrics.py:21-24``), a 0-d tensor."""
+    correct = top1_correct(logits, labels)
+    return 100.0 * torch.sum(correct * mask) / torch.clamp(torch.sum(mask),
+                                                           min=1.0)
+
+
 def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else (
         np.asarray(a))

@@ -53,6 +53,47 @@ def rff_map_to(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def rff_map_sparse(X_sparse, W, b, chunk: int = 8192) -> np.ndarray:
+    """RFF-map a scipy sparse matrix without densifying it (the JAX
+    package's ``ops/rff.py:57-81``): ``X @ W`` collapses the input
+    dimension, so the sparse product runs on the host in row chunks (CSR
+    times dense) and only ``(chunk, D)`` feature blocks are built. ``W``
+    and ``b`` are tensors or arrays. Returns a dense float32 numpy array,
+    for ``prepare_setup`` with ``kernel_type='linear'`` (the features are
+    already mapped)."""
+    W_np = W.cpu().numpy() if isinstance(W, torch.Tensor) else np.asarray(W)
+    b_np = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    D = W_np.shape[1]
+    n = X_sparse.shape[0]
+    out = np.empty((n, D), dtype=np.float32)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        proj = X_sparse[lo:hi] @ W_np
+        out[lo:hi] = np.cos(proj + b_np, dtype=np.float32) / np.sqrt(
+            np.float32(D))
+    return out
+
+
+def feature_mapping(X_train: torch.Tensor, X_test: torch.Tensor, draw,
+                    kernel_par: float = 10.0, D: int = 200,
+                    kernel_type: str = "gaussian"):
+    """Map train and test through one RFF draw (reference
+    ``tools.py:22-31``, the JAX package's ``ops/rff.py:84-100``); the
+    identity for a non-Gaussian ``kernel_type``. ``draw`` is a
+    ``torch.Generator`` (``rff_params`` draws ``(W, b)`` from it) or an
+    injected ``(W, b)`` pair, where the JAX function takes a key.
+    Returns ``(X_train_FM, X_test_FM, (W, b) | None)``."""
+    if kernel_type != "gaussian":
+        return X_train, X_test, None
+    if isinstance(draw, torch.Generator):
+        W, b = rff_params(draw, X_train.shape[-1], D, kernel_par)
+    else:
+        W, b = (torch.as_tensor(np.asarray(t), dtype=torch.float32)
+                for t in draw)
+    W, b = W.to(X_train.device), b.to(X_train.device)
+    return rff_map(X_train, W, b), rff_map(X_test, W, b), (W, b)
+
+
 @torch.no_grad()
 def data_heterogeneity(X: torch.Tensor, idx: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:

@@ -46,3 +46,15 @@ def lr_schedule_array(
         raise ValueError(f"unknown lr schedule mode: {mode}")
     return out
 
+
+def update_learning_rate(epoch: int, target_lr: float, T: int) -> float:
+    """The reference's one-step update (``tools.py:43-61``; the JAX
+    package's ``ops/schedule.py:51-57``): a tenth at ``int(T/2)``, a
+    hundredth at ``int(0.75 T)``, else ``target_lr``; reassigning it every
+    round compounds the decays (``lr_schedule_array``'s ``"reference"``
+    mode)."""
+    if epoch == int(T / 2):
+        return target_lr / 10
+    if epoch == int(T * 0.75):
+        return target_lr / 100
+    return target_lr

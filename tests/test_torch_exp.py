@@ -106,8 +106,8 @@ def test_extension_flags_are_refused_with_their_roadmap_item(flag, capsys):
 
 def test_refused_flag_without_a_value(capsys):
     with pytest.raises(SystemExit):
-        exp.parse_args(["--multihost", "--round", "3"])
-    assert "item 10" in capsys.readouterr().err
+        exp.parse_args(["--model", "--round", "3"])
+    assert "item 13" in capsys.readouterr().err
 
 
 def test_driver_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
@@ -150,7 +150,12 @@ def test_module_entry_point_from_the_repo_root(tmp_path):
     ("--feature_dtype", "bfloat16", "feature_dtype", "bfloat16"),
     ("--feature_dtype", "float16", "feature_dtype", "float16"),
     ("--trace_dir", "tr", "trace_dir", "tr"),
-    ("--profile", "prof", "profile", "prof")])
+    ("--profile", "prof", "profile", "prof"),
+    ("--shard", "2", "shard", 2),
+    ("--multihost", None, "multihost", True),
+    ("--coordinator", "127.0.0.1:29500", "coordinator", "127.0.0.1:29500"),
+    ("--num_processes", "2", "num_processes", 2),
+    ("--process_id", "1", "process_id", 1)])
 def test_ported_flags_parse(flag, value, attr, want):
     args = exp.parse_args(ARGV + [flag] + ([value] if value else []))
     assert getattr(args, attr) == want
