@@ -128,7 +128,28 @@ and read just after:
   epochs (the p-solve of one round of the paper's 100-round run);
 - ``paper_run``: the driver's six algorithms at the paper's length (100
   rounds of 2 local epochs, one repeat), each one's wall seconds beside
-  the card's name and power limit, with no plain reference.
+  the card's name and power limit, with no plain reference;
+- ``zoo``: the model zoo at ``scale_bench.py``'s widths, built by the
+  port's own data layer from seeds. (a) ``covtype_1024``: mlp64 on the
+  464,809 x 54, 7-class stand-in over 1024 Dirichlet(0.1) clients; (b)
+  ``mnist_conv_512``: conv8x16 on the 60,000 x 784, 10-class stand-in
+  over 512 clients. FedAvg and FedAMW (lr 0.1, 2 local epochs, batch 32,
+  3 rounds; FedAMW at the JAX defaults with the simplex p-guard)
+  against their plain runs: round ms, client-updates/s, the
+  allocator's peak above each run's entry, launches by kernel (kernel 1
+  never: the zoo trains by autograd; kernel 2 three times a round on its
+  split plan), the client FLOPs a client-update with their basis and the
+  achieved GFLOP/s, whether test accuracy rises; kernel 2 at each
+  configuration's shape against its plain version and its bound (its
+  ``by_shape`` cells in the ``p_epoch.split`` row); (b)'s autograd step
+  of all 512 clients (grouped convolutions) against the same step client
+  by client; (c) the driver with ``--model conv8x16`` and ``--model
+  mlp64x32`` on the mnist stand-in at R=3 and one local epoch, the
+  zoo's lr and p-guard (``(6, R, 1)`` pickles, the
+  forced ``kernel_type`` printed, launches counted); (d) FedAMW on (a)'s
+  mlp64 under drops and NaN reports with ``quarantine:3+krum``, 2 rounds,
+  every verdict equal to its plain run's. Its launches are
+  ``launches_by_path.zoo`` in the ``kernels`` line.
 
 Output is one JSON object per line; the line before the last lists the
 kernels; the last line is the contract line ``{"ok": true, "device":
@@ -1392,6 +1413,365 @@ def two_ranks_one_card(setup, kw, amw_kw, timed, vs_plain, card,
                  f"{diffs}, ranks bitwise {same_ranks}, verdicts {v_ok}")
 
 
+# the zoo phase: scale_bench.py's two zoo configurations uncut, each the
+# synthetic stand-in of its dataset's shape (rows, features, classes,
+# data seed, test fraction) over Dirichlet(0.1) clients, with
+# run_config's lr 0.1, 2 local epochs and batch 32 (scale_bench.py:56-58)
+ZOO = {
+    "a covtype_1024": dict(source="scale_bench.py:148-162", rows=464809,
+                           d=54, classes=7, data_seed=11,
+                           test_fraction=0.25, clients=1024,
+                           model="mlp64"),
+    "b mnist_conv_512": dict(source="scale_bench.py:165-185", rows=60000,
+                             d=784, classes=10, data_seed=13,
+                             test_fraction=1 / 6, clients=512,
+                             model="conv8x16"),
+}
+ZOO_LR = 0.1
+# FedAMW on the zoo: the JAX package's defaults (lr_p 5e-5, ridge 0.01)
+# with the simplex p-guard (kernel 2's epilogue). Unguarded, FedAMW over
+# (b)'s 512 CNNs diverges in the JAX package as in the port, on the same
+# draws, to NaN by round 3 (tools/zoo_unguarded_witness.py, at (b)'s
+# widths with its rows cut); on the simplex the aggregate is a convex
+# combination of the clients
+ZOO_AMW = dict(lambda_reg=0.01, lr_p=5e-5, val_batch_size=VB,
+               p_guard="simplex")
+ZOO_ROUNDS = 3
+# (c): the driver's --model on the mnist stand-in, one repeat
+ZOO_DRIVER_MODELS = ("conv8x16", "mlp64x32")
+# the driver's lr and p-guard are the zoo's: the registry's mnist lr 0.5
+# is for RFF features, and on the raw 784-pixel stand-in every
+# algorithm's MLP diverges to NaN at it (a run on the CPU). One local
+# epoch: Centralized's 3 serial epochs of 1,500 autograd steps are most
+# of a driver run (~60 s of the ~130 s at 2 epochs)
+# (d): FedAMW on (a)'s mlp64 under drops and NaN reports, quarantine and
+# krum, 2 rounds
+ZOO_FAULTS = "drop=0.1,corrupt=0.05:nan,seed=7"
+ZOO_DEFENDED = "quarantine:3+krum"
+ZOO_DEFENSE_ROUNDS = 2
+
+
+def zoo_setup(cfg):
+    """``scale_bench.py``'s dataset and setup of a ``ZOO`` configuration,
+    from the port's own data layer: raw features (``kernel_type="linear"``)
+    and the configuration's model."""
+    import numpy as np
+
+    from fedamw_tpu_torch.algorithms import prepare_setup
+    from fedamw_tpu_torch.data import (FederatedDataset, dirichlet_partition,
+                                       synthetic_classification)
+
+    X, y, Xt, yt = synthetic_classification(
+        cfg["rows"], cfg["d"], cfg["classes"], seed=cfg["data_seed"],
+        test_fraction=cfg["test_fraction"])
+    parts, _ = dirichlet_partition(y, cfg["clients"], alpha=0.1, seed=2020,
+                                   min_size=0)
+    ds = FederatedDataset(
+        name=cfg["model"], task_type="classification",
+        num_classes=cfg["classes"], d=cfg["d"], X_train=X, y_train=y,
+        X_test=Xt, y_test=yt, parts=parts, source="synthetic")
+    return prepare_setup(ds, D=cfg["d"], kernel_type="linear", seed=SEED,
+                         rng=np.random.RandomState(SEED), model=cfg["model"])
+
+
+def zoo_driver(model, rounds):
+    """``python -m fedamw_tpu_torch.exp --model MODEL --local_epoch 1
+    --lr 0.1 --p_guard simplex`` on the mnist stand-in at R = ``rounds``,
+    one repeat, counted: ``(row, launches)``."""
+    import numpy as np
+
+    from fedamw_tpu_torch import exp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            path = exp.main(["--dataset", "mnist", "--model", model,
+                             "--round", str(rounds), "--n_repeats", "1",
+                             "--local_epoch", "1", "--lr", str(ZOO_LR),
+                             "--p_guard", ZOO_AMW["p_guard"],
+                             "--seed", str(SEED), "--result_dir", tmp])
+        secs = time.perf_counter() - t0
+        c = counts()
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+    shapes = {k: list(data[k].shape)
+              for k in ("train_loss", "test_loss", "test_acc")}
+    finite = all(bool(np.all(np.isfinite(data[k]))) for k in shapes)
+    forced = (f"--model {model}: forcing kernel_type='linear' (identity "
+              "features; the registry's RFF map serves the linear flagship)"
+              in log.getvalue())
+    # FedAMW's R p-epochs a round and FedAMW_OneShot's one an iteration
+    want = {"client_epoch": 0, "p_epoch": rounds * rounds + rounds}
+    got = {k: c[k] for k in want}
+    ok = (all(s == [6, rounds, 1] for s in shapes.values()) and finite
+          and forced and got == want and data["name"] == exp.NAMES)
+    return {"phase": "zoo", "case": f"c driver --model {model}",
+            "seconds": secs, "shapes": shapes, "finite": finite,
+            "forced_kernel_type_printed": forced, "launches": got,
+            "launches_expected": want,
+            "p_epoch_by_kernel": c["p_epoch_by_kernel"],
+            "final_acc": dict(zip(data["name"],
+                                  data["test_acc"][:, -1, 0].tolist())),
+            "ok": ok}, got
+
+
+def zoo(timed, vs_plain, card):
+    """The ``zoo`` phase: (a) ``covtype_1024`` (mlp64, 1024 clients) and
+    (b) ``mnist_conv_512`` (conv8x16, 512 clients) at full width, FedAvg
+    and FedAMW ``ZOO_ROUNDS`` rounds each against their plain runs, with
+    round ms, client-updates/s, the allocator's peak above the run's
+    entry, launches by kernel (kernel 1 never, kernel 2 ``ZOO_ROUNDS`` a
+    round on its split plan), the client FLOPs with their basis, and
+    kernel 2 at the configuration's shape against its plain version and
+    its bound; (b) also one autograd step of all 512 clients (grouped
+    convolutions) against the same step client by client; (c) the driver
+    with ``--model``; (d) a defended FedAMW on (a), every verdict equal to
+    its plain run's. Counts are set to 0 just before each counted run and
+    read just after. Returns the phase's launches and kernel 2's rows by
+    shape."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch.algorithms import FedAMW, FedAvg
+    from fedamw_tpu_torch.fedcore import (client_logits, cuda_build,
+                                          make_guard, p_epoch,
+                                          p_epoch_plain)
+    from fedamw_tpu_torch.fedcore import psolver_kernel as pk
+    from fedamw_tpu_torch.fedcore.batching import (batch_valid,
+                                                   draw_epoch_positions)
+    from fedamw_tpu_torch.fedcore.client import (_epoch_rows,
+                                                 make_autograd_epoch)
+    from fedamw_tpu_torch.utils.flops import (client_update_flops,
+                                              fwd_flops_per_sample)
+
+    launches = {"client_epoch": 0, "p_epoch": 0}
+    by_shape = {}
+
+    def counted(fn, s, **fkw):
+        """A run on the kernels, counted, with the allocator's peak above
+        its entry."""
+        torch.cuda.synchronize()
+        entry = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res, secs = timed(fn, s, **fkw)
+        c = counts()
+        return res, secs, c, torch.cuda.max_memory_allocated() - entry
+
+    for name, cfg in ZOO.items():
+        t0 = time.perf_counter()
+        s = zoo_setup(cfg)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        dev = s.device
+        J, C = s.num_clients, s.num_classes
+        n_val = int(s.X_val.shape[0])
+        plan = pk.launch_plan(VB, J, C,
+                              max_cluster=pk.split_max_cluster(dev.index
+                                                               or 0))
+        init = s.model.init(torch.Generator().manual_seed(0), s.D, C)
+        fwd, basis = fwd_flops_per_sample(init, s.model.apply, d=s.D,
+                                          with_provenance=True)
+        # n_mean over every client, as scale_bench.py counts it
+        flops_upd = client_update_flops(fwd, EPOCHS,
+                                        float(s.sizes.float().mean()))
+        emit({"phase": "zoo", "case": f"{name} setup",
+              "source": cfg["source"], "model": cfg["model"],
+              "seconds": setup_s, "N": int(s.X.shape[0]), "D": s.D, "J": J,
+              "C": C, "n_max": s.n_max, "n_val": n_val,
+              "n_test": int(s.X_test.shape[0]),
+              "p_epoch_plan": dataclasses.asdict(plan),
+              "fwd_flops_per_sample": fwd, "flops_basis": basis})
+        # kernel 2 at this shape: every client a perturbation of the
+        # initial weights, their validation logits, one p-epoch from the
+        # sample-count weights, against the plain version
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        stacked = {k: v.to(dev)[None] + 0.01 * torch.randn(
+            (J,) + tuple(v.shape), generator=gen, device=dev)
+            for k, v in init.items()}
+        t0 = time.perf_counter()
+        logits = client_logits(s.model.apply, stacked, s.X_val,
+                               s.model.row_activations(s.D, C))
+        torch.cuda.synchronize()
+        logits_s = time.perf_counter() - t0
+        pos = draw_epoch_positions(gen, n_val, VB)
+        valid = batch_valid(pos, n_val)
+        cv = (s.sizes > 0).to(torch.float32)
+        a = (s.p_fixed.contiguous(), torch.zeros_like(s.p_fixed), cv, logits,
+             s.y_val, pos.to(torch.int32), valid, ZOO_AMW["lr_p"], 0.9,
+             "classification")
+        # unguarded (the by_shape cells' epoch) and with the runs' guard
+        guard = make_guard(ZOO_AMW["p_guard"])
+        saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
+        errs, oks, times = [], [], {}
+        for label, g in (("ms", None), ("ms_simplex", guard)):
+            pk_, bk, mk = p_epoch(*a, guard=g)
+            torch.cuda.synchronize()
+            times[label] = cuda_ms(lambda: p_epoch(*a, guard=g), 5)
+            # the plain version, seconds a call: timed once, by CUDA events
+            t0, t1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            t0.record()
+            pp, bp, mp = p_epoch_plain(*a, guard=g)
+            t1.record()
+            torch.cuda.synchronize()
+            times["plain_" + label] = t0.elapsed_time(t1)
+            for ok_e, err_e in (close(pk_, pp, **TOL_P),
+                                close(bk, bp, **TOL_P),
+                                close(mk[:2] / mk[2], mp[:2] / mp[2], 0,
+                                      2e-5)):
+                oks.append(ok_e)
+                errs.append(err_e)
+        p_epoch.launches, p_epoch.launches_by_kernel = saved
+        used = [u for f, u in cuda_build.ptxas_usage("p_epoch").items()
+                if pk.kernel_symbol(plan, C) in f]
+        if len(used) != 1 or used[0]["spill_bytes"] != 0:
+            fail(f"p_epoch's {plan} at J={J}, C={C}: ptxas {used}")
+        S2 = int(pos.shape[0])
+        nbytes = 4 * (n_val * J * C + n_val + 2 * S2 * VB + 5 * J + 3)
+        ops = 4 * n_val * J * C + 4 * J * S2
+        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
+        cell = {**times, "n_val": n_val, "S": S2,
+                "us_per_step": 1e3 * times["ms"] / S2,
+                "bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bound_bytes": nbytes, "cluster": plan.cluster,
+                "slice": plan.slice_width, "stream": plan.stream,
+                "smem_bytes": plan.smem_bytes,
+                "registers": used[0]["registers"],
+                "spill_bytes": used[0]["spill_bytes"],
+                "max_abs_err": max(errs[0], errs[1], errs[3], errs[4]),
+                "logits_bytes": logits.numel() * 4,
+                "client_logits_seconds": logits_s,
+                "launches": ZOO_ROUNDS * ZOO_ROUNDS,
+                "launches_path": f"zoo: {name} FedAMW"}
+        by_shape[f"J={J} C={C}"] = cell
+        emit({"phase": "zoo", "case": f"{name} p_epoch", "card": card,
+              **cell, "tol": TOL_P, "ok": all(oks)})
+        if not all(oks):
+            fail(f"p_epoch at the zoo's J={J}, C={C} disagrees with its "
+                 "plain version")
+        del logits, stacked, a
+
+        kw = dict(lr=ZOO_LR, epoch=EPOCHS, batch_size=B, round=ZOO_ROUNDS,
+                  seed=0, lr_mode="constant", return_state=True)
+        amw = None
+        for algo, fn, fkw in (("FedAvg", FedAvg, kw),
+                              ("FedAMW", FedAMW, dict(kw, **ZOO_AMW))):
+            ref, plain_secs = timed(fn, s, kernel_impl="plain", **fkw)
+            res, secs, c, peak = counted(fn, s, **fkw)
+            ok, diffs = vs_plain(res, ref)
+            want = {"client_epoch": 0, "p_epoch": (
+                ZOO_ROUNDS * ZOO_ROUNDS if algo == "FedAMW" else 0)}
+            got = {k: c[k] for k in want}
+            on_plan = c["p_epoch_by_kernel"].get(plan.kernel, 0)
+            ups = J * ZOO_ROUNDS / secs
+            acc = res["test_acc"]
+            row = {"phase": "zoo", "case": f"{name} {algo}", "card": card,
+                   "model": cfg["model"], "J": J,
+                   "train_loss": res["train_loss"].tolist(),
+                   "test_loss": res["test_loss"].tolist(),
+                   "test_acc": acc.tolist(),
+                   "accuracy_rises": bool(acc[-1] > acc[0]),
+                   "seconds": secs, "seconds_plain": plain_secs,
+                   "round_ms": 1e3 * secs / ZOO_ROUNDS,
+                   "round_ms_plain": 1e3 * plain_secs / ZOO_ROUNDS,
+                   "client_updates_per_s": ups,
+                   "allocator_peak_bytes_above_entry": peak,
+                   "flops_per_update": flops_upd, "flops_basis": basis,
+                   "achieved_gflops": ups * flops_upd / 1e9,
+                   "launches": got, "launches_expected": want,
+                   "p_epoch_by_kernel": c["p_epoch_by_kernel"],
+                   "p_epoch_plan": plan.kernel, "vs_plain": diffs,
+                   "w_max_abs": max(float(v.abs().max())
+                                    for v in ref["params"].values()),
+                   "p_sum": float(res["p"].sum()),
+                   "tol": TOL_RUN, "ok": ok}
+            if algo == "FedAMW":
+                row["flops_note"] = "client local SGD only"
+                row["mixture"] = {k: v.tolist()
+                                  for k, v in res["mixture"].items()}
+                amw = res
+            emit(row)
+            if not ok:
+                fail(f"zoo {name} {algo} on the kernels does not match its "
+                     f"plain run: {diffs}")
+            if got != want or on_plan != want["p_epoch"]:
+                fail(f"zoo {name} {algo} launched {c}, expected {want} "
+                     f"on the {plan.kernel} plan")
+            for k in launches:
+                launches[k] += got[k]
+
+        if cfg["model"].startswith("conv"):
+            # what the grouped convolution costs: one autograd step of all
+            # J clients (vmap: J-group convolutions) against the same step
+            # one client at a time, CUDA events
+            n_max = s.n_max
+            step_pos = draw_epoch_positions(gen, n_max, B, s.mask,
+                                            lead=(J,))[:, :1]
+            rows, svalid = _epoch_rows(step_pos, s.idx, s.mask, n_max)
+            epoch = make_autograd_epoch(s.model.apply, s.task)
+            P = {k: v.expand((J,) + tuple(v.shape)).contiguous()
+                 for k, v in amw["params"].items()}
+            step_args = (s.X, s.y, rows, svalid, ZOO_LR, 0.0, 0.01)
+            grouped_ms = cuda_ms(
+                lambda: epoch(P, amw["params"], *step_args), 5)
+            looped_ms = cuda_ms(lambda: [epoch(
+                {k: v[j:j + 1] for k, v in P.items()}, amw["params"], s.X,
+                s.y, rows[j:j + 1], svalid[j:j + 1], ZOO_LR, 0.0, 0.01)
+                for j in range(J)], 1)
+            emit({"phase": "zoo", "case": f"{name} grouped conv step",
+                  "card": card, "J": J, "batch": B,
+                  "vmap_step_ms": grouped_ms,
+                  "client_by_client_step_ms": looped_ms,
+                  "speedup": looped_ms / grouped_ms})
+
+        if name.startswith("a "):
+            # (d) a defended FedAMW round on mlp64, every verdict equal
+            dkw = dict(kw, **ZOO_AMW, round=ZOO_DEFENSE_ROUNDS,
+                       faults=ZOO_FAULTS, robust_agg=ZOO_DEFENDED)
+            ref, plain_secs = timed(FedAMW, s, kernel_impl="plain", **dkw)
+            res, secs, c, peak = counted(FedAMW, s, **dkw)
+            ok, diffs = vs_plain(res, ref)
+            same = verdicts(res) == verdicts(ref)
+            want = {"client_epoch": 0,
+                    "p_epoch": ZOO_DEFENSE_ROUNDS * ZOO_DEFENSE_ROUNDS}
+            got = {k: c[k] for k in want}
+            emit({"phase": "zoo", "case": f"d {name[2:]} FedAMW "
+                  f"{ZOO_FAULTS} {ZOO_DEFENDED}", "card": card,
+                  "train_loss": res["train_loss"].tolist(),
+                  "test_loss": res["test_loss"].tolist(),
+                  "test_acc": res["test_acc"].tolist(),
+                  "round_ms": 1e3 * secs / ZOO_DEFENSE_ROUNDS,
+                  "round_ms_plain": 1e3 * plain_secs / ZOO_DEFENSE_ROUNDS,
+                  "allocator_peak_bytes_above_entry": peak,
+                  "verdicts": verdicts(res), "verdicts_equal": same,
+                  "launches": got, "launches_expected": want,
+                  "vs_plain": diffs,
+                  "ok": ok and same and got == want})
+            if not (ok and same and got == want):
+                fail(f"the defended zoo FedAMW run differs from its plain "
+                     f"run (verdicts equal: {same}, launches {got}): "
+                     f"{diffs}")
+            for k in launches:
+                launches[k] += got[k]
+        del s, amw
+        torch.cuda.empty_cache()
+
+    # (c) the driver: --model through exp.main on the mnist stand-in
+    for model in ZOO_DRIVER_MODELS:
+        row, got = zoo_driver(model, ROUNDS)
+        row["card"] = card
+        emit(row)
+        if not row["ok"]:
+            fail(f"the driver with --model {model}: {row}")
+        for k in launches:
+            launches[k] += got[k]
+    return launches, by_shape
+
+
 def trace_categories(trace_dir):
     """``{category: count}`` of the complete (``"X"``) events in the Chrome
     trace under ``trace_dir``, and the kernel events of each hand kernel
@@ -1853,23 +2233,29 @@ def main():
         algorithm returns them."""
         finite = all(np.all(np.isfinite(res[k]))
                      for k in ("train_loss", "test_loss", "test_acc"))
+        # relative to the plain run's losses, an exact 0 of both (a
+        # FedAMW round whose present clients all carry zero mass) a 0
         d = {"max_rel_loss": max(
-                float(np.max(np.abs(res[k] - ref[k]) / np.abs(ref[k])))
+                float(np.max(np.abs(res[k] - ref[k])
+                             / np.maximum(np.abs(ref[k]), 1e-30)))
                 for k in ("train_loss", "test_loss")),
              "max_abs_acc": float(np.max(np.abs(res["test_acc"]
                                                 - ref["test_acc"])))}
         ok = (finite and d["max_rel_loss"] <= TOL_RUN["loss_rtol"]
               and d["max_abs_acc"] <= TOL_RUN["acc_atol"])
         if "params" in res:
-            d["max_abs_w"] = float((res["params"]["w"]
-                                    - ref["params"]["w"]).abs().max())
+            # every leaf of the model's parameters (the linear model's one)
+            d["max_abs_w"] = max(float((res["params"][k]
+                                        - ref["params"][k]).abs().max())
+                                 for k in ref["params"])
             ok = ok and d["max_abs_w"] <= TOL_RUN["w_atol"]
         if "mixture" in ref:
             # FedAMW's per-round entropy and largest mass of p, relative
             # like the losses
             d["max_rel_mixture"] = max(float(np.max(
                 np.abs(res["mixture"][k] - ref["mixture"][k])
-                / np.abs(ref["mixture"][k]))) for k in ref["mixture"])
+                / np.maximum(np.abs(ref["mixture"][k]), 1e-30)))
+                for k in ref["mixture"])
             ok = ok and d["max_rel_mixture"] <= TOL_RUN["loss_rtol"]
         return ok, d
 
@@ -2407,6 +2793,12 @@ def main():
     if run_launches != want or not finite:
         fail(f"the paper run launched {run_launches} (expected {want}) "
              f"or gave non-finite metrics (finite={finite})")
+
+    # -- 10b. the model zoo at scale_bench.py's widths ---------------------
+    zoo_launches, zoo_shapes = zoo(timed, vs_plain, card)
+    for row in kernels[:2]:
+        row["launches_by_path"]["zoo"] = zoo_launches[row["name"]]
+    split_row["by_shape"].update(zoo_shapes)
 
     # -- 11. two ranks sharing the card (the ranks phase's (c)) -------------
     two_ranks_one_card(setup, kw, amw_kw, timed, vs_plain, card, rank_refs)

@@ -1,4 +1,4 @@
-"""The paper's seven algorithms on the bias-free linear model.
+"""The paper's seven algorithms, on any model of the zoo (``models/``).
 
 Reference registry (``functions/tools.py``): ``Centralized`` (:240),
 ``Distributed`` (:258), ``FedAMW_OneShot`` (:279), ``FedAvg`` (:329),
@@ -9,8 +9,9 @@ JAX package's keyword surface (``prox``/``mu``, ``lambda_reg_if``/
 Centralized and Distributed, ``(round,)`` vectors for the others.
 
 - The round loop (FedAvg, FedProx, FedNova, FedAMW): one round = {all
-  clients' local epochs (kernel 1) -> FedAMW's validation logits and
-  p-solve (kernel 2) -> weighted aggregate -> evaluation}, the JAX
+  clients' local epochs (kernel 1 on the linear model, the autograd
+  route on the others: ``fedcore.client``) -> FedAMW's validation logits
+  and p-solve (kernel 2) -> weighted aggregate -> evaluation}, the JAX
   package's ``_round_based`` with its options: ``sequential`` (the
   reference's client chain), size buckets (``prepare_setup(buckets=)``),
   ``participation < 1``, a server optimizer (``server_opt``, not with
@@ -380,6 +381,14 @@ class _Defense:
                     if self.agg_spec.agg == "mean"
                     else torch.sum(present) > 0)
         return _where(ok_round, agg, params), aux
+
+
+def _client_val_logits(setup: FedSetup, stacked: dict) -> torch.Tensor:
+    """``client_logits`` of the setup's model on its validation split,
+    row blocks sized by the model's ``row_activations``."""
+    m = setup.model
+    return client_logits(m.apply, stacked, setup.X_val, m.row_activations(
+        int(setup.X_val.shape[1]), setup.num_classes))
 
 
 def _mixture_stats(p):
@@ -784,7 +793,8 @@ def _round_based(
     axis = ClientAxis(setup)
     round_fn = make_bucketed_round(setup.task, epoch, batch_size,
                                    setup.n_maxes, sequential, kernel_impl,
-                                   client_blocks=axis.blocks)
+                                   client_blocks=axis.blocks,
+                                   apply_fn=setup.model.apply)
     idx_t, mask_t = setup.round_arrays()
     evaluate = make_evaluator(setup.model.apply, setup.task)
     lrs = lr_schedule_array(lr, rounds, lr_mode)
@@ -812,7 +822,7 @@ def _round_based(
     def val_logits(stacked, full):
         """FedAMW's ``(n_val, J, C)`` validation logits of every client,
         all-gathered along the client axis from a rank's block."""
-        logits = client_logits(setup.model.apply, stacked, setup.X_val)
+        logits = _client_val_logits(setup, stacked)
         return logits if full else axis.gather(logits, dim=1)
     server = server_state = None
     if server_opt != "none":
@@ -1016,13 +1026,15 @@ _LAST_STREAM = None
 
 
 @functools.lru_cache(maxsize=64)
-def _cached_shard_tier(task, epoch, batch_size, n_max, aggregation,
+def _cached_shard_tier(apply_fn, task, epoch, batch_size, n_max, aggregation,
                        robust_canonical, faults_on, kernel_impl):
     """The memoized streamed shard tier (JAX ``core.py:1393-1405``): one
     tier serves every shard of every round of every run of the same
-    configuration. Its guard is ``_Defense.guard`` on the shard's slice
-    (stateless specs only: no carried state), its quarantine count the
-    non-finite reports under a fault plan plus the z-test's."""
+    configuration, the model's ``apply_fn`` part of the key (a linear
+    tier is never reused for another model). Its guard is
+    ``_Defense.guard`` on the shard's slice (stateless specs only: no
+    carried state), its quarantine count the non-finite reports under a
+    fault plan plus the z-test's."""
     defense = _Defense(robust_canonical, aggregation, faults_on)
 
     def guard(params, stacked, losses, present, row):
@@ -1032,7 +1044,7 @@ def _cached_shard_tier(task, epoch, batch_size, n_max, aggregation,
         return stacked, losses, present, quar, work_frac
 
     round_fn = make_client_round(task, epoch, batch_size, n_max,
-                                 kernel_impl)
+                                 kernel_impl, apply_fn=apply_fn)
     return make_shard_tier(round_fn, epoch, batch_size, aggregation, guard,
                            defense.spec.clip)
 
@@ -1125,9 +1137,9 @@ def _streamed_round_based(setup, aggregation, lr, epoch, batch_size,
                else 0)
     plan = resolve_fault_plan(faults, rounds, setup.num_clients)
     faults_on = plan is not None
-    tier = _cached_shard_tier(setup.task, epoch, batch_size, n_max,
-                              aggregation, rspec.canonical(), faults_on,
-                              kernel_impl)
+    tier = _cached_shard_tier(setup.model.apply, setup.task, epoch,
+                              batch_size, n_max, aggregation,
+                              rspec.canonical(), faults_on, kernel_impl)
     global _LAST_SHARD_TIER, _LAST_STREAM
     _LAST_SHARD_TIER, _LAST_STREAM = tier, stream
 
@@ -1324,7 +1336,8 @@ def _oneshot_local_phase(setup: FedSetup, epoch, batch_size, sequential,
     params = _init_params(setup, seed, params0)
     round_fn = make_bucketed_round(setup.task, epoch, batch_size,
                                    setup.n_maxes, sequential, kernel_impl,
-                                   client_blocks=axis.blocks)
+                                   client_blocks=axis.blocks,
+                                   apply_fn=setup.model.apply)
     positions = (_device_generator(setup, seed) if client_positions is None
                  else axis.local_positions(client_positions))
     idx_t, mask_t = setup.round_arrays()
@@ -1348,7 +1361,7 @@ def Centralized(setup: FedSetup, lr=0.01, epoch=200, batch_size=32, seed=0,
     all_idx = setup.all_train_idx
     n = int(all_idx.shape[0])
     local_update = make_local_update(setup.task, epoch, batch_size, n,
-                                     kernel_impl)
+                                     kernel_impl, setup.model.apply)
     positions = (_device_generator(setup, seed) if client_positions is None
                  else client_positions)
     params, train_loss, _ = local_update(
@@ -1403,8 +1416,7 @@ def FedAMW_OneShot(setup: FedSetup, lr=0.01, epoch=200, batch_size=32,
         kernel_impl)
     p = setup.p_fixed
     train_loss = torch.sum(p * losses)
-    logits = axis.gather(client_logits(setup.model.apply, stacked,
-                                       setup.X_val), dim=1)
+    logits = axis.gather(_client_val_logits(setup, stacked), dim=1)
     n_val = int(setup.X_val.shape[0])
     solve, init_opt = make_p_solver(setup.task, n_val, val_batch_size, lr_p,
                                     momentum=0.0, p_guard=p_guard,

@@ -16,8 +16,10 @@ from .models import get_model
 
 
 def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """``{"w": (C, D) array}`` -> CPU float32 tensors of the same layout
-    (the algorithms move them to their setup's device)."""
+    """A flat parameter dict of arrays (any model of the zoo: the linear
+    ``{"w": (C, D)}``, an MLP's ``w{i}``/``b{i}``, a CNN's HWIO ``k{i}``,
+    ``cb{i}`` and ``w``) -> CPU float32 tensors under the same keys and
+    layouts (the algorithms move them to their setup's device)."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in params.items()}
 
@@ -39,8 +41,8 @@ def setup_from_arrays(*, task: str, num_classes: int, X, y, X_val, y_val,
     ``idx``/``mask`` are ``(J, n_max)``, or for a bucketed setup tuples
     of its ``bucket_idx``/``bucket_mask``. ``rff`` is its ``(W, b)`` draw
     or None. The feature matrices keep their dtype (float32, or a JAX
-    setup's ``feature_dtype``: bfloat16, float16). ``device`` as in
-    ``prepare_setup``."""
+    setup's ``feature_dtype``: bfloat16, float16). ``model`` is any name
+    of ``models.get_model``; ``device`` as in ``prepare_setup``."""
     dev = resolve_device(device)
     y_dtype = torch.int32 if task == "classification" else torch.float32
 

@@ -68,8 +68,11 @@ process one rank of a group joined through ``--coordinator HOST:PORT``,
 ``--shard`` defaulting to the world size. Only rank 0 writes the pickle,
 the partial, the checkpoints, the trace and the telemetry; rank 0's
 ``--resume`` verdict is broadcast so every rank runs the same repeats.
-The other extension flags (``--model``, ``--publish_every``) are
-refused with a pointer to their ROADMAP.md item.
+``--model NAME`` trains any model of the zoo (``models.get_model``:
+``linear``, ``mlp64``, ``mlp128x64``, ``conv8x16``, ...); a model other
+than the linear one forces ``kernel_type="linear"`` (identity features)
+and says so, as the JAX driver does, and the name signs the partial.
+``--publish_every`` is refused with a pointer to its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -97,6 +100,7 @@ from .fedcore.faults import FaultSpec
 from .fedcore.hierarchy import MAX_COHORT_SHARDS
 from .fedcore.robust import parse_robust_spec
 from .fedcore.server_opt import SERVER_OPTS
+from .models import get_model
 from .ops.rff import heterogeneity_from_parts
 from .parallel import initialize_multihost, make_mesh, shard_setup, spawn
 from .utils import telemetry as telemetry_mod
@@ -110,7 +114,6 @@ NAMES = ["CL", "DL", "FedAMW_OneShot", "FedAvg", "FedProx", "FedAMW"]
 # exp.py's flags that the port does not carry, and the ROADMAP.md item
 # that will bring each
 _REFUSED = {
-    "--model": "queue 1 item 13 (the model zoo)",
     "--publish_every": "queue 1 item 11 (serving's model registry)",
 }
 
@@ -268,6 +271,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "environment (MASTER_ADDR, MASTER_PORT)")
     ap.add_argument("--num_processes", type=int, default=None)
     ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--model", type=str, default="linear",
+                    help="any zoo member (linear | mlp64 | mlp128x64 | "
+                         "conv8x16 ...; models.get_model): every algorithm "
+                         "runs it unchanged. A model other than the linear "
+                         "one forces kernel_type='linear' (identity "
+                         "features: RFF-mapped features are not raw "
+                         "inputs; conv also needs square images)")
     for flag, item in _REFUSED.items():
         ap.add_argument(flag, action=_Refused, item=item)
     args = ap.parse_args(argv)
@@ -276,6 +286,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.faults is not None:
             FaultSpec.parse(args.faults)
         spec = parse_robust_spec(args.robust_agg)
+        get_model(args.model)
     except ValueError as e:
         ap.error(str(e))
     _check_cohort_flags(ap, args, spec)
@@ -402,7 +413,7 @@ def resume_config(args) -> dict:
         "batch_size", "alpha_Dirk", "seed", "lr_mode", "sequential",
         "participation", "server_opt", "server_lr", "data_dir", "lr",
         "lr_p")}
-    cfg.update(backend="fedamw_tpu_torch", p_guard=guard,
+    cfg.update(backend="fedamw_tpu_torch", model=args.model, p_guard=guard,
                feature_dtype=args.feature_dtype, faults=args.faults,
                robust_agg=args.robust_agg,
                cohort_shards=args.cohort_shards,
@@ -455,11 +466,12 @@ def _load_partial(args, partial_path, mats, hete) -> int:
         return 0
     with open(partial_path, "rb") as f:
         part = pickle.load(f)
-    # a partial written before --feature_dtype, --faults, --robust_agg,
-    # --cohort_shards and --stream_cohort were carried is a float32,
-    # clean, mean-aggregated, flat run
-    saved = {"feature_dtype": None, "faults": None, "robust_agg": "mean",
-             "cohort_shards": 0, "stream_cohort": False, **part["config"]}
+    # a partial written before --model, --feature_dtype, --faults,
+    # --robust_agg, --cohort_shards and --stream_cohort were carried is a
+    # linear, float32, clean, mean-aggregated, flat run
+    saved = {"model": "linear", "feature_dtype": None, "faults": None,
+             "robust_agg": "mean", "cohort_shards": 0,
+             "stream_cohort": False, **part["config"]}
     if saved != resume_config(args):
         print(f"--resume: {partial_path} was written under a "
               f"different configuration\n  saved: {saved}\n"
@@ -651,12 +663,21 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
     writer = mesh is None or mesh.rank == 0
     train_mat, error_mat, acc_mat = mats
     R = args.round
+    kernel_type = params["kernel_type"]
+    if args.model != "linear":
+        # the zoo's deeper models consume raw features — the RFF map
+        # exists to linearize the kernel for the single-matrix model
+        if kernel_type != "linear":
+            print(f"--model {args.model}: forcing kernel_type='linear' "
+                  "(identity features; the registry's RFF map serves "
+                  "the linear flagship)")
+        kernel_type = "linear"
     for t in range(start, args.n_repeats):
         rng = np.random.RandomState(args.seed + t)
         ds = load_dataset(args.dataset, args.num_partitions, args.alpha_Dirk,
                           data_dir=args.data_dir, rng=rng, verbose=True)
         setup = prepare_setup(ds, D=args.D, kernel_par=params["kernel_par"],
-                              kernel_type=params["kernel_type"],
+                              kernel_type=kernel_type, model=args.model,
                               seed=args.seed + t, rng=rng, device=device,
                               feature_dtype=FEATURE_DTYPES.get(
                                   args.feature_dtype),

@@ -24,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, route
 from .batching import batch_counts, batch_valid, weighted_epoch_metrics
 from .psolver_kernel import p_epoch, p_epoch_plain
 
@@ -43,15 +43,20 @@ def weighted_average(stacked_params: dict, p: torch.Tensor,
 
 
 @contextlib.contextmanager
-def _fp32_matmul():
-    """Full fp32 products inside the block (no TF32 on the card), the
-    previous setting restored after it."""
-    prev = torch.get_float32_matmul_precision()
+def full_fp32():
+    """Full fp32 products and convolutions inside the block (no TF32 on
+    the card: matmul precision ``"highest"``, cuDNN without TF32, which
+    PyTorch allows for convolutions by default), the previous settings
+    restored after it."""
+    prev = (torch.get_float32_matmul_precision(),
+            torch.backends.cudnn.allow_tf32)
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cudnn.allow_tf32 = prev[1]
 
 
 def segment_weighted_sums(stacked_params: dict, p: torch.Tensor,
@@ -64,14 +69,14 @@ def segment_weighted_sums(stacked_params: dict, p: torch.Tensor,
 
     One product of the ``(num_segments, J)`` matrix holding ``p_j`` where
     ``ids_j == s`` (0 elsewhere) with the ``(J, P)`` leaf, in full fp32
-    (``_fp32_matmul``): no atomics, so the card adds in one fixed order
+    (``full_fp32``): no atomics, so the card adds in one fixed order
     and a rerun gives the same bits (``index_add_`` would add in any
     order). Folding the partials over their leading axis is
     ``weighted_average`` up to float re-association."""
     seg = torch.arange(num_segments, device=p.device)
     weights = torch.where(ids[None, :] == seg[:, None], p[None, :], 0.0)
     J = p.shape[0]
-    with _fp32_matmul():
+    with full_fp32():
         return {k: (weights @ w.reshape(J, -1)).reshape(
                     (num_segments,) + tuple(w.shape[1:]))
                 for k, w in stacked_params.items()}
@@ -118,17 +123,47 @@ def participation_weights(agg_w: torch.Tensor, part: torch.Tensor,
 
 
 def client_logits(apply_fn: Callable, stacked_params: dict,
-                  X: torch.Tensor) -> torch.Tensor:
-    """Per-client predictions on a shared matrix, ``(n, J, C)``.
+                  X: torch.Tensor, row_floats: int | None = None
+                  ) -> torch.Tensor:
+    """Per-client predictions on a shared matrix, ``(n, J, C)`` (JAX
+    ``aggregate.py:125-132``).
 
-    For the linear model ``apply_fn`` broadcasts over the stacked client
-    axis, so this is one batched product — the reference's
-    ``matmul(W.permute(2,0,1), data.T)`` (``tools.py:448``) for the whole
-    validation set at once. A 2-byte ``X`` (``feature_dtype``) is widened
-    to float32 chunk by chunk inside ``apply_fn``.
+    For the linear model (one stacked ``(J, C, D)`` leaf) ``apply_fn``
+    broadcasts over the stacked client axis, so this is one batched
+    product — the reference's ``matmul(W.permute(2,0,1), data.T)``
+    (``tools.py:448``) for the whole validation set at once; a 2-byte
+    ``X`` (``feature_dtype``) is widened to float32 chunk by chunk inside
+    ``apply_fn``.
+
+    Any other model is mapped over all J clients at once
+    (``torch.func.vmap``, as the JAX package's ``jax.vmap``) in full fp32
+    (``full_fp32``), in row blocks: ``row_floats`` is what one row's
+    forward keeps for one client, its hidden activations and logits
+    (the model's ``row_activations(d, C)``), and a block takes as many
+    rows as keep ``J * row_floats`` floats a row under
+    ``route.EPOCH_GATHER_BYTES_LIMIT`` (the forward's temporaries, a
+    padded copy or a bias sum, come on top). The result is the same
+    whatever the blocks.
     """
-    preds = apply_fn(stacked_params, X)          # (J, n, C)
-    return preds.permute(1, 0, 2).contiguous()
+    J = next(iter(stacked_params.values())).shape[0]
+    if route.kernel_route({k: v[0] for k, v in stacked_params.items()}):
+        preds = apply_fn(stacked_params, X)          # (J, n, C)
+        return preds.permute(1, 0, 2).contiguous()
+    if row_floats is None:
+        raise ValueError("client_logits of a model other than the linear "
+                         "one needs row_floats (Model.row_activations) to "
+                         "bound its row blocks")
+    n = X.shape[0]
+    rows = max(1, route.EPOCH_GATHER_BYTES_LIMIT // (4 * J * row_floats))
+    fwd = torch.func.vmap(apply_fn, in_dims=(0, None))
+    out = None
+    with torch.no_grad(), full_fp32():
+        for r0 in range(0, n, rows):
+            part = fwd(stacked_params, X[r0:r0 + rows]).permute(1, 0, 2)
+            if out is None:
+                out = part.new_empty((n,) + tuple(part.shape[1:]))
+            out[r0:r0 + rows] = part
+    return out
 
 
 def resolve_p_guard(p_guard: str = "none") -> str:

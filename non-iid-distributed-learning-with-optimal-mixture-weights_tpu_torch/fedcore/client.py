@@ -1,18 +1,31 @@
 """The client update: local SGD of every client of a round.
 
-The port of the JAX package's ``fedcore/client.py`` for the flagship
-bias-free linear model. By default every client starts the round from
-the same global parameters (the paper's parallel semantics, the JAX
-default) and runs ``epochs`` shuffled epochs; each epoch of all J
-clients is one call of ``epoch_kernel.client_epoch`` — on CUDA tensors
-one launch of the hand-written kernel, on CPU tensors its plain PyTorch
-version. ``sequential=True`` is the reference's contamination chain
+The port of the JAX package's ``fedcore/client.py``. By default every
+client starts the round from the same global parameters (the paper's
+parallel semantics, the JAX default) and runs ``epochs`` shuffled
+epochs, all J clients of an epoch in one call. The call's route is
+chosen from the parameters' structure, by the JAX package's own rule
+(``_pallas_compatible``, ``client.py:96-104``):
+
+- the **kernel route** (``route.kernel_route``: a flat dict holding one 2-D
+  matrix, the bias-free linear model): each epoch is one call of
+  ``epoch_kernel.client_epoch``, on CUDA tensors one launch of the
+  hand-written kernel, on CPU tensors its plain PyTorch version; its
+  gradient is derived by hand and is exact for that structure only;
+- the **autograd route** (every other model of the zoo, ``models/``):
+  each SGD step of all J clients is one vectorised call of
+  ``torch.func.vmap(torch.func.grad_and_value(training_loss))`` over the
+  stacked parameter dict, the JAX package's ``vmap(value_and_grad)``.
+  The JAX package trains these models with autodiff too, never with its
+  Pallas kernel, so this route replaces no kernel.
+
+``sequential=True`` is the reference's contamination chain
 (``tools.py:341``): client j+1 starts from client j's final weights, so
 each epoch of each client is its own J = 1 call, in client order.
 ``make_bucketed_round`` runs size-bucketed packs, one call per bucket
 per epoch at that bucket's own padded size.
 
-Reference semantics kept exactly (SURVEY.md §2.3):
+Reference semantics kept exactly on both routes (SURVEY.md §2.3):
 - the prox anchor is the weights the client received for every local
   epoch (``tools.py:180``, ``pallas_kernel.py:55``): the round's global
   weights, or under ``sequential`` the previous client's;
@@ -20,27 +33,24 @@ Reference semantics kept exactly (SURVEY.md §2.3):
   partial batch kept; the shuffle positions are an input
   (``batching.epoch_batches``) so a caller can inject the JAX run's, or
   are drawn on the device one epoch at a time from a generator;
+- a step whose batch holds no valid row leaves the weights as they are;
 - the returned loss/accuracy are the LAST epoch's batch-size-weighted
-  averages, with penalty terms included in the loss;
+  averages, with penalty terms included in the loss; top-1 takes the
+  first maximal class;
 - plain SGD, constant lr within the call.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-from . import cuda_build
+from . import cuda_build, route
+from .aggregate import full_fp32
 from .batching import batch_counts, batch_valid, draw_epoch_positions
 from .epoch_kernel import client_epoch, client_epoch_plain
-
-# The largest gathered-batch buffer a plain version builds in one piece:
-# a whole epoch's features (J, S, B, D) for the client epoch, a whole
-# epoch's logits (S, B, J, C) for the p-solver. Above it the plain
-# versions gather step by step. The CUDA kernels gather their rows
-# themselves and never build such a buffer, so this bounds only the
-# plain path (the CPU, and the reference runs on the card).
-EPOCH_GATHER_BYTES_LIMIT = int(1.5e9)
-
+from .faults import _bcast
 
 def _epoch_rows(pos, idx, mask, n_max):
     """The global row ids (int32) and validity of one epoch's positions
@@ -51,13 +61,76 @@ def _epoch_rows(pos, idx, mask, n_max):
     return rows.reshape(pos.shape).to(torch.int32), valid
 
 
+def make_autograd_epoch(apply_fn: Callable, task: str):
+    """One local epoch of every client of a call by autograd, for any
+    model of the zoo.
+
+    Returns ``epoch(P, anchor, X, y, rows, valid, lr, mu, lam) -> (P,
+    metrics (J, 3))``: ``P`` the stacked ``{name: (J, ...)}`` weights at
+    the epoch's start, ``anchor`` the unstacked weights the clients
+    received (the prox anchor), ``rows``/``valid`` ``(J, S, B)`` as
+    ``client_epoch`` takes them, metrics ``(sum loss*cnt, sum correct,
+    sum cnt)`` over the steps. Each step is one call of ``vmap(grad_and_
+    value(training_loss))`` over the J clients (JAX ``client.py:182-204``):
+    ``w -= lr * ok * g`` with ``ok = cnt > 0``, the ridge term on the
+    leaves of ndim >= 2 only, the norms' zero subgradient at 0
+    (``ops.losses.l2_norm_safe``).
+
+    The whole epoch's gathered rows ``(J, S, B, D)``, in X's dtype, are
+    built in one index op when they fit ``route.EPOCH_GATHER_BYTES_LIMIT``,
+    else one step's ``(J, B, D)`` at a time; the answer is the same.
+
+    Under ``vmap`` a convolution whose weights carry the client axis
+    (``models/conv.py``) runs as one grouped convolution with J groups,
+    forward and backward, in place of J convolutions. Each step runs in
+    full fp32 (``aggregate.full_fp32``: no TF32 convolutions on the card),
+    the arithmetic of the JAX package's float32 reference.
+    """
+    from ..ops.losses import training_loss
+    from ..ops.metrics import top1_correct
+
+    cls = task == "classification"
+
+    def objective(p, anchor, xb, yb, bv, mu, lam):
+        return training_loss(p, anchor, apply_fn, xb, yb, bv, task, mu, lam)
+
+    step = torch.func.vmap(
+        torch.func.grad_and_value(objective, has_aux=True),
+        in_dims=(0, None, 0, 0, 0, None, None))
+
+    def epoch(P, anchor, X, y, rows, valid, lr, mu, lam):
+        J, S, B = rows.shape
+        rows = rows.long()
+        whole = (J * S * B * X.shape[1] * X.element_size()
+                 <= route.EPOCH_GATHER_BYTES_LIMIT)
+        xs = X[rows] if whole else None
+        ys = y[rows]
+        met = torch.zeros((J, 3), dtype=torch.float32, device=X.device)
+        for s in range(S):
+            xb = xs[:, s] if whole else X[rows[:, s]]
+            yb, bv = ys[:, s], valid[:, s]
+            with full_fp32():
+                grads, (loss, (preds, cnt)) = step(P, anchor, xb, yb, bv,
+                                                   mu, lam)
+            step_lr = lr * (cnt > 0).to(torch.float32)
+            P = {k: w - _bcast(step_lr, w.dim()) * grads[k]
+                 for k, w in P.items()}
+            correct = (torch.sum(top1_correct(preds, yb) * bv, dim=1) if cls
+                       else torch.zeros_like(cnt))
+            met = met + torch.stack([loss * cnt, correct, cnt], dim=1)
+        return P, met
+
+    return epoch
+
+
 def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
                       kernel_impl: str = "auto", sequential: bool = False,
-                      client_block: tuple | None = None):
-    """Build the client round for the linear model.
+                      client_block: tuple | None = None,
+                      apply_fn: Callable | None = None):
+    """Build the client round (JAX ``client.py:327-386``).
 
     Returns ``round_fn(params, X, y, idx (J, n_max), mask (J, n_max),
-    positions, lr, mu, lam) -> (stacked {"w": (J, C, D)}, losses (J,),
+    positions, lr, mu, lam) -> (stacked {name: (J, ...)}, losses (J,),
     accs (J,))``. ``positions`` is either the injected per-client,
     per-epoch shuffles into the ``n_max`` slots, ``(J, epochs, S, B)``
     (``batching``; a tensor or array, on any device), or a
@@ -67,10 +140,17 @@ def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
     are gathered one epoch at a time, so a call of many epochs holds one
     epoch of indices on the device.
 
+    ``apply_fn`` is the model's apply (None: the linear model's). The
+    route is chosen from ``params`` at each call (``route.kernel_route``): the
+    linear model's structure takes the kernel route, any other the
+    autograd route (``make_autograd_epoch``) over ``apply_fn``. Both take
+    the same positions, ``sequential`` and ``client_block``.
+
     ``kernel_impl``: ``"auto"`` goes through the ``client_epoch`` wrapper
     (the CUDA kernel for CUDA tensors, the plain version for CPU ones);
     ``"plain"`` calls the plain version directly, on any device — the
     reference a kernel run is held against (``cuda_build.kernel_or_plain``).
+    The autograd route has no kernel and ignores it.
 
     ``sequential=True`` chains the clients in order: client j starts
     from, and is anchored at, client j-1's final weights (the first at
@@ -87,12 +167,23 @@ def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
     package's ``shard_factor`` has no counterpart: it
     divides the traced global J for the gather-buffer check, while here a
     rank's round sees only its own clients, so the plain path's buffer
-    (``EPOCH_GATHER_BYTES_LIMIT``) is already sized per rank and the
+    (``route.EPOCH_GATHER_BYTES_LIMIT``) is already sized per rank and the
     kernels gather their rows themselves.
     """
     epoch_fn = cuda_build.kernel_or_plain(kernel_impl, client_epoch,
                                           client_epoch_plain)
+    if apply_fn is None:
+        from ..models.linear import linear_model
+
+        apply_fn = linear_model().apply
+    autograd_epoch = make_autograd_epoch(apply_fn, task)
     S, _ = batch_counts(n_max, batch_size)
+
+    def kernel_epoch(P, anchor, X, y, rows, valid, lr, mu, lam):
+        (key,) = P
+        W, met = epoch_fn(P[key], anchor[key], X, y, rows, valid, lr, mu,
+                          lam, task)
+        return {key: W}, met
 
     def epoch_positions(positions, mask, e):
         if isinstance(positions, torch.Generator):
@@ -105,19 +196,19 @@ def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
                                         lead=(mask.shape[0],))
         return positions[:, e].to(mask.device, torch.int64)
 
-    def run_clients(W, anchor, X, y, idx, mask, positions, lr, mu, lam):
+    def run_clients(epoch, P, anchor, X, y, idx, mask, positions, lr, mu,
+                    lam):
         met = None
         for e in range(epochs):
             pos = epoch_positions(positions, mask, e)
             rows, valid = _epoch_rows(pos, idx, mask, n_max)
-            W, met = epoch_fn(W, anchor, X, y, rows, valid, lr, mu, lam, task)
-        return W, met
+            P, met = epoch(P, anchor, X, y, rows, valid, lr, mu, lam)
+        return P, met
 
     def round_fn(params, X, y, idx, mask, positions, lr, mu, lam):
-        (key,) = params.keys()
-        W0 = params[key]
+        epoch = (kernel_epoch if route.kernel_route(params)
+                 else autograd_epoch)
         J = idx.shape[0]
-        C, D = W0.shape
         if not isinstance(positions, torch.Generator):
             positions = torch.as_tensor(positions)
             want = (J, epochs, S, batch_size)
@@ -125,22 +216,26 @@ def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
                 raise ValueError(f"positions shape "
                                  f"{tuple(positions.shape)} != {want}")
         if not sequential:
-            W, met = run_clients(W0.expand(J, C, D).contiguous(), W0, X, y,
-                                 idx, mask, positions, lr, mu, lam)
+            P = {k: v.expand((J,) + tuple(v.shape)).contiguous()
+                 for k, v in params.items()}
+            P, met = run_clients(epoch, P, params, X, y, idx, mask,
+                                 positions, lr, mu, lam)
         else:
-            Ws, mets, carry = [], [], W0.contiguous()
+            outs, mets = [], []
+            carry = {k: v.contiguous() for k, v in params.items()}
             for j in range(J):
                 pos_j = (positions if isinstance(positions, torch.Generator)
                          else positions[j:j + 1])
-                Wj, met_j = run_clients(carry[None], carry, X, y,
-                                        idx[j:j + 1], mask[j:j + 1], pos_j,
-                                        lr, mu, lam)
-                Ws.append(Wj)
+                Pj, met_j = run_clients(
+                    epoch, {k: v[None] for k, v in carry.items()}, carry, X,
+                    y, idx[j:j + 1], mask[j:j + 1], pos_j, lr, mu, lam)
+                outs.append(Pj)
                 mets.append(met_j)
-                carry = Wj[0]
-            W, met = torch.cat(Ws), torch.cat(mets)
+                carry = {k: v[0] for k, v in Pj.items()}
+            P = {k: torch.cat([o[k] for o in outs]) for k in params}
+            met = torch.cat(mets)
         total = torch.clamp(met[:, 2], min=1.0)
-        return {key: W}, met[:, 0] / total, 100.0 * met[:, 1] / total
+        return P, met[:, 0] / total, 100.0 * met[:, 1] / total
 
     return round_fn
 
@@ -148,7 +243,8 @@ def make_client_round(task: str, epochs: int, batch_size: int, n_max: int,
 def make_bucketed_round(task: str, epochs: int, batch_size: int,
                         n_maxes: tuple, sequential: bool = False,
                         kernel_impl: str = "auto",
-                        client_blocks: tuple | None = None):
+                        client_blocks: tuple | None = None,
+                        apply_fn: Callable | None = None):
     """The client round over size-bucketed packs
     (``data.pack.bucket_partitions``; JAX ``client.py:267-325``).
 
@@ -162,10 +258,12 @@ def make_bucketed_round(task: str, epochs: int, batch_size: int,
     buckets as well: bucket g+1's first client starts from bucket g's
     last client's weights. ``client_blocks`` (one ``client_block`` per
     bucket, ``parallel.ClientAxis.blocks``) runs a rank's block of each.
+    ``apply_fn`` as in ``make_client_round``.
     """
     blocks = client_blocks or (None,) * len(n_maxes)
     fns = [make_client_round(task, epochs, batch_size, m, kernel_impl,
-                             sequential, b) for m, b in zip(n_maxes, blocks)]
+                             sequential, b, apply_fn)
+           for m, b in zip(n_maxes, blocks)]
 
     def round_fn(params, X, y, idx_tuple, mask_tuple, positions, lr, mu,
                  lam):
@@ -194,16 +292,19 @@ def make_bucketed_round(task: str, epochs: int, batch_size: int,
 
 
 def make_local_update(task: str, epochs: int, batch_size: int, n_max: int,
-                      kernel_impl: str = "auto"):
-    """The single-client view of ``make_client_round``.
+                      kernel_impl: str = "auto",
+                      apply_fn: Callable | None = None):
+    """The single-client view of ``make_client_round`` (JAX
+    ``client.py:152-260``).
 
     Returns ``local_update(params, X, y, idx (n_max,), mask (n_max,),
     positions, lr, mu, lam) -> (new_params, last_epoch_loss,
     last_epoch_acc)``; ``positions`` is ``(epochs, S, B)`` or a
-    ``torch.Generator``, as in ``make_client_round``.
+    ``torch.Generator``, as in ``make_client_round``; ``apply_fn`` and
+    the route as there.
     """
     round_fn = make_client_round(task, epochs, batch_size, n_max,
-                                 kernel_impl)
+                                 kernel_impl, apply_fn=apply_fn)
 
     def local_update(params, X, y, idx, mask, positions, lr, mu, lam):
         if not isinstance(positions, torch.Generator):

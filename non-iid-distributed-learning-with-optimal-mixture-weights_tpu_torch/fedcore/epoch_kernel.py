@@ -78,10 +78,10 @@ def client_epoch_plain(W, anchor, X, y, rows, valid, lr, mu, lam, task):
     ``(sum loss*cnt, sum correct, sum cnt)`` over the epoch's steps.
 
     The whole epoch's gathered features ``(J, S, B, D)``, in float32, are
-    built in one index op when they fit ``client.EPOCH_GATHER_BYTES_LIMIT``,
+    built in one index op when they fit ``route.EPOCH_GATHER_BYTES_LIMIT``,
     else one step's ``(J, B, D)`` at a time.
     """
-    from .client import EPOCH_GATHER_BYTES_LIMIT
+    from .route import EPOCH_GATHER_BYTES_LIMIT
 
     J, S, B = rows.shape
     C, D = anchor.shape

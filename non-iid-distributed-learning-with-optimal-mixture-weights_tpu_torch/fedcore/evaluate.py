@@ -2,7 +2,8 @@
 
 The reference Meter-averages per-batch means weighted by batch size,
 which is exactly the full-set mean, so this is one batched forward pass
-(a 2-byte feature matrix widened chunk by chunk by the model's apply).
+(a 2-byte feature matrix widened chunk by chunk by the model's apply), in
+full fp32 (``aggregate.full_fp32``: no TF32 convolutions on the card).
 Accuracy for regression tasks is reported as 0.0 (SURVEY.md §2.2
 component 22).
 """
@@ -20,9 +21,12 @@ def make_evaluator(apply_fn: Callable, task: str):
     from ..ops.losses import ce_per_example, mse_per_example
     from ..ops.metrics import top1_correct
 
+    from .aggregate import full_fp32
+
     @torch.no_grad()
     def evaluate(params, X, y):
-        preds = apply_fn(params, X)
+        with full_fp32():
+            preds = apply_fn(params, X)
         if task == "classification":
             loss = torch.mean(ce_per_example(preds, y))
             acc = 100.0 * torch.mean(top1_correct(preds, y))

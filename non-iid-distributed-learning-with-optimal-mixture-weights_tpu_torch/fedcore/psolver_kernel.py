@@ -76,9 +76,9 @@ def p_epoch_plain(p, buf, cv, logits, y_val, positions, valid, lr, momentum,
     sum cnt)``.
 
     The epoch's gathered logits ``(S, B, J, C)`` are built in one index op
-    when they fit ``client.EPOCH_GATHER_BYTES_LIMIT``, else per step.
+    when they fit ``route.EPOCH_GATHER_BYTES_LIMIT``, else per step.
     """
-    from .client import EPOCH_GATHER_BYTES_LIMIT
+    from .route import EPOCH_GATHER_BYTES_LIMIT
 
     S, B = positions.shape
     _, J, C = logits.shape

@@ -27,7 +27,7 @@ synchronisation, and none of these functions adds one. Absent entries
 sort to ``+inf`` (the medians) or ``-inf`` (the quantile and the clean
 basis), so the empty-present cases give the JAX package's values.
 
-The krum Gram ``x @ x.T`` is taken in full fp32 (:func:`_fp32_matmul`):
+The krum Gram ``x @ x.T`` is taken in full fp32 (:func:`full_fp32`):
 a TF32 product would round the ~1e-4 squared distances the selection
 compares.
 
@@ -46,7 +46,7 @@ import os
 
 import torch
 
-from .aggregate import _fp32_matmul, weighted_average
+from .aggregate import full_fp32, weighted_average
 
 # geomed's default smoothed-Weiszfeld iteration count
 GEOMED_ITERS_DEFAULT = 8
@@ -415,7 +415,7 @@ def directional_scores(params, stacked, present: torch.Tensor):
     which :func:`reputation_update` maps to zero evidence."""
     x = _flat_deltas(params, stacked)
     med = coordinatewise_median({"x": x}, present)["x"]
-    with _fp32_matmul():
+    with full_fp32():
         dot = x @ med
     nx = torch.sqrt(torch.sum(torch.square(x), dim=1))
     nm = torch.sqrt(torch.sum(torch.square(med)))
@@ -497,7 +497,7 @@ def krum_select(params, stacked, present: torch.Tensor, m: int):
     x = _flat_deltas(params, stacked)
     J = x.shape[0]
     sq = torch.sum(torch.square(x), dim=1)
-    with _fp32_matmul():
+    with full_fp32():
         gram = x @ x.T
     d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * gram, min=0.0)
     pb = present > 0

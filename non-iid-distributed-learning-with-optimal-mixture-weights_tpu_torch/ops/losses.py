@@ -14,8 +14,10 @@ The 4-way flag combination of the reference's local objective
 
 The norms use a zero-subgradient-at-zero form (``l2_norm_safe``), so
 autograd gives 0 at ``w == anchor`` (the first FedProx step) instead of
-NaN. The client-epoch kernel derives the same gradients by hand; these
-functions are its autograd-checkable statement.
+NaN. The client round's autograd route differentiates these functions
+for every model of the zoo; the client-epoch kernel derives the same
+gradients by hand for the linear model. The penalties visit the leaves
+in sorted key order, the JAX package's tree order.
 """
 
 from __future__ import annotations
@@ -63,15 +65,17 @@ def data_loss(params, apply_fn, x, y, mask, task: str):
 
 
 def prox_penalty(params: dict, anchor: dict) -> torch.Tensor:
-    """FedProx term: sum of per-leaf unsquared 2-norms of (w - anchor)."""
+    """FedProx term: sum of per-leaf unsquared 2-norms of (w - anchor),
+    the leaves in sorted key order (the JAX package's tree order)."""
     return torch.stack(
-        [l2_norm_safe(params[k] - anchor[k]) for k in params]).sum()
+        [l2_norm_safe(params[k] - anchor[k]) for k in sorted(params)]).sum()
 
 
 def ridge_penalty(params: dict) -> torch.Tensor:
-    """FedAMW term: sum of Frobenius norms of weight matrices (ndim>=2)."""
-    return torch.stack(
-        [l2_norm_safe(w) for w in params.values() if w.dim() >= 2]).sum()
+    """FedAMW term: sum of Frobenius norms of weight matrices (ndim>=2;
+    biases are exempt), in sorted key order."""
+    return torch.stack([l2_norm_safe(params[k]) for k in sorted(params)
+                        if params[k].dim() >= 2]).sum()
 
 
 def training_loss(params, anchor, apply_fn, x, y, mask, task: str,

@@ -5,10 +5,11 @@ one repeat, ``--device cpu``: the pickle has exactly the schema of the
 repository's ``exp.py`` and the JAX package's reader takes it, its rows
 are the port's algorithms called directly with the driver's arguments,
 the extension flags the port carries reach the algorithms the JAX
-driver sends them to (``--resume`` continues a partial run bit for bit,
-``--save_models`` writes checkpoints the JAX package reads), every flag
-it does not carry is refused with its ROADMAP.md item, and without a
-card the driver raises instead of running on the CPU.
+driver sends them to (``--model`` trains the zoo on raw features,
+``--resume`` continues a partial run bit for bit, ``--save_models``
+writes checkpoints the JAX package reads), every flag it does not carry
+is refused with its ROADMAP.md item, and without a card the driver
+raises instead of running on the CPU.
 """
 
 import pickle
@@ -106,8 +107,8 @@ def test_extension_flags_are_refused_with_their_roadmap_item(flag, capsys):
 
 def test_refused_flag_without_a_value(capsys):
     with pytest.raises(SystemExit):
-        exp.parse_args(["--model", "--round", "3"])
-    assert "item 13" in capsys.readouterr().err
+        exp.parse_args(["--publish_every", "--round", "3"])
+    assert "item 11" in capsys.readouterr().err
 
 
 def test_driver_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
@@ -155,7 +156,9 @@ def test_module_entry_point_from_the_repo_root(tmp_path):
     ("--multihost", None, "multihost", True),
     ("--coordinator", "127.0.0.1:29500", "coordinator", "127.0.0.1:29500"),
     ("--num_processes", "2", "num_processes", 2),
-    ("--process_id", "1", "process_id", 1)])
+    ("--process_id", "1", "process_id", 1),
+    ("--model", "mlp16", "model", "mlp16"),
+    ("--model", "conv4x8", "model", "conv4x8")])
 def test_ported_flags_parse(flag, value, attr, want):
     args = exp.parse_args(ARGV + [flag] + ([value] if value else []))
     assert getattr(args, attr) == want
@@ -176,7 +179,9 @@ def test_observability_flags_stay_out_of_the_resume_signature():
     (["--p_guard", "auto"], "expected 'none'"),
     (["--p_guard", "clip:0"], "clip radius"),
     (["--server_opt", "rmsprop"], "invalid choice"),
-    (["--feature_dtype", "int8"], "invalid choice")])
+    (["--feature_dtype", "int8"], "invalid choice"),
+    (["--model", "resnet"], "unknown model: resnet"),
+    (["--model", "mlpx"], "invalid literal")])
 def test_bad_extension_values_are_argparse_errors(argv, msg, capsys):
     with pytest.raises(SystemExit) as err:
         exp.parse_args(ARGV + argv)
@@ -269,6 +274,84 @@ def test_save_models_writes_checkpoints_the_jax_package_reads(tmp_path):
     assert avg["server_opt_kind"] == "sgd" and avg["server_opt"] == ()
     data = load_results(str(tmp_path / "res" / "exp1_digits.pkl"))
     assert avg["eval_acc"] == pytest.approx(data["test_acc"][3, -1, 0])
+
+
+# -- --model: the zoo through the driver -------------------------------------
+
+
+@pytest.mark.parametrize("model", ["mlp16", "conv4x8"])
+def test_zoo_driver_writes_the_schema_and_the_algorithms_rows(
+        model, tmp_path, capsys):
+    """``--model`` on digits at R=2: the pickle has ``exp.py``'s keys and
+    ``(6, R, 1)`` metric arrays (the JAX driver's layout for the same
+    flags), finite; the forced ``kernel_type`` is printed as the JAX
+    driver prints it; the setup is the model's on raw features, and for
+    the MLP each row is the port's algorithm called directly on it, bit
+    for bit (the conv goes through the same code; rerunning it doubles
+    the file's slowest case under the suite's six workers)."""
+    data = _run(tmp_path, "--model", model)
+    out = capsys.readouterr().out
+    assert (f"--model {model}: forcing kernel_type='linear' (identity "
+            "features; the registry's RFF map serves the linear "
+            "flagship)") in out
+    assert set(data) == KEYS and data["epochs"] == R
+    for k in ("train_loss", "test_loss", "test_acc"):
+        assert data[k].shape == (6, R, 1)
+        assert np.all(np.isfinite(data[k]))
+    prm = get_parameter("digits")
+    assert prm["kernel_type"] != "linear"
+    rng = np.random.RandomState(SEED)
+    ds = load_dataset("digits", 4, 0.01, rng=rng)
+    setup = prepare_setup(ds, D=64, kernel_par=prm["kernel_par"],
+                          kernel_type="linear", model=model, seed=SEED,
+                          rng=rng, device="cpu")
+    assert setup.model.name == model and setup.D == ds.d
+    if model != "mlp16":
+        return
+    runs = exp.run_paper_algorithms(
+        setup, rounds=R, local_epoch=1, batch_size=32, seed=SEED,
+        lr=prm["lr"], lr_p=prm["lr_p"], lr_p_os=prm["lr_p_os"],
+        mu=prm["lambda_prox"], lam=prm["lambda_reg"],
+        lam_os=prm["lambda_reg_os"])
+    for row, (name, res, _) in enumerate(runs):
+        for k in ("train_loss", "test_loss", "test_acc"):
+            np.testing.assert_array_equal(
+                data[k][row, :, 0], np.broadcast_to(np.float64(res[k]), (R,)),
+                err_msg=f"{name} {k}")
+
+
+def test_the_linear_model_prints_no_forcing(tmp_path, capsys):
+    _run(tmp_path, "--model", "linear", "--round", "1")
+    assert "forcing kernel_type" not in capsys.readouterr().out
+
+
+def test_model_signs_the_partial_and_a_changed_model_is_refused(tmp_path,
+                                                                  capsys):
+    assert exp.resume_config(exp.parse_args(ARGV))["model"] == "linear"
+    _run(tmp_path, "--model", "mlp16", "--round", "1")
+    with open(tmp_path / "exp1_digits.partial.pkl", "rb") as f:
+        assert pickle.load(f)["config"]["model"] == "mlp16"
+    with pytest.raises(SystemExit) as err:
+        _run(tmp_path, "--model", "conv4x8", "--round", "1", "--resume",
+             "--n_repeats", "2")
+    assert err.value.code == 2
+    assert "different configuration" in capsys.readouterr().err
+
+
+def test_a_partial_without_a_model_resumes_as_linear(tmp_path, capsys):
+    """A partial signed before ``--model`` was carried is a linear run
+    (the JAX driver's legacy default)."""
+    _run(tmp_path, "--round", "1")
+    ppath = tmp_path / "exp1_digits.partial.pkl"
+    with open(ppath, "rb") as f:
+        part = pickle.load(f)
+    del part["config"]["model"]
+    with open(ppath, "wb") as f:
+        pickle.dump(part, f)
+    _run(tmp_path, "--round", "1", "--resume")
+    assert "1 completed repeat(s) loaded" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        _run(tmp_path, "--round", "1", "--resume", "--model", "mlp16")
 
 
 @pytest.mark.cuda

@@ -24,7 +24,11 @@ streamed cohort at 4 shards (FedAvg; FedNova under the faults with
 ``quarantine:3``). And on the port's own draws (each rank draws the
 whole axis's keys and keeps its block): FedAvg on 4 buckets under
 participation 0.5, FedAMW, FedAMW_OneShot and the streamed FedAvg,
-held against the single-process run only.
+held against the single-process run only. Two cases run the zoo on raw
+features (``kernel_type="linear"``): FedAMW on ``mlp16`` (a multi-leaf
+aggregate all-reduced, the zoo's validation logits all-gathered) and
+FedAvg on ``conv4x8`` under the faults with ``quarantine:3+krum`` (the
+stacked multi-leaf updates all-gathered).
 
 Held: the two-rank run equals the port's single-process run and the JAX
 package's run on its 2-device virtual mesh within 1e-5 absolute and
@@ -63,7 +67,8 @@ SEED, LE, B, VB = 0, 2, 32, 16
 TOL = dict(rtol=1e-5, atol=1e-5)
 FAULTS = "drop=0.1,corrupt=0.05:nan,seed=7"
 ONESHOT = ("Centralized", "Distributed", "FedAMW_OneShot")
-# name -> (setup: buckets, algorithm, rounds, keywords)
+# name -> (setup: buckets, or a zoo model's name, algorithm, rounds,
+# keywords)
 CASES = {
     "avg": (1, "FedAvg", 2, {}),
     "prox": (1, "FedProx", 2, {}),
@@ -91,7 +96,12 @@ CASES = {
     "nova-stream4-quarantine": (1, "FedNova", 3, {
         "cohort_shards": 4, "stream_cohort": True, "faults": FAULTS,
         "robust_agg": "quarantine:3"}),
+    "mlp-amw": ("mlp16", "FedAMW", 2, {}),
+    "conv-avg-krum": ("conv4x8", "FedAvg", 3, {
+        "faults": FAULTS, "robust_agg": "quarantine:3+krum"}),
 }
+# the setups' names in the job, by their CASES key
+SETUPS = {1: "b1", 4: "b4", "mlp16": "mlp16", "conv4x8": "conv4x8"}
 # the port's own draws (nothing injected): each rank draws the whole
 # axis's keys and keeps its block, the streamed rank drops the draws of
 # the shards before its own; held against the single-process run only
@@ -106,27 +116,34 @@ ONE_RANK = ("amw", "amw-buckets4", "amw-krum", "amw-cohort4", "oneshot")
 
 
 @functools.lru_cache(maxsize=None)
-def _jsetup(buckets):
+def _jsetup(key):
+    """The JAX setup of a ``SETUPS`` key: RFF features in ``key`` size
+    buckets, or a zoo model's name on raw features."""
     ds = jload_dataset("digits", num_partitions=8, alpha=0.5)
+    if isinstance(key, str):
+        return J.prepare_setup(ds, D=64, kernel_type="linear", seed=3,
+                               rng=np.random.RandomState(3), model=key,
+                               client_multiple=2)
     return J.prepare_setup(ds, D=64, seed=3, rng=np.random.RandomState(3),
-                           buckets=buckets, client_multiple=2)
+                           buckets=key, client_multiple=2)
 
 
-def _arrays(buckets) -> dict:
+def _arrays(key) -> dict:
     """``setup_from_arrays`` keywords of the JAX setup, as numpy."""
-    sj = _jsetup(buckets)
+    sj = _jsetup(key)
     idx, mask = sj.round_arrays()
+    buckets = len(idx)
     if buckets == 1:
         idx, mask = idx[0], mask[0]
     np_ = np.asarray
-    return dict(
+    return dict(model=sj.model.name,
         task=sj.task, num_classes=sj.num_classes, X=np_(sj.X), y=np_(sj.y),
         X_val=np_(sj.X_val), y_val=np_(sj.y_val), X_test=np_(sj.X_test),
         y_test=np_(sj.y_test),
         idx=tuple(map(np_, idx)) if buckets > 1 else np_(idx),
         mask=tuple(map(np_, mask)) if buckets > 1 else np_(mask),
         sizes=np_(sj.sizes), p_fixed=np_(sj.p_fixed),
-        rff=tuple(map(np_, sj.rff)))
+        rff=None if sj.rff is None else tuple(map(np_, sj.rff)))
 
 
 def _kwargs(algo, rounds, extra):
@@ -182,7 +199,7 @@ def _case(name):
     else:
         inject = _inject(sj, algo, rounds=rounds,
                          participation=extra.get("participation"))
-    return f"b{buckets}", algo, _kwargs(algo, rounds, extra), inject
+    return SETUPS[buckets], algo, _kwargs(algo, rounds, extra), inject
 
 
 @pytest.fixture(scope="module")
@@ -190,7 +207,7 @@ def spawned(tmp_path_factory):
     """Every case on two gloo ranks and the ``ONE_RANK`` cases on one, in
     one spawned group."""
     tmp = tmp_path_factory.mktemp("ranks")
-    job = {"setups": {f"b{b}": _arrays(b) for b in (1, 4)},
+    job = {"setups": {name: _arrays(key) for key, name in SETUPS.items()},
            "cases": {name: _case(name) for name in {**CASES, **DRAWN}},
            "one_rank": ONE_RANK}
     with open(tmp / "job.pkl", "wb") as f:
@@ -212,7 +229,8 @@ def spawned(tmp_path_factory):
 def _single(name):
     """The port's single-process run of a case."""
     setup_name, algo, kwargs, inject = _case(name)
-    setup = setup_from_arrays(**_arrays(int(setup_name[1:])), device="cpu")
+    key = next(k for k, v in SETUPS.items() if v == setup_name)
+    setup = setup_from_arrays(**_arrays(key), device="cpu")
     return ALGORITHMS[algo](setup, **kwargs, **inject)
 
 

@@ -230,6 +230,44 @@ def test_conv_flops_from_the_flop_counter_match_the_analytic_count():
     assert got == (analytic, "torch-flop-counter")
 
 
+@pytest.mark.parametrize("name,side,classes,want", [
+    # tests/test_ops.py:296-297's hand count: 2*9*1*8*14*14 +
+    # 2*9*8*16*7*7 + 2*784*10
+    ("conv8x16", 28, 10, 156_800),
+    ("conv4x8", 8, 10, 2 * 9 * 1 * 4 * 4 * 4 + 2 * 9 * 4 * 8 * 2 * 2
+     + 2 * 32 * 10),
+    ("conv4", 7, 3, 2 * 9 * 1 * 4 * 4 * 4 + 2 * 64 * 3)])
+def test_the_ports_conv_model_counts_its_forward(name, side, classes, want):
+    """The port's own ``conv_model`` under the flop counter: exactly the
+    analytic count of its convolutions and head (the padding and ReLU
+    are not counted)."""
+    from fedamw_tpu_torch.models import get_model
+
+    m = get_model(name)
+    params = m.init(torch.Generator().manual_seed(0), side * side, classes)
+    assert tflops.fwd_flops_per_sample(
+        params, m.apply, d=side * side, with_provenance=True) == (
+        want, "torch-flop-counter")
+
+
+@pytest.mark.parametrize("name,d,classes", [("mlp64", 54, 7),
+                                            ("mlp128x64", 784, 10)])
+def test_the_ports_mlps_count_like_jax(name, d, classes):
+    """The MLPs keep the GEMM formula, equal to the JAX package's count
+    on its own ``mlp_model``."""
+    import jax
+
+    from fedamw_tpu.models import get_model as jget_model
+    from fedamw_tpu_torch.models import get_model
+
+    m = get_model(name)
+    tp = m.init(torch.Generator().manual_seed(0), d, classes)
+    jp = jget_model(name).init(jax.random.PRNGKey(0), d, classes)
+    got = tflops.fwd_flops_per_sample(tp, m.apply, d=d, with_provenance=True)
+    assert got == jflops.fwd_flops_per_sample(jp, with_provenance=True)
+    assert got[1] == "gemm-formula"
+
+
 def test_conv_without_apply_is_the_labelled_undercount():
     params = _conv_params()
     flops, basis = tflops.fwd_flops_per_sample(params, with_provenance=True)
