@@ -150,6 +150,29 @@ and read just after:
   mlp64 under drops and NaN reports with ``quarantine:3+krum``, 2 rounds,
   every verdict equal to its plain run's. Its launches are
   ``launches_by_path.zoo`` in the ``kernels`` line.
+- ``serve``: serving on the card (``fedamw_tpu_torch.serving``; no
+  kernel of its own: the forward is ``rff_map`` and the model's
+  ``apply``). (a) FedAMW's ``main_path`` checkpoint with its RFF draw,
+  ``ServingEngine.load`` on the default ladder (1, 8, 64, 512, 4096)
+  serving raw 784-wide rows: ``warmup()`` 5 and ``compile_count`` 5
+  throughout; the logits of every test row against ``model.apply`` on
+  the evaluator's features (bitwise, or within ``TOL_SERVE`` with the
+  same argmax, the largest difference reported) and the accuracy against
+  ``fedcore.make_evaluator``'s exactly; padding inert and a chunked
+  request its parts, bitwise; per rung p50/p99 (``LatencyHistogram``),
+  rows/s and ``pop_timings``' pad/dispatch split; ``device_attribution``
+  of the middle rung (it must read the profiler). (b) ``ServingService``
+  in continuous mode: 2,000 requests of 1..4,096 rows from 4 threads,
+  every future against ``predict`` of its rows, no shed, no retry,
+  p50/p99, requests/s, rows/s and the queue/pad/device split. (c) the
+  driver at R=3 with ``--save_models --publish_every 1`` (pickle bitwise
+  the ``driver`` phase's; its launches are ``launches_by_path.serve`` in
+  the ``kernels`` line), a ``CheckpointWatcher`` publishing
+  v0001..v0003 into a ``ModelRegistry``, three ``swap_weights`` under
+  live traffic with ``compile_count`` flat (swap p50), a
+  ``RolloutController`` shadow stage promoted, a sign-flipped candidate
+  rolled back by the parity gate. (d) ``zoo`` (a)'s mlp64 and (b)'s
+  conv8x16 FedAvg weights served as in (a).
 
 Output is one JSON object per line; the line before the last lists the
 kernels; the last line is the contract line ``{"ok": true, "device":
@@ -1548,6 +1571,7 @@ def zoo(timed, vs_plain, card):
 
     launches = {"client_epoch": 0, "p_epoch": 0}
     by_shape = {}
+    zoo_served = {}
 
     def counted(fn, s, **fkw):
         """A run on the kernels, counted, with the allocator's peak above
@@ -1689,6 +1713,10 @@ def zoo(timed, vs_plain, card):
                                     for v in ref["params"].values()),
                    "p_sum": float(res["p"].sum()),
                    "tol": TOL_RUN, "ok": ok}
+            if algo == "FedAvg":
+                # the weights the serve phase's (d) serves
+                zoo_served[name] = (res["params"], s.X_test, s.y_test,
+                                    cfg["model"])
             if algo == "FedAMW":
                 row["flops_note"] = "client local SGD only"
                 row["mixture"] = {k: v.tolist()
@@ -1769,7 +1797,403 @@ def zoo(timed, vs_plain, card):
             fail(f"the driver with --model {model}: {row}")
         for k in launches:
             launches[k] += got[k]
-    return launches, by_shape
+    return launches, by_shape, zoo_served
+
+
+# -- the serve phase ---------------------------------------------------------
+SERVE_REQUESTS = 2000   # (b): requests in the mixed stream
+SERVE_THREADS = 4       # (b): its submitting threads
+SERVE_WINDOW = 8        # (b): futures each thread keeps in flight
+SERVE_MAX_ROWS = 4096   # (b): the largest request, the top rung
+# A row served at another rung, or inside a coalesced batch, is another
+# row count for cuBLAS, which may choose another algorithm and so another
+# sum order; every comparison across rungs reports whether it was
+# bitwise and its largest difference, and is held at this tolerance and
+# to the same argmax. At one rung and one position the logits must be
+# bitwise. Accuracy against the evaluator is held exactly.
+TOL_SERVE = dict(atol=1e-5, rtol=1e-5)
+
+
+def logits_diff(a, b):
+    """(max abs difference, bitwise, within TOL_SERVE with equal argmax)
+    of two numpy logit arrays of one shape."""
+    import numpy as np
+
+    if a.shape != b.shape:
+        return float("inf"), False, False
+    d = float(np.max(np.abs(a - b))) if a.size else 0.0
+    near = bool(np.allclose(a, b, **TOL_SERVE)
+                and np.array_equal(a.argmax(-1), b.argmax(-1)))
+    return d, bool(np.array_equal(a, b)), near
+
+
+def rung_numbers(engine, X):
+    """Per rung of ``engine``: p50/p99 of ``predict``'s wall time
+    (``serving.LatencyHistogram``), rows/s, and ``pop_timings``' split
+    into padding and dispatch (the copy in, the forward, the copy out),
+    the rung's first rows of ``X`` repeated, after one warm call."""
+    from fedamw_tpu_torch.serving import LatencyHistogram
+
+    out = {}
+    for b in engine.buckets:
+        Xb = X[:b].copy()
+        reps = 50 if b <= 512 else 20
+        engine.predict(Xb)
+        engine.pop_timings()
+        hist = LatencyHistogram()
+        pad = disp = wall = 0.0
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            engine.predict(Xb)
+            dt = time.perf_counter() - t0
+            hist.record(dt)
+            wall += dt
+            t = engine.pop_timings()
+            pad += t["pad_s"]
+            disp += t["dispatch_s"]
+        out[str(b)] = {**hist.percentiles((50, 99)), "reps": reps,
+                       "rows_per_s": b * reps / wall,
+                       "pad_ms": 1e3 * pad / reps,
+                       "dispatch_ms": 1e3 * disp / reps,
+                       "h2d_bytes": int(Xb.nbytes)}
+    return out
+
+
+def serve_engine(label, engine, X, y, model, params, X_eval, card):
+    """The checks of one engine on the card (the ``serve`` phase's (a)
+    and (d)): the warmed ladder's shape count, the logits on every test
+    row against ``model.apply`` under ``full_fp32`` on the evaluator's
+    features and the accuracy against ``fedcore.make_evaluator``'s
+    exactly, inert padding and chunked requests bitwise, the per-rung
+    numbers and ``device_attribution`` of the middle rung (it must read
+    the profiler). ``X``/``y``: the raw test rows (numpy) and labels (on
+    the card); ``X_eval``: the evaluator's feature matrix on the card.
+    Returns the row it emitted."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch.fedcore import make_evaluator
+    from fedamw_tpu_torch.fedcore.aggregate import full_fp32
+    from fedamw_tpu_torch.ops.metrics import top1_correct
+
+    warm = engine.warmup()
+    t0 = time.perf_counter()
+    served = engine.predict(X)
+    served_s = time.perf_counter() - t0
+    with torch.no_grad(), full_fp32():
+        ref = model.apply(params, X_eval).cpu().numpy()
+    d_apply, bit_apply, near_apply = logits_diff(served, ref)
+    _, acc = make_evaluator(model.apply, "classification")(
+        params, X_eval, y)
+    served_acc = float(100.0 * torch.mean(top1_correct(
+        torch.from_numpy(served).to(y.device), y)))
+    # padding: the same rung with other rows in the pad (bitwise), and a
+    # larger rung (across rungs)
+    x5 = X[:5]
+    alone = engine.predict(x5)
+    filled = engine.predict(X[:8])[:5]
+    across = engine.predict(X[:40])[:5]
+    d_pad, bit_pad_rung, _ = logits_diff(alone, filled)
+    d_across, bit_across, near_across = logits_diff(alone, across)
+    # chunking: 5000 rows are two top-rung dispatches, each bitwise its
+    # own request's
+    top = engine.buckets[-1]
+    X5k = np.resize(X, (top + 904, X.shape[1]))  # rows repeat if too few
+    whole = engine.predict(X5k)
+    parts = np.concatenate([engine.predict(X5k[:top]),
+                            engine.predict(X5k[top:])])
+    _, bit_chunk, _ = logits_diff(whole, parts)
+    numbers = rung_numbers(engine, X)
+    attr = engine.device_attribution()
+    row = {"phase": "serve", "case": label, "card": card,
+           "buckets": list(engine.buckets), "warmup_shapes": warm,
+           "compile_count": engine.compile_count,
+           "rows": int(X.shape[0]), "input_dim": engine.input_dim,
+           "serve_all_rows_s": served_s,
+           "logits_vs_apply": {"max_abs": d_apply, "bitwise": bit_apply,
+                               "within_tol": near_apply},
+           "accuracy_served": served_acc, "accuracy_evaluator": float(acc),
+           "padding_bitwise_at_one_rung": bit_pad_rung,
+           "padding_max_abs_at_one_rung": d_pad,
+           "across_rungs": {"max_abs": d_across, "bitwise": bit_across,
+                            "within_tol": near_across},
+           "chunked_equals_parts_bitwise": bit_chunk,
+           "per_rung": numbers,
+           "device_attribution": {k: attr.get(k) for k in (
+               "source", "bucket", "compute_fraction", "reason",
+               "device_busy_s", "host_s")},
+           "tol": TOL_SERVE}
+    row["ok"] = (warm == len(engine.buckets) == 5
+                 and engine.compile_count == 5
+                 and (bit_apply or near_apply)
+                 and served_acc == float(acc)
+                 and bit_pad_rung and (bit_across or near_across)
+                 and bit_chunk and attr.get("source") == "profiler")
+    emit(row)
+    if not row["ok"]:
+        fail(f"serve {label}: {row}")
+    return row
+
+
+def serve_stream(engine, X):
+    """(b): ``ServingService`` in continuous mode under ``SERVE_THREADS``
+    submitting threads, each with ``SERVE_WINDOW`` futures in flight:
+    ``SERVE_REQUESTS`` requests of 1..``SERVE_MAX_ROWS`` rows (log-uniform)
+    sliced from ``X``. Every future against ``engine.predict`` of its
+    rows alone; no shed and no retry; the snapshot's latency, throughput
+    and stage split."""
+    import collections
+    import threading
+
+    import numpy as np
+
+    from fedamw_tpu_torch.serving import ServingService
+
+    rng = np.random.RandomState(SEED)
+    sizes = np.clip(np.exp(rng.uniform(0, np.log(SERVE_MAX_ROWS),
+                                       SERVE_REQUESTS)).astype(int),
+                    1, SERVE_MAX_ROWS)
+    offs = rng.randint(0, X.shape[0] - sizes + 1)
+    reqs = [X[o:o + n] for o, n in zip(offs, sizes)]
+    cc = engine.compile_count
+    results, errors = {}, []
+    with ServingService(engine, max_queue=4 * SERVE_THREADS * SERVE_WINDOW,
+                        mode="continuous") as svc:
+        def client(k):
+            window = collections.deque()
+            try:
+                for i in range(k, SERVE_REQUESTS, SERVE_THREADS):
+                    window.append((i, svc.submit(reqs[i])))
+                    if len(window) >= SERVE_WINDOW:
+                        j, f = window.popleft()
+                        results[j] = f.result(timeout=120)
+                while window:
+                    j, f = window.popleft()
+                    results[j] = f.result(timeout=120)
+            except Exception as e:  # reported below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        snap = svc.metrics.snapshot(engine)
+    worst, bitwise, near = 0.0, 0, 0
+    for i, x in enumerate(reqs):
+        if i not in results:
+            continue
+        d, bit, ok = logits_diff(results[i], engine.predict(x))
+        worst = max(worst, d)
+        bitwise += bit
+        near += bit or ok
+    stages = {k: v for k, v in snap.items()
+              if k.split("_")[0] in ("queue", "pad", "device")
+              and k.endswith("_ms")}
+    row = {"phase": "serve", "case": "b service continuous",
+           "requests": SERVE_REQUESTS, "threads": SERVE_THREADS,
+           "in_flight_per_thread": SERVE_WINDOW,
+           "rows": int(sizes.sum()), "rows_min": int(sizes.min()),
+           "rows_max": int(sizes.max()), "wall_s": wall,
+           "requests_per_s": SERVE_REQUESTS / wall,
+           "rows_per_s": float(sizes.sum()) / wall,
+           "p50_ms": snap.get("p50_ms"), "p99_ms": snap.get("p99_ms"),
+           "batches": snap["batches"],
+           "mean_batch_rows": snap["mean_batch_rows"],
+           "sheds": {k: snap[k] for k in ("shed_deadline", "shed_overload",
+                                          "shed_shutdown",
+                                          "shed_admission")},
+           "retries": snap["retries"], "stages_ms": stages,
+           "vs_predict": {"max_abs": worst, "bitwise": bitwise,
+                          "within_tol": near, "of": len(results)},
+           "compile_count": engine.compile_count, "errors": errors[:3]}
+    row["ok"] = (not errors and len(results) == SERVE_REQUESTS
+                 and near == SERVE_REQUESTS
+                 and snap["requests"] == SERVE_REQUESTS
+                 and not any(row["sheds"].values())
+                 and snap["retries"] == 0 and engine.compile_count == cc)
+    emit(row)
+    if not row["ok"]:
+        fail(f"serve (b): {row}")
+
+
+def serve(ds, setup, amw_res, driver_data, card, zoo_served):
+    """The ``serve`` phase: (a) FedAMW's ``main_path`` checkpoint with its
+    RFF draw, loaded by ``ServingEngine.load`` on the default ladder and
+    serving raw 784-wide rows; (b) ``ServingService`` under a mixed
+    stream; (c) the driver at R=3 with ``--save_models --publish_every
+    1`` (its pickle bitwise the ``driver`` phase's, its launches counted),
+    a ``CheckpointWatcher`` publishing v0001..v0003 into a
+    ``ModelRegistry``, three swaps under live traffic, a shadow rollout
+    promoted and a sign-flipped candidate rolled back by the parity gate;
+    (d) the zoo's FedAvg weights (mlp64, conv8x16) served. Returns the
+    launches of (c)'s driver run."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch import exp
+    from fedamw_tpu_torch.models import get_model
+    from fedamw_tpu_torch.serving import (CheckpointWatcher, ModelRegistry,
+                                          RolloutController, ServingEngine,
+                                          ServingService)
+    from fedamw_tpu_torch.utils import save_checkpoint
+
+    t_phase = time.perf_counter()
+    X_raw = np.ascontiguousarray(np.asarray(ds.X_test, np.float32))
+    y = setup.y_test
+    eval_acc = float(np.asarray(amw_res["test_acc"])[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the main configuration's checkpoint at full width
+        ck = os.path.join(tmp, "main_FedAMW")
+        save_checkpoint(ck, amw_res["params"], p=amw_res["p"],
+                        round_idx=ROUNDS, rff=setup.rff,
+                        extra={"eval_acc": eval_acc})
+        t0 = time.perf_counter()
+        engine = ServingEngine.load(ck)
+        load_s = time.perf_counter() - t0
+        row = serve_engine("a main FedAMW (mnist, RFF D=2000)", engine,
+                           X_raw, y, setup.model, amw_res["params"],
+                           setup.X_test, card)
+        if engine.rff is None or engine.input_dim != X_raw.shape[1]:
+            fail(f"serve (a): the engine does not map raw rows: "
+                 f"{engine.input_dim}")
+        emit({"phase": "serve", "case": "a load", "seconds": load_s,
+              "weights_bytes": sum(int(v.numel()) * 4 for v in
+                                   engine.params.values()),
+              "rff_bytes": sum(int(t.numel()) * 4 for t in engine.rff)})
+
+        # (b) the service under a mixed stream
+        serve_stream(engine, X_raw)
+
+        # (c) the train->serve loop
+        ckdir = os.path.join(tmp, "published")
+        reset_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            path = exp.main(["--dataset", "mnist", "--round", str(ROUNDS),
+                             "--seed", str(SEED), "--result_dir",
+                             os.path.join(tmp, "res"), "--save_models",
+                             ckdir, "--publish_every", "1"])
+        drv_s = time.perf_counter() - t0
+        c = counts()
+        launches = {k: c[k] for k in ("client_epoch", "p_epoch")}
+        want = {"client_epoch": 6 * EPOCHS * ROUNDS,
+                "p_epoch": ROUNDS * ROUNDS + ROUNDS}
+        with open(path, "rb") as f:
+            seg = pickle.load(f)
+        same = all(np.array_equal(seg[k], driver_data[k])
+                   for k in ("train_loss", "test_loss", "test_acc",
+                             "heterogeneity"))
+        reg = ModelRegistry()
+        watcher = CheckpointWatcher(
+            reg, os.path.join(ckdir, "mnist_FedAMW_repeat0"),
+            poll_interval_s=0.05)
+        with watcher:
+            deadline = time.time() + 60
+            while len(watcher.published) < ROUNDS and time.time() < deadline:
+                time.sleep(0.05)
+        names = [n for n, _ in watcher.published]
+        versions = [v for _, v in watcher.published]
+        rounds = [reg.get(v).round_idx for v in versions]
+
+        # three swaps under live traffic, then a shadow rollout promoted
+        # and a sign-flipped candidate rolled back
+        cc = engine.compile_count
+        stop, served, errors = threading.Event(), [0], []
+        swap_ms = []
+        with ServingService(engine, max_queue=64) as svc:
+            def traffic():
+                rng = np.random.RandomState(1)
+                try:
+                    while not stop.is_set():
+                        n = int(rng.randint(1, 600))
+                        o = int(rng.randint(0, X_raw.shape[0] - n))
+                        svc.submit(X_raw[o:o + n]).result(timeout=60)
+                        served[0] += 1
+                except Exception as e:  # reported below
+                    errors.append(repr(e))
+
+            th = threading.Thread(target=traffic)
+            th.start()
+            time.sleep(0.2)
+            for v in versions:
+                entry = reg.get(v)
+                t0 = time.perf_counter()
+                engine.swap_weights(entry.params, rff=entry.rff, version=v)
+                swap_ms.append(1e3 * (time.perf_counter() - t0))
+                svc.metrics.record_swap(
+                    v, staleness_rounds=reg.staleness_rounds(v))
+                time.sleep(0.2)
+            live_after_swaps = engine.version
+            cand = reg.publish({k: v.cpu().numpy() for k, v in
+                                amw_res["params"].items()},
+                               rff=tuple(t.cpu().numpy()
+                                         for t in setup.rff),
+                               round_idx=ROUNDS,
+                               metadata={"eval_acc": eval_acc})
+            ctl = RolloutController(svc, reg, mode="shadow", fraction=1.0,
+                                    min_requests=20, error_budget=0,
+                                    parity_data=(X_raw, y.cpu().numpy()))
+            staged = ctl.stage(cand)
+            deadline = time.time() + 60
+            while engine.version != cand and time.time() < deadline:
+                time.sleep(0.05)
+            promoted = engine.version == cand
+            live = reg.get(cand)
+            flipped = reg.publish({k: -v for k, v in live.params.items()},
+                                  rff=live.rff, round_idx=ROUNDS,
+                                  metadata={"eval_acc": eval_acc})
+            flip_staged = ctl.stage(flipped)
+            stop.set()
+            th.join(timeout=120)
+            snap = svc.metrics.snapshot(engine)
+        ctl.detach()
+        gate = ctl.events[-1]
+    row = {"phase": "serve", "case": "c train->serve loop", "card": card,
+           "driver_seconds": drv_s, "pickle_bitwise_driver_phase": same,
+           "published": names, "registry_rounds": rounds,
+           "launches": launches, "launches_expected": want,
+           "swaps": len(swap_ms), "swap_p50_ms": float(np.median(swap_ms)),
+           "swap_ms": swap_ms, "live_after_swaps": live_after_swaps,
+           "requests_during": served[0], "traffic_errors": errors[:3],
+           "compile_count_before": cc, "compile_count": engine.compile_count,
+           "shadow_staged": staged, "shadow_promoted": promoted,
+           "shadow_requests": snap["shadow_requests"],
+           "flipped_staged": flip_staged, "rollback_event": gate.get("event"),
+           "flipped_gate": gate.get("gate"),
+           "rollbacks": snap["rollbacks"],
+           "installed_after": engine.versions_installed}
+    row["ok"] = (same and names == ["v0001", "v0002", "v0003"]
+                 and rounds == [1, 2, 3] and launches == want
+                 and len(swap_ms) == 3 and live_after_swaps == versions[-1]
+                 and not errors and served[0] > 0
+                 and engine.compile_count == cc and staged and promoted
+                 and not flip_staged and gate.get("event") == "rollback"
+                 and flipped not in engine.versions_installed)
+    emit(row)
+    if not row["ok"]:
+        fail(f"serve (c): {row}")
+
+    # (d) the zoo's engines
+    for name, (params, X_zoo, y_zoo, model_name) in zoo_served.items():
+        model = get_model(model_name)
+        kw = ({"model": model_name, "input_dim": int(X_zoo.shape[1])}
+              if model_name.startswith("conv") else {})
+        zeng = ServingEngine({k: v for k, v in params.items()}, **kw)
+        serve_engine(f"d {name} FedAvg ({model_name})", zeng,
+                     X_zoo.cpu().numpy(), y_zoo, model, params, X_zoo, card)
+        del zeng
+    del engine
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "case": "total",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def trace_categories(trace_dir):
@@ -2795,10 +3219,17 @@ def main():
              f"or gave non-finite metrics (finite={finite})")
 
     # -- 10b. the model zoo at scale_bench.py's widths ---------------------
-    zoo_launches, zoo_shapes = zoo(timed, vs_plain, card)
+    zoo_launches, zoo_shapes, zoo_served = zoo(timed, vs_plain, card)
     for row in kernels[:2]:
         row["launches_by_path"]["zoo"] = zoo_launches[row["name"]]
     split_row["by_shape"].update(zoo_shapes)
+
+    # -- 10c. serving: checkpoint -> engine -> service, train -> serve -----
+    serve_launches = serve(ds, setup, runs["FedAMW"][0], data, card,
+                           zoo_served)
+    del zoo_served
+    for row in kernels[:2]:
+        row["launches_by_path"]["serve"] = serve_launches[row["name"]]
 
     # -- 11. two ranks sharing the card (the ranks phase's (c)) -------------
     two_ranks_one_card(setup, kw, amw_kw, timed, vs_plain, card, rank_refs)

@@ -72,7 +72,14 @@ the partial, the checkpoints, the trace and the telemetry; rank 0's
 ``linear``, ``mlp64``, ``mlp128x64``, ``conv8x16``, ...); a model other
 than the linear one forces ``kernel_type="linear"`` (identity features)
 and says so, as the JAX driver does, and the name signs the partial.
-``--publish_every`` is refused with a pointer to its ROADMAP.md item.
+``--publish_every N`` (with ``--save_models DIR``) runs FedAvg, FedProx
+and FedAMW in N-round segments, each resumed from the last one's state,
+and publishes a servable checkpoint at every boundary,
+``DIR/{dataset}_{algorithm}_repeat{t}/vNNNN`` — the train side of the
+train->serve loop (``serving.CheckpointWatcher`` feeds a
+``serving.ModelRegistry`` from it); the stitched metrics and so the
+pickle are the unsegmented run's, bit for bit. It is refused where the
+JAX driver refuses it, with its messages.
 """
 
 from __future__ import annotations
@@ -110,28 +117,9 @@ from .utils.reporting import (format_defense_report, format_fault_report,
                               format_trace_summary)
 
 NAMES = ["CL", "DL", "FedAMW_OneShot", "FedAvg", "FedProx", "FedAMW"]
-
-# exp.py's flags that the port does not carry, and the ROADMAP.md item
-# that will bring each
-_REFUSED = {
-    "--publish_every": "queue 1 item 11 (serving's model registry)",
-}
-
-
-class _Refused(argparse.Action):
-    """A flag the port does not carry: using it is an argparse error that
-    names its ROADMAP.md item. It takes an optional value so that
-    ``--flag VALUE`` is refused the same way as ``--flag``."""
-
-    def __init__(self, option_strings, dest, item, **kw):
-        self.item = item
-        super().__init__(option_strings, dest, nargs="?",
-                         default=argparse.SUPPRESS,
-                         help=f"not ported yet (ROADMAP.md, {item})", **kw)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported to fedamw_tpu_torch "
-                     f"yet (see ROADMAP.md, {self.item})")
+# the driver's round-based algorithms: checkpointed by --save_models,
+# segmented by --publish_every
+ROUND_BASED = ("FedAvg", "FedProx", "FedAMW")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -222,6 +210,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="checkpoint each round-based algorithm's final "
                          "weights, p and optimizer state under "
                          "DIR/{dataset}_{algorithm}_repeat{t}")
+    ap.add_argument("--publish_every", type=int, default=0, metavar="N",
+                    help="(requires --save_models) run the round-based "
+                         "algorithms in N-round segments and publish a "
+                         "model checkpoint at every boundary "
+                         "(DIR/{dataset}_{algo}_repeatT/vNNNN) — the "
+                         "train side of the online train->serve loop: "
+                         "each version is ingestible by "
+                         "serving.ModelRegistry. 0 = one checkpoint at "
+                         "the end")
     ap.add_argument("--resume", action="store_true",
                     help="load exp1_{dataset}.partial.pkl (written after "
                          "every completed repeat) and skip the finished "
@@ -278,8 +275,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "one forces kernel_type='linear' (identity "
                          "features: RFF-mapped features are not raw "
                          "inputs; conv also needs square images)")
-    for flag, item in _REFUSED.items():
-        ap.add_argument(flag, action=_Refused, item=item)
     args = ap.parse_args(argv)
     try:  # validated here, not after hours of repeats
         resolve_p_guard(args.p_guard)
@@ -290,8 +285,37 @@ def parse_args(argv=None) -> argparse.Namespace:
     except ValueError as e:
         ap.error(str(e))
     _check_cohort_flags(ap, args, spec)
+    _check_publish_flags(ap, args)
     _check_rank_flags(ap, args)
     return args
+
+
+def _check_publish_flags(ap, args) -> None:
+    """``--publish_every`` refused where the JAX driver refuses it
+    (``exp.py:311-337``), with its messages. The JAX driver's refusal of
+    a non-JAX backend has no counterpart here."""
+    if not args.publish_every:
+        return
+    if args.publish_every < 0:
+        ap.error(f"--publish_every must be >= 0, got {args.publish_every}")
+    if not args.save_models:
+        ap.error("--publish_every needs --save_models DIR: the "
+                 "published versions ARE checkpoints under it")
+    if args.multihost:
+        ap.error("--publish_every is single-host for now (the "
+                 "publisher is the serving loop's feeder; "
+                 "multihost runs write checkpoints once at the "
+                 "end)")
+    if args.faults is not None or args.robust_agg != "mean":
+        ap.error("--publish_every currently composes with the "
+                 "clean path only: the per-round fault/defense "
+                 "telemetry is not stitched across segments yet "
+                 "(use --resume for preemption durability of "
+                 "defended runs)")
+    if args.resume:
+        ap.error("--publish_every and --resume do not compose: "
+                 "segmented runs already checkpoint every N "
+                 "rounds; resume from the newest vNNNN instead")
 
 
 def _check_rank_flags(ap, args) -> None:
@@ -330,6 +354,9 @@ def _check_cohort_flags(ap, args, spec) -> None:
                  "yet; model dropout through --faults drop= instead")
     if args.server_opt != "none":
         ap.error("--stream_cohort does not compose with --server_opt yet")
+    if args.publish_every:
+        ap.error("--stream_cohort does not support segmented "
+                 "--publish_every runs yet")
     if args.cohort_shards > MAX_COHORT_SHARDS:
         ap.error(f"--stream_cohort --cohort_shards {args.cohort_shards}: "
                  f"FedAMW falls back to in-graph sharding (its p-solve "
@@ -356,13 +383,16 @@ def run_paper_algorithms(setup, *, rounds, local_epoch, batch_size, seed, lr,
                          verbose=False, sequential=False, participation=1.0,
                          server_opt="none", server_lr=1.0, p_guard="none",
                          faults=None, robust_agg="mean", cohort_shards=0,
-                         stream_cohort=False, return_state=False):
+                         stream_cohort=False, return_state=False,
+                         round_algo=None):
     """The six algorithms of one repeat in the driver's row order
     (``NAMES``), with ``exp.py``'s arguments (``exp.py:813-914``): the
     extensions go where the JAX driver sends them (module docstring);
     ``faults`` and ``robust_agg`` to FedAvg, FedProx and FedAMW;
     ``cohort_shards`` to the same three, ``stream_cohort`` to FedAvg and
-    FedProx only (``exp.py:855-869``).
+    FedProx only (``exp.py:855-869``). ``round_algo(fn, name, **kw)``
+    runs the three round-based algorithms in place of ``fn(setup,
+    **kw)`` (``--publish_every``'s segmented loop, ``_run_segmented``).
     Returns ``[(name, result, wall_seconds), ...]``; each result has come
     back to the host, so its seconds include the device's work."""
     common = dict(batch_size=batch_size, seed=seed, sequential=sequential)
@@ -391,7 +421,10 @@ def run_paper_algorithms(setup, *, rounds, local_epoch, batch_size, seed, lr,
     out = []
     for name, algo, kw in calls:
         t0 = time.perf_counter()
-        res = ALGORITHMS[algo](setup, **kw)
+        if round_algo is not None and algo in ROUND_BASED:
+            res = round_algo(ALGORITHMS[algo], name, **kw)
+        else:
+            res = ALGORITHMS[algo](setup, **kw)
         out.append((name, res, time.perf_counter() - t0))
     return out
 
@@ -487,21 +520,76 @@ def _load_partial(args, partial_path, mats, hete) -> int:
     return k
 
 
-def _save_models(args, setup, name, res, t) -> None:
-    """``--save_models``: one round-based algorithm's final state, with
-    the optimizer state and the defense state (``reputation``, ``zq``)
-    that make a resume exact and the final accuracy (JAX
-    ``exp.py:668-680,927-960``)."""
+def _ckpt_extra(res) -> dict:
+    """The checkpoint ``extra`` of one round-based result (JAX
+    ``exp.py:682-692``): the optimizer state that makes a resume exact
+    and the final evaluation accuracy the serving rollout's parity gate
+    checks against."""
     extra = {k: res[k] for k in ("p_opt", "server_opt", "server_opt_kind")
              if k in res}
     extra["eval_acc"] = float(np.asarray(res["test_acc"])[-1])
-    where = save_checkpoint(
-        os.path.join(args.save_models, f"{args.dataset}_{name}_repeat{t}"),
-        res["params"], p=res["p"], round_idx=args.round, extra=extra,
-        rff=setup.rff, feature_dtype=args.feature_dtype,
+    return extra
+
+
+def _write_checkpoint(path, res, round_idx, rff, feature_dtype) -> str:
+    """One round-based result's state under ``path``: the weights, p, the
+    round, ``_ckpt_extra``, the RFF draw (serving takes raw rows), the
+    ``feature_dtype`` marker and the defense state (``reputation``,
+    ``zq``) — ONE writer for ``--save_models`` and every
+    ``--publish_every`` boundary, so the two cannot drift."""
+    return save_checkpoint(
+        path, res["params"], p=res["p"], round_idx=round_idx,
+        extra=_ckpt_extra(res), rff=rff, feature_dtype=feature_dtype,
         reputation=res.get("reputation"),
         defense_state={"zq": res["zq"]} if "zq" in res else None)
+
+
+def _save_models(args, setup, name, res, t) -> None:
+    """``--save_models``: one round-based algorithm's final state (JAX
+    ``exp.py:927-960``)."""
+    where = _write_checkpoint(
+        os.path.join(args.save_models, f"{args.dataset}_{name}_repeat{t}"),
+        res, args.round, setup.rff, args.feature_dtype)
     print(f"{name}: checkpoint -> {where}")
+
+
+def _run_segmented(algo_fn, name, setup, publish_every, R, rff,
+                   feat_dtype, save_dir, dataset, repeat, writer=True,
+                   **kwargs):
+    """``--publish_every``: one round-based algorithm as a PUBLISHING
+    round loop (JAX ``exp.py:695-750``) — N-round segments, a checkpoint
+    at every boundary (``DIR/{dataset}_{name}_repeat{T}/vNNNN``, rank 0's
+    alone over ranks). Segment k resumes from segment k-1's returned
+    state (params, p, optimizer state, reputation, zq), and every
+    per-round stream is drawn for the whole horizon and sliced, so the
+    stitched metrics are the uninterrupted run's."""
+    kwargs = dict(kwargs)
+    kwargs.pop("round", None)
+    kwargs.pop("return_state", None)
+    base = os.path.join(save_dir, f"{dataset}_{name}_repeat{repeat}")
+    state = None
+    chunks = []
+    res = None
+    for k0 in range(0, R, publish_every):
+        k1 = min(R, k0 + publish_every)
+        res = algo_fn(setup, round=R, start_round=k0, stop_round=k1,
+                      resume_from=state, return_state=True, **kwargs)
+        # only the per-round metric streams of each segment are kept
+        chunks.append({k: np.asarray(res[k]) for k in
+                       ("train_loss", "test_loss", "test_acc")})
+        state = {k: res[k] for k in ("params", "p", "p_opt",
+                                     "server_opt", "server_opt_kind",
+                                     "reputation", "zq") if k in res}
+        final_path = os.path.join(base, f"v{k1:04d}")
+        if writer:
+            where = _write_checkpoint(final_path, res, k1, rff, feat_dtype)
+            print(f"{name}: published round-{k1} model -> {where}")
+    out = dict(res)
+    for key in ("train_loss", "test_loss", "test_acc"):
+        out[key] = np.concatenate([c[key] for c in chunks])
+    # where the last boundary's (== final) checkpoint lives
+    out["published_final"] = final_path
+    return out
 
 
 def _start_profiler(device):
@@ -704,6 +792,13 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
                   if args.stream_cohort else
                   "cohort plane: in-graph two-tier aggregation over "
                   f"{args.cohort_shards} client shards")
+        round_algo = None
+        if args.publish_every:
+            def round_algo(fn, name, **kw):
+                return _run_segmented(
+                    fn, name, setup, args.publish_every, R, setup.rff,
+                    args.feature_dtype, args.save_models, args.dataset, t,
+                    writer=writer, **kw)
         t0 = time.perf_counter()
         runs = run_paper_algorithms(
             setup, rounds=R, local_epoch=args.local_epoch,
@@ -717,7 +812,7 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
             p_guard=args.p_guard, faults=faults, robust_agg=args.robust_agg,
             cohort_shards=args.cohort_shards,
             stream_cohort=args.stream_cohort,
-            return_state=bool(args.save_models))
+            return_state=bool(args.save_models), round_algo=round_algo)
         for row, (name, res, secs) in enumerate(runs):
             train_mat[row, :, t] = res["train_loss"]
             error_mat[row, :, t] = res["test_loss"]
@@ -728,7 +823,11 @@ def _run_repeats(args, device, params, lr, lr_p, start, partial_path, mats,
                 print(format_fault_report(name, res["fault_counts"]))
             if "defense" in res:
                 print(format_defense_report(name, res["defense"]))
-            if "params" in res and writer:
+            if "params" in res and writer and "published_final" in res:
+                # the final state IS the last published version
+                print(f"{name}: final model already published -> "
+                      f"{res['published_final']}")
+            elif "params" in res and writer:
                 _save_models(args, setup, name, res, t)
         print(f"[repeat {t}] wall time {time.perf_counter() - t0:.1f}s "
               f"(device={device})")

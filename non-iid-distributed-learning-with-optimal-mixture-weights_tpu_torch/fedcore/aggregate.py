@@ -20,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 from typing import Callable
 
 import torch
@@ -42,21 +43,36 @@ def weighted_average(stacked_params: dict, p: torch.Tensor,
     return out
 
 
+# the settings are process-global: blocks entered from several threads at
+# once (the serving worker and its shadow-probe thread) share one hold,
+# set by the first to enter and restored by the last to leave
+_FP32_LOCK = threading.Lock()
+_FP32_HOLD = {"depth": 0, "prev": None}
+
+
 @contextlib.contextmanager
 def full_fp32():
     """Full fp32 products and convolutions inside the block (no TF32 on
     the card: matmul precision ``"highest"``, cuDNN without TF32, which
     PyTorch allows for convolutions by default), the previous settings
-    restored after it."""
-    prev = (torch.get_float32_matmul_precision(),
-            torch.backends.cudnn.allow_tf32)
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cudnn.allow_tf32 = False
+    restored after it. Safe to enter from several threads at once and to
+    nest: the settings hold until the last open block ends."""
+    with _FP32_LOCK:
+        if _FP32_HOLD["depth"] == 0:
+            _FP32_HOLD["prev"] = (torch.get_float32_matmul_precision(),
+                                  torch.backends.cudnn.allow_tf32)
+            torch.set_float32_matmul_precision("highest")
+            torch.backends.cudnn.allow_tf32 = False
+        _FP32_HOLD["depth"] += 1
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev[0])
-        torch.backends.cudnn.allow_tf32 = prev[1]
+        with _FP32_LOCK:
+            _FP32_HOLD["depth"] -= 1
+            if _FP32_HOLD["depth"] == 0:
+                prev = _FP32_HOLD["prev"]
+                torch.set_float32_matmul_precision(prev[0])
+                torch.backends.cudnn.allow_tf32 = prev[1]
 
 
 def segment_weighted_sums(stacked_params: dict, p: torch.Tensor,

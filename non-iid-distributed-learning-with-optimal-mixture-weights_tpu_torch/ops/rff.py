@@ -31,11 +31,21 @@ def rff_params(generator: torch.Generator, d: int, D: int, sigma: float):
     return W, b
 
 
-def rff_map(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``phi(X) = cos(X W + b) / sqrt(D)``."""
-    D = W.shape[1]
+def rff_scale(D: int, device=None) -> torch.Tensor:
+    """``sqrt(D)`` as the 0-d float32 tensor ``rff_map`` divides by."""
     scale = torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
-    return torch.cos(X @ W + b) / scale.to(X.device)
+    return scale if device is None else scale.to(device)
+
+
+def rff_map(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+            scale: torch.Tensor | None = None) -> torch.Tensor:
+    """``phi(X) = cos(X W + b) / sqrt(D)``. ``scale`` is
+    ``rff_scale(D, X.device)`` made once by a caller that maps many
+    batches (the serving engine), so no call copies it to the card; the
+    result is the same bits."""
+    if scale is None:
+        scale = rff_scale(W.shape[1], X.device)
+    return torch.cos(X @ W + b) / scale
 
 
 def rff_map_to(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,

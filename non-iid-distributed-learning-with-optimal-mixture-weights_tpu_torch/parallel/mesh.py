@@ -25,6 +25,15 @@ test sets, the ``(J,)`` vectors (``sizes``, ``p_fixed``, p, the
 participation draw, the fault plan's rows), the global weights. Every
 random draw is made whole and sliced (``ClientAxis``), so a rank's
 clients see the shuffles the single-process run gives them.
+
+Serving splits another axis: the rows of a padded request rung
+(``BATCH_AXIS``, JAX ``mesh.py:39,96-120``). A ``ServingMesh`` is a list
+of local devices in one process, with no process group: the engine
+(``serving/engine.py``) keeps its weights on every device
+(``replicated``), splits a rung into equal row slices, one a device
+(``batch_spec``), and concatenates the logits. On the card a mesh holds
+the cards of this process; on the CPU it holds N slices of the CPU,
+which is how the placement arithmetic is held without cards.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 CLIENT_AXIS = "clients"
+# serving shards the request-batch axis of a padded rung
+BATCH_AXIS = "batch"
 
 
 def _backend(device: torch.device) -> str:
@@ -143,9 +154,86 @@ def client_spec(mesh: ClientMesh, num_clients: int) -> slice:
     return slice(mesh.rank * per, (mesh.rank + 1) * per)
 
 
-def replicated(mesh: ClientMesh, num_clients: int) -> slice:
-    """The whole axis: what every rank holds of a replicated array."""
+def replicated(mesh, num_clients: int | None = None):
+    """The whole axis: what every rank of a ``ClientMesh`` holds of a
+    replicated array, ``slice(0, num_clients)``. For a ``ServingMesh``
+    (JAX ``mesh.py:117``, ``replicated(mesh)``): the devices that each
+    hold a whole copy of the weights, one a row slice."""
+    if isinstance(mesh, ServingMesh):
+        return mesh.devices
     return slice(0, num_clients)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMesh:
+    """The devices a padded rung's rows are split over, in one process:
+    ``devices[i]`` serves the ``i``-th of ``size`` equal row slices. A
+    CPU mesh names the CPU ``size`` times."""
+
+    devices: tuple
+    axis_name: str = BATCH_AXIS
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSpec:
+    """Leading-axis BATCH placement of a serving input over a
+    ``ServingMesh`` (JAX ``batch_spec``): ``place`` splits the rows into
+    ``mesh.size`` equal slices and copies each to its device, one
+    host-to-device copy a slice."""
+
+    mesh: ServingMesh
+    ndim: int = 2
+
+    def place(self, x) -> list:
+        """``x`` (numpy or a CPU tensor, leading axis a multiple of the
+        mesh size) as one tensor a device."""
+        t = torch.as_tensor(x)
+        if t.ndim != self.ndim:
+            raise ValueError(f"expected a {self.ndim}-D input, got "
+                             f"{tuple(t.shape)}")
+        n = self.mesh.size
+        if t.shape[0] % n:
+            raise ValueError(f"{t.shape[0]} rows do not split evenly over "
+                             f"{n} devices")
+        per = t.shape[0] // n
+        return [t[i * per:(i + 1) * per].to(dev)
+                for i, dev in enumerate(self.mesh.devices)]
+
+
+def make_serving_mesh(n_devices: int | None = None,
+                      device=None) -> ServingMesh:
+    """The inference twin of :func:`make_mesh` (JAX ``mesh.py:96``): a
+    1-D mesh over the request-batch axis. On the card (``device`` None
+    or ``"cuda"``) it holds ``cuda:0 .. cuda:n-1``, all the cards when
+    ``n_devices`` is None; ``"cuda:i"`` is that card alone; ``"cpu"``
+    holds ``n_devices`` slices of the CPU (1 when None). With no card
+    and no ``device="cpu"`` it raises, as every entry point does."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        have = torch.cuda.device_count()
+        n = have if n_devices is None else int(n_devices)
+        if n > have:
+            raise ValueError(f"requested {n} devices, have {have}")
+        devices = tuple(torch.device("cuda", i) for i in range(n))
+    else:
+        n = 1 if n_devices is None else int(n_devices)
+        if dev.type == "cuda" and n != 1:
+            raise ValueError(f"device {dev} is one card; requested {n}")
+        devices = (dev,) * n
+    if n < 1:
+        raise ValueError(f"a serving mesh needs at least one device, "
+                         f"got {n}")
+    return ServingMesh(devices)
+
+
+def batch_spec(mesh: ServingMesh, ndim: int = 2) -> BatchSpec:
+    """Leading-axis BATCH placement for serving inputs (JAX
+    ``mesh.py:110``)."""
+    return BatchSpec(mesh, ndim)
 
 
 def shard_setup(setup, mesh: ClientMesh):

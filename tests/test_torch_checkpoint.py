@@ -36,6 +36,7 @@ from test_torch_options import (
     _kwargs,
     _tsetup,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 STATE_KEYS = ("params", "p", "p_opt", "server_opt", "server_opt_kind")
 # (algorithm, extra keyword arguments): FedAMW carries its p momentum,

@@ -14,6 +14,7 @@ import fedamw_tpu.config as jconfig
 import fedamw_tpu.data as jdata
 import fedamw_tpu_torch.config as tconfig
 import fedamw_tpu_torch.data as tdata
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _labels(n=600, classes=6, seed=0):

@@ -63,6 +63,7 @@ from fedamw_tpu_torch.utils import load_checkpoint, save_checkpoint
 from fedamw_tpu_torch.utils import telemetry as ttel
 from fedamw_tpu_torch.utils import trace as ttrace
 from test_torch_options import TOL, _inject, _jsetup, _kwargs, _tsetup
+from torch_threads import one_torch_thread  # noqa: F401
 
 R = 3
 DATA = "cls10"
@@ -452,7 +453,10 @@ DRV_SPEC = "quarantine:auto+rep:0.5:0.2"
 def test_fault_flags_parse(flag, value):
     args = exp.parse_args(ARGV + [flag, value])
     assert getattr(args, flag[2:]) == value
-    assert flag not in exp._REFUSED
+    # a faulty or defended run is not segmented (the JAX driver's rule)
+    with pytest.raises(SystemExit):
+        exp.parse_args(ARGV + [flag, value, "--publish_every", "1",
+                               "--save_models", "ck"])
 
 
 @pytest.mark.parametrize("argv", [["--faults", "drop=2"],

@@ -44,6 +44,7 @@ from fedamw_tpu_torch.fedcore import (
     make_local_update,
 )
 from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, D, C, B, EPOCHS, N_MAX = 300, 256, 3, 32, 2, 64
 W_TOL = dict(atol=2e-5, rtol=1e-5)

@@ -7,8 +7,9 @@ are the port's algorithms called directly with the driver's arguments,
 the extension flags the port carries reach the algorithms the JAX
 driver sends them to (``--model`` trains the zoo on raw features,
 ``--resume`` continues a partial run bit for bit, ``--save_models``
-writes checkpoints the JAX package reads), every flag it does not carry
-is refused with its ROADMAP.md item, and without a card the driver
+writes checkpoints the JAX package reads), ``--publish_every`` is refused
+where the JAX driver refuses it with the JAX driver's messages (its runs
+are ``tests/test_torch_serve_driver.py``), and without a card the driver
 raises instead of running on the CPU.
 """
 
@@ -27,6 +28,7 @@ from fedamw_tpu_torch.algorithms import ALGORITHMS, prepare_setup
 from fedamw_tpu_torch.config import get_parameter
 from fedamw_tpu_torch.data import load_dataset
 from fedamw_tpu_torch.ops.rff import heterogeneity_from_parts
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 R, SEED = 2, 100
@@ -95,20 +97,45 @@ def test_driver_rows_are_the_algorithms_called_directly(result):
                 err_msg=f"{data['name'][row]} {k}")
 
 
-@pytest.mark.parametrize("flag", sorted(exp._REFUSED))
-def test_extension_flags_are_refused_with_their_roadmap_item(flag, capsys):
+def _argparse_error(parse, capsys) -> str:
+    """The message of the argparse error ``parse()`` exits with."""
+    capsys.readouterr()
     with pytest.raises(SystemExit) as err:
-        exp.parse_args(ARGV + [flag, "1"])
+        parse()
     assert err.value.code == 2
-    msg = capsys.readouterr().err
-    assert flag in msg and "ROADMAP.md" in msg
-    assert exp._REFUSED[flag] in msg
+    return capsys.readouterr().err.split("error: ", 1)[1].strip()
 
 
-def test_refused_flag_without_a_value(capsys):
-    with pytest.raises(SystemExit):
-        exp.parse_args(["--publish_every", "--round", "3"])
-    assert "item 11" in capsys.readouterr().err
+# every combination the JAX driver refuses --publish_every in
+# (exp.py:288-337), but its --backend refusal
+PUBLISH_REFUSED = {
+    "negative": ["--publish_every", "-1", "--save_models", "ck"],
+    "no-save-models": ["--publish_every", "2"],
+    "multihost": ["--publish_every", "1", "--save_models", "ck",
+                  "--multihost"],
+    "faults": ["--publish_every", "1", "--save_models", "ck", "--faults",
+               "drop=0.1,seed=1"],
+    "robust-agg": ["--publish_every", "1", "--save_models", "ck",
+                   "--robust_agg", "median"],
+    "resume": ["--publish_every", "1", "--save_models", "ck", "--resume"],
+    "stream-cohort": ["--publish_every", "1", "--save_models", "ck",
+                      "--cohort_shards", "2", "--stream_cohort"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PUBLISH_REFUSED))
+def test_publish_every_refusals_match_the_jax_driver(case, capsys,
+                                                     monkeypatch):
+    sys.path.insert(0, str(REPO))
+    import exp as jexp
+
+    extra = PUBLISH_REFUSED[case]
+    got = _argparse_error(lambda: exp.parse_args(ARGV + extra), capsys)
+    jax_argv = [a for a in ARGV if a not in ("--device", "cpu")]
+    monkeypatch.setattr(sys, "argv", ["exp.py"] + jax_argv + extra)
+    want = _argparse_error(jexp.parse_args, capsys)
+    assert got == want
+    assert "--publish_every" in got
 
 
 def test_driver_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
@@ -158,11 +185,14 @@ def test_module_entry_point_from_the_repo_root(tmp_path):
     ("--num_processes", "2", "num_processes", 2),
     ("--process_id", "1", "process_id", 1),
     ("--model", "mlp16", "model", "mlp16"),
-    ("--model", "conv4x8", "model", "conv4x8")])
+    ("--model", "conv4x8", "model", "conv4x8"),
+    ("--publish_every", "2", "publish_every", 2)])
 def test_ported_flags_parse(flag, value, attr, want):
-    args = exp.parse_args(ARGV + [flag] + ([value] if value else []))
+    # --publish_every needs the directory its versions go to
+    extra = ["--save_models", "ck"] if flag == "--publish_every" else []
+    args = exp.parse_args(ARGV + [flag] + ([value] if value else []) + extra)
     assert getattr(args, attr) == want
-    assert flag not in exp._REFUSED
+    assert exp.parse_args(ARGV).publish_every == 0
 
 
 def test_observability_flags_stay_out_of_the_resume_signature():

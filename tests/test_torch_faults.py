@@ -18,6 +18,7 @@ import torch
 
 from fedamw_tpu.fedcore import faults as jf
 from fedamw_tpu_torch.fedcore import faults as tf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPECS = [
     "drop=0.1,straggle=0.2:0.5,corrupt=0.05:nan,seed=7",

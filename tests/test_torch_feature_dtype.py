@@ -48,6 +48,7 @@ from fedamw_tpu_torch.convert import (
     features_from_jax, params_from_jax, setup_from_arrays)
 from fedamw_tpu_torch.data import load_dataset
 from fedamw_tpu_torch.ops.rff import rff_map, rff_map_to
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SEED, ROUNDS, EPOCHS, B, VB = 0, 2, 2, 32, 16

@@ -54,6 +54,7 @@ from fedamw_tpu_torch.fedcore import (
 )
 from fedamw_tpu_torch.utils import load_checkpoint, save_checkpoint
 from test_torch_options import TOL, _inject, _jsetup, _kwargs, _tsetup
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = "cls10"
 SHARDS = 3

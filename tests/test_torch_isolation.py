@@ -1,6 +1,13 @@
 """The port stands alone: no JAX, nothing of the JAX package, and no
 silent CPU fallback.
 
+Every module of the package (the serving modules included: ``serving``'s
+host planes are copies of the JAX package's, never imports of it) imports
+with no JAX in the process, and no source file names JAX. Every entry
+point that places data or weights raises without a card unless it is
+told ``device="cpu"``: the setups, the driver, ``ServingEngine`` and
+``make_serving_mesh``.
+
 The repository's root ``conftest.py`` imports JAX into this process, so
 the import check runs in a fresh interpreter.
 """
@@ -14,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "non-iid-distributed-learning-with-optimal-mixture-weights_tpu_torch"
@@ -89,6 +97,37 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
                           sizes=np.ones(1, np.int32),
                           p_fixed=np.ones(1, np.float32))
     assert prepare_setup(ds, D=16, device="cpu").device.type == "cpu"
+
+
+def test_serving_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    from fedamw_tpu_torch.parallel import make_serving_mesh
+    from fedamw_tpu_torch.serving import ServingEngine
+    from fedamw_tpu_torch.utils import save_checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {"w": np.zeros((3, 4), np.float32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(params)
+    save_checkpoint(str(tmp_path / "ck"), params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine.load(str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_serving_mesh()
+    assert ServingEngine(params, device="cpu").device.type == "cpu"
+    assert make_serving_mesh(2, device="cpu").size == 2
+
+
+def test_serving_modules_are_the_port_own():
+    """The serving package's modules load from this package's own
+    directory (that importing them loads no JAX is the fresh-interpreter
+    test at the top of this file)."""
+    import fedamw_tpu_torch.serving as serving
+
+    for name in ("engine", "batcher", "metrics", "control", "rollout",
+                 "registry", "service"):
+        mod = sys.modules[f"fedamw_tpu_torch.serving.{name}"]
+        assert Path(mod.__file__).resolve().parent == PKG / "serving"
+    assert serving.__name__ == "fedamw_tpu_torch.serving"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

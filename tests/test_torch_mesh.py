@@ -41,6 +41,7 @@ from fedamw_tpu_torch.parallel import (
     shard_setup,
     validate_cohort_alignment,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

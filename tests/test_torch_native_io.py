@@ -21,6 +21,7 @@ from fedamw_tpu.ops import metrics as jmetrics
 from fedamw_tpu_torch import native_io
 from fedamw_tpu_torch.data import MinibatchLoader, load_data, load_svmlight
 from fedamw_tpu_torch.ops import Meter, comp_accuracy, error_estimate
+from torch_threads import one_torch_thread  # noqa: F401
 
 sk = pytest.importorskip("sklearn.datasets")
 REPO = Path(__file__).resolve().parent.parent

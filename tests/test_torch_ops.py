@@ -36,6 +36,7 @@ from fedamw_tpu_torch.ops import losses as tl
 from fedamw_tpu_torch.ops.metrics import top1_correct
 from fedamw_tpu_torch.ops.rff import rff_map, rff_params
 from fedamw_tpu_torch.ops.schedule import lr_schedule_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -60,6 +60,7 @@ from fedamw_tpu_torch.fedcore import (
 )
 from fedamw_tpu_torch.fedcore.aggregate import make_guard
 from fedamw_tpu_torch.fedcore.batching import batch_valid
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED, R, LE, B, VB = 0, 2, 2, 32, 16
 TOL = dict(rtol=1e-5, atol=1e-5)

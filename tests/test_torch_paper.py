@@ -69,6 +69,7 @@ from fedamw_tpu_torch.ops.rff import (
     heterogeneity_from_parts,
 )
 from test_torch_slice import _pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED, R, LE, B, VB = 0, 2, 2, 32, 16
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -36,6 +36,7 @@ from fedamw_tpu_torch.fedcore import psolver_kernel as pk
 from fedamw_tpu_torch.fedcore.aggregate import (
     make_guard, project_simplex, project_simplex_fixed_point)
 from fedamw_tpu_torch.fedcore.batching import batch_valid, epoch_batches
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 

@@ -28,6 +28,7 @@ import fedamw_tpu_torch.ops as tops
 from fedamw_tpu_torch import registry
 from fedamw_tpu_torch.algorithms import ALGORITHMS
 from fedamw_tpu_torch.ops.rff import rff_map_sparse
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -60,6 +60,7 @@ from fedamw_tpu.parallel import shard_setup as jshard_setup
 from fedamw_tpu_torch.algorithms import ALGORITHMS
 from fedamw_tpu_torch.convert import setup_from_arrays
 from test_torch_options import _inject
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)

@@ -23,6 +23,7 @@ import pytest
 import torch.distributed as dist
 
 from fedamw_tpu_torch import exp
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = ["--device", "cpu", "--dataset", "digits", "--D", "64",

@@ -20,6 +20,7 @@ import torch
 
 from fedamw_tpu.fedcore import robust as jr
 from fedamw_tpu_torch.fedcore import robust as tr
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 J, C, D = 7, 3, 5

@@ -39,6 +39,7 @@ from fedamw_tpu.fedcore.batching import epoch_batches as jepoch_batches
 from fedamw_tpu.config import get_parameter
 from fedamw_tpu_torch.algorithms import FedAMW, FedAvg, FedProx
 from fedamw_tpu_torch.convert import params_from_jax, setup_from_arrays
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED, ROUNDS, EPOCHS, B, VB = 0, 2, 2, 32, 16
 TOL = dict(rtol=1e-5, atol=1e-5)

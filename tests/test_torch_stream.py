@@ -37,6 +37,7 @@ from fedamw_tpu_torch import exp
 from fedamw_tpu_torch.algorithms import core
 from fedamw_tpu_torch.data import CohortShardStream
 from test_torch_options import TOL, _inject, _jsetup, _kwargs, _tsetup
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = "cls10"
 FAULTS = "drop=0.2,corrupt=0.1:scale:25,seed=3"
@@ -269,7 +270,13 @@ def test_cohort_flags_parse(extra):
     args = exp.parse_args(ARGV + extra)
     assert args.cohort_shards == int(extra[1])
     assert args.stream_cohort == ("--stream_cohort" in extra)
-    assert not {"--cohort_shards", "--stream_cohort"} & set(exp._REFUSED)
+    # a streamed run is not segmented; an in-graph sharded one is
+    seg = ARGV + extra + ["--publish_every", "1", "--save_models", "ck"]
+    if args.stream_cohort:
+        with pytest.raises(SystemExit):
+            exp.parse_args(seg)
+    else:
+        assert exp.parse_args(seg).publish_every == 1
 
 
 BAD_FLAGS = {

@@ -24,6 +24,7 @@ import torch
 
 import fedamw_tpu.utils.telemetry as jtel
 import fedamw_tpu_torch.utils.telemetry as ttel
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class Clock:

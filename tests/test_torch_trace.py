@@ -36,6 +36,7 @@ from fedamw_tpu_torch.algorithms import FedAMW, FedAvg
 import fedamw_tpu_torch.utils.telemetry as ttelemetry
 import fedamw_tpu_torch.utils.trace as ttrace
 from test_torch_slice import _pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SEED, ROUNDS, EPOCHS = 0, 2, 2

@@ -28,6 +28,7 @@ from fedamw_tpu_torch.algorithms import (
     FedProx, prepare_setup)
 from fedamw_tpu_torch.algorithms.core import _nbytes
 from fedamw_tpu_torch.data import load_dataset
+from torch_threads import one_torch_thread  # noqa: F401
 
 # -- reporting ---------------------------------------------------------------
 

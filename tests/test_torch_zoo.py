@@ -46,6 +46,7 @@ from fedamw_tpu_torch.fedcore import (
 )
 from fedamw_tpu_torch.models import conv_model, get_model, mlp_model
 from fedamw_tpu_torch.models.conv import same_padding
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # (name, feature dimension, classes): the MLPs on digits' and covtype's

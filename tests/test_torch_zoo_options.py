@@ -31,6 +31,7 @@ from test_torch_zoo_rounds import (
     _port_run,
     _tsetup,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAULTS = "drop=0.1,corrupt=0.2:nan,seed=7"
 # name -> (algorithm, model, buckets, keywords)

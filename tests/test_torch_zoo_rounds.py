@@ -39,6 +39,7 @@ from fedamw_tpu_torch.convert import setup_from_arrays
 from fedamw_tpu_torch.fedcore import client as tclient
 from fedamw_tpu_torch.fedcore import client_epoch, make_client_round
 from test_torch_options import _inject
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED, R, LE, B, VB = 0, 2, 2, 32, 16
 TOL = dict(rtol=1e-5, atol=1e-5)
