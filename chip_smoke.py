@@ -173,6 +173,33 @@ and read just after:
   ``RolloutController`` shadow stage promoted, a sign-flipped candidate
   rolled back by the parity gate. (d) ``zoo`` (a)'s mlp64 and (b)'s
   conv8x16 FedAvg weights served as in (a).
+- ``fleet``: the rest of the serving plane on the card, on (a)'s
+  checkpoint (after ``serve``; no kernel of its own, its launches
+  ``launches_by_path.fleet``, 0 expected). (a) the ladder exported
+  (``serving.export_ladder``: one ``torch.export`` program a rung) and
+  cold-started by ``ServingEngine.from_artifact`` in a freshly spawned
+  process: load seconds beside ``ServingEngine.load`` + ``warmup`` of the
+  checkpoint in that process, ``compile_count`` 0, the two engines'
+  logits bitwise at every rung and pad position; a manifest field and a
+  ``.pt2`` rewritten in two copies, each refused with
+  ``ArtifactIncompatible``. (b) a hedged round-robin ``FailoverRouter``
+  over 4 ``Replica``s of one engine behind ``ServingService`` under a
+  scripted ``ChaosPlan`` (``FLEET_CHAOS``: a kill, two 50 ms wedges,
+  flaky and slow cells, every one required to fire), 1,000 mixed
+  requests from 4 threads with 8 in flight each: requests/s, rows/s,
+  p50/p99, failovers, hedges, kills and retries by replica, every answer
+  within ``TOL_SERVE`` of ``predict`` with the argmax equal and every
+  unanswered request a typed router outcome. (c) two ``worker_main``
+  processes spawned on the card from (a)'s artifact, ``SocketTransport``
+  replicas and a ``PodClientEngine`` behind the router: dispatch p50
+  over the socket against in process at rungs 64 and 4096 and the bytes
+  on the wire, one ``swap_weights`` announce of FedAvg's weights under
+  one version, then 300 requests with worker 0 SIGKILLed at its 20th
+  dispatch, every request answered by the survivor within its deadline.
+  (d) a ``LadderLearner`` on (b)'s request sizes, its proposal applied
+  through ``install_rung`` on a fresh engine: pad waste of the fixed
+  ladder against the learned one, ``compile_count`` up by exactly the
+  rungs installed.
 
 Output is one JSON object per line; the line before the last lists the
 kernels; the last line is the contract line ``{"ok": true, "device":
@@ -182,6 +209,7 @@ card it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -2196,6 +2224,560 @@ def serve(ds, setup, amw_res, driver_data, card, zoo_served):
     return launches
 
 
+# -- the fleet phase ---------------------------------------------------------
+FLEET_REQUESTS = 1000   # (b): requests in the mixed stream
+FLEET_REPLICAS = 4      # (b): replicas over the one engine
+# (b): the JAX serve bench's chaos schedule in shape (a kill, two wedges,
+# flaky and slow runs), at dispatch indices a stream of a few hundred
+# coalesced batches reaches on every replica of a round-robin fleet;
+# the phase fails unless every scheduled cell fired
+FLEET_CHAOS = dict(kills={0: 15}, wedges={1: [6, 20]},
+                   flaky={2: [3, 10, 18]}, slow={3: list(range(2, 16))},
+                   wedge_s=0.05, slow_mult=3.0)
+FLEET_HEDGE_FLOOR_MS = 20.0  # (b): above a clean top rung, below a wedge
+POD_REQUESTS = 300      # (c): requests over the two socket workers
+POD_KILL_AT = 20        # (c): worker 0's dispatch that SIGKILLs it
+POD_RUNGS = (64, 4096)  # (c): rungs timed over the socket and in process
+FLEET_ERRORS = ("DeadlineExceeded", "ReplicaUnavailable",
+                "NoReplicasAvailable")  # the JAX router's typed outcomes
+
+
+def fleet_cold_start(art_dir, ckpt, x_path, out_path):
+    """(a) in a freshly spawned process on the card: ``from_artifact``
+    (timed: the manifest, five rung programs, the checkpoint's weights
+    and each rung's run at load) beside ``ServingEngine.load`` +
+    ``warmup`` of the same checkpoint, then both engines at every rung
+    and pad position on the same rows. Writes its findings and the
+    artifact engine's full-rung logits to ``out_path`` (npz)."""
+    import numpy as np
+    import torch
+
+    import fedamw_tpu_torch  # noqa: F401
+    from fedamw_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    context_s = time.perf_counter() - t0
+    # the program loader's modules, imported on a process's first load
+    t0 = time.perf_counter()
+    import torch._export.serde.serialize  # noqa: F401
+    loader_import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = ServingEngine.from_artifact(art_dir, checkpoint=ckpt)
+    load_s = time.perf_counter() - t0
+    cc_loaded = art.compile_count
+    t0 = time.perf_counter()
+    eager = ServingEngine.load(ckpt)
+    warm = eager.warmup()
+    eager_s = time.perf_counter() - t0
+    X = np.load(x_path)
+    cells, full = [], {}
+    prev = 0
+    for b in art.buckets:
+        for n in sorted({prev + 1, (prev + 1 + b) // 2, b}):
+            a, e = art.predict(X[:n]), eager.predict(X[:n])
+            cells.append((b, n, bool(np.array_equal(a, e)),
+                          float(np.max(np.abs(a - e)))))
+        full[f"rung_{b}"] = art.predict(X[:b])
+        prev = b
+    np.savez(out_path, summary=json.dumps({
+        "pid": os.getpid(), "context_s": context_s,
+        "loader_import_s": loader_import_s, "load_s": load_s,
+        "eager_load_warmup_s": eager_s, "eager_warmup_shapes": warm,
+        "compile_count_at_load": cc_loaded,
+        "compile_count_after_serving": art.compile_count,
+        "cells": cells}), **full)
+
+
+def _spawn(target, **kw):
+    """One process in a fresh interpreter (the ``spawn`` context: this
+    process holds a CUDA context, which a forked child cannot use)."""
+    import multiprocessing
+
+    p = multiprocessing.get_context("spawn").Process(target=target,
+                                                     kwargs=kw)
+    p.start()
+    return p
+
+
+def _mixed_sizes(rng, n):
+    """``n`` request sizes of 1..``SERVE_MAX_ROWS`` rows, log-uniform
+    (the ``serve`` phase's mix)."""
+    import numpy as np
+
+    return np.clip(np.exp(rng.uniform(0, np.log(SERVE_MAX_ROWS),
+                                      n)).astype(int), 1, SERVE_MAX_ROWS)
+
+
+def _drive_stream(svc, reqs, threads, window, timeout_s):
+    """Submit ``reqs`` from ``threads`` threads with ``window`` futures
+    each in flight; returns ({index: logits}, {index: error type name},
+    wall seconds)."""
+    import threading
+
+    results, errors = {}, {}
+
+    def client(k):
+        pending = collections.deque()
+
+        def settle():
+            j, f = pending.popleft()
+            try:
+                results[j] = f.result(timeout=120)
+            except Exception as e:  # the typed outcome, checked after
+                errors[j] = type(e).__name__
+
+        for i in range(k, len(reqs), threads):
+            try:
+                pending.append((i, svc.submit(reqs[i],
+                                              timeout_s=timeout_s)))
+            except Exception as e:
+                errors[i] = type(e).__name__
+            if len(pending) >= window:
+                settle()
+        while pending:
+            settle()
+
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=client, args=(k,))
+           for k in range(threads)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+    return results, errors, time.perf_counter() - t0
+
+
+def _vs_predict(engine, reqs, results):
+    """(worst abs difference, answers bitwise, answers within TOL_SERVE
+    with the argmax equal) of the answered requests against
+    ``engine.predict`` of each request alone."""
+    worst, bitwise, near = 0.0, 0, 0
+    for i, out in results.items():
+        d, bit, ok = logits_diff(out, engine.predict(reqs[i]))
+        worst = max(worst, d)
+        bitwise += bit
+        near += bit or ok
+    return {"max_abs": worst, "bitwise": bitwise, "within_tol": near,
+            "of": len(results)}
+
+
+def fleet(ds, setup, amw_res, avg_res, card):
+    """The ``fleet`` phase: FedAMW's ``main_path`` checkpoint (its RFF
+    draw and head) on the default ladder. (a) its ladder exported and
+    cold-started in a freshly spawned process; two tampered copies
+    refused. (b) a hedged ``FailoverRouter`` over 4 replicas of one
+    engine under a scripted ``ChaosPlan`` behind ``ServingService``, the
+    mixed stream. (c) two spawned ``worker_main`` processes on the
+    artifact behind ``SocketTransport`` replicas and ``PodClientEngine``:
+    socket against in-process dispatch, a ``swap_weights`` announce, a
+    SIGKILL mid-stream. (d) a ``LadderLearner`` on (b)'s request sizes,
+    applied through ``install_rung``. Returns the phase's kernel
+    launches (none expected)."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch.serving import (ServingEngine, export_ladder,
+                                          worker_main)
+    from fedamw_tpu_torch.utils import save_checkpoint
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    X_raw = np.ascontiguousarray(np.asarray(ds.X_test, np.float32))
+    procs = []
+    ok_all = True
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "main_FedAMW")
+        save_checkpoint(ck, amw_res["params"], p=amw_res["p"],
+                        round_idx=ROUNDS, rff=setup.rff)
+        engine = ServingEngine.load(ck)
+        engine.warmup()
+        # (a) export, then the cold start in a fresh process; the two
+        # socket workers of (c) start at the same time, on the artifact
+        art = os.path.join(tmp, "artifact")
+        t0 = time.perf_counter()
+        manifest = export_ladder(engine, art, round_idx=ROUNDS)
+        export_s = time.perf_counter() - t0
+        x_path = os.path.join(tmp, "rows.npy")
+        np.save(x_path, X_raw[:max(engine.buckets)])
+        out_path = os.path.join(tmp, "cold.npz")
+        try:
+            cold = _spawn(fleet_cold_start, art_dir=art, ckpt=ck,
+                          x_path=x_path, out_path=out_path)
+            procs.append(cold)
+            ports = [os.path.join(tmp, f"port{i}") for i in range(2)]
+            workers = [_spawn(worker_main, port_file=f, artifact_dir=art,
+                              checkpoint=ck, worker_id=i)
+                       for i, f in enumerate(ports)]
+            procs += workers
+            ok_all &= fleet_a(engine, art, ck, manifest, export_s, cold,
+                              out_path, X_raw, card)
+            # (b) the hedged fleet under scripted chaos
+            ok_b, registry, sizes = fleet_b(engine, X_raw, card)
+            ok_all &= ok_b
+            # (c) the pod over TCP
+            ok_all &= fleet_c(engine, ports, workers, X_raw, avg_res,
+                              setup, card)
+            # (d) the learned ladder on (b)'s sizes
+            ok_all &= fleet_d(ck, registry, sizes, X_raw, card)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(timeout=30)
+    del engine
+    torch.cuda.empty_cache()
+    c = counts()
+    launches = {k: c[k] for k in ("client_epoch", "p_epoch")}
+    emit({"phase": "fleet", "case": "total", "card": card,
+          "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "processes_left": [p.pid for p in procs if p.is_alive()]})
+    if not ok_all or any(p.is_alive() for p in procs):
+        fail("fleet: a check failed (see the rows above)")
+    return launches
+
+
+def fleet_a(engine, art, ck, manifest, export_s, cold, out_path, X_raw,
+            card):
+    """(a) the cold start's findings, the parent's eager logits against
+    the child's artifact logits at each full rung, and two tampered
+    copies (one manifest field, one ``.pt2``), each refused typed."""
+    import shutil
+
+    import numpy as np
+
+    from fedamw_tpu_torch.serving import ArtifactIncompatible, ServingEngine
+
+    cold.join(timeout=300)
+    got = np.load(out_path) if cold.exitcode == 0 else None
+    summary = json.loads(str(got["summary"])) if got is not None else {}
+    vs_parent = {}
+    for b in engine.buckets:
+        if got is not None:
+            d, bit, _ = logits_diff(got[f"rung_{b}"],
+                                    engine.predict(X_raw[:b]))
+            vs_parent[str(b)] = {"bitwise": bit, "max_abs": d}
+    refused = {}
+    for name, edit in (("manifest device_kind", "manifest"),
+                       ("rung_64.pt2 rewritten", "program")):
+        bad = f"{art}_{edit}"
+        shutil.copytree(art, bad)
+        if edit == "manifest":
+            path = os.path.join(bad, "manifest.json")
+            with open(path) as f:
+                obj = json.load(f)
+            obj["host"]["device_kind"] = "NVIDIA A100-SXM4-80GB"
+            with open(path, "w") as f:
+                json.dump(obj, f)
+        else:
+            path = os.path.join(bad, "rung_64.pt2")
+            with open(path, "r+b") as f:
+                f.seek(256)
+                f.write(b"\xff" * 32)
+        try:
+            ServingEngine.from_artifact(bad, checkpoint=ck)
+            refused[name] = "loaded"
+        except ArtifactIncompatible as e:
+            refused[name] = [m[0] for m in e.mismatches]
+    cells = summary.get("cells", [])
+    row = {"phase": "fleet", "case": "a cold start", "card": card,
+           "export_s": export_s,
+           "artifact_bytes": sum(r["bytes"] for r in
+                                 manifest.rungs.values()),
+           "rungs": {k: r["bytes"] for k, r in manifest.rungs.items()},
+           "manifest_host": manifest.host, "child_exit": cold.exitcode,
+           **{k: summary.get(k) for k in (
+               "pid", "context_s", "loader_import_s", "load_s",
+               "eager_load_warmup_s",
+               "eager_warmup_shapes", "compile_count_at_load",
+               "compile_count_after_serving")},
+           "cells": len(cells),
+           "cells_bitwise": sum(1 for c in cells if c[2]),
+           "cells_max_abs": max((c[3] for c in cells), default=None),
+           "vs_parent_eager_full_rungs": vs_parent,
+           "tampered_refused": refused}
+    row["ok"] = (cold.exitcode == 0 and summary.get("pid") != os.getpid()
+                 and summary.get("compile_count_at_load") == 0
+                 and summary.get("compile_count_after_serving") == 0
+                 and len(cells) > 0 and all(c[2] for c in cells)
+                 and all(v != "loaded" and v for v in refused.values()))
+    emit(row)
+    return row["ok"]
+
+
+def fleet_b(engine, X_raw, card):
+    """(b) 4 replicas of one engine, hedged, round-robin, under the
+    scripted plan, behind ``ServingService``: the mixed stream of
+    ``FLEET_REQUESTS`` requests from ``SERVE_THREADS`` threads with
+    ``SERVE_WINDOW`` in flight each. Returns (ok, the service's
+    telemetry registry, the request sizes) for (d)."""
+    import numpy as np
+
+    from fedamw_tpu_torch.serving import (ChaosPlan, FailoverRouter,
+                                          ReplicaSet, ServingService)
+
+    rng = np.random.RandomState(SEED + 1)
+    sizes = _mixed_sizes(rng, FLEET_REQUESTS)
+    offs = rng.randint(0, X_raw.shape[0] - sizes + 1)
+    reqs = [X_raw[o:o + n] for o, n in zip(offs, sizes)]
+    cc = engine.compile_count
+    plan = ChaosPlan.scripted(FLEET_REPLICAS, **FLEET_CHAOS)
+    with FailoverRouter(ReplicaSet(engine, FLEET_REPLICAS, chaos=plan),
+                        policy="round_robin", hedge=True,
+                        hedge_min_samples=8,
+                        hedge_floor_ms=FLEET_HEDGE_FLOOR_MS) as router:
+        with ServingService(router, max_queue=4 * SERVE_THREADS
+                            * SERVE_WINDOW, mode="continuous") as svc:
+            results, errors, wall = _drive_stream(
+                svc, reqs, SERVE_THREADS, SERVE_WINDOW, 30.0)
+            snap = svc.metrics.snapshot(router)
+        stats = router.replica_stats()
+        reps = list(router.replicas)
+    fired = {}
+    for role, cells in (("kill", {0: [FLEET_CHAOS["kills"][0]]}),
+                        ("wedge", FLEET_CHAOS["wedges"]),
+                        ("flaky", FLEET_CHAOS["flaky"]),
+                        ("slow", FLEET_CHAOS["slow"])):
+        for r, idx in cells.items():
+            fired[f"{role} replica {r}"] = {
+                "scheduled": len(idx),
+                "fired": sum(1 for i in idx if reps[r].dispatches > i)}
+    vs = _vs_predict(engine, reqs, results)
+    by_replica = {rid: {k: v[k] for k in ("routed", "ok", "failed",
+                                          "requeued", "cancelled",
+                                          "state", "ewma_ms")}
+                  for rid, v in stats["replicas"].items()}
+    row = {"phase": "fleet", "case": "b failover", "card": card,
+           "replicas": FLEET_REPLICAS, "requests": FLEET_REQUESTS,
+           "rows": int(sizes.sum()), "wall_s": wall,
+           "requests_per_s": len(results) / wall,
+           "rows_per_s": float(sum(sizes[i] for i in results)) / wall,
+           "p50_ms": snap.get("p50_ms"), "p99_ms": snap.get("p99_ms"),
+           "batches": snap["batches"], "retries": snap["retries"],
+           "answered": len(results),
+           "errors": dict(collections.Counter(errors.values())),
+           "requeues": stats["requeues"], "hedges": stats["hedges"],
+           "hedge_wins": stats["hedge_wins"],
+           "hedges_cancelled": stats["hedges_cancelled"],
+           "dead_replicas": stats["dead_replicas"],
+           "dispatches": [r.dispatches for r in reps],
+           "by_replica": by_replica, "cells_fired": fired,
+           "vs_predict": vs, "compile_count": engine.compile_count,
+           "chaos": {k: (v if not isinstance(v, dict) else
+                         {str(r): list(i) if not isinstance(i, int) else i
+                          for r, i in v.items()})
+                     for k, v in FLEET_CHAOS.items()}, "tol": TOL_SERVE}
+    row["ok"] = (len(results) + len(errors) == FLEET_REQUESTS
+                 and all(e in FLEET_ERRORS for e in errors.values())
+                 and vs["within_tol"] == len(results) > 0
+                 and all(f["fired"] == f["scheduled"]
+                         for f in fired.values())
+                 and stats["dead_replicas"] == 1 and stats["requeues"] >= 1
+                 and engine.compile_count == cc)
+    emit(row)
+    return row["ok"], svc.metrics.registry, sizes
+
+
+def _wait_ports(files, procs, limit_s=300):
+    deadline = time.perf_counter() + limit_s
+    while not all(os.path.exists(f) for f in files):
+        if time.perf_counter() > deadline or not all(
+                p.is_alive() for p in procs):
+            return None
+        time.sleep(0.05)
+    eps = []
+    for f in files:
+        with open(f) as fh:
+            eps.append(("127.0.0.1", int(fh.read().strip())))
+    return eps
+
+
+def fleet_c(engine, ports, workers, X_raw, avg_res, setup, card):
+    """(c) two spawned ``worker_main`` processes on the artifact: the
+    dispatch p50 over the socket against in process at ``POD_RUNGS``,
+    the bytes on the wire a rung, one ``swap_weights`` announce of
+    FedAvg's weights to both, then ``POD_REQUESTS`` requests through a
+    router over both with worker 0 SIGKILLed at its ``POD_KILL_AT``-th
+    dispatch."""
+    import signal
+
+    import numpy as np
+
+    from fedamw_tpu_torch.serving import (
+        FailoverRouter, InProcessTransport, LatencyHistogram, NetChaosPlan,
+        PodClientEngine, Replica, ServingService, SocketTransport)
+    from fedamw_tpu_torch.serving import transport as tr
+
+    t0 = time.perf_counter()
+    eps = _wait_ports(ports, workers)
+    up_s = time.perf_counter() - t0
+    if eps is None:
+        emit({"phase": "fleet", "case": "c pod", "ok": False,
+              "error": "a worker never came up",
+              "exitcodes": [w.exitcode for w in workers]})
+        return False
+    client = PodClientEngine(eps)
+    timing = {}
+    with SocketTransport(eps[1]) as sock:
+        local = InProcessTransport(engine)
+        for b in POD_RUNGS:
+            Xb = np.ascontiguousarray(X_raw[:b])
+            cell = {}
+            for name, t in (("socket", sock), ("in_process", local)):
+                for _ in range(3):
+                    t.dispatch(Xb, record_timings=False)
+                hist = LatencyHistogram()
+                reps = 40 if b <= 512 else 15
+                for _ in range(reps):
+                    t1 = time.perf_counter()
+                    t.dispatch(Xb, record_timings=False)
+                    hist.record(time.perf_counter() - t1)
+                cell[name] = hist.percentiles((50, 99))
+            hdr, payload = tr.pack_batch(Xb)
+            hdr.update(kind="dispatch", version=None, budget_s=None)
+            req = tr._PREFIX.size + len(json.dumps(
+                {"schema": tr.FRAME_SCHEMA, **hdr}).encode()) + len(payload)
+            resp = {"kind": "result", "worker": 1, "version": 0,
+                    "rows": b, "cols": engine.num_classes, "ndim": 2,
+                    "dtype": "float32"}
+            back = tr._PREFIX.size + len(json.dumps(
+                {"schema": tr.FRAME_SCHEMA, **resp}).encode()) \
+                + b * engine.num_classes * 4
+            cell.update(request_bytes=req, response_bytes=back)
+            d, same, _ = logits_diff(sock.dispatch(Xb), engine.predict(Xb))
+            cell.update(socket_vs_in_process_bitwise=same, max_abs=d)
+            timing[str(b)] = cell
+    # the announce: FedAvg's weights under one version on both workers
+    params = {k: v.cpu().numpy() for k, v in avg_res["params"].items()}
+    rff = tuple(t.cpu().numpy() for t in setup.rff)
+    t1 = time.perf_counter()
+    v = client.swap_weights(params, rff=rff)
+    swap_ms = 1e3 * (time.perf_counter() - t1)
+    announce = dict(client.last_announce)
+    versions = [s.get("version") for s in client.worker_stats()]
+    engine.swap_weights(params, rff=rff, version=v)
+
+    def kill(host):
+        os.kill(workers[host].pid, signal.SIGKILL)
+        workers[host].join(timeout=30)
+
+    rng = np.random.RandomState(SEED + 2)
+    sizes = _mixed_sizes(rng, POD_REQUESTS)
+    offs = rng.randint(0, X_raw.shape[0] - sizes + 1)
+    reqs = [X_raw[o:o + n] for o, n in zip(offs, sizes)]
+    victim = SocketTransport(eps[0], client=client, host_index=0,
+                             chaos=NetChaosPlan.scripted(
+                                 2, kills={0: POD_KILL_AT}),
+                             kill_cb=kill)
+    reps = [Replica(0, client, transport=victim),
+            Replica(1, client, transport=SocketTransport(
+                eps[1], client=client, host_index=1))]
+    with FailoverRouter(reps, policy="round_robin") as router:
+        with ServingService(router, max_queue=64,
+                            mode="continuous") as svc:
+            results, errors, wall = _drive_stream(svc, reqs, 2,
+                                                  SERVE_WINDOW, 10.0)
+            snap = svc.metrics.snapshot(router)
+        stats = router.replica_stats()
+    survivor = client.worker_stats()
+    vs = _vs_predict(engine, reqs, results)
+    try:
+        client.control(eps[1], {"kind": "stop"})
+    except (OSError, tr.TransportError, tr.FrameError):
+        pass  # joined or killed by the caller either way
+    workers[1].join(timeout=30)
+    row = {"phase": "fleet", "case": "c pod over TCP", "card": card,
+           "workers_up_s": up_s, "dispatch_p50_ms": timing,
+           "swap_version": v, "swap_ms": swap_ms, "announce": announce,
+           "worker_versions_after_swap": versions,
+           "requests": POD_REQUESTS, "answered": len(results),
+           "errors": dict(collections.Counter(errors.values())),
+           "wall_s": wall, "requests_per_s": len(results) / wall,
+           "p50_ms": snap.get("p50_ms"), "p99_ms": snap.get("p99_ms"),
+           "requeues": stats["requeues"],
+           "by_replica": {rid: {k: r[k] for k in ("routed", "ok",
+                                                 "failed", "requeued",
+                                                 "state")}
+                          for rid, r in stats["replicas"].items()},
+           "kill_fired": victim.faults_injected["kill"],
+           "victim_exitcode": workers[0].exitcode,
+           "survivor": [{k: s.get(k) for k in ("dead", "version",
+                                               "compile_count",
+                                               "dispatches", "pid")}
+                        for s in survivor],
+           "vs_predict": vs, "tol": TOL_SERVE}
+    row["ok"] = (announce["acks"] == 2 and versions == [v, v]
+                 and len(results) == POD_REQUESTS and not errors
+                 and vs["within_tol"] == POD_REQUESTS
+                 and victim.faults_injected["kill"] == 1
+                 and workers[0].exitcode == -signal.SIGKILL
+                 and stats["requeues"] >= 1
+                 and survivor[1].get("compile_count") == 0
+                 and survivor[1].get("version") == v
+                 and all(c["socket_vs_in_process_bitwise"]
+                         for c in timing.values()))
+    emit(row)
+    return row["ok"]
+
+
+def fleet_d(ck, registry, sizes, X_raw, card):
+    """(d) a ``LadderLearner`` on the request sizes (b)'s service
+    recorded, its proposal applied through ``install_rung`` on a fresh
+    engine of the checkpoint: the pad waste of the fixed ladder against
+    the learned one, and ``compile_count`` risen by exactly the rungs
+    installed."""
+    import numpy as np
+
+    from fedamw_tpu_torch.serving import (LadderLearner, ServingEngine,
+                                          apply_proposal, ladder_waste)
+
+    engine = ServingEngine.load(ck)
+    engine.warmup()
+    fixed = tuple(engine.buckets)
+    cc0 = engine.compile_count
+    learner = LadderLearner(registry, max_rungs=6, recompile_budget=8,
+                            min_samples=64)
+    observed = learner.observed_sizes()
+    prop = learner.propose(fixed)
+    if prop is None:
+        emit({"phase": "fleet", "case": "d learned ladder", "ok": False,
+              "reason": learner.last_reason})
+        return False
+    t0 = time.perf_counter()
+    ladder = apply_proposal(engine, prop, learner)
+    apply_s = time.perf_counter() - t0
+    cc1 = engine.compile_count
+    stream = [int(s) for s in sizes]
+    waste = {"fixed": ladder_waste(stream, fixed),
+             "learned": ladder_waste(stream, ladder)}
+    worst = 0.0
+    for n in sorted(set(prop.rungs)):
+        x = X_raw[:n]
+        d, _, near = logits_diff(engine.predict(x), engine.predict(
+            np.concatenate([x, x]))[:n])
+        worst = max(worst, d if near else float("inf"))
+    row = {"phase": "fleet", "case": "d learned ladder", "card": card,
+           "samples": len(observed), "fixed": list(fixed),
+           "learned": list(ladder), "installed": list(prop.install),
+           "retired": list(prop.retire), "apply_s": apply_s,
+           "waste_fraction_sample": {
+               "fixed": prop.baseline_waste_fraction,
+               "learned": prop.waste_fraction},
+           "waste_stream": waste,
+           "compile_count_before": cc0, "compile_count_after": cc1,
+           "compile_count_after_serving": engine.compile_count,
+           "recompiles_spent": learner.recompiles_spent,
+           "rung_rows_max_abs": worst}
+    row["ok"] = (cc1 == cc0 + len(prop.install)
+                 and engine.compile_count == cc1
+                 and waste["learned"]["waste_rows"]
+                 <= waste["fixed"]["waste_rows"]
+                 and ladder == prop.rungs and bool(np.isfinite(worst)))
+    emit(row)
+    return row["ok"]
+
+
 def trace_categories(trace_dir):
     """``{category: count}`` of the complete (``"X"``) events in the Chrome
     trace under ``trace_dir``, and the kernel events of each hand kernel
@@ -3230,6 +3812,12 @@ def main():
     del zoo_served
     for row in kernels[:2]:
         row["launches_by_path"]["serve"] = serve_launches[row["name"]]
+
+    # -- 10d. the serving fleet: artifacts, failover, pod, ladder ----------
+    fleet_launches = fleet(ds, setup, runs["FedAMW"][0], runs["FedAvg"][0],
+                           card)
+    for row in kernels[:2]:
+        row["launches_by_path"]["fleet"] = fleet_launches[row["name"]]
 
     # -- 11. two ranks sharing the card (the ranks phase's (c)) -------------
     two_ranks_one_card(setup, kw, amw_kw, timed, vs_plain, card, rank_refs)

@@ -54,15 +54,21 @@ _FP32_HOLD = {"depth": 0, "prev": None}
 def full_fp32():
     """Full fp32 products and convolutions inside the block (no TF32 on
     the card: matmul precision ``"highest"``, cuDNN without TF32, which
-    PyTorch allows for convolutions by default), the previous settings
+    PyTorch allows for convolutions by default), on cuDNN's
+    deterministic algorithms (by default it may pick a convolution
+    backward that adds with atomics, and a rerun of the same step then
+    differs in its last bits, which three rounds of FedAMW over the zoo's
+    CNNs carry past the plain route's tolerance), the previous settings
     restored after it. Safe to enter from several threads at once and to
     nest: the settings hold until the last open block ends."""
     with _FP32_LOCK:
         if _FP32_HOLD["depth"] == 0:
             _FP32_HOLD["prev"] = (torch.get_float32_matmul_precision(),
-                                  torch.backends.cudnn.allow_tf32)
+                                  torch.backends.cudnn.allow_tf32,
+                                  torch.backends.cudnn.deterministic)
             torch.set_float32_matmul_precision("highest")
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
         _FP32_HOLD["depth"] += 1
     try:
         yield
@@ -73,6 +79,7 @@ def full_fp32():
                 prev = _FP32_HOLD["prev"]
                 torch.set_float32_matmul_precision(prev[0])
                 torch.backends.cudnn.allow_tf32 = prev[1]
+                torch.backends.cudnn.deterministic = prev[2]
 
 
 def segment_weighted_sums(stacked_params: dict, p: torch.Tensor,

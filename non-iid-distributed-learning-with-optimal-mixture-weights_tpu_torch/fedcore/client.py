@@ -83,8 +83,9 @@ def make_autograd_epoch(apply_fn: Callable, task: str):
     Under ``vmap`` a convolution whose weights carry the client axis
     (``models/conv.py``) runs as one grouped convolution with J groups,
     forward and backward, in place of J convolutions. Each step runs in
-    full fp32 (``aggregate.full_fp32``: no TF32 convolutions on the card),
-    the arithmetic of the JAX package's float32 reference.
+    full fp32 (``aggregate.full_fp32``: no TF32 convolutions on the card,
+    cuDNN's deterministic algorithms), the arithmetic of the JAX
+    package's float32 reference, the same bits on a rerun.
     """
     from ..ops.losses import training_loss
     from ..ops.metrics import top1_correct

@@ -41,11 +41,15 @@ lock that guards the pointer and the weights, so a retried request
 re-resolves and never runs against a half-swapped engine. Old weights
 free by refcount once the last in-flight dispatch holding them returns.
 
-Not carried yet: ``from_artifact`` and ``install_rung(aot=...)`` wait for
-this package's artifact format (ROADMAP.md queue 1 item 11 step 2), and
-raise ``NotImplementedError``. The JAX engine donates its padded input
-on a TPU; a torch tensor has nothing to donate, and each dispatch copies
-its padded batch to the card once.
+**Cold start** (``serving/artifacts.py``): :meth:`from_artifact` builds a
+ready engine from an exported ladder, one ``torch.export`` program a
+rung with the weights as its inputs; each rung runs once at load, off
+the serving path, and its dispatches never count in ``compile_count``
+(the shapes the eager forward dispatched), which stays 0 — the JAX
+engine's zero-compile contract. ``install_rung(aot=...)`` grows such an
+engine from a re-exported ladder. The JAX engine donates its padded
+input on a TPU; a torch tensor has nothing to donate, and each dispatch
+copies its padded batch to the card once.
 """
 
 from __future__ import annotations
@@ -66,10 +70,6 @@ from ..ops.rff import rff_map, rff_scale
 #: bounds padding waste at 8x worst-case while keeping the number of
 #: distinct shapes at 5 for the whole 1..4096-row request range.
 DEFAULT_BUCKETS = (1, 8, 64, 512, 4096)
-
-_NOT_PORTED = ("waits for this package's artifact format: ROADMAP.md "
-               "queue 1 item 11 step 2")
-
 
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
     """Smallest ladder rung holding ``n`` rows.
@@ -193,6 +193,10 @@ class ServingEngine:
         # the distinct padded shapes dispatched: compile_count's basis
         self._shapes_seen: set = set()
         self._shapes_lock = threading.Lock()
+        # rung -> exported program (serving.artifacts.RungProgram) on an
+        # engine built by from_artifact; None on an eager engine
+        self._aot: dict | None = None
+        self.artifact_manifest = None
         # host-timed stage split of the most recent predict() call
         # (pad+transfer vs device dispatch), for the request-level
         # trace plane. Single-consumer by design (the serving worker
@@ -403,7 +407,9 @@ class ServingEngine:
         ``len(self.buckets)`` after :meth:`warmup`. Nothing compiles in
         eager PyTorch; this is the JAX package's fallback basis for its
         jit-cache counter (one shape is one program there), kept so the
-        same no-new-shape contract holds here."""
+        same no-new-shape contract holds here. A rung served by an
+        exported program (:meth:`from_artifact`) never counts: 0 on an
+        artifact-loaded engine, as in JAX."""
         with self._shapes_lock:
             return len(self._shapes_seen)
 
@@ -426,15 +432,7 @@ class ServingEngine:
         no ``params`` raises ``utils.checkpoint.CheckpointError`` naming
         the path. ``state``: the already-loaded checkpoint dict, so a
         large one is not read twice."""
-        from ..utils.checkpoint import CheckpointError, load_checkpoint
-
-        if state is None:
-            state = load_checkpoint(path)
-        if "params" not in state:
-            raise CheckpointError(
-                path, "state has no 'params' entry (not a "
-                "save_checkpoint layout?); found keys "
-                f"{sorted(state)!r}")
+        state = _checkpoint_state(path, state)
         if rff is None and "rff_W" in state and "rff_b" in state:
             rff = (state["rff_W"], state["rff_b"])
         if feature_dtype is None and "feature_dtype" in state:
@@ -447,10 +445,63 @@ class ServingEngine:
     @classmethod
     def from_artifact(cls, artifact_dir: str, checkpoint: str | None = None,
                       params=None, rff=None, model: Model | str = "auto",
-                      version: int = 0) -> "ServingEngine":
-        """The JAX package's cold start from an exported ladder. Not
-        carried: raises ``NotImplementedError``."""
-        raise NotImplementedError(f"ServingEngine.from_artifact {_NOT_PORTED}")
+                      version: int = 0, device=None) -> "ServingEngine":
+        """A READY engine from an exported ladder
+        (``serving/artifacts.py:export_ladder``): every rung's
+        ``torch.export`` program is loaded, checked against the manifest
+        and run once here, so :meth:`warmup` is a no-op and
+        ``compile_count`` stays 0 — the cold-start path a scaling-out
+        replica takes.
+
+        Weights come from ``checkpoint`` (a ``save_checkpoint`` dir)
+        or explicit ``params``/``rff`` — NOT from the artifact, which
+        stores programs only; weights remain program inputs, so
+        ``swap_weights``/``install_weights`` and the whole rollout
+        plane work unchanged. ``model="auto"`` takes the manifest's zoo
+        name (so a conv checkpoint needs no ``model=``). ``device``
+        (not in the JAX signature): where the engine serves, the card
+        when None.
+
+        Raises :class:`~serving.artifacts.ArtifactIncompatible` when
+        the manifest does not match this host (torch and CUDA versions,
+        platform, device kind, compute capability, machine, dtype),
+        when a rung program does not load or its signature is not the
+        manifest's, or when the weights' signature differs from the one
+        the ladder was exported against — typed, never a fallback to
+        tracing the model again.
+        """
+        from .artifacts import load_ladder, validate_weights
+
+        manifest, rungs = load_ladder(artifact_dir, device)
+        if checkpoint is not None:
+            if params is not None:
+                raise ValueError(
+                    "pass checkpoint= or params=, not both")
+            state = _checkpoint_state(checkpoint)
+            params = state["params"]
+            if rff is None and "rff_W" in state and "rff_b" in state:
+                rff = (state["rff_W"], state["rff_b"])
+        elif params is None:
+            raise ValueError(
+                "from_artifact needs a weight source: checkpoint= "
+                "(a save_checkpoint dir) or params=")
+        validate_weights(manifest, params, rff, artifact_dir)
+        if model == "auto" and manifest.model:
+            from ..models import get_model
+
+            model = get_model(manifest.model) or "auto"
+        engine = cls(params, model=model, rff=rff,
+                     buckets=tuple(int(b) for b in manifest.buckets),
+                     mesh=None, feature_dtype=manifest.feature_dtype,
+                     input_dim=int(manifest.input_dim),
+                     version=version, device=device)
+        engine._aot = dict(rungs)
+        engine.artifact_manifest = manifest
+        for b in engine.buckets:
+            # the first call of each program (the library picks its
+            # algorithm and sizes its workspace) happens here, at load
+            engine._warm_shape(b, engine._aot[b])
+        return engine
 
     def _forward(self, x: torch.Tensor, params: dict, rff) -> torch.Tensor:
         """The JAX engine's forward (``engine.py:181-193``): the RFF map
@@ -464,17 +515,25 @@ class ServingEngine:
             x = x.to(self._fdtype)
         return self.model.apply(params, x)
 
-    def _dispatch(self, X: np.ndarray, params, rff) -> np.ndarray:
+    def _dispatch(self, X: np.ndarray, params, rff,
+                  aot=None) -> np.ndarray:
         """One padded rung: one host-to-device copy (a slice a device on
         a mesh), the forward, the logits back on the host (the copy back
-        waits for the device, so the caller's timing is honest)."""
-        with self._shapes_lock:
-            self._shapes_seen.add(X.shape)
+        waits for the device, so the caller's timing is honest).
+        ``aot``: the rung's exported program (an artifact-loaded
+        engine), run in place of the eager forward and never counted in
+        ``compile_count``. Either runs under ``full_fp32`` on the
+        calling thread — the service's worker, a router's hedge or
+        failover thread, a pod worker's connection thread alike."""
+        if aot is None:
+            with self._shapes_lock:
+                self._shapes_seen.add(X.shape)
         with torch.inference_mode(), full_fp32():
             if self._in_spec is None:
                 x = torch.from_numpy(X).to(self._devices[0])
-                return self._forward(x, params[0], None if rff is None
-                                     else rff[0]).cpu().numpy()
+                forward = self._forward if aot is None else aot
+                return forward(x, params[0], None if rff is None
+                               else rff[0]).cpu().numpy()
             outs = [self._forward(x, params[i], None if rff is None
                                   else rff[i])
                     for i, x in enumerate(self._in_spec.place(X))]
@@ -493,8 +552,17 @@ class ServingEngine:
         if n < b:
             X = np.concatenate(
                 [X, np.zeros((b - n, d), X.dtype)], axis=0)
+        elif not X.flags.writeable:
+            # a full rung read off the wire is a read-only view of its
+            # frame, which torch.from_numpy refuses to share quietly
+            X = X.copy()
         t1 = time.perf_counter()
-        out = self._dispatch(np.ascontiguousarray(X), params, rff)[:n]
+        # an artifact-loaded engine serves the rung's exported program
+        # (retired rungs keep theirs: an in-flight dispatch that latched
+        # the old ladder still finds it)
+        aot = None if self._aot is None else self._aot.get(b)
+        out = self._dispatch(np.ascontiguousarray(X), params, rff,
+                             aot)[:n]
         t2 = time.perf_counter()
         # accumulate across an oversized request's max-rung chunks —
         # into the CALLER's local dict, never the shared slot mid-call
@@ -579,36 +647,64 @@ class ServingEngine:
         return attr
 
     # -- ladder lifecycle ---------------------------------------------
-    def _warm_shape(self, b: int) -> None:
+    def _warm_shape(self, b: int, aot=None) -> None:
         """Run the predictor at rung ``b`` on zeros, on the CALLER's
         thread, so :meth:`install_rung` publishes only warm rungs (the
         library's first call at a shape picks its algorithm and sizes
-        its workspace off the hot path)."""
+        its workspace off the hot path). ``aot``: the rung's exported
+        program, run uncounted."""
         params, rff, _ = self._resolve(None)
         self._dispatch(np.zeros((b, self.input_dim), np.float32), params,
-                       rff)
+                       rff, aot)
 
     def install_rung(self, bucket: int, aot=None) -> int:
         """Atomically grow the ladder by one rung, warmed BEFORE it is
         published (one tuple swap under the ladder lock). Call it from
         any thread EXCEPT the serving worker. Returns the installed rung
-        size (rounded up to a mesh-device multiple). ``aot=`` (a rung
-        executable of the JAX artifact plane) is not carried and raises
-        ``NotImplementedError``."""
-        if aot is not None:
-            raise NotImplementedError(f"install_rung(aot=...) {_NOT_PORTED}")
+        size (rounded up to a mesh-device multiple).
+
+        On an artifact-loaded engine nothing may add a shape: pass
+        ``aot=`` — the rung's program from
+        ``serving.artifacts.load_ladder`` of a re-exported ladder — or
+        this raises rather than routing the new rung through the eager
+        forward. An eager engine refuses ``aot=``."""
         b = -(-int(bucket) // self._n_dev) * self._n_dev
         if b <= 0:
             raise ValueError(f"rung must be positive, got {bucket}")
         if b in self.buckets:
             raise ValueError(f"{b} is already a ladder rung "
                              f"{self.buckets}")
-        self._warm_shape(b)
+        if self._aot is not None:
+            if aot is None:
+                raise ValueError(
+                    "artifact-loaded engine: install_rung needs aot= "
+                    "(a rung executable from serving.artifacts."
+                    "load_ladder of a re-exported ladder) — compiling "
+                    "here would defeat the cold-start plane's "
+                    "zero-compile contract")
+            if int(getattr(aot, "bucket", b)) != b:
+                raise ValueError(
+                    f"aot= is rung {aot.bucket}'s program, not rung "
+                    f"{b}'s")
+            self._warm_shape(b, aot)
+        else:
+            if aot is not None:
+                # refuse rather than silently discard: an eager engine
+                # dispatches its own forward, so the program would
+                # never run
+                raise ValueError(
+                    "aot= is for artifact-loaded engines "
+                    "(from_artifact); this engine compiles its rungs "
+                    "— drop aot=, or load the engine from the "
+                    "artifact plane")
+            self._warm_shape(b)
         with self._ladder_lock:
             if b in self.buckets:
                 raise ValueError(
                     f"{b} is already a ladder rung {self.buckets} "
                     "(concurrent install)")
+            if self._aot is not None:
+                self._aot[b] = aot
             self.buckets = tuple(sorted(set(self.buckets) | {b}))
         return b
 
@@ -631,13 +727,33 @@ class ServingEngine:
 
     def warmup(self) -> int:
         """Run every rung once (zeros input); returns ``compile_count``,
-        after which a mixed-size stream dispatches no new shape."""
+        after which a mixed-size stream dispatches no new shape. On an
+        artifact-loaded engine (:meth:`from_artifact`) this is a NO-OP
+        returning the (zero) count: every rung ran at load."""
+        if self._aot is not None:
+            return self.compile_count
         d = self.input_dim
         weights = self._resolve(None)
         scratch = {"pad_s": 0.0, "dispatch_s": 0.0}
         for b in self.buckets:
             self._run(np.zeros((b, d), np.float32), weights, scratch)
         return self.compile_count
+
+
+def _checkpoint_state(path: str, state: dict | None = None) -> dict:
+    """The state of a ``save_checkpoint`` directory (``state`` when the
+    caller already read it); a state with no ``params`` raises
+    ``CheckpointError`` naming the path."""
+    from ..utils.checkpoint import CheckpointError, load_checkpoint
+
+    if state is None:
+        state = load_checkpoint(path)
+    if "params" not in state:
+        raise CheckpointError(
+            path, "state has no 'params' entry (not a "
+            "save_checkpoint layout?); found keys "
+            f"{sorted(state)!r}")
+    return state
 
 
 def _torch_dtype(feature_dtype):

@@ -234,19 +234,34 @@ class CheckpointWatcher:
     (e.g. to stage a rollout candidate); its exceptions are counted in
     ``errors`` rather than killing the watcher.
 
-    ``artifact_dir``, ``artifact_buckets``, ``artifact_keep`` and
-    ``artifact_protect`` are the JAX package's cold-start plane (an AOT
-    export of each published checkpoint's ladder, and its retention).
-    This package has no artifact format yet: any of them raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 11 step 2).
-    ``artifacts`` and ``artifacts_pruned`` stay empty lists.
+    ``artifact_dir`` (the cold-start plane, ``serving/artifacts.py``):
+    when set, every successfully published ``vNNNN`` checkpoint also
+    gets its bucket ladder exported to ``artifact_dir/vNNNN`` — the
+    publisher-side half of fast replica scale-out, so a new replica can
+    ``ServingEngine.from_artifact`` the newest round. The export runs
+    on the watcher thread (bounded by ``artifact_buckets``, default the
+    engine ladder) with an engine built on ``device`` (the card when
+    None; not in the JAX signature); an export failure counts in
+    ``errors``, but the PUBLISH stands — a registry entry must never be
+    withheld because the optional fast-start artifact failed.
+    Successful exports are listed in ``artifacts`` as ``(dirname,
+    artifact_path)``. ``artifact_keep=N`` bounds the export directory
+    like ``ModelRegistry.prune`` bounds the registry: after each export
+    the oldest artifact dirs beyond N are deleted
+    (``artifacts.prune_artifacts``), the just-exported entry always
+    kept and ``artifact_protect()`` (an optional zero-arg callable
+    returning version numbers / dirnames) pinning the live/candidate
+    set a rollout controller is serving; removals land in
+    ``artifacts_pruned``. ``artifact_keep=0`` is refused at
+    construction, and a raising ``artifact_protect`` counts in
+    ``errors`` without undoing the export.
     """
 
     def __init__(self, registry: ModelRegistry, watch_dir: str,
                  poll_interval_s: float = 1.0, metadata: dict | None = None,
                  on_publish=None, artifact_dir: str | None = None,
                  artifact_buckets=None, artifact_keep: int | None = None,
-                 artifact_protect=None):
+                 artifact_protect=None, device=None):
         if poll_interval_s < 0.01:
             raise ValueError(
                 f"poll_interval_s={poll_interval_s} must be >= 0.01 "
@@ -266,18 +281,24 @@ class CheckpointWatcher:
         self._poll_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
-        if (artifact_dir is not None or artifact_buckets is not None
-                or artifact_keep is not None
-                or artifact_protect is not None):
-            raise NotImplementedError(
-                "artifact publishing (artifact_dir, artifact_buckets, "
-                "artifact_keep, artifact_protect) waits for this "
-                "package's artifact format: ROADMAP.md queue 1 item 11 "
-                "step 2")
-        self.artifact_dir = None
-        self.artifacts_pruned: list[str] = []
+        self.artifact_dir = (None if artifact_dir is None
+                             else str(artifact_dir))
+        self.artifact_buckets = (None if artifact_buckets is None
+                                 else tuple(int(b)
+                                            for b in artifact_buckets))
+        if artifact_keep is not None and int(artifact_keep) < 1:
+            # 0 would delete every export including the one that just
+            # landed — a misconfiguration, not a retention policy
+            raise ValueError(
+                f"artifact_keep={artifact_keep} must be >= 1 (the "
+                "just-exported artifact must survive its own prune)")
+        self.artifact_keep = (None if artifact_keep is None
+                              else int(artifact_keep))
+        self.artifact_protect = artifact_protect
+        self.device = device
+        self.artifacts_pruned: list[str] = []  # dirnames removed
         self.published: list[tuple[str, int]] = []  # (dirname, version)
-        self.artifacts: list[tuple[str, str]] = []
+        self.artifacts: list[tuple[str, str]] = []  # (dirname, art path)
         self.errors = 0
         self.polls = 0
 
@@ -325,6 +346,8 @@ class CheckpointWatcher:
             with self._lock:
                 self.published.append((name, v))
             out.append(v)
+            if self.artifact_dir is not None:
+                self._export_artifact(name, path, v)
             if self.on_publish is not None:
                 try:
                     self.on_publish(v, path)
@@ -332,6 +355,63 @@ class CheckpointWatcher:
                     with self._lock:
                         self.errors += 1
         return out
+
+    def _export_artifact(self, name: str, path: str, version: int) -> None:
+        """Export one published checkpoint's ladder beside it (the
+        optional cold-start feed — see class docstring). Failures
+        count in ``errors`` and never unwind the publish."""
+        try:
+            # lazy: the registry stays importable without the engine
+            # and export machinery unless artifact publishing is on
+            from .artifacts import export_ladder
+            from .engine import ServingEngine
+
+            kw = {}
+            if self.artifact_buckets is not None:
+                kw["buckets"] = self.artifact_buckets
+            engine = ServingEngine.load(path, device=self.device, **kw)
+            out_dir = os.path.join(self.artifact_dir, name)
+            export_ladder(engine, out_dir, model_version=version,
+                          round_idx=self.registry.get(version).round_idx)
+        except Exception:
+            with self._lock:
+                self.errors += 1
+            return
+        with self._lock:
+            self.artifacts.append((name, out_dir))
+        self._prune_artifacts(name)
+
+    def _prune_artifacts(self, just_exported: str) -> None:
+        """Retention beside the registry's ``prune``: after each
+        successful export, drop the oldest artifact dirs down to
+        ``artifact_keep``. The just-exported entry is always protected
+        (a keep=1 watcher holds exactly the newest ladder), plus
+        whatever ``artifact_protect()`` names — the caller's hook for
+        pinning the LIVE and CANDIDATE versions. Failures (a protect
+        callable raising, a racing delete) count into ``errors`` and
+        never unwind the publish/export."""
+        if self.artifact_keep is None:
+            return
+        from .artifacts import prune_artifacts
+
+        try:
+            protect: list = [just_exported]
+            if self.artifact_protect is not None:
+                extra = self.artifact_protect()
+                if isinstance(extra, (str, int)):
+                    # a bare "v0004" must protect ONE name, not
+                    # iterate per character into nothing
+                    extra = (extra,)
+                protect.extend(extra)
+            removed = prune_artifacts(self.artifact_dir,
+                                      self.artifact_keep, protect)
+        except Exception:
+            with self._lock:
+                self.errors += 1
+            return
+        if removed:
+            with self._lock:
+                self.artifacts_pruned.extend(removed)
 
     # -- lifecycle ----------------------------------------------------
     def _run(self) -> None:

@@ -31,9 +31,9 @@ what keeps p99 bounded under a load spike. Per-request deadlines are
 enforced at dequeue: a request that waited past its deadline is resolved
 with :class:`DeadlineExceeded` and never spends engine time.
 
-The ``engine`` may also be a failover router over a replica fleet (the
-JAX package's ``serving.replica.FailoverRouter``; not ported here): the
-service detects its ``deadline=`` capability once
+The ``engine`` may also be a failover router over a replica fleet
+(``serving.replica.FailoverRouter``): the service detects its
+``deadline=`` capability once
 and passes each batch's earliest request deadline into dispatch, so a
 dead replica's in-flight batch requeues against survivors only while
 some caller can still make its deadline; the router's per-dispatch

@@ -124,7 +124,8 @@ def test_serving_modules_are_the_port_own():
     import fedamw_tpu_torch.serving as serving
 
     for name in ("engine", "batcher", "metrics", "control", "rollout",
-                 "registry", "service"):
+                 "registry", "service", "artifacts", "chaos", "ladder",
+                 "replica", "transport"):
         mod = sys.modules[f"fedamw_tpu_torch.serving.{name}"]
         assert Path(mod.__file__).resolve().parent == PKG / "serving"
     assert serving.__name__ == "fedamw_tpu_torch.serving"

@@ -7,7 +7,8 @@ for a non-Gaussian kernel; the port takes the JAX run's ``(W, b)`` draw
 where the JAX function takes a key), ``ops.masked_accuracy``,
 ``ops.update_learning_rate``, the ``fedcore`` exports of the reputation
 plane's ``directional_scores``, ``reputation_update`` and
-``trust_bounded_work_frac``, and ``registry.get_algorithm``.
+``trust_bounded_work_frac``, ``registry.get_algorithm``, and the
+``serving`` package's ``__all__``, name for name the JAX package's.
 Tolerance: 1e-6 on the features and the reputation plane's floats (one
 float32 product or reduction each); accuracies, rates and verdicts
 exactly.
@@ -144,3 +145,15 @@ def test_registry_get_algorithm_matches_jax():
             get("FedSGD")
         msgs.append(str(err.value))
     assert msgs[0] == msgs[1]
+
+
+def test_serving_exports_every_name_of_the_jax_package():
+    import fedamw_tpu.serving as jserving
+    import fedamw_tpu_torch.serving as tserving
+
+    assert tserving.__all__ == jserving.__all__
+    for name in tserving.__all__:
+        got = getattr(tserving, name)
+        assert got is not None
+        mod = getattr(got, "__module__", None)
+        assert mod is None or not mod.startswith("fedamw_tpu."), name

@@ -18,8 +18,8 @@ feature-dtype marker, inert padding, single-row and chunked requests,
 the shape count flat across a mixed stream, swaps and rung
 install/retire, every swap refusal, the serving mesh of 4 CPU slices
 (rungs rounded up, logits equal to one device's), and the refusals of
-what is not carried (the artifact plane, orbax checkpoints, a state with
-no params, no card). ``cuda`` cases hold the engine on the card against
+what is refused (``aot=`` on an eager engine, a missing artifact, orbax
+checkpoints, a state with no params, no card). ``cuda`` cases hold the engine on the card against
 its CPU run.
 """
 
@@ -615,15 +615,21 @@ def test_offthread_install_race_with_live_traffic():
     assert cc_after_installs == 6 and engine.compile_count == 6
 
 
-# -- what is not carried, and no silent CPU ----------------------------------
+# -- the artifact plane's refusals, and no silent CPU ------------------------
 
 def test_artifact_plane_is_refused_with_its_roadmap_item():
+    """The artifact plane is ported (``tests/test_torch_serve_artifacts.py``);
+    what it refuses here is the JAX engine's: ``aot=`` on an eager
+    engine (a ``ValueError``, the ladder untouched) and a directory that
+    holds no artifact (typed)."""
+    from fedamw_tpu_torch.serving import ArtifactIncompatible
+
     engine = _engine(buckets=(1, 8))
-    with pytest.raises(NotImplementedError, match="item 11 step 2"):
+    with pytest.raises(ValueError, match="artifact-loaded engines"):
         engine.install_rung(4, aot=lambda x, p, r: x)
     assert engine.buckets == (1, 8)
-    with pytest.raises(NotImplementedError, match="item 11 step 2"):
-        ServingEngine.from_artifact("nowhere")
+    with pytest.raises(ArtifactIncompatible, match="manifest"):
+        ServingEngine.from_artifact("nowhere", device="cpu")
 
 
 def test_engine_refuses_to_fall_back_to_the_cpu(monkeypatch):
@@ -662,6 +668,25 @@ def test_engine_runs_conv_in_full_fp32(monkeypatch):
     assert (torch.get_float32_matmul_precision(),
             torch.backends.cudnn.allow_tf32) == prev
     assert aggregate._FP32_HOLD["depth"] == 0
+
+
+def test_full_fp32_pins_deterministic_convolutions():
+    """Inside ``full_fp32`` cuDNN runs its deterministic algorithms (a
+    rerun of a convolution's backward gives the same bits), restored
+    after the last block, nested or not."""
+    from fedamw_tpu_torch.fedcore.aggregate import full_fp32
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        with full_fp32():
+            assert torch.backends.cudnn.deterministic is True
+            with full_fp32():
+                assert torch.backends.cudnn.deterministic is True
+            assert torch.backends.cudnn.deterministic is True
+        assert torch.backends.cudnn.deterministic is False
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def test_full_fp32_holds_under_concurrent_threads():

@@ -895,15 +895,26 @@ def test_watcher_on_publish_errors_counted_not_fatal(tmp_path):
 
 
 def test_watcher_refuses_the_artifact_plane(tmp_path):
-    """Publishing an exported ladder beside each checkpoint waits for
-    this package's artifact format: every artifact option raises, with
-    its ROADMAP.md item."""
+    """The watcher's artifact options are carried
+    (``tests/test_torch_serve_artifacts.py`` exports with them); what it
+    refuses is the JAX watcher's: ``artifact_keep`` below 1, which would
+    delete the export that just landed. The other options are taken as
+    given."""
     reg = ModelRegistry()
-    for kw in ({"artifact_dir": str(tmp_path / "art")},
-               {"artifact_buckets": (1, 8)}, {"artifact_keep": 2},
-               {"artifact_protect": lambda: ()}):
-        with pytest.raises(NotImplementedError, match="item 11 step 2"):
-            CheckpointWatcher(reg, str(tmp_path), **kw)
+    for keep in (0, -1):
+        with pytest.raises(ValueError, match="artifact_keep"):
+            CheckpointWatcher(reg, str(tmp_path),
+                              artifact_dir=str(tmp_path / "art"),
+                              artifact_keep=keep)
+    protect = lambda: ()  # noqa: E731
+    w = CheckpointWatcher(reg, str(tmp_path),
+                          artifact_dir=str(tmp_path / "art"),
+                          artifact_buckets=[1, 8], artifact_keep=2,
+                          artifact_protect=protect, device="cpu")
+    assert (w.artifact_dir, w.artifact_buckets, w.artifact_keep) == (
+        str(tmp_path / "art"), (1, 8), 2)
+    assert w.artifact_protect is protect
+    assert w.artifacts == [] and w.artifacts_pruned == []
 
 
 def test_registry_reads_a_jax_checkpoint(tmp_path, monkeypatch):

@@ -11,8 +11,8 @@ transient-retry budget, the burn-rate admission controller and its
 hysteresis, class-aware shedding with typed outcomes, the autoscaler's
 up/down machine over a replica fleet, deadline-ordered dispatch under
 pressure and the SLO classes' default deadlines. The autoscaler drives
-``Fleet`` below, the router surface it needs (the JAX package's replica
-router is not carried). Every wait is bounded.
+a real ``FailoverRouter`` over ``Replica``s of one engine (``Fleet``
+below). Every wait is bounded.
 """
 
 import threading
@@ -23,7 +23,8 @@ import pytest
 
 from fedamw_tpu_torch.serving import (AdmissionController, AdmissionShed,
                                       Autoscaler, DeadlineExceeded,
-                                      MicroBatcher, Overloaded,
+                                      FailoverRouter, MicroBatcher,
+                                      Overloaded, Replica,
                                       ServeMetrics, ServiceStopped,
                                       ServingEngine as _ServingEngine,
                                       ServingService, admission_shed_rate,
@@ -43,36 +44,11 @@ class ServingEngine(_ServingEngine):
         super().__init__(*a, device=device or "cpu", **kw)
 
 
-class Replica:
-    """One member of a ``Fleet``."""
-
-    def __init__(self, replica_id, engine):
-        self.replica_id = int(replica_id)
-        self.engine = engine
-
-
-class Fleet:
-    """The router surface ``Autoscaler`` drives: ``fleet_size``,
-    ``replicas``, ``add_replica`` (a duplicate id refused) and
-    ``remove_replica`` (``KeyError`` for an absent id)."""
-
-    def __init__(self, engine, n):
-        self.engine = engine
-        self.replicas = [Replica(i, engine) for i in range(n)]
-
-    def fleet_size(self):
-        return len(self.replicas)
-
-    def add_replica(self, rep):
-        if any(r.replica_id == rep.replica_id for r in self.replicas):
-            raise ValueError(f"replica {rep.replica_id} exists")
-        self.replicas.append(rep)
-        return rep.replica_id
-
-    def remove_replica(self, rid):
-        if all(r.replica_id != rid for r in self.replicas):
-            raise KeyError(rid)
-        self.replicas = [r for r in self.replicas if r.replica_id != rid]
+def Fleet(engine, n):
+    """A real ``FailoverRouter`` over ``n`` replicas of one engine: the
+    router surface ``Autoscaler`` drives (``fleet_size``, ``replicas``,
+    ``add_replica``, ``remove_replica``)."""
+    return FailoverRouter([Replica(i, engine) for i in range(n)])
 
 D, C = 16, 3
 
@@ -1113,14 +1089,16 @@ def test_unknown_class_and_no_vocabulary_stay_deadline_free():
 
 
 def test_serving_exports_the_ported_names():
-    """The package exports its modules' names, and none of the modules
-    it does not carry."""
+    """The package exports its modules' names, the fleet's among them
+    (the list is held to the JAX package's in
+    ``tests/test_torch_public.py``)."""
     import fedamw_tpu_torch.serving as serving
 
     for name in serving.__all__:
         assert getattr(serving, name) is not None, name
     assert serving.ServingEngine is _ServingEngine
-    for absent in ("FailoverRouter", "LadderLearner", "ChaosSpec",
-                   "PodWorker", "export_ladder"):
-        assert absent not in serving.__all__
-        assert not hasattr(serving, absent)
+    for present in ("FailoverRouter", "LadderLearner", "ChaosSpec",
+                    "PodWorker", "export_ladder"):
+        assert present in serving.__all__
+        assert getattr(serving, present).__module__.startswith(
+            "fedamw_tpu_torch.serving.")
