@@ -134,17 +134,17 @@ and read just after:
   464,809 x 54, 7-class stand-in over 1024 Dirichlet(0.1) clients; (b)
   ``mnist_conv_512``: conv8x16 on the 60,000 x 784, 10-class stand-in
   over 512 clients. FedAvg and FedAMW (lr 0.1, 2 local epochs, batch 32,
-  3 rounds; FedAMW at the JAX defaults with the simplex p-guard)
+  2 rounds; FedAMW at the JAX defaults with the simplex p-guard)
   against their plain runs: round ms, client-updates/s, the
   allocator's peak above each run's entry, launches by kernel (kernel 1
-  never: the zoo trains by autograd; kernel 2 three times a round on its
+  never: the zoo trains by autograd; kernel 2 twice a round on its
   split plan), the client FLOPs a client-update with their basis and the
   achieved GFLOP/s, whether test accuracy rises; kernel 2 at each
   configuration's shape against its plain version and its bound (its
   ``by_shape`` cells in the ``p_epoch.split`` row); (b)'s autograd step
   of all 512 clients (grouped convolutions) against the same step client
   by client; (c) the driver with ``--model conv8x16`` and ``--model
-  mlp64x32`` on the mnist stand-in at R=3 and one local epoch, the
+  mlp64x32`` on the mnist stand-in at R=2 and one local epoch, the
   zoo's lr and p-guard (``(6, R, 1)`` pickles, the
   forced ``kernel_type`` printed, launches counted); (d) FedAMW on (a)'s
   mlp64 under drops and NaN reports with ``quarantine:3+krum``, 2 rounds,
@@ -200,6 +200,26 @@ and read just after:
   through ``install_rung`` on a fresh engine: pad waste of the fixed
   ladder against the learned one, ``compile_count`` up by exactly the
   rungs installed.
+
+- ``scenario``: the scenario plane (``fedamw_tpu_torch.scenario``) with
+  the oracle's train leg on the card (``PropertyOracle(device="cuda")``;
+  the serve leg is host threads and loopback sockets, as in the JAX
+  package). (a) every ``campaigns/regressions/*.json`` replayed clean;
+  (b) ``run_campaign`` at ``CAMPAIGN_r16.json``'s seed and budget and (c)
+  ``run_search`` at ``CAMPAIGN_r18.json``'s, each equal to the committed
+  artifact in digest and verdicts ((c) in coverage too); (d) each of
+  (b)'s scenarios' train-leg model on the card against the CPU oracle's
+  (within 1e-6); (e) each injectable harness bug caught on the card and
+  shrunk to the CPU's minimal spec. The seconds of each part; launches
+  0 (``launches_by_path.scenario``).
+- ``torch_ref``: the plain PyTorch reference backend
+  (``registry.get_backend("torch")``) at the main configuration on the
+  card and on the CPU: FedAvg and FedAMW at ``main_path``'s cut, the
+  one-shot algorithms one local phase of 2 epochs, FedProx and FedNova
+  one round; each card run within ``TOL_RUN`` of its CPU run (the same
+  CPU generators' draws), FedAvg's test loss falling every round, the
+  seconds of each beside ``main_path``'s final accuracy; launches 0
+  (``launches_by_path.torch_ref``).
 
 Output is one JSON object per line; the line before the last lists the
 kernels; the last line is the contract line ``{"ok": true, "device":
@@ -1487,7 +1507,9 @@ ZOO_LR = 0.1
 # combination of the clients
 ZOO_AMW = dict(lambda_reg=0.01, lr_p=5e-5, val_batch_size=VB,
                p_guard="simplex")
-ZOO_ROUNDS = 3
+# rounds of (a)'s and (b)'s runs and of (c)'s drivers, cut to 2 for the
+# script's time limit
+ZOO_ROUNDS = 2
 # (c): the driver's --model on the mnist stand-in, one repeat
 ZOO_DRIVER_MODELS = ("conv8x16", "mlp64x32")
 # the driver's lr and p-guard are the zoo's: the registry's mnist lr 0.5
@@ -1818,7 +1840,7 @@ def zoo(timed, vs_plain, card):
 
     # (c) the driver: --model through exp.main on the mnist stand-in
     for model in ZOO_DRIVER_MODELS:
-        row, got = zoo_driver(model, ROUNDS)
+        row, got = zoo_driver(model, ZOO_ROUNDS)
         row["card"] = card
         emit(row)
         if not row["ok"]:
@@ -2918,6 +2940,235 @@ def observability(setup, amw_kw, untraced, untraced_secs, timed, card):
     return frac
 
 
+# -- the scenario phase -------------------------------------------------------
+# the shrink starts of (e): the richer spec for the two instant bugs, the
+# plain one for the lost request (each of its runs waits out the lost
+# future's deadline)
+SCENARIO_PLAIN = "seed=3,rounds=1,clients=4,replicas=2,requests=8"
+SCENARIO_RICH = ("seed=13,rounds=2,clients=8,replicas=2,requests=16,"
+                 "faults=0.5,chaos=0.2,load=0.4,net=0.3")
+SCENARIO_SHRINK = {"lose_request": SCENARIO_PLAIN,
+                   "dup_span": SCENARIO_RICH, "recompile": SCENARIO_RICH}
+SCENARIO_CODES = {"lose_request": "LOST_REQUEST", "dup_span": "SPAN_DUPLICATE",
+                  "recompile": "RECOMPILE"}
+# (e)'s oracle timeouts: the lost future is declared after 0.7 s
+SCENARIO_INJECT_KW = dict(lost_wait_s=0.2, request_timeout_s=0.5)
+TOL_SCENARIO_W = 1e-6
+
+
+def scenario(card):
+    """The ``scenario`` phase: the scenario plane with the oracle's train
+    leg on the card (``PropertyOracle(device="cuda")``; the serve leg is
+    a pod of host threads and loopback sockets, as in the JAX package).
+    (a) every ``campaigns/regressions/*.json`` replayed, each verdict
+    ``ok``; (b) ``run_campaign`` at ``CAMPAIGN_r16.json``'s seed and
+    budget, its digest and verdicts the committed ones; (c)
+    ``run_search`` at ``CAMPAIGN_r18.json``'s, digest, verdicts and
+    coverage the committed ones; (d) for each scenario of (b) the train
+    leg's global model on the card against ``device="cpu"``; (e) each
+    injectable harness bug caught on the card and shrunk to the minimal
+    spec the CPU oracle shrinks it to. Returns the phase's launches (0:
+    the train leg is selections, masks and a median, no kernel)."""
+    import glob
+
+    import numpy as np
+
+    from fedamw_tpu_torch.scenario import (PropertyOracle, ScenarioSpec,
+                                           load_regression, run_campaign,
+                                           run_search, shrink)
+    from fedamw_tpu_torch.scenario.oracle import INJECTABLE
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    reset_counts()
+    t_phase = time.perf_counter()
+    on_card = PropertyOracle(device="cuda")
+    on_cpu = PropertyOracle(device="cpu")
+    secs, failures = {}, []
+
+    t0 = time.perf_counter()
+    regs = {}
+    for path in sorted(glob.glob(os.path.join(repo, "campaigns",
+                                              "regressions", "*.json"))):
+        v = on_card.run(load_regression(path)["spec"])
+        regs[os.path.basename(path)] = list(v.codes()) if v.codes() else "ok"
+    secs["a_regressions"] = time.perf_counter() - t0
+    if not regs or any(c != "ok" for c in regs.values()):
+        failures.append(f"(a) regressions {regs}")
+
+    committed, wants = {}, {}
+    for key, name, run in (("b", "CAMPAIGN_r16.json", run_campaign),
+                           ("c", "CAMPAIGN_r18.json", run_search)):
+        with open(os.path.join(repo, name)) as f:
+            want = wants[name] = json.load(f)
+        t0 = time.perf_counter()
+        art = run(want["seed"], want["budget"], oracle=on_card)
+        secs[f"{key}_{name}"] = time.perf_counter() - t0
+        same = {k: art[k] == want[k] for k in ("digest", "verdicts",
+                                                "coverage") if k in want}
+        committed[name] = {"seed": want["seed"], "budget": want["budget"],
+                           "scenarios": art["scenarios"],
+                           "failures": art["failures"],
+                           "digest": art["digest"], "equal": same,
+                           "wall_s": art["wall_s"]}
+        if not all(same.values()):
+            failures.append(f"({key}) {name} not re-derived: {same}")
+
+    t0 = time.perf_counter()
+    train_diff = 0.0
+    for rec in wants["CAMPAIGN_r16.json"]["verdicts"]:
+        spec = ScenarioSpec.parse(rec["spec"])
+        legs = []
+        for oracle in (on_card, on_cpu):
+            viol = []
+            legs.append((oracle._run_train(spec, spec.expand(), viol),
+                         viol))
+        (wc, vc), (wh, vh) = legs
+        if wc.dtype != np.float32 or [v.code for v in vc] != [
+                v.code for v in vh]:
+            failures.append(f"(d) {rec['spec']}: {vc} against {vh}")
+        train_diff = max(train_diff, float(np.max(np.abs(wc - wh))))
+    secs["d_train_leg"] = time.perf_counter() - t0
+    if not train_diff <= TOL_SCENARIO_W:
+        failures.append(f"(d) train leg {train_diff} > {TOL_SCENARIO_W}")
+
+    t0 = time.perf_counter()
+    injected = {}
+    for bug in INJECTABLE:
+        code = SCENARIO_CODES[bug]
+        kw = dict(SCENARIO_INJECT_KW, inject=(bug,))
+        caught = PropertyOracle(device="cuda", **kw).run(
+            SCENARIO_PLAIN).codes()
+        mins = {}
+        for dev in ("cuda", "cpu"):
+            minimal, trace = shrink(SCENARIO_SHRINK[bug],
+                                    PropertyOracle(device=dev, **kw))
+            mins[dev] = (minimal.canonical(), [t["action"] for t in trace])
+        injected[bug] = {"caught": list(caught), "minimal": mins["cuda"][0],
+                         "shrink_steps": len(mins["cuda"][1]),
+                         "same_as_cpu": mins["cuda"] == mins["cpu"]}
+        if code not in caught or mins["cuda"] != mins["cpu"]:
+            failures.append(f"(e) {bug}: {injected[bug]} against "
+                            f"{mins['cpu']}")
+    secs["e_inject_shrink"] = time.perf_counter() - t0
+    c = counts()
+    launches = {k: c[k] for k in ("client_epoch", "p_epoch")}
+    row = {"phase": "scenario", "card": card, "regressions": regs,
+           "committed": committed, "train_leg_max_abs_diff": train_diff,
+           "tol": TOL_SCENARIO_W, "injected": injected, "seconds": secs,
+           "phase_seconds": time.perf_counter() - t_phase,
+           "launches": launches, "failures": failures, "ok": not failures}
+    emit(row)
+    if failures or any(launches.values()):
+        fail(f"scenario: {failures}, launches {launches}")
+    return launches
+
+
+# -- the torch_ref phase ------------------------------------------------------
+# the plain PyTorch reference backend (backends/torch_ref.py) at the main
+# configuration: FedAvg and FedAMW at main_path's cut, the other five cut
+# for the phase's time (the one-shot algorithms to one local phase of
+# EPOCHS epochs, FedProx and FedNova to TORCH_REF_SHORT rounds)
+TORCH_REF_SHORT = 1
+
+
+def torch_ref_phase(ds, prm, runs, card):
+    """The ``torch_ref`` phase: ``registry.get_backend("torch")`` at full
+    width (the mnist stand-in, RFF D = 2000, J = 50, seed 100, the
+    registry's hyper-parameters) on the card and on the CPU, each of the
+    seven algorithms held card against CPU at ``TOL_RUN`` (the draws are
+    the same CPU generators' on both, so only summation orders differ);
+    FedAvg's test loss must fall every round. The seconds of each, and
+    the final accuracy of the kernel path's ``main_path`` run beside
+    FedAvg's and FedAMW's (information: the draws differ). Returns the
+    phase's launches (0: the module is plain PyTorch by definition)."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch.registry import get_backend
+
+    ref = get_backend("torch")
+    reset_counts()
+    t_phase = time.perf_counter()
+    setups, setup_s = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        setups[dev] = ref.prepare_setup(
+            ds, D=D, kernel_par=prm["kernel_par"], seed=SEED,
+            rng=np.random.RandomState(SEED), device=dev)
+        torch.cuda.synchronize()
+        setup_s[dev] = time.perf_counter() - t0
+    base = dict(lr=prm["lr"], epoch=EPOCHS, batch_size=B, seed=SEED,
+                lr_mode="constant")
+    rounds = dict(base, round=ROUNDS)
+    short = dict(base, round=TORCH_REF_SHORT)
+    cases = (
+        ("FedAvg", rounds),
+        ("FedAMW", dict(rounds, lambda_reg=prm["lambda_reg"],
+                        lr_p=prm["lr_p"], val_batch_size=VB)),
+        ("Centralized", base),
+        ("Distributed", base),
+        ("FedAMW_OneShot", dict(base, lambda_reg=prm["lambda_reg_os"],
+                                lr_p=prm["lr_p_os"], val_batch_size=VB,
+                                round=ROUNDS)),
+        ("FedProx", dict(short, prox=True, mu=prm["lambda_prox"])),
+        ("FedNova", short),
+    )
+    rows, failures = [], []
+    for name, fkw in cases:
+        res, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[dev] = ref.ALGORITHMS[name](setups[dev], **fkw)
+            torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t0
+        a, b = res["cuda"], res["cpu"]
+        finite = all(np.all(np.isfinite(a[k])) for k in a)
+        d = {"max_rel_loss": max(
+                float(np.max(np.abs(a[k] - b[k])
+                             / np.maximum(np.abs(b[k]), 1e-30)))
+                for k in ("train_loss", "test_loss")),
+             "max_abs_acc": float(np.max(np.abs(a["test_acc"]
+                                                - b["test_acc"])))}
+        ok = (finite and d["max_rel_loss"] <= TOL_RUN["loss_rtol"]
+              and d["max_abs_acc"] <= TOL_RUN["acc_atol"])
+        row = {"algorithm": name,
+               "rounds": fkw.get("round"), "local_epochs": fkw["epoch"],
+               "seconds": secs["cuda"], "seconds_cpu": secs["cpu"],
+               **{k: np.ravel(a[k]).tolist()
+                  for k in ("train_loss", "test_loss", "test_acc")},
+               "vs_cpu": d, "ok": ok}
+        if name in runs:
+            row["main_path_final_acc"] = float(
+                np.ravel(runs[name][0]["test_acc"])[-1])
+        if name == "FedAvg":
+            row["learns"] = bool(np.all(np.diff(a["test_loss"]) < 0))
+            ok = ok and row["learns"]
+        rows.append(row)
+        if not ok:
+            failures.append(f"{name}: {d}, learns {row.get('learns')}")
+    c = counts()
+    launches = {k: c[k] for k in ("client_epoch", "p_epoch")}
+    # the process's other threads and PyTorch's CPU threads: this phase
+    # is bound by host dispatch, so both bear on its seconds
+    import threading
+
+    emit({"phase": "torch_ref", "card": card, "setup_seconds": setup_s,
+          "threads_alive": sorted(t.name for t in threading.enumerate()),
+          "torch_cpu_threads": torch.get_num_threads(),
+          "cuts": {"FedAvg/FedAMW rounds": ROUNDS,
+                   "FedProx/FedNova rounds": TORCH_REF_SHORT,
+                   "local_epochs": EPOCHS,
+                   "one-shot local epochs": EPOCHS},
+          "algorithms": rows, "tol": {k: TOL_RUN[k] for k in
+                                      ("loss_rtol", "acc_atol")},
+          "phase_seconds": time.perf_counter() - t_phase,
+          "launches": launches, "ok": not failures})
+    if failures or any(launches.values()):
+        fail(f"torch_ref: {failures}, launches {launches}")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -3818,6 +4069,14 @@ def main():
                            card)
     for row in kernels[:2]:
         row["launches_by_path"]["fleet"] = fleet_launches[row["name"]]
+
+    # -- 10e. the scenario plane, the oracle's train leg on the card -------
+    scenario_launches = scenario(card)
+    # -- 10f. the plain PyTorch reference backend at full width ------------
+    ref_launches = torch_ref_phase(ds, prm, runs, card)
+    for row in kernels[:2]:
+        row["launches_by_path"]["scenario"] = scenario_launches[row["name"]]
+        row["launches_by_path"]["torch_ref"] = ref_launches[row["name"]]
 
     # -- 11. two ranks sharing the card (the ranks phase's (c)) -------------
     two_ranks_one_card(setup, kw, amw_kw, timed, vs_plain, card, rank_refs)

@@ -21,6 +21,6 @@ unless the caller passes ``device="cpu"``.
 Import via the repo-root alias module ``fedamw_tpu_torch``.
 """
 
-from . import config  # noqa: F401
+from . import config, registry  # noqa: F401
 
 __version__ = "0.1.0"

@@ -6,7 +6,9 @@ host planes are copies of the JAX package's, never imports of it) imports
 with no JAX in the process, and no source file names JAX. Every entry
 point that places data or weights raises without a card unless it is
 told ``device="cpu"``: the setups, the driver, ``ServingEngine`` and
-``make_serving_mesh``.
+``make_serving_mesh`` here, ``PropertyOracle`` and the campaigns in
+``test_torch_scenario.py``, ``backends.torch_ref.prepare_setup`` in
+``test_torch_backends.py``. ``pyproject.toml`` lists every subpackage.
 
 The repository's root ``conftest.py`` imports JAX into this process, so
 the import check runs in a fresh interpreter.
@@ -139,3 +141,20 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_pyproject_lists_every_subpackage_of_the_port():
+    """An installed wheel carries every package directory of the port:
+    each directory with an ``__init__.py`` is named in ``pyproject.toml``'s
+    ``packages``, and every name listed there is such a directory."""
+    import tomllib
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        listed = {p for p in tomllib.load(f)["tool"]["setuptools"]["packages"]
+                  if p.split(".")[0] == "fedamw_tpu_torch"}
+    on_disk = {".".join(["fedamw_tpu_torch",
+                         *init.parent.relative_to(PKG).parts])
+               for init in PKG.rglob("__init__.py")}
+    assert listed == on_disk
+    for name in ("serving", "utils", "scenario", "backends"):
+        assert f"fedamw_tpu_torch.{name}" in listed

@@ -8,11 +8,18 @@ where the JAX function takes a key), ``ops.masked_accuracy``,
 ``ops.update_learning_rate``, the ``fedcore`` exports of the reputation
 plane's ``directional_scores``, ``reputation_update`` and
 ``trust_bounded_work_frac``, ``registry.get_algorithm``, and the
-``serving`` package's ``__all__``, name for name the JAX package's.
-Tolerance: 1e-6 on the features and the reputation plane's floats (one
+``serving`` package's ``__all__``, name for name the JAX package's; the
+registry's surface (``BACKENDS``, ``get_backend``, ``get_serving``); and
+for every module of the JAX package its counterpart in the port with
+every public name it defines (the Pallas kernels' modules map to their
+CUDA twins' wrappers; the XLA lowering knobs in ``NOT_PORTED`` stay
+out). Tolerance: 1e-6 on the features and the reputation plane's floats (one
 float32 product or reduction each); accuracies, rates and verdicts
 exactly.
 """
+
+import ast
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -157,3 +164,77 @@ def test_serving_exports_every_name_of_the_jax_package():
         assert got is not None
         mod = getattr(got, "__module__", None)
         assert mod is None or not mod.startswith("fedamw_tpu."), name
+
+
+def test_registry_carries_the_jax_registry_surface():
+    """``BACKENDS``, ``get_backend``, ``get_algorithm(name, backend)`` and
+    ``get_serving`` (the port's names for the backends: ``"port"`` in
+    the JAX package's ``"jax"`` place, ``"torch"`` the same); the
+    package imports ``registry`` and ``config`` as the JAX package's
+    does, and ``config.ExperimentConfig`` is there."""
+    import fedamw_tpu
+    import fedamw_tpu_torch
+    import fedamw_tpu_torch.serving as tserving
+    from fedamw_tpu_torch import config
+    from fedamw_tpu_torch.backends import torch_ref
+
+    for name in ("BACKENDS", "get_backend", "get_algorithm", "get_serving"):
+        assert hasattr(jregistry, name) and hasattr(registry, name), name
+    assert len(registry.BACKENDS) == len(jregistry.BACKENDS)
+    assert "torch" in registry.BACKENDS and "torch" in jregistry.BACKENDS
+    assert registry.get_backend("torch") is torch_ref
+    assert registry.get_serving() is tserving
+    assert registry.get_algorithm("FedAMW", "torch") is torch_ref.FedAMW
+    assert fedamw_tpu_torch.registry is registry
+    assert fedamw_tpu_torch.config is config
+    assert fedamw_tpu.registry is jregistry
+    assert hasattr(config, "ExperimentConfig")
+
+
+JAX_PKG = Path(jregistry.__file__).resolve().parent
+PORT_PKG = Path(registry.__file__).resolve().parent
+
+# the JAX package's XLA and Pallas lowering knobs, not ported: the port
+# chooses a route with `fedcore/route.py` and the `kernel_impl` argument
+# (ROADMAP.md lists each with its counterpart)
+NOT_PORTED = {
+    "fedcore/client.py": {"resolve_kernel_impl", "SGD_SCAN_UNROLL",
+                          "scan_unroll", "EPOCH_GATHER_BYTES_LIMIT",
+                          "epoch_gather_bytes"},
+    "fedcore/aggregate.py": {"P_SCAN_UNROLL", "resolve_psolver_impl"},
+}
+# the two Pallas kernels' modules: their CUDA twins' wrappers
+KERNEL_MODULES = {"fedcore/pallas_kernel.py": "fedcore/epoch_kernel.py",
+                  "fedcore/pallas_psolver.py": "fedcore/psolver_kernel.py"}
+
+
+def _defined_names(path):
+    """The public names a module defines at its top level (functions,
+    classes, assignments; imported names left out)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                           ast.Name):
+            out.add(node.target.id)
+    return {n for n in out if not n.startswith("_")}
+
+
+JAX_MODULES = sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_jax_module_has_its_counterpart_with_its_names(rel):
+    port = PORT_PKG / KERNEL_MODULES.get(rel, rel)
+    assert port.is_file(), f"no counterpart of {rel} in the port"
+    if rel in KERNEL_MODULES:
+        return
+    missing = (_defined_names(JAX_PKG / rel) - _defined_names(port)
+               - NOT_PORTED.get(rel, set()))
+    assert not missing, f"{rel}: the port lacks {sorted(missing)}"
+    for name in NOT_PORTED.get(rel, ()):
+        assert name in _defined_names(JAX_PKG / rel), name
