@@ -220,6 +220,20 @@ and read just after:
   CPU generators' draws), FedAvg's test loss falling every round, the
   seconds of each beside ``main_path``'s final accuracy; launches 0
   (``launches_by_path.torch_ref``).
+- ``tune``: the tuning loop and the export CLI through their module
+  entry points at the main configuration's width. (a) ``python -m
+  fedamw_tpu_torch.tune --dataset mnist --round 20 --lr_p 0.001
+  --lambda_reg 5e-6`` in a subprocess, the same parameters through
+  ``tune.main`` in process (the printed line equal) and FedAMW called
+  directly on a setup built by hand with the trial's arguments (within
+  ``TOL_RUN``, bitwise or not reported); (b) ``sweep.run_sweep("mnist",
+  trials=4, rounds=10, seed=7)`` and its report parsed back; (c)
+  ``python -m fedamw_tpu_torch.export_artifacts`` on ``main_path``'s
+  FedAMW checkpoint with ``--check`` (``compile_count`` 0, bitwise),
+  then the artifact serving rung 4096 bitwise as the engine. A trial of
+  R rounds launches kernel 1 2R times and kernel 2 R*R times
+  (``launches_by_path.tune``: (a)'s two in-process runs and (b)'s four
+  trials).
 
 Output is one JSON object per line; the line before the last lists the
 kernels; the last line is the contract line ``{"ok": true, "device":
@@ -3169,6 +3183,239 @@ def torch_ref_phase(ds, prm, runs, card):
     return launches
 
 
+
+# -- the tune phase -----------------------------------------------------------
+# the tuning loop and the export CLI through their module entry points, at
+# the main configuration's width (the mnist stand-in, RFF D = 2000, J = 50,
+# Dirichlet alpha 0.01, the registry's kernel_par): (a) one trial, (b) the
+# sweep, (c) the cold-start export of main_path's FedAMW checkpoint
+TUNE_ROUNDS = 20            # (a): rounds of the module trial
+TUNE_ARGS = ("--dataset", "mnist", "--round", str(TUNE_ROUNDS),
+             "--lr_p", "0.001", "--lambda_reg", "5e-6")   # the registry's
+TUNE_SWEEP = dict(trials=4, rounds=10, seed=7)            # (b)
+TUNE_BUCKETS = "1,8,64,512,4096"                          # (c)
+
+
+def trial_launches(rounds, trials=1):
+    """Kernel launches of ``trials`` FedAMW trials of ``rounds`` rounds:
+    2 local epochs a round (kernel 1) and ``rounds`` p-epochs a round
+    (kernel 2)."""
+    return {"client_epoch": trials * EPOCHS * rounds,
+            "p_epoch": trials * rounds * rounds}
+
+
+def _module(args, timeout=300):
+    """``python -m fedamw_tpu_torch.<args>`` from the repository root:
+    (completed process, wall seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                         text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    return out, time.perf_counter() - t0
+
+
+def tune_phase(ds, setup, amw_res, prm, card):
+    """The ``tune`` phase. (a) ``python -m fedamw_tpu_torch.tune`` in a
+    subprocess (exit 0, its printed line parsed); the same parameters
+    through ``tune.main`` in process (the printed values to their 5
+    decimals, launches 2R and R*R) and ``ALGORITHMS["FedAMW"]`` called
+    directly on a setup built by hand with the trial's arguments (within
+    ``TOL_RUN``; bitwise or not is reported). (b)
+    ``sweep.run_sweep("mnist", trials=4, rounds=10, seed=7)`` in process
+    (every trial finite or ranked last, launches per trial as (a)'s) and
+    its report written and parsed back. (c) ``python -m
+    fedamw_tpu_torch.export_artifacts CKPT OUT --buckets ... --check`` on
+    ``main_path``'s FedAMW checkpoint (exit 0, ``compile_count`` 0,
+    bitwise parity), then ``ServingEngine.from_artifact`` serving rung
+    4096 bitwise as the engine. Returns the phase's launches: (a)'s two
+    in-process runs and (b)'s trials (the subprocesses' launches are
+    their own)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch import sweep, tune
+    from fedamw_tpu_torch.data import load_dataset
+    from fedamw_tpu_torch.registry import get_backend
+    from fedamw_tpu_torch.serving import ServingEngine
+    from fedamw_tpu_torch.serving.artifacts import ARTIFACT_SCHEMA
+    from fedamw_tpu_torch.utils import save_checkpoint
+
+    t_phase = time.perf_counter()
+    failures = []
+    total = {"client_epoch": 0, "p_epoch": 0}
+
+    def counted(fn, *a, **kw):
+        """fn(*a, **kw) with every count set to 0 just before and read
+        just after: (result, synchronised seconds, launches, stdout)."""
+        log = io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = counts()
+        got = {k: c[k] for k in ("client_epoch", "p_epoch")}
+        for k in total:
+            total[k] += got[k]
+        return res, secs, got, log.getvalue()
+
+    # (a) one trial through the module, in process, and FedAMW directly
+    out, module_s = _module(["fedamw_tpu_torch.tune", *TUNE_ARGS])
+    printed = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("FedAMW final: ")]
+    parsed = None
+    if out.returncode == 0 and len(printed) == 1:
+        loss_s, acc_s = (f.split("=")[1] for f in printed[0].split()[2:4])
+        parsed = {"loss": loss_s, "acc": acc_s}
+    else:
+        failures.append(f"a: the module trial exited {out.returncode}: "
+                        f"{out.stderr[-1500:]}")
+    old_argv = sys.argv
+    sys.argv = ["tune", *TUNE_ARGS]
+    try:
+        params = vars(tune.get_params())
+    finally:
+        sys.argv = old_argv
+    m = {}
+    _, inproc_s, inproc_l, inproc_out = counted(tune.main, params,
+                                                metrics_out=m)
+    same_line = (parsed is not None and f"{m['loss']:.5f}" == parsed["loss"]
+                 and f"{m['acc']:.5f}" == parsed["acc"])
+    backend = get_backend(params["backend"])
+    rng = np.random.RandomState(params["seed"])
+    t0 = time.perf_counter()
+    ds_t = load_dataset(params["dataset"], 50, 0.01,
+                        data_dir=params["data_dir"], rng=rng)
+    setup_t = backend.prepare_setup(
+        ds_t, D=params["D"], kernel_par=prm["kernel_par"],
+        kernel_type=prm["kernel_type"], seed=params["seed"], rng=rng)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    direct, direct_s, direct_l, _ = counted(
+        backend.ALGORITHMS["FedAMW"], setup_t, lr=prm["lr"],
+        epoch=params["local_epoch"], batch_size=32, lambda_reg_if=True,
+        lambda_reg=params["lambda_reg"], round=params["round"],
+        lr_p=params["lr_p"], seed=params["seed"])
+    del setup_t, ds_t
+    d_loss, d_acc = (float(np.ravel(direct[k])[-1])
+                     for k in ("test_loss", "test_acc"))
+    vs_direct = {"rel_loss": abs(m["loss"] - d_loss) / max(abs(d_loss),
+                                                          1e-30),
+                 "abs_acc": abs(m["acc"] - d_acc)}
+    bitwise = m["loss"] == d_loss and m["acc"] == d_acc
+    want = trial_launches(TUNE_ROUNDS)
+    ok_a = (parsed is not None and same_line
+            and all(math.isfinite(v) for v in m.values())
+            and vs_direct["rel_loss"] <= TOL_RUN["loss_rtol"]
+            and vs_direct["abs_acc"] <= TOL_RUN["acc_atol"]
+            and inproc_l == want and direct_l == want)
+    emit({"phase": "tune", "case": "a trial", "card": card,
+          "args": list(TUNE_ARGS), "module_exit": out.returncode,
+          "module_printed": printed, "in_process_printed":
+          inproc_out.strip().splitlines()[-1:], "metrics": m,
+          "direct": {"loss": d_loss, "acc": d_acc},
+          "printed_line_equal": same_line, "vs_direct": vs_direct,
+          "bitwise_vs_direct": bitwise,
+          "seconds": {"module_subprocess": module_s,
+                      "in_process": inproc_s, "direct_setup": setup_s,
+                      "direct_fedamw": direct_s},
+          "launches": {"in_process": inproc_l, "direct": direct_l},
+          "launches_expected": want, "ok": ok_a})
+    if not ok_a:
+        failures.append(f"a: line {same_line}, {vs_direct}, launches "
+                        f"{inproc_l}/{direct_l} (expected {want})")
+
+    # (b) the sweep in process, its report written and parsed back
+    ranked, sweep_s, sweep_l, sweep_out = counted(
+        sweep.run_sweep, "mnist", TUNE_SWEEP["trials"],
+        TUNE_SWEEP["rounds"], TUNE_SWEEP["seed"])
+    want_b = trial_launches(TUNE_SWEEP["rounds"], TUNE_SWEEP["trials"])
+    finite = [math.isfinite(r["acc"]) and math.isfinite(r["loss"])
+              for r in ranked]
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "TUNING_torch.md")
+        with contextlib.redirect_stdout(io.StringIO()):
+            sweep.write_report(ranked, "mnist", TUNE_SWEEP["rounds"],
+                               TUNE_SWEEP["seed"], report)
+        with open(report) as f:
+            text = f.read()
+    rows = [[c.strip() for c in ln.split("|")[1:-1]]
+            for ln in text.splitlines() if ln.startswith("| ")
+            and ln[2].isdigit()]
+    parses = (len(rows) == len(ranked) == TUNE_SWEEP["trials"] and all(
+        int(r[0]) == i + 1 and float(r[1]) == t["lr_p"]
+        and float(r[2]) == t["lambda_reg"] and r[3] == f"{t['acc']:.2f}"
+        for i, (r, t) in enumerate(zip(rows, ranked)))
+        and "python -m fedamw_tpu_torch.sweep" in text
+        and torch.cuda.get_device_name(0) in text)
+    ok_b = (finite == sorted(finite, reverse=True) and parses
+            and sweep_l == want_b
+            and [r["acc"] for r in ranked] == sorted(
+                (r["acc"] for r in ranked), reverse=True))
+    emit({"phase": "tune", "case": "b sweep", "card": card, **TUNE_SWEEP,
+          "trials_ranked": ranked, "finite": finite,
+          "report_parses": parses, "seconds": sweep_s,
+          "trial_seconds": [r["wall_s"] for r in ranked],
+          "launches": sweep_l, "launches_expected": want_b, "ok": ok_b})
+    if not ok_b:
+        failures.append(f"b: finite {finite}, parses {parses}, launches "
+                        f"{sweep_l} (expected {want_b})")
+
+    # (c) the export CLI on main_path's FedAMW checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "main_FedAMW")
+        save_checkpoint(ck, amw_res["params"], p=amw_res["p"],
+                        round_idx=ROUNDS, rff=setup.rff)
+        art = os.path.join(tmp, "artifact")
+        out, export_s = _module(["fedamw_tpu_torch.export_artifacts", ck,
+                                 art, "--buckets", TUNE_BUCKETS, "--check"])
+        summary = None
+        try:
+            summary = json.loads(out.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            pass
+        buckets = [int(b) for b in TUNE_BUCKETS.split(",")]
+        ok_c = (out.returncode == 0 and summary is not None
+                and summary.get("schema") == ARTIFACT_SCHEMA
+                and summary.get("buckets") == buckets
+                and summary.get("check", {}).get("compile_count") == 0
+                and summary["check"].get("parity") == "bitwise")
+        served = {}
+        if ok_c:
+            top = max(buckets)
+            X = np.ascontiguousarray(np.asarray(ds.X_test[:top], np.float32))
+            t0 = time.perf_counter()
+            loaded = ServingEngine.from_artifact(art, checkpoint=ck)
+            load_s = time.perf_counter() - t0
+            engine = ServingEngine.load(ck, buckets=tuple(buckets))
+            a, e = loaded.predict(X), engine.predict(X)
+            served = {"rows": top, "bitwise": bool(np.array_equal(a, e)),
+                      "max_abs": float(np.max(np.abs(a - e))),
+                      "from_artifact_s": load_s,
+                      "compile_count": loaded.compile_count}
+            ok_c = served["bitwise"] and loaded.compile_count == 0
+            del loaded, engine
+    emit({"phase": "tune", "case": "c export CLI", "card": card,
+          "buckets": TUNE_BUCKETS, "exit": out.returncode,
+          "summary": summary, "served_top_rung": served,
+          "seconds": export_s, "stderr_tail": out.stderr[-600:],
+          "ok": ok_c})
+    if not ok_c:
+        failures.append(f"c: exit {out.returncode}, {summary}, {served}: "
+                        f"{out.stderr[-1500:]}")
+    torch.cuda.empty_cache()
+    emit({"phase": "tune", "case": "total", "card": card,
+          "seconds": time.perf_counter() - t_phase, "launches": total,
+          "ok": not failures})
+    if failures:
+        fail(f"tune: {failures}")
+    return total
+
+
 def main():
     import numpy as np
     import torch
@@ -4074,9 +4321,12 @@ def main():
     scenario_launches = scenario(card)
     # -- 10f. the plain PyTorch reference backend at full width ------------
     ref_launches = torch_ref_phase(ds, prm, runs, card)
+    # -- 10g. the tuning loop and the export CLI ----------------------------
+    tune_launches = tune_phase(ds, setup, runs["FedAMW"][0], prm, card)
     for row in kernels[:2]:
         row["launches_by_path"]["scenario"] = scenario_launches[row["name"]]
         row["launches_by_path"]["torch_ref"] = ref_launches[row["name"]]
+        row["launches_by_path"]["tune"] = tune_launches[row["name"]]
 
     # -- 11. two ranks sharing the card (the ranks phase's (c)) -------------
     two_ranks_one_card(setup, kw, amw_kw, timed, vs_plain, card, rank_refs)

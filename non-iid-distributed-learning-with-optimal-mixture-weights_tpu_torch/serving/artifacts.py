@@ -104,7 +104,7 @@ class ArtifactIncompatible(RuntimeError):
         super().__init__(
             f"serving artifact {self.artifact_dir!r} is incompatible "
             f"with this host: {detail} — re-export on (or for) this "
-            "host class with serving.artifacts.export_ladder")
+            "host class with python -m fedamw_tpu_torch.export_artifacts")
 
 
 def _cpu_feature_fingerprint() -> str | None:

@@ -1,12 +1,15 @@
 """The port stands alone: no JAX, nothing of the JAX package, and no
 silent CPU fallback.
 
+No module of the package, and not ``chip_smoke.py``, imports a root
+script of the repository (``tune``, ``sweep``, ``bench_common``, ...).
 Every module of the package (the serving modules included: ``serving``'s
 host planes are copies of the JAX package's, never imports of it) imports
 with no JAX in the process, and no source file names JAX. Every entry
 point that places data or weights raises without a card unless it is
 told ``device="cpu"``: the setups, the driver, ``ServingEngine`` and
-``make_serving_mesh`` here, ``PropertyOracle`` and the campaigns in
+``make_serving_mesh``, the tuning trial, the sweep and the export CLI
+here, ``PropertyOracle`` and the campaigns in
 ``test_torch_scenario.py``, ``backends.torch_ref.prepare_setup`` in
 ``test_torch_backends.py``. ``pyproject.toml`` lists every subpackage.
 
@@ -77,6 +80,20 @@ def test_source_imports_no_jax_and_no_jax_package(path):
             f"{path.name} imports {name}")
 
 
+#: the repository's root scripts; the port imports none of them (the
+#: alias module ``fedamw_tpu_torch`` is the port itself)
+ROOT_SCRIPTS = sorted(p.stem for p in REPO.glob("*.py")
+                      if p.stem != "fedamw_tpu_torch")
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [CHIP_SMOKE],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_root_script(path):
+    for name in _imports(path):
+        assert name.split(".")[0] not in ROOT_SCRIPTS, (
+            f"{path.name} imports the root script {name}")
+
+
 def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     from fedamw_tpu_torch.algorithms import prepare_setup
     from fedamw_tpu_torch.convert import setup_from_arrays
@@ -99,6 +116,30 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
                           sizes=np.ones(1, np.int32),
                           p_fixed=np.ones(1, np.float32))
     assert prepare_setup(ds, D=16, device="cpu").device.type == "cpu"
+
+
+def test_tuning_and_export_entry_points_refuse_to_fall_back_to_the_cpu(
+        monkeypatch, tmp_path, capsys):
+    """``python -m fedamw_tpu_torch.tune``, ``.sweep`` and
+    ``.export_artifacts`` raise without a card unless told the CPU."""
+    from fedamw_tpu_torch import export_artifacts, sweep, tune
+    from fedamw_tpu_torch.utils import save_checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["tune", "--dataset", "digits"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tune.main(vars(tune.get_params()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tune.cli()
+    out = tmp_path / "T.md"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep.main(["--trials", "1", "--round", "1", "--out", str(out)])
+    assert not out.exists()
+    ck = str(tmp_path / "ck")
+    save_checkpoint(ck, {"w": np.zeros((3, 4), np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_artifacts.main([ck, str(tmp_path / "art")])
+    capsys.readouterr()
 
 
 def test_serving_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
