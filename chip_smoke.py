@@ -104,6 +104,13 @@ and read just after:
   features stored in bfloat16 (kernel 1 reads 2-byte rows), 3 rounds,
   each against its plain run, round ms beside the float32 main path's
   and the feature matrices' bytes;
+- ``wide_d``: kernel 1's wide plan, the main configuration mapped to
+  D = 10,000 (past the staged kernel's 5,376 at C = 10): the kernel
+  against its plain version at J = 50 with float32 rows (the registry's
+  and the strong penalties) and bfloat16 rows, at the reference
+  tolerances, two launches bitwise equal; FedAvg and FedAMW 2 rounds of
+  2 local epochs and Centralized 2 epochs (J = 1), each against its plain
+  run at ``TOL_RUN``, counted, every kernel-1 launch the wide kernel's;
 - ``profile``: the device shuffle draw of one round alone
   (``draw_ms_per_round``, CUDA events), then one profiled FedAMW run
   (device time by kernel, the device's busy share of the wall time,
@@ -121,9 +128,13 @@ and read just after:
   (``ms_by_plan``: staged, split and unstaged at J = 50); rows of their
   own for the split plan (J = 400, C = 10, and J = 4096, C = 2), the
   guarded epochs (clip and simplex at J = 50 and 400, with the simplex's
-  fixed-point rounds per step) and kernel 1's bfloat16 rows
+  fixed-point rounds per step), kernel 1's bfloat16 rows
   (``ms_by_dtype`` beside float32 and float16 at the main shape and at
-  Centralized's), each launch count from the run of its own path; a
+  Centralized's) and kernel 1's wide plan at ``wide_d``'s shape
+  (``client_epoch.wide``: ``us_per_step``, cluster, spills, the byte
+  bound, ``ms_bfloat16`` and ``ms_boundary``, the staged and the forced
+  wide plan in turns at D = 5,376), each launch count from the run of its
+  own path; a
   ``p_solve_100_epochs_ms`` line times ``make_p_solver``'s solve over 100
   epochs (the p-solve of one round of the paper's 100-round run);
 - ``paper_run``: the driver's six algorithms at the paper's length (100
@@ -3416,6 +3427,200 @@ def tune_phase(ds, setup, amw_res, prm, card):
     return total
 
 
+WIDE_D = 10000             # wide_d: past the staged kernel's 5,376 at C = 10
+WIDE_BOUNDARY_D = 5376     # the staged kernel's widest float32 D at C = 10
+WIDE_ROUNDS = 2
+
+
+def wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms):
+    """The ``wide_d`` phase: kernel 1's wide plan at the main
+    configuration with ``--D 10000``. (a) The kernel against its plain
+    version at J = 50 (float32 rows under the registry's and the strong
+    penalties, bfloat16 rows under the strong ones) at the reference
+    tolerances, two launches bitwise equal; (b) FedAvg and FedAMW for
+    ``WIDE_ROUNDS`` rounds of ``EPOCHS`` local epochs and Centralized for
+    ``EPOCHS`` epochs (J = 1), each against its plain run at ``TOL_RUN``,
+    every count set to 0 just before each and read just after, every
+    kernel-1 launch the wide kernel's; (c) its time, beside the plain
+    version's and its bound, the staged and the forced wide plan in turns
+    at D = ``WIDE_BOUNDARY_D``, and bfloat16 rows. Returns the
+    ``client_epoch.wide`` row of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch.algorithms import (
+        Centralized, FedAMW, FedAvg, prepare_setup)
+    from fedamw_tpu_torch.fedcore import (
+        client_epoch, client_epoch_plain, cuda_build)
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+    from fedamw_tpu_torch.fedcore.batching import (
+        batch_valid, draw_epoch_positions)
+
+    t_phase = time.perf_counter()
+    wide = prepare_setup(ds, D=WIDE_D, kernel_par=prm["kernel_par"],
+                         seed=SEED, rng=np.random.RandomState(SEED))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    dev, C = wide.device, wide.num_classes
+    gen = torch.Generator().manual_seed(SEED)
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+    w0 = wide.model.init(gen, WIDE_D, C)["w"].to(dev)
+    pos = draw_epoch_positions(dgen, wide.n_max, B, wide.mask, lead=(J,))
+    valid = batch_valid(pos, wide.n_max, wide.mask)
+    rows = torch.gather(wide.idx, 1, pos.reshape(J, -1)).reshape(
+        pos.shape).to(torch.int32).contiguous()
+    lr = float(prm["lr"])
+
+    def epoch_args(mu, lam, jitter, X=None):
+        W = w0.expand(J, C, WIDE_D) + jitter * torch.randn(
+            (J, C, WIDE_D), generator=gen).to(dev)
+        return (W.contiguous(), w0, wide.X if X is None else X, wide.y,
+                rows, valid, lr, mu, lam, "classification")
+
+    def plan_of(a, **kw):
+        name = ek.ROW_LIBRARIES[a[2].dtype]
+        return ek.launch_plan(
+            J, B, C, int(a[0].shape[2]), sms, row_bytes=a[2].element_size(),
+            max_cluster=ek.wide_max_cluster(dev.index or 0, name), **kw)
+
+    # (a) the kernel against its plain version, two launches bitwise
+    cases = {"registry": epoch_args(float(prm["lambda_prox"]),
+                                    float(prm["lambda_reg"]), 0.0),
+             "strong": epoch_args(0.05, 0.01, 0.01)}
+    cases["strong bfloat16"] = (cases["strong"][:2]
+                                + (wide.X.to(torch.bfloat16),)
+                                + cases["strong"][3:])
+    errs = {}
+    for label, a in cases.items():
+        plan = plan_of(a)
+        w1, m1 = client_epoch(*a)
+        w2, m2 = client_epoch(*a)
+        torch.cuda.synchronize()
+        wp, mp = client_epoch_plain(*a)
+        ok_w, err_w = close(w1, wp, **TOL_W)
+        tot = mp[:, 2].clamp(min=1)
+        ok_l, err_l = close(m1[:, 0] / tot, mp[:, 0] / tot, 1e-4, 0)
+        ok_a, err_a = close(100 * m1[:, 1] / tot, 100 * mp[:, 1] / tot,
+                            1e-3, 0)
+        bitwise = bool(torch.equal(w1, w2) and torch.equal(m1, m2))
+        row = {"phase": "kernel_check", "kernel": "client_epoch.wide",
+               "case": label, "rows": str(a[2].dtype).removeprefix("torch."),
+               "plan": dataclasses.asdict(plan),
+               "shape": {"J": J, "C": C, "D": WIDE_D,
+                         "S": int(rows.shape[1]), "B": B},
+               "max_abs_err_w": err_w, "max_abs_err_loss": err_l,
+               "max_abs_err_acc": err_a, "tol_w": TOL_W,
+               "tol_loss_atol": 1e-4, "tol_acc_atol": 1e-3,
+               "two_launches_bitwise": bitwise,
+               "ok": ok_w and ok_l and ok_a and bitwise
+               and plan.kernel == "wide"}
+        emit(row)
+        if not row["ok"]:
+            fail(f"the wide client_epoch plan ({label}) disagrees with its "
+                 "plain version, is not deterministic or did not run")
+        errs[label] = err_w
+
+    # (b) the algorithms as exp.py calls them, counted
+    wkw = dict(kw, round=WIDE_ROUNDS)
+    algos = (
+        ("FedAvg", FedAvg, wkw, (EPOCHS * WIDE_ROUNDS, 0)),
+        ("FedAMW", FedAMW, dict(amw_kw, round=WIDE_ROUNDS),
+         (EPOCHS * WIDE_ROUNDS, WIDE_ROUNDS * WIDE_ROUNDS)),
+        ("Centralized", Centralized,
+         dict(lr=prm["lr"], epoch=EPOCHS, batch_size=B, seed=SEED),
+         (EPOCHS, 0)))
+    by_algorithm = {}
+    for name, fn, fkw, want in algos:
+        ref, plain_s = timed(fn, wide, kernel_impl="plain", **fkw)
+        reset_counts()
+        res, secs = timed(fn, wide, **fkw)
+        c = counts()
+        ok, diffs = vs_plain(res, ref)
+        got = (c["client_epoch"], c["p_epoch"])
+        by_algorithm[name] = c["client_epoch_by_kernel"]
+        emit({"phase": "wide_d", "algorithm": name, "D": WIDE_D,
+              "card": card, "seconds": secs, "seconds_plain": plain_s,
+              "test_acc": np.ravel(res["test_acc"]).tolist(),
+              "test_loss": np.ravel(res["test_loss"]).tolist(),
+              "launches": c, "launches_expected": {
+                  "client_epoch": want[0], "p_epoch": want[1]},
+              "vs_plain": diffs, "tol": TOL_RUN, "ok": ok})
+        if not ok or got != want or c["client_epoch_by_kernel"]["wide"] != \
+                got[0]:
+            fail(f"{name} at D={WIDE_D} launched {c} (expected {want}, "
+                 f"every kernel-1 launch wide) or does not match its plain "
+                 f"run: {diffs}")
+    launches = sum(c["wide"] for c in by_algorithm.values())
+
+    # (c) times: the wide plan beside its plain version and its bound; the
+    # staged and the forced wide plan in turns at the staged kernel's
+    # widest D; bfloat16 rows
+    a = cases["strong"]
+    plan = plan_of(a)
+    saved = client_epoch.launches, dict(client_epoch.launches_by_kernel)
+    ms = cuda_ms(lambda: client_epoch(*a), 10)
+    plain_ms = cuda_ms(lambda: client_epoch_plain(*a), 2)
+    Db = WIDE_BOUNDARY_D
+    ab = (a[0][..., :Db].contiguous(), a[1][:, :Db].contiguous(),
+          a[2][:, :Db].contiguous()) + a[3:]
+    turns = {"staged": [], "wide": []}
+    for kern in ("staged", "wide", "wide", "staged"):
+        turns[kern].append(cuda_ms(lambda: client_epoch(*ab, kernel=kern), 10))
+    a16 = cases["strong bfloat16"]
+    ms16 = cuda_ms(lambda: client_epoch(*a16), 10)
+    client_epoch.launches, client_epoch.launches_by_kernel = saved
+    plan16 = plan_of(a16)
+    used = {}
+    for lib, p_ in (("client_epoch", plan), ("client_epoch_bf16", plan16)):
+        u = [v for f, v in cuda_build.ptxas_usage(lib).items()
+             if ek.kernel_symbol(p_, C) in f]
+        if len(u) != 1 or u[0]["spill_bytes"] != 0:
+            fail(f"the wide plan's instantiation in {lib}: ptxas {u}")
+        used[lib] = u[0]
+    n_rows = float(valid.sum())
+    steps = int((valid.sum(-1) > 0).sum())
+    steps_max = int(ek.client_order(valid)[1].max())
+    nbytes = 4 * (n_rows * (WIDE_D + 1) + 2 * J * C * WIDE_D + C * WIDE_D
+                  + 2 * rows.numel() + 3 * J)
+    ops = 4 * C * WIDE_D * n_rows + 12 * C * WIDE_D * steps
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
+    row = {"name": "client_epoch.wide", "route": "cuda",
+           "source": "non-iid-distributed-learning-with-optimal-mixture-"
+                     "weights_tpu_torch/csrc/client_epoch.cu",
+           "replaces": "non-iid-distributed-learning-with-optimal-mixture-"
+                       "weights_tpu/fedcore/pallas_kernel.py:40",
+           "launches": launches,
+           "launches_path": "wide_d (FedAvg, FedAMW, Centralized)",
+           "launches_by_algorithm": by_algorithm,
+           "max_abs_err": max(errs.values()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations",
+           "bound_bytes": nbytes, "bound_fp32_ops": ops,
+           "library_ms": None, "card": card,
+           "shape": {"J": J, "C": C, "D": WIDE_D, "B": B,
+                     "S": int(rows.shape[1])},
+           "steps_max": steps_max, "us_per_step": 1e3 * ms / steps_max,
+           "cluster": plan.cluster, "max_cluster": ek.wide_max_cluster(
+               dev.index or 0), "chunk": plan.chunk,
+           "smem_bytes": plan.smem_bytes,
+           "scratch_bytes": plan.scratch_bytes,
+           "registers": used["client_epoch"]["registers"],
+           "spill_bytes": used["client_epoch"]["spill_bytes"],
+           "ms_bfloat16": ms16, "cluster_bfloat16": plan16.cluster,
+           "registers_bfloat16": used["client_epoch_bf16"]["registers"],
+           "spill_bytes_bfloat16": used["client_epoch_bf16"]["spill_bytes"],
+           "ms_boundary": {"D": Db, **{k: sum(v) / 2
+                                      for k, v in turns.items()},
+                           "cluster": {k: plan_of(ab, kernel=k).cluster
+                                       for k in turns}},
+           "setup_seconds": setup_s,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit({"phase": "wide_d", "kernel_row": row})
+    del wide, cases, a, ab, a16
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     import numpy as np
     import torch
@@ -3959,6 +4164,9 @@ def main():
             fail(f"{name} at bfloat16 launched {got} (expected {want}) or "
                  f"does not match its plain run: {diffs}")
 
+    # -- 7e. kernel 1's wide plan: the main configuration at D = 10,000 ----
+    wide_row = wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms)
+
     # -- 8. where a FedAMW run's time goes (device time by kernel) ----------
     # the device shuffle draw of one round, alone and before the profiler
     # starts: EPOCHS client draws of all J clients and one p-solve's draw
@@ -4244,7 +4452,7 @@ def main():
                      "ms_by_cluster": by_cluster16, "ms_by_dtype": by_dtype})
     if used16["spill_bytes"] != 0 or usedf16["spill_bytes"] != 0:
         fail(f"client_epoch with 2-byte rows spills: {used16}, {usedf16}")
-    kernels += [split_row, guard_row, bf16_row]
+    kernels += [split_row, guard_row, bf16_row, wide_row]
     for row in kernels[2:]:
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path "

@@ -52,9 +52,24 @@
 // intrinsics as they are read (the product is fp32, as JAX promotes
 // bf16 x f32); W, the anchor, z and the gradient stay fp32.
 //
-// Batches too large to stage (no cluster size up to 8 fits two step tiles
-// in shared memory) run the unstaged kernel below: one CTA per client that
-// gathers its rows from global memory in both passes.
+// Three plans, in the wrapper's order (epoch_kernel.launch_plan):
+//  1. the staged kernel above, where a cluster of 1, 2, 4 or 8 CTAs holds
+//     W's slices and two step tiles in shared memory;
+//  2. the unstaged kernel, for batches too large to stage where W and the
+//     anchor still fit one CTA whole: one CTA per client that gathers its
+//     rows from global memory in both passes;
+//  3. the wide kernel, for every other shape of at most 32 classes (a D past
+//     the shared-memory limit, a batch past both): a cluster of k CTAs per
+//     client as in the staged plan (k up to 16 where the card schedules a
+//     16-CTA cluster), but W's slice is updated in place in W_out and the
+//     anchor is read from global memory, rows are read from global memory
+//     in both passes (the second pass mostly from L2), and the batch is
+//     worked in chunks of at most `chunk` rows, one exchange of partial
+//     logits a chunk. The loss gradient of the whole batch and its packed
+//     row ids stay in shared memory where they fit, else in a per-CTA global
+//     scratch. Its shared memory does not grow with D, nor past the chunk
+//     with B, so it takes any B and D. The sums of squares of the next
+//     step's norms are folded into the update pass.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -75,6 +90,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;
+constexpr int kMaxWideCluster = 16;  // non-portable, where the card takes it
+constexpr int kSmemLimit = 232448;   // dynamic shared memory of one block
 // header of the staged kernel's shared memory: 2 mbarriers, nrow[2],
 // cnt[2], tot[2] (the cluster's sums of squares), padded to 16 bytes
 constexpr int kHeaderBytes = 48;
@@ -755,6 +772,318 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide kernel: the shapes neither kernel above takes.
+
+struct WideArgs {
+  const float* W0;      // (J, C, D)
+  const float* anchor;  // (C, D)
+  const RowT* X;        // (N, D)
+  const int* y_cls;     // (N,) or null
+  const float* y_reg;   // (N,) or null
+  const int* rows;      // (J, S, B)
+  const float* valid;   // (J, S, B)
+  const int* order;     // (J,) client of each cluster, largest first
+  const int* nsteps;    // (J,) non-empty steps of each client
+  float* W_out;         // (J, C, D), each CTA's slice updated in place
+  float* metrics;       // (J, 3)
+  float* scratch;       // (J*k, wide_batch_floats) or null: the batch buffer
+  int S, B, C, D, k, Dk, chunk;
+  float lr, mu, lam;
+};
+
+// step header: packed rows, their weight, the cluster's sums of squares
+struct WideHeader {
+  int n;
+  float cnt;
+  float tot[2];
+};
+constexpr int kWideHeaderBytes = sizeof(WideHeader);
+static_assert(kWideHeaderBytes == 16, "wide header layout");
+
+// The batch buffer of one CTA, in floats: the packed valid rows' ids (Bp
+// ints) and weights (Bp), then d loss / dz of each (Bp * CP).
+__host__ __device__ size_t wide_batch_floats(int B, int NC) {
+  return (size_t)round_up(B, 8) * (round_up(NC, 4) + 2);
+}
+
+// Shared memory of one CTA of the wide kernel: the header, then in floats
+// the double-buffered exchange (2 * (4 + chunk*CP)), the chunk's row loss
+// and hits (2 * chunk) and the block sums (2 * kWarps); then the batch
+// buffer when `hold` keeps it in shared memory.
+size_t wide_smem_bytes(int B, int NC, int chunk, bool hold) {
+  const size_t CP = round_up(NC, 4);
+  const size_t floats = 2 * (4 + (size_t)chunk * CP) + 2 * (size_t)chunk +
+                        2 * kWarps;
+  return kWideHeaderBytes + floats * sizeof(float) +
+         (hold ? wide_batch_floats(B, NC) * sizeof(float) : 0);
+}
+
+template <int NC, bool EXACT>
+__global__ void __launch_bounds__(kThreads, 1)
+    wide_epoch_kernel(const WideArgs p) {
+  constexpr int RB = NC <= 4 ? 8 : (NC <= 10 ? 4 : (NC <= 16 ? 2 : 1));
+  constexpr int CP = round_up(NC, 4);
+  const int C = EXACT ? NC : p.C;
+  const int B = p.B, D = p.D, k = p.k, Bc = p.chunk;
+  const int Bp = round_up(B, 8), PS = 4 + Bc * CP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int j = p.order[blockIdx.x / k];
+  const int T = p.nsteps[j];
+  const int d0 = rank * p.Dk;
+  const int wd = max(0, min(p.Dk, D - d0));  // this CTA's columns of D
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideHeader* h = reinterpret_cast<WideHeader*>(smem_raw);
+  // [2][PS]: sp, sr, -, -, z (chunk, CP)
+  float* part = reinterpret_cast<float*>(smem_raw + kWideHeaderBytes);
+  float* row_loss = part + 2 * PS;
+  float* row_hit = row_loss + Bc;
+  float* red = row_hit + Bc;  // [2][kWarps]
+  // the batch buffer, shared or global behind one generic pointer
+  float* batch = p.scratch == nullptr
+                     ? red + 2 * kWarps
+                     : p.scratch + blockIdx.x * wide_batch_floats(B, NC);
+  int* row_id = reinterpret_cast<int*>(batch);
+  float* row_w = batch + Bp;
+  float* dz = row_w + Bp;  // [Bp][CP]: the summed logits, then d loss / dz
+
+  // W_out starts as W0; sp, sr: sums of squares of w - anchor and w over
+  // this slice, then (block_sum2) over the CTA, kept for the next exchange
+  const size_t CD = (size_t)C * D;
+  const float* Wj = p.W0 + j * CD;
+  float* Wo = p.W_out + j * CD;
+  float sp = 0.f, sr = 0.f;
+  for (int c = 0; c < C; ++c) {
+    for (int d = tid; d < wd; d += kThreads) {
+      const size_t i = (size_t)c * D + d0 + d;
+      const float wv = Wj[i];
+      const float dv = wv - p.anchor[i];
+      Wo[i] = wv;
+      sp = fmaf(dv, dv, sp);
+      sr = fmaf(wv, wv, sr);
+    }
+  }
+  block_sum2(sp, sr, red);
+
+  // Warp 0 packs the next non-empty step's valid rows (the caller counted
+  // them: one remains) into the batch buffer, its cursor in registers.
+  int look = 0;
+  auto pack = [&]() {
+    for (;;) {
+      const size_t base = ((size_t)j * p.S + look) * B;
+      int n = 0;
+      float cnt = 0.f;
+      for (int b0 = 0; b0 < B; b0 += 32) {
+        const int b = b0 + lane;
+        float v = 0.f;
+        int r = 0;
+        if (b < B) {
+          v = p.valid[base + b];
+          r = p.rows[base + b];
+        }
+        const unsigned m = __ballot_sync(0xffffffffu, v != 0.f);
+        if (v != 0.f) {
+          const int slot = n + __popc(m & ((1u << lane) - 1u));
+          row_id[slot] = r;
+          row_w[slot] = v;
+        }
+        n += __popc(m);
+        cnt += warp_sum(v);
+      }
+      ++look;
+      if (n > 0) {
+        if (lane == 0) {
+          h->n = n;
+          h->cnt = cnt;
+        }
+        return;
+      }
+    }
+  };
+
+  float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // rank 0, thread 0
+  int ex = 0;  // exchanges so far: part is double-buffered by exchange
+  for (int t = 0; t < T; ++t) {
+    if (warp == 0) pack();
+    __syncthreads();
+    const int n = h->n;
+    const float cnt = h->cnt;
+    const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
+    float dl = 0.f, hits = 0.f;  // rank 0, thread 0
+
+    for (int q0 = 0; q0 < n; q0 += Bc, ++ex) {
+      const int nc = min(Bc, n - q0);
+      float* pc = part + (ex & 1) * PS;
+      // partial z of the chunk's rows over this slice: one warp per RB
+      // rows, lanes over columns; W read from this CTA's slice of W_out
+      const int groups = (nc + RB - 1) / RB;
+      for (int g = warp; g < groups; g += kWarps) {
+        const RowT* xr[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          xr[r] = p.X + (size_t)row_id[q0 + min(g * RB + r, nc - 1)] * D + d0;
+        float acc[RB][NC];
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+#pragma unroll 2
+        for (int d = lane; d < wd; d += 32) {
+          float xv[RB];
+#pragma unroll
+          for (int r = 0; r < RB; ++r) xv[r] = R::one(xr[r] + d);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            if (!EXACT && c >= C) break;
+            const float wv = Wo[(size_t)c * D + d0 + d];
+#pragma unroll
+            for (int r = 0; r < RB; ++r) acc[r][c] = fmaf(xv[r], wv, acc[r][c]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            if (!EXACT && c >= C) break;
+            const float v = warp_sum(acc[r][c]);
+            if (lane == 0 && g * RB + r < nc) pc[4 + (g * RB + r) * CP + c] = v;
+          }
+        }
+      }
+      if (q0 == 0 && tid == 0) {
+        pc[0] = sp;
+        pc[1] = sr;
+      }
+
+      // the chunk's exchange: every CTA sums the k partials in rank order.
+      // A CTA writes exchange e+2's partials only after the barrier of
+      // exchange e+1, which every CTA reaches after reading exchange e's.
+      cluster.sync();
+      for (int i = (q0 == 0 ? 0 : 4) + tid; i < 4 + nc * CP; i += kThreads) {
+        if (i == 2 || i == 3) continue;
+        if (i >= 4 && (i - 4) % CP >= C) continue;
+        float v = 0.f;
+        for (int q = 0; q < k; ++q) v += cluster.map_shared_rank(pc, q)[i];
+        if (i < 2)
+          h->tot[i] = v;
+        else
+          dz[q0 * CP + i - 4] = v;
+      }
+      __syncthreads();
+
+      // per row: loss, top-1 hit, and dz (overwrites z), scaled by w_b / cnt
+      for (int b = tid; b < nc; b += kThreads) {
+        const int q = q0 + b;
+        const float bv = row_w[q];
+        float hit;
+        row_loss[b] = row_loss_grad(dz + q * CP, C, p.y_cls, p.y_reg,
+                                    row_id[q], bv * inv_cnt, &hit) *
+                      bv;
+        row_hit[b] = hit * bv;
+      }
+      __syncthreads();
+      if (rank == 0 && tid == 0) {
+        for (int b = 0; b < nc; ++b) {
+          dl += row_loss[b];
+          hits += row_hit[b];
+        }
+      }
+    }
+
+    const float sq_p = h->tot[0], sq_r = h->tot[1];
+    const float norm_p = sq_p > 0.f ? sqrtf(sq_p) : 0.f;
+    const float norm_r = sq_r > 0.f ? sqrtf(sq_r) : 0.f;
+    if (rank == 0 && tid == 0) {
+      const float loss = dl * inv_cnt + p.mu * norm_p + p.lam * norm_r;
+      acc_loss += loss * cnt;
+      acc_hit += hits;
+      acc_cnt += cnt;
+    }
+
+    // grad[c, d] = sum_b dz[b, c] x_b[d] + penalties over this slice, a
+    // column a thread, the rows read again from global memory; the updated
+    // w's sums of squares are the next step's norms
+    sp = 0.f;
+    sr = 0.f;
+    for (int d = tid; d < wd; d += kThreads) {
+      float g[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) g[c] = 0.f;
+      for (int b = 0; b < n; ++b) {
+        const float xv = R::one(p.X + (size_t)row_id[b] * D + d0 + d);
+#pragma unroll
+        for (int c4 = 0; c4 < CP / 4; ++c4) {
+          const float4 dz4 =
+              *reinterpret_cast<const float4*>(dz + b * CP + 4 * c4);
+          const float dzv[4] = {dz4.x, dz4.y, dz4.z, dz4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 4 * c4 + e;
+            if (c < NC) g[c] = fmaf(dzv[e], xv, g[c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (!EXACT && c >= C) break;
+        const size_t i = (size_t)c * D + d0 + d;
+        const float wv = Wo[i];
+        const float av = p.anchor[i];
+        float gc = g[c];
+        if (sq_p > 0.f) gc += p.mu * ((wv - av) / fmaxf(norm_p, 1e-30f));
+        if (sq_r > 0.f) gc += p.lam * (wv / fmaxf(norm_r, 1e-30f));
+        const float nw = wv - p.lr * gc;
+        Wo[i] = nw;
+        const float dv = nw - av;
+        sp = fmaf(dv, dv, sp);
+        sr = fmaf(nw, nw, sr);
+      }
+    }
+    // also frees the batch buffer and the header for the next step
+    block_sum2(sp, sr, red);
+  }
+  // no CTA leaves while another may still read its partials
+  cluster.sync();
+  if (rank == 0 && tid == 0) {
+    p.metrics[j * 3 + 0] = acc_loss;
+    p.metrics[j * 3 + 1] = acc_hit;
+    p.metrics[j * 3 + 2] = acc_cnt;
+  }
+}
+
+template <int NC, bool EXACT>
+cudaError_t launch_wide(const WideArgs& p, int J, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(p.B, NC, p.chunk, p.scratch == nullptr);
+  auto kern = wide_epoch_kernel<NC, EXACT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if (p.k > kMaxCluster) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(J * p.k));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -780,6 +1109,46 @@ int client_epoch_row_bytes(void) { return static_cast<int>(sizeof(RowT)); }
 
 // The slice of D one CTA of a k-cluster holds in this build.
 int client_epoch_slice_width(int D, int k) { return slice_width(D, k); }
+
+// Dynamic shared memory of one CTA of the wide kernel working chunks of
+// `chunk` rows, with the batch buffer in shared memory (hold) or not, and
+// the floats of one CTA's batch buffer (its global scratch when not held).
+size_t client_epoch_wide_smem_bytes(int B, int C, int chunk, int hold) {
+  return wide_smem_bytes(B, instantiated_classes(C), chunk, hold != 0);
+}
+
+size_t client_epoch_wide_batch_floats(int B, int C) {
+  return wide_batch_floats(B, instantiated_classes(C));
+}
+
+// The largest cluster the wide kernel may launch on this card: 16 when
+// cudaOccupancyMaxActiveClusters finds room for one 16-CTA cluster of its
+// largest CTA (a full block of shared memory), else the portable 8.
+int client_epoch_wide_max_cluster(void) {
+  auto kern = wide_epoch_kernel<32, false>;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess ||
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemLimit) != cudaSuccess) {
+    cudaGetLastError();
+    return kMaxCluster;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kMaxWideCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemLimit;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMaxWideCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  cudaGetLastError();  // a refusal here must not reach a later launch's check
+  return (e == cudaSuccess && clusters > 0) ? kMaxWideCluster : kMaxCluster;
+}
 
 // One launch of the staged kernel: J clusters of k CTAs, cluster i running
 // client order[i]. is_cls selects int32 labels or float32 targets behind y;
@@ -851,6 +1220,49 @@ int client_epoch_launch_unstaged(const void* W0, const void* anchor,
   else if (C <= 32) e = f(std::integral_constant<int, 32>{});
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
+}
+
+// One launch of the wide kernel: J clusters of k CTAs, cluster i running
+// client order[i], the batch worked in chunks of `chunk` rows (a multiple
+// of 8); scratch holds each CTA's batch buffer (wide_batch_floats floats a
+// CTA), or is null to keep it in shared memory. Other arguments as
+// client_epoch_launch_staged. Returns cudaGetLastError() after the launch.
+int client_epoch_launch_wide(const void* W0, const void* anchor, const void* X,
+                             const void* y, const void* rows,
+                             const void* valid, const void* order,
+                             const void* nsteps, void* W_out, void* metrics,
+                             void* scratch, int J, int S, int B, int C, int D,
+                             int k, int chunk, int is_cls, float lr, float mu,
+                             float lam, void* stream) {
+  if (k < 1 || k > kMaxWideCluster || chunk < 8 || chunk % 8 != 0)
+    return cudaErrorInvalidValue;
+  WideArgs p;
+  p.W0 = static_cast<const float*>(W0);
+  p.anchor = static_cast<const float*>(anchor);
+  p.X = static_cast<const RowT*>(X);
+  p.y_cls = is_cls ? static_cast<const int*>(y) : nullptr;
+  p.y_reg = is_cls ? nullptr : static_cast<const float*>(y);
+  p.rows = static_cast<const int*>(rows);
+  p.valid = static_cast<const float*>(valid);
+  p.order = static_cast<const int*>(order);
+  p.nsteps = static_cast<const int*>(nsteps);
+  p.W_out = static_cast<float*>(W_out);
+  p.metrics = static_cast<float*>(metrics);
+  p.scratch = static_cast<float*>(scratch);
+  p.S = S;
+  p.B = B;
+  p.C = C;
+  p.D = D;
+  p.k = k;
+  p.Dk = slice_width(D, k);
+  p.chunk = chunk;
+  p.lr = lr;
+  p.mu = mu;
+  p.lam = lam;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch_classes(C, [&](auto n, auto exact) {
+    return launch_wide<decltype(n)::value, decltype(exact)::value>(p, J, s);
+  }));
 }
 
 }  // extern "C"

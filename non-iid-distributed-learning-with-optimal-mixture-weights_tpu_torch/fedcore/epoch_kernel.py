@@ -29,17 +29,23 @@ that latency (``launch_plan`` chooses its shape):
   (2-byte rows halve the ring) and widened to fp32 as they are read; one
   library per row type (``cuda_build.BUILDS``).
 
-Batches too large to stage at any cluster size run an unstaged kernel
-(one CTA per client, rows read from global memory in both passes).
+Two more plans take what the staged kernel cannot (``launch_plan``):
+batches too large to stage run an unstaged kernel where W and the anchor
+fit one CTA whole (one CTA per client, rows read from global memory in
+both passes); every other shape of at most 32 classes runs the wide
+kernel: a cluster of ``k`` CTAs per client (up to 16 where the card
+schedules it, ``wide_max_cluster``), W's slice updated in place in global
+memory, rows read from global memory in both passes, the batch worked in
+chunks of at most ``MAX_CHUNK`` rows with one exchange each, so neither D
+nor B bounds it.
 
 ``client_epoch`` is the wrapper: CPU tensors go to ``client_epoch_plain``,
 the plain PyTorch version of the same function; CUDA tensors launch the
-kernel ``launch_plan`` names or raise. A shape no plan takes (more than
-32 classes, or a D whose W and anchor fit no block's shared memory) is
-refused on the card before any launch; it runs there through
-``kernel_impl="plain"``. ``client_epoch.launches`` counts kernel
-launches, ``client_epoch.launches_by_kernel`` the same by kernel
-(``"staged"``, ``"unstaged"``).
+kernel ``launch_plan`` names or raise. Only more than 32 classes is
+refused on the card, before any launch (ROADMAP.md queue 2 item 9); it
+runs there through ``kernel_impl="plain"``. ``client_epoch.launches``
+counts kernel launches, ``client_epoch.launches_by_kernel`` the same by
+kernel (``KERNELS``).
 """
 
 from __future__ import annotations
@@ -54,8 +60,13 @@ from . import cuda_build
 
 WARPS = 8                  # of a CTA (kThreads / 32 in client_epoch.cu)
 MAX_CLUSTER = 8            # the portable cluster size
+STAGED_CLUSTERS = (1, 2, 4, MAX_CLUSTER)
+WIDE_CLUSTERS = STAGED_CLUSTERS + (16,)  # 16 where the card schedules it
 HEADER_BYTES = 48          # mbarriers and per-stage counts (client_epoch.cu)
+WIDE_HEADER_BYTES = 16     # the wide kernel's step header (client_epoch.cu)
+MAX_CHUNK = 128            # rows of one exchange of the wide kernel
 MAX_CLASSES = 32
+KERNELS = ("staged", "unstaged", "wide")
 # class counts with an exact instantiation; any other C runs the next bound
 EXACT_CLASSES = (1, 2, 3, 6, 10, 26)
 CLASS_BOUNDS = (4, 8, 16, 32)
@@ -201,46 +212,60 @@ def unstaged_smem_bytes(B: int, C: int, D: int) -> int:
     return 4 * (2 * C * D + B * C + 3 * B + 2 * WARPS) + 4 * B
 
 
+def wide_batch_floats(B: int, C: int) -> int:
+    """Floats of one wide CTA's batch buffer: the packed rows' ids and
+    weights and d loss / dz of each (``wide_batch_floats`` in
+    ``client_epoch.cu``)."""
+    return _round_up(B, 8) * (_round_up(instantiated_classes(C), 4) + 2)
+
+
+def wide_smem_bytes(B: int, C: int, chunk: int, hold: bool) -> int:
+    """Shared memory of one CTA of the wide kernel (``wide_smem_bytes`` in
+    ``client_epoch.cu``): the step header, the double-buffered exchange of
+    a chunk's partial logits, the chunk's row losses and hits, the block
+    sums, and the batch buffer when ``hold`` keeps it there. Independent
+    of D."""
+    CP = _round_up(instantiated_classes(C), 4)
+    floats = 2 * (4 + chunk * CP) + 2 * chunk + 2 * WARPS
+    return (WIDE_HEADER_BYTES + 4 * floats
+            + (4 * wide_batch_floats(B, C) if hold else 0))
+
+
 @dataclasses.dataclass(frozen=True)
 class EpochPlan:
-    """How one launch runs. ``cluster`` CTAs per client (0: the unstaged
-    kernel, one CTA per client), each holding ``slice_width`` columns of
-    D; ``classes`` is the instantiated class count, ``smem_bytes`` one
-    CTA's dynamic shared memory, ``ctas`` the grid."""
+    """How one launch runs: ``kernel`` one of ``KERNELS``; ``cluster``
+    CTAs per client (0 for the unstaged kernel, one CTA per client), each
+    holding ``slice_width`` columns of D; ``classes`` is the instantiated
+    class count, ``smem_bytes`` one CTA's dynamic shared memory, ``ctas``
+    the grid. The wide kernel works the batch in chunks of ``chunk`` rows
+    and keeps its batch buffers in ``scratch_bytes`` of global memory
+    (0: in shared memory)."""
 
     cluster: int
     slice_width: int
     classes: int
     smem_bytes: int
     ctas: int
+    kernel: str = "staged"
+    chunk: int = 0
+    scratch_bytes: int = 0
 
 
-def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
-                smem_limit: int = cuda_build.SMEM_LIMIT,
-                cluster: int | None = None,
-                row_bytes: int = 4) -> EpochPlan | None:
-    """The launch shape for ``J`` clients of batch ``B``, ``C`` classes
-    and ``D`` features of ``row_bytes`` each (4, or 2 for bfloat16 and
-    float16 rows) on a card of ``num_sms`` SMs.
+def _one_wave(J: int, num_sms: int, sizes) -> int:
+    """The largest of ``sizes`` whose ``J * k`` CTAs fit the SMs in one
+    wave (more SMs per client shorten the critical chain)."""
+    return max(k for k in sizes if k == 1 or J * k <= num_sms)
 
-    The cluster size ``k`` (1, 2, 4 or 8) is the larger of the smallest
-    that fits two step tiles in ``smem_limit`` and the largest whose
-    ``J * k`` CTAs still fit the SMs in one wave (more SMs per client
-    shorten the critical chain), halved while a slice would be empty.
-    ``cluster`` forces ``k`` (``ValueError`` when it does not fit). When
-    no ``k`` fits, the unstaged kernel runs if W and the anchor fit
-    whole; else, and for more than ``MAX_CLASSES`` classes, the result is
-    None: no kernel takes the shape.
-    """
-    if J < 0 or B < 1 or C < 1 or D < 1:
-        raise ValueError(f"bad shape J={J}, B={B}, C={C}, D={D}")
-    if C > MAX_CLASSES:
-        if cluster is not None:
-            raise ValueError(f"cluster {cluster} does not fit C={C}: the "
-                             f"kernel takes at most {MAX_CLASSES} classes")
-        return None
-    classes = instantiated_classes(C)
-    sizes = [k for k in (1, 2, 4, MAX_CLUSTER)
+
+def _no_empty_slice(k: int, floor: int, D: int, row_bytes: int) -> int:
+    """``k`` halved, down to ``floor``, while a slice would be empty."""
+    while k > floor and (k - 1) * slice_width(D, k, row_bytes) >= D:
+        k //= 2
+    return k
+
+
+def _staged_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes):
+    sizes = [k for k in STAGED_CLUSTERS
              if staged_smem_bytes(B, C, D, k, row_bytes) <= smem_limit]
     if cluster is not None:
         if cluster not in sizes:
@@ -248,30 +273,102 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
                 f"cluster {cluster} does not fit: the sizes that fit "
                 f"C={C}, D={D}, B={B} are {sizes}")
         k = cluster
-    elif sizes:
-        fill = max(k for k in (1, 2, 4, MAX_CLUSTER)
-                   if k == 1 or J * k <= num_sms)
-        k = max(sizes[0], fill)
-        while k > sizes[0] and (k - 1) * slice_width(D, k, row_bytes) >= D:
-            k //= 2
+    elif not sizes:
+        return None
     else:
-        smem = unstaged_smem_bytes(B, C, D)
-        if smem > smem_limit:
-            return None
-        return EpochPlan(0, D, 8 if C <= 8 else MAX_CLASSES, smem, J)
-    return EpochPlan(k, slice_width(D, k, row_bytes), classes,
+        k = _no_empty_slice(max(sizes[0], _one_wave(J, num_sms,
+                                                    STAGED_CLUSTERS)),
+                            sizes[0], D, row_bytes)
+    return EpochPlan(k, slice_width(D, k, row_bytes), instantiated_classes(C),
                      staged_smem_bytes(B, C, D, k, row_bytes), J * k)
+
+
+def _wide_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes,
+               max_cluster):
+    sizes = [k for k in WIDE_CLUSTERS if k <= max_cluster]
+    chunk = next((c for c in range(min(_round_up(B, 8), MAX_CHUNK), 0, -8)
+                  if wide_smem_bytes(B, C, c, False) <= smem_limit), None)
+    if cluster is not None and (chunk is None or cluster not in sizes):
+        raise ValueError(
+            f"cluster {cluster} does not fit the wide kernel: it takes "
+            f"{sizes} and needs {wide_smem_bytes(B, C, 8, False)} bytes of "
+            f"shared memory at least, of {smem_limit}")
+    if chunk is None:
+        return None
+    hold = wide_smem_bytes(B, C, chunk, True) <= smem_limit
+    k = cluster if cluster is not None else _no_empty_slice(
+        _one_wave(J, num_sms, sizes), 1, D, row_bytes)
+    return EpochPlan(
+        k, slice_width(D, k, row_bytes), instantiated_classes(C),
+        wide_smem_bytes(B, C, chunk, hold), J * k, "wide", chunk,
+        0 if hold else 4 * J * k * wide_batch_floats(B, C))
+
+
+def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
+                smem_limit: int = cuda_build.SMEM_LIMIT,
+                cluster: int | None = None,
+                row_bytes: int = 4, kernel: str | None = None,
+                max_cluster: int = MAX_CLUSTER) -> EpochPlan | None:
+    """The launch shape for ``J`` clients of batch ``B``, ``C`` classes
+    and ``D`` features of ``row_bytes`` each (4, or 2 for bfloat16 and
+    float16 rows) on a card of ``num_sms`` SMs, in this order:
+
+    - the staged kernel where a cluster of 1, 2, 4 or 8 CTAs fits two
+      step tiles in ``smem_limit``: ``k`` is the larger of the smallest
+      that fits and the largest whose ``J * k`` CTAs still fit the SMs in
+      one wave, halved while a slice would be empty;
+    - else the unstaged kernel where W and the anchor fit whole;
+    - else the wide kernel: ``k`` by the same one-wave rule over clusters
+      of up to ``max_cluster`` (8, or 16 where the card schedules it) with
+      no shared-memory floor, the batch in chunks of the most rows (a
+      multiple of 8, at most ``MAX_CHUNK``) that fit ``smem_limit``, the
+      batch buffer in shared memory where it fits too.
+
+    None only past ``MAX_CLASSES`` classes (or for a ``smem_limit`` too
+    small for a chunk of 8 rows). ``kernel`` forces one of ``KERNELS`` and
+    ``cluster`` its ``k`` (a ``cluster`` alone forces the staged kernel's);
+    ``ValueError`` says when they do not fit.
+    """
+    if J < 0 or B < 1 or C < 1 or D < 1:
+        raise ValueError(f"bad shape J={J}, B={B}, C={C}, D={D}")
+    if kernel not in (None,) + KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    if C > MAX_CLASSES:
+        if cluster is not None or kernel is not None:
+            raise ValueError(f"cluster {cluster} does not fit C={C}: the "
+                             f"kernel takes at most {MAX_CLASSES} classes")
+        return None
+    if kernel is None and cluster is not None:
+        kernel = "staged"
+    if kernel in (None, "staged"):
+        plan = _staged_plan(J, B, C, D, num_sms, smem_limit, cluster,
+                            row_bytes)
+        if plan is not None:
+            return plan
+        if kernel == "staged":
+            raise ValueError(f"the staged kernel does not fit C={C}, D={D}, "
+                             f"B={B} at any cluster size")
+    if kernel in (None, "unstaged"):
+        smem = unstaged_smem_bytes(B, C, D)
+        if smem <= smem_limit and cluster is None:
+            return EpochPlan(0, D, 8 if C <= 8 else MAX_CLASSES, smem, J,
+                             "unstaged")
+        if kernel == "unstaged":
+            raise ValueError(f"the unstaged kernel does not fit C={C}, "
+                             f"D={D}, B={B} (cluster {cluster})")
+    return _wide_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes,
+                      max_cluster)
 
 
 def kernel_symbol(plan: EpochPlan, C: int) -> str:
     """The part of the mangled name that picks out the instantiation
     ``plan`` runs for ``C`` classes in the compiler's report
     (``cuda_build.ptxas_usage``)."""
-    if plan.cluster:
-        name, args = "staged_epoch_kernel", (
-            f"ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E")
-    else:
+    if plan.kernel == "unstaged":
         name, args = "unstaged_epoch_kernel", f"ILi{plan.classes}E"
+    else:
+        name = f"{plan.kernel}_epoch_kernel"
+        args = f"ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
     return f"{len(name)}{name}{args}"
 
 
@@ -297,6 +394,10 @@ def _library(name: str = "client_epoch"):
     lib.client_epoch_launch_unstaged.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    lib.client_epoch_launch_wide.restype = ctypes.c_int
+    lib.client_epoch_launch_wide.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.client_epoch_staged_smem_bytes.restype = ctypes.c_size_t
     lib.client_epoch_staged_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.client_epoch_unstaged_smem_bytes.restype = ctypes.c_size_t
@@ -307,35 +408,61 @@ def _library(name: str = "client_epoch"):
     lib.client_epoch_row_bytes.argtypes = []
     lib.client_epoch_slice_width.restype = ctypes.c_int
     lib.client_epoch_slice_width.argtypes = [ctypes.c_int] * 2
+    lib.client_epoch_wide_smem_bytes.restype = ctypes.c_size_t
+    lib.client_epoch_wide_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.client_epoch_wide_batch_floats.restype = ctypes.c_size_t
+    lib.client_epoch_wide_batch_floats.argtypes = [ctypes.c_int] * 2
+    lib.client_epoch_wide_max_cluster.restype = ctypes.c_int
+    lib.client_epoch_wide_max_cluster.argtypes = []
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def wide_max_cluster(device_index: int, name: str = "client_epoch") -> int:
+    """The largest cluster the wide kernel launches on card
+    ``device_index``: 16 where the card schedules a 16-CTA cluster of its
+    largest CTA, else 8 (``client_epoch_wide_max_cluster`` of library
+    ``name``)."""
+    with torch.cuda.device(device_index):
+        return _library(name).client_epoch_wide_max_cluster()
 
 
 def _check_plan(lib, plan: EpochPlan, B: int, C: int, D: int,
                 row_bytes: int) -> None:
     """The plan's layout must be the kernel's: same row type, shared
-    memory, instantiation and slice."""
-    if plan.cluster:
+    memory, instantiation, slice and, wide, scratch."""
+    scratch = 0
+    if plan.kernel == "staged":
         smem = lib.client_epoch_staged_smem_bytes(B, C, D, plan.cluster)
+    elif plan.kernel == "wide":
+        hold = plan.scratch_bytes == 0
+        smem = lib.client_epoch_wide_smem_bytes(B, C, plan.chunk, int(hold))
+        if not hold:
+            scratch = 4 * plan.ctas * lib.client_epoch_wide_batch_floats(B, C)
+    else:
+        smem = lib.client_epoch_unstaged_smem_bytes(B, C, D)
+    if plan.kernel == "unstaged":
+        nc, width = plan.classes, D
+    else:
         nc = lib.client_epoch_instantiated_classes(C)
         width = lib.client_epoch_slice_width(D, plan.cluster)
-    else:
-        smem, nc = lib.client_epoch_unstaged_smem_bytes(B, C, D), plan.classes
-        width = D
-    got = (lib.client_epoch_row_bytes(), smem, nc, width)
-    if got != (row_bytes, plan.smem_bytes, plan.classes, plan.slice_width):
+    got = (lib.client_epoch_row_bytes(), smem, nc, width, scratch)
+    if got != (row_bytes, plan.smem_bytes, plan.classes, plan.slice_width,
+               plan.scratch_bytes):
         raise RuntimeError(
             f"launch plan {plan} for {row_bytes}-byte rows disagrees with "
-            f"csrc/client_epoch.cu (row bytes, smem bytes, classes, slice "
-            f"= {got})")
+            f"csrc/client_epoch.cu (row bytes, smem bytes, classes, slice, "
+            f"scratch bytes = {got})")
 
 
 def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
-                 cluster=None):
+                 cluster=None, kernel=None):
     """One local epoch of all J clients; same contract as
     ``client_epoch_plain``. CPU tensors run the plain version; CUDA
     tensors launch ``csrc/client_epoch.cu`` as ``launch_plan`` says, or
-    raise where no plan takes the shape. ``cluster`` forces the cluster
-    size (for measurement)."""
+    raise where no plan takes the shape (more than 32 classes).
+    ``kernel`` forces one of ``KERNELS`` and ``cluster`` the cluster size
+    (for tests and measurement)."""
     _check(W, anchor, X, y, rows, valid, task)
     if W.device.type == "cpu":
         return client_epoch_plain(W, anchor, X, y, rows, valid, lr, mu, lam,
@@ -346,14 +473,18 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     S, B = rows.shape[1:]
     row_bytes = X.element_size()
     sms = torch.cuda.get_device_properties(W.device).multi_processor_count
-    plan = launch_plan(J, B, C, D, sms, cluster=cluster, row_bytes=row_bytes)
+    name = ROW_LIBRARIES[X.dtype]
+    # refused before the cluster query, which loads (and may build) the
+    # library
+    plan = None if C > MAX_CLASSES else launch_plan(
+        J, B, C, D, sms, cluster=cluster, row_bytes=row_bytes, kernel=kernel,
+        max_cluster=wide_max_cluster(W.device.index, name))
     if plan is None:
         raise ValueError(
-            f"no client_epoch kernel takes C={C}, D={D}, B={B}: it needs "
-            f"C <= {MAX_CLASSES} and {unstaged_smem_bytes(B, C, D)} bytes "
-            f"of shared memory at most {cuda_build.SMEM_LIMIT} (ROADMAP.md "
-            "queue 2 item 3): run it with kernel_impl='plain'")
-    lib = _library(ROW_LIBRARIES[X.dtype])
+            f"no client_epoch kernel takes C={C}: it takes at most "
+            f"{MAX_CLASSES} classes (ROADMAP.md queue 2 item 9): run it "
+            "with kernel_impl='plain'")
+    lib = _library(name)
     _check_plan(lib, plan, B, C, D, row_bytes)
     W_out = torch.empty_like(W)
     metrics = torch.zeros((J, 3), dtype=torch.float32, device=W.device)
@@ -362,30 +493,37 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     stream = torch.cuda.current_stream(W.device).cuda_stream
     is_cls = int(task == "classification")
     scalars = (float(lr), float(mu), float(lam), stream)
-    if plan.cluster:
-        order, nsteps = client_order(valid)
-        bulk = int((D * row_bytes) % 16 == 0 and X.data_ptr() % 16 == 0)
-        err = lib.client_epoch_launch_staged(
-            W.data_ptr(), anchor.data_ptr(), X.data_ptr(), y.data_ptr(),
-            rows.data_ptr(), valid.data_ptr(), order.data_ptr(),
-            nsteps.data_ptr(), W_out.data_ptr(), metrics.data_ptr(), J, S,
-            B, C, D, plan.cluster, is_cls, bulk, *scalars)
-    else:
+    if plan.kernel == "unstaged":
         err = lib.client_epoch_launch_unstaged(
             W.data_ptr(), anchor.data_ptr(), X.data_ptr(), y.data_ptr(),
             rows.data_ptr(), valid.data_ptr(), W_out.data_ptr(),
             metrics.data_ptr(), J, S, B, C, D, is_cls, *scalars)
+    else:
+        order, nsteps = client_order(valid)
+        ptrs = (W.data_ptr(), anchor.data_ptr(), X.data_ptr(), y.data_ptr(),
+                rows.data_ptr(), valid.data_ptr(), order.data_ptr(),
+                nsteps.data_ptr(), W_out.data_ptr(), metrics.data_ptr())
+        if plan.kernel == "staged":
+            bulk = int((D * row_bytes) % 16 == 0 and X.data_ptr() % 16 == 0)
+            err = lib.client_epoch_launch_staged(
+                *ptrs, J, S, B, C, D, plan.cluster, is_cls, bulk, *scalars)
+        else:
+            scratch = (torch.empty(plan.scratch_bytes // 4,
+                                   dtype=torch.float32, device=W.device)
+                       if plan.scratch_bytes else None)
+            err = lib.client_epoch_launch_wide(
+                *ptrs, None if scratch is None else scratch.data_ptr(), J, S,
+                B, C, D, plan.cluster, plan.chunk, is_cls, *scalars)
     cuda_build.check(err, "client_epoch launch", lib)
     client_epoch.launches += 1
-    client_epoch.launches_by_kernel[
-        "staged" if plan.cluster else "unstaged"] += 1
+    client_epoch.launches_by_kernel[plan.kernel] += 1
     return W_out, metrics
 
 
 def reset_counts() -> None:
     """Set ``client_epoch``'s launch counts to 0."""
     client_epoch.launches = 0
-    client_epoch.launches_by_kernel = dict.fromkeys(("staged", "unstaged"), 0)
+    client_epoch.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 
 reset_counts()

@@ -16,13 +16,19 @@ are widened to float32 for the product on both sides; the plain version
 is held against the JAX package on the same 2-byte matrix, at the same
 tolerances (the widening is exact).
 
+Past the staged kernel's shared-memory limit (D = 6,000 at C = 10 with
+float32 rows) the plain version is held against the JAX package the same
+way: the wide plan runs that shape on the card.
+
 The CUDA kernel itself needs a card; the ``cuda``-marked tests hold it
 against the plain version there, over a grid of shapes (both tasks, C in
 {1, 3, 10, 32}, D in {256, 250, 2000}, B in {32, 17}, J in {5, 70}),
-every cluster size, unaligned rows, 2-byte rows, the unstaged kernel and
-a bitwise determinism check, and skip on a machine without one. The
-launch plan (cluster size, client order, shared-memory bytes, refused
-shapes) is pure Python and tested here on the CPU.
+every cluster size, unaligned rows, 2-byte rows, the unstaged kernel, the
+wide kernel (forced at D = 250 and 2000, by shape at D = 6,000 and
+B = 4096, 2-byte rows at D = 9,000) and bitwise determinism checks, and
+skip on a machine without one. The launch plan (kernel, cluster size,
+client order, shared-memory bytes, refused shapes) is pure Python and
+tested here on the CPU.
 """
 
 import jax
@@ -168,6 +174,35 @@ def test_plain_round_matches_jax_vmapped_round(impl):
     np.testing.assert_array_equal(st["w"][4].numpy(), w0)
 
 
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_plain_round_matches_jax_past_the_shared_memory_limit(task, impl):
+    """D = 6,000 at C = 10: past what the staged kernel holds with float32
+    rows (5,376), the shape the wide plan takes on the card. Rows scaled
+    to D = 256's squared norm, as ``_epoch_inputs`` does."""
+    Cw, Dw, J = 10, 6000, 2
+    X, y, w0 = _data(task, seed=5, C=Cw, D=Dw)
+    X = X * np.float32(np.sqrt(256.0 / Dw))
+    assert ek.launch_plan(J, B, Cw, Dw, H100_SMS).kernel == "wide"
+    rng = np.random.RandomState(6)
+    idx = rng.randint(0, N, size=(J, N_MAX)).astype(np.int32)
+    mask = (rng.rand(J, N_MAX) < 0.8).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(13), J)
+    apply_fn = jlinear_model().apply if impl == "xla" else None
+    rf_j = jax.jit(jmake_client_round(apply_fn, task, EPOCHS, B, N_MAX,
+                                      kernel_impl=impl))
+    sj, lj, aj = rf_j({"w": jnp.asarray(w0)}, jnp.asarray(X), jnp.asarray(y),
+                      jnp.asarray(idx), jnp.asarray(mask), keys,
+                      jnp.float32(0.1), jnp.float32(0.05), jnp.float32(0.01))
+    pos = np.stack([_positions(keys[j], mask[j]) for j in range(J)])
+    rf_t = make_client_round(task, EPOCHS, B, N_MAX)
+    st, lt, at = rf_t({"w": _t(w0)}, _t(X), _t(y), _t(idx).long(), _t(mask),
+                      _t(pos), 0.1, 0.05, 0.01)
+    np.testing.assert_allclose(st["w"].numpy(), np.asarray(sj["w"]), **W_TOL)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4)
+    np.testing.assert_allclose(at.numpy(), np.asarray(aj), atol=1e-3)
+
+
 def _epoch_inputs(task, device, J=5, S=3, seed=0, C=C, D=D, B=B):
     X, y, w0 = _data(task, seed, C, D)
     # rows keep the squared norm of D=256's (~256) at every D, so lr-0.1
@@ -274,10 +309,20 @@ def test_plan_instantiated_classes(C, nc):
 
 
 def test_plan_refuses_what_fits_nowhere():
-    """No plan (None) past the instantiated classes or shared memory; a
-    bad shape or a forced cluster that does not fit raise."""
+    """No plan (None) past the instantiated classes; a shape past both
+    the staged and the unstaged kernel's shared memory takes the wide
+    plan; a bad shape or a forced cluster or kernel that does not fit
+    raise."""
     assert ek.launch_plan(5, 32, 33, 256, H100_SMS) is None
-    assert ek.launch_plan(5, 4096, 32, 4000, H100_SMS) is None
+    assert ek.launch_plan(5, 4096, 32, 4000, H100_SMS).kernel == "wide"
+    with pytest.raises(ValueError, match="does not fit"):
+        ek.launch_plan(5, 32, 10, 10000, H100_SMS, kernel="staged")
+    with pytest.raises(ValueError, match="does not fit"):
+        ek.launch_plan(5, 32, 10, 10000, H100_SMS, kernel="unstaged")
+    with pytest.raises(ValueError, match="does not fit the wide kernel"):
+        ek.launch_plan(5, 32, 10, 10000, H100_SMS, kernel="wide", cluster=16)
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        ek.launch_plan(5, 32, 10, 256, H100_SMS, kernel="split")
     with pytest.raises(ValueError, match="bad shape"):
         ek.launch_plan(5, 32, 0, 256, H100_SMS)
     with pytest.raises(ValueError, match="at most 32 classes"):
@@ -289,22 +334,24 @@ def test_plan_refuses_what_fits_nowhere():
 
 
 @pytest.mark.parametrize("J,B,C,D,smem_limit,route", [
-    (50, 32, 10, 2000, cuda_build.SMEM_LIMIT, 4),   # the main path
-    (400, 32, 10, 2000, cuda_build.SMEM_LIMIT, 4),  # 400 partitions
-    (50, 1024, 10, 2000, cuda_build.SMEM_LIMIT, 0),  # the unstaged kernel
+    (50, 32, 10, 2000, cuda_build.SMEM_LIMIT, ("staged", 4)),  # main path
+    (400, 32, 10, 2000, cuda_build.SMEM_LIMIT, ("staged", 4)),  # 400 parts
+    (50, 1024, 10, 2000, cuda_build.SMEM_LIMIT, ("unstaged", 0)),
     (5, 32, 33, 256, cuda_build.SMEM_LIMIT, None),  # more than 32 classes
-    (5, 4096, 32, 4000, cuda_build.SMEM_LIMIT, None),
-    (5, 32, 10, 20000, cuda_build.SMEM_LIMIT, None),  # W too wide to hold
-    (50, 32, 10, 2000, 100000, 8),   # a smaller block: a wider cluster
-    (50, 32, 10, 2000, 20000, None),
+    (5, 4096, 32, 4000, cuda_build.SMEM_LIMIT, ("wide", 8)),
+    (5, 32, 10, 20000, cuda_build.SMEM_LIMIT, ("wide", 8)),  # W too wide
+    (50, 32, 10, 2000, 100000, ("staged", 8)),   # a smaller block: wider
+    (50, 32, 10, 2000, 20000, ("wide", 2)),
 ])
 def test_plan_is_none_where_no_kernel_takes_the_shape(J, B, C, D,
                                                       smem_limit, route):
     """The plan by shape alone, with ``num_sms`` and ``smem_limit``
-    passed in: its cluster size, or None where no kernel takes the shape
-    (the wrapper then refuses CUDA tensors before any launch)."""
+    passed in: its kernel and cluster size, or None where no kernel takes
+    the shape (more than 32 classes: the wrapper then refuses CUDA
+    tensors before any launch). Shapes past the staged and unstaged
+    kernels' shared memory take the wide plan."""
     plan = ek.launch_plan(J, B, C, D, H100_SMS, smem_limit)
-    assert (plan.cluster if plan else None) == route
+    assert ((plan.kernel, plan.cluster) if plan else None) == route
     if plan is not None:
         assert plan.smem_bytes <= smem_limit
 
@@ -323,12 +370,15 @@ def test_plan_two_byte_rows_layout():
     assert f32 - b16 == 4 * 2 * 32 * 500 - 2 * 2 * 32 * 504 - 4 * 2 * 10 * 4
     plan = ek.launch_plan(50, 32, 10, 2000, H100_SMS, row_bytes=2)
     assert (plan.cluster, plan.slice_width) == (2, 1000)
-    for D, f32_k, b16_k in ((5376, 8, 8), (5377, 0, 8), (8704, 0, 8),
-                            (8705, 0, 0)):
+    # past each row type's limit the wide plan takes over (8 CTAs: the
+    # one-wave rule at J = 5)
+    for D, f32_k, b16_k in ((5376, "staged", "staged"),
+                            (5377, "wide", "staged"),
+                            (8704, "wide", "staged"), (8705, "wide", "wide")):
         a = ek.launch_plan(5, 32, 10, D, H100_SMS)
         b = ek.launch_plan(5, 32, 10, D, H100_SMS, row_bytes=2)
-        assert (a.cluster if a else 0) == f32_k, D
-        assert (b.cluster if b else 0) == b16_k, D
+        assert (a.kernel, a.cluster) == (f32_k, 8), D
+        assert (b.kernel, b.cluster) == (b16_k, 8), D
 
 
 def test_plan_falls_back_to_unstaged_kernel_for_huge_batches():
@@ -346,6 +396,131 @@ def test_plan_takes_every_shape_the_unstaged_kernel_takes():
                     continue
                 plan = ek.launch_plan(50, B, C, D, H100_SMS)
                 assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
+
+
+GRID_B = (1, 17, 32, 1024, 4096)
+GRID_C = (1, 3, 10, 26, 32)
+GRID_D = (1, 250, 2000, 5377, 10000, 65536)
+
+
+@pytest.mark.parametrize("J", [1, 50, 1024])
+@pytest.mark.parametrize("row_bytes", [2, 4])
+def test_plan_takes_every_shape_up_to_32_classes(row_bytes, J):
+    """Every B, every D and every C up to 32 has a plan, for both row
+    sizes and with clusters of up to 8 or 16 CTAs; each fits a block's
+    shared memory and its slices cover D with none empty."""
+    for max_cluster in (8, 16):
+        for B in GRID_B:
+            for C in GRID_C:
+                for D in GRID_D:
+                    plan = ek.launch_plan(J, B, C, D, H100_SMS,
+                                          row_bytes=row_bytes,
+                                          max_cluster=max_cluster)
+                    shape = (J, B, C, D, row_bytes, max_cluster)
+                    assert plan is not None, shape
+                    assert plan.smem_bytes <= cuda_build.SMEM_LIMIT, shape
+                    if plan.kernel == "unstaged":
+                        continue
+                    assert plan.cluster <= max_cluster, shape
+                    assert plan.cluster * plan.slice_width >= D, shape
+                    assert (plan.cluster - 1) * plan.slice_width < D, shape
+                    if plan.kernel == "wide":
+                        assert plan.chunk % 8 == 0, shape
+                        assert 8 <= plan.chunk <= ek.MAX_CHUNK, shape
+                        # one wave, or one CTA a client
+                        assert plan.ctas <= H100_SMS or plan.cluster == 1
+
+
+def _plan_before_the_wide_kernel(J, B, C, D, num_sms, smem_limit,
+                                 row_bytes):
+    """``launch_plan`` as it was before the wide kernel: (cluster,
+    slice_width, classes, smem_bytes, ctas), or None."""
+    if C > ek.MAX_CLASSES:
+        return None
+    sizes = [k for k in (1, 2, 4, 8)
+             if ek.staged_smem_bytes(B, C, D, k, row_bytes) <= smem_limit]
+    if not sizes:
+        smem = ek.unstaged_smem_bytes(B, C, D)
+        if smem > smem_limit:
+            return None
+        return (0, D, 8 if C <= 8 else 32, smem, J)
+    fill = max(k for k in (1, 2, 4, 8) if k == 1 or J * k <= num_sms)
+    k = max(sizes[0], fill)
+    while k > sizes[0] and (k - 1) * ek.slice_width(D, k, row_bytes) >= D:
+        k //= 2
+    return (k, ek.slice_width(D, k, row_bytes), ek.instantiated_classes(C),
+            ek.staged_smem_bytes(B, C, D, k, row_bytes), J * k)
+
+
+@pytest.mark.parametrize("row_bytes", [2, 4])
+def test_plan_keeps_every_shape_taken_before_the_wide_kernel(row_bytes):
+    """Every shape the staged or the unstaged kernel took keeps its
+    kernel, cluster, slice, instantiation, shared memory and grid, at
+    either cluster limit and at a smaller block too; only shapes neither
+    took run the wide kernel."""
+    for smem_limit in (cuda_build.SMEM_LIMIT, 100000):
+        for J in (1, 5, 50, 70, 400):
+            for B in (1, 16, 17, 32, 64, 100, 1024, 4096):
+                for C in (1, 2, 3, 5, 10, 16, 26, 32, 33):
+                    for D in (1, 4, 250, 256, 784, 2000, 3000, 5376, 6000,
+                              8704):
+                        old = _plan_before_the_wide_kernel(
+                            J, B, C, D, H100_SMS, smem_limit, row_bytes)
+                        for max_cluster in (8, 16):
+                            new = ek.launch_plan(J, B, C, D, H100_SMS,
+                                                 smem_limit,
+                                                 row_bytes=row_bytes,
+                                                 max_cluster=max_cluster)
+                            shape = (smem_limit, J, B, C, D, max_cluster)
+                            if old is None:
+                                assert C > 32 or new.kernel == "wide", shape
+                                continue
+                            assert new.kernel == (
+                                "staged" if old[0] else "unstaged"), shape
+                            assert (new.cluster, new.slice_width,
+                                    new.classes, new.smem_bytes,
+                                    new.ctas) == old, shape
+
+
+def test_plan_wide_layout():
+    """The wide plan at mnist's shape with D = 10,000: 2 CTAs a client by
+    the one-wave rule (50 * 2 <= 132 SMs), 5,000 columns each, one chunk
+    of the 32 rows, the batch buffer in shared memory; its shared memory
+    is independent of D. 16 CTAs for one client where the card takes
+    them, else 8; a batch too large to hold goes to global scratch."""
+    plan = ek.launch_plan(50, 32, 10, 10000, H100_SMS)
+    # header 16 B; floats: two exchange buffers 2*(4 + 32*12), row loss
+    # and hits 2*32, block sums 16; then the batch buffer 32*(12 + 2)
+    smem = 16 + 4 * (2 * (4 + 32 * 12) + 2 * 32 + 16) + 4 * 32 * 14
+    assert plan == ek.EpochPlan(cluster=2, slice_width=5000, classes=10,
+                                smem_bytes=smem, ctas=100, kernel="wide",
+                                chunk=32, scratch_bytes=0)
+    assert ek.wide_smem_bytes(32, 10, 32, True) == smem
+    assert ek.launch_plan(50, 32, 10, 65536, H100_SMS).smem_bytes == smem
+    assert ek.kernel_symbol(plan, 10) == "17wide_epoch_kernelILi10ELb1E"
+    assert ek.kernel_symbol(ek.launch_plan(5, 32, 11, 10000, H100_SMS),
+                            11) == "17wide_epoch_kernelILi16ELb0E"
+    one = ek.launch_plan(1, 32, 10, 10000, H100_SMS, max_cluster=16)
+    assert (one.cluster, one.slice_width, one.ctas) == (16, 628, 16)
+    assert ek.launch_plan(1, 32, 10, 10000, H100_SMS).cluster == 8
+    # bfloat16 rows: slices round to 8 elements
+    assert ek.launch_plan(50, 32, 10, 10000, H100_SMS,
+                          row_bytes=2).slice_width == 5000
+    assert ek.launch_plan(50, 32, 10, 9000, H100_SMS,
+                          row_bytes=2).slice_width == 4504
+    big = ek.launch_plan(50, 4096, 10, 2000, H100_SMS)
+    assert (big.kernel, big.cluster, big.chunk) == ("wide", 2, 128)
+    assert big.scratch_bytes == 4 * 100 * 4096 * 14
+    assert big.smem_bytes == ek.wide_smem_bytes(4096, 10, 128, False)
+    # forced: the wide kernel at a shape the staged kernel takes, at any
+    # cluster size up to the limit
+    forced = ek.launch_plan(5, 32, 10, 250, H100_SMS, kernel="wide")
+    assert (forced.kernel, forced.cluster) == ("wide", 8)
+    assert forced.cluster * forced.slice_width >= 250
+    assert ek.launch_plan(5, 32, 10, 250, H100_SMS, kernel="wide",
+                          cluster=2).slice_width == 128
+    # a block too small for one chunk of 8 rows: no plan
+    assert ek.launch_plan(5, 32, 32, 10000, H100_SMS, smem_limit=1000) is None
 
 
 def test_client_order_largest_first_stable():
@@ -519,5 +694,82 @@ def test_cuda_kernel_is_deterministic(task):
         args[2] = X
         w1, m1 = client_epoch(*args, 0.1, 0.05, 0.01, task)
         w2, m2 = client_epoch(*args, 0.1, 0.05, 0.01, task)
+        torch.cuda.synchronize()
+        assert torch.equal(w1, w2) and torch.equal(m1, m2)
+
+
+# the wide kernel's cases: (forced kernel, J, S, D, B); by shape, D = 6,000
+# and B = 4096 are past the staged and unstaged kernels at C >= 10 (at
+# C = 1 they still fit the staged and the unstaged kernel), D = 40,000 at
+# every C
+WIDE_CASES = {
+    "forced D=250": ("wide", 5, 6, 250, 32),
+    "forced D=2000": ("wide", 70, 6, 2000, 32),
+    "D=6000": (None, 5, 6, 6000, 32),
+    "B=4096": (None, 3, 2, 2000, 4096),    # the batch buffer in scratch
+    "D=40000": (None, 5, 4, 40000, 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+@pytest.mark.parametrize("C_", [1, 10, 32])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_cuda_wide_kernel_matches_plain_version(task, C_, case):
+    """The wide kernel, forced where the staged kernel would run and by
+    shape past the staged and unstaged kernels, against the plain
+    version (at C = 1 the by-shape cases run the kernel their plan
+    names); the empty client keeps its weights."""
+    _need_card()
+    kernel, J, S, D_, B_ = WIDE_CASES[case]
+    args = _epoch_inputs(task, "cuda", J=J, S=S, C=C_, D=D_, B=B_)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = ek.launch_plan(J, B_, C_, D_, sms, kernel=kernel).kernel
+    assert runs == "wide" or (C_ == 1 and case in ("D=6000", "B=4096"))
+    before = client_epoch.launches_by_kernel[runs]
+    wk, _ = _kernel_vs_plain(task, args, kernel=kernel)
+    assert client_epoch.launches_by_kernel[runs] == before + 1
+    torch.testing.assert_close(wk[1], args[0][1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_cuda_wide_kernel_every_cluster_size(cluster):
+    _need_card()
+    if cluster > ek.wide_max_cluster(0):
+        pytest.skip(f"this card schedules clusters of {ek.wide_max_cluster(0)}")
+    args = _epoch_inputs("classification", "cuda", J=5, S=6, C=10, D=6000)
+    _kernel_vs_plain("classification", args, kernel="wide", cluster=cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_cuda_wide_kernel_two_byte_rows(task, dtype):
+    """2-byte rows at D = 9,000: past the staged kernel's 8,704."""
+    _need_card()
+    args = _epoch_inputs(task, "cuda", J=5, S=6, C=10, D=9000)
+    args[2] = args[2].to(getattr(torch, dtype))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ek.launch_plan(5, B, 10, 9000, sms, row_bytes=2).kernel == "wide"
+    before = client_epoch.launches_by_kernel["wide"]
+    _kernel_vs_plain(task, args)
+    assert client_epoch.launches_by_kernel["wide"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["D=6000", "B=4096"])
+def test_cuda_wide_kernel_is_deterministic(case):
+    """Two launches of the wide kernel bitwise equal, with the batch
+    buffer in shared memory and in global scratch, float32 and bf16
+    rows."""
+    _need_card()
+    _, J, S, D_, B_ = WIDE_CASES[case]
+    args = _epoch_inputs("classification", "cuda", J=J, S=S, C=10, D=D_,
+                         B=B_)
+    for X in (args[2], args[2].to(torch.bfloat16)):
+        args[2] = X
+        w1, m1 = client_epoch(*args, 0.1, 0.05, 0.01, "classification")
+        w2, m2 = client_epoch(*args, 0.1, 0.05, 0.01, "classification")
         torch.cuda.synchronize()
         assert torch.equal(w1, w2) and torch.equal(m1, m2)
