@@ -111,6 +111,21 @@ and read just after:
   tolerances, two launches bitwise equal; FedAvg and FedAMW 2 rounds of
   2 local epochs and Centralized 2 epochs (J = 1), each against its plain
   run at ``TOL_RUN``, counted, every kernel-1 launch the wide kernel's;
+- ``many_classes``: more than 32 classes, on a stand-in of LIBSVM's
+  ``sector`` (6,412 + 3,207 rows, 55,197 raw features, 105 classes, 160
+  non-zeros a row, written from ``SEED``; the registry's default block)
+  parsed by the native parser, at the main configuration: kernel 1's
+  class-tiled wide plan against its plain version at C = 33 and 105 (the
+  registry's and the strong penalties), C = 1,000, C = 105 at
+  D = 10,000 and with bfloat16 rows, and the tie case (every logit
+  equal: the first maximum class 0), two launches bitwise each; kernel
+  2's class-tiled split plan at C = 105 and 1,000, unguarded and with
+  the simplex guard, bitwise on repeat; FedAvg, FedAMW (2 rounds) and
+  Centralized (2 epochs) on the stand-in against their plain runs,
+  every launch on a tiled plan; the driver with ``--dataset sector`` in
+  a subprocess; the four ``classes_*`` rows of the ``kernels`` line
+  (``client_epoch.classes_105``'s ``ms_forced_c32``: the instantiated and
+  the class-tiled wide kernel forced at 32 classes, in turns);
 - ``profile``: the device shuffle draw of one round alone
   (``draw_ms_per_round``, CUDA events), then one profiled FedAMW run
   (device time by kernel, the device's busy share of the wall time,
@@ -3621,6 +3636,408 @@ def wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms):
     return row
 
 
+# LIBSVM's sector set (its multiclass page): train and test rows, raw
+# features, classes; the stand-in's non-zeros a row are a choice (the real
+# file's density is not known here)
+SECTOR = dict(train=6412, test=3207, d=55197, classes=105, nnz=160)
+MANY_C = (33, 105)         # kernel 1's class counts on the stand-in's shapes
+ALOI_C = 1000              # aloi's class count (LIBSVM's multiclass page)
+ALOI_S = 20                # steps of kernel 1's C = 1,000 case
+MANY_WIDE_D = 10000        # past the staged plan's D
+MANY_ROUNDS = 2
+
+
+def write_standin(path, n, d, classes, nnz, seed):
+    """A LIBSVM file of ``n`` rows at ``path``: labels 1..``classes``, each
+    class on ``n // classes`` rows or one more; about ``nnz`` sorted
+    feature indices a row in 1..``d``, half drawn from the label's own
+    block of ``d // classes`` features and half from all ``d``; positive
+    values scaled to a unit norm a row (tf-idf-like); index ``d`` on the
+    first row, so that both files of a pair parse to ``d`` columns."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    y = np.arange(n) % classes
+    rng.shuffle(y)
+    block = d // classes
+    own = rng.randint(0, block, (n, nnz // 2)) + (y * block)[:, None]
+    anywhere = rng.randint(0, d, (n, nnz - nnz // 2))
+    cols = np.concatenate([own, anywhere], 1)
+    cols[0, -1] = d - 1
+    lines = []
+    for i in range(n):
+        c = np.unique(cols[i])
+        v = rng.exponential(1.0, c.size)
+        v /= np.sqrt(np.square(v).sum())
+        lines.append(f"{y[i] + 1} " + " ".join(
+            f"{a + 1}:{b:.6g}" for a, b in zip(c.tolist(), v.tolist())))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def many_classes(timed, vs_plain, card, sms):
+    """The ``many_classes`` phase: more than 32 classes on the card, on a
+    stand-in of LIBSVM's ``sector`` (``SECTOR``'s counts, written from
+    ``SEED``) at the main configuration (RFF D = 2,000, J = 50,
+    Dirichlet 0.01, batch 32/16, seed 100, the registry's default block).
+    (a) The stand-in pair, parsed by the native parser (no fallback). (b)
+    Kernel 1's class-tiled wide plan against its plain version at the
+    reference tolerances: the stand-in's shape at C = 33 and 105 under the
+    registry's and strong penalties, C = 1,000 at S = ``ALOI_S``, C = 105
+    at D = 10,000 and with bfloat16 rows, two launches bitwise equal, and
+    the tie case (W = anchor = 0: every logit equal, the first maximum
+    class 0, so each client's hits are its label-0 rows). (c) Kernel 2's
+    class-tiled split plan against its plain version at ``TOL_P``: the
+    stand-in's n_val, J = 50, B = 16, C = 105 and 1,000, unguarded and
+    with the simplex guard, two launches bitwise. (d) FedAvg and FedAMW
+    ``MANY_ROUNDS`` rounds of ``EPOCHS`` local epochs and Centralized
+    ``EPOCHS`` epochs on the stand-in against their plain runs at
+    ``TOL_RUN``, counted, every kernel-1 launch the wide tiled plan and
+    every kernel-2 launch the split tiled plan. (e) ``python -m
+    fedamw_tpu_torch.exp --dataset sector --data_dir ... --round 2`` in a
+    subprocess, exit 0 and its (6, 2, 1) pickle. (f) Each tiled plan's
+    time beside its plain version and its bound at C = 105 and 1,000.
+    Returns the four rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from fedamw_tpu_torch import native_io
+    from fedamw_tpu_torch.algorithms import (
+        Centralized, FedAMW, FedAvg, prepare_setup)
+    from fedamw_tpu_torch.config import get_parameter
+    from fedamw_tpu_torch.data import load_dataset
+    from fedamw_tpu_torch.fedcore import (
+        client_epoch, client_epoch_plain, cuda_build, make_guard, p_epoch,
+        p_epoch_plain)
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+    from fedamw_tpu_torch.fedcore import psolver_kernel as pk
+    from fedamw_tpu_torch.fedcore.batching import (
+        batch_valid, draw_epoch_positions)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="many_classes_") as tmp:
+        native_io._load()  # the native parser, or fail: no sklearn here
+        t0 = time.perf_counter()
+        for name, n, seed in (("sector", SECTOR["train"], SEED),
+                              ("sector.t", SECTOR["test"], SEED + 1)):
+            write_standin(os.path.join(tmp, name), n, SECTOR["d"],
+                          SECTOR["classes"], SECTOR["nnz"], seed)
+        write_s = time.perf_counter() - t0
+        prm = get_parameter("sector")
+        t0 = time.perf_counter()
+        ds = load_dataset("sector", num_partitions=J, alpha=0.01,
+                          data_dir=tmp)
+        load_s = time.perf_counter() - t0
+        if (ds.source, ds.num_classes, ds.d, len(ds.y_train),
+                len(ds.y_test)) != ("file", SECTOR["classes"], SECTOR["d"],
+                                    SECTOR["train"], SECTOR["test"]):
+            fail(f"the sector stand-in loaded as {ds.source}, C = "
+                 f"{ds.num_classes}, d = {ds.d}")
+        t0 = time.perf_counter()
+        ms = prepare_setup(ds, D=D, kernel_par=prm["kernel_par"], seed=SEED,
+                           rng=np.random.RandomState(SEED))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        emit({"phase": "many_classes", "part": "setup", "card": card,
+              "rows": {"train": SECTOR["train"], "test": SECTOR["test"]},
+              "d": ds.d, "classes": ds.num_classes, "nnz_a_row": SECTOR["nnz"],
+              "n_max": ms.n_max, "n_val": int(ms.X_val.shape[0]),
+              "client_rows": [int(ms.sizes.min()), int(ms.sizes.max())],
+              "write_s": write_s, "load_s": load_s, "setup_s": setup_s})
+
+        dev, N, C = ms.device, int(ms.X.shape[0]), ms.num_classes
+        gen = torch.Generator().manual_seed(SEED)
+        dgen = torch.Generator(device=dev).manual_seed(SEED)
+        pos = draw_epoch_positions(dgen, ms.n_max, B, ms.mask, lead=(J,))
+        valid = batch_valid(pos, ms.n_max, ms.mask)
+        rows = torch.gather(ms.idx, 1, pos.reshape(J, -1)).reshape(
+            pos.shape).to(torch.int32).contiguous()
+        lr = float(prm["lr"])
+
+        def epoch_args(Ck, D_, mu, lam, jitter, lr_, X=None, y=None,
+                       rows_=rows, valid_=valid, zero=False):
+            w0 = (torch.zeros((Ck, D_)) if zero else 0.01 * torch.randn(
+                (Ck, D_), generator=gen)).to(dev)
+            W = w0.expand(J, Ck, D_) + jitter * torch.randn(
+                (J, Ck, D_), generator=gen).to(dev)
+            if y is None:
+                y = ms.y if Ck == C else (ms.y % Ck).to(torch.int32)
+            return (W.contiguous(), w0, ms.X if X is None else X, y, rows_,
+                    valid_, lr_, mu, lam, "classification")
+
+        def plan1(a, **kw):
+            return ek.launch_plan(
+                J, B, int(a[0].shape[1]), int(a[0].shape[2]), sms,
+                row_bytes=a[2].element_size(), max_cluster=ek.wide_max_cluster(
+                    dev.index or 0, ek.ROW_LIBRARIES[a[2].dtype]), **kw)
+
+        # (b) kernel 1
+        k1 = {}
+        for Ck in MANY_C:
+            k1[f"C={Ck} registry"] = epoch_args(
+                Ck, D, float(prm["lambda_prox"]), float(prm["lambda_reg"]),
+                0.0, lr)
+            k1[f"C={Ck} strong"] = epoch_args(Ck, D, 0.05, 0.01, 0.01, 0.1)
+        rows_a = torch.randint(0, N, (J, ALOI_S, B), generator=dgen,
+                               device=dev, dtype=torch.int32)
+        valid_a = (torch.rand((J, ALOI_S, B), generator=dgen, device=dev)
+                   < 0.8).float()
+        y_a = torch.randint(0, ALOI_C, (N,), generator=dgen, device=dev,
+                            dtype=torch.int32)
+        k1[f"C={ALOI_C} strong"] = epoch_args(
+            ALOI_C, D, 0.05, 0.01, 0.01, 0.1, y=y_a, rows_=rows_a,
+            valid_=valid_a)
+        X_wide = torch.randn((N, MANY_WIDE_D), generator=dgen,
+                             device=dev) / MANY_WIDE_D ** 0.5
+        k1[f"C={C} D={MANY_WIDE_D} strong"] = epoch_args(
+            C, MANY_WIDE_D, 0.05, 0.01, 0.01, 0.1, X=X_wide)
+        a = k1[f"C={C} strong"]
+        k1[f"C={C} strong bfloat16"] = a[:2] + (a[2].to(torch.bfloat16),) \
+            + a[3:]
+        k1[f"C={C} tie"] = epoch_args(
+            C, D, 0.05, 0.01, 0.0, 0.1, rows_=rows[:, :1].contiguous(),
+            valid_=valid[:, :1].contiguous(), zero=True)
+        k1_err = {}
+        for label, a in k1.items():
+            plan = plan1(a)
+            w1, m1 = client_epoch(*a)
+            w2, m2 = client_epoch(*a)
+            torch.cuda.synchronize()
+            wp, mp = client_epoch_plain(*a)
+            ok_w, err_w = close(w1, wp, **TOL_W)
+            tot = mp[:, 2].clamp(min=1)
+            ok_l, err_l = close(m1[:, 0] / tot, mp[:, 0] / tot, 1e-4, 0)
+            ok_a, err_a = close(100 * m1[:, 1] / tot, 100 * mp[:, 1] / tot,
+                                1e-3, 0)
+            bitwise = bool(torch.equal(w1, w2) and torch.equal(m1, m2))
+            row = {"phase": "kernel_check", "kernel": "client_epoch.tiled",
+                   "case": label, "rows": str(a[2].dtype).removeprefix(
+                       "torch."), "plan": dataclasses.asdict(plan),
+                   "shape": {"J": J, "C": int(a[0].shape[1]),
+                             "D": int(a[0].shape[2]),
+                             "S": int(a[4].shape[1]), "B": B},
+                   "max_abs_err_w": err_w, "max_abs_err_loss": err_l,
+                   "max_abs_err_acc": err_a, "tol_w": TOL_W,
+                   "tol_loss_atol": 1e-4, "tol_acc_atol": 1e-3,
+                   "two_launches_bitwise": bitwise,
+                   "ok": ok_w and ok_l and ok_a and bitwise
+                   and plan.kernel == "wide_tiled"}
+            if label.endswith("tie"):
+                # every logit 0: the first maximum is class 0, so a
+                # client's hits are its valid label-0 rows, exactly
+                zeros = ((a[3][a[4][:, 0].long()] == 0).float()
+                         * a[5][:, 0]).sum(-1)
+                row["hits"] = float(m1[:, 1].sum())
+                row["label0_rows"] = float(zeros.sum())
+                row["ok"] = row["ok"] and bool(torch.equal(m1[:, 1], zeros))
+            emit(row)
+            if not row["ok"]:
+                fail(f"the tiled client_epoch plan ({label}) disagrees with "
+                     "its plain version, is not deterministic or did not run")
+            k1_err[label] = err_w
+
+        # (c) kernel 2
+        n_val = int(ms.X_val.shape[0])
+        ppos = draw_epoch_positions(dgen, n_val, VB)
+        pvalid = batch_valid(ppos, n_val)
+        ppos = ppos.to(torch.int32)
+        S2 = int(ppos.shape[0])
+
+        def p_args(Ck):
+            logits = torch.randn((n_val, J, Ck), generator=dgen,
+                                 device=dev) / J ** 0.5
+            y2 = torch.randint(0, Ck, (n_val,), generator=dgen, device=dev,
+                               dtype=torch.int32)
+            p0 = torch.rand(J, generator=dgen, device=dev)
+            cv2 = torch.ones(J, device=dev)
+            cv2[::9] = 0.0
+            return ((3.0 * p0 / p0.norm()).contiguous(), torch.zeros_like(p0),
+                    cv2, logits, y2, ppos, pvalid, float(prm.get("lr_p", 1e-3)),
+                    0.9, "classification")
+
+        k2 = {Ck: p_args(Ck) for Ck in (C, ALOI_C)}
+        k_max = pk.split_max_cluster(dev.index or 0)
+        k2_err, k2_plans = {}, {}
+        for Ck, a in k2.items():
+            for guard in (None, "simplex"):
+                g = make_guard(guard) if guard else None
+                plan = pk.launch_plan(VB, J, Ck, max_cluster=k_max)
+                p1 = p_epoch(*a, guard=g)
+                p2 = p_epoch(*a, guard=g)
+                torch.cuda.synchronize()
+                pp, bp, mp = p_epoch_plain(*a, guard=g)
+                ok_p, err_p = close(p1[0], pp, **TOL_P)
+                ok_b, err_b = close(p1[1], bp, **TOL_P)
+                ok_m, err_m = close(p1[2][:2] / p1[2][2], mp[:2] / mp[2], 0,
+                                    2e-5)
+                bitwise = all(bool(torch.equal(u, v)) for u, v in zip(p1, p2))
+                row = {"phase": "kernel_check", "kernel": "p_epoch.tiled",
+                       "case": f"C={Ck}", "guard": guard or "none",
+                       "shape": {"n_val": n_val, "J": J, "C": Ck, "B": VB,
+                                 "S": S2},
+                       "plan": dataclasses.asdict(plan),
+                       "max_abs_err_p": err_p, "max_abs_err_buf": err_b,
+                       "max_abs_err_metrics": err_m, "tol": TOL_P,
+                       "p_sum": float(p1[0].sum()),
+                       "two_launches_bitwise": bitwise,
+                       "ok": ok_p and ok_b and ok_m and bitwise
+                       and plan.kernel == "split_tiled"}
+                emit(row)
+                if not row["ok"]:
+                    fail(f"the tiled p_epoch plan (C={Ck}, guard {guard}) "
+                         "disagrees with its plain version, is not "
+                         "deterministic or did not run")
+                k2_err[Ck] = max(k2_err.get(Ck, 0.0), err_p, err_b)
+                k2_plans[Ck] = plan
+
+        # (d) the algorithms on the stand-in, counted
+        kw = dict(lr=prm["lr"], epoch=EPOCHS, batch_size=B, round=MANY_ROUNDS,
+                  seed=SEED, lr_mode="constant", return_state=True)
+        algos = (
+            ("FedAvg", FedAvg, kw, (EPOCHS * MANY_ROUNDS, 0)),
+            ("FedAMW", FedAMW, dict(kw, lambda_reg=prm["lambda_reg"],
+                                    lr_p=prm.get("lr_p", 1e-3),
+                                    val_batch_size=VB),
+             (EPOCHS * MANY_ROUNDS, MANY_ROUNDS * MANY_ROUNDS)),
+            ("Centralized", Centralized,
+             dict(lr=prm["lr"], epoch=EPOCHS, batch_size=B, seed=SEED),
+             (EPOCHS, 0)))
+        by_algorithm = {}
+        for name, fn, fkw, want in algos:
+            ref, plain_s = timed(fn, ms, kernel_impl="plain", **fkw)
+            reset_counts()
+            res, secs = timed(fn, ms, **fkw)
+            c = counts()
+            ok, diffs = vs_plain(res, ref)
+            got = (c["client_epoch"], c["p_epoch"])
+            tiled = (c["client_epoch_by_kernel"]["wide_tiled"],
+                     c["p_epoch_by_kernel"]["split_tiled"])
+            by_algorithm[name] = c
+            emit({"phase": "many_classes", "algorithm": name, "C": C,
+                  "card": card, "seconds": secs, "seconds_plain": plain_s,
+                  "test_acc": np.ravel(res["test_acc"]).tolist(),
+                  "test_loss": np.ravel(res["test_loss"]).tolist(),
+                  "launches": c, "launches_expected": {
+                      "client_epoch": want[0], "p_epoch": want[1]},
+                  "vs_plain": diffs, "tol": TOL_RUN, "ok": ok})
+            if not ok or got != want or tiled != got:
+                fail(f"{name} at C={C} launched {c} (expected {want}, every "
+                     f"launch on a tiled plan) or does not match its plain "
+                     f"run: {diffs}")
+
+        # (e) the driver on the stand-in pair
+        out_dir = os.path.join(tmp, "results")
+        drv, drv_s = _module(["fedamw_tpu_torch.exp", "--dataset", "sector",
+                              "--data_dir", tmp, "--round", str(MANY_ROUNDS),
+                              "--result_dir", out_dir])
+        shapes, finite = {}, False
+        if drv.returncode == 0:
+            with open(os.path.join(out_dir, "exp1_sector.pkl"), "rb") as f:
+                data = pickle.load(f)
+            shapes = {k: list(np.shape(data[k]))
+                      for k in ("train_loss", "test_loss", "test_acc")}
+            finite = all(bool(np.all(np.isfinite(data[k]))) for k in shapes)
+        drv_ok = (drv.returncode == 0 and finite and all(
+            v == [6, MANY_ROUNDS, 1] for v in shapes.values()))
+        emit({"phase": "many_classes", "part": "driver", "seconds": drv_s,
+              "returncode": drv.returncode, "shapes": shapes,
+              "finite": finite, "stdout_tail": drv.stdout.splitlines()[-6:],
+              "stderr_tail": drv.stderr.splitlines()[-6:], "ok": drv_ok})
+        if not drv_ok:
+            fail("the driver on the sector stand-in did not exit 0 with its "
+                 "(6, R, 1) pickle")
+
+        # (f) times, bounds, plans
+        def ptxas(library, symbol):
+            u = [v for f, v in cuda_build.ptxas_usage(library).items()
+                 if symbol in f]
+            return u[0] if len(u) == 1 else {}
+
+        launches1 = sum(c["client_epoch_by_kernel"]["wide_tiled"]
+                        for c in by_algorithm.values())
+        launches2 = sum(c["p_epoch_by_kernel"]["split_tiled"]
+                        for c in by_algorithm.values())
+        src = "non-iid-distributed-learning-with-optimal-mixture-weights_tpu"
+        rows_out = []
+        for Ck, label in ((C, f"C={C} strong"), (ALOI_C, f"C={ALOI_C} strong")):
+            a = k1[label]
+            plan = plan1(a)
+            saved = client_epoch.launches, dict(client_epoch.launches_by_kernel)
+            t_ms = cuda_ms(lambda: client_epoch(*a), 5)
+            client_epoch.launches, client_epoch.launches_by_kernel = saved
+            p_ms = cuda_ms(lambda: client_epoch_plain(*a), 2)
+            n_rows = float(a[5].sum())
+            steps = int((a[5].sum(-1) > 0).sum())
+            steps_max = int(ek.client_order(a[5])[1].max())
+            nbytes = 4 * (n_rows * (D + 1) + 2 * J * Ck * D + Ck * D
+                          + 2 * a[4].numel() + 3 * J)
+            ops = 4 * Ck * D * n_rows + 12 * Ck * D * steps
+            t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
+            used = ptxas("client_epoch", ek.kernel_symbol(plan, Ck))
+            rows_out.append({
+                "name": f"client_epoch.classes_{Ck}", "route": "cuda",
+                "source": f"{src}_torch/csrc/client_epoch.cu",
+                "replaces": f"{src}/fedcore/pallas_kernel.py:40",
+                "launches": launches1,
+                "launches_path": "many_classes (FedAvg, FedAMW, Centralized "
+                                 f"at C = {C})",
+                "max_abs_err": k1_err[label], "ms": t_ms, "plain_ms": p_ms,
+                "bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bound_bytes": nbytes, "bound_fp32_ops": ops,
+                "library_ms": None, "card": card,
+                "shape": {"J": J, "C": Ck, "D": D, "B": B,
+                          "S": int(a[4].shape[1])},
+                "steps_max": steps_max, "us_per_step": 1e3 * t_ms / steps_max,
+                "plan": dataclasses.asdict(plan),
+                "registers": used.get("registers"),
+                "spill_bytes": used.get("spill_bytes")})
+        # at 32 classes the instantiated wide kernel (the rounded 32, its
+        # class loops stopping at C) and the class-tiled one, forced, in
+        # turns on the same inputs
+        a = epoch_args(32, D, 0.05, 0.01, 0.01, 0.1)
+        saved = client_epoch.launches, dict(client_epoch.launches_by_kernel)
+        turns = {"wide": [], "wide_tiled": []}
+        for kern in ("wide", "wide_tiled", "wide_tiled", "wide"):
+            turns[kern].append(cuda_ms(lambda: client_epoch(*a, kernel=kern),
+                                       5))
+        client_epoch.launches, client_epoch.launches_by_kernel = saved
+        rows_out[0]["ms_forced_c32"] = {k: sum(v) / 2
+                                        for k, v in turns.items()}
+        for Ck in (C, ALOI_C):
+            a = k2[Ck]
+            plan = k2_plans[Ck]
+            saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
+            t_ms = cuda_ms(lambda: p_epoch(*a), 5)
+            p_epoch.launches, p_epoch.launches_by_kernel = saved
+            p_ms = cuda_ms(lambda: p_epoch_plain(*a), 2)
+            nbytes = 4 * (n_val * J * Ck + n_val + 2 * S2 * VB + 5 * J + 3)
+            ops = 4 * n_val * J * Ck + 4 * J * S2
+            t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
+            used = ptxas("p_epoch", pk.kernel_symbol(plan, Ck))
+            rows_out.append({
+                "name": f"p_epoch.classes_{Ck}", "route": "cuda",
+                "source": f"{src}_torch/csrc/p_epoch.cu",
+                "replaces": f"{src}/fedcore/pallas_psolver.py:38",
+                "launches": launches2,
+                "launches_path": f"many_classes (FedAMW at C = {C})",
+                "max_abs_err": k2_err[Ck], "ms": t_ms, "plain_ms": p_ms,
+                "bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bound_bytes": nbytes, "bound_fp32_ops": ops,
+                "library_ms": None, "card": card,
+                "shape": {"n_val": n_val, "J": J, "C": Ck, "B": VB, "S": S2},
+                "us_per_step": 1e3 * t_ms / S2,
+                "plan": dataclasses.asdict(plan),
+                "registers": used.get("registers"),
+                "spill_bytes": used.get("spill_bytes")})
+        emit({"phase": "many_classes", "kernel_rows": rows_out,
+              "phase_seconds": time.perf_counter() - t_phase})
+    del ms, k1, k2, X_wide, a
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 def main():
     import numpy as np
     import torch
@@ -4166,6 +4583,8 @@ def main():
 
     # -- 7e. kernel 1's wide plan: the main configuration at D = 10,000 ----
     wide_row = wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms)
+    # -- 7f. more than 32 classes: the tiled plans on a sector stand-in -----
+    many_rows = many_classes(timed, vs_plain, card, sms)
 
     # -- 8. where a FedAMW run's time goes (device time by kernel) ----------
     # the device shuffle draw of one round, alone and before the profiler
@@ -4452,7 +4871,7 @@ def main():
                      "ms_by_cluster": by_cluster16, "ms_by_dtype": by_dtype})
     if used16["spill_bytes"] != 0 or usedf16["spill_bytes"] != 0:
         fail(f"client_epoch with 2-byte rows spills: {used16}, {usedf16}")
-    kernels += [split_row, guard_row, bf16_row, wide_row]
+    kernels += [split_row, guard_row, bf16_row, wide_row, *many_rows]
     for row in kernels[2:]:
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path "

@@ -40,7 +40,8 @@
 //    client's count of non-empty steps, so a second wave of clusters holds
 //    only short clients.
 //  - The class count is a template parameter, exact for the class counts
-//    of the registry's datasets (no dead FMA lanes at C = 10).
+//    of the registry's datasets (no dead FMA lanes at C = 10), up to 32
+//    (the class-tiled kernel of plan 4 takes more).
 // Everything is fp32 FMA (no tensor cores, no TF32): the tolerances of
 // tests/test_pallas_kernel.py need it, and arithmetic is not the limit.
 //
@@ -52,7 +53,7 @@
 // intrinsics as they are read (the product is fp32, as JAX promotes
 // bf16 x f32); W, the anchor, z and the gradient stay fp32.
 //
-// Three plans, in the wrapper's order (epoch_kernel.launch_plan):
+// Four plans, in the wrapper's order (epoch_kernel.launch_plan):
 //  1. the staged kernel above, where a cluster of 1, 2, 4 or 8 CTAs holds
 //     W's slices and two step tiles in shared memory;
 //  2. the unstaged kernel, for batches too large to stage where W and the
@@ -70,6 +71,20 @@
 //     scratch. Its shared memory does not grow with D, nor past the chunk
 //     with B, so it takes any B and D. The sums of squares of the next
 //     step's norms are folded into the update pass.
+//  4. past 32 classes, at every B and D, the class-tiled wide kernel: the
+//     wide kernel with C a run-time argument, one instantiation a row type.
+//     Its forward pass carries two rows through one tile of 32 classes of
+//     partial logits at a time (the rows read again for each tile), its
+//     gradient pass 32 accumulators a column at a time (the column's rows
+//     read again for each tile), and each row's loss is one warp's
+//     row_loss_grad_tiled, an online logsumexp over the tiles that keeps
+//     the first maximum. The chunk's logits (chunk x C rounded up to 4)
+//     and the batch's loss gradient take the place of the instantiation's
+//     class count in the layout, so the chunk shrinks as C grows (24 rows
+//     at C = 1,000) and only a chunk of 8 rows' logits past a block's
+//     shared memory (some 3,600 classes) bounds it. At C = 105 a step does
+//     ~4 B D C flops a client against ~B D row reads: it may be bound by
+//     operations, still fp32 FMA.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -1055,10 +1070,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int NC, bool EXACT>
-cudaError_t launch_wide(const WideArgs& p, int J, cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes(p.B, NC, p.chunk, p.scratch == nullptr);
-  auto kern = wide_epoch_kernel<NC, EXACT>;
+// One launch of a wide kernel (either instantiation): J clusters of p.k
+// CTAs of `smem` bytes each.
+cudaError_t launch_wide_kernel(void (*kern)(WideArgs), const WideArgs& p,
+                               int J, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -1082,6 +1097,290 @@ cudaError_t launch_wide(const WideArgs& p, int J, cudaStream_t stream) {
   e = cudaLaunchKernelEx(&cfg, kern, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int NC, bool EXACT>
+cudaError_t launch_wide(const WideArgs& p, int J, cudaStream_t stream) {
+  return launch_wide_kernel(
+      wide_epoch_kernel<NC, EXACT>, p, J,
+      wide_smem_bytes(p.B, NC, p.chunk, p.scratch == nullptr), stream);
+}
+
+// ---------------------------------------------------------------------------
+// The class-tiled wide kernel: the wide kernel for any C, taken at run time
+// (one instantiation a row type). The same cluster, slices, chunks, exchange
+// and batch buffer, with CP = C rounded up to 4 in place of the
+// instantiation's; what held one accumulator a class walks the classes in
+// tiles: the forward pass carries kTileRows rows through one tile of
+// kTileF partial logits at a time (the rows read again for each tile, from
+// L1 or L2), the gradient pass kTileB accumulators a column at a time (the
+// column's rows read again for each tile), and each chunk row's loss is one
+// warp's row_loss_grad_tiled. A tile past C reads the last class again
+// (clamped) and drops what it computes, so that no load waits behind a
+// branch: a loop that stops at C issues its W loads one at a time.
+constexpr int kTileF = 16;
+constexpr int kTileRows = 4;
+constexpr int kTileB = 32;
+
+__global__ void __launch_bounds__(kThreads, 1)
+    wide_tiled_epoch_kernel(const WideArgs p) {
+  const int C = p.C, CP = round_up(C, 4);
+  const int B = p.B, D = p.D, k = p.k, Bc = p.chunk;
+  const int Bp = round_up(B, 8), PS = 4 + Bc * CP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool cls = p.y_cls != nullptr;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int j = p.order[blockIdx.x / k];
+  const int T = p.nsteps[j];
+  const int d0 = rank * p.Dk;
+  const int wd = max(0, min(p.Dk, D - d0));  // this CTA's columns of D
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideHeader* h = reinterpret_cast<WideHeader*>(smem_raw);
+  // [2][PS]: sp, sr, -, -, z (chunk, CP)
+  float* part = reinterpret_cast<float*>(smem_raw + kWideHeaderBytes);
+  float* row_loss = part + 2 * PS;
+  float* row_hit = row_loss + Bc;
+  float* red = row_hit + Bc;  // [2][kWarps]
+  float* batch = p.scratch == nullptr
+                     ? red + 2 * kWarps
+                     : p.scratch + blockIdx.x * wide_batch_floats(B, C);
+  int* row_id = reinterpret_cast<int*>(batch);
+  float* row_w = batch + Bp;
+  float* dz = row_w + Bp;  // [Bp][CP]: the summed logits, then d loss / dz
+
+  const size_t CD = (size_t)C * D;
+  const float* Wj = p.W0 + j * CD;
+  float* Wo = p.W_out + j * CD;
+  float sp = 0.f, sr = 0.f;
+  for (int c = 0; c < C; ++c) {
+    for (int d = tid; d < wd; d += kThreads) {
+      const size_t i = (size_t)c * D + d0 + d;
+      const float wv = Wj[i];
+      const float dv = wv - p.anchor[i];
+      Wo[i] = wv;
+      sp = fmaf(dv, dv, sp);
+      sr = fmaf(wv, wv, sr);
+    }
+  }
+  block_sum2(sp, sr, red);
+
+  // warp 0 packs the next non-empty step's valid rows, as the wide kernel
+  int look = 0;
+  auto pack = [&]() {
+    for (;;) {
+      const size_t base = ((size_t)j * p.S + look) * B;
+      int n = 0;
+      float cnt = 0.f;
+      for (int b0 = 0; b0 < B; b0 += 32) {
+        const int b = b0 + lane;
+        float v = 0.f;
+        int r = 0;
+        if (b < B) {
+          v = p.valid[base + b];
+          r = p.rows[base + b];
+        }
+        const unsigned m = __ballot_sync(0xffffffffu, v != 0.f);
+        if (v != 0.f) {
+          const int slot = n + __popc(m & ((1u << lane) - 1u));
+          row_id[slot] = r;
+          row_w[slot] = v;
+        }
+        n += __popc(m);
+        cnt += warp_sum(v);
+      }
+      ++look;
+      if (n > 0) {
+        if (lane == 0) {
+          h->n = n;
+          h->cnt = cnt;
+        }
+        return;
+      }
+    }
+  };
+
+  float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // rank 0, thread 0
+  int ex = 0;  // exchanges so far: part is double-buffered by exchange
+  for (int t = 0; t < T; ++t) {
+    if (warp == 0) pack();
+    __syncthreads();
+    const int n = h->n;
+    const float cnt = h->cnt;
+    const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
+    float dl = 0.f, hits = 0.f;  // rank 0, thread 0
+
+    for (int q0 = 0; q0 < n; q0 += Bc, ++ex) {
+      const int nc = min(Bc, n - q0);
+      float* pc = part + (ex & 1) * PS;
+      // partial z of the chunk's rows over this slice: one warp per
+      // kTileRows rows and one tile of classes at a time, lanes over
+      // columns
+      const int groups = (nc + kTileRows - 1) / kTileRows;
+      for (int g = warp; g < groups; g += kWarps) {
+        const RowT* xr[kTileRows];
+#pragma unroll
+        for (int r = 0; r < kTileRows; ++r)
+          xr[r] = p.X +
+                  (size_t)row_id[q0 + min(g * kTileRows + r, nc - 1)] * D + d0;
+        for (int c0 = 0; c0 < C; c0 += kTileF) {
+          const float* wt[kTileF];
+#pragma unroll
+          for (int c = 0; c < kTileF; ++c)
+            wt[c] = Wo + (size_t)min(c0 + c, C - 1) * D + d0;
+          float acc[kTileRows][kTileF];
+#pragma unroll
+          for (int r = 0; r < kTileRows; ++r)
+#pragma unroll
+            for (int c = 0; c < kTileF; ++c) acc[r][c] = 0.f;
+          for (int d = lane; d < wd; d += 32) {
+            float xv[kTileRows];
+#pragma unroll
+            for (int r = 0; r < kTileRows; ++r) xv[r] = R::one(xr[r] + d);
+#pragma unroll
+            for (int c = 0; c < kTileF; ++c) {
+              const float wv = wt[c][d];
+#pragma unroll
+              for (int r = 0; r < kTileRows; ++r)
+                acc[r][c] = fmaf(xv[r], wv, acc[r][c]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < kTileRows; ++r) {
+#pragma unroll
+            for (int c = 0; c < kTileF; ++c) {
+              if (c0 + c >= C) break;
+              const float v = warp_sum(acc[r][c]);
+              if (lane == 0 && g * kTileRows + r < nc)
+                pc[4 + (g * kTileRows + r) * CP + c0 + c] = v;
+            }
+          }
+        }
+      }
+      if (q0 == 0 && tid == 0) {
+        pc[0] = sp;
+        pc[1] = sr;
+      }
+
+      // the chunk's exchange, as the wide kernel's
+      cluster.sync();
+      for (int i = (q0 == 0 ? 0 : 4) + tid; i < 4 + nc * CP; i += kThreads) {
+        if (i == 2 || i == 3) continue;
+        if (i >= 4 && (i - 4) % CP >= C) continue;
+        float v = 0.f;
+        for (int q = 0; q < k; ++q) v += cluster.map_shared_rank(pc, q)[i];
+        if (i < 2)
+          h->tot[i] = v;
+        else
+          dz[q0 * CP + i - 4] = v;
+      }
+      __syncthreads();
+
+      // per row, one warp: loss, top-1 hit, and dz (overwrites z), scaled
+      // by w_b / cnt
+      for (int b = warp; b < nc; b += kWarps) {
+        const int q = q0 + b;
+        const float bv = row_w[q];
+        const int r = row_id[q];
+        float hit;
+        const float loss = row_loss_grad_tiled(
+            dz + q * CP, C, cls, cls ? p.y_cls[r] : -1,
+            cls ? 0.f : p.y_reg[r], bv * inv_cnt, &hit);
+        if (lane == 0) {
+          row_loss[b] = loss * bv;
+          row_hit[b] = hit * bv;
+        }
+      }
+      __syncthreads();
+      if (rank == 0 && tid == 0) {
+        for (int b = 0; b < nc; ++b) {
+          dl += row_loss[b];
+          hits += row_hit[b];
+        }
+      }
+    }
+
+    const float sq_p = h->tot[0], sq_r = h->tot[1];
+    const float norm_p = sq_p > 0.f ? sqrtf(sq_p) : 0.f;
+    const float norm_r = sq_r > 0.f ? sqrtf(sq_r) : 0.f;
+    if (rank == 0 && tid == 0) {
+      const float loss = dl * inv_cnt + p.mu * norm_p + p.lam * norm_r;
+      acc_loss += loss * cnt;
+      acc_hit += hits;
+      acc_cnt += cnt;
+    }
+
+    // grad[c, d] = sum_b dz[b, c] x_b[d] + penalties over this slice, a
+    // column a thread and a tile of classes at a time; the updated w's
+    // sums of squares are the next step's norms
+    sp = 0.f;
+    sr = 0.f;
+    for (int d = tid; d < wd; d += kThreads) {
+      const RowT* xc = p.X + d0 + d;
+      for (int c0 = 0; c0 < C; c0 += kTileB) {
+        int off[kTileB / 4];  // the tile's float4s of a dz row, clamped
+#pragma unroll
+        for (int c4 = 0; c4 < kTileB / 4; ++c4)
+          off[c4] = min(c0 + 4 * c4, CP - 4);
+        float g[kTileB];
+#pragma unroll
+        for (int c = 0; c < kTileB; ++c) g[c] = 0.f;
+#pragma unroll 4
+        for (int b = 0; b < n; ++b) {
+          const float xv = R::one(xc + (size_t)row_id[b] * D);
+          const float* dzb = dz + b * CP;
+#pragma unroll
+          for (int c4 = 0; c4 < kTileB / 4; ++c4) {
+            const float4 dz4 =
+                *reinterpret_cast<const float4*>(dzb + off[c4]);
+            g[4 * c4 + 0] = fmaf(dz4.x, xv, g[4 * c4 + 0]);
+            g[4 * c4 + 1] = fmaf(dz4.y, xv, g[4 * c4 + 1]);
+            g[4 * c4 + 2] = fmaf(dz4.z, xv, g[4 * c4 + 2]);
+            g[4 * c4 + 3] = fmaf(dz4.w, xv, g[4 * c4 + 3]);
+          }
+        }
+        // every load of the tile before any store (a store could alias a
+        // clamped load's address)
+        float wv[kTileB], av[kTileB];
+#pragma unroll
+        for (int c = 0; c < kTileB; ++c) {
+          const size_t i = (size_t)min(c0 + c, C - 1) * D + d0 + d;
+          wv[c] = Wo[i];
+          av[c] = p.anchor[i];
+        }
+#pragma unroll
+        for (int c = 0; c < kTileB; ++c) {
+          if (c0 + c >= C) break;
+          float gc = g[c];
+          if (sq_p > 0.f)
+            gc += p.mu * ((wv[c] - av[c]) / fmaxf(norm_p, 1e-30f));
+          if (sq_r > 0.f) gc += p.lam * (wv[c] / fmaxf(norm_r, 1e-30f));
+          const float nw = wv[c] - p.lr * gc;
+          Wo[(size_t)(c0 + c) * D + d0 + d] = nw;
+          const float dv = nw - av[c];
+          sp = fmaf(dv, dv, sp);
+          sr = fmaf(nw, nw, sr);
+        }
+      }
+    }
+    // also frees the batch buffer and the header for the next step
+    block_sum2(sp, sr, red);
+  }
+  // no CTA leaves while another may still read its partials
+  cluster.sync();
+  if (rank == 0 && tid == 0) {
+    p.metrics[j * 3 + 0] = acc_loss;
+    p.metrics[j * 3 + 1] = acc_hit;
+    p.metrics[j * 3 + 2] = acc_cnt;
+  }
+}
+
+cudaError_t launch_wide_tiled(const WideArgs& p, int J, cudaStream_t stream) {
+  return launch_wide_kernel(
+      wide_tiled_epoch_kernel, p, J,
+      wide_smem_bytes(p.B, p.C, p.chunk, p.scratch == nullptr), stream);
 }
 
 }  // namespace
@@ -1112,13 +1411,17 @@ int client_epoch_slice_width(int D, int k) { return slice_width(D, k); }
 
 // Dynamic shared memory of one CTA of the wide kernel working chunks of
 // `chunk` rows, with the batch buffer in shared memory (hold) or not, and
-// the floats of one CTA's batch buffer (its global scratch when not held).
-size_t client_epoch_wide_smem_bytes(int B, int C, int chunk, int hold) {
-  return wide_smem_bytes(B, instantiated_classes(C), chunk, hold != 0);
+// the floats of one CTA's batch buffer (its global scratch when not held);
+// `tiled` for the class-tiled instantiation, whose layout holds C classes
+// itself, not the instantiated count.
+size_t client_epoch_wide_smem_bytes(int B, int C, int chunk, int hold,
+                                    int tiled) {
+  return wide_smem_bytes(B, tiled ? C : instantiated_classes(C), chunk,
+                         hold != 0);
 }
 
-size_t client_epoch_wide_batch_floats(int B, int C) {
-  return wide_batch_floats(B, instantiated_classes(C));
+size_t client_epoch_wide_batch_floats(int B, int C, int tiled) {
+  return wide_batch_floats(B, tiled ? C : instantiated_classes(C));
 }
 
 // The largest cluster the wide kernel may launch on this card: 16 when
@@ -1225,15 +1528,17 @@ int client_epoch_launch_unstaged(const void* W0, const void* anchor,
 // One launch of the wide kernel: J clusters of k CTAs, cluster i running
 // client order[i], the batch worked in chunks of `chunk` rows (a multiple
 // of 8); scratch holds each CTA's batch buffer (wide_batch_floats floats a
-// CTA), or is null to keep it in shared memory. Other arguments as
-// client_epoch_launch_staged. Returns cudaGetLastError() after the launch.
+// CTA), or is null to keep it in shared memory; `tiled` runs the
+// class-tiled instantiation (any C), else the one dispatch_classes names
+// (C <= 32). Other arguments as client_epoch_launch_staged. Returns
+// cudaGetLastError() after the launch.
 int client_epoch_launch_wide(const void* W0, const void* anchor, const void* X,
                              const void* y, const void* rows,
                              const void* valid, const void* order,
                              const void* nsteps, void* W_out, void* metrics,
                              void* scratch, int J, int S, int B, int C, int D,
-                             int k, int chunk, int is_cls, float lr, float mu,
-                             float lam, void* stream) {
+                             int k, int chunk, int tiled, int is_cls,
+                             float lr, float mu, float lam, void* stream) {
   if (k < 1 || k > kMaxWideCluster || chunk < 8 || chunk % 8 != 0)
     return cudaErrorInvalidValue;
   WideArgs p;
@@ -1260,6 +1565,7 @@ int client_epoch_launch_wide(const void* W0, const void* anchor, const void* X,
   p.mu = mu;
   p.lam = lam;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiled) return static_cast<int>(launch_wide_tiled(p, J, s));
   return static_cast<int>(dispatch_classes(C, [&](auto n, auto exact) {
     return launch_wide<decltype(n)::value, decltype(exact)::value>(p, J, s);
   }));

@@ -74,7 +74,15 @@
 //
 // Shapes neither takes (C > 32) run the unstaged kernel below, the port's
 // first design: one CTA of 256 threads that gathers each step's (B, J, C)
-// block after loading the step's row ids, five block barriers per step.
+// block after loading the step's row ids, five block barriers per step,
+// where that block fits one CTA (C <= 70 at J = 50, B = 16). Past it, the
+// class-tiled split kernel: the split kernel with C a run-time argument,
+// the row's logits in shared memory instead of registers, lanes over
+// classes for the partial logits, one warp's row_loss_grad_tiled for the
+// loss, and the batch in groups of one row a warp with one exchange a
+// group, so its exchange slots and h hold 16 rows whatever B and C. Only
+// B > 512 (the warps' rows) past the unstaged kernel, or a J whose
+// streamed slices of 16 CTAs pass a block, is left without a kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -901,10 +909,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   }
 }
 
-template <int NC, bool EXACT>
-cudaError_t launch_split(const Args& a, const Ext& x, cudaStream_t stream) {
-  const size_t smem = split_smem_bytes(a.B, a.J, a.C, x.k, x.hold);
-  auto kern = split_p_epoch_kernel<NC, EXACT>;
+// One launch of a split kernel (either instantiation): one cluster of x.k
+// CTAs of one warp a batch row (at most kMaxWarps), `smem` bytes each.
+cudaError_t launch_split_kernel(void (*kern)(Args, Ext), const Args& a,
+                                const Ext& x, size_t smem,
+                                cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -928,6 +937,336 @@ cudaError_t launch_split(const Args& a, const Ext& x, cudaStream_t stream) {
   e = cudaLaunchKernelEx(&cfg, kern, a, x);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int NC, bool EXACT>
+cudaError_t launch_split(const Args& a, const Ext& x, cudaStream_t stream) {
+  return launch_split_kernel(split_p_epoch_kernel<NC, EXACT>, a, x,
+                             split_smem_bytes(a.B, a.J, a.C, x.k, x.hold),
+                             stream);
+}
+
+// ---------------------------------------------------------------------------
+// The class-tiled split kernel: the split kernel for any C, taken at run
+// time (one instantiation). The same cluster, slices, ring or stream,
+// prefetch, p update and guard; what held a row's C logits in each lane's
+// registers holds them in shared memory, and the batch is worked in groups
+// of one row a warp (rows q*NW .. q*NW + NW - 1, group q), one exchange a
+// group, so that an exchange slot holds NW rows of C partial logits and h
+// one group's rows (not B of each): the slots and h stay small at any C and
+// B. In a group, a warp's partial z[b, c] over the CTA's clients is one
+// lane's sum over j of class c (lanes over the classes, so reads of a row
+// are contiguous), written to the exchange slot; after the cluster barrier
+// the lanes sum each class over the ranks in rank order into the warp's row
+// of the other exchange slot (free until this warp writes the next group's
+// partials there: every CTA read it before this exchange's barrier), the
+// warp's row_loss_grad_tiled turns those logits into d in place, and the
+// warp writes h[w, j] = sum_c L[b, j, c] d[b, c] for the CTA's clients;
+// after a block barrier, thread j adds the group's h[., j] to its g_j in
+// row order (the order of the split kernel's sum over b).
+
+// Shared memory of one CTA of the class-tiled split kernel, in bytes: 2
+// mbarriers per warp, then in floats the ring of its row slices when it
+// holds them (2 stages * B rows * Jk*C), h (NW*Jk), p, buf, cv and g (Jk
+// each), the per-warp sums (4 * warps) and two exchange slots of NW rows.
+size_t split_tiled_smem_bytes(int B, int J, int C, int k, int hold) {
+  const size_t NW = staged_warps(B), Jk = split_slice(J, k);
+  const size_t ring = hold ? 2 * (size_t)B * Jk * C : 0;
+  return 16 * NW + (ring + NW * Jk + 4 * Jk + 4 * NW +
+                    2 * (size_t)exchange_floats(NW, C)) *
+                       sizeof(float);
+}
+
+// classes of a row one lane takes at once (32 apart) in the partial logits
+// and their sums over the ranks: that many loads in flight a lane
+constexpr int kLaneTiles = 4;
+
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
+    split_tiled_p_epoch_kernel(const Args a, const Ext e) {
+  const int C = a.C;
+  const int S = a.S, B = a.B, J = a.J, JC = J * C, k = e.k, Jk = e.Jk;
+  const int JkC = Jk * C;  // a multiple of 4, as Jk is
+  const int NW = blockDim.x >> 5, nthreads = blockDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int nrows = (B - 1 - w) / NW + 1;  // rows w, w + NW, ... below B
+  const int groups = (B + NW - 1) / NW;    // the most rows of a warp
+  const bool cls = a.cls != 0, hold = e.hold != 0;
+  const int XS = exchange_floats(NW, C);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int j0 = rank * Jk;
+  const int jw = max(0, min(Jk, J - j0));  // this CTA's clients (maybe 0)
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem_raw);  // [2][NW]
+  float* ring = reinterpret_cast<float*>(smem_raw + 16 * NW);  // [2][B][JkC]
+  float* h = ring + (hold ? 2 * B * JkC : 0);  // [NW][Jk]
+  float* p = h + NW * Jk;
+  float* buf = p + Jk;
+  float* cvs = buf + Jk;
+  float* gs = cvs + Jk;      // [Jk] the step's g_j, summed over the groups
+  float* red = gs + Jk;      // [4][NW]
+  float* xch = red + 4 * NW; // [2][XS], read by the whole cluster
+
+  for (int j = tid; j < jw; j += nthreads) {
+    p[j] = a.p0[j0 + j];
+    buf[j] = a.buf0[j0 + j];
+    cvs[j] = a.cv[j0 + j];
+  }
+  if (lane == 0) {
+    mbar_init(&mbar[w], 1);
+    mbar_init(&mbar[NW + w], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every CTA of the cluster has started before any reads another's
+  // shared memory
+  cluster.sync();
+
+  // the split kernel's prefetch of row ids, flags and labels
+  auto load_info = [&](int t, int& r, float& v, float& vs) {
+    const size_t base = (size_t)t * B;
+    const int b = w + min(lane, nrows - 1) * NW;
+    r = ld_early(a.positions + base + b);
+    v = ld_early(a.valid + base + b);
+    if (B <= 32) {
+      vs = ld_early(a.valid + base + min(lane, B - 1));
+    } else {
+      vs = 0.f;
+      for (int q = lane; q < B; q += 32) vs += ld_early(a.valid + base + q);
+    }
+  };
+  auto load_label = [&](int r, int& yb) { yb = ld_early(a.y + r); };
+  // the split kernel's copy of this CTA's slices of this warp's rows into
+  // stage st of the ring (holding only)
+  auto issue = [&](int st, int r) {
+    float* dst = ring + (size_t)st * B * JkC;
+    const int n = jw * C;
+    if (a.bulk) {
+      uint64_t* bar = &mbar[st * NW + w];
+      if (lane == 0) mbar_expect_tx(bar, (unsigned)(nrows * n * 4));
+      __syncwarp();
+      if (lane < nrows && n > 0) {
+        fence_proxy_async_smem();
+        bulk_copy(dst + (w + lane * NW) * JkC,
+                  a.logits + (size_t)r * JC + (size_t)j0 * C,
+                  (unsigned)(n * 4), bar);
+      }
+    } else {
+      for (int q = 0; q < nrows; ++q) {
+        const int rq = __shfl_sync(kFull, r, q);
+        float* d = dst + (w + q * NW) * JkC;
+        const float* s = a.logits + (size_t)rq * JC + (size_t)j0 * C;
+        for (int i = lane; i < n; i += 32) cp_async4(d + i, s + i);
+      }
+      cp_async_commit();
+    }
+  };
+  // L[b, j0 + j, 0..C) of this warp's row (row id rq): the ring's copy
+  // when holding, else the logits in global memory
+  auto row = [&](int st, int b, int rq, int j) -> const float* {
+    return hold ? ring + (size_t)(st * B + b) * JkC + j * C
+                : a.logits + (size_t)rq * JC + (size_t)(j0 + j) * C;
+  };
+
+  int r_cur = 0, r_n1 = 0, r_n2 = 0, y_cur = 0, y_n1 = 0;
+  float v_cur = 0.f, vs_cur = 0.f, v_n1 = 0.f, vs_n1 = 0.f, v_n2 = 0.f,
+        vs_n2 = 0.f;
+  if (S > 0) {
+    load_info(0, r_cur, v_cur, vs_cur);
+    load_label(r_cur, y_cur);
+    if (hold) issue(0, r_cur);
+  }
+  if (S > 1) load_info(1, r_n1, v_n1, vs_n1);
+
+  // the split kernel's alternating exchange slots
+  int xc = 0;
+  auto cluster_sum2 = [&](float& u, float& v, int& par) {
+    block_sum2(u, v, red, par, NW);
+    float* slot = xch + (xc & 1) * XS;
+    if (tid == 0) {
+      slot[0] = u;
+      slot[1] = v;
+    }
+    cluster.sync();
+    u = 0.f;
+    v = 0.f;
+    for (int q = 0; q < k; ++q) {
+      const float* rs = cluster.map_shared_rank(slot, q);
+      u += rs[0];
+      v += rs[1];
+    }
+    ++xc;
+  };
+
+  float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // this warp's
+  int par = 0, rounds_sum = 0, rounds_max = 0;  // the guard's
+  for (int s = 0; s < S; ++s) {
+    const int st = s & 1;
+    if (s + 1 < S) {
+      if (hold) issue(st ^ 1, r_n1);
+      load_label(r_n1, y_n1);
+    } else if (hold && !a.bulk) {
+      cp_async_commit();  // an empty group keeps wait_group<1> uniform
+    }
+    if (s + 2 < S) load_info(s + 2, r_n2, v_n2, vs_n2);
+
+    const float cnt = warp_sum(lane < B ? vs_cur : 0.f);
+    const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
+    if (hold) {
+      if (a.bulk) {
+        mbar_wait(&mbar[st * NW + w], (unsigned)((s >> 1) & 1));
+      } else {
+        cp_async_wait<1>();
+        __syncwarp();
+      }
+    }
+
+    for (int q = 0; q < groups; ++q) {
+      const int b = w + q * NW;  // this warp's row of the group, if any
+      const bool mine = q < nrows;
+      const int rq = __shfl_sync(kFull, r_cur, q & 31);
+      float* xs = xch + (xc & 1) * XS + w * C;
+      float* z = xch + ((xc + 1) & 1) * XS + w * C;
+      // this CTA's partial z of the row over its slice: lane c sums class
+      // c over j in order, kLaneTiles classes a lane at once
+      if (mine) {
+        for (int c0 = lane; c0 < C; c0 += 32 * kLaneTiles) {
+          float acc[kLaneTiles];
+#pragma unroll
+          for (int u = 0; u < kLaneTiles; ++u) acc[u] = 0.f;
+#pragma unroll 2
+          for (int j = 0; j < jw; ++j) {
+            const float* Lj = row(st, b, rq, j);
+            const float pj = p[j];
+#pragma unroll
+            for (int u = 0; u < kLaneTiles; ++u)
+              if (c0 + 32 * u < C)
+                acc[u] = fmaf(Lj[c0 + 32 * u], pj, acc[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < kLaneTiles; ++u)
+            if (c0 + 32 * u < C) xs[c0 + 32 * u] = acc[u];
+        }
+      }
+      cluster.sync();  // every CTA's partials are in its slot
+      const float bv = __shfl_sync(kFull, v_cur, q & 31);
+      const int yb = __shfl_sync(kFull, y_cur, q & 31);
+      if (mine) {
+        // lane c sums class c over the ranks in rank order: the same z on
+        // every CTA
+        for (int c0 = lane; c0 < C; c0 += 32 * kLaneTiles) {
+          float v[kLaneTiles];
+#pragma unroll
+          for (int u = 0; u < kLaneTiles; ++u) v[u] = 0.f;
+          for (int r = 0; r < k; ++r) {
+            const float* rs = cluster.map_shared_rank(xs, r);
+#pragma unroll
+            for (int u = 0; u < kLaneTiles; ++u)
+              if (c0 + 32 * u < C) v[u] += rs[c0 + 32 * u];
+          }
+#pragma unroll
+          for (int u = 0; u < kLaneTiles; ++u)
+            if (c0 + 32 * u < C) z[c0 + 32 * u] = v[u];
+        }
+        float hit;
+        const float loss = row_loss_grad_tiled(
+            z, C, cls, yb, __int_as_float(yb), bv * inv_cnt, &hit);
+        acc_loss += loss * bv;
+        acc_hit += hit * bv;
+        // h[w, j] over this CTA's slice (the row read a second time). With
+        // few clients a CTA against the classes (jw * 8 < C), the lanes
+        // take the classes and a warp sum each client; else the lanes take
+        // the clients, with four partial sums over the classes (c mod 4)
+        // so that four loads are in flight. Either order is fixed by the
+        // shape.
+        if (jw * 8 < C) {
+          for (int j = 0; j < jw; ++j) {
+            const float* Lj = row(st, b, rq, j);
+            float hv = 0.f;
+            for (int c = lane; c < C; c += 32) hv = fmaf(Lj[c], z[c], hv);
+            hv = warp_sum(hv);
+            if (lane == 0) h[w * Jk + j] = hv;
+          }
+        } else {
+          for (int j = lane; j < jw; j += 32) {
+            const float* Lj = row(st, b, rq, j);
+            float h0 = 0.f, h1 = 0.f, h2 = 0.f, h3 = 0.f;
+            int c = 0;
+            for (; c + 4 <= C; c += 4) {
+              h0 = fmaf(Lj[c], z[c], h0);
+              h1 = fmaf(Lj[c + 1], z[c + 1], h1);
+              h2 = fmaf(Lj[c + 2], z[c + 2], h2);
+              h3 = fmaf(Lj[c + 3], z[c + 3], h3);
+            }
+            for (; c < C; ++c) h0 = fmaf(Lj[c], z[c], h0);
+            h[w * Jk + j] = (h0 + h1) + (h2 + h3);
+          }
+        }
+      }
+      ++xc;
+      // the group's h complete, and every lane done with its warp's z row
+      // (the next group's partials go there); the next group's h is
+      // written after its cluster barrier, when these sums are done
+      __syncthreads();
+      for (int j = tid; j < jw; j += nthreads) {
+        float g = q == 0 ? 0.f : gs[j];
+        for (int u = 0; u < NW && q * NW + u < B; ++u) g += h[u * Jk + j];
+        gs[j] = g;
+      }
+    }
+    acc_cnt += cnt;
+    __syncthreads();  // g complete; every warp is done reading p
+
+    for (int j = tid; j < jw; j += nthreads) {
+      const float g = gs[j] * cvs[j];
+      const float bj = a.momentum * buf[j] + g;
+      buf[j] = bj;
+      p[j] = p[j] - a.lr * bj;
+    }
+    if (e.guard != kGuardNone) {
+      const int rounds = apply_guard(
+          e.guard, e.radius, p, cvs, jw, J,
+          [&](float& u, float& v) { cluster_sum2(u, v, par); });
+      rounds_sum += rounds;
+      rounds_max = max(rounds_max, rounds);
+    }
+    __syncthreads();  // p updated; h and g free for the next step
+
+    r_cur = r_n1;
+    v_cur = v_n1;
+    vs_cur = vs_n1;
+    y_cur = y_n1;
+    r_n1 = r_n2;
+    v_n1 = v_n2;
+    vs_n1 = vs_n2;
+  }
+  // no CTA leaves while another may still read its exchange slots
+  cluster.sync();
+
+  if (lane == 0) {
+    red[w] = acc_loss;
+    red[NW + w] = acc_hit;
+  }
+  __syncthreads();
+  for (int j = tid; j < jw; j += nthreads) {
+    a.p_out[j0 + j] = p[j];
+    a.buf_out[j0 + j] = buf[j];
+  }
+  if (rank == 0 && tid == 0) {
+    float loss = 0.f, hit = 0.f;
+    for (int q = 0; q < NW; ++q) {
+      loss += red[q];
+      hit += red[NW + q];
+    }
+    a.metrics[0] = loss;
+    a.metrics[1] = hit;
+    a.metrics[2] = acc_cnt;
+    if (e.guard_rounds != nullptr) {
+      e.guard_rounds[0] = rounds_sum;
+      e.guard_rounds[1] = rounds_max;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1124,8 +1463,10 @@ size_t p_epoch_staged_smem_bytes(int B, int J, int C) {
   return staged_smem_bytes(B, J, C);
 }
 
-size_t p_epoch_split_smem_bytes(int B, int J, int C, int k, int hold) {
-  return split_smem_bytes(B, J, C, k, hold);
+size_t p_epoch_split_smem_bytes(int B, int J, int C, int k, int hold,
+                                int tiled) {
+  return tiled ? split_tiled_smem_bytes(B, J, C, k, hold)
+               : split_smem_bytes(B, J, C, k, hold);
 }
 
 size_t p_epoch_unstaged_smem_bytes(int B, int J, int C) {
@@ -1198,16 +1539,19 @@ int p_epoch_launch_staged(const void* p0, const void* buf0, const void* cv,
 // One launch of the split kernel: one epoch on one cluster of k CTAs, each
 // owning split_slice(J, k) clients; hold selects the ring (the slices of a
 // step's rows staged in shared memory) over reading them from global
-// memory. Other arguments as p_epoch_launch_staged.
+// memory; tiled runs the class-tiled instantiation (any C), else the one
+// dispatch_classes names (C <= 32). Other arguments as
+// p_epoch_launch_staged.
 int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
                          const void* logits, const void* y,
                          const void* positions, const void* valid,
                          void* p_out, void* buf_out, void* metrics,
                          void* guard_rounds, int S, int B, int J, int C,
                          int is_cls, int bulk, int guard, int k, int hold,
-                         float lr, float momentum, float radius,
+                         int tiled, float lr, float momentum, float radius,
                          void* stream) {
-  if (B < 1 || B > kMaxStagedBatch || J < 1 || k < 2 || k > kMaxCluster)
+  if (B < 1 || B > kMaxStagedBatch || J < 1 || C < 1 || k < 2 ||
+      k > kMaxCluster)
     return cudaErrorInvalidValue;
   const Args a = make_args(p0, buf0, cv, logits, y, positions, valid, p_out,
                            buf_out, metrics, S, B, J, C, is_cls, bulk, lr,
@@ -1215,6 +1559,10 @@ int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
   const Ext x = make_ext(guard_rounds, guard, radius, k, split_slice(J, k),
                          hold);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiled)
+    return static_cast<int>(
+        launch_split_kernel(split_tiled_p_epoch_kernel, a, x,
+                            split_tiled_smem_bytes(B, J, C, k, hold), s));
   return static_cast<int>(dispatch_classes(C, [&](auto n, auto exact) {
     return launch_split<decltype(n)::value, decltype(exact)::value>(a, x, s);
   }));

@@ -23,7 +23,7 @@ that latency (``launch_plan`` chooses its shape):
 - clusters run the clients with the most non-empty steps first
   (``client_order``), so a second wave holds only short clients;
 - the class count is a template parameter, exact for the registry's
-  datasets;
+  datasets (at most 32 classes);
 - rows are read in the type X is stored in: float32, or bfloat16 or
   float16 under ``prepare_setup(feature_dtype=...)``, staged as they are
   (2-byte rows halve the ring) and widened to fp32 as they are read; one
@@ -37,15 +37,18 @@ kernel: a cluster of ``k`` CTAs per client (up to 16 where the card
 schedules it, ``wide_max_cluster``), W's slice updated in place in global
 memory, rows read from global memory in both passes, the batch worked in
 chunks of at most ``MAX_CHUNK`` rows with one exchange each, so neither D
-nor B bounds it.
+nor B bounds it. Past 32 classes every shape runs the class-tiled wide
+kernel (``"wide_tiled"``): the wide kernel with C taken at run time, its
+accumulators walking the classes in tiles of 32 and each row's loss one
+warp's online logsumexp over the tiles; its chunk shrinks as C grows
+(about 24 rows at C = 1,000), so only a chunk of 8 rows' logits past a
+block's shared memory (some 3,600 classes) bounds it.
 
 ``client_epoch`` is the wrapper: CPU tensors go to ``client_epoch_plain``,
 the plain PyTorch version of the same function; CUDA tensors launch the
-kernel ``launch_plan`` names or raise. Only more than 32 classes is
-refused on the card, before any launch (ROADMAP.md queue 2 item 9); it
-runs there through ``kernel_impl="plain"``. ``client_epoch.launches``
-counts kernel launches, ``client_epoch.launches_by_kernel`` the same by
-kernel (``KERNELS``).
+kernel ``launch_plan`` names or raise. ``client_epoch.launches`` counts
+kernel launches, ``client_epoch.launches_by_kernel`` the same by kernel
+(``KERNELS``).
 """
 
 from __future__ import annotations
@@ -65,8 +68,8 @@ WIDE_CLUSTERS = STAGED_CLUSTERS + (16,)  # 16 where the card schedules it
 HEADER_BYTES = 48          # mbarriers and per-stage counts (client_epoch.cu)
 WIDE_HEADER_BYTES = 16     # the wide kernel's step header (client_epoch.cu)
 MAX_CHUNK = 128            # rows of one exchange of the wide kernel
-MAX_CLASSES = 32
-KERNELS = ("staged", "unstaged", "wide")
+MAX_CLASSES = 32           # of the instantiations; past it the tiled one
+KERNELS = ("staged", "unstaged", "wide", "wide_tiled")
 # class counts with an exact instantiation; any other C runs the next bound
 EXACT_CLASSES = (1, 2, 3, 6, 10, 26)
 CLASS_BOUNDS = (4, 8, 16, 32)
@@ -176,13 +179,14 @@ def _round_up(v: int, m: int) -> int:
 def instantiated_classes(C: int) -> int:
     """The class count of the kernel instantiation that runs ``C``
     classes: ``C`` itself when it is one of ``EXACT_CLASSES``, else the
-    next of ``CLASS_BOUNDS`` (its classes from ``C`` on are skipped)."""
-    if not 1 <= C <= MAX_CLASSES:
-        raise ValueError(f"client_epoch kernel takes 1 to {MAX_CLASSES} "
-                         f"classes, got {C}")
+    next of ``CLASS_BOUNDS`` (its classes from ``C`` on are skipped); 0
+    past ``MAX_CLASSES``, where no instantiation holds them and the
+    class-tiled wide kernel takes ``C`` at run time."""
+    if C < 1:
+        raise ValueError(f"client_epoch kernel takes 1 class or more, got {C}")
     if C in EXACT_CLASSES:
         return C
-    return next(nc for nc in CLASS_BOUNDS if C <= nc)
+    return next((nc for nc in CLASS_BOUNDS if C <= nc), 0)
 
 
 def slice_width(D: int, k: int, row_bytes: int = 4) -> int:
@@ -212,23 +216,31 @@ def unstaged_smem_bytes(B: int, C: int, D: int) -> int:
     return 4 * (2 * C * D + B * C + 3 * B + 2 * WARPS) + 4 * B
 
 
-def wide_batch_floats(B: int, C: int) -> int:
+def _wide_classes(C: int, tiled: bool) -> int:
+    """The classes a wide CTA's layout holds: the instantiation's, or
+    ``C`` itself for the class-tiled kernel (the only one past
+    ``MAX_CLASSES``)."""
+    return C if tiled else (instantiated_classes(C) or C)
+
+
+def wide_batch_floats(B: int, C: int, tiled: bool = False) -> int:
     """Floats of one wide CTA's batch buffer: the packed rows' ids and
     weights and d loss / dz of each (``wide_batch_floats`` in
-    ``client_epoch.cu``)."""
-    return _round_up(B, 8) * (_round_up(instantiated_classes(C), 4) + 2)
+    ``client_epoch.cu``); ``tiled`` for the class-tiled kernel."""
+    return _round_up(B, 8) * (_round_up(_wide_classes(C, tiled), 4) + 2)
 
 
-def wide_smem_bytes(B: int, C: int, chunk: int, hold: bool) -> int:
+def wide_smem_bytes(B: int, C: int, chunk: int, hold: bool,
+                    tiled: bool = False) -> int:
     """Shared memory of one CTA of the wide kernel (``wide_smem_bytes`` in
     ``client_epoch.cu``): the step header, the double-buffered exchange of
     a chunk's partial logits, the chunk's row losses and hits, the block
-    sums, and the batch buffer when ``hold`` keeps it there. Independent
-    of D."""
-    CP = _round_up(instantiated_classes(C), 4)
+    sums, and the batch buffer when ``hold`` keeps it there; ``tiled`` for
+    the class-tiled kernel. Independent of D."""
+    CP = _round_up(_wide_classes(C, tiled), 4)
     floats = 2 * (4 + chunk * CP) + 2 * chunk + 2 * WARPS
     return (WIDE_HEADER_BYTES + 4 * floats
-            + (4 * wide_batch_floats(B, C) if hold else 0))
+            + (4 * wide_batch_floats(B, C, tiled) if hold else 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,10 +248,11 @@ class EpochPlan:
     """How one launch runs: ``kernel`` one of ``KERNELS``; ``cluster``
     CTAs per client (0 for the unstaged kernel, one CTA per client), each
     holding ``slice_width`` columns of D; ``classes`` is the instantiated
-    class count, ``smem_bytes`` one CTA's dynamic shared memory, ``ctas``
-    the grid. The wide kernel works the batch in chunks of ``chunk`` rows
-    and keeps its batch buffers in ``scratch_bytes`` of global memory
-    (0: in shared memory)."""
+    class count (0 for the class-tiled kernel, which takes C at run time),
+    ``smem_bytes`` one CTA's dynamic shared memory, ``ctas`` the grid.
+    The wide kernels work the batch in chunks of ``chunk`` rows and keep
+    their batch buffers in ``scratch_bytes`` of global memory (0: in
+    shared memory)."""
 
     cluster: int
     slice_width: int
@@ -284,24 +297,27 @@ def _staged_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes):
 
 
 def _wide_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes,
-               max_cluster):
+               max_cluster, tiled=False):
     sizes = [k for k in WIDE_CLUSTERS if k <= max_cluster]
     chunk = next((c for c in range(min(_round_up(B, 8), MAX_CHUNK), 0, -8)
-                  if wide_smem_bytes(B, C, c, False) <= smem_limit), None)
+                  if wide_smem_bytes(B, C, c, False, tiled) <= smem_limit),
+                 None)
     if cluster is not None and (chunk is None or cluster not in sizes):
         raise ValueError(
             f"cluster {cluster} does not fit the wide kernel: it takes "
-            f"{sizes} and needs {wide_smem_bytes(B, C, 8, False)} bytes of "
-            f"shared memory at least, of {smem_limit}")
+            f"{sizes} and needs {wide_smem_bytes(B, C, 8, False, tiled)} "
+            f"bytes of shared memory at least, of {smem_limit}")
     if chunk is None:
         return None
-    hold = wide_smem_bytes(B, C, chunk, True) <= smem_limit
+    hold = wide_smem_bytes(B, C, chunk, True, tiled) <= smem_limit
     k = cluster if cluster is not None else _no_empty_slice(
         _one_wave(J, num_sms, sizes), 1, D, row_bytes)
     return EpochPlan(
-        k, slice_width(D, k, row_bytes), instantiated_classes(C),
-        wide_smem_bytes(B, C, chunk, hold), J * k, "wide", chunk,
-        0 if hold else 4 * J * k * wide_batch_floats(B, C))
+        k, slice_width(D, k, row_bytes),
+        0 if tiled else instantiated_classes(C),
+        wide_smem_bytes(B, C, chunk, hold, tiled), J * k,
+        "wide_tiled" if tiled else "wide", chunk,
+        0 if hold else 4 * J * k * wide_batch_floats(B, C, tiled))
 
 
 def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
@@ -322,24 +338,29 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
       of up to ``max_cluster`` (8, or 16 where the card schedules it) with
       no shared-memory floor, the batch in chunks of the most rows (a
       multiple of 8, at most ``MAX_CHUNK``) that fit ``smem_limit``, the
-      batch buffer in shared memory where it fits too.
+      batch buffer in shared memory where it fits too;
+    - past ``MAX_CLASSES`` classes, at every B and D, the class-tiled wide
+      kernel (``"wide_tiled"``) by the same rules, its layout holding C.
 
-    None only past ``MAX_CLASSES`` classes (or for a ``smem_limit`` too
-    small for a chunk of 8 rows). ``kernel`` forces one of ``KERNELS`` and
-    ``cluster`` its ``k`` (a ``cluster`` alone forces the staged kernel's);
-    ``ValueError`` says when they do not fit.
+    None only for a ``smem_limit`` too small for a chunk of 8 rows (past
+    about 3,600 classes at the card's limit). ``kernel`` forces one of
+    ``KERNELS`` (``"wide_tiled"`` at any C; the others at most
+    ``MAX_CLASSES``) and ``cluster`` its ``k`` (a ``cluster`` alone forces
+    the staged kernel's); ``ValueError`` says when they do not fit.
     """
     if J < 0 or B < 1 or C < 1 or D < 1:
         raise ValueError(f"bad shape J={J}, B={B}, C={C}, D={D}")
     if kernel not in (None,) + KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    if C > MAX_CLASSES:
-        if cluster is not None or kernel is not None:
-            raise ValueError(f"cluster {cluster} does not fit C={C}: the "
-                             f"kernel takes at most {MAX_CLASSES} classes")
-        return None
     if kernel is None and cluster is not None:
         kernel = "staged"
+    if C > MAX_CLASSES and kernel not in (None, "wide_tiled"):
+        raise ValueError(f"the {kernel} kernel does not fit C={C} (cluster "
+                         f"{cluster}): it takes at most {MAX_CLASSES} "
+                         "classes; the class-tiled wide kernel takes more")
+    if C > MAX_CLASSES or kernel == "wide_tiled":
+        return _wide_plan(J, B, C, D, num_sms, smem_limit, cluster,
+                          row_bytes, max_cluster, tiled=True)
     if kernel in (None, "staged"):
         plan = _staged_plan(J, B, C, D, num_sms, smem_limit, cluster,
                             row_bytes)
@@ -366,6 +387,8 @@ def kernel_symbol(plan: EpochPlan, C: int) -> str:
     (``cuda_build.ptxas_usage``)."""
     if plan.kernel == "unstaged":
         name, args = "unstaged_epoch_kernel", f"ILi{plan.classes}E"
+    elif plan.kernel == "wide_tiled":
+        name, args = "wide_tiled_epoch_kernel", "E"
     else:
         name = f"{plan.kernel}_epoch_kernel"
         args = f"ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
@@ -396,7 +419,7 @@ def _library(name: str = "client_epoch"):
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.client_epoch_launch_wide.restype = ctypes.c_int
     lib.client_epoch_launch_wide.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.client_epoch_staged_smem_bytes.restype = ctypes.c_size_t
     lib.client_epoch_staged_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -409,9 +432,9 @@ def _library(name: str = "client_epoch"):
     lib.client_epoch_slice_width.restype = ctypes.c_int
     lib.client_epoch_slice_width.argtypes = [ctypes.c_int] * 2
     lib.client_epoch_wide_smem_bytes.restype = ctypes.c_size_t
-    lib.client_epoch_wide_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.client_epoch_wide_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.client_epoch_wide_batch_floats.restype = ctypes.c_size_t
-    lib.client_epoch_wide_batch_floats.argtypes = [ctypes.c_int] * 2
+    lib.client_epoch_wide_batch_floats.argtypes = [ctypes.c_int] * 3
     lib.client_epoch_wide_max_cluster.restype = ctypes.c_int
     lib.client_epoch_wide_max_cluster.argtypes = []
     return lib
@@ -432,19 +455,22 @@ def _check_plan(lib, plan: EpochPlan, B: int, C: int, D: int,
     """The plan's layout must be the kernel's: same row type, shared
     memory, instantiation, slice and, wide, scratch."""
     scratch = 0
+    tiled = int(plan.kernel == "wide_tiled")
     if plan.kernel == "staged":
         smem = lib.client_epoch_staged_smem_bytes(B, C, D, plan.cluster)
-    elif plan.kernel == "wide":
+    elif plan.kernel in ("wide", "wide_tiled"):
         hold = plan.scratch_bytes == 0
-        smem = lib.client_epoch_wide_smem_bytes(B, C, plan.chunk, int(hold))
+        smem = lib.client_epoch_wide_smem_bytes(B, C, plan.chunk, int(hold),
+                                                tiled)
         if not hold:
-            scratch = 4 * plan.ctas * lib.client_epoch_wide_batch_floats(B, C)
+            scratch = 4 * plan.ctas * lib.client_epoch_wide_batch_floats(
+                B, C, tiled)
     else:
         smem = lib.client_epoch_unstaged_smem_bytes(B, C, D)
     if plan.kernel == "unstaged":
         nc, width = plan.classes, D
     else:
-        nc = lib.client_epoch_instantiated_classes(C)
+        nc = 0 if tiled else lib.client_epoch_instantiated_classes(C)
         width = lib.client_epoch_slice_width(D, plan.cluster)
     got = (lib.client_epoch_row_bytes(), smem, nc, width, scratch)
     if got != (row_bytes, plan.smem_bytes, plan.classes, plan.slice_width,
@@ -460,7 +486,8 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     """One local epoch of all J clients; same contract as
     ``client_epoch_plain``. CPU tensors run the plain version; CUDA
     tensors launch ``csrc/client_epoch.cu`` as ``launch_plan`` says, or
-    raise where no plan takes the shape (more than 32 classes).
+    raise where no plan takes the shape (a chunk of 8 rows' logits past
+    a block's shared memory: some 3,600 classes).
     ``kernel`` forces one of ``KERNELS`` and ``cluster`` the cluster size
     (for tests and measurement)."""
     _check(W, anchor, X, y, rows, valid, task)
@@ -474,15 +501,14 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     row_bytes = X.element_size()
     sms = torch.cuda.get_device_properties(W.device).multi_processor_count
     name = ROW_LIBRARIES[X.dtype]
-    # refused before the cluster query, which loads (and may build) the
-    # library
-    plan = None if C > MAX_CLASSES else launch_plan(
+    plan = launch_plan(
         J, B, C, D, sms, cluster=cluster, row_bytes=row_bytes, kernel=kernel,
         max_cluster=wide_max_cluster(W.device.index, name))
     if plan is None:
         raise ValueError(
-            f"no client_epoch kernel takes C={C}: it takes at most "
-            f"{MAX_CLASSES} classes (ROADMAP.md queue 2 item 9): run it "
+            f"no client_epoch kernel takes C={C}: a chunk of 8 rows' "
+            f"logits needs {wide_smem_bytes(B, C, 8, False, True)} bytes "
+            f"of shared memory, a block has {cuda_build.SMEM_LIMIT}: run it "
             "with kernel_impl='plain'")
     lib = _library(name)
     _check_plan(lib, plan, B, C, D, row_bytes)
@@ -513,7 +539,8 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
                        if plan.scratch_bytes else None)
             err = lib.client_epoch_launch_wide(
                 *ptrs, None if scratch is None else scratch.data_ptr(), J, S,
-                B, C, D, plan.cluster, plan.chunk, is_cls, *scalars)
+                B, C, D, plan.cluster, plan.chunk,
+                int(plan.kernel == "wide_tiled"), is_cls, *scalars)
     cuda_build.check(err, "client_epoch launch", lib)
     client_epoch.launches += 1
     client_epoch.launches_by_kernel[plan.kernel] += 1

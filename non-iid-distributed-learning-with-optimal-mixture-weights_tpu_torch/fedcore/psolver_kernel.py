@@ -26,8 +26,17 @@ memory in rank order, and each CTA holds its slices of a step's rows in
 a two-stage ring when they fit (``stream=False``), else reads them from
 global memory in both passes (``stream=True``). Shapes neither takes
 (``B > 512`` or ``C > 32``) run the unstaged kernel, the port's first
-design (one CTA of 256 threads, five barriers per step). ``launch_plan``
-picks the kernel by shape alone.
+design (one CTA of 256 threads, five barriers per step), where the
+step's ``(B, J, C)`` block fits one CTA. What is left of ``B <= 512``
+(more than 32 classes past the unstaged kernel: C >= 71 at J = 50,
+B = 16) runs the class-tiled split kernel (``"split_tiled"``): the split
+kernel with C taken at run time, a row's logits in shared memory instead
+of registers, lanes over classes for the partial logits, one warp's
+online logsumexp over tiles of 32 classes for the loss, and the batch
+worked in groups of one row a warp, one exchange a group, so that its
+exchange slots and ``h`` hold 16 rows at most whatever B. ``launch_plan``
+picks the kernel by shape alone; only ``B > 512`` past the unstaged
+kernel, or a J too wide to stream over 16 CTAs, is left without one.
 
 Every kernel applies the p-guards of ``aggregate.make_guard`` (``clip:R``
 and the projection onto the simplex over the valid clients, by
@@ -56,7 +65,7 @@ MAX_WARPS = 16             # of the staged kernel's CTA (kMaxWarps in p_epoch.cu
 MAX_STAGED_BATCH = 32 * MAX_WARPS  # a lane of its warp per row
 UNSTAGED_WARPS = 8         # kThreads / 32 of the unstaged kernel
 SPLIT_CLUSTERS = (2, 4, 8, 16)  # 16 is non-portable: where the card allows
-KERNELS = ("staged", "split", "unstaged")
+KERNELS = ("staged", "split", "unstaged", "split_tiled")
 # the kernels' guard argument (kGuard* in p_epoch.cu)
 GUARD_CODES = {"clip": 1, "simplex": 2}
 
@@ -180,17 +189,23 @@ def split_slice(J: int, k: int) -> int:
     return -(-per_cta // 4) * 4
 
 
-def split_smem_bytes(B: int, J: int, C: int, k: int, stream: bool) -> int:
+def split_smem_bytes(B: int, J: int, C: int, k: int, stream: bool,
+                     tiled: bool = False) -> int:
     """Shared memory of one CTA of the split kernel (``split_smem_bytes``
     in ``p_epoch.cu``): two mbarriers per warp, two stages of its slices
     of ``B`` rows (``Jk*C`` floats each) unless it streams them, ``h (B,
     Jk)``, its slices of ``p``, ``buf`` and ``cv``, the per-warp sums and
     two cluster-exchange slots of ``B*C`` floats (at least 2, padded to
-    4)."""
+    4). ``tiled``: the class-tiled split kernel's
+    (``split_tiled_smem_bytes``), which works the batch a group of one row
+    a warp at a time: ``h`` and each slot hold one group's rows, and a
+    slice of ``g`` is added."""
     nw, jk = staged_warps(B), split_slice(J, k)
     ring = 0 if stream else 2 * B * jk * C
-    xs = -(-max(B * C, 2) // 4) * 4
-    return 16 * nw + 4 * (ring + B * jk + 3 * jk + 4 * nw + 2 * xs)
+    rows = nw if tiled else B
+    xs = -(-max(rows * C, 2) // 4) * 4
+    return 16 * nw + 4 * (ring + rows * jk + (4 if tiled else 3) * jk
+                          + 4 * nw + 2 * xs)
 
 
 def unstaged_smem_bytes(B: int, J: int, C: int) -> int:
@@ -203,11 +218,11 @@ def unstaged_smem_bytes(B: int, J: int, C: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class PEpochPlan:
     """How one launch runs: ``kernel`` one of ``KERNELS``, the ``warps``
-    of each CTA, the instantiated ``classes`` (0 for the unstaged kernel,
-    which takes C at run time) and one CTA's dynamic ``smem_bytes``; for
-    the split kernel, the ``cluster`` of CTAs, the ``slice_width`` of J
-    each owns and whether it ``stream``s its rows from global memory
-    instead of holding them in a ring."""
+    of each CTA, the instantiated ``classes`` (0 for the unstaged and the
+    class-tiled split kernels, which take C at run time) and one CTA's
+    dynamic ``smem_bytes``; for the split kernels, the ``cluster`` of
+    CTAs, the ``slice_width`` of J each owns and whether it ``stream``s
+    its rows from global memory instead of holding them in a ring."""
 
     kernel: str
     warps: int
@@ -220,15 +235,18 @@ class PEpochPlan:
 
 def _split_plan(B: int, J: int, C: int, nc: int, smem_limit: int,
                 max_cluster: int) -> PEpochPlan | None:
-    """The split kernel's plan: the smallest cluster whose CTAs hold two
-    stages of their row slices (fewer CTAs a barrier waits for), else the
-    largest whose CTAs fit streaming (the least each reads a step)."""
+    """The split kernel's plan for the instantiation of ``nc`` classes, or
+    with ``nc`` 0 the class-tiled one's (its own layout): the smallest
+    cluster whose CTAs hold two stages of their row slices (fewer CTAs a
+    barrier waits for), else the largest whose CTAs fit streaming (the
+    least each reads a step)."""
     sizes = [k for k in SPLIT_CLUSTERS if k <= max_cluster]
     for stream, order in ((False, sizes), (True, sizes[::-1])):
         for k in order:
-            smem = split_smem_bytes(B, J, C, k, stream)
+            smem = split_smem_bytes(B, J, C, k, stream, tiled=not nc)
             if smem <= smem_limit:
-                return PEpochPlan("split", staged_warps(B), nc, smem, k,
+                return PEpochPlan("split" if nc else "split_tiled",
+                                  staged_warps(B), nc, smem, k,
                                   split_slice(J, k), stream)
     return None
 
@@ -241,9 +259,11 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
     two stages plus ``h`` fit a block's shared memory (``smem_limit``);
     else, with the same bounds on B and C, the split kernel over a
     cluster of at most ``max_cluster`` CTAs (``_split_plan``); else the
-    unstaged kernel when its step block fits; else None (no kernel takes
-    the shape). ``kernel`` forces one of ``KERNELS``, and ``ValueError``
-    says when it does not fit."""
+    unstaged kernel when its step block fits; else, at ``B <= 512``, the
+    class-tiled split kernel by the split kernel's rules (any C); else
+    None (no kernel takes the shape). ``kernel`` forces one of
+    ``KERNELS`` (``"split_tiled"`` at any C), and ``ValueError`` says
+    when it does not fit."""
     if B < 1 or J < 1 or C < 1:
         raise ValueError(f"bad shape B={B}, J={J}, C={C}")
     if kernel not in (None,) + KERNELS:
@@ -260,6 +280,10 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
     smem = unstaged_smem_bytes(B, J, C)
     if smem <= smem_limit:
         fits["unstaged"] = PEpochPlan("unstaged", UNSTAGED_WARPS, 0, smem)
+    if B <= MAX_STAGED_BATCH:
+        tiled = _split_plan(B, J, C, 0, smem_limit, max_cluster)
+        if tiled is not None:
+            fits["split_tiled"] = tiled
     if kernel is not None:
         if kernel not in fits:
             raise ValueError(f"the {kernel} p_epoch kernel does not fit "
@@ -275,6 +299,8 @@ def kernel_symbol(plan: PEpochPlan, C: int, guarded: bool = False) -> str:
     with the guard epilogue (``guarded``) and one without."""
     if plan.kernel == "unstaged":
         return "23unstaged_p_epoch_kernel"
+    if plan.kernel == "split_tiled":
+        return "26split_tiled_p_epoch_kernelE"
     name = f"{plan.kernel}_p_epoch_kernel"
     symbol = f"{len(name)}{name}ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
     if plan.kernel == "staged":
@@ -283,7 +309,7 @@ def kernel_symbol(plan: PEpochPlan, C: int, guarded: bool = False) -> str:
 
 
 def bulk_rows(logits) -> bool:
-    """Whether the staged and split kernels copy rows with
+    """Whether the staged and split kernels (both) copy rows with
     ``cp.async.bulk``: a row's ``J*C`` floats a multiple of 16 bytes and
     the logits 16-byte aligned; else they copy them element-wise with
     ``cp.async``."""
@@ -311,13 +337,13 @@ def _library():
     lib = cuda_build.load("p_epoch")
     ptrs = [ctypes.c_void_p] * 11
     floats = [ctypes.c_float] * 3
-    for name, ints in (("staged", 7), ("split", 9), ("unstaged", 6)):
+    for name, ints in (("staged", 7), ("split", 10), ("unstaged", 6)):
         fn = getattr(lib, f"p_epoch_launch_{name}")
         fn.restype = ctypes.c_int
         fn.argtypes = ptrs + [ctypes.c_int] * ints + floats + [ctypes.c_void_p]
     for name, nargs in (("p_epoch_staged_smem_bytes", 3),
                         ("p_epoch_unstaged_smem_bytes", 3),
-                        ("p_epoch_split_smem_bytes", 5)):
+                        ("p_epoch_split_smem_bytes", 6)):
         getattr(lib, name).restype = ctypes.c_size_t
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
     for name, nargs in (("p_epoch_staged_warps", 1),
@@ -345,11 +371,13 @@ def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
         got = (lib.p_epoch_staged_smem_bytes(B, J, C),
                lib.p_epoch_staged_warps(B),
                lib.p_epoch_instantiated_classes(C), 0)
-    elif plan.kernel == "split":
+    elif plan.kernel in ("split", "split_tiled"):
         got = (lib.p_epoch_split_smem_bytes(B, J, C, plan.cluster,
-                                            int(not plan.stream)),
+                                            int(not plan.stream),
+                                            int(plan.kernel == "split_tiled")),
                lib.p_epoch_staged_warps(B),
-               lib.p_epoch_instantiated_classes(C),
+               0 if plan.kernel == "split_tiled"
+               else lib.p_epoch_instantiated_classes(C),
                lib.p_epoch_split_slice(J, plan.cluster))
     else:
         got = (lib.p_epoch_unstaged_smem_bytes(B, J, C), UNSTAGED_WARPS, 0,
@@ -388,13 +416,13 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
     k_max = split_max_cluster(p.device.index)
     plan = launch_plan(B, J, C, kernel=kernel, max_cluster=k_max)
     if plan is None:
-        stream = min(split_smem_bytes(B, J, C, k, True)
+        stream = min(split_smem_bytes(B, J, C, k, True, True)
                      for k in SPLIT_CLUSTERS if k <= k_max)
         raise ValueError(
             f"no p_epoch kernel takes B={B}, J={J}, C={C}: the staged and "
-            f"split kernels need B <= {MAX_STAGED_BATCH}, C <= 32 and, "
-            f"split, {stream} bytes of shared memory a CTA at a {k_max}-CTA "
-            f"cluster; the unstaged kernel "
+            f"split kernels need B <= {MAX_STAGED_BATCH} and, the "
+            f"class-tiled split kernel streaming, {stream} bytes of shared "
+            f"memory a CTA at a {k_max}-CTA cluster; the unstaged kernel "
             f"{unstaged_smem_bytes(B, J, C)}; a block has "
             f"{cuda_build.SMEM_LIMIT}: run it with kernel_impl='plain'")
     lib = _library()
@@ -413,10 +441,11 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
         err = lib.p_epoch_launch_staged(
             *ptrs, S, B, J, C, is_cls, int(bulk_rows(logits)), code,
             *scalars)
-    elif plan.kernel == "split":
+    elif plan.kernel in ("split", "split_tiled"):
         err = lib.p_epoch_launch_split(
             *ptrs, S, B, J, C, is_cls, int(bulk_rows(logits)), code,
-            plan.cluster, int(not plan.stream), *scalars)
+            plan.cluster, int(not plan.stream),
+            int(plan.kernel == "split_tiled"), *scalars)
     else:
         err = lib.p_epoch_launch_unstaged(
             *ptrs, S, B, J, C, is_cls, code, *scalars)

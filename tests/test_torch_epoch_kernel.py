@@ -203,6 +203,40 @@ def test_plain_round_matches_jax_past_the_shared_memory_limit(task, impl):
     np.testing.assert_allclose(at.numpy(), np.asarray(aj), atol=1e-3)
 
 
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+@pytest.mark.parametrize("Cm", [33, 105])
+def test_plain_round_matches_jax_past_32_classes(Cm, task, impl):
+    """C = 33 and 105 (D = 64, B = 8, S = 3, J = 2): the shapes the
+    class-tiled wide plan takes on the card; the JAX package's Pallas
+    epoch kernel (interpret mode) and XLA scan take any C. The same
+    pre-gathered batches on both sides, drawn from the JAX keys."""
+    Dm, Bm, n_max, J = 64, 8, 24, 2
+    X, y, w0 = _data(task, seed=8, C=Cm, D=Dm)
+    X = X * np.float32(np.sqrt(256.0 / Dm))
+    assert ek.launch_plan(J, Bm, Cm, Dm, H100_SMS).kernel == "wide_tiled"
+    rng = np.random.RandomState(9)
+    idx = rng.randint(0, N, size=(J, n_max)).astype(np.int32)
+    mask = (rng.rand(J, n_max) < 0.8).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(17), J)
+    apply_fn = jlinear_model().apply if impl == "xla" else None
+    rf_j = jax.jit(jmake_client_round(apply_fn, task, EPOCHS, Bm, n_max,
+                                      kernel_impl=impl))
+    sj, lj, aj = rf_j({"w": jnp.asarray(w0)}, jnp.asarray(X), jnp.asarray(y),
+                      jnp.asarray(idx), jnp.asarray(mask), keys,
+                      jnp.float32(0.1), jnp.float32(0.05), jnp.float32(0.01))
+    pos = np.stack([np.stack([
+        np.asarray(jepoch_batches(k, n_max, Bm, jnp.asarray(mask[j]))[0])
+        for k in jax.random.split(keys[j], EPOCHS)]) for j in range(J)])
+    assert pos.shape[2] == 3  # S = 3 steps an epoch
+    rf_t = make_client_round(task, EPOCHS, Bm, n_max)
+    st, lt, at = rf_t({"w": _t(w0)}, _t(X), _t(y), _t(idx).long(), _t(mask),
+                      _t(pos), 0.1, 0.05, 0.01)
+    np.testing.assert_allclose(st["w"].numpy(), np.asarray(sj["w"]), **W_TOL)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4)
+    np.testing.assert_allclose(at.numpy(), np.asarray(aj), atol=1e-3)
+
+
 def _epoch_inputs(task, device, J=5, S=3, seed=0, C=C, D=D, B=B):
     X, y, w0 = _data(task, seed, C, D)
     # rows keep the squared norm of D=256's (~256) at every D, so lr-0.1
@@ -302,18 +336,24 @@ def test_plan_main_path_layout():
 
 @pytest.mark.parametrize("C,nc", [(1, 1), (2, 2), (3, 3), (4, 4), (5, 8),
                                   (6, 6), (10, 10), (11, 16), (26, 26),
-                                  (27, 32), (32, 32)])
+                                  (27, 32), (32, 32), (33, 0), (105, 0),
+                                  (1000, 0)])
 def test_plan_instantiated_classes(C, nc):
+    """The instantiation of each class count; none past 32 (0: the
+    class-tiled wide kernel takes C at run time)."""
     assert ek.instantiated_classes(C) == nc
     assert ek.launch_plan(5, 32, C, 256, H100_SMS).classes == nc
 
 
 def test_plan_refuses_what_fits_nowhere():
-    """No plan (None) past the instantiated classes; a shape past both
-    the staged and the unstaged kernel's shared memory takes the wide
-    plan; a bad shape or a forced cluster or kernel that does not fit
-    raise."""
-    assert ek.launch_plan(5, 32, 33, 256, H100_SMS) is None
+    """Past the instantiated classes the class-tiled wide plan; no plan
+    (None) only where a chunk of 8 rows' logits passes a block's shared
+    memory (4,000 classes); a shape past both the staged and the unstaged
+    kernel's shared memory takes the wide plan; a bad shape or a forced
+    cluster or kernel that does not fit raise, the staged, unstaged and
+    wide kernels at more than 32 classes among them."""
+    assert ek.launch_plan(5, 32, 33, 256, H100_SMS).kernel == "wide_tiled"
+    assert ek.launch_plan(5, 32, 4000, 256, H100_SMS) is None
     assert ek.launch_plan(5, 4096, 32, 4000, H100_SMS).kernel == "wide"
     with pytest.raises(ValueError, match="does not fit"):
         ek.launch_plan(5, 32, 10, 10000, H100_SMS, kernel="staged")
@@ -327,6 +367,12 @@ def test_plan_refuses_what_fits_nowhere():
         ek.launch_plan(5, 32, 0, 256, H100_SMS)
     with pytest.raises(ValueError, match="at most 32 classes"):
         ek.launch_plan(5, 32, 33, 256, H100_SMS, cluster=1)
+    for kernel in ("staged", "unstaged", "wide"):
+        with pytest.raises(ValueError, match="at most 32 classes"):
+            ek.launch_plan(5, 32, 105, 256, H100_SMS, kernel=kernel)
+    with pytest.raises(ValueError, match="does not fit the wide kernel"):
+        ek.launch_plan(5, 32, 105, 256, H100_SMS, kernel="wide_tiled",
+                       cluster=16)
     with pytest.raises(ValueError, match="does not fit"):
         ek.launch_plan(50, 32, 10, 2000, H100_SMS, cluster=2)
     with pytest.raises(ValueError, match="bad shape"):
@@ -337,7 +383,9 @@ def test_plan_refuses_what_fits_nowhere():
     (50, 32, 10, 2000, cuda_build.SMEM_LIMIT, ("staged", 4)),  # main path
     (400, 32, 10, 2000, cuda_build.SMEM_LIMIT, ("staged", 4)),  # 400 parts
     (50, 1024, 10, 2000, cuda_build.SMEM_LIMIT, ("unstaged", 0)),
-    (5, 32, 33, 256, cuda_build.SMEM_LIMIT, None),  # more than 32 classes
+    (5, 32, 33, 256, cuda_build.SMEM_LIMIT, ("wide_tiled", 8)),  # > 32
+    (50, 32, 105, 2000, cuda_build.SMEM_LIMIT, ("wide_tiled", 2)),  # sector
+    (5, 32, 4000, 256, cuda_build.SMEM_LIMIT, None),  # 8 rows' logits
     (5, 4096, 32, 4000, cuda_build.SMEM_LIMIT, ("wide", 8)),
     (5, 32, 10, 20000, cuda_build.SMEM_LIMIT, ("wide", 8)),  # W too wide
     (50, 32, 10, 2000, 100000, ("staged", 8)),   # a smaller block: wider
@@ -347,9 +395,10 @@ def test_plan_is_none_where_no_kernel_takes_the_shape(J, B, C, D,
                                                       smem_limit, route):
     """The plan by shape alone, with ``num_sms`` and ``smem_limit``
     passed in: its kernel and cluster size, or None where no kernel takes
-    the shape (more than 32 classes: the wrapper then refuses CUDA
-    tensors before any launch). Shapes past the staged and unstaged
-    kernels' shared memory take the wide plan."""
+    the shape (a chunk of 8 rows' logits past a block's shared memory:
+    the wrapper then refuses CUDA tensors before any launch). Shapes past
+    the staged and unstaged kernels' shared memory take the wide plan,
+    more than 32 classes the class-tiled one."""
     plan = ek.launch_plan(J, B, C, D, H100_SMS, smem_limit)
     assert ((plan.kernel, plan.cluster) if plan else None) == route
     if plan is not None:
@@ -457,11 +506,12 @@ def test_plan_keeps_every_shape_taken_before_the_wide_kernel(row_bytes):
     """Every shape the staged or the unstaged kernel took keeps its
     kernel, cluster, slice, instantiation, shared memory and grid, at
     either cluster limit and at a smaller block too; only shapes neither
-    took run the wide kernel."""
+    took run the wide kernel, and past 32 classes the class-tiled one."""
     for smem_limit in (cuda_build.SMEM_LIMIT, 100000):
         for J in (1, 5, 50, 70, 400):
             for B in (1, 16, 17, 32, 64, 100, 1024, 4096):
-                for C in (1, 2, 3, 5, 10, 16, 26, 32, 33):
+                for C in (1, 2, 3, 5, 10, 16, 26, 32, 33, 64, 71, 105,
+                          1000):
                     for D in (1, 4, 250, 256, 784, 2000, 3000, 5376, 6000,
                               8704):
                         old = _plan_before_the_wide_kernel(
@@ -473,7 +523,8 @@ def test_plan_keeps_every_shape_taken_before_the_wide_kernel(row_bytes):
                                                  max_cluster=max_cluster)
                             shape = (smem_limit, J, B, C, D, max_cluster)
                             if old is None:
-                                assert C > 32 or new.kernel == "wide", shape
+                                assert new.kernel == ("wide_tiled" if C > 32
+                                                      else "wide"), shape
                                 continue
                             assert new.kernel == (
                                 "staged" if old[0] else "unstaged"), shape
@@ -521,6 +572,73 @@ def test_plan_wide_layout():
                           cluster=2).slice_width == 128
     # a block too small for one chunk of 8 rows: no plan
     assert ek.launch_plan(5, 32, 32, 10000, H100_SMS, smem_limit=1000) is None
+
+
+GRID_MANY_C = (33, 64, 71, 105, 1000)
+
+
+@pytest.mark.parametrize("J", [1, 50, 1024])
+@pytest.mark.parametrize("row_bytes", [2, 4])
+def test_plan_takes_every_shape_past_32_classes(row_bytes, J):
+    """Every B and D at C in {33, 64, 71, 105, 1000} has the class-tiled
+    wide plan, at either cluster limit; each fits a block's shared
+    memory, its layout holds C itself, its slices cover D with none
+    empty, and its chunk shrinks as C grows."""
+    for max_cluster in (8, 16):
+        for B in GRID_B:
+            for C in GRID_MANY_C:
+                for D in GRID_D:
+                    plan = ek.launch_plan(J, B, C, D, H100_SMS,
+                                          row_bytes=row_bytes,
+                                          max_cluster=max_cluster)
+                    shape = (J, B, C, D, row_bytes, max_cluster)
+                    assert plan is not None, shape
+                    assert plan.kernel == "wide_tiled", shape
+                    assert plan.classes == 0, shape
+                    assert plan.smem_bytes <= cuda_build.SMEM_LIMIT, shape
+                    hold = plan.scratch_bytes == 0
+                    assert plan.smem_bytes == ek.wide_smem_bytes(
+                        B, C, plan.chunk, hold, tiled=True), shape
+                    assert plan.cluster <= max_cluster, shape
+                    assert plan.cluster * plan.slice_width >= D, shape
+                    assert (plan.cluster - 1) * plan.slice_width < D, shape
+                    assert plan.chunk % 8 == 0, shape
+                    assert 8 <= plan.chunk <= ek.MAX_CHUNK, shape
+                    assert plan.ctas <= H100_SMS or plan.cluster == 1
+
+
+def test_plan_tiled_layout():
+    """The class-tiled wide plan at the sector stand-in's shape (J = 50,
+    B = 32, C = 105, D = 2,000: 2 CTAs a client by the one-wave rule, one
+    chunk of the 32 rows, the batch buffer held) and at aloi's 1,000
+    classes (a chunk of 24 rows, the batch buffer in global scratch);
+    forced at 10 classes its layout holds 10, not the instantiation's 10
+    rounded; its symbol in the compiler's report."""
+    plan = ek.launch_plan(50, 32, 105, 2000, H100_SMS)
+    # header 16 B; floats: two exchange buffers 2*(4 + 32*108), row loss
+    # and hits 2*32, block sums 16; then the batch buffer 32*(108 + 2)
+    smem = 16 + 4 * (2 * (4 + 32 * 108) + 2 * 32 + 16) + 4 * 32 * 110
+    assert plan == ek.EpochPlan(cluster=2, slice_width=1000, classes=0,
+                                smem_bytes=smem, ctas=100,
+                                kernel="wide_tiled", chunk=32,
+                                scratch_bytes=0)
+    assert ek.kernel_symbol(plan, 105) == "23wide_tiled_epoch_kernelE"
+    aloi = ek.launch_plan(50, 32, 1000, 2000, H100_SMS)
+    assert (aloi.kernel, aloi.cluster, aloi.chunk) == ("wide_tiled", 2, 24)
+    assert aloi.scratch_bytes == 4 * 100 * 32 * 1002
+    assert aloi.smem_bytes == ek.wide_smem_bytes(32, 1000, 24, False,
+                                                 tiled=True)
+    # Centralized's one client: 16 CTAs where the card takes them
+    one = ek.launch_plan(1, 32, 105, 2000, H100_SMS, max_cluster=16)
+    assert (one.kernel, one.cluster, one.slice_width) == ("wide_tiled", 16,
+                                                          128)
+    forced = ek.launch_plan(5, 32, 11, 250, H100_SMS, kernel="wide_tiled")
+    assert (forced.kernel, forced.classes) == ("wide_tiled", 0)
+    assert forced.smem_bytes == ek.wide_smem_bytes(32, 11, 32, True,
+                                                   tiled=True)
+    assert forced.smem_bytes < ek.wide_smem_bytes(32, 11, 32, True)
+    assert ek.wide_batch_floats(32, 105) == ek.wide_batch_floats(
+        32, 105, tiled=True) == 32 * 110
 
 
 def test_client_order_largest_first_stable():
@@ -619,13 +737,19 @@ def test_cuda_kernel_unaligned_rows():
 
 @pytest.mark.cuda
 def test_cuda_shape_no_plan_takes_is_refused():
-    """33 classes: no instantiation takes them, so the wrapper refuses
-    CUDA tensors before any launch (``kernel_impl="plain"`` runs them)."""
+    """4,000 classes: a chunk of 8 rows' logits passes a block's shared
+    memory, so the wrapper refuses CUDA tensors before any launch
+    (``kernel_impl="plain"`` runs them); a forced staged kernel at 33
+    classes is refused too."""
     _need_card()
-    args = _epoch_inputs("classification", "cuda", J=5, S=3, C=33, D=256)
+    args = _epoch_inputs("classification", "cuda", J=5, S=3, C=4000, D=256)
     before = dict(client_epoch.launches_by_kernel)
     with pytest.raises(ValueError, match="no client_epoch kernel takes"):
         client_epoch(*args, 0.1, 0.05, 0.01, "classification")
+    args = _epoch_inputs("classification", "cuda", J=5, S=3, C=33, D=256)
+    with pytest.raises(ValueError, match="at most 32 classes"):
+        client_epoch(*args, 0.1, 0.05, 0.01, "classification",
+                     kernel="staged")
     assert client_epoch.launches_by_kernel == before
 
 
@@ -767,6 +891,86 @@ def test_cuda_wide_kernel_is_deterministic(case):
     _, J, S, D_, B_ = WIDE_CASES[case]
     args = _epoch_inputs("classification", "cuda", J=J, S=S, C=10, D=D_,
                          B=B_)
+    for X in (args[2], args[2].to(torch.bfloat16)):
+        args[2] = X
+        w1, m1 = client_epoch(*args, 0.1, 0.05, 0.01, "classification")
+        w2, m2 = client_epoch(*args, 0.1, 0.05, 0.01, "classification")
+        torch.cuda.synchronize()
+        assert torch.equal(w1, w2) and torch.equal(m1, m2)
+
+
+# the class-tiled wide kernel's cases: (J, S, D, B); by shape at every C
+# past 32 (C = 1,000 keeps its batch buffer in global scratch)
+TILED_CASES = {
+    "D=2000": (5, 4, 2000, 32),
+    "D=250": (70, 3, 250, 17),
+    "D=10000": (3, 3, 10000, 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILED_CASES))
+@pytest.mark.parametrize("C_", [33, 105, 1000])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_cuda_tiled_wide_kernel_matches_plain_version(task, C_, case):
+    """The class-tiled wide kernel by shape past 32 classes against the
+    plain version; the empty client keeps its weights."""
+    _need_card()
+    J, S, D_, B_ = TILED_CASES[case]
+    args = _epoch_inputs(task, "cuda", J=J, S=S, C=C_, D=D_, B=B_)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ek.launch_plan(J, B_, C_, D_, sms).kernel == "wide_tiled"
+    before = client_epoch.launches_by_kernel["wide_tiled"]
+    wk, _ = _kernel_vs_plain(task, args)
+    assert client_epoch.launches_by_kernel["wide_tiled"] == before + 1
+    torch.testing.assert_close(wk[1], args[0][1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_", [1, 10, 32])
+def test_cuda_tiled_wide_kernel_forced_at_few_classes(C_):
+    """Forced at 32 classes or fewer, where the class-instantiated wide
+    kernel runs by shape: one partial tile."""
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", J=5, S=4, C=C_, D=2000)
+    _kernel_vs_plain("classification", args, kernel="wide_tiled")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_tiled_wide_kernel_two_byte_rows(dtype):
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", J=5, S=4, C=105, D=2000)
+    args[2] = args[2].to(getattr(torch, dtype))
+    before = client_epoch.launches_by_kernel["wide_tiled"]
+    _kernel_vs_plain("classification", args)
+    assert client_epoch.launches_by_kernel["wide_tiled"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_wide_kernel_tie_takes_the_first_maximum():
+    """W = anchor = 0 at 105 classes: every logit of the first step is 0,
+    so the first maximum is class 0 and each client's hits are its valid
+    label-0 rows, exactly (one step)."""
+    _need_card()
+    W, w0, X, y, rows, valid = _epoch_inputs("classification", "cuda", J=5,
+                                             S=1, C=105, D=2000)
+    y = (torch.arange(N, device="cuda") % 3).to(torch.int32)  # many zeros
+    W, w0 = torch.zeros_like(W), torch.zeros_like(w0)
+    args = [W, w0, X, y, rows, valid]
+    _, mk = _kernel_vs_plain("classification", args)
+    zeros = ((y[rows[:, 0].long()] == 0).float() * valid[:, 0]).sum(-1)
+    assert float(zeros.sum()) > 0
+    assert torch.equal(mk[:, 1], zeros)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_", [105, 1000])
+def test_cuda_tiled_wide_kernel_is_deterministic(C_):
+    """Two launches bitwise equal, the batch buffer held (C = 105) and in
+    global scratch (C = 1,000), float32 and bf16 rows."""
+    _need_card()
+    args = _epoch_inputs("classification", "cuda", J=5, S=4, C=C_, D=2000)
     for X in (args[2], args[2].to(torch.bfloat16)):
         args[2] = X
         w1, m1 = client_epoch(*args, 0.1, 0.05, 0.01, "classification")

@@ -64,7 +64,9 @@ def _t(a):
 @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
 @pytest.mark.parametrize("task,C", [("classification", 3),
                                     ("classification", 2),
-                                    ("regression", 1)])
+                                    ("regression", 1),
+                                    ("classification", 33),
+                                    ("classification", 105)])
 @pytest.mark.parametrize("momentum", [0.9, 0.0])
 def test_plain_solver_matches_jax(task, C, momentum, impl):
     n_val, J, B, E = 53, 7, 16, 3  # last batch partial (53 = 3*16 + 5)
@@ -274,7 +276,9 @@ def test_plan_main_path_layout():
     (16, 137, 26, cuda_build.SMEM_LIMIT, "split"),
     (16, 138, 26, cuda_build.SMEM_LIMIT, "split"),
     (16, 50, 10, 40000, "split"),  # a smaller block: staged no longer fits
-    (16, 50, 33, 20000, None),     # no split above 32 classes, nor unstaged
+    (16, 50, 33, 20000, "split_tiled"),  # past the unstaged one at 33
+    (16, 50, 105, cuda_build.SMEM_LIMIT, "split_tiled"),  # sector's shape
+    (600, 50, 105, cuda_build.SMEM_LIMIT, None),  # B > 512 past unstaged
 ])
 def test_plan_is_none_where_no_kernel_takes_the_shape(B, J, C,
                                                       smem_limit, route):
@@ -299,7 +303,7 @@ def test_wrapper_counts_no_launch_on_the_cpu():
             "classification")
     assert p_epoch.launches == 0
     assert p_epoch.launches_by_kernel == {"staged": 0, "split": 0,
-                                          "unstaged": 0}
+                                          "unstaged": 0, "split_tiled": 0}
 
 
 @pytest.mark.parametrize("B,J,C,kernel", [
@@ -308,11 +312,19 @@ def test_wrapper_counts_no_launch_on_the_cpu():
     (16, 355, 10, "split"),     # the widest J the unstaged kernel held
     (16, 50, 33, "unstaged"),   # no staged instantiation above 32 classes
     (513, 2, 1, "unstaged"),    # more rows than 16 warps' lanes
+    (16, 50, 70, "unstaged"),   # the widest C its block holds at J = 50
+    (16, 50, 71, "split_tiled"),  # past it: the class-tiled split kernel
+    (16, 50, 1000, "split_tiled"),
 ])
 def test_plan_chooses_kernel(B, J, C, kernel):
     plan = pk.launch_plan(B, J, C)
     assert plan.kernel == kernel
     assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
+    if kernel == "split_tiled":
+        assert plan.classes == 0
+        assert plan.smem_bytes == pk.split_smem_bytes(B, J, C, plan.cluster,
+                                                      plan.stream, tiled=True)
+        assert pk.kernel_symbol(plan, C) == "26split_tiled_p_epoch_kernelE"
     if kernel == "split":
         assert plan.smem_bytes == pk.split_smem_bytes(B, J, C, plan.cluster,
                                                       plan.stream)
@@ -331,7 +343,20 @@ def test_plan_instantiated_classes(C, nc):
 
 
 def test_plan_refuses_what_fits_nowhere():
-    assert pk.launch_plan(16, 4096, 33) is None  # > 32 classes, too wide
+    """More than 32 classes past the unstaged kernel take the class-tiled
+    split plan (J = 4096 at C = 33 streamed over 16 CTAs); no plan past
+    B = 512 and the unstaged kernel, nor where even a streamed 16-CTA
+    cluster's slices of h pass a block; a forced kernel that does not fit
+    raises, the staged kernel at more than 32 classes among them."""
+    tiled = pk.launch_plan(16, 4096, 33)
+    assert (tiled.kernel, tiled.cluster, tiled.stream) == ("split_tiled", 16,
+                                                           True)
+    assert pk.launch_plan(600, 50, 105) is None
+    assert pk.launch_plan(16, 100000, 1000) is None
+    with pytest.raises(ValueError, match="does not fit"):
+        pk.launch_plan(16, 50, 33, kernel="staged")
+    with pytest.raises(ValueError, match="does not fit"):
+        pk.launch_plan(16, 50, 105, kernel="split")
     with pytest.raises(ValueError, match="does not fit"):
         pk.launch_plan(16, 200, 10, kernel="staged")
     with pytest.raises(ValueError, match="kernel must be"):
@@ -345,7 +370,7 @@ def test_plan_takes_every_shape_the_first_kernel_took():
     one) fits in shared memory still gets a plan."""
     for B in (1, 2, 15, 16, 17, 32, 33, 64, 256, 512, 513, 1024, 4096):
         for J in (1, 2, 7, 50, 100, 170, 171, 200, 355, 1000):
-            for C in (1, 2, 3, 10, 26, 32, 33, 100):
+            for C in (1, 2, 3, 10, 26, 32, 33, 64, 71, 100, 105, 1000):
                 if pk.unstaged_smem_bytes(B, J, C) > cuda_build.SMEM_LIMIT:
                     continue
                 plan = pk.launch_plan(B, J, C)
@@ -374,6 +399,96 @@ def test_plan_takes_every_shape_of_the_grid(max_cluster):
                     assert plan.smem_bytes == pk.split_smem_bytes(
                         B, J, C, plan.cluster, plan.stream)
     assert pk.launch_plan(16, 50, 10).kernel == "staged"
+
+
+def _plan_before_the_tiled_kernel(B, J, C, smem_limit, max_cluster):
+    """``launch_plan`` as it was before the class-tiled split kernel:
+    (kernel, warps, classes, smem_bytes, cluster, slice_width, stream),
+    or None."""
+    nc = pk.staged_classes(C)
+    if B <= pk.MAX_STAGED_BATCH and nc:
+        smem = pk.staged_smem_bytes(B, J, C)
+        if smem <= smem_limit:
+            return ("staged", pk.staged_warps(B), nc, smem, 1, 0, False)
+        sizes = [k for k in (2, 4, 8, 16) if k <= max_cluster]
+        for stream, order in ((False, sizes), (True, sizes[::-1])):
+            for k in order:
+                smem = pk.split_smem_bytes(B, J, C, k, stream)
+                if smem <= smem_limit:
+                    return ("split", pk.staged_warps(B), nc, smem, k,
+                            pk.split_slice(J, k), stream)
+    smem = pk.unstaged_smem_bytes(B, J, C)
+    if smem <= smem_limit:
+        return ("unstaged", 8, 0, smem, 1, 0, False)
+    return None
+
+
+GRID_MANY_C = (33, 64, 71, 105, 1000)
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+def test_plan_keeps_every_shape_taken_before_the_tiled_kernel(max_cluster):
+    """Every shape that had a plan keeps it: kernel, warps, instantiation,
+    shared memory, cluster, slice and ring, at the card's block and a
+    smaller one (the unstaged kernel's C = 33 to 70 at J = 50 among them);
+    every shape with none before and B <= 512, C in {33, 64, 71, 105,
+    1000} among them, now runs the class-tiled split kernel where its
+    streamed slices fit a block."""
+    fields = ("kernel", "warps", "classes", "smem_bytes", "cluster",
+              "slice_width", "stream")
+    for smem_limit in (cuda_build.SMEM_LIMIT, 40000):
+        for B in (1, 8, 16, 17, 32, 33, 64, 256, 512, 513, 1024):
+            for J in (1, 2, 7, 50, 100, 171, 356, 1000, 4096):
+                for C in (1, 2, 3, 10, 26, 32, 33, 50, 64, 70, 71, 105,
+                          1000):
+                    old = _plan_before_the_tiled_kernel(B, J, C, smem_limit,
+                                                        max_cluster)
+                    new = pk.launch_plan(B, J, C, smem_limit=smem_limit,
+                                         max_cluster=max_cluster)
+                    shape = (smem_limit, B, J, C, max_cluster)
+                    if old is not None:
+                        assert tuple(getattr(new, f) for f in fields) == old, \
+                            shape
+                        continue
+                    tiled = pk._split_plan(B, J, C, 0, smem_limit,
+                                           max_cluster)
+                    if B > pk.MAX_STAGED_BATCH or tiled is None:
+                        assert new is None, shape
+                        continue
+                    assert new == tiled and new.kernel == "split_tiled", shape
+                    assert new.smem_bytes <= smem_limit, shape
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+def test_plan_takes_every_shape_past_32_classes(max_cluster):
+    """B in {8, 16, 32}, C in {33, 64, 71, 105, 1000} and every J up to
+    1024 have a plan: the unstaged kernel where its block fits, else the
+    class-tiled split kernel, its cluster within the limit and its slices
+    covering J."""
+    for B in (8, 16, 32):
+        for C in GRID_MANY_C:
+            for J in range(1, 1025):
+                plan = pk.launch_plan(B, J, C, max_cluster=max_cluster)
+                assert plan is not None, (B, J, C)
+                assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
+                assert plan.kernel in ("unstaged", "split_tiled"), (B, J, C)
+                if plan.kernel == "split_tiled":
+                    assert plan.cluster <= max_cluster
+                    assert plan.cluster * plan.slice_width >= J
+                    assert plan.smem_bytes == pk.split_smem_bytes(
+                        B, J, C, plan.cluster, plan.stream, tiled=True)
+    plan = pk.launch_plan(16, 50, 105)
+    assert (plan.cluster, plan.slice_width, plan.stream) == (4, 16, False)
+    plan = pk.launch_plan(16, 50, 1000)
+    assert (plan.cluster, plan.slice_width, plan.stream) == (16, 4, True)
+    forced = pk.launch_plan(16, 50, 10, kernel="split_tiled")
+    assert forced == pk.PEpochPlan("split_tiled", 16, 0, pk.split_smem_bytes(
+        16, 50, 10, 2, False, tiled=True), 2, 28, False)
+    # a group of one row a warp: at B = 512 the slots hold 16 rows, not 512
+    wide_b = pk.launch_plan(512, 50, 1000)
+    assert wide_b.kernel == "split_tiled"
+    assert pk.split_smem_bytes(512, 50, 1000, wide_b.cluster, True) > \
+        cuda_build.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("J,C,cluster,stream", [
@@ -617,3 +732,47 @@ def test_cuda_kernel_matches_plain_version(task, C):
     torch.testing.assert_close(pk, pp, **TOL)
     torch.testing.assert_close(bk, bp, **TOL)
     torch.testing.assert_close(mk, mp, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", [None, "simplex"])
+@pytest.mark.parametrize("C", [33, 105, 1000])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_cuda_tiled_split_kernel_matches_plain_version(task, C, guard):
+    """The class-tiled split kernel at J = 50, B = 16 (C = 33 forced, where
+    the unstaged kernel runs by shape; 105 holding its row slices on 4
+    CTAs; 1,000 streaming them over 16, or 8), with and without the
+    simplex guard."""
+    _need_card()
+    args = _p_inputs(task, 200, 50, C, 16)
+    kernel = "split_tiled" if C == 33 else None
+    plan = pk.launch_plan(16, 50, C, kernel=kernel,
+                          max_cluster=pk.split_max_cluster(0))
+    assert plan.kernel == "split_tiled"
+    before = dict(p_epoch.launches_by_kernel)
+    _kernel_vs_plain(args, task, kernel=kernel, guard=guard)
+    assert p_epoch.launches_by_kernel["split_tiled"] == \
+        before["split_tiled"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,C", [(7, 3), (50, 10), (4001, 5)])
+def test_cuda_tiled_split_kernel_forced_at_few_classes(J, C):
+    """Forced at 32 classes or fewer: one partial tile; J*C odd (element
+    -wise copies) and J = 4001 (streamed)."""
+    _need_card()
+    args = _p_inputs("classification", 200, J, C, 16)
+    _kernel_vs_plain(args, "classification", kernel="split_tiled")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [105, 1000])
+def test_cuda_tiled_split_kernel_is_deterministic(C):
+    _need_card()
+    args = _p_inputs("classification", 500, 50, C, 16)
+    for guard in (None, make_guard("simplex")):
+        a = p_epoch(*args, 1e-2, 0.9, "classification", guard=guard)
+        b = p_epoch(*args, 1e-2, 0.9, "classification", guard=guard)
+        torch.cuda.synchronize()
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
