@@ -125,7 +125,8 @@ and read just after:
   every launch on a tiled plan; the driver with ``--dataset sector`` in
   a subprocess; the four ``classes_*`` rows of the ``kernels`` line
   (``client_epoch.classes_105``'s ``ms_forced_c32``: the instantiated and
-  the class-tiled wide kernel forced at 32 classes, in turns);
+  the class-tiled wide kernel forced at 32 classes, in turns, the
+  former's plan and its 0 spills);
 - ``profile``: the device shuffle draw of one round alone
   (``draw_ms_per_round``, CUDA events), then one profiled FedAMW run
   (device time by kernel, the device's busy share of the wall time,
@@ -146,10 +147,14 @@ and read just after:
   fixed-point rounds per step), kernel 1's bfloat16 rows
   (``ms_by_dtype`` beside float32 and float16 at the main shape and at
   Centralized's) and kernel 1's wide plan at ``wide_d``'s shape
-  (``client_epoch.wide``: ``us_per_step``, cluster, spills, the byte
-  bound, ``ms_bfloat16`` and ``ms_boundary``, the staged and the forced
-  wide plan in turns at D = 5,376), each launch count from the run of its
-  own path; a
+  (``client_epoch.wide``: ``us_per_step``, the plan's cluster, chunk,
+  ring and shared memory, spills, the byte bound, ``ms_by_cluster``, the
+  kernel forced at each cluster the card takes in turns at J = 50 and at
+  Centralized's J = 1, ``ms_bfloat16`` and ``ms_boundary``, the staged
+  and the forced wide plan in turns at D = 5,376; a ``wide_d`` line of
+  its own gives the bytes a CTA moves a step by the layout's arithmetic
+  and every wide instantiation's registers and spills), each launch
+  count from the run of its own path; a
   ``p_solve_100_epochs_ms`` line times ``make_p_solver``'s solve over 100
   epochs (the p-solve of one round of the paper's 100-round run);
 - ``paper_run``: the driver's six algorithms at the paper's length (100
@@ -3457,9 +3462,14 @@ def wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms):
     ``EPOCHS`` epochs (J = 1), each against its plain run at ``TOL_RUN``,
     every count set to 0 just before each and read just after, every
     kernel-1 launch the wide kernel's; (c) its time, beside the plain
-    version's and its bound, the staged and the forced wide plan in turns
-    at D = ``WIDE_BOUNDARY_D``, and bfloat16 rows. Returns the
-    ``client_epoch.wide`` row of the ``kernels`` line."""
+    version's and its bound, ``ms_by_cluster`` (the kernel forced at each
+    cluster the card takes, in turns, at J = 50 and at Centralized's J = 1
+    launch), the staged and the forced wide plan in turns at
+    D = ``WIDE_BOUNDARY_D``, and bfloat16 rows; a line of its own gives
+    the bytes a CTA moves a step by the layout's arithmetic at each
+    cluster and the compiler's registers and spills of every wide
+    instantiation. Returns the ``client_epoch.wide`` row of the
+    ``kernels`` line."""
     import numpy as np
     import torch
 
@@ -3495,8 +3505,11 @@ def wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms):
     def plan_of(a, **kw):
         name = ek.ROW_LIBRARIES[a[2].dtype]
         return ek.launch_plan(
-            J, B, C, int(a[0].shape[2]), sms, row_bytes=a[2].element_size(),
-            max_cluster=ek.wide_max_cluster(dev.index or 0, name), **kw)
+            int(a[0].shape[0]), int(a[4].shape[2]), C, int(a[0].shape[2]),
+            sms, row_bytes=a[2].element_size(),
+            max_cluster=ek.wide_max_cluster(dev.index or 0, name),
+            active_clusters=ek.wide_active_clusters(dev.index or 0, name),
+            steps=ek.client_order(a[5])[1].tolist(), **kw)
 
     # (a) the kernel against its plain version, two launches bitwise
     cases = {"registry": epoch_args(float(prm["lambda_prox"]),
@@ -3583,7 +3596,27 @@ def wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms):
         turns[kern].append(cuda_ms(lambda: client_epoch(*ab, kernel=kern), 10))
     a16 = cases["strong bfloat16"]
     ms16 = cuda_ms(lambda: client_epoch(*a16), 10)
+    # every cluster the card takes, in turns (up, then down), at J = 50 and
+    # at Centralized's launch: one client holding every train row, the
+    # registry's lr, no penalties
+    max_k = ek.wide_max_cluster(dev.index or 0)
+    ks = [k for k in ek.WIDE_CLUSTERS if k <= max_k]
+    all_idx = wide.all_train_idx
+    cpos = draw_epoch_positions(dgen, int(all_idx.numel()), B, lead=(1,))
+    cvalid = batch_valid(cpos, int(all_idx.numel()))
+    crows = all_idx[cpos].to(torch.int32).contiguous()
+    a1 = (w0[None].contiguous(), w0, wide.X, wide.y, crows, cvalid, lr, 0.0,
+          0.0, "classification")
+    by_cluster = {}
+    for label, args, reps in (("J=50", a, 5), ("J=1", a1, 2)):
+        t = {k: [] for k in ks}
+        for k in ks + ks[::-1]:
+            t[k].append(cuda_ms(lambda: client_epoch(
+                *args, kernel="wide", cluster=k), reps))
+        by_cluster[label] = {str(k): sum(v) / 2 for k, v in t.items()}
     client_epoch.launches, client_epoch.launches_by_kernel = saved
+    plan1 = plan_of(a1)
+    steps1 = int(ek.client_order(cvalid)[1].max())
     plan16 = plan_of(a16)
     used = {}
     for lib, p_ in (("client_epoch", plan), ("client_epoch_bf16", plan16)):
@@ -3595,6 +3628,16 @@ def wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms):
     n_rows = float(valid.sum())
     steps = int((valid.sum(-1) > 0).sum())
     steps_max = int(ek.client_order(valid)[1].max())
+    step_bytes = {}
+    for k in ks:
+        p_ = plan_of(a, kernel="wide", cluster=k)
+        step_bytes[str(k)] = ek.wide_step_bytes(B, C, WIDE_D, k, p_.w_res,
+                                                p_.rows_res)
+    wide_usage = {
+        lib: {f.split("wide_epoch_kernel")[1][:12]: v
+              for f, v in cuda_build.ptxas_usage(lib).items()
+              if "17wide_epoch_kernel" in f}
+        for lib in ("client_epoch", "client_epoch_bf16", "client_epoch_f16")}
     nbytes = 4 * (n_rows * (WIDE_D + 1) + 2 * J * C * WIDE_D + C * WIDE_D
                   + 2 * rows.numel() + 3 * J)
     ops = 4 * C * WIDE_D * n_rows + 12 * C * WIDE_D * steps
@@ -3615,10 +3658,22 @@ def wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms):
            "shape": {"J": J, "C": C, "D": WIDE_D, "B": B,
                      "S": int(rows.shape[1])},
            "steps_max": steps_max, "us_per_step": 1e3 * ms / steps_max,
-           "cluster": plan.cluster, "max_cluster": ek.wide_max_cluster(
-               dev.index or 0), "chunk": plan.chunk,
+           "cluster": plan.cluster, "max_cluster": max_k,
+           "active_clusters": ek.wide_active_clusters(dev.index or 0),
+           "chunk": plan.chunk, "tile": plan.tile, "stages": plan.stages,
+           "w_res": plan.w_res, "rows_res": plan.rows_res,
            "smem_bytes": plan.smem_bytes,
            "scratch_bytes": plan.scratch_bytes,
+           "ms_by_cluster": by_cluster,
+           "us_per_step_by_cluster": {
+               label: {k: 1e3 * v / n for k, v in t.items()}
+               for (label, t), n in zip(by_cluster.items(),
+                                        (steps_max, steps1))},
+           "centralized": {"steps": steps1, "cluster": plan1.cluster,
+                           "ms": by_cluster["J=1"][str(plan1.cluster)],
+                           "tile": plan1.tile, "stages": plan1.stages,
+                           "w_res": plan1.w_res,
+                           "rows_res": plan1.rows_res},
            "registers": used["client_epoch"]["registers"],
            "spill_bytes": used["client_epoch"]["spill_bytes"],
            "ms_bfloat16": ms16, "cluster_bfloat16": plan16.cluster,
@@ -3630,8 +3685,13 @@ def wide_d(ds, prm, kw, amw_kw, timed, vs_plain, card, sms):
                                        for k in turns}},
            "setup_seconds": setup_s,
            "phase_seconds": time.perf_counter() - t_phase}
+    emit({"phase": "wide_d", "layout": {
+        "step_bytes_per_cta": step_bytes, "n_rows": B,
+        "by": "the layout's arithmetic (epoch_kernel.wide_step_bytes), "
+              "not measured"},
+          "wide_kernel_ptxas": wide_usage})
     emit({"phase": "wide_d", "kernel_row": row})
-    del wide, cases, a, ab, a16
+    del wide, cases, a, ab, a16, a1
     torch.cuda.empty_cache()
     return row
 
@@ -3766,10 +3826,13 @@ def many_classes(timed, vs_plain, card, sms):
                     valid_, lr_, mu, lam, "classification")
 
         def plan1(a, **kw):
+            lib = ek.ROW_LIBRARIES[a[2].dtype]
             return ek.launch_plan(
                 J, B, int(a[0].shape[1]), int(a[0].shape[2]), sms,
-                row_bytes=a[2].element_size(), max_cluster=ek.wide_max_cluster(
-                    dev.index or 0, ek.ROW_LIBRARIES[a[2].dtype]), **kw)
+                row_bytes=a[2].element_size(),
+                max_cluster=ek.wide_max_cluster(dev.index or 0, lib),
+                active_clusters=ek.wide_active_clusters(dev.index or 0, lib),
+                steps=ek.client_order(a[5])[1].tolist(), **kw)
 
         # (b) kernel 1
         k1 = {}
@@ -4004,6 +4067,13 @@ def many_classes(timed, vs_plain, card, sms):
         client_epoch.launches, client_epoch.launches_by_kernel = saved
         rows_out[0]["ms_forced_c32"] = {k: sum(v) / 2
                                         for k, v in turns.items()}
+        plan32 = plan1(a, kernel="wide")
+        used32 = ptxas("client_epoch", ek.kernel_symbol(plan32, 32))
+        rows_out[0]["forced_c32_plan"] = {
+            "cluster": plan32.cluster, "chunk": plan32.chunk,
+            "smem_bytes": plan32.smem_bytes, **used32}
+        if used32.get("spill_bytes") != 0:
+            fail(f"the wide kernel's 32-class instantiation: ptxas {used32}")
         for Ck in (C, ALOI_C):
             a = k2[Ck]
             plan = k2_plans[Ck]

@@ -62,17 +62,32 @@
 //  3. the wide kernel, for every other shape of at most 32 classes (a D past
 //     the shared-memory limit, a batch past both): a cluster of k CTAs per
 //     client as in the staged plan (k up to 16 where the card schedules a
-//     16-CTA cluster), but W's slice is updated in place in W_out and the
-//     anchor is read from global memory, rows are read from global memory
-//     in both passes (the second pass mostly from L2), and the batch is
-//     worked in chunks of at most `chunk` rows, one exchange of partial
-//     logits a chunk. The loss gradient of the whole batch and its packed
-//     row ids stay in shared memory where they fit, else in a per-CTA global
-//     scratch. Its shared memory does not grow with D, nor past the chunk
-//     with B, so it takes any B and D. The sums of squares of the next
-//     step's norms are folded into the update pass.
+//     16-CTA cluster; the wrapper picks k by how long a longest-first
+//     schedule of the clients' steps over the clusters the card runs at
+//     once would last, each step timed by a fit to the kernel's measured
+//     times), 8 consumer warps and a producer warp. The producer streams
+//     each step's rows, slice by slice in tiles of `tile` columns, through
+//     a ring of `stages` stages in shared memory (one cp.async.bulk per row
+//     per tile on the stage's full mbarrier; the consumers release a stage
+//     on its empty mbarrier). The forward pass reads W's tile once for all
+//     of a warp's rows, its partial logits in registers across tiles; the
+//     gradient pass forms G_tile = dz^T X_tile from the ring and updates
+//     the tile. W's and the anchor's slices stay in shared memory for the
+//     launch where they fit beside the ring, else W is updated in place in
+//     W_out; where one chunk takes the batch and the ring the whole slice,
+//     a step's rows stay in their stages from one pass to the next. The
+//     batch is worked in chunks of at most 8 warps' forward rows (8, 4, 2
+//     or 1 a warp as the classes grow, so that a thread's 168 registers
+//     hold them), one exchange of partial logits a chunk, read through
+//     32-bit shared::cluster addresses; the loss gradient of the whole
+//     batch and its packed row ids stay in shared memory where they fit,
+//     else in a per-CTA global scratch. The ring's size does not grow with
+//     D or B, so it takes any B and D. The sums of squares of the next
+//     step's norms are folded into the update.
 //  4. past 32 classes, at every B and D, the class-tiled wide kernel: the
-//     wide kernel with C a run-time argument, one instantiation a row type.
+//     wide kernel's cluster, slices, chunks, exchange and batch buffer
+//     without its ring (W's slice in W_out, rows read from global memory
+//     in both passes), C a run-time argument, one instantiation a row type.
 //     Its forward pass carries two rows through one tile of 32 classes of
 //     partial logits at a time (the rows read again for each tile), its
 //     gradient pass 32 accumulators a column at a time (the column's rows
@@ -788,7 +803,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The wide kernel: the shapes neither kernel above takes.
+// The wide kernels: the shapes neither kernel above takes.
 
 struct WideArgs {
   const float* W0;      // (J, C, D)
@@ -800,10 +815,15 @@ struct WideArgs {
   const float* valid;   // (J, S, B)
   const int* order;     // (J,) client of each cluster, largest first
   const int* nsteps;    // (J,) non-empty steps of each client
-  float* W_out;         // (J, C, D), each CTA's slice updated in place
+  float* W_out;         // (J, C, D)
   float* metrics;       // (J, 3)
   float* scratch;       // (J*k, wide_batch_floats) or null: the batch buffer
   int S, B, C, D, k, Dk, chunk;
+  // the ring of wide_epoch_kernel (the class-tiled kernel ignores them):
+  // columns of a stage, stages, W and the anchor held in shared memory, the
+  // step's rows held there from the forward pass to the gradient pass,
+  // cp.async.bulk row copies
+  int tile, stages, w_res, rows_res, bulk;
   float lr, mu, lam;
 };
 
@@ -822,11 +842,13 @@ __host__ __device__ size_t wide_batch_floats(int B, int NC) {
   return (size_t)round_up(B, 8) * (round_up(NC, 4) + 2);
 }
 
-// Shared memory of one CTA of the wide kernel: the header, then in floats
-// the double-buffered exchange (2 * (4 + chunk*CP)), the chunk's row loss
-// and hits (2 * chunk) and the block sums (2 * kWarps); then the batch
-// buffer when `hold` keeps it in shared memory.
-size_t wide_smem_bytes(int B, int NC, int chunk, bool hold) {
+// Shared memory of one CTA of the class-tiled wide kernel, and the part
+// the wide kernel's layout starts with: the header, then in floats the
+// double-buffered exchange (2 * (4 + chunk*CP)), the chunk's row loss and
+// hits (2 * chunk) and the block sums (2 * kWarps); then the batch buffer
+// when `hold` keeps it in shared memory.
+__host__ __device__ size_t wide_smem_bytes(int B, int NC, int chunk,
+                                           bool hold) {
   const size_t CP = round_up(NC, 4);
   const size_t floats = 2 * (4 + (size_t)chunk * CP) + 2 * (size_t)chunk +
                         2 * kWarps;
@@ -834,13 +856,159 @@ size_t wide_smem_bytes(int B, int NC, int chunk, bool hold) {
          (hold ? wide_batch_floats(B, NC) * sizeof(float) : 0);
 }
 
+// The wide kernel's ring: 8 consumer warps and one producer warp.
+constexpr int kRingThreads = kThreads + 32;
+constexpr int kRingMaxStages = 16;
+constexpr int kRingTile = 256;  // the widest stage, in columns
+
+// rows one consumer warp carries through the forward pass: its partial
+// logits (rows x NC) stay in registers over the slice's tiles, so a chunk
+// holds at most kWarps * ring_rows rows. One row past 16 classes: with two,
+// 9 warps' 168 registers a thread spill at NC = 26 and 32.
+__host__ __device__ constexpr int ring_rows(int NC) {
+  return NC <= 4 ? 8 : (NC <= 10 ? 4 : (NC <= 16 ? 2 : 1));
+}
+
+// the ring's mbarriers: each stage full (the producer's copies landed) and
+// empty (every consumer warp is done with it); the batch buffer full (the
+// step's rows packed) and empty (the consumers are done with its ids).
+// Then rank 0's running metrics of its client (loss * cnt, hits, cnt) and
+// the step's summed row losses, in shared memory rather than in thread 0's
+// registers, which the forward pass and the exchange need.
+struct RingHeader {
+  uint64_t full[kRingMaxStages];
+  uint64_t empty[kRingMaxStages];
+  uint64_t batch_full;
+  uint64_t batch_empty;
+  float met[4];
+};
+static_assert(sizeof(RingHeader) % 16 == 0, "ring header layout");
+
+// the shared::cluster address of this CTA's shared address `a` in CTA
+// `rank` of the cluster, and a float read there: 32-bit addresses, where
+// cluster.map_shared_rank gives 64-bit generic ones
+__device__ __forceinline__ uint32_t cluster_map(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// Shared memory of one CTA of the wide kernel: wide_smem_bytes' layout
+// (chunk, NC, the batch buffer when held), rounded to 16 bytes; the ring's
+// header; W's and the anchor's (C, Dk) slices when w_res holds them; and
+// `stages` stages of (chunk, tile) row elements.
+size_t ring_smem_bytes(int B, int C, int NC, int Dk, int chunk, int tile,
+                       int stages, bool w_res, bool hold) {
+  return round_up((int)wide_smem_bytes(B, NC, chunk, hold), 16) +
+         sizeof(RingHeader) +
+         (w_res ? 2 * (size_t)C * Dk * sizeof(float) : 0) +
+         (size_t)stages * chunk * tile * sizeof(RowT);
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// block_sum2 over the consumer warps only (named barrier 1)
+__device__ __forceinline__ void consumer_sum2(float& a, float& b,
+                                              float* scratch) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    scratch[warp] = a;
+    scratch[kWarps + warp] = b;
+  }
+  consumer_sync();
+  a = 0.f;
+  b = 0.f;
+  for (int w = 0; w < kWarps; ++w) {
+    a += scratch[w];
+    b += scratch[kWarps + w];
+  }
+  consumer_sync();
+}
+
+// the two halves of cluster.sync(), for the producer warp, which arrives at
+// an exchange as soon as it has issued the chunk's copies and waits only
+// before it arrives at the next
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+// A measurement build only (tools/client_epoch_phases.py compiles this file
+// with -DCLIENT_EPOCH_PHASE_CLOCKS): clock64 cycles that CTA 0 (rank 0 of
+// the client with the most steps) spends in each phase of the wide
+// kernel's steps, summed over its last launch. Consumer thread 0: 0 wait
+// for the packed batch, 1 wait for forward tiles, 2 forward FMAs, 3 warp
+// sums of the partial logits, 4 the cluster barrier, 5 the exchange's
+// DSMEM reads, 6 the row losses, 7 wait for gradient tiles, 8 gradient
+// FMAs, 9 the update, 10 the block sums. Producer lane 0: 11 wait for an
+// empty stage, 12 issuing copies, 13 wait for the batch buffer, 14 packing
+// a step's rows, 15 the cluster barrier's arrive and wait.
+constexpr int kWidePhases = 16;
+__device__ unsigned long long wide_phase_clocks[kWidePhases];
+#define WPHASE(i)                     \
+  if (timing) {                       \
+    const long long now_ = clock64(); \
+    ph[i] += now_ - t_last;           \
+    t_last = now_;                    \
+  }
+#else
+#define WPHASE(i)
+#endif
+
+// Plan 3. A cluster of k CTAs per client, each owning a slice of Dk columns
+// of D, as the staged kernel; per step the chunks of the packed valid rows
+// (at most kWarps * ring_rows rows, one DSMEM exchange of partial logits
+// each) and, per chunk, the slice in tiles of `tile` columns.
+//  - Warp 8, the producer, packs each step's valid rows (their ids and
+//    weights into the batch buffer) and streams their tiles through a ring
+//    of `stages` stages of (chunk, tile) elements: one cp.async.bulk per
+//    row per tile completing on the stage's full mbarrier (element-wise
+//    copies where a row or X is not 16-byte aligned), each stage reissued
+//    once all 8 consumer warps have released it on its empty mbarrier. It
+//    runs ahead of the consumers by the depth of the ring, across passes
+//    and steps, and takes part in the cluster's barriers without waiting
+//    on them until it must.
+//  - The forward pass: each consumer warp carries ring_rows rows of the
+//    chunk over every tile of the slice, lanes over float4 columns, its
+//    partial logits in registers; W's tile is read once a tile for all of
+//    the warp's rows (all 8 warps read the same tile at the same time).
+//  - The gradient pass: per tile a thread a column, G_tile = dz^T X_tile
+//    over the step's rows (every chunk's, from the ring, the row loop
+//    unrolled), then the prox and ridge terms and the update, and the next
+//    step's sums of squares folded in.
+//  - W's and the anchor's slices live in shared memory for the launch where
+//    they fit beside the ring (w_res; W_out written once at the end); else
+//    W is updated in place in W_out and each W and anchor tile is read once
+//    a step in each pass. Where one chunk holds the batch and the ring holds
+//    the whole slice (rows_res), the step's tiles stay in their stages from
+//    the forward pass to the gradient pass: rows are read once a step.
+//  - Rounded instantiations (C < NC) clamp their class loads to the last
+//    class and drop what they compute: no load waits behind a branch.
 template <int NC, bool EXACT>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
     wide_epoch_kernel(const WideArgs p) {
-  constexpr int RB = NC <= 4 ? 8 : (NC <= 10 ? 4 : (NC <= 16 ? 2 : 1));
+  constexpr int RB = ring_rows(NC);
   constexpr int CP = round_up(NC, 4);
   const int C = EXACT ? NC : p.C;
-  const int B = p.B, D = p.D, k = p.k, Bc = p.chunk;
+  const int B = p.B, D = p.D, k = p.k, Dk = p.Dk, Bc = p.chunk;
+  const int Dt = p.tile, NS = p.stages;
   const int Bp = round_up(B, 8), PS = 4 + Bc * CP;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -848,8 +1016,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rank = static_cast<int>(cluster.block_rank());
   const int j = p.order[blockIdx.x / k];
   const int T = p.nsteps[j];
-  const int d0 = rank * p.Dk;
-  const int wd = max(0, min(p.Dk, D - d0));  // this CTA's columns of D
+  const int d0 = rank * Dk;
+  const int wd = max(0, min(Dk, D - d0));  // this CTA's columns of D
+  const int ntiles = (wd + Dt - 1) / Dt;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   WideHeader* h = reinterpret_cast<WideHeader*>(smem_raw);
@@ -858,137 +1027,316 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* row_loss = part + 2 * PS;
   float* row_hit = row_loss + Bc;
   float* red = row_hit + Bc;  // [2][kWarps]
-  // the batch buffer, shared or global behind one generic pointer
-  float* batch = p.scratch == nullptr
-                     ? red + 2 * kWarps
-                     : p.scratch + blockIdx.x * wide_batch_floats(B, NC);
+  const bool hold = p.scratch == nullptr;
+  float* batch = hold ? red + 2 * kWarps
+                      : p.scratch + blockIdx.x * wide_batch_floats(B, NC);
   int* row_id = reinterpret_cast<int*>(batch);
   float* row_w = batch + Bp;
   float* dz = row_w + Bp;  // [Bp][CP]: the summed logits, then d loss / dz
+  RingHeader* bars = reinterpret_cast<RingHeader*>(
+      smem_raw + round_up((int)wide_smem_bytes(B, NC, Bc, hold), 16));
+  float* ws = reinterpret_cast<float*>(bars + 1);  // (C, Dk) when w_res
+  float* as = ws + C * Dk;
+  RowT* ring = reinterpret_cast<RowT*>(p.w_res ? as + C * Dk : ws);
+  const int stage_elems = Bc * Dt;
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  const bool timing = blockIdx.x == 0 && (tid == 0 || tid == kThreads);
+  long long ph[kWidePhases] = {};
+  long long t_last = clock64();
+#endif
 
-  // W_out starts as W0; sp, sr: sums of squares of w - anchor and w over
-  // this slice, then (block_sum2) over the CTA, kept for the next exchange
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&bars->full[s], 1);
+      mbar_init(&bars->empty[s], kWarps);
+    }
+    mbar_init(&bars->batch_full, 1);
+    mbar_init(&bars->batch_empty, 1);
+    for (int i = 0; i < 4; ++i) bars->met[i] = 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
   const size_t CD = (size_t)C * D;
-  const float* Wj = p.W0 + j * CD;
   float* Wo = p.W_out + j * CD;
+
+  if (warp == kWarps) {
+    // ---- the producer warp ----
+    int look = 0;  // cursor over the client's steps
+    // packs the next non-empty step's valid rows (one remains: the caller
+    // counted them) into the batch buffer; returns their count
+    auto pack = [&]() -> int {
+      for (;;) {
+        const size_t base = ((size_t)j * p.S + look) * B;
+        int n = 0;
+        float cnt = 0.f;
+        for (int b0 = 0; b0 < B; b0 += 32) {
+          const int b = b0 + lane;
+          float v = 0.f;
+          int r = 0;
+          if (b < B) {
+            v = p.valid[base + b];
+            r = p.rows[base + b];
+          }
+          const unsigned m = __ballot_sync(0xffffffffu, v != 0.f);
+          if (v != 0.f) {
+            const int slot = n + __popc(m & ((1u << lane) - 1u));
+            row_id[slot] = r;
+            row_w[slot] = v;
+          }
+          n += __popc(m);
+          cnt += warp_sum(v);
+        }
+        ++look;
+        if (n > 0) {
+          if (lane == 0) {
+            h->n = n;
+            h->cnt = cnt;
+          }
+          return n;
+        }
+      }
+    };
+    // copies rows [q0, q0 + nc) of the batch, tile tl of the slice, into
+    // ring entry ri's stage, once its last use is released
+    auto issue = [&](int ri, int q0, int nc, int tl) {
+      const int s = ri % NS, u = ri / NS;
+      WPHASE(12);
+      if (u > 0) mbar_wait(&bars->empty[s], (unsigned)((u - 1) & 1));
+      WPHASE(11);
+      RowT* dst = ring + s * stage_elems;
+      const int c0 = tl * Dt, wt = min(Dt, wd - c0);
+      const RowT* src = p.X + d0 + c0;
+      if (p.bulk) {
+        if (lane == 0)
+          mbar_expect_tx(&bars->full[s], (unsigned)(nc * wt * sizeof(RowT)));
+        __syncwarp();
+        for (int r = lane; r < nc; r += 32)
+          bulk_copy(dst + r * Dt, src + (size_t)row_id[q0 + r] * D,
+                    (unsigned)(wt * sizeof(RowT)), &bars->full[s]);
+      } else {
+        for (int i = lane; i < nc * wt; i += 32) {
+          const int r = i / wt, d = i - r * wt;
+          RowT* e = dst + r * Dt + d;
+          const RowT* x = src + (size_t)row_id[q0 + r] * D + d;
+          if constexpr (sizeof(RowT) == 4)
+            cp_async4(e, x);
+          else
+            *e = *x;  // cp.async moves 4 bytes at least: a plain copy
+        }
+        if constexpr (sizeof(RowT) == 4) {
+          cp_async_commit();
+          cp_async_wait<0>();
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bars->full[s]);
+      }
+    };
+    int ri = 0;
+    bool pending = false;  // arrived at an exchange not yet waited on
+    for (int t = 0; t < T; ++t) {
+      WPHASE(12);
+      if (t > 0) mbar_wait(&bars->batch_empty, (unsigned)((t - 1) & 1));
+      WPHASE(13);
+      const int n = pack();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars->batch_full);
+      WPHASE(14);
+      const int nch = (n + Bc - 1) / Bc;
+      for (int e = 0; e < nch; ++e) {
+        for (int tl = 0; tl < ntiles; ++tl)
+          issue(ri++, e * Bc, min(Bc, n - e * Bc), tl);
+        WPHASE(12);
+        if (pending) cluster_wait();
+        cluster_arrive();
+        pending = true;
+        WPHASE(15);
+      }
+      if (!p.rows_res)
+        for (int tl = 0; tl < ntiles; ++tl)
+          for (int e = 0; e < nch; ++e)
+            issue(ri++, e * Bc, min(Bc, n - e * Bc), tl);
+    }
+    WPHASE(12);
+    if (pending) cluster_wait();
+    WPHASE(15);
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+    if (timing)
+      for (int i = 11; i < kWidePhases; ++i) wide_phase_clocks[i] = ph[i];
+#endif
+    cluster.sync();  // the consumers' last
+    return;
+  }
+
+  // ---- the 8 consumer warps ----
+  // W's slice (to shared memory, or W_out starts as W0) and the sums of
+  // squares of w - anchor and w over it, then over the CTA, kept for the
+  // first exchange
+  const float* Wj = p.W0 + j * CD;
   float sp = 0.f, sr = 0.f;
   for (int c = 0; c < C; ++c) {
     for (int d = tid; d < wd; d += kThreads) {
       const size_t i = (size_t)c * D + d0 + d;
       const float wv = Wj[i];
-      const float dv = wv - p.anchor[i];
-      Wo[i] = wv;
+      const float av = p.anchor[i];
+      if (p.w_res) {
+        ws[c * Dk + d] = wv;
+        as[c * Dk + d] = av;
+      } else {
+        Wo[i] = wv;
+      }
+      const float dv = wv - av;
       sp = fmaf(dv, dv, sp);
       sr = fmaf(wv, wv, sr);
     }
   }
-  block_sum2(sp, sr, red);
+  consumer_sum2(sp, sr, red);
 
-  // Warp 0 packs the next non-empty step's valid rows (the caller counted
-  // them: one remains) into the batch buffer, its cursor in registers.
-  int look = 0;
-  auto pack = [&]() {
-    for (;;) {
-      const size_t base = ((size_t)j * p.S + look) * B;
-      int n = 0;
-      float cnt = 0.f;
-      for (int b0 = 0; b0 < B; b0 += 32) {
-        const int b = b0 + lane;
-        float v = 0.f;
-        int r = 0;
-        if (b < B) {
-          v = p.valid[base + b];
-          r = p.rows[base + b];
-        }
-        const unsigned m = __ballot_sync(0xffffffffu, v != 0.f);
-        if (v != 0.f) {
-          const int slot = n + __popc(m & ((1u << lane) - 1u));
-          row_id[slot] = r;
-          row_w[slot] = v;
-        }
-        n += __popc(m);
-        cnt += warp_sum(v);
-      }
-      ++look;
-      if (n > 0) {
-        if (lane == 0) {
-          h->n = n;
-          h->cnt = cnt;
-        }
-        return;
-      }
-    }
+  // where the forward pass reads W's tiles: 0 the slice in shared memory,
+  // 1 W_out in float4s (D % 4 == 0: aligned), 2 W_out a float at a time.
+  // Each is its own code path, so that shared addresses stay 32-bit.
+  const int wsrc = p.w_res ? 0 : (D % 4 == 0 ? 1 : 2);
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars->empty[s]);
   };
 
-  float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // rank 0, thread 0
+  float* met = bars->met;  // rank 0, thread 0
   int ex = 0;  // exchanges so far: part is double-buffered by exchange
+  int ri = 0;  // ring entries consumed
   for (int t = 0; t < T; ++t) {
-    if (warp == 0) pack();
-    __syncthreads();
+    WPHASE(10);
+    mbar_wait(&bars->batch_full, (unsigned)(t & 1));
+    WPHASE(0);
     const int n = h->n;
     const float cnt = h->cnt;
     const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
-    float dl = 0.f, hits = 0.f;  // rank 0, thread 0
+    const int nch = (n + Bc - 1) / Bc;
 
-    for (int q0 = 0; q0 < n; q0 += Bc, ++ex) {
-      const int nc = min(Bc, n - q0);
+    for (int e = 0; e < nch; ++e, ++ex) {
+      const int q0 = e * Bc, nc = min(Bc, n - q0);
       float* pc = part + (ex & 1) * PS;
-      // partial z of the chunk's rows over this slice: one warp per RB
-      // rows, lanes over columns; W read from this CTA's slice of W_out
-      const int groups = (nc + RB - 1) / RB;
-      for (int g = warp; g < groups; g += kWarps) {
-        const RowT* xr[RB];
+      // partial z of the chunk's rows over this slice: warp w carries rows
+      // r0 .. r0 + RB (clamped to the chunk, the extra dropped) over every
+      // tile; lanes over float4 columns
+      const int r0 = warp * RB;
+      float acc[RB][NC];
 #pragma unroll
-        for (int r = 0; r < RB; ++r)
-          xr[r] = p.X + (size_t)row_id[q0 + min(g * RB + r, nc - 1)] * D + d0;
-        float acc[RB][NC];
+      for (int r = 0; r < RB; ++r)
 #pragma unroll
-        for (int r = 0; r < RB; ++r)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-#pragma unroll 2
-        for (int d = lane; d < wd; d += 32) {
-          float xv[RB];
-#pragma unroll
-          for (int r = 0; r < RB; ++r) xv[r] = R::one(xr[r] + d);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            if (!EXACT && c >= C) break;
-            const float wv = Wo[(size_t)c * D + d0 + d];
-#pragma unroll
-            for (int r = 0; r < RB; ++r) acc[r][c] = fmaf(xv[r], wv, acc[r][c]);
-          }
+        for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+      auto forward = [&](auto src_tag) {
+        constexpr int SRC = decltype(src_tag)::value;
+        const float* wsl;
+        int wstride;
+        if constexpr (SRC == 0) {
+          wsl = ws;
+          wstride = Dk;
+        } else {
+          wsl = Wo + d0;
+          wstride = D;
         }
+        for (int tl = 0; tl < ntiles; ++tl, ++ri) {
+          const int s = ri % NS;
+          mbar_wait(&bars->full[s], (unsigned)((ri / NS) & 1));
+          WPHASE(1);
+          if (r0 < nc) {
+            const RowT* xs = ring + s * stage_elems;
+            const int c0 = tl * Dt, wt = min(Dt, wd - c0), q4 = wt >> 2;
+            const float* wt0 = wsl + c0;
+            auto xrow = [&](int r) { return xs + min(r0 + r, nc - 1) * Dt; };
+            auto wrow = [&](int c) {
+              return wt0 + (EXACT ? c : min(c, C - 1)) * wstride;
+            };
+            // at most two float4s a lane (tile <= 256)
+#pragma unroll 1
+            for (int q = lane; q < q4; q += 32) {
+              float4 xv[RB];
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
+              for (int r = 0; r < RB; ++r) xv[r] = R::four(xrow(r) + 4 * q);
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            if (!EXACT && c >= C) break;
-            const float v = warp_sum(acc[r][c]);
-            if (lane == 0 && g * RB + r < nc) pc[4 + (g * RB + r) * CP + c] = v;
+              for (int c = 0; c < NC; ++c) {
+                const float* w4 = wrow(c) + 4 * q;
+                float4 wv;
+                if constexpr (SRC == 2)
+                  wv = make_float4(w4[0], w4[1], w4[2], w4[3]);
+                else
+                  wv = *reinterpret_cast<const float4*>(w4);
+#pragma unroll
+                for (int r = 0; r < RB; ++r) {
+                  float a = acc[r][c];
+                  a = fmaf(xv[r].x, wv.x, a);
+                  a = fmaf(xv[r].y, wv.y, a);
+                  a = fmaf(xv[r].z, wv.z, a);
+                  a = fmaf(xv[r].w, wv.w, a);
+                  acc[r][c] = a;
+                }
+              }
+            }
+            // the last tile's columns past a multiple of 4 (D % 4 != 0)
+            for (int d = 4 * q4 + lane; d < wt; d += 32) {
+              float xv[RB];
+#pragma unroll
+              for (int r = 0; r < RB; ++r) xv[r] = R::one(xrow(r) + d);
+#pragma unroll
+              for (int c = 0; c < NC; ++c) {
+                const float wv = wrow(c)[d];
+#pragma unroll
+                for (int r = 0; r < RB; ++r)
+                  acc[r][c] = fmaf(xv[r], wv, acc[r][c]);
+              }
+            }
           }
+          if (!p.rows_res) release(s);
+          WPHASE(2);
+        }
+      };
+      if (wsrc == 0)
+        forward(std::integral_constant<int, 0>{});
+      else if (wsrc == 1)
+        forward(std::integral_constant<int, 1>{});
+      else
+        forward(std::integral_constant<int, 2>{});
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float v = warp_sum(acc[r][c]);
+          if (lane == 0 && r0 + r < nc && (EXACT || c < C))
+            pc[4 + (r0 + r) * CP + c] = v;
         }
       }
       if (q0 == 0 && tid == 0) {
         pc[0] = sp;
         pc[1] = sr;
       }
+      WPHASE(3);
 
       // the chunk's exchange: every CTA sums the k partials in rank order.
       // A CTA writes exchange e+2's partials only after the barrier of
       // exchange e+1, which every CTA reaches after reading exchange e's.
       cluster.sync();
+      WPHASE(4);
+      const uint32_t pc_s = smem_addr(pc);
       for (int i = (q0 == 0 ? 0 : 4) + tid; i < 4 + nc * CP; i += kThreads) {
         if (i == 2 || i == 3) continue;
         if (i >= 4 && (i - 4) % CP >= C) continue;
+        // the k partials' loads all in flight, then their sum in rank order
+        float part_q[kMaxWideCluster];
+#pragma unroll
+        for (int q = 0; q < kMaxWideCluster; ++q)
+          if (q < k) part_q[q] = ld_cluster(cluster_map(pc_s + 4 * i, q));
         float v = 0.f;
-        for (int q = 0; q < k; ++q) v += cluster.map_shared_rank(pc, q)[i];
+#pragma unroll
+        for (int q = 0; q < kMaxWideCluster; ++q)
+          if (q < k) v += part_q[q];
         if (i < 2)
           h->tot[i] = v;
         else
           dz[q0 * CP + i - 4] = v;
       }
-      __syncthreads();
+      consumer_sync();
+      WPHASE(5);
 
       // per row: loss, top-1 hit, and dz (overwrites z), scaled by w_b / cnt
       for (int b = tid; b < nc; b += kThreads) {
@@ -1000,80 +1348,176 @@ __global__ void __launch_bounds__(kThreads, 1)
                       bv;
         row_hit[b] = hit * bv;
       }
-      __syncthreads();
+      consumer_sync();
+      // the step's row ids and weights are no longer read: the producer
+      // may pack the next step's
+      if (e == nch - 1 && tid == 0) mbar_arrive(&bars->batch_empty);
       if (rank == 0 && tid == 0) {
+        float dl = met[3], hits = met[1];
         for (int b = 0; b < nc; ++b) {
           dl += row_loss[b];
           hits += row_hit[b];
         }
+        met[3] = dl;
+        met[1] = hits;
       }
+      WPHASE(6);
     }
 
     const float sq_p = h->tot[0], sq_r = h->tot[1];
     const float norm_p = sq_p > 0.f ? sqrtf(sq_p) : 0.f;
     const float norm_r = sq_r > 0.f ? sqrtf(sq_r) : 0.f;
     if (rank == 0 && tid == 0) {
-      const float loss = dl * inv_cnt + p.mu * norm_p + p.lam * norm_r;
-      acc_loss += loss * cnt;
-      acc_hit += hits;
-      acc_cnt += cnt;
+      const float loss = met[3] * inv_cnt + p.mu * norm_p + p.lam * norm_r;
+      met[0] += loss * cnt;
+      met[2] += cnt;
+      met[3] = 0.f;
     }
 
-    // grad[c, d] = sum_b dz[b, c] x_b[d] + penalties over this slice, a
-    // column a thread, the rows read again from global memory; the updated
+    // grad[c, d] = sum_b dz[b, c] x_b[d] + penalties over this slice: a
+    // column a thread a tile, every chunk's rows from the ring; the updated
     // w's sums of squares are the next step's norms
     sp = 0.f;
     sr = 0.f;
-    for (int d = tid; d < wd; d += kThreads) {
+    const float rp = 1.f / fmaxf(norm_p, 1e-30f);
+    const float rr = 1.f / fmaxf(norm_r, 1e-30f);
+    const int held = ri - ntiles;  // rows_res: this step's forward entries
+    // the update of column d: its classes in groups of G, every load of a
+    // group before its stores (a clamped load may read a class a store
+    // writes)
+    auto update = [&](auto shared_tag, const float(&g)[NC], int d) {
+      constexpr bool SH = decltype(shared_tag)::value;
+      float* wcol;
+      const float* acol;
+      int stride;
+      if constexpr (SH) {
+        wcol = ws + d;
+        acol = as + d;
+        stride = Dk;
+      } else {
+        wcol = Wo + d0 + d;
+        acol = p.anchor + d0 + d;
+        stride = D;
+      }
+      constexpr int G = NC <= 16 ? NC : 8;
+#pragma unroll
+      for (int cg0 = 0; cg0 < NC; cg0 += G) {
+        float wv[G], av[G];
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const int c = cg0 + i, cc = EXACT ? c : min(c, C - 1);
+          if (c < NC) {
+            wv[i] = wcol[cc * stride];
+            av[i] = acol[cc * stride];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const int c = cg0 + i;
+          if (c >= NC || (!EXACT && c >= C)) continue;
+          float gc = g[c];
+          if (sq_p > 0.f) gc += p.mu * ((wv[i] - av[i]) * rp);
+          if (sq_r > 0.f) gc += p.lam * (wv[i] * rr);
+          const float nw = wv[i] - p.lr * gc;
+          wcol[c * stride] = nw;
+          const float dv = nw - av[i];
+          sp = fmaf(dv, dv, sp);
+          sr = fmaf(nw, nw, sr);
+        }
+      }
+    };
+    // tile tl: its G tile over every chunk's rows, then its update. HOLD:
+    // dz read through a shared-memory pointer (the batch buffer held),
+    // else through a generic one (global scratch).
+    auto grad_tile = [&](auto hold_tag, int tl) {
+      constexpr bool HOLD = decltype(hold_tag)::value;
+      const float* dzb;
+      if constexpr (HOLD)
+        dzb = red + 2 * kWarps + 2 * Bp;  // dz of the held batch buffer
+      else
+        dzb = dz;
+      const int c0 = tl * Dt, wt = min(Dt, wd - c0);
       float g[NC];
 #pragma unroll
       for (int c = 0; c < NC; ++c) g[c] = 0.f;
-      for (int b = 0; b < n; ++b) {
-        const float xv = R::one(p.X + (size_t)row_id[b] * D + d0 + d);
-#pragma unroll
-        for (int c4 = 0; c4 < CP / 4; ++c4) {
-          const float4 dz4 =
-              *reinterpret_cast<const float4*>(dz + b * CP + 4 * c4);
-          const float dzv[4] = {dz4.x, dz4.y, dz4.z, dz4.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = 4 * c4 + e;
-            if (c < NC) g[c] = fmaf(dzv[e], xv, g[c]);
-          }
+      int s = 0;
+      for (int e = 0; e < nch; ++e) {
+        const int q0 = e * Bc, nc = min(Bc, n - q0);
+        if (p.rows_res) {
+          s = (held + tl) % NS;
+        } else {
+          s = ri % NS;
+          mbar_wait(&bars->full[s], (unsigned)((ri / NS) & 1));
+          ++ri;
         }
-      }
+        WPHASE(7);
+        // this thread's column, clamped to the tile's width (what a
+        // clamped column adds is dropped)
+        const RowT* xc = ring + s * stage_elems + min(tid, wt - 1);
+        const float* dzq = dzb + q0 * CP;
+        auto row = [&](int b) {
+          const float xv = R::one(xc + b * Dt);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        if (!EXACT && c >= C) break;
-        const size_t i = (size_t)c * D + d0 + d;
-        const float wv = Wo[i];
-        const float av = p.anchor[i];
-        float gc = g[c];
-        if (sq_p > 0.f) gc += p.mu * ((wv - av) / fmaxf(norm_p, 1e-30f));
-        if (sq_r > 0.f) gc += p.lam * (wv / fmaxf(norm_r, 1e-30f));
-        const float nw = wv - p.lr * gc;
-        Wo[i] = nw;
-        const float dv = nw - av;
-        sp = fmaf(dv, dv, sp);
-        sr = fmaf(nw, nw, sr);
+          for (int c4 = 0; c4 < CP / 4; ++c4) {
+            const float4 dz4 =
+                *reinterpret_cast<const float4*>(dzq + b * CP + 4 * c4);
+            const float dzv[4] = {dz4.x, dz4.y, dz4.z, dz4.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (4 * c4 + q < NC)
+                g[4 * c4 + q] = fmaf(dzv[q], xv, g[4 * c4 + q]);
+          }
+        };
+        // GU rows' loads in flight together, fewer where a row's dz is wide
+        constexpr int GU = NC <= 10 ? 4 : (NC <= 16 ? 2 : 1);
+        int b = 0;
+        for (; b + GU <= nc; b += GU) {
+#pragma unroll
+          for (int u = 0; u < GU; ++u) row(b + u);
+        }
+        for (; b < nc; ++b) row(b);
+        if (!p.rows_res) release(s);
+        WPHASE(8);
       }
+      if (p.rows_res) release(s);
+      if (tid < wt) {
+        if (p.w_res)
+          update(std::true_type{}, g, c0 + tid);
+        else
+          update(std::false_type{}, g, c0 + tid);
+      }
+      WPHASE(9);
+    };
+    for (int tl = 0; tl < ntiles; ++tl) {
+      if (hold)
+        grad_tile(std::true_type{}, tl);
+      else
+        grad_tile(std::false_type{}, tl);
     }
-    // also frees the batch buffer and the header for the next step
-    block_sum2(sp, sr, red);
+    // also frees dz and the chunk's scratch for the next step
+    consumer_sum2(sp, sr, red);
   }
+  if (p.w_res) {
+    for (int c = 0; c < C; ++c)
+      for (int d = tid; d < wd; d += kThreads)
+        Wo[(size_t)c * D + d0 + d] = ws[c * Dk + d];
+  }
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  WPHASE(10);
+  if (timing)
+    for (int i = 0; i < 11; ++i) wide_phase_clocks[i] = ph[i];
+#endif
   // no CTA leaves while another may still read its partials
   cluster.sync();
-  if (rank == 0 && tid == 0) {
-    p.metrics[j * 3 + 0] = acc_loss;
-    p.metrics[j * 3 + 1] = acc_hit;
-    p.metrics[j * 3 + 2] = acc_cnt;
-  }
+  if (rank == 0 && tid == 0)
+    for (int i = 0; i < 3; ++i) p.metrics[j * 3 + i] = met[i];
 }
 
-// One launch of a wide kernel (either instantiation): J clusters of p.k
-// CTAs of `smem` bytes each.
+// One launch of a wide kernel (either): J clusters of p.k CTAs of
+// `threads` threads and `smem` bytes each.
 cudaError_t launch_wide_kernel(void (*kern)(WideArgs), const WideArgs& p,
-                               int J, size_t smem, cudaStream_t stream) {
+                               int J, int threads, size_t smem,
+                               cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -1084,7 +1528,7 @@ cudaError_t launch_wide_kernel(void (*kern)(WideArgs), const WideArgs& p,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(J * p.k));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1101,15 +1545,21 @@ cudaError_t launch_wide_kernel(void (*kern)(WideArgs), const WideArgs& p,
 
 template <int NC, bool EXACT>
 cudaError_t launch_wide(const WideArgs& p, int J, cudaStream_t stream) {
+  if (p.stages < 1 || p.stages > kRingMaxStages || p.tile < 8 ||
+      p.tile > kRingTile || p.tile % 8 != 0 || p.chunk > kWarps * ring_rows(NC))
+    return cudaErrorInvalidValue;
   return launch_wide_kernel(
-      wide_epoch_kernel<NC, EXACT>, p, J,
-      wide_smem_bytes(p.B, NC, p.chunk, p.scratch == nullptr), stream);
+      wide_epoch_kernel<NC, EXACT>, p, J, kRingThreads,
+      ring_smem_bytes(p.B, p.C, NC, p.Dk, p.chunk, p.tile, p.stages,
+                      p.w_res != 0, p.scratch == nullptr),
+      stream);
 }
 
 // ---------------------------------------------------------------------------
 // The class-tiled wide kernel: the wide kernel for any C, taken at run time
 // (one instantiation a row type). The same cluster, slices, chunks, exchange
-// and batch buffer, with CP = C rounded up to 4 in place of the
+// and batch buffer, but no ring: W's slice is updated in place in W_out and
+// rows are read from global memory in both passes; CP = C rounded up to 4 in place of the
 // instantiation's; what held one accumulator a class walks the classes in
 // tiles: the forward pass carries kTileRows rows through one tile of
 // kTileF partial logits at a time (the rows read again for each tile, from
@@ -1379,7 +1829,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 cudaError_t launch_wide_tiled(const WideArgs& p, int J, cudaStream_t stream) {
   return launch_wide_kernel(
-      wide_tiled_epoch_kernel, p, J,
+      wide_tiled_epoch_kernel, p, J, kThreads,
       wide_smem_bytes(p.B, p.C, p.chunk, p.scratch == nullptr), stream);
 }
 
@@ -1409,40 +1859,61 @@ int client_epoch_row_bytes(void) { return static_cast<int>(sizeof(RowT)); }
 // The slice of D one CTA of a k-cluster holds in this build.
 int client_epoch_slice_width(int D, int k) { return slice_width(D, k); }
 
-// Dynamic shared memory of one CTA of the wide kernel working chunks of
-// `chunk` rows, with the batch buffer in shared memory (hold) or not, and
-// the floats of one CTA's batch buffer (its global scratch when not held);
-// `tiled` for the class-tiled instantiation, whose layout holds C classes
-// itself, not the instantiated count.
+// Dynamic shared memory of one CTA of the class-tiled wide kernel working
+// chunks of `chunk` rows, with the batch buffer in shared memory (hold) or
+// not, and the floats of one CTA's batch buffer (its global scratch when
+// not held); `tiled` 0 gives the same part of the wide kernel's layout (the
+// instantiated class count's), which ring_smem_bytes starts with.
 size_t client_epoch_wide_smem_bytes(int B, int C, int chunk, int hold,
                                     int tiled) {
   return wide_smem_bytes(B, tiled ? C : instantiated_classes(C), chunk,
                          hold != 0);
 }
 
+// Dynamic shared memory of one CTA of the wide kernel of a k-cluster: its
+// ring of `stages` stages of (chunk, tile) row elements, W's and the
+// anchor's slices when w_res holds them, the batch buffer when held.
+size_t client_epoch_ring_smem_bytes(int B, int C, int D, int k, int chunk,
+                                    int tile, int stages, int w_res,
+                                    int hold) {
+  return ring_smem_bytes(B, C, instantiated_classes(C), slice_width(D, k),
+                         chunk, tile, stages, w_res != 0, hold != 0);
+}
+
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+// The wide kernel's phase clocks of its last launch (kWidePhases values).
+int client_epoch_wide_phase_clocks(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, wide_phase_clocks,
+                                               sizeof(wide_phase_clocks)));
+}
+#endif
+
 size_t client_epoch_wide_batch_floats(int B, int C, int tiled) {
   return wide_batch_floats(B, tiled ? C : instantiated_classes(C));
 }
 
-// The largest cluster the wide kernel may launch on this card: 16 when
-// cudaOccupancyMaxActiveClusters finds room for one 16-CTA cluster of its
-// largest CTA (a full block of shared memory), else the portable 8.
-int client_epoch_wide_max_cluster(void) {
+// How many clusters of k CTAs of the wide kernel the card runs at once,
+// each CTA a full block of shared memory (one CTA an SM), from
+// cudaOccupancyMaxActiveClusters: a cluster sits in one GPC, so this is
+// not the SM count over k. 0 where the card does not take a k-cluster.
+int client_epoch_wide_active_clusters(int k) {
   auto kern = wide_epoch_kernel<32, false>;
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                           1) != cudaSuccess ||
+  if ((k > kMaxCluster &&
+       cudaFuncSetAttribute(kern,
+                            cudaFuncAttributeNonPortableClusterSizeAllowed,
+                            1) != cudaSuccess) ||
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kSmemLimit) != cudaSuccess) {
     cudaGetLastError();
-    return kMaxCluster;
+    return 0;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kMaxWideCluster);
-  cfg.blockDim = dim3(kThreads);
+  cfg.gridDim = dim3((unsigned)k);
+  cfg.blockDim = dim3(kRingThreads);
   cfg.dynamicSmemBytes = kSmemLimit;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kMaxWideCluster;
+  attr[0].val.clusterDim.x = (unsigned)k;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1450,7 +1921,16 @@ int client_epoch_wide_max_cluster(void) {
   int clusters = 0;
   const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   cudaGetLastError();  // a refusal here must not reach a later launch's check
-  return (e == cudaSuccess && clusters > 0) ? kMaxWideCluster : kMaxCluster;
+  return e == cudaSuccess ? clusters : 0;
+}
+
+// The largest cluster the wide kernels may launch on this card: 16 when
+// the card runs a 16-CTA cluster of the wide kernel's largest CTA, else the
+// portable 8.
+int client_epoch_wide_max_cluster(void) {
+  return client_epoch_wide_active_clusters(kMaxWideCluster) > 0
+             ? kMaxWideCluster
+             : kMaxCluster;
 }
 
 // One launch of the staged kernel: J clusters of k CTAs, cluster i running
@@ -1525,19 +2005,23 @@ int client_epoch_launch_unstaged(const void* W0, const void* anchor,
   return static_cast<int>(e);
 }
 
-// One launch of the wide kernel: J clusters of k CTAs, cluster i running
+// One launch of a wide kernel: J clusters of k CTAs, cluster i running
 // client order[i], the batch worked in chunks of `chunk` rows (a multiple
 // of 8); scratch holds each CTA's batch buffer (wide_batch_floats floats a
 // CTA), or is null to keep it in shared memory; `tiled` runs the
-// class-tiled instantiation (any C), else the one dispatch_classes names
-// (C <= 32). Other arguments as client_epoch_launch_staged. Returns
-// cudaGetLastError() after the launch.
+// class-tiled instantiation (any C), else the wide kernel that
+// dispatch_classes names (C <= 32) with its ring of `stages` stages of
+// `tile` columns, W's slice held in shared memory (w_res), the step's rows
+// held from pass to pass (rows_res) and cp.async.bulk copies (bulk: a row a
+// multiple of 16 bytes and X 16-byte aligned). Other arguments as
+// client_epoch_launch_staged. Returns cudaGetLastError() after the launch.
 int client_epoch_launch_wide(const void* W0, const void* anchor, const void* X,
                              const void* y, const void* rows,
                              const void* valid, const void* order,
                              const void* nsteps, void* W_out, void* metrics,
                              void* scratch, int J, int S, int B, int C, int D,
-                             int k, int chunk, int tiled, int is_cls,
+                             int k, int chunk, int tile, int stages, int w_res,
+                             int rows_res, int bulk, int tiled, int is_cls,
                              float lr, float mu, float lam, void* stream) {
   if (k < 1 || k > kMaxWideCluster || chunk < 8 || chunk % 8 != 0)
     return cudaErrorInvalidValue;
@@ -1561,6 +2045,11 @@ int client_epoch_launch_wide(const void* W0, const void* anchor, const void* X,
   p.k = k;
   p.Dk = slice_width(D, k);
   p.chunk = chunk;
+  p.tile = tile;
+  p.stages = stages;
+  p.w_res = w_res;
+  p.rows_res = rows_res;
+  p.bulk = bulk;
   p.lr = lr;
   p.mu = mu;
   p.lam = lam;

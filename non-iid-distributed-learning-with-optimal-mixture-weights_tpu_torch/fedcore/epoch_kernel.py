@@ -34,11 +34,19 @@ batches too large to stage run an unstaged kernel where W and the anchor
 fit one CTA whole (one CTA per client, rows read from global memory in
 both passes); every other shape of at most 32 classes runs the wide
 kernel: a cluster of ``k`` CTAs per client (up to 16 where the card
-schedules it, ``wide_max_cluster``), W's slice updated in place in global
-memory, rows read from global memory in both passes, the batch worked in
-chunks of at most ``MAX_CHUNK`` rows with one exchange each, so neither D
-nor B bounds it. Past 32 classes every shape runs the class-tiled wide
-kernel (``"wide_tiled"``): the wide kernel with C taken at run time, its
+schedules it, ``wide_max_cluster``; ``_wide_cluster`` picks ``k`` by how
+long a longest-first schedule of the clients' steps would last over the
+clusters the card runs at once, ``wide_active_clusters``, each step timed
+by a fit to the kernel's measured times), whose producer warp streams
+each step's rows through a ring of ``stages`` bulk-copy tiles of ``tile``
+columns in shared memory for 8 consumer warps; W's tile is read once for
+all of a warp's rows, W's and the anchor's slices stay in shared memory
+where they fit (``w_res``), and a step's rows stay in the ring from pass
+to pass where one chunk takes the batch (``rows_res``); the batch is
+worked in chunks of at most ``WARPS * ring_rows`` rows with one exchange
+each, so neither D nor B bounds it. Past 32 classes every shape runs the
+class-tiled wide kernel (``"wide_tiled"``): the wide kernel's cluster and
+chunks without its ring (W in global memory), C taken at run time, its
 accumulators walking the classes in tiles of 32 and each row's loss one
 warp's online logsumexp over the tiles; its chunk shrinks as C grows
 (about 24 rows at C = 1,000), so only a chunk of 8 rows' logits past a
@@ -56,6 +64,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import heapq
 
 import torch
 
@@ -67,7 +76,24 @@ STAGED_CLUSTERS = (1, 2, 4, MAX_CLUSTER)
 WIDE_CLUSTERS = STAGED_CLUSTERS + (16,)  # 16 where the card schedules it
 HEADER_BYTES = 48          # mbarriers and per-stage counts (client_epoch.cu)
 WIDE_HEADER_BYTES = 16     # the wide kernel's step header (client_epoch.cu)
-MAX_CHUNK = 128            # rows of one exchange of the wide kernel
+MAX_CHUNK = 128            # rows of one exchange of the class-tiled kernel
+RING_TILE = 256            # the wide kernel's widest ring stage, in columns
+RING_MIN_STAGES = 3        # its ring's stages: at least, and at most
+RING_MAX_STAGES = 16       # (kRingMaxStages in client_epoch.cu)
+RING_HEADER_BYTES = 8 * (2 * RING_MAX_STAGES + 2) + 16  # mbarriers, metrics
+# A step of the wide kernel on an NVIDIA H100 80GB HBM3 at 700 W
+# (_wide_cluster): ~4.5 µs of fixed work (exchange, row losses, barriers)
+# and ~12 ns for each column of a CTA's slice, fitted to its times forced
+# at each cluster at Centralized's J = 1 (C = 10, B = 32, D = 10,000: 124.2,
+# 65.3, 35.6, 18.7 and 11.6 µs a step at k = 1 to 16, chip_smoke.py's
+# wide_d ms_by_cluster); unless the bytes that every CTA then running moves
+# a step take longer at the rate such launches reached with every SM
+# streaming W from global memory (WIDE_HBM_BYTES_PER_US: 2.35 and 2.09 TB/s
+# at k = 2 and 4, J = 400, one client of 150 steps and 399 of 30,
+# tools/client_epoch_phases.py).
+WIDE_STEP_US = 4.5
+WIDE_COLUMN_US = 0.012
+WIDE_HBM_BYTES_PER_US = 2.2e6
 MAX_CLASSES = 32           # of the instantiations; past it the tiled one
 KERNELS = ("staged", "unstaged", "wide", "wide_tiled")
 # class counts with an exact instantiation; any other C runs the next bound
@@ -232,15 +258,38 @@ def wide_batch_floats(B: int, C: int, tiled: bool = False) -> int:
 
 def wide_smem_bytes(B: int, C: int, chunk: int, hold: bool,
                     tiled: bool = False) -> int:
-    """Shared memory of one CTA of the wide kernel (``wide_smem_bytes`` in
-    ``client_epoch.cu``): the step header, the double-buffered exchange of
-    a chunk's partial logits, the chunk's row losses and hits, the block
-    sums, and the batch buffer when ``hold`` keeps it there; ``tiled`` for
-    the class-tiled kernel. Independent of D."""
+    """Shared memory of one CTA of the class-tiled wide kernel
+    (``wide_smem_bytes`` in ``client_epoch.cu``; ``tiled``), and the part
+    of the wide kernel's layout ``ring_smem_bytes`` starts with: the step
+    header, the double-buffered exchange of a chunk's partial logits, the
+    chunk's row losses and hits, the block sums, and the batch buffer when
+    ``hold`` keeps it there. Independent of D."""
     CP = _round_up(_wide_classes(C, tiled), 4)
     floats = 2 * (4 + chunk * CP) + 2 * chunk + 2 * WARPS
     return (WIDE_HEADER_BYTES + 4 * floats
             + (4 * wide_batch_floats(B, C, tiled) if hold else 0))
+
+
+def ring_rows(C: int) -> int:
+    """Rows one consumer warp of the wide kernel carries through its
+    forward pass at ``C`` classes (its partial logits stay in registers
+    over the tiles): a chunk holds at most ``WARPS`` times as many."""
+    nc = instantiated_classes(C)
+    return 8 if nc <= 4 else (4 if nc <= 10 else (2 if nc <= 16 else 1))
+
+
+def ring_smem_bytes(B: int, C: int, D: int, k: int, chunk: int, tile: int,
+                    stages: int, w_res: bool, hold: bool,
+                    row_bytes: int = 4) -> int:
+    """Shared memory of one CTA of the wide kernel of a ``k``-cluster
+    (``ring_smem_bytes`` in ``client_epoch.cu``): ``wide_smem_bytes``'
+    layout rounded to 16 bytes, the ring's mbarriers, W's and the anchor's
+    ``(C, slice_width)`` float32 slices where ``w_res`` holds them, and
+    ``stages`` stages of ``(chunk, tile)`` row elements of ``row_bytes``."""
+    Dk = slice_width(D, k, row_bytes)
+    return (_round_up(wide_smem_bytes(B, C, chunk, hold), 16)
+            + RING_HEADER_BYTES + (8 * C * Dk if w_res else 0)
+            + stages * chunk * tile * row_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,7 +301,10 @@ class EpochPlan:
     ``smem_bytes`` one CTA's dynamic shared memory, ``ctas`` the grid.
     The wide kernels work the batch in chunks of ``chunk`` rows and keep
     their batch buffers in ``scratch_bytes`` of global memory (0: in
-    shared memory)."""
+    shared memory). The wide kernel streams rows through a ring of
+    ``stages`` stages of ``tile`` columns, holds W's and the anchor's
+    slices in shared memory where ``w_res`` and a step's rows from its
+    forward to its gradient pass where ``rows_res``."""
 
     cluster: int
     slice_width: int
@@ -262,6 +314,10 @@ class EpochPlan:
     kernel: str = "staged"
     chunk: int = 0
     scratch_bytes: int = 0
+    tile: int = 0
+    stages: int = 0
+    w_res: bool = False
+    rows_res: bool = False
 
 
 def _one_wave(J: int, num_sms: int, sizes) -> int:
@@ -296,35 +352,183 @@ def _staged_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes):
                      staged_smem_bytes(B, C, D, k, row_bytes), J * k)
 
 
-def _wide_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes,
-               max_cluster, tiled=False):
+def _tiled_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes,
+                max_cluster):
     sizes = [k for k in WIDE_CLUSTERS if k <= max_cluster]
     chunk = next((c for c in range(min(_round_up(B, 8), MAX_CHUNK), 0, -8)
-                  if wide_smem_bytes(B, C, c, False, tiled) <= smem_limit),
+                  if wide_smem_bytes(B, C, c, False, True) <= smem_limit),
                  None)
     if cluster is not None and (chunk is None or cluster not in sizes):
         raise ValueError(
             f"cluster {cluster} does not fit the wide kernel: it takes "
-            f"{sizes} and needs {wide_smem_bytes(B, C, 8, False, tiled)} "
+            f"{sizes} and needs {wide_smem_bytes(B, C, 8, False, True)} "
             f"bytes of shared memory at least, of {smem_limit}")
     if chunk is None:
         return None
-    hold = wide_smem_bytes(B, C, chunk, True, tiled) <= smem_limit
+    hold = wide_smem_bytes(B, C, chunk, True, True) <= smem_limit
     k = cluster if cluster is not None else _no_empty_slice(
         _one_wave(J, num_sms, sizes), 1, D, row_bytes)
     return EpochPlan(
-        k, slice_width(D, k, row_bytes),
-        0 if tiled else instantiated_classes(C),
-        wide_smem_bytes(B, C, chunk, hold, tiled), J * k,
-        "wide_tiled" if tiled else "wide", chunk,
-        0 if hold else 4 * J * k * wide_batch_floats(B, C, tiled))
+        k, slice_width(D, k, row_bytes), 0,
+        wide_smem_bytes(B, C, chunk, hold, True), J * k, "wide_tiled", chunk,
+        0 if hold else 4 * J * k * wide_batch_floats(B, C, True))
+
+
+def _ring_tiles(Dk: int, widest: int) -> int:
+    """Columns of a ring stage: the slice in as few tiles of at most
+    ``widest`` columns as it takes, of equal width rounded up to 8."""
+    return _round_up(-(-Dk // -(-Dk // widest)), 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_layout(B, C, D, k, smem_limit, row_bytes):
+    """``(chunk, tile, stages, w_res, rows_res, hold)`` of the wide kernel
+    at a ``k``-cluster, or None where no chunk of 8 rows fits: the largest
+    chunk (at most ``WARPS * ring_rows``), then the widest tile, that fit
+    ``RING_MIN_STAGES`` stages; the batch buffer held, then W's and the
+    anchor's slices, where they still fit; the step's rows held from pass
+    to pass where one chunk takes the batch and a multiple of the slice's
+    tiles (at least ``RING_MIN_STAGES``) fits; else as many stages as fit,
+    up to ``RING_MAX_STAGES``."""
+    Dk = slice_width(D, k, row_bytes)
+    widest = min(RING_TILE, _round_up(Dk, 8))
+
+    def fits(chunk, tile, stages, w_res, hold):
+        return ring_smem_bytes(B, C, D, k, chunk, tile, stages, w_res, hold,
+                               row_bytes) <= smem_limit
+
+    found = next(((chunk, _ring_tiles(Dk, w))
+                  for chunk in range(min(_round_up(B, 8),
+                                         WARPS * ring_rows(C)), 0, -8)
+                  for w in (widest, widest // 2, widest // 4, widest // 8,
+                            widest // 16, widest // 32) if w >= 8
+                  and fits(chunk, _ring_tiles(Dk, w), RING_MIN_STAGES,
+                           False, False)), None)
+    if found is None:
+        return None
+    chunk, tile = found
+    hold = fits(chunk, tile, RING_MIN_STAGES, False, True)
+    w_res = fits(chunk, tile, RING_MIN_STAGES, True, hold)
+    ntiles = -(-Dk // tile)
+    if B <= chunk:
+        for m in range(RING_MAX_STAGES // ntiles, 0, -1):
+            if (m * ntiles >= RING_MIN_STAGES
+                    and fits(chunk, tile, m * ntiles, w_res, hold)):
+                return chunk, tile, m * ntiles, w_res, True, hold
+    stages = max(n for n in range(RING_MIN_STAGES, RING_MAX_STAGES + 1)
+                 if fits(chunk, tile, n, w_res, hold))
+    return chunk, tile, stages, w_res, False, hold
+
+
+def wide_step_bytes(n: int, C: int, D: int, k: int, w_res: bool,
+                    rows_res: bool, row_bytes: int = 4) -> dict[str, int]:
+    """Bytes one CTA of the wide kernel of a ``k``-cluster moves in a step
+    of ``n`` rows, by its layout's arithmetic: ``rows``, the rows' slices
+    copied from global memory into the ring (twice unless ``rows_res``
+    holds them from pass to pass); ``w_and_anchor``, W's slice read in the
+    forward pass, and W and the anchor read and W written in the update,
+    unless ``w_res`` holds them in shared memory; ``exchange``, the
+    partial logits read from the k CTAs' shared memory."""
+    Dk = min(slice_width(D, k, row_bytes), D)
+    CP = _round_up(instantiated_classes(C), 4)
+    return {"rows": n * Dk * row_bytes * (1 if rows_res else 2),
+            "w_and_anchor": 0 if w_res else 16 * C * Dk,
+            "exchange": 4 * k * n * CP}
+
+
+@functools.lru_cache(maxsize=256)
+def _busiest_steps(steps: tuple, slots: int) -> int:
+    """Steps of the busiest of ``slots`` clusters running at once when the
+    clients of ``steps``, largest first (``client_order``), each go to the
+    first that is free."""
+    loads = [0] * max(1, min(slots, len(steps)))
+    for s in sorted(steps, reverse=True):
+        heapq.heapreplace(loads, loads[0] + s)
+    return max(loads)
+
+
+@functools.lru_cache(maxsize=256)
+def _wide_cluster(steps, B, C, D, row_bytes, layouts, active):
+    """The wide kernel's cluster among the sizes of ``layouts`` (pairs of
+    k and its ``_ring_layout``; ``active`` pairs of k and ``active[k]``,
+    both tuples, so that a choice once made is looked up): the one of
+    least estimated time, the larger on a tie. A launch lasts the steps
+    of the busiest of the ``active[k]`` clusters the card runs at once,
+    given the clients' ``steps`` in longest-first order; a step lasts ``WIDE_STEP_US`` plus
+    ``WIDE_COLUMN_US`` for each column of a slice, or, if longer, the
+    bytes the CTAs then running move from global memory
+    (``wide_step_bytes`` at B rows) at ``WIDE_HBM_BYTES_PER_US``. On an
+    NVIDIA H100 80GB HBM3 at 700 W (132, 66, 30, 15 and 7 clusters of 1
+    to 16 CTAs at once) it picks 16 CTAs at wide_d's J = 50, D = 10,000
+    and at Centralized's J = 1 (``chip_smoke.py``'s ``wide_d``
+    ``ms_by_cluster``), 8 at J = 400, on the mnist stand-in's split
+    (``tools/wide_epoch_paths.py``) and on one client of 150 steps and
+    399 of 30 (``tools/client_epoch_phases.py``): each the size measured
+    fastest there."""
+    layouts, active = dict(layouts), dict(active)
+
+    def cost(k):
+        _, _, _, w_res, rows_res, _ = layouts[k]
+        moved = wide_step_bytes(B, C, D, k, w_res, rows_res, row_bytes)
+        ctas = k * min(len(steps), active[k])
+        step_us = max(
+            WIDE_STEP_US + WIDE_COLUMN_US * min(slice_width(D, k, row_bytes),
+                                                D),
+            ctas * (moved["rows"] + moved["w_and_anchor"])
+            / WIDE_HBM_BYTES_PER_US)
+        return _busiest_steps(steps, active[k]) * step_us
+
+    return min(layouts, key=lambda k: (cost(k), -k))
+
+
+def _wide_plan(J, B, C, D, smem_limit, cluster, row_bytes, max_cluster,
+               active_clusters, steps):
+    sizes = [k for k in WIDE_CLUSTERS if k <= max_cluster]
+    if cluster is not None:
+        layout = (_ring_layout(B, C, D, cluster, smem_limit, row_bytes)
+                  if cluster in sizes else None)
+        if layout is None:
+            raise ValueError(
+                f"cluster {cluster} does not fit the wide kernel: it takes "
+                f"{sizes} and needs {ring_smem_bytes(B, C, D, cluster, 8, 8, RING_MIN_STAGES, False, False, row_bytes)} "
+                f"bytes of shared memory at least, of {smem_limit}")
+        k = cluster
+    else:
+        if active_clusters is None:
+            raise ValueError("the wide kernel's cluster needs the clusters "
+                             "the card runs at once (wide_active_clusters)")
+        # the sizes the card runs, with no empty slice, whose layout fits
+        layouts = {k: _ring_layout(B, C, D, k, smem_limit, row_bytes)
+                   for k in sizes if active_clusters[k] > 0
+                   and (k - 1) * slice_width(D, k, row_bytes) < D}
+        layouts = {k: lay for k, lay in layouts.items() if lay}
+        if not layouts:
+            return None
+        if J <= min(active_clusters[k] for k in layouts):
+            # every client has a cluster of its own at every size: the
+            # longest client's steps bound each size alike
+            steps = (1,) * J
+        else:
+            steps = steps() if callable(steps) else steps
+            steps = (1,) * J if steps is None else tuple(steps)
+        k = _wide_cluster(steps, B, C, D, row_bytes, tuple(layouts.items()),
+                          tuple(sorted(active_clusters.items())))
+        layout = layouts[k]
+    chunk, tile, stages, w_res, rows_res, hold = layout
+    return EpochPlan(
+        k, slice_width(D, k, row_bytes), instantiated_classes(C),
+        ring_smem_bytes(B, C, D, k, chunk, tile, stages, w_res, hold,
+                        row_bytes), J * k, "wide", chunk,
+        0 if hold else 4 * J * k * wide_batch_floats(B, C), tile, stages,
+        w_res, rows_res)
 
 
 def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
                 smem_limit: int = cuda_build.SMEM_LIMIT,
                 cluster: int | None = None,
                 row_bytes: int = 4, kernel: str | None = None,
-                max_cluster: int = MAX_CLUSTER) -> EpochPlan | None:
+                max_cluster: int = MAX_CLUSTER,
+                active_clusters=None, steps=None) -> EpochPlan | None:
     """The launch shape for ``J`` clients of batch ``B``, ``C`` classes
     and ``D`` features of ``row_bytes`` each (4, or 2 for bfloat16 and
     float16 rows) on a card of ``num_sms`` SMs, in this order:
@@ -334,11 +538,13 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
       that fits and the largest whose ``J * k`` CTAs still fit the SMs in
       one wave, halved while a slice would be empty;
     - else the unstaged kernel where W and the anchor fit whole;
-    - else the wide kernel: ``k`` by the same one-wave rule over clusters
-      of up to ``max_cluster`` (8, or 16 where the card schedules it) with
-      no shared-memory floor, the batch in chunks of the most rows (a
-      multiple of 8, at most ``MAX_CHUNK``) that fit ``smem_limit``, the
-      batch buffer in shared memory where it fits too;
+    - else the wide kernel: ``k`` among clusters of up to ``max_cluster``
+      (8, or 16 where the card schedules it) by ``_wide_cluster``, from
+      ``active_clusters`` (k to the clusters of k CTAs the card runs at
+      once, ``wide_active_clusters``) and ``steps`` (each client's count
+      of non-empty steps, or a function returning them, called only where
+      some size runs fewer clusters at once than J; None: J clients of
+      equal steps); its ring layout by ``_ring_layout``;
     - past ``MAX_CLASSES`` classes, at every B and D, the class-tiled wide
       kernel (``"wide_tiled"``) by the same rules, its layout holding C.
 
@@ -359,8 +565,8 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
                          f"{cluster}): it takes at most {MAX_CLASSES} "
                          "classes; the class-tiled wide kernel takes more")
     if C > MAX_CLASSES or kernel == "wide_tiled":
-        return _wide_plan(J, B, C, D, num_sms, smem_limit, cluster,
-                          row_bytes, max_cluster, tiled=True)
+        return _tiled_plan(J, B, C, D, num_sms, smem_limit, cluster,
+                           row_bytes, max_cluster)
     if kernel in (None, "staged"):
         plan = _staged_plan(J, B, C, D, num_sms, smem_limit, cluster,
                             row_bytes)
@@ -377,8 +583,8 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
         if kernel == "unstaged":
             raise ValueError(f"the unstaged kernel does not fit C={C}, "
                              f"D={D}, B={B} (cluster {cluster})")
-    return _wide_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes,
-                      max_cluster)
+    return _wide_plan(J, B, C, D, smem_limit, cluster, row_bytes, max_cluster,
+                      active_clusters, steps)
 
 
 def kernel_symbol(plan: EpochPlan, C: int) -> str:
@@ -419,7 +625,7 @@ def _library(name: str = "client_epoch"):
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.client_epoch_launch_wide.restype = ctypes.c_int
     lib.client_epoch_launch_wide.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.client_epoch_staged_smem_bytes.restype = ctypes.c_size_t
     lib.client_epoch_staged_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -433,10 +639,14 @@ def _library(name: str = "client_epoch"):
     lib.client_epoch_slice_width.argtypes = [ctypes.c_int] * 2
     lib.client_epoch_wide_smem_bytes.restype = ctypes.c_size_t
     lib.client_epoch_wide_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.client_epoch_ring_smem_bytes.restype = ctypes.c_size_t
+    lib.client_epoch_ring_smem_bytes.argtypes = [ctypes.c_int] * 9
     lib.client_epoch_wide_batch_floats.restype = ctypes.c_size_t
     lib.client_epoch_wide_batch_floats.argtypes = [ctypes.c_int] * 3
     lib.client_epoch_wide_max_cluster.restype = ctypes.c_int
     lib.client_epoch_wide_max_cluster.argtypes = []
+    lib.client_epoch_wide_active_clusters.restype = ctypes.c_int
+    lib.client_epoch_wide_active_clusters.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -450,18 +660,38 @@ def wide_max_cluster(device_index: int, name: str = "client_epoch") -> int:
         return _library(name).client_epoch_wide_max_cluster()
 
 
-def _check_plan(lib, plan: EpochPlan, B: int, C: int, D: int,
+@functools.lru_cache(maxsize=None)
+def wide_active_clusters(device_index: int,
+                         name: str = "client_epoch") -> dict[int, int]:
+    """How many clusters of each of ``WIDE_CLUSTERS`` CTAs of the wide
+    kernel card ``device_index`` runs at once, each CTA a full block of
+    shared memory (``client_epoch_wide_active_clusters``: the card's
+    ``cudaOccupancyMaxActiveClusters``; a cluster sits in one GPC)."""
+    with torch.cuda.device(device_index):
+        lib = _library(name)
+        return {k: lib.client_epoch_wide_active_clusters(k)
+                for k in WIDE_CLUSTERS}
+
+
+@functools.lru_cache(maxsize=256)
+def _check_plan(name: str, plan: EpochPlan, B: int, C: int, D: int,
                 row_bytes: int) -> None:
-    """The plan's layout must be the kernel's: same row type, shared
-    memory, instantiation, slice and, wide, scratch."""
+    """The plan's layout must be the kernel's in library ``name``: same
+    row type, shared memory, instantiation, slice and, wide, scratch."""
+    lib = _library(name)
     scratch = 0
     tiled = int(plan.kernel == "wide_tiled")
     if plan.kernel == "staged":
         smem = lib.client_epoch_staged_smem_bytes(B, C, D, plan.cluster)
     elif plan.kernel in ("wide", "wide_tiled"):
         hold = plan.scratch_bytes == 0
-        smem = lib.client_epoch_wide_smem_bytes(B, C, plan.chunk, int(hold),
-                                                tiled)
+        if tiled:
+            smem = lib.client_epoch_wide_smem_bytes(B, C, plan.chunk,
+                                                    int(hold), tiled)
+        else:
+            smem = lib.client_epoch_ring_smem_bytes(
+                B, C, D, plan.cluster, plan.chunk, plan.tile, plan.stages,
+                int(plan.w_res), int(hold))
         if not hold:
             scratch = 4 * plan.ctas * lib.client_epoch_wide_batch_floats(
                 B, C, tiled)
@@ -501,9 +731,22 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     row_bytes = X.element_size()
     sms = torch.cuda.get_device_properties(W.device).multi_processor_count
     name = ROW_LIBRARIES[X.dtype]
+    dev = W.device.index
+    W_out = torch.empty_like(W)
+    metrics = torch.zeros((J, 3), dtype=torch.float32, device=W.device)
+    ordered = []
+
+    def steps():
+        # the wide kernel's cluster rule reads each client's steps: one
+        # host read, made only where there are more clients than some
+        # cluster size runs at once
+        ordered.append(client_order(valid))
+        return ordered[0][1].tolist()
+
     plan = launch_plan(
         J, B, C, D, sms, cluster=cluster, row_bytes=row_bytes, kernel=kernel,
-        max_cluster=wide_max_cluster(W.device.index, name))
+        max_cluster=wide_max_cluster(dev, name),
+        active_clusters=wide_active_clusters(dev, name), steps=steps)
     if plan is None:
         raise ValueError(
             f"no client_epoch kernel takes C={C}: a chunk of 8 rows' "
@@ -511,9 +754,7 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
             f"of shared memory, a block has {cuda_build.SMEM_LIMIT}: run it "
             "with kernel_impl='plain'")
     lib = _library(name)
-    _check_plan(lib, plan, B, C, D, row_bytes)
-    W_out = torch.empty_like(W)
-    metrics = torch.zeros((J, 3), dtype=torch.float32, device=W.device)
+    _check_plan(name, plan, B, C, D, row_bytes)
     if J == 0:
         return W_out, metrics
     stream = torch.cuda.current_stream(W.device).cuda_stream
@@ -525,12 +766,12 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
             rows.data_ptr(), valid.data_ptr(), W_out.data_ptr(),
             metrics.data_ptr(), J, S, B, C, D, is_cls, *scalars)
     else:
-        order, nsteps = client_order(valid)
+        order, nsteps = ordered[0] if ordered else client_order(valid)
         ptrs = (W.data_ptr(), anchor.data_ptr(), X.data_ptr(), y.data_ptr(),
                 rows.data_ptr(), valid.data_ptr(), order.data_ptr(),
                 nsteps.data_ptr(), W_out.data_ptr(), metrics.data_ptr())
+        bulk = int((D * row_bytes) % 16 == 0 and X.data_ptr() % 16 == 0)
         if plan.kernel == "staged":
-            bulk = int((D * row_bytes) % 16 == 0 and X.data_ptr() % 16 == 0)
             err = lib.client_epoch_launch_staged(
                 *ptrs, J, S, B, C, D, plan.cluster, is_cls, bulk, *scalars)
         else:
@@ -539,7 +780,8 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
                        if plan.scratch_bytes else None)
             err = lib.client_epoch_launch_wide(
                 *ptrs, None if scratch is None else scratch.data_ptr(), J, S,
-                B, C, D, plan.cluster, plan.chunk,
+                B, C, D, plan.cluster, plan.chunk, plan.tile, plan.stages,
+                int(plan.w_res), int(plan.rows_res), bulk,
                 int(plan.kernel == "wide_tiled"), is_cls, *scalars)
     cuda_build.check(err, "client_epoch launch", lib)
     client_epoch.launches += 1

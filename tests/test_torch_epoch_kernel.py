@@ -24,12 +24,15 @@ The CUDA kernel itself needs a card; the ``cuda``-marked tests hold it
 against the plain version there, over a grid of shapes (both tasks, C in
 {1, 3, 10, 32}, D in {256, 250, 2000}, B in {32, 17}, J in {5, 70}),
 every cluster size, unaligned rows, 2-byte rows, the unstaged kernel, the
-wide kernel (forced at D = 250 and 2000, by shape at D = 6,000 and
-B = 4096, 2-byte rows at D = 9,000) and bitwise determinism checks, and
-skip on a machine without one. The launch plan (kernel, cluster size,
-client order, shared-memory bytes, refused shapes) is pure Python and
-tested here on the CPU.
+wide kernel (forced at D = 250, 2000 and 6,001 and at B = 300, by shape
+at D = 6,000, 10,000 and 40,000 and B = 4096, exact and rounded classes,
+every cluster up to 16, 2-byte rows at D = 9,000 and 9,001) and bitwise
+determinism checks, and skip on a machine without one. The launch plan
+(kernel, cluster size, client order, shared-memory bytes, refused
+shapes) is pure Python and tested here on the CPU.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -183,7 +186,7 @@ def test_plain_round_matches_jax_past_the_shared_memory_limit(task, impl):
     Cw, Dw, J = 10, 6000, 2
     X, y, w0 = _data(task, seed=5, C=Cw, D=Dw)
     X = X * np.float32(np.sqrt(256.0 / Dw))
-    assert ek.launch_plan(J, B, Cw, Dw, H100_SMS).kernel == "wide"
+    assert launch_plan(J, B, Cw, Dw, H100_SMS).kernel == "wide"
     rng = np.random.RandomState(6)
     idx = rng.randint(0, N, size=(J, N_MAX)).astype(np.int32)
     mask = (rng.rand(J, N_MAX) < 0.8).astype(np.float32)
@@ -214,7 +217,7 @@ def test_plain_round_matches_jax_past_32_classes(Cm, task, impl):
     Dm, Bm, n_max, J = 64, 8, 24, 2
     X, y, w0 = _data(task, seed=8, C=Cm, D=Dm)
     X = X * np.float32(np.sqrt(256.0 / Dm))
-    assert ek.launch_plan(J, Bm, Cm, Dm, H100_SMS).kernel == "wide_tiled"
+    assert launch_plan(J, Bm, Cm, Dm, H100_SMS).kernel == "wide_tiled"
     rng = np.random.RandomState(9)
     idx = rng.randint(0, N, size=(J, n_max)).astype(np.int32)
     mask = (rng.rand(J, n_max) < 0.8).astype(np.float32)
@@ -299,6 +302,26 @@ def test_wrapper_rejects_bad_inputs():
 # -- the launch plan (pure Python, no card) ---------------------------------
 
 H100_SMS = 132
+# the clusters of 1 to 16 wide CTAs an H100 runs at once
+# (cudaOccupancyMaxActiveClusters, chip_smoke.py's wide_d line)
+H100_ACTIVE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# the plan as an H100 gives it
+launch_plan = functools.partial(ek.launch_plan, active_clusters=H100_ACTIVE)
+
+
+@functools.lru_cache(maxsize=None)
+def _main_steps(J, B=32):
+    """Each client's non-empty steps in a local epoch of the main path:
+    the mnist stand-in's Dirichlet(0.01) split into J clients, the train
+    rows of ``prepare_setup``'s split, batches of B (what the wrapper
+    hands the wide kernel's cluster rule)."""
+    from fedamw_tpu_torch.algorithms import prepare_setup
+    from fedamw_tpu_torch.data import load_dataset
+
+    setup = prepare_setup(load_dataset("mnist", num_partitions=J, alpha=0.01),
+                          D=16, seed=100, rng=np.random.RandomState(100),
+                          device="cpu")
+    return tuple(int(v) for v in torch.ceil(setup.mask.sum(1) / B).tolist())
 
 
 @pytest.mark.parametrize("J,B,C,D,k", [
@@ -312,7 +335,7 @@ H100_SMS = 132
     (5, 32, 1, 4, 1),        # a slice of 4 columns: no empty CTA
 ])
 def test_plan_chooses_cluster_size(J, B, C, D, k):
-    plan = ek.launch_plan(J, B, C, D, H100_SMS)
+    plan = launch_plan(J, B, C, D, H100_SMS)
     assert plan.cluster == k
     assert plan.ctas == J * k
     assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
@@ -321,7 +344,7 @@ def test_plan_chooses_cluster_size(J, B, C, D, k):
 
 
 def test_plan_main_path_layout():
-    plan = ek.launch_plan(50, 32, 10, 2000, H100_SMS)
+    plan = launch_plan(50, 32, 10, 2000, H100_SMS)
     # header 48 B; floats: w, anchor 2*10*500; two tiles 2*32*500; two
     # exchange buffers 2*(4 + 32*12); logits 32*12; row scratch 4*32;
     # block sums 16; then 2*32 row ids
@@ -342,7 +365,7 @@ def test_plan_instantiated_classes(C, nc):
     """The instantiation of each class count; none past 32 (0: the
     class-tiled wide kernel takes C at run time)."""
     assert ek.instantiated_classes(C) == nc
-    assert ek.launch_plan(5, 32, C, 256, H100_SMS).classes == nc
+    assert launch_plan(5, 32, C, 256, H100_SMS).classes == nc
 
 
 def test_plan_refuses_what_fits_nowhere():
@@ -352,31 +375,31 @@ def test_plan_refuses_what_fits_nowhere():
     kernel's shared memory takes the wide plan; a bad shape or a forced
     cluster or kernel that does not fit raise, the staged, unstaged and
     wide kernels at more than 32 classes among them."""
-    assert ek.launch_plan(5, 32, 33, 256, H100_SMS).kernel == "wide_tiled"
-    assert ek.launch_plan(5, 32, 4000, 256, H100_SMS) is None
-    assert ek.launch_plan(5, 4096, 32, 4000, H100_SMS).kernel == "wide"
+    assert launch_plan(5, 32, 33, 256, H100_SMS).kernel == "wide_tiled"
+    assert launch_plan(5, 32, 4000, 256, H100_SMS) is None
+    assert launch_plan(5, 4096, 32, 4000, H100_SMS).kernel == "wide"
     with pytest.raises(ValueError, match="does not fit"):
-        ek.launch_plan(5, 32, 10, 10000, H100_SMS, kernel="staged")
+        launch_plan(5, 32, 10, 10000, H100_SMS, kernel="staged")
     with pytest.raises(ValueError, match="does not fit"):
-        ek.launch_plan(5, 32, 10, 10000, H100_SMS, kernel="unstaged")
+        launch_plan(5, 32, 10, 10000, H100_SMS, kernel="unstaged")
     with pytest.raises(ValueError, match="does not fit the wide kernel"):
-        ek.launch_plan(5, 32, 10, 10000, H100_SMS, kernel="wide", cluster=16)
+        launch_plan(5, 32, 10, 10000, H100_SMS, kernel="wide", cluster=16)
     with pytest.raises(ValueError, match="kernel must be one of"):
-        ek.launch_plan(5, 32, 10, 256, H100_SMS, kernel="split")
+        launch_plan(5, 32, 10, 256, H100_SMS, kernel="split")
     with pytest.raises(ValueError, match="bad shape"):
-        ek.launch_plan(5, 32, 0, 256, H100_SMS)
+        launch_plan(5, 32, 0, 256, H100_SMS)
     with pytest.raises(ValueError, match="at most 32 classes"):
-        ek.launch_plan(5, 32, 33, 256, H100_SMS, cluster=1)
+        launch_plan(5, 32, 33, 256, H100_SMS, cluster=1)
     for kernel in ("staged", "unstaged", "wide"):
         with pytest.raises(ValueError, match="at most 32 classes"):
-            ek.launch_plan(5, 32, 105, 256, H100_SMS, kernel=kernel)
+            launch_plan(5, 32, 105, 256, H100_SMS, kernel=kernel)
     with pytest.raises(ValueError, match="does not fit the wide kernel"):
-        ek.launch_plan(5, 32, 105, 256, H100_SMS, kernel="wide_tiled",
+        launch_plan(5, 32, 105, 256, H100_SMS, kernel="wide_tiled",
                        cluster=16)
     with pytest.raises(ValueError, match="does not fit"):
-        ek.launch_plan(50, 32, 10, 2000, H100_SMS, cluster=2)
+        launch_plan(50, 32, 10, 2000, H100_SMS, cluster=2)
     with pytest.raises(ValueError, match="bad shape"):
-        ek.launch_plan(5, 0, 10, 256, H100_SMS)
+        launch_plan(5, 0, 10, 256, H100_SMS)
 
 
 @pytest.mark.parametrize("J,B,C,D,smem_limit,route", [
@@ -399,7 +422,7 @@ def test_plan_is_none_where_no_kernel_takes_the_shape(J, B, C, D,
     the wrapper then refuses CUDA tensors before any launch). Shapes past
     the staged and unstaged kernels' shared memory take the wide plan,
     more than 32 classes the class-tiled one."""
-    plan = ek.launch_plan(J, B, C, D, H100_SMS, smem_limit)
+    plan = launch_plan(J, B, C, D, H100_SMS, smem_limit)
     assert ((plan.kernel, plan.cluster) if plan else None) == route
     if plan is not None:
         assert plan.smem_bytes <= smem_limit
@@ -417,21 +440,21 @@ def test_plan_two_byte_rows_layout():
     # the tiles: 2 * 32 rows of 500 floats against 2 * 32 rows of 504
     # 2-byte elements; W and the anchor slices grow by 2 * 10 * 4 floats
     assert f32 - b16 == 4 * 2 * 32 * 500 - 2 * 2 * 32 * 504 - 4 * 2 * 10 * 4
-    plan = ek.launch_plan(50, 32, 10, 2000, H100_SMS, row_bytes=2)
+    plan = launch_plan(50, 32, 10, 2000, H100_SMS, row_bytes=2)
     assert (plan.cluster, plan.slice_width) == (2, 1000)
     # past each row type's limit the wide plan takes over (8 CTAs: the
     # one-wave rule at J = 5)
     for D, f32_k, b16_k in ((5376, "staged", "staged"),
                             (5377, "wide", "staged"),
                             (8704, "wide", "staged"), (8705, "wide", "wide")):
-        a = ek.launch_plan(5, 32, 10, D, H100_SMS)
-        b = ek.launch_plan(5, 32, 10, D, H100_SMS, row_bytes=2)
+        a = launch_plan(5, 32, 10, D, H100_SMS)
+        b = launch_plan(5, 32, 10, D, H100_SMS, row_bytes=2)
         assert (a.kernel, a.cluster) == (f32_k, 8), D
         assert (b.kernel, b.cluster) == (b16_k, 8), D
 
 
 def test_plan_falls_back_to_unstaged_kernel_for_huge_batches():
-    plan = ek.launch_plan(50, 1024, 10, 2000, H100_SMS)
+    plan = launch_plan(50, 1024, 10, 2000, H100_SMS)
     assert plan.cluster == 0 and plan.ctas == 50 and plan.classes == 32
     assert plan.smem_bytes == ek.unstaged_smem_bytes(1024, 10, 2000)
     assert ek.kernel_symbol(plan, 10) == "21unstaged_epoch_kernelILi32E"
@@ -443,7 +466,7 @@ def test_plan_takes_every_shape_the_unstaged_kernel_takes():
             for D in (1, 4, 250, 256, 784, 2000, 3000):
                 if ek.unstaged_smem_bytes(B, C, D) > cuda_build.SMEM_LIMIT:
                     continue
-                plan = ek.launch_plan(50, B, C, D, H100_SMS)
+                plan = launch_plan(50, B, C, D, H100_SMS)
                 assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
 
 
@@ -457,12 +480,19 @@ GRID_D = (1, 250, 2000, 5377, 10000, 65536)
 def test_plan_takes_every_shape_up_to_32_classes(row_bytes, J):
     """Every B, every D and every C up to 32 has a plan, for both row
     sizes and with clusters of up to 8 or 16 CTAs; each fits a block's
-    shared memory and its slices cover D with none empty."""
+    shared memory and its slices cover D with none empty. A wide plan's
+    shared memory is its ring layout's (``ring_smem_bytes``, inside
+    ``SMEM_LIMIT``): a chunk of at most ``WARPS * ring_rows`` rows, a ring
+    of 3 to 16 stages of at most 256 columns, the rows held from pass to
+    pass only where one chunk takes the batch and the stages are whole
+    multiples of the slice's tiles, and the cluster the measured rule's
+    choice (J clients of equal steps) among the sizes that fit with no
+    empty slice."""
     for max_cluster in (8, 16):
         for B in GRID_B:
             for C in GRID_C:
                 for D in GRID_D:
-                    plan = ek.launch_plan(J, B, C, D, H100_SMS,
+                    plan = launch_plan(J, B, C, D, H100_SMS,
                                           row_bytes=row_bytes,
                                           max_cluster=max_cluster)
                     shape = (J, B, C, D, row_bytes, max_cluster)
@@ -475,9 +505,30 @@ def test_plan_takes_every_shape_up_to_32_classes(row_bytes, J):
                     assert (plan.cluster - 1) * plan.slice_width < D, shape
                     if plan.kernel == "wide":
                         assert plan.chunk % 8 == 0, shape
-                        assert 8 <= plan.chunk <= ek.MAX_CHUNK, shape
-                        # one wave, or one CTA a client
-                        assert plan.ctas <= H100_SMS or plan.cluster == 1
+                        assert 8 <= plan.chunk <= ek.WARPS * ek.ring_rows(
+                            C), shape
+                        hold = plan.scratch_bytes == 0
+                        assert plan.smem_bytes == ek.ring_smem_bytes(
+                            B, C, D, plan.cluster, plan.chunk, plan.tile,
+                            plan.stages, plan.w_res, hold, row_bytes), shape
+                        assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
+                        assert (ek.RING_MIN_STAGES <= plan.stages
+                                <= ek.RING_MAX_STAGES), shape
+                        assert (plan.tile % 8 == 0
+                                and plan.tile <= ek.RING_TILE), shape
+                        ntiles = -(-plan.slice_width // plan.tile)
+                        assert not plan.rows_res or (
+                            B <= plan.chunk
+                            and plan.stages % ntiles == 0), shape
+                        lays = {k: ek._ring_layout(
+                            B, C, D, k, cuda_build.SMEM_LIMIT, row_bytes)
+                                for k in ek.WIDE_CLUSTERS if k <= max_cluster
+                                and (k - 1) * ek.slice_width(
+                                    D, k, row_bytes) < D}
+                        lays = {k: lay for k, lay in lays.items() if lay}
+                        assert plan.cluster == ek._wide_cluster(
+                            (1,) * J, B, C, D, row_bytes, tuple(lays.items()),
+                            tuple(H100_ACTIVE.items())), shape
 
 
 def _plan_before_the_wide_kernel(J, B, C, D, num_sms, smem_limit,
@@ -517,7 +568,7 @@ def test_plan_keeps_every_shape_taken_before_the_wide_kernel(row_bytes):
                         old = _plan_before_the_wide_kernel(
                             J, B, C, D, H100_SMS, smem_limit, row_bytes)
                         for max_cluster in (8, 16):
-                            new = ek.launch_plan(J, B, C, D, H100_SMS,
+                            new = launch_plan(J, B, C, D, H100_SMS,
                                                  smem_limit,
                                                  row_bytes=row_bytes,
                                                  max_cluster=max_cluster)
@@ -534,44 +585,120 @@ def test_plan_keeps_every_shape_taken_before_the_wide_kernel(row_bytes):
 
 
 def test_plan_wide_layout():
-    """The wide plan at mnist's shape with D = 10,000: 2 CTAs a client by
-    the one-wave rule (50 * 2 <= 132 SMs), 5,000 columns each, one chunk
-    of the 32 rows, the batch buffer in shared memory; its shared memory
-    is independent of D. 16 CTAs for one client where the card takes
-    them, else 8; a batch too large to hold goes to global scratch."""
-    plan = ek.launch_plan(50, 32, 10, 10000, H100_SMS)
-    # header 16 B; floats: two exchange buffers 2*(4 + 32*12), row loss
-    # and hits 2*32, block sums 16; then the batch buffer 32*(12 + 2)
-    smem = 16 + 4 * (2 * (4 + 32 * 12) + 2 * 32 + 16) + 4 * 32 * 14
-    assert plan == ek.EpochPlan(cluster=2, slice_width=5000, classes=10,
-                                smem_bytes=smem, ctas=100, kernel="wide",
-                                chunk=32, scratch_bytes=0)
-    assert ek.wide_smem_bytes(32, 10, 32, True) == smem
-    assert ek.launch_plan(50, 32, 10, 65536, H100_SMS).smem_bytes == smem
+    """The wide plan at mnist's shape with D = 10,000 on an H100 (16-CTA
+    clusters, 7 of them at once) and the main path's steps: 16 CTAs a
+    client, 628 columns each in 3 ring tiles of 216, W's and the anchor's
+    slices and the step's rows held in shared memory, one chunk of the 32
+    rows, the batch buffer held; 8 CTAs where the card takes no 16-CTA
+    cluster (W held, the rows streamed twice through 3 stages). Its layout
+    in bytes; its symbol; a batch too large to hold goes to global
+    scratch; forced at a shape the staged kernel takes, at any cluster."""
+    steps = _main_steps(50)
+    plan = launch_plan(50, 32, 10, 10000, H100_SMS, max_cluster=16,
+                       steps=steps)
+    # wide_smem_bytes' layout: header 16 B; floats: two exchange buffers
+    # 2*(4 + 32*12), row loss and hits 2*32, block sums 16; the batch
+    # buffer 32*(12 + 2); then the ring header (272 B of mbarriers, 16 of
+    # metrics), W and the anchor 2*10*628 floats, 6 stages of 32 rows x
+    # 216 columns
+    base = 16 + 4 * (2 * (4 + 32 * 12) + 2 * 32 + 16) + 4 * 32 * 14
+    assert ek.wide_smem_bytes(32, 10, 32, True) == base
+    smem = base + 288 + 4 * 2 * 10 * 628 + 4 * 6 * 32 * 216
+    assert plan == ek.EpochPlan(cluster=16, slice_width=628, classes=10,
+                                smem_bytes=smem, ctas=800, kernel="wide",
+                                chunk=32, scratch_bytes=0, tile=216,
+                                stages=6, w_res=True, rows_res=True)
     assert ek.kernel_symbol(plan, 10) == "17wide_epoch_kernelILi10ELb1E"
-    assert ek.kernel_symbol(ek.launch_plan(5, 32, 11, 10000, H100_SMS),
+    assert ek.kernel_symbol(launch_plan(5, 32, 11, 10000, H100_SMS),
                             11) == "17wide_epoch_kernelILi16ELb0E"
-    one = ek.launch_plan(1, 32, 10, 10000, H100_SMS, max_cluster=16)
-    assert (one.cluster, one.slice_width, one.ctas) == (16, 628, 16)
-    assert ek.launch_plan(1, 32, 10, 10000, H100_SMS).cluster == 8
-    # bfloat16 rows: slices round to 8 elements
-    assert ek.launch_plan(50, 32, 10, 10000, H100_SMS,
-                          row_bytes=2).slice_width == 5000
-    assert ek.launch_plan(50, 32, 10, 9000, H100_SMS,
-                          row_bytes=2).slice_width == 4504
-    big = ek.launch_plan(50, 4096, 10, 2000, H100_SMS)
-    assert (big.kernel, big.cluster, big.chunk) == ("wide", 2, 128)
-    assert big.scratch_bytes == 4 * 100 * 4096 * 14
-    assert big.smem_bytes == ek.wide_smem_bytes(4096, 10, 128, False)
+    eight = launch_plan(50, 32, 10, 10000, H100_SMS, steps=steps)
+    assert (eight.cluster, eight.slice_width, eight.tile, eight.stages,
+            eight.w_res, eight.rows_res) == (8, 1252, 256, 3, True, False)
+    assert eight.smem_bytes == base + 288 + 4 * 2 * 10 * 1252 + 4 * 3 * 32 * 256
+    # bfloat16 rows: slices round to 8 elements, stages take half the bytes
+    bf = launch_plan(50, 32, 10, 9000, H100_SMS, row_bytes=2, steps=steps)
+    assert (bf.cluster, bf.slice_width, bf.tile, bf.w_res, bf.rows_res) == (
+        8, 1128, 232, True, True)
+    assert bf.smem_bytes == ek.ring_smem_bytes(
+        32, 10, 9000, 8, 32, 232, bf.stages, True, True, row_bytes=2)
+    big = launch_plan(50, 4096, 10, 2000, H100_SMS, steps=steps)
+    assert (big.kernel, big.cluster, big.chunk) == ("wide", 8, 32)
+    assert big.scratch_bytes == 4 * 400 * 4096 * 14
+    assert not big.rows_res
+    assert big.smem_bytes == ek.ring_smem_bytes(
+        4096, 10, 2000, 8, 32, big.tile, big.stages, big.w_res, False)
+    # a chunk holds at most 8 warps' forward rows: 8, 4, 2 or 1 a warp
+    assert launch_plan(5, 4096, 3, 4000, H100_SMS,
+                       kernel="wide").chunk == 64
+    assert launch_plan(5, 4096, 16, 4000, H100_SMS).chunk == 16
+    assert launch_plan(5, 4096, 32, 4000, H100_SMS).chunk == 8
     # forced: the wide kernel at a shape the staged kernel takes, at any
     # cluster size up to the limit
-    forced = ek.launch_plan(5, 32, 10, 250, H100_SMS, kernel="wide")
+    forced = launch_plan(5, 32, 10, 250, H100_SMS, kernel="wide")
     assert (forced.kernel, forced.cluster) == ("wide", 8)
     assert forced.cluster * forced.slice_width >= 250
-    assert ek.launch_plan(5, 32, 10, 250, H100_SMS, kernel="wide",
-                          cluster=2).slice_width == 128
+    assert launch_plan(5, 32, 10, 250, H100_SMS, kernel="wide",
+                       cluster=2).slice_width == 128
     # a block too small for one chunk of 8 rows: no plan
-    assert ek.launch_plan(5, 32, 32, 10000, H100_SMS, smem_limit=1000) is None
+    assert launch_plan(5, 32, 32, 10000, H100_SMS, smem_limit=1000) is None
+    # the bytes a CTA moves a step by the layout's arithmetic: wide_d's 32
+    # rows of its 628 columns once, W held; the exchange's partials
+    assert ek.wide_step_bytes(32, 10, 10000, 16, True, True) == {
+        "rows": 32 * 628 * 4, "w_and_anchor": 0, "exchange": 4 * 16 * 32 * 12}
+    assert ek.wide_step_bytes(32, 10, 10000, 2, False, False) == {
+        "rows": 2 * 32 * 5000 * 4, "w_and_anchor": 16 * 10 * 5000,
+        "exchange": 4 * 2 * 32 * 12}
+
+
+def test_plan_wide_cluster_rule_is_the_measured_one():
+    """The cluster rule pinned where it was measured on an H100 (132, 66,
+    30, 15 and 7 clusters of 1 to 16 CTAs at once), each pick the size
+    measured fastest there: 16 CTAs a client at wide_d's J = 50,
+    D = 10,000 with the main path's steps and at Centralized's J = 1
+    (1,501 steps); 8 where the card takes no 16; 8 at J = 400, on the
+    main path's split and with one client of 150 steps and 399 of 30. The launch lasts the busiest
+    cluster's steps of a longest-first schedule over the clusters the
+    card runs at once: a card that runs fewer, or none of a size, makes
+    the same J take fewer CTAs; with no steps given, J clients of equal
+    steps. Without the clusters the card runs at once, no rule."""
+    steps = _main_steps(50)
+
+    def k_of(J, D, **kw):
+        return launch_plan(J, 32, 10, D, H100_SMS, max_cluster=16,
+                           **kw).cluster
+
+    assert k_of(50, 10000, steps=steps) == 16
+    assert k_of(1, 10000, steps=(1501,)) == 16
+    assert launch_plan(50, 32, 10, 10000, H100_SMS,
+                       steps=steps).cluster == 8
+    assert launch_plan(1, 32, 10, 10000, H100_SMS,
+                       steps=(1501,)).cluster == 8
+    assert k_of(50, 10000, steps=steps, row_bytes=2) == 16
+    skewed = (150,) + (30,) * 399
+    assert k_of(400, 10000, steps=skewed) == 8
+    assert k_of(400, 10000, steps=_main_steps(400)) == 8
+    # the steps come from a function, called only where they decide: not
+    # by the staged plan, nor where every client has a cluster of its own
+    # at every size
+    assert k_of(50, 10000, steps=lambda: steps) == 16
+    assert launch_plan(50, 32, 10, 2000, H100_SMS,
+                       steps=lambda: 1 / 0).kernel == "staged"
+    assert k_of(1, 10000, steps=lambda: 1 / 0) == 16
+    assert k_of(7, 10000, steps=lambda: 1 / 0) == 16
+    # equal steps: 50 clusters of 16 take 8 turns of 7, of 8 only 4 of 15
+    assert k_of(50, 10000) == 8
+    # the longest-first schedule
+    assert ek._busiest_steps((5, 3, 3, 2), 2) == 7
+    assert ek._busiest_steps(skewed, 7) == 1740
+    assert ek._busiest_steps(steps, 15) == 150
+    # a card that runs fewer clusters at once: the same J takes fewer CTAs
+    few = {**H100_ACTIVE, 16: 1}
+    assert k_of(50, 10000, steps=steps, active_clusters=few) == 8
+    # a size the card does not run at all is never chosen
+    none16 = {**H100_ACTIVE, 16: 0}
+    assert k_of(1, 10000, steps=(1501,), active_clusters=none16) == 8
+    with pytest.raises(ValueError, match="at once"):
+        ek.launch_plan(1, 32, 10, 10000, H100_SMS)
 
 
 GRID_MANY_C = (33, 64, 71, 105, 1000)
@@ -588,7 +715,7 @@ def test_plan_takes_every_shape_past_32_classes(row_bytes, J):
         for B in GRID_B:
             for C in GRID_MANY_C:
                 for D in GRID_D:
-                    plan = ek.launch_plan(J, B, C, D, H100_SMS,
+                    plan = launch_plan(J, B, C, D, H100_SMS,
                                           row_bytes=row_bytes,
                                           max_cluster=max_cluster)
                     shape = (J, B, C, D, row_bytes, max_cluster)
@@ -614,7 +741,7 @@ def test_plan_tiled_layout():
     classes (a chunk of 24 rows, the batch buffer in global scratch);
     forced at 10 classes its layout holds 10, not the instantiation's 10
     rounded; its symbol in the compiler's report."""
-    plan = ek.launch_plan(50, 32, 105, 2000, H100_SMS)
+    plan = launch_plan(50, 32, 105, 2000, H100_SMS)
     # header 16 B; floats: two exchange buffers 2*(4 + 32*108), row loss
     # and hits 2*32, block sums 16; then the batch buffer 32*(108 + 2)
     smem = 16 + 4 * (2 * (4 + 32 * 108) + 2 * 32 + 16) + 4 * 32 * 110
@@ -623,16 +750,16 @@ def test_plan_tiled_layout():
                                 kernel="wide_tiled", chunk=32,
                                 scratch_bytes=0)
     assert ek.kernel_symbol(plan, 105) == "23wide_tiled_epoch_kernelE"
-    aloi = ek.launch_plan(50, 32, 1000, 2000, H100_SMS)
+    aloi = launch_plan(50, 32, 1000, 2000, H100_SMS)
     assert (aloi.kernel, aloi.cluster, aloi.chunk) == ("wide_tiled", 2, 24)
     assert aloi.scratch_bytes == 4 * 100 * 32 * 1002
     assert aloi.smem_bytes == ek.wide_smem_bytes(32, 1000, 24, False,
                                                  tiled=True)
     # Centralized's one client: 16 CTAs where the card takes them
-    one = ek.launch_plan(1, 32, 105, 2000, H100_SMS, max_cluster=16)
+    one = launch_plan(1, 32, 105, 2000, H100_SMS, max_cluster=16)
     assert (one.kernel, one.cluster, one.slice_width) == ("wide_tiled", 16,
                                                           128)
-    forced = ek.launch_plan(5, 32, 11, 250, H100_SMS, kernel="wide_tiled")
+    forced = launch_plan(5, 32, 11, 250, H100_SMS, kernel="wide_tiled")
     assert (forced.kernel, forced.classes) == ("wide_tiled", 0)
     assert forced.smem_bytes == ek.wide_smem_bytes(32, 11, 32, True,
                                                    tiled=True)
@@ -758,7 +885,7 @@ def test_cuda_unstaged_kernel_matches_plain_version():
     _need_card()
     args = _epoch_inputs("classification", "cuda", J=3, S=2, C=10, D=2000,
                          B=1024)
-    assert ek.launch_plan(3, 1024, 10, 2000, H100_SMS).cluster == 0
+    assert launch_plan(3, 1024, 10, 2000, H100_SMS).cluster == 0
     _kernel_vs_plain("classification", args)
 
 
@@ -823,33 +950,47 @@ def test_cuda_kernel_is_deterministic(task):
 
 
 # the wide kernel's cases: (forced kernel, J, S, D, B); by shape, D = 6,000
-# and B = 4096 are past the staged and unstaged kernels at C >= 10 (at
-# C = 1 they still fit the staged and the unstaged kernel), D = 40,000 at
-# every C
+# and B = 4096 are past the staged and unstaged kernels at C >= 10,
+# D = 40,000 at every C; D = 6,001 copies rows element-wise (not 16-byte
+# multiples); B = 300 works several chunks a step; D = 10,000 is wide_d's
+# J and D (W and the step's rows held in shared memory)
 WIDE_CASES = {
     "forced D=250": ("wide", 5, 6, 250, 32),
     "forced D=2000": ("wide", 70, 6, 2000, 32),
     "D=6000": (None, 5, 6, 6000, 32),
     "B=4096": (None, 3, 2, 2000, 4096),    # the batch buffer in scratch
     "D=40000": (None, 5, 4, 40000, 32),
+    "D=6001": ("wide", 5, 6, 6001, 32),
+    "B=300": ("wide", 5, 4, 2000, 300),
+    "D=10000": (None, 50, 6, 10000, 32),
 }
+# the by-shape cases another kernel takes: at C <= 5 D = 6,000 still fits
+# the staged kernel and B = 4096 the unstaged one, and at C = 1 so does
+# D = 10,000 (W and the anchor whole in 80 KB); every other case is wide
+NOT_WIDE = {("D=6000", 1): "staged", ("D=6000", 5): "staged",
+            ("B=4096", 1): "unstaged", ("B=4096", 5): "unstaged",
+            ("D=10000", 1): "unstaged"}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(WIDE_CASES))
-@pytest.mark.parametrize("C_", [1, 10, 32])
+@pytest.mark.parametrize("C_", [1, 5, 10, 11, 32])
 @pytest.mark.parametrize("task", ["classification", "regression"])
 def test_cuda_wide_kernel_matches_plain_version(task, C_, case):
     """The wide kernel, forced where the staged kernel would run and by
     shape past the staged and unstaged kernels, against the plain
-    version (at C = 1 the by-shape cases run the kernel their plan
-    names); the empty client keeps its weights."""
+    version, at exact and rounded instantiations (C = 5 and 11 skip
+    classes of the 8 and 16 they run); the by-shape cases of ``NOT_WIDE``
+    run the kernel it names; the empty client keeps its weights."""
     _need_card()
     kernel, J, S, D_, B_ = WIDE_CASES[case]
     args = _epoch_inputs(task, "cuda", J=J, S=S, C=C_, D=D_, B=B_)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    runs = ek.launch_plan(J, B_, C_, D_, sms, kernel=kernel).kernel
-    assert runs == "wide" or (C_ == 1 and case in ("D=6000", "B=4096"))
+    runs = launch_plan(
+        J, B_, C_, D_, sms, kernel=kernel,
+        max_cluster=ek.wide_max_cluster(0),
+        active_clusters=ek.wide_active_clusters(0)).kernel
+    assert runs == NOT_WIDE.get((case, C_), "wide")
     before = client_epoch.launches_by_kernel[runs]
     wk, _ = _kernel_vs_plain(task, args, kernel=kernel)
     assert client_epoch.launches_by_kernel[runs] == before + 1
@@ -857,25 +998,31 @@ def test_cuda_wide_kernel_matches_plain_version(task, C_, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D_", [6000, 10000])
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
-def test_cuda_wide_kernel_every_cluster_size(cluster):
+def test_cuda_wide_kernel_every_cluster_size(cluster, D_):
+    """Every cluster at both widths: W in global memory or held, the rows
+    streamed twice or held, 3 to 16 stages."""
     _need_card()
     if cluster > ek.wide_max_cluster(0):
         pytest.skip(f"this card schedules clusters of {ek.wide_max_cluster(0)}")
-    args = _epoch_inputs("classification", "cuda", J=5, S=6, C=10, D=6000)
+    args = _epoch_inputs("classification", "cuda", J=5, S=6, C=10, D=D_)
     _kernel_vs_plain("classification", args, kernel="wide", cluster=cluster)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("task", ["classification", "regression"])
-def test_cuda_wide_kernel_two_byte_rows(task, dtype):
-    """2-byte rows at D = 9,000: past the staged kernel's 8,704."""
+@pytest.mark.parametrize("D_", [9000, 9001])
+def test_cuda_wide_kernel_two_byte_rows(D_, task, dtype):
+    """2-byte rows at D = 9,000, past the staged kernel's 8,704, and at
+    D = 9,001, whose rows are no multiple of 16 bytes (copied element by
+    element into the ring)."""
     _need_card()
-    args = _epoch_inputs(task, "cuda", J=5, S=6, C=10, D=9000)
+    args = _epoch_inputs(task, "cuda", J=5, S=6, C=10, D=D_)
     args[2] = args[2].to(getattr(torch, dtype))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert ek.launch_plan(5, B, 10, 9000, sms, row_bytes=2).kernel == "wide"
+    assert launch_plan(5, B, 10, D_, sms, row_bytes=2).kernel == "wide"
     before = client_epoch.launches_by_kernel["wide"]
     _kernel_vs_plain(task, args)
     assert client_epoch.launches_by_kernel["wide"] == before + 1
@@ -919,7 +1066,7 @@ def test_cuda_tiled_wide_kernel_matches_plain_version(task, C_, case):
     J, S, D_, B_ = TILED_CASES[case]
     args = _epoch_inputs(task, "cuda", J=J, S=S, C=C_, D=D_, B=B_)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert ek.launch_plan(J, B_, C_, D_, sms).kernel == "wide_tiled"
+    assert launch_plan(J, B_, C_, D_, sms).kernel == "wide_tiled"
     before = client_epoch.launches_by_kernel["wide_tiled"]
     wk, _ = _kernel_vs_plain(task, args)
     assert client_epoch.launches_by_kernel["wide_tiled"] == before + 1
