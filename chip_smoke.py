@@ -142,7 +142,10 @@ and read just after:
   launched), the staged kernel's registers and ``spill_bytes`` (it must
   be 0), and the staged and the unstaged kernel timed on the same inputs
   (``ms_by_plan``: staged, split and unstaged at J = 50); rows of their
-  own for the split plan (J = 400, C = 10, and J = 4096, C = 2), the
+  own for the split plan (J = 400, C = 10, and J = 4096, C = 2; at each
+  split shape its ``us_per_step``, ratio to the byte bound, ring (tile,
+  stages, warps), registers and spills, which must be 0, and
+  ``ms_by_cluster``, each size forced, in turns), the
   guarded epochs (clip and simplex at J = 50 and 400, with the simplex's
   fixed-point rounds per step), kernel 1's bfloat16 rows
   (``ms_by_dtype`` beside float32 and float16 at the main shape and at
@@ -1756,8 +1759,11 @@ def zoo(timed, vs_plain, card):
                 "us_per_step": 1e3 * times["ms"] / S2,
                 "bound_ms": 1e3 * max(t_b, t_o),
                 "bound_by": "bytes" if t_b >= t_o else "operations",
-                "bound_bytes": nbytes, "cluster": plan.cluster,
-                "slice": plan.slice_width, "stream": plan.stream,
+                "bound_bytes": nbytes,
+                "over_bound": times["ms"] / (1e3 * max(t_b, t_o)),
+                "cluster": plan.cluster, "slice": plan.slice_width,
+                "stream": plan.stream, "tile": plan.tile,
+                "stages": plan.stages, "warps": plan.warps,
                 "smem_bytes": plan.smem_bytes,
                 "registers": used[0]["registers"],
                 "spill_bytes": used[0]["spill_bytes"],
@@ -4833,23 +4839,37 @@ def main():
                 "library_ms": None}
 
     # kernel 2's split plan: launches from the 400-partition options run;
-    # timed at each split shape, the row's own time at J = 400, C = 10
+    # timed at each split shape, the row's own time at J = 400, C = 10; at
+    # each shape also every cluster size forced (the plan's layout at that
+    # size, holding or streaming), the sizes in turns
     many = f"FedAMW num_partitions={MANY_CLIENTS}"
     by_shape = {}
     for (J2, C2), a in split_in.items():
         plan_s = split_plans[J2, C2]
         saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
         ms = cuda_ms(lambda: p_epoch(*a), 5)
+        sizes = [k for k in pk.SPLIT_CLUSTERS if k <= k_max]
+        reads = {k: [] for k in sizes}
+        for k in sizes + sizes[::-1]:
+            reads[k].append(cuda_ms(
+                lambda: p_epoch(*a, kernel="split", cluster=k), 3))
         p_epoch.launches, p_epoch.launches_by_kernel = saved
         nbytes, ops, bound, by = p_bound(J2, C2)
         used = spill("p_epoch", pk.kernel_symbol(plan_s, C2))
         by_shape[f"J={J2} C={C2}"] = {
             "ms": ms, "us_per_step": 1e3 * ms / S2, "bound_ms": bound,
-            "bound_by": by, "cluster": plan_s.cluster,
-            "slice": plan_s.slice_width, "stream": plan_s.stream,
+            "bound_by": by, "over_bound": ms / bound,
+            "cluster": plan_s.cluster, "slice": plan_s.slice_width,
+            "stream": plan_s.stream, "tile": plan_s.tile,
+            "stages": plan_s.stages, "warps": plan_s.warps,
             "smem_bytes": plan_s.smem_bytes,
             "registers": used["registers"],
-            "spill_bytes": used["spill_bytes"]}
+            "spill_bytes": used["spill_bytes"],
+            "ms_by_cluster": {str(k): sum(r) / len(r)
+                              for k, r in reads.items()},
+            "stream_by_cluster": {str(k): pk.launch_plan(
+                VB, J2, C2, kernel="split", max_cluster=k_max,
+                cluster=k).stream for k in sizes}}
         if used["spill_bytes"] != 0:
             fail(f"the split kernel spills at J={J2}, C={C2}: {used}")
     nbytes, ops, _, _ = p_bound(MANY_CLIENTS, C)

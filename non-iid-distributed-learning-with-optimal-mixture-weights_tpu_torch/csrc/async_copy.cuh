@@ -1,6 +1,7 @@
 // Asynchronous copies from global to shared memory, shared by both kernels:
 // mbarriers, cp.async.bulk (one contiguous span completing on an mbarrier)
-// and element-wise cp.async; and loads kept early for prefetching. Included
+// and element-wise cp.async; loads kept early for prefetching; and the
+// 32-bit address of a peer CTA's shared memory in a cluster. Included
 // by client_epoch.cu and p_epoch.cu; cuda_build.library_path hashes it into
 // both libraries' names, so an edit here rebuilds both.
 
@@ -47,6 +48,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// the shared::cluster address of this CTA's shared address `a` in CTA
+// `rank` of the cluster (32 bits, where cluster.map_shared_rank gives a
+// 64-bit generic pointer)
+__device__ __forceinline__ uint32_t cluster_map(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
 }
 
 // bytes (a multiple of 16) from global src to shared dst, both 16-byte

@@ -884,16 +884,8 @@ struct RingHeader {
 };
 static_assert(sizeof(RingHeader) % 16 == 0, "ring header layout");
 
-// the shared::cluster address of this CTA's shared address `a` in CTA
-// `rank` of the cluster, and a float read there: 32-bit addresses, where
-// cluster.map_shared_rank gives 64-bit generic ones
-__device__ __forceinline__ uint32_t cluster_map(uint32_t a, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(a), "r"(rank));
-  return r;
-}
+// a float read at a shared::cluster address (cluster_map's: 32 bits,
+// where cluster.map_shared_rank gives 64-bit generic pointers)
 __device__ __forceinline__ float ld_cluster(uint32_t a) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n"

@@ -63,14 +63,25 @@
 // Shapes whose rows do not fit one CTA's shared memory run the split
 // kernel: the same step, with J split over a thread-block cluster of k CTAs
 // (up to 16). Each CTA owns a contiguous slice of p, buf, cv and of every
-// gathered row; its partial z goes through distributed shared memory and
-// every CTA sums the k partials in rank order (one cluster barrier), so all
-// hold the same z and compute the loss and d of every row redundantly, then
-// h, g and the update of their own slice. The guard's sums take one more
-// cluster exchange each. A CTA holds its slices of a step's rows in a
-// two-stage ring as the staged kernel does when they fit, else it reads
-// them from global memory in both passes (the second read finds them in
-// L2).
+// gathered row. What bounds it is still a step's latency, and a step adds
+// one exchange of partial logits across the cluster to the staged kernel's
+// (measured on an H100, tools/p_epoch_phases.py: 0.5-0.7 us a step at 4-8
+// CTAs, 1.0 at 16). Its design (split_p_epoch_kernel below):
+//  - a producer warp beside one consumer warp a batch row streams each
+//    step's row slices through a ring of cp.async.bulk tiles on full and
+//    empty mbarriers, and the step's labels, valid flags and their count
+//    through two slots of shared memory, so the consumers issue no copy and
+//    no global load;
+//  - the partial logits are pushed (st.async, 16 bytes at a time) into
+//    every CTA's slot for this rank, completing bytes on the receiving
+//    warp's own mbarrier; each warp waits on its own and sums the k slots
+//    in rank order from its own shared memory: no cluster barrier between
+//    the start and the end;
+//  - a ring of whole slices held from the z pass to the h pass where it
+//    fits (rows copied once a step), else narrower tiles copied for each
+//    pass; two block barriers a step around the update of the slice.
+// The guard's sums take one more exchange each. The cluster is a rule
+// fitted to the card's readings (psolver_kernel._split_cluster).
 //
 // Shapes neither takes (C > 32) run the unstaged kernel below, the port's
 // first design: one CTA of 256 threads that gathers each step's (B, J, C)
@@ -162,29 +173,32 @@ __device__ __forceinline__ void block_sum2(float& a, float& b, float* scratch,
 //    sets of one threshold, so nested); p = max(p - theta, 0). The final
 //    theta is the sort-based formula (aggregate.project_simplex) over the
 //    same support. At most J + 1 rounds, a handful in practice.
-// Returns the fixed point's rounds (0 for clip).
+// Returns the fixed point's rounds (0 for clip). Out of place: the sums
+// read src and the result goes to dst (the split kernel's warps each run
+// the guard on one copy of p, all writing the same dst, so none may read
+// what another has already written; tid the lane, nthreads 32 there).
 template <typename Sum2>
-__device__ int apply_guard(int guard, float radius, float* p, const float* cv,
-                           int n, int J, Sum2&& sum2) {
-  const int tid = threadIdx.x, nthreads = blockDim.x;
+__device__ int apply_guard(int guard, float radius, const float* src,
+                           float* dst, const float* cv, int n, int J,
+                           Sum2&& sum2, int tid, int nthreads) {
   if (guard == kGuardClip) {
     float ss = 0.f, unused = 0.f;
-    for (int j = tid; j < n; j += nthreads) ss = fmaf(p[j], p[j], ss);
+    for (int j = tid; j < n; j += nthreads) ss = fmaf(src[j], src[j], ss);
     sum2(ss, unused);
     const float scale = fminf(1.f, radius / fmaxf(sqrtf(ss), 1e-30f));
-    for (int j = tid; j < n; j += nthreads) p[j] *= scale;
+    for (int j = tid; j < n; j += nthreads) dst[j] = src[j] * scale;
     return 0;
   }
   float s = 0.f, m = 0.f;
   for (int j = tid; j < n; j += nthreads) {
     if (cv[j] > 0.f) {
-      s += p[j];
+      s += src[j];
       m += 1.f;
     }
   }
   sum2(s, m);
   if (m == 0.f) {
-    for (int j = tid; j < n; j += nthreads) p[j] = 0.f;
+    for (int j = tid; j < n; j += nthreads) dst[j] = 0.f;
     return 0;
   }
   float theta = (s - 1.f) / m, prev = m;
@@ -192,8 +206,8 @@ __device__ int apply_guard(int guard, float radius, float* p, const float* cv,
   while (rounds <= J) {
     float t = 0.f, c = 0.f;
     for (int j = tid; j < n; j += nthreads) {
-      if (cv[j] > 0.f && p[j] > theta) {
-        t += p[j];
+      if (cv[j] > 0.f && src[j] > theta) {
+        t += src[j];
         c += 1.f;
       }
     }
@@ -204,8 +218,16 @@ __device__ int apply_guard(int guard, float radius, float* p, const float* cv,
     prev = c;
   }
   for (int j = tid; j < n; j += nthreads)
-    p[j] = cv[j] > 0.f ? fmaxf(p[j] - theta, 0.f) : 0.f;
+    dst[j] = cv[j] > 0.f ? fmaxf(src[j] - theta, 0.f) : 0.f;
   return rounds;
+}
+
+// in place, over the CTA's threads
+template <typename Sum2>
+__device__ int apply_guard(int guard, float radius, float* p, const float* cv,
+                           int n, int J, Sum2&& sum2) {
+  return apply_guard(guard, radius, p, p, cv, n, J, sum2, (int)threadIdx.x,
+                     (int)blockDim.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -226,16 +248,19 @@ struct Args {
   float lr, momentum;
 };
 
-// What the guard epilogue and the split kernel add, as a parameter of its
-// own: the same fields appended to Args (28 bytes more) made ptxas compile
+// What the guard epilogue and the class-tiled split kernel add, as a
+// parameter of its own: the same fields appended to Args (28 bytes more)
+// made ptxas compile
 // the unguarded staged kernel with 93 registers instead of 123 and ~5%
-// slower a step (1.572 against 1.498 ms at the main shape, same card, same
-// call), even where it never reads them.
+// slower a step (1.572 against 1.498 ms at the main shape, same card,
+// same call), even where it never reads them. (The split kernel takes its
+// own, SplitExt.)
 struct Ext {
   int* guard_rounds;  // (2,): the simplex's rounds over all steps and in
                       // the step that took most; or null
   int guard;
-  int k, Jk, hold;    // the split kernel's cluster, slice and ring switch
+  int k, Jk, hold;    // the class-tiled split kernel's cluster, slice and
+                      // ring switch
   float radius;
 };
 
@@ -270,8 +295,21 @@ __device__ unsigned long long phase_clocks[kPhases];
     ph[i] += now_ - t_last;           \
     t_last = now_;                    \
   }
+// The split kernel's phases, counted by thread 0 of rank 0 the same way:
+// 0 copy issue, 1 prefetch loads, 2 valid count, 3 wait for the rows, 4 z
+// (partial logits and their warp sums), 5 the cluster exchange, 6 row
+// loss, 7 h, 8 block barriers, 9 p update (and guard).
+constexpr int kSplitPhases = 10;
+__device__ unsigned long long split_phase_clocks[kSplitPhases];
+#define SPHASE(i)                     \
+  if (timing) {                       \
+    const long long now_ = clock64(); \
+    ph[i] += now_ - t_last;           \
+    t_last = now_;                    \
+  }
 #else
 #define PHASE(i)
+#define SPHASE(i)
 #endif
 
 // L[b, j, :] from a staged row into registers: float2 reads when the class
@@ -626,269 +664,516 @@ int instantiated_classes(int C) {
 // a multiple of 4. The last slices may be narrower, or empty.
 int split_slice(int J, int k) { return round_up((J + k - 1) / k, 4); }
 
-// One slot of the cluster exchange, in floats: a step's partial logits
-// (B*C), or the guard's two partial sums.
+// One slot of the class-tiled split kernel's cluster exchange, in floats: a
+// group's partial logits (B*C), or the guard's two partial sums.
 __host__ __device__ int exchange_floats(int B, int C) {
   return round_up(B * C > 2 ? B * C : 2, 4);
 }
 
-// Shared memory of one CTA of the split kernel, in bytes: 2 mbarriers per
-// warp, then in floats the ring of its row slices when it holds them (2
-// stages * B rows * Jk*C), h (B*Jk), p, buf, cv (Jk each), the per-warp sums
-// (4 * warps) and two exchange slots.
-size_t split_smem_bytes(int B, int J, int C, int k, int hold) {
-  const size_t NW = staged_warps(B), Jk = split_slice(J, k);
-  const size_t ring = hold ? 2 * (size_t)B * Jk * C : 0;
-  return 16 * NW + (ring + (size_t)B * Jk + 3 * Jk + 4 * NW +
-                    2 * (size_t)exchange_floats(B, C)) *
-                       sizeof(float);
+// What the split kernel adds to Args: the guard, the cluster and the slice
+// as Ext, and its ring: row tiles of `tile` clients of the slice, `stages`
+// of them, and whether a tile stays in its stage from the z pass to the h
+// pass (hold: tile == Jk) or is copied again for the h pass.
+struct SplitExt {
+  int* guard_rounds;
+  int guard;
+  int k, Jk, tile, stages, hold;
+  float radius;
+};
+
+constexpr int kSplitMaxStages = 8;
+
+// One rank's slot of the split kernel's exchange, in floats: a group's
+// partial logits, one row a warp, each row padded to 4 floats (16-byte
+// pushes); the guard's two sums take the first two of each warp's row.
+__host__ __device__ int split_slot_floats(int NW, int C) {
+  return NW * round_up(C, 4);
 }
 
+// floats of one slot of the split kernel's row information: a step's B
+// labels (or targets' bits), B valid flags and their count, padded to 4
+__host__ __device__ int split_info_floats(int B) {
+  return round_up(2 * B + 1, 4);
+}
+
+// Shared memory of one CTA of the split kernel with NW consumer warps and
+// a ring of `stages` stages of `tile` clients, in bytes: the mbarriers (a
+// full one a stage and warp, an empty one a stage, an exchange one a slot
+// set and warp, and a full and an empty one for each of the two slots of
+// row information; padded to 16 bytes), the two row-information slots,
+// then in floats the stages (NW rows of tile*C logits each), the two slot
+// sets of the exchange, one slot a rank (2*k*slot), h (NW*Jk: each warp's
+// rows summed), p, buf and cv (Jk each) and the per-warp sums (4*NW).
+size_t split_ring_bytes(int B, int J, int C, int k, int NW, int tile,
+                        int stages) {
+  const size_t Jk = split_slice(J, k);
+  const size_t header = round_up(8 * (stages * (NW + 1) + 2 * NW + 4), 16);
+  return header + (2 * (size_t)split_info_floats(B) +
+                   (size_t)stages * NW * tile * C +
+                   2 * (size_t)k * split_slot_floats(NW, C) +
+                   (size_t)NW * Jk + 3 * Jk + 4 * (size_t)NW) *
+                      sizeof(float);
+}
+
+// The split kernel's layout at (B, J, C, k): holding (hold), one tile of
+// the whole slice a stage and a warp a row (staged_warps), as many stages
+// as fit up to kSplitMaxStages, at least 2; streaming, the widest tile (the
+// slice halved, then halved again, rounded up to 4 clients) of which 2
+// stages fit, then as many stages as fit, with a warp a row or, where no
+// tile fits, half as many warps (each taking twice the rows; at most 32 a
+// warp), and so on. (Four stages of narrower tiles measured slower: a
+// tile under 32 clients leaves lanes idle.) Where nothing fits, the least
+// layout, whose bytes are past the limit.
+struct SplitLayout {
+  size_t smem;
+  int tile, stages, warps;
+};
+
+SplitLayout split_layout(int B, int J, int C, int k, int hold) {
+  const int Jk = split_slice(J, k), least_warps = (B + 31) / 32;
+  const int first = hold ? Jk : round_up((Jk + 1) / 2, 4);
+  auto fits = [&](int NW, int tile, int stages) {
+    return split_ring_bytes(B, J, C, k, NW, tile, stages) <=
+           (size_t)kSmemLimit;
+  };
+  for (int NW = staged_warps(B); NW >= least_warps && NW >= 1; NW /= 2) {
+    for (int tile = first;; tile = round_up((tile + 1) / 2, 4)) {
+      if (fits(NW, tile, 2)) {
+        int stages = 2;
+        while (stages < kSplitMaxStages && fits(NW, tile, stages + 1))
+          ++stages;
+        return {split_ring_bytes(B, J, C, k, NW, tile, stages), tile, stages,
+                NW};
+      }
+      if (hold || tile == 4) break;
+    }
+    if (hold) break;
+  }
+  const int NW = staged_warps(B), tile = hold ? Jk : 4;
+  return {split_ring_bytes(B, J, C, k, NW, tile, 2), tile, 2, NW};
+}
+
+// v (4 floats) stored at shared::cluster address `a` (16-byte aligned) of a
+// CTA of the cluster, completing 16 bytes on the mbarrier at
+// shared::cluster address `bar` of the same CTA
+__device__ __forceinline__ void st_async4(uint32_t a, float v0, float v1,
+                                          float v2, float v3, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(a),
+      "f"(v0), "f"(v1), "f"(v2), "f"(v3), "r"(bar)
+      : "memory");
+}
+
+// the same for 2 floats (8-byte aligned), completing 8 bytes
+__device__ __forceinline__ void st_async2(uint32_t a, float v0, float v1,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(a),
+      "f"(v0), "f"(v1), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what the cluster's st.async
+// wrote before completing the phase is visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  unsigned parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the block barrier of the consumer warps alone (named barrier 1)
+__device__ __forceinline__ void consumers_sync(int nthreads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
+}
+
+// L[b, j, :] from a ring row into registers: load_row for an exact class
+// count; a rounded instantiation clamps its loads to class C - 1 (no load
+// waits behind a branch), and the classes from C on are dropped where they
+// are used (their logits are 0 after the exchange, their d 0)
 template <int NC, bool EXACT>
-__global__ void __launch_bounds__(32 * kMaxWarps, 1)
-    split_p_epoch_kernel(const Args a, const Ext e) {
+__device__ __forceinline__ void split_row(float (&v)[NC], const float* src,
+                                          int C) {
+  if constexpr (EXACT) {
+    load_row<NC, true>(v, src, NC);
+  } else {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) v[c] = src[min(c, C - 1)];
+  }
+}
+
+// NW consumer warps (one a batch row, rows w, w + NW, ...) and one producer
+// warp (warp NW) per CTA; a cluster of k CTAs, each owning a slice of Jk
+// clients of p, buf, cv and of every row.
+//  - The producer streams each step's row slices into a ring of `stages`
+//    stages of (NW rows, tile clients): per group of NW rows and per tile
+//    one cp.async.bulk a row on the stage's full mbarrier (element-wise
+//    cp.async where rows are not 16-byte aligned), each stage reissued once
+//    all NW consumer warps have released it on its empty mbarrier. Holding,
+//    a stage keeps its tile of the whole slice from the z pass to the h
+//    pass (rows copied once a step); streaming, the tiles are copied again
+//    for the h pass. The consumers issue no copy.
+//  - z: each warp sums its row's partial logits over the slice (lanes over
+//    clients, the class loop in registers, a warp sum), then pushes them
+//    into its part of its rank's slot in every CTA of the cluster with
+//    16-byte st.async, which complete bytes on that CTA's exchange
+//    mbarrier; each CTA waits on its own mbarrier alone and sums the k
+//    slots from its own shared memory in rank order: the same z on every
+//    CTA. Two slot sets alternate; a set is written again two exchanges
+//    later, which a peer reaches only after every warp of this CTA pushed
+//    the exchange between, after reading this one. No cluster barrier
+//    between the start and the end.
+//  - The loss and d of every row, redundantly on every CTA, then h over
+//    the slice, each warp's rows summed in row order.
+//  - Two block barriers a step (the consumers'), around the update of the
+//    slice by a thread a client (g_j over the warps in order). Each warp
+//    repeating the whole update instead, with no second barrier, measured
+//    slower: its reads of h are NW times the shared-memory traffic.
+//  - The guard's sums: block sums, then exchanged like the logits (every
+//    warp pushes the same totals).
+template <int NC, bool EXACT>
+__global__ void __launch_bounds__(32 * (kMaxWarps + 1), 1)
+    split_p_epoch_kernel(const Args a, const SplitExt e) {
+  constexpr int NCH = (NC + 3) / 4;  // 16-byte chunks of a row's logits
   const int C = EXACT ? NC : a.C;
   const int S = a.S, B = a.B, J = a.J, JC = J * C, k = e.k, Jk = e.Jk;
-  const int JkC = Jk * C;  // a multiple of 4, as Jk is
-  const int NW = blockDim.x >> 5, nthreads = blockDim.x;
+  const int Jt = e.tile, NS = e.stages;
+  const bool hold = e.hold != 0;
+  const int NW = (blockDim.x >> 5) - 1;  // consumer warps; warp NW produces
+  const int nthreads = 32 * NW;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int nrows = (B - 1 - w) / NW + 1;  // rows w, w + NW, ... below B
-  const bool cls = a.cls != 0, hold = e.hold != 0;
-  const int XS = exchange_floats(B, C);
+  const int G = (B + NW - 1) / NW;  // groups of NW rows
+  const bool cls = a.cls != 0;
+  const int CP = round_up(C, 4);    // a row of a slot
+  const int XS = split_slot_floats(NW, C);
+  const int RS = Jt * C;  // floats of a row's tile, a multiple of 4
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int j0 = rank * Jk;
   const int jw = max(0, min(Jk, J - j0));  // this CTA's clients (maybe 0)
+  const int T = (jw + Jt - 1) / Jt;        // its tiles of the slice
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem_raw);  // [2][NW]
-  float* ring = reinterpret_cast<float*>(smem_raw + 16 * NW);  // [2][B][JkC]
-  float* h = ring + (hold ? 2 * B * JkC : 0);  // [B][Jk]
-  float* p = h + B * Jk;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);  // [NS][NW]
+  uint64_t* empty = full + NS * NW;                         // [NS]
+  uint64_t* xbar = empty + NS;                              // [2][NW]
+  uint64_t* ifull = xbar + 2 * NW;                          // [2]
+  uint64_t* iempty = ifull + 2;                             // [2]
+  const int IS = split_info_floats(B);
+  float* info = reinterpret_cast<float*>(
+      smem_raw + round_up(8 * (NS * (NW + 1) + 2 * NW + 4), 16));  // [2][IS]
+  float* ring = info + 2 * IS;  // [NS][NW][RS]
+  float* xch = ring + NS * NW * RS;  // [2][k][XS], written by the cluster
+  float* h = xch + 2 * k * XS;       // [NW][Jk]
+  float* p = h + NW * Jk;
   float* buf = p + Jk;
   float* cvs = buf + Jk;
-  float* red = cvs + Jk;     // [4][NW]
-  float* xch = red + 4 * NW; // [2][XS], read by the whole cluster
+  float* red = cvs + Jk;  // [4][NW]
 
-  for (int j = tid; j < jw; j += nthreads) {
+  for (int j = tid; j < jw; j += blockDim.x) {
     p[j] = a.p0[j0 + j];
     buf[j] = a.buf0[j0 + j];
     cvs[j] = a.cv[j0 + j];
   }
-  if (lane == 0) {
-    mbar_init(&mbar[w], 1);
-    mbar_init(&mbar[NW + w], 1);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      for (int q = 0; q < NW; ++q) mbar_init(&full[s * NW + q], 1);
+      mbar_init(&empty[s], NW);
+    }
+    for (int q = 0; q < 2 * NW; ++q) mbar_init(&xbar[q], 1);
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(&ifull[q], 1);
+      mbar_init(&iempty[q], NW);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // every CTA of the cluster has started before any reads another's
-  // shared memory
+  __syncthreads();
+  // every CTA's exchange mbarriers are initialised before any is pushed to
   cluster.sync();
 
-  // the staged kernel's prefetch of row ids, flags and labels
-  auto load_info = [&](int t, int& r, float& v, float& vs) {
-    const size_t base = (size_t)t * B;
-    const int b = w + min(lane, nrows - 1) * NW;
-    r = ld_early(a.positions + base + b);
-    v = ld_early(a.valid + base + b);
-    if (B <= 32) {
-      vs = ld_early(a.valid + base + min(lane, B - 1));
-    } else {
-      vs = 0.f;
-      for (int q = lane; q < B; q += 32) vs += ld_early(a.valid + base + q);
-    }
-  };
-  auto load_label = [&](int r, int& yb) { yb = ld_early(a.y + r); };
-  // Copies this CTA's slices of this warp's rows into stage st of the ring
-  // (holding only). The slot was last read by this warp two steps earlier.
-  auto issue = [&](int st, int r) {
-    float* dst = ring + (size_t)st * B * JkC;
-    const int n = jw * C;
-    if (a.bulk) {
-      uint64_t* bar = &mbar[st * NW + w];
-      // an empty slice (the last CTAs when ceil(J / k) rounds up) arrives
-      // expecting no bytes
-      if (lane == 0) mbar_expect_tx(bar, (unsigned)(nrows * n * 4));
+  if (w == NW) {
+    // ---- the producer warp: each step's row information, then its ring
+    // entries in the consumers' order ----
+    int ent = 0;
+    for (int s = 0; s < S; ++s) {
+      // labels, valid flags and their count (the staged kernel's fixed
+      // order) into information slot s & 1, once the consumers are done
+      // with step s - 2
+      if (s >= 2) mbar_wait(&iempty[s & 1], (unsigned)(((s >> 1) - 1) & 1));
+      float* inf = info + (s & 1) * IS;
+      const size_t base = (size_t)s * B;
+      float vs = 0.f;
+      for (int b = lane; b < B; b += 32) {
+        const float v = ld_early(a.valid + base + b);
+        inf[b] = __int_as_float(ld_early(a.y + ld_early(a.positions + base +
+                                                        b)));
+        inf[B + b] = v;
+        vs += v;
+      }
+      const float cnt = warp_sum(vs);
+      if (lane == 0) inf[2 * B] = cnt;
       __syncwarp();
-      if (lane < nrows && n > 0) {
-        fence_proxy_async_smem();
-        bulk_copy(dst + (w + lane * NW) * JkC,
-                  a.logits + (size_t)r * JC + (size_t)j0 * C,
-                  (unsigned)(n * 4), bar);
+      if (lane == 0) mbar_arrive(&ifull[s & 1]);
+      for (int q = 0; q < G; ++q) {
+        const int nr = min(NW, B - q * NW);
+        const int r = ld_early(a.positions + (size_t)s * B + q * NW +
+                               min(lane, nr - 1));
+        for (int pass = 0; pass < (hold ? 1 : 2); ++pass) {
+          for (int t = 0; t < T; ++t, ++ent) {
+            const int st = ent % NS, u = ent / NS;
+            if (u > 0) mbar_wait(&empty[st], (unsigned)((u - 1) & 1));
+            float* dst = ring + st * NW * RS;
+            uint64_t* bar = &full[st * NW + lane];  // lane q's: warp q's
+            const int wt = min(Jt, jw - t * Jt);
+            const float* src = a.logits + (size_t)(j0 + t * Jt) * C;
+            if (a.bulk) {
+              // a row a lane on its warp's barrier; a warp with no row in
+              // the group gets an arrival alone
+              if (lane < nr) {
+                mbar_expect_tx(bar, (unsigned)(wt * C * 4));
+                bulk_copy(dst + lane * RS, src + (size_t)r * JC,
+                          (unsigned)(wt * C * 4), bar);
+              } else if (lane < NW) {
+                mbar_arrive(bar);
+              }
+            } else {
+              for (int qq = 0; qq < nr; ++qq) {
+                const int rq = __shfl_sync(kFull, r, qq);
+                for (int i = lane; i < wt * C; i += 32)
+                  cp_async4(dst + qq * RS + i, src + (size_t)rq * JC + i);
+              }
+              cp_async_commit();
+              cp_async_wait<0>();
+              __syncwarp();
+              if (lane < NW) mbar_arrive(bar);
+            }
+          }
+        }
       }
-    } else {
-      for (int q = 0; q < nrows; ++q) {
-        const int rq = __shfl_sync(kFull, r, q);
-        float* d = dst + (w + q * NW) * JkC;
-        const float* s = a.logits + (size_t)rq * JC + (size_t)j0 * C;
-        for (int i = lane; i < n; i += 32) cp_async4(d + i, s + i);
-      }
-      cp_async_commit();
     }
-  };
-  // L[b, j0 + j, :] of this warp's row q (row id rq) into registers: from
-  // the ring when holding, else from global memory
-  auto row = [&](float(&v)[NC], int st, int b, int rq, int j) {
-    if (hold)
-      load_row<NC, EXACT>(v, ring + (size_t)(st * B + b) * JkC + j * C, C);
-    else
-      load_row_global<NC, EXACT>(
-          v, a.logits + (size_t)rq * JC + (size_t)(j0 + j) * C, C);
-  };
-
-  int r_cur = 0, r_n1 = 0, r_n2 = 0, y_cur = 0, y_n1 = 0;
-  float v_cur = 0.f, vs_cur = 0.f, v_n1 = 0.f, vs_n1 = 0.f, v_n2 = 0.f,
-        vs_n2 = 0.f;
-  if (S > 0) {
-    load_info(0, r_cur, v_cur, vs_cur);
-    load_label(r_cur, y_cur);
-    if (hold) issue(0, r_cur);
+    cluster.sync();  // the consumers' last
+    return;
   }
-  if (S > 1) load_info(1, r_n1, v_n1, vs_n1);
 
-  // The cluster exchanges alternate between two slots: exchange x writes
-  // slot x & 1 before its cluster barrier and reads every rank's after it,
-  // and a CTA writes that slot again (exchange x + 2) only after the
-  // barrier of exchange x + 1, which every CTA reaches after its reads.
-  int xc = 0;
-  auto cluster_sum2 = [&](float& u, float& v, int& par) {
-    block_sum2(u, v, red, par, NW);
-    float* slot = xch + (xc & 1) * XS;
-    if (tid == 0) {
-      slot[0] = u;
-      slot[1] = v;
+  // ---- the NW consumer warps ----
+  const int nrows = (B - 1 - w) / NW + 1;  // rows w, w + NW, ... below B
+  const uint32_t xch_a = smem_addr(xch), xbar_a = smem_addr(xbar);
+
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  // Exchange x: slot set x & 1, phase x >> 1 of each warp's mbarrier
+  // xbar[x & 1][w], which only warp w of every rank pushes to. Lane 0
+  // arrives on this warp's expecting the k ranks' bytes; lane q < k pushes
+  // the warp's row of this rank's slot to CTA q; then the warp waits for
+  // its row of its own CTA's slots.
+  int x = 0;
+  auto begin = [&](int bytes, uint32_t& slot, uint32_t& bar) {
+    const int set = x & 1;
+    if (lane == 0) mbar_expect_tx(&xbar[set * NW + w], (unsigned)bytes);
+    const int q = lane < k ? lane : 0;  // the CTA this lane pushes to
+    slot = cluster_map(xch_a + 4 * ((set * k + rank) * XS + w * CP), q);
+    bar = cluster_map(xbar_a + 8 * (set * NW + w), q);
+  };
+  auto wait_slots = [&]() -> const float* {
+    const int set = x & 1;
+    mbar_wait_cluster(&xbar[set * NW + w], (unsigned)((x >> 1) & 1));
+    ++x;
+    return xch + set * k * XS + w * CP;
+  };
+  // the guard's sums over the cluster: block sums over the consumer warps
+  // (two parities of red, one barrier a call), pushed, the k ranks' summed
+  // in rank order
+  int par = 0;
+  auto cluster_sum2 = [&](float& u, float& v) {
+    u = warp_sum(u);
+    v = warp_sum(v);
+    float* sc = red + par * 2 * NW;
+    if (lane == 0) {
+      sc[w] = u;
+      sc[NW + w] = v;
     }
-    cluster.sync();
+    consumers_sync(nthreads);
+    u = 0.f;
+    v = 0.f;
+    for (int q = 0; q < NW; ++q) {
+      u += sc[q];
+      v += sc[NW + q];
+    }
+    par ^= 1;
+    uint32_t slot, bar;
+    begin(k * 8, slot, bar);
+    if (lane < k) st_async2(slot, u, v, bar);
+    const float* rs = wait_slots();
     u = 0.f;
     v = 0.f;
     for (int q = 0; q < k; ++q) {
-      const float* rs = cluster.map_shared_rank(slot, q);
-      u += rs[0];
-      v += rs[1];
+      u += rs[q * XS];
+      v += rs[q * XS + 1];
     }
-    ++xc;
   };
 
   float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // this warp's
-  int par = 0, rounds_sum = 0, rounds_max = 0;  // the guard's
+  int rounds_sum = 0, rounds_max = 0;  // the guard's
+  int ent = 0;  // ring entries this warp has waited on
+#ifdef P_EPOCH_PHASE_CLOCKS
+  const bool timing = rank == 0 && tid == 0;
+  long long ph[kSplitPhases] = {}, t_last = clock64();
+#endif
   for (int s = 0; s < S; ++s) {
-    const int st = s & 1;
-    if (s + 1 < S) {
-      if (hold) issue(st ^ 1, r_n1);
-      load_label(r_n1, y_n1);
-    } else if (hold && !a.bulk) {
-      cp_async_commit();  // an empty group keeps wait_group<1> uniform
-    }
-    if (s + 2 < S) load_info(s + 2, r_n2, v_n2, vs_n2);
-
-    const float cnt = warp_sum(lane < B ? vs_cur : 0.f);
+    // the step's row information, from the producer
+    mbar_wait(&ifull[s & 1], (unsigned)((s >> 1) & 1));
+    const float* inf = info + (s & 1) * IS;
+    SPHASE(1);
+    const float cnt = inf[2 * B];
     const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
-    if (hold) {
-      if (a.bulk) {
-        mbar_wait(&mbar[st * NW + w], (unsigned)((s >> 1) & 1));
-      } else {
-        cp_async_wait<1>();
-        __syncwarp();
-      }
-    }
+    SPHASE(2);
 
-    // this CTA's partial z of this warp's rows, over its slice
-    float* xs = xch + (xc & 1) * XS;
-    for (int q = 0; q < nrows; ++q) {
-      const int b = w + q * NW;
-      const int rq = __shfl_sync(kFull, r_cur, q);
+    for (int q = 0; q < G; ++q) {
+      const bool mine = q < nrows;  // row b = q*NW + w exists
+      // this CTA's partial z of the row over its slice, tile by tile
       float z[NC];
 #pragma unroll
       for (int c = 0; c < NC; ++c) z[c] = 0.f;
-      for (int j = lane; j < jw; j += 32) {
-        float Lj[NC];
-        row(Lj, st, b, rq, j);
-        const float pj = p[j];
+      const int e_z = ent;
+      for (int t = 0; t < T; ++t, ++ent) {
+        const int st = ent % NS;
+        mbar_wait(&full[st * NW + w], (unsigned)((ent / NS) & 1));
+        SPHASE(3);
+        if (mine) {
+          const float* Lr = ring + (st * NW + w) * RS;
+          const float* pt = p + t * Jt;
+          const int wt = min(Jt, jw - t * Jt);
+          for (int j = lane; j < wt; j += 32) {
+            float Lj[NC];
+            split_row<NC, EXACT>(Lj, Lr + j * C, C);
+            const float pj = pt[j];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          if (!EXACT && c >= C) break;
-          z[c] = fmaf(Lj[c], pj, z[c]);
+            for (int c = 0; c < NC; ++c) z[c] = fmaf(Lj[c], pj, z[c]);
+          }
+        }
+        if (!hold) release(st);
+        SPHASE(4);
+      }
+      warp_sum_classes<NC, true>(z, NC, lane);
+      SPHASE(4);
+      // push the row's partials (0 for a warp with no row in the group) in
+      // 16-byte chunks, then z from the k slots in rank order: lane c sums
+      // class c
+      {
+        uint32_t slot, bar;
+        begin(k * CP * 4, slot, bar);
+        if (lane < k) {
+#pragma unroll
+          for (int ch = 0; ch < NCH; ++ch) {
+            float v4[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              v4[i] = 4 * ch + i < NC ? z[4 * ch + i] : 0.f;
+            if (ch * 4 < C)
+              st_async4(slot + 16 * ch, v4[0], v4[1], v4[2], v4[3], bar);
+          }
         }
       }
-      warp_sum_classes<NC, EXACT>(z, C, lane);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        if (!EXACT && c >= C) break;
-        if (lane == c) xs[b * C + c] = z[c];
-      }
-    }
-    cluster.sync();  // every CTA's partials are in its slot
-
-    for (int q = 0; q < nrows; ++q) {
-      const int b = w + q * NW;
-      const int rq = __shfl_sync(kFull, r_cur, q);
-      // lane c sums class c over the ranks in rank order, then every lane
-      // takes all C: the same z on every CTA
+      const float* rs = wait_slots();
       float zc = 0.f;
       if (lane < C)
-        for (int r = 0; r < k; ++r)
-          zc += cluster.map_shared_rank(xs, r)[b * C + lane];
-      float z[NC];
+        for (int r = 0; r < k; ++r) zc += rs[r * XS + lane];
 #pragma unroll
       for (int c = 0; c < NC; ++c) z[c] = __shfl_sync(kFull, zc, c);
-      const float bv = __shfl_sync(kFull, v_cur, q);
-      const int yb = __shfl_sync(kFull, y_cur, q);
-      float hit;
-      const float loss = row_loss_grad_warp<NC, EXACT>(
-          z, C, cls, yb, __int_as_float(yb), bv * inv_cnt, &hit);
-      acc_loss += loss * bv;
-      acc_hit += hit * bv;
-      // h[b, j] over this CTA's slice (the row read a second time)
-      for (int j = lane; j < jw; j += 32) {
-        float Lj[NC];
-        row(Lj, st, b, rq, j);
-        float hv = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          if (!EXACT && c >= C) break;
-          hv = fmaf(Lj[c], z[c], hv);
-        }
-        h[b * Jk + j] = hv;
+      SPHASE(5);
+      if (mine) {
+        const int b = q * NW + w;
+        const float bv = inf[B + b];
+        const int yb = __float_as_int(inf[b]);
+        float hit;
+        const float loss = row_loss_grad_warp<NC, EXACT>(
+            z, C, cls, yb, __int_as_float(yb), bv * inv_cnt, &hit);
+        acc_loss += loss * bv;
+        acc_hit += hit * bv;
       }
+      SPHASE(6);
+      // h over the slice, this warp's rows summed: the held tiles again, or
+      // their copies
+      int eh = hold ? e_z : ent;
+      for (int t = 0; t < T; ++t, ++eh) {
+        const int st = eh % NS;
+        if (!hold) {
+          mbar_wait(&full[st * NW + w], (unsigned)((eh / NS) & 1));
+          SPHASE(3);
+        }
+        if (mine) {
+          const float* Lr = ring + (st * NW + w) * RS;
+          float* ht = h + w * Jk + t * Jt;
+          const int wt = min(Jt, jw - t * Jt);
+          for (int j = lane; j < wt; j += 32) {
+            float Lj[NC];
+            split_row<NC, EXACT>(Lj, Lr + j * C, C);
+            float hv = 0.f;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) hv = fmaf(Lj[c], z[c], hv);
+            if (q == 0)
+              ht[j] = hv;
+            else
+              ht[j] += hv;
+          }
+        }
+        release(st);
+        SPHASE(7);
+      }
+      if (!hold) ent = eh;
     }
-    ++xc;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&iempty[s & 1]);  // done with the information
     acc_cnt += cnt;
-    __syncthreads();  // h complete; every warp is done reading p
+    consumers_sync(nthreads);  // h complete; every warp is done reading p
+    SPHASE(8);
 
     for (int j = tid; j < jw; j += nthreads) {
       float g = 0.f;
 #pragma unroll 4
-      for (int b = 0; b < B; ++b) g += h[b * Jk + j];
+      for (int u = 0; u < NW; ++u) g += h[u * Jk + j];
       g *= cvs[j];
       const float bj = a.momentum * buf[j] + g;
       buf[j] = bj;
       p[j] = p[j] - a.lr * bj;
     }
     if (e.guard != kGuardNone) {
-      const int rounds = apply_guard(
-          e.guard, e.radius, p, cvs, jw, J,
-          [&](float& u, float& v) { cluster_sum2(u, v, par); });
+      const int rounds = apply_guard(e.guard, e.radius, p, p, cvs, jw, J,
+                                     cluster_sum2, tid, nthreads);
       rounds_sum += rounds;
       rounds_max = max(rounds_max, rounds);
     }
-    __syncthreads();  // p updated; h free for the next step
+    SPHASE(9);
+    consumers_sync(nthreads);  // p updated
+    SPHASE(8);
 
-    r_cur = r_n1;
-    v_cur = v_n1;
-    vs_cur = vs_n1;
-    y_cur = y_n1;
-    r_n1 = r_n2;
-    v_n1 = v_n2;
-    vs_n1 = vs_n2;
   }
-  // no CTA leaves while another may still read its exchange slots
-  cluster.sync();
+#ifdef P_EPOCH_PHASE_CLOCKS
+  if (timing)
+    for (int i = 0; i < kSplitPhases; ++i) split_phase_clocks[i] = ph[i];
+#endif
 
   if (lane == 0) {
     red[w] = acc_loss;
     red[NW + w] = acc_hit;
   }
-  __syncthreads();
+  consumers_sync(nthreads);
   for (int j = tid; j < jw; j += nthreads) {
     a.p_out[j0 + j] = p[j];
     a.buf_out[j0 + j] = buf[j];
@@ -907,12 +1192,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
       e.guard_rounds[1] = rounds_max;
     }
   }
+  // no CTA leaves while a peer's pushes to it may be in flight
+  cluster.sync();
 }
 
-// One launch of a split kernel (either instantiation): one cluster of x.k
-// CTAs of one warp a batch row (at most kMaxWarps), `smem` bytes each.
-cudaError_t launch_split_kernel(void (*kern)(Args, Ext), const Args& a,
-                                const Ext& x, size_t smem,
+// One launch of a split kernel: one cluster of x.k CTAs of `threads`
+// threads, `smem` bytes each.
+template <typename X>
+cudaError_t launch_split_kernel(void (*kern)(Args, X), const Args& a,
+                                const X& x, int threads, size_t smem,
                                 cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -924,7 +1212,7 @@ cudaError_t launch_split_kernel(void (*kern)(Args, Ext), const Args& a,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)x.k);
-  cfg.blockDim = dim3((unsigned)(32 * staged_warps(a.B)));
+  cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -940,17 +1228,21 @@ cudaError_t launch_split_kernel(void (*kern)(Args, Ext), const Args& a,
 }
 
 template <int NC, bool EXACT>
-cudaError_t launch_split(const Args& a, const Ext& x, cudaStream_t stream) {
+cudaError_t launch_split(const Args& a, const SplitExt& x, int warps,
+                         size_t smem, cudaStream_t stream) {
   return launch_split_kernel(split_p_epoch_kernel<NC, EXACT>, a, x,
-                             split_smem_bytes(a.B, a.J, a.C, x.k, x.hold),
-                             stream);
+                             32 * (warps + 1), smem, stream);
 }
 
 // ---------------------------------------------------------------------------
-// The class-tiled split kernel: the split kernel for any C, taken at run
-// time (one instantiation). The same cluster, slices, ring or stream,
-// prefetch, p update and guard; what held a row's C logits in each lane's
-// registers holds them in shared memory, and the batch is worked in groups
+// The class-tiled split kernel: the split kernel's first design for any C,
+// taken at run time (one instantiation). The same cluster and slices; each
+// warp copies its own rows' slices into a two-stage ring (holding) or reads
+// them from global memory (streaming), prefetches its rows' ids, flags and
+// labels as the staged kernel does, and exchanges partial logits through
+// distributed shared memory behind cluster barriers; the p update and
+// guard are the split kernel's. A row's C logits sit in shared memory, not
+// in each lane's registers, and the batch is worked in groups
 // of one row a warp (rows q*NW .. q*NW + NW - 1, group q), one exchange a
 // group, so that an exchange slot holds NW rows of C partial logits and h
 // one group's rows (not B of each): the slots and h stay small at any C and
@@ -1023,7 +1315,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   // shared memory
   cluster.sync();
 
-  // the split kernel's prefetch of row ids, flags and labels
+  // the staged kernel's prefetch of row ids, flags and labels
   auto load_info = [&](int t, int& r, float& v, float& vs) {
     const size_t base = (size_t)t * B;
     const int b = w + min(lane, nrows - 1) * NW;
@@ -1037,8 +1329,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     }
   };
   auto load_label = [&](int r, int& yb) { yb = ld_early(a.y + r); };
-  // the split kernel's copy of this CTA's slices of this warp's rows into
-  // stage st of the ring (holding only)
+  // copies this CTA's slices of this warp's rows into stage st of the ring
+  // (holding only); the slot was last read by this warp two steps earlier
   auto issue = [&](int st, int r) {
     float* dst = ring + (size_t)st * B * JkC;
     const int n = jw * C;
@@ -1079,7 +1371,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   }
   if (S > 1) load_info(1, r_n1, v_n1, vs_n1);
 
-  // the split kernel's alternating exchange slots
+  // The cluster exchanges alternate between two slots: exchange x writes
+  // slot x & 1 before its cluster barrier and reads every rank's after it,
+  // and a CTA writes that slot again (exchange x + 2) only after the
+  // barrier of exchange x + 1, which every CTA reaches after its reads.
   int xc = 0;
   auto cluster_sum2 = [&](float& u, float& v, int& par) {
     block_sum2(u, v, red, par, NW);
@@ -1466,7 +1761,7 @@ size_t p_epoch_staged_smem_bytes(int B, int J, int C) {
 size_t p_epoch_split_smem_bytes(int B, int J, int C, int k, int hold,
                                 int tiled) {
   return tiled ? split_tiled_smem_bytes(B, J, C, k, hold)
-               : split_smem_bytes(B, J, C, k, hold);
+               : split_layout(B, J, C, k, hold).smem;
 }
 
 size_t p_epoch_unstaged_smem_bytes(int B, int J, int C) {
@@ -1477,6 +1772,17 @@ int p_epoch_staged_warps(int B) { return staged_warps(B); }
 
 int p_epoch_split_slice(int J, int k) { return split_slice(J, k); }
 
+// The split kernel's layout at (B, J, C, k, hold): its tile of clients,
+// its stages and its consumer warps (split_layout); returns 0.
+int p_epoch_split_layout(int B, int J, int C, int k, int hold, int* tile,
+                         int* stages, int* warps) {
+  const SplitLayout lay = split_layout(B, J, C, k, hold);
+  *tile = lay.tile;
+  *stages = lay.stages;
+  *warps = lay.warps;
+  return 0;
+}
+
 int p_epoch_instantiated_classes(int C) { return instantiated_classes(C); }
 
 // The largest cluster the split kernel may launch on this card: 16 when
@@ -1484,7 +1790,7 @@ int p_epoch_instantiated_classes(int C) { return instantiated_classes(C); }
 // largest CTA (512 threads, a full block of shared memory), else the
 // portable 8.
 int p_epoch_split_max_cluster(void) {
-  auto kern = split_p_epoch_kernel<32, false>;
+  auto kern = split_p_epoch_kernel<32, false>;  // 16 consumer warps
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
                            1) != cudaSuccess ||
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1494,7 +1800,7 @@ int p_epoch_split_max_cluster(void) {
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kMaxCluster);
-  cfg.blockDim = dim3(32 * kMaxWarps);
+  cfg.blockDim = dim3(32 * (kMaxWarps + 1));
   cfg.dynamicSmemBytes = kSmemLimit;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1556,15 +1862,28 @@ int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
   const Args a = make_args(p0, buf0, cv, logits, y, positions, valid, p_out,
                            buf_out, metrics, S, B, J, C, is_cls, bulk, lr,
                            momentum);
-  const Ext x = make_ext(guard_rounds, guard, radius, k, split_slice(J, k),
-                         hold);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tiled)
-    return static_cast<int>(
-        launch_split_kernel(split_tiled_p_epoch_kernel, a, x,
-                            split_tiled_smem_bytes(B, J, C, k, hold), s));
+  if (tiled) {
+    const Ext x = make_ext(guard_rounds, guard, radius, k,
+                           split_slice(J, k), hold);
+    return static_cast<int>(launch_split_kernel(
+        split_tiled_p_epoch_kernel, a, x, 32 * staged_warps(B),
+        split_tiled_smem_bytes(B, J, C, k, hold), s));
+  }
+  const SplitLayout lay = split_layout(B, J, C, k, hold);
+  if (lay.smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  SplitExt x;
+  x.guard_rounds = static_cast<int*>(guard_rounds);
+  x.guard = guard;
+  x.k = k;
+  x.Jk = split_slice(J, k);
+  x.tile = lay.tile;
+  x.stages = lay.stages;
+  x.hold = hold;
+  x.radius = radius;
   return static_cast<int>(dispatch_classes(C, [&](auto n, auto exact) {
-    return launch_split<decltype(n)::value, decltype(exact)::value>(a, x, s);
+    return launch_split<decltype(n)::value, decltype(exact)::value>(
+        a, x, lay.warps, lay.smem, s);
   }));
 }
 
@@ -1573,6 +1892,12 @@ int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
 int p_epoch_phase_clocks(unsigned long long* out) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(out, phase_clocks, sizeof(phase_clocks)));
+}
+
+// The phase clocks of the last split launch (kSplitPhases counters).
+int p_epoch_split_phase_clocks(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, split_phase_clocks,
+                                               sizeof(split_phase_clocks)));
 }
 #endif
 

@@ -21,10 +21,16 @@ warp-local, and two block barriers per step frame the ``p`` update.
 Where two stages of rows plus ``h`` exceed one block's shared memory, the
 split kernel runs the same step with J split over a thread-block cluster
 of ``k`` CTAs (2 to 16): each CTA owns a slice of ``p``, ``buf``, ``cv``
-and of every row, the partial logits meet through distributed shared
-memory in rank order, and each CTA holds its slices of a step's rows in
-a two-stage ring when they fit (``stream=False``), else reads them from
-global memory in both passes (``stream=True``). Shapes neither takes
+and of every row. A producer warp streams each step's row slices through
+a ring of ``cp.async.bulk`` tiles (``split_layout``: whole slices held
+from the z pass to the h pass where they fit, ``stream=False``; else
+narrower tiles copied once a pass, ``stream=True``) and the step's
+labels and valid flags through shared memory; each consumer warp (one a
+batch row) pushes its row's partial logits into every CTA with
+``st.async`` and sums the k ranks' in rank order from its own shared
+memory, so no cluster barrier is left inside the epoch. The cluster is
+fitted to the card's readings (``_split_cluster``); ``_split_reach``
+keeps the shapes the split kernel takes. Shapes neither takes
 (``B > 512`` or ``C > 32``) run the unstaged kernel, the port's first
 design (one CTA of 256 threads, five barriers per step), where the
 step's ``(B, J, C)`` block fits one CTA. What is left of ``B <= 512``
@@ -65,6 +71,7 @@ MAX_WARPS = 16             # of the staged kernel's CTA (kMaxWarps in p_epoch.cu
 MAX_STAGED_BATCH = 32 * MAX_WARPS  # a lane of its warp per row
 UNSTAGED_WARPS = 8         # kThreads / 32 of the unstaged kernel
 SPLIT_CLUSTERS = (2, 4, 8, 16)  # 16 is non-portable: where the card allows
+SPLIT_MAX_STAGES = 8       # the split kernel's ring (kSplitMaxStages)
 KERNELS = ("staged", "split", "unstaged", "split_tiled")
 # the kernels' guard argument (kGuard* in p_epoch.cu)
 GUARD_CODES = {"clip": 1, "simplex": 2}
@@ -180,6 +187,10 @@ def staged_smem_bytes(B: int, J: int, C: int) -> int:
     return 16 * nw + 4 * (2 * B * jcp + B * J + 3 * J + 4 * nw)
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
 def split_slice(J: int, k: int) -> int:
     """Clients one CTA of a ``k``-cluster owns: ``ceil(J / k)`` rounded up
     to 4, so that every slice of a row starts 16-byte aligned when
@@ -189,23 +200,84 @@ def split_slice(J: int, k: int) -> int:
     return -(-per_cta // 4) * 4
 
 
+def split_ring_bytes(B: int, J: int, C: int, k: int, warps: int, tile: int,
+                     stages: int) -> int:
+    """Shared memory of one CTA of the split kernel with ``warps``
+    consumer warps and a ring of ``stages`` stages of ``tile`` clients
+    (``split_ring_bytes`` in ``p_epoch.cu``): the mbarriers (a full one
+    a stage and warp, an empty one a stage, an exchange one a slot set
+    and warp, a full and an empty one for each of two slots of row
+    information; padded to 16 bytes), then in floats the two slots of
+    row information (a step's labels, valid flags and count, padded to
+    4), the stages (``warps`` rows of ``tile*C`` each), two slot sets of
+    the exchange (a slot a rank: a row of ``C`` floats padded to 4 a
+    warp), ``h (warps, Jk)`` (each warp's rows summed), the slice's
+    ``p``, ``buf`` and ``cv`` and the per-warp sums."""
+    jk = split_slice(J, k)
+    slot = warps * _round_up(C, 4)
+    header = _round_up(8 * (stages * (warps + 1) + 2 * warps + 4), 16)
+    return header + 4 * (2 * _round_up(2 * B + 1, 4)
+                         + stages * warps * tile * C + 2 * k * slot
+                         + warps * jk + 3 * jk + 4 * warps)
+
+
+def split_layout(B: int, J: int, C: int, k: int, stream: bool,
+                 smem_limit: int = cuda_build.SMEM_LIMIT
+                 ) -> tuple[int, int, int, int]:
+    """``(smem_bytes, tile, stages, warps)`` of the split kernel
+    (``split_layout`` in ``p_epoch.cu``, at the card's block): holding
+    (``stream`` False), one tile of the whole slice a stage and a warp a
+    row, as many stages as fit up to ``SPLIT_MAX_STAGES``, at least 2;
+    streaming, the widest tile (the slice halved, then halved again,
+    rounded up to 4 clients) of which two stages fit, then as many
+    stages as fit, with a warp a row or, where no tile fits, half as
+    many warps (at most 32 rows a warp), and so on. Where nothing fits,
+    the least layout, whose bytes pass ``smem_limit``."""
+    jk = split_slice(J, k)
+    first = _round_up(-(-jk // 2), 4) if stream else jk
+
+    def fits(warps, tile, stages):
+        return split_ring_bytes(B, J, C, k, warps, tile,
+                                stages) <= smem_limit
+
+    warps = staged_warps(B)
+    while warps >= max(1, -(-B // 32)):
+        tile = first
+        while True:
+            if fits(warps, tile, 2):
+                stages = 2
+                while (stages < SPLIT_MAX_STAGES
+                       and fits(warps, tile, stages + 1)):
+                    stages += 1
+                return (split_ring_bytes(B, J, C, k, warps, tile, stages),
+                        tile, stages, warps)
+            if not stream or tile == 4:
+                break
+            tile = _round_up(-(-tile // 2), 4)
+        if not stream:
+            break
+        warps //= 2
+    tile = 4 if stream else jk
+    return (split_ring_bytes(B, J, C, k, staged_warps(B), tile, 2), tile, 2,
+            staged_warps(B))
+
+
 def split_smem_bytes(B: int, J: int, C: int, k: int, stream: bool,
                      tiled: bool = False) -> int:
-    """Shared memory of one CTA of the split kernel (``split_smem_bytes``
-    in ``p_epoch.cu``): two mbarriers per warp, two stages of its slices
-    of ``B`` rows (``Jk*C`` floats each) unless it streams them, ``h (B,
-    Jk)``, its slices of ``p``, ``buf`` and ``cv``, the per-warp sums and
-    two cluster-exchange slots of ``B*C`` floats (at least 2, padded to
-    4). ``tiled``: the class-tiled split kernel's
-    (``split_tiled_smem_bytes``), which works the batch a group of one row
-    a warp at a time: ``h`` and each slot hold one group's rows, and a
-    slice of ``g`` is added."""
+    """Shared memory of one CTA of the split kernel (``split_layout``'s
+    bytes). ``tiled``: the class-tiled split kernel's
+    (``split_tiled_smem_bytes``): two mbarriers per warp, two stages of
+    its slices of ``B`` rows (``Jk*C`` floats each) unless it streams
+    them (reading them from global memory), ``h`` of one group of a row a
+    warp, its slices of ``p``, ``buf``, ``cv`` and ``g``, the per-warp
+    sums and two cluster-exchange slots of ``NW*C`` floats (at least 2,
+    padded to 4)."""
+    if not tiled:
+        return split_layout(B, J, C, k, stream)[0]
     nw, jk = staged_warps(B), split_slice(J, k)
     ring = 0 if stream else 2 * B * jk * C
-    rows = nw if tiled else B
-    xs = -(-max(rows * C, 2) // 4) * 4
-    return 16 * nw + 4 * (ring + rows * jk + (4 if tiled else 3) * jk
-                          + 4 * nw + 2 * xs)
+    xs = -(-max(nw * C, 2) // 4) * 4
+    return 16 * nw + 4 * (ring + nw * jk + 4 * jk + 4 * nw + 2 * xs)
 
 
 def unstaged_smem_bytes(B: int, J: int, C: int) -> int:
@@ -222,7 +294,11 @@ class PEpochPlan:
     class-tiled split kernels, which take C at run time) and one CTA's
     dynamic ``smem_bytes``; for the split kernels, the ``cluster`` of
     CTAs, the ``slice_width`` of J each owns and whether it ``stream``s
-    its rows from global memory instead of holding them in a ring."""
+    its rows from global memory instead of holding them in a ring
+    (the class-tiled kernel) or copies them into its ring again for the
+    h pass (the split kernel); for the split kernel, the ring's ``tile``
+    of clients and its ``stages``. The split kernel's CTA has one
+    producer warp beside its ``warps`` (one a batch row)."""
 
     kernel: str
     warps: int
@@ -231,29 +307,99 @@ class PEpochPlan:
     cluster: int = 1
     slice_width: int = 0
     stream: bool = False
+    tile: int = 0
+    stages: int = 0
+
+
+def _split_reach(B: int, J: int, C: int, smem_limit: int,
+                 max_cluster: int) -> bool:
+    """Whether the split kernel takes ``(B, J, C)``: where its first
+    layout fit a block streaming over the largest cluster (a slot of
+    every row's partial logits a CTA, pulled over the cluster, beside
+    ``h (B, Jk)``). The push exchange needs less at large B and more at
+    a small block; this bound keeps the kernel every shape ran before
+    (the staged, unstaged or class-tiled kernels take the rest), and
+    ``split_layout`` fits every shape inside it."""
+    nw = staged_warps(B)
+    jk = split_slice(J, max(k for k in SPLIT_CLUSTERS if k <= max_cluster))
+    return 16 * nw + 4 * (B * jk + 3 * jk + 4 * nw
+                          + 2 * _round_up(max(B * C, 2), 4)) <= smem_limit
+
+
+# the split kernel's cluster rule: a cluster whose CTAs hold their slices
+# is small enough when a lane's share of a row, ceil(Jk / 32) clients of C
+# logits and about 4 floats of their own (p, h, the loop), is at most this
+SPLIT_LANE_FLOATS = 48
+
+
+def _split_cluster(B: int, J: int, C: int, sizes: list[int],
+                   smem_limit: int) -> tuple[int, bool] | None:
+    """``(k, stream)`` of the split kernel at ``(B, J, C)`` among the
+    cluster ``sizes``: the smallest whose CTAs hold their row slices
+    (``split_layout`` with ``stream`` False) with ``ceil(Jk/32) * (C + 4)
+    <= SPLIT_LANE_FLOATS``; else the largest that holds; else the
+    largest whose CTAs fit streaming. Fitted to
+    ``tools/p_epoch_clusters.py`` on an H100 (B = 16, n_val 11,983, ms a
+    launch at k = 2, 4, 8, 16; S streaming, else holding): J = 400, C =
+    10 4.03 S, 2.72, 2.20, 2.48; J = 512, C = 10 4.49 S, 2.39, 2.14,
+    2.50; J = 356, C = 10 3.13 S, 2.15, 2.17, 2.54; J = 800, C = 10 6.36
+    S, 4.08 S, 2.83, 2.65; J = 2,000, C = 10 18.37 S, 8.00 S, 4.35 S,
+    2.88; J = 1,024, C = 7 6.25 S, 3.76 S, 2.64, 2.61; J = 138, C = 26
+    4.49 S, 3.44, 3.26, 3.89; J = 200, C = 26 4.47 S, 3.48, 3.31, 3.92;
+    J = 1,658, C = 2 3.36 S, 2.08, 1.82, 1.99; J = 2,048, C = 2 3.71 S,
+    2.22, 1.86, 1.86; J = 4,096, C = 2 9.92 S, 3.85 S, 2.29, 2.04; J =
+    1,000, C = 26 and J = 4,096, C = 10 and 26 stream at every size,
+    fastest at 16. A larger cluster shortens a CTA's passes over its
+    slice and lengthens the exchange (0.5 us a step at k = 4, 0.7 at 8,
+    1.0 at 16, ``tools/p_epoch_phases.py``); streaming
+    copies every tile twice."""
+    held = [k for k in sizes
+            if split_layout(B, J, C, k, False, smem_limit)[0] <= smem_limit]
+    for k in held:
+        if -(-split_slice(J, k) // 32) * (C + 4) <= SPLIT_LANE_FLOATS:
+            return k, False
+    if held:
+        return held[-1], False
+    streamed = [k for k in sizes
+                if split_layout(B, J, C, k, True, smem_limit)[0] <= smem_limit]
+    return (streamed[-1], True) if streamed else None
 
 
 def _split_plan(B: int, J: int, C: int, nc: int, smem_limit: int,
-                max_cluster: int) -> PEpochPlan | None:
-    """The split kernel's plan for the instantiation of ``nc`` classes, or
-    with ``nc`` 0 the class-tiled one's (its own layout): the smallest
-    cluster whose CTAs hold two stages of their row slices (fewer CTAs a
-    barrier waits for), else the largest whose CTAs fit streaming (the
-    least each reads a step)."""
-    sizes = [k for k in SPLIT_CLUSTERS if k <= max_cluster]
+                max_cluster: int, cluster: int | None = None
+                ) -> PEpochPlan | None:
+    """The split kernel's plan for the instantiation of ``nc`` classes
+    (the cluster of ``_split_cluster`` inside ``_split_reach``), or with
+    ``nc`` 0 the class-tiled one's (its own layout): the smallest cluster
+    whose CTAs hold two stages of their row slices, else the largest
+    whose CTAs fit streaming. ``cluster`` forces a size (None where its
+    CTAs fit neither way)."""
+    sizes = [k for k in SPLIT_CLUSTERS if k <= max_cluster
+             and cluster in (None, k)]
+    if nc:
+        if not _split_reach(B, J, C, smem_limit, max_cluster):
+            return None
+        chosen = _split_cluster(B, J, C, sizes, smem_limit)
+        if chosen is None:
+            return None
+        k, stream = chosen
+        smem, tile, stages, warps = split_layout(B, J, C, k, stream,
+                                                 smem_limit)
+        return PEpochPlan("split", warps, nc, smem, k, split_slice(J, k),
+                          stream, tile, stages)
     for stream, order in ((False, sizes), (True, sizes[::-1])):
         for k in order:
-            smem = split_smem_bytes(B, J, C, k, stream, tiled=not nc)
+            smem = split_smem_bytes(B, J, C, k, stream, tiled=True)
             if smem <= smem_limit:
-                return PEpochPlan("split" if nc else "split_tiled",
-                                  staged_warps(B), nc, smem, k,
+                return PEpochPlan("split_tiled", staged_warps(B), 0, smem, k,
                                   split_slice(J, k), stream)
     return None
 
 
 def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
                 smem_limit: int = cuda_build.SMEM_LIMIT,
-                max_cluster: int = SPLIT_CLUSTERS[-1]) -> PEpochPlan | None:
+                max_cluster: int = SPLIT_CLUSTERS[-1],
+                cluster: int | None = None) -> PEpochPlan | None:
     """The kernel for batch ``B``, ``J`` clients and ``C`` classes, by
     shape alone: the staged kernel when ``B <= 512``, ``C <= 32`` and its
     two stages plus ``h`` fit a block's shared memory (``smem_limit``);
@@ -263,33 +409,42 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
     class-tiled split kernel by the split kernel's rules (any C); else
     None (no kernel takes the shape). ``kernel`` forces one of
     ``KERNELS`` (``"split_tiled"`` at any C), and ``ValueError`` says
-    when it does not fit."""
+    when it does not fit; ``cluster`` forces the split kernels' cluster
+    (for measurement; a plan at that size, or ``ValueError``)."""
     if B < 1 or J < 1 or C < 1:
         raise ValueError(f"bad shape B={B}, J={J}, C={C}")
     if kernel not in (None,) + KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    if cluster is not None and cluster not in SPLIT_CLUSTERS:
+        raise ValueError(f"cluster must be one of {SPLIT_CLUSTERS}, got "
+                         f"{cluster!r}")
     fits = {}
     nc = staged_classes(C)
     if B <= MAX_STAGED_BATCH and nc:
         smem = staged_smem_bytes(B, J, C)
         if smem <= smem_limit:
             fits["staged"] = PEpochPlan("staged", staged_warps(B), nc, smem)
-        split = _split_plan(B, J, C, nc, smem_limit, max_cluster)
+        split = _split_plan(B, J, C, nc, smem_limit, max_cluster, cluster)
         if split is not None:
             fits["split"] = split
     smem = unstaged_smem_bytes(B, J, C)
     if smem <= smem_limit:
         fits["unstaged"] = PEpochPlan("unstaged", UNSTAGED_WARPS, 0, smem)
     if B <= MAX_STAGED_BATCH:
-        tiled = _split_plan(B, J, C, 0, smem_limit, max_cluster)
+        tiled = _split_plan(B, J, C, 0, smem_limit, max_cluster, cluster)
         if tiled is not None:
             fits["split_tiled"] = tiled
     if kernel is not None:
         if kernel not in fits:
             raise ValueError(f"the {kernel} p_epoch kernel does not fit "
                              f"B={B}, J={J}, C={C}; these do: {list(fits)}")
-        return fits[kernel]
-    return next(iter(fits.values()), None)
+        plan = fits[kernel]
+    else:
+        plan = next(iter(fits.values()), None)
+    if cluster is not None and (plan is None or plan.cluster != cluster):
+        raise ValueError(f"no split p_epoch kernel fits B={B}, J={J}, C={C} "
+                         f"on a {cluster}-CTA cluster: {plan}")
+    return plan
 
 
 def kernel_symbol(plan: PEpochPlan, C: int, guarded: bool = False) -> str:
@@ -352,6 +507,9 @@ def _library():
                         ("p_epoch_split_max_cluster", 0)):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
+    lib.p_epoch_split_layout.restype = ctypes.c_int
+    lib.p_epoch_split_layout.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)] * 3
     return lib
 
 
@@ -366,7 +524,7 @@ def split_max_cluster(device_index: int) -> int:
 
 def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
     """The plan's layout must be the kernel's: same shared memory, warps,
-    instantiation and, split, slice."""
+    instantiation and, split, slice (and the split kernel's ring)."""
     if plan.kernel == "staged":
         got = (lib.p_epoch_staged_smem_bytes(B, J, C),
                lib.p_epoch_staged_warps(B),
@@ -382,14 +540,23 @@ def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
     else:
         got = (lib.p_epoch_unstaged_smem_bytes(B, J, C), UNSTAGED_WARPS, 0,
                0)
-    if got != (plan.smem_bytes, plan.warps, plan.classes, plan.slice_width):
+    if plan.kernel == "split":
+        lay = [ctypes.c_int() for _ in range(3)]
+        lib.p_epoch_split_layout(B, J, C, plan.cluster, int(not plan.stream),
+                                 *map(ctypes.byref, lay))
+        got = got[:1] + (lay[2].value,) + got[2:] + (lay[0].value,
+                                                      lay[1].value)
+    want = (plan.smem_bytes, plan.warps, plan.classes, plan.slice_width)
+    if plan.kernel == "split":
+        want += (plan.tile, plan.stages)
+    if got != want:
         raise RuntimeError(
             f"launch plan {plan} disagrees with csrc/p_epoch.cu "
-            f"(bytes, warps, classes, slice = {got})")
+            f"(bytes, warps, classes, slice[, tile, stages] = {got})")
 
 
 def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
-            kernel=None, guard=None, guard_rounds=None):
+            kernel=None, guard=None, guard_rounds=None, cluster=None):
     """One p-solver epoch; same contract as ``p_epoch_plain``. CPU
     tensors run the plain version; CUDA tensors launch the kernel of
     ``launch_plan`` from ``csrc/p_epoch.cu`` or raise where no plan takes
@@ -398,7 +565,8 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
     guard runs on a forced kernel too, where the JAX package refuses its
     pinned Pallas kernel with a guard). ``guard_rounds``, an int32 ``(2,)``
     CUDA tensor, receives the simplex's fixed-point rounds summed over the
-    epoch's steps and in the step that took most."""
+    epoch's steps and in the step that took most. ``cluster`` forces the
+    split kernels' cluster size (for measurement; ``launch_plan``)."""
     _check(p, buf, cv, logits, y_val, positions, valid, task)
     if p.device.type == "cpu":
         return p_epoch_plain(p, buf, cv, logits, y_val, positions, valid,
@@ -414,7 +582,8 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
     S, B = positions.shape
     _, J, C = logits.shape
     k_max = split_max_cluster(p.device.index)
-    plan = launch_plan(B, J, C, kernel=kernel, max_cluster=k_max)
+    plan = launch_plan(B, J, C, kernel=kernel, max_cluster=k_max,
+                       cluster=cluster)
     if plan is None:
         stream = min(split_smem_bytes(B, J, C, k, True, True)
                      for k in SPLIT_CLUSTERS if k <= k_max)

@@ -401,10 +401,21 @@ def test_plan_takes_every_shape_of_the_grid(max_cluster):
     assert pk.launch_plan(16, 50, 10).kernel == "staged"
 
 
+def _split_smem_before_the_push_exchange(B, J, C, k, stream):
+    """Shared memory of one CTA of the split kernel's first layout (two
+    stages of ``B`` rows of the slice unless streamed, ``h (B, Jk)``,
+    ``p``, ``buf``, ``cv``, the per-warp sums and two slots of every
+    row's partial logits)."""
+    nw, jk = pk.staged_warps(B), pk.split_slice(J, k)
+    ring = 0 if stream else 2 * B * jk * C
+    xs = -(-max(B * C, 2) // 4) * 4
+    return 16 * nw + 4 * (ring + B * jk + 3 * jk + 4 * nw + 2 * xs)
+
+
 def _plan_before_the_tiled_kernel(B, J, C, smem_limit, max_cluster):
     """``launch_plan`` as it was before the class-tiled split kernel:
     (kernel, warps, classes, smem_bytes, cluster, slice_width, stream),
-    or None."""
+    or None; the split kernel's with its first layout."""
     nc = pk.staged_classes(C)
     if B <= pk.MAX_STAGED_BATCH and nc:
         smem = pk.staged_smem_bytes(B, J, C)
@@ -413,7 +424,8 @@ def _plan_before_the_tiled_kernel(B, J, C, smem_limit, max_cluster):
         sizes = [k for k in (2, 4, 8, 16) if k <= max_cluster]
         for stream, order in ((False, sizes), (True, sizes[::-1])):
             for k in order:
-                smem = pk.split_smem_bytes(B, J, C, k, stream)
+                smem = _split_smem_before_the_push_exchange(B, J, C, k,
+                                                             stream)
                 if smem <= smem_limit:
                     return ("split", pk.staged_warps(B), nc, smem, k,
                             pk.split_slice(J, k), stream)
@@ -428,12 +440,13 @@ GRID_MANY_C = (33, 64, 71, 105, 1000)
 
 @pytest.mark.parametrize("max_cluster", [16, 8])
 def test_plan_keeps_every_shape_taken_before_the_tiled_kernel(max_cluster):
-    """Every shape that had a plan keeps it: kernel, warps, instantiation,
-    shared memory, cluster, slice and ring, at the card's block and a
-    smaller one (the unstaged kernel's C = 33 to 70 at J = 50 among them);
-    every shape with none before and B <= 512, C in {33, 64, 71, 105,
-    1000} among them, now runs the class-tiled split kernel where its
-    streamed slices fit a block."""
+    """Every shape that had a plan keeps its kernel, at the card's block
+    and a smaller one (the unstaged kernel's C = 33 to 70 at J = 50 among
+    them): the staged and unstaged plans field for field, a split plan
+    with the redesigned kernel's layout (``split_layout`` at its cluster,
+    its slices covering J); every shape with none before and B <= 512, C
+    in {33, 64, 71, 105, 1000} among them, now runs the class-tiled split
+    kernel where its streamed slices fit a block."""
     fields = ("kernel", "warps", "classes", "smem_bytes", "cluster",
               "slice_width", "stream")
     for smem_limit in (cuda_build.SMEM_LIMIT, 40000):
@@ -446,6 +459,17 @@ def test_plan_keeps_every_shape_taken_before_the_tiled_kernel(max_cluster):
                     new = pk.launch_plan(B, J, C, smem_limit=smem_limit,
                                          max_cluster=max_cluster)
                     shape = (smem_limit, B, J, C, max_cluster)
+                    if old is not None and old[0] == "split":
+                        assert new.kernel == "split", shape
+                        smem, tile, stages, warps = pk.split_layout(
+                            B, J, C, new.cluster, new.stream, smem_limit)
+                        assert (new.smem_bytes, new.tile, new.stages,
+                                new.warps, new.classes) == (
+                            smem, tile, stages, warps, old[2]), shape
+                        assert new.smem_bytes <= smem_limit, shape
+                        assert new.cluster <= max_cluster, shape
+                        assert new.cluster * new.slice_width >= J, shape
+                        continue
                     if old is not None:
                         assert tuple(getattr(new, f) for f in fields) == old, \
                             shape
@@ -493,19 +517,21 @@ def test_plan_takes_every_shape_past_32_classes(max_cluster):
 
 @pytest.mark.parametrize("J,C,cluster,stream", [
     (356, 10, 4, False),    # 400 partitions' neighbour: a 4-CTA ring
-    (400, 10, 4, False),
-    (138, 26, 4, False),
-    (1000, 26, 16, False),  # held only by the non-portable cluster
-    (1658, 2, 4, False),
-    (4096, 2, 8, False),
+    (400, 10, 8, False),
+    (138, 26, 8, False),
+    (1000, 26, 16, True),   # the push exchange's slots leave no ring
+    (1658, 2, 8, False),
+    (4096, 2, 16, False),
     (4096, 10, 16, True),   # past every ring: streamed
     (4096, 26, 16, True),
 ])
 def test_plan_split_at_the_first_shapes_past_one_cta(J, C, cluster, stream):
     """The first J the staged and unstaged kernels refused (356 at C = 10,
     138 at C = 26, 1658 at C = 2) and the scale shapes run the split
-    kernel: the smallest cluster that holds two stages of row slices,
-    else the largest that streams them."""
+    kernel on the measured rule's cluster (``_split_cluster``): the
+    smallest that holds its row slices with a lane's share of a row at
+    most ``SPLIT_LANE_FLOATS``, else the largest that holds, else the
+    largest that streams them."""
     plan = pk.launch_plan(16, J, C)
     assert (plan.kernel, plan.cluster, plan.stream) == ("split", cluster,
                                                         stream)
@@ -516,6 +542,48 @@ def test_plan_split_at_the_first_shapes_past_one_cta(J, C, cluster, stream):
             cuda_build.SMEM_LIMIT
     eight = pk.launch_plan(16, J, C, max_cluster=8)
     assert eight.kernel == "split" and eight.cluster <= 8
+
+
+@pytest.mark.parametrize("max_cluster,J,C,cluster,stream", [
+    (16, 400, 10, 8, False),   # 2.20 ms against 2.72 at 4 and 2.47 at 16
+    (16, 1024, 7, 8, False),   # the zoo's covtype_1024
+    (16, 1000, 26, 16, True),  # every size streams: the largest
+    (16, 4096, 2, 16, False),  # 8 holds with 16 clients a lane: too many
+    (8, 400, 10, 8, False),
+    (8, 1024, 7, 8, False),
+    (8, 1000, 26, 8, True),
+    (8, 4096, 2, 8, False),    # none holds few enough: the largest that does
+])
+def test_plan_split_cluster_follows_the_measured_rule(max_cluster, J, C,
+                                                      cluster, stream):
+    """The split kernel's cluster, with and without the non-portable
+    16-CTA cluster, is the rule fitted to the card's readings
+    (``psolver_kernel._split_cluster``); the ring is ``split_layout``'s at
+    that size, holding a tile of the whole slice or streaming narrower
+    tiles, with two stages at least."""
+    plan = pk.launch_plan(16, J, C, max_cluster=max_cluster)
+    assert (plan.kernel, plan.cluster, plan.stream) == ("split", cluster,
+                                                        stream)
+    smem, tile, stages, warps = pk.split_layout(16, J, C, cluster, stream)
+    assert (plan.smem_bytes, plan.tile, plan.stages, plan.warps) == (
+        smem, tile, stages, warps)
+    assert stages >= 2 and (stream or tile == plan.slice_width)
+    jk = plan.slice_width
+    lane_floats = -(-jk // 32) * (C + 4)
+    smaller = [k for k in pk.SPLIT_CLUSTERS if k < cluster]
+    if not stream and lane_floats <= pk.SPLIT_LANE_FLOATS:
+        # no smaller size holds few enough
+        for k in smaller:
+            held = pk.split_layout(16, J, C, k, False)[0] <= \
+                cuda_build.SMEM_LIMIT
+            assert not held or -(-pk.split_slice(J, k) // 32) * (C + 4) > \
+                pk.SPLIT_LANE_FLOATS
+    # a forced size takes its own layout, and a size that fits neither
+    # way is refused
+    forced = pk.launch_plan(16, J, C, kernel="split", cluster=2)
+    assert forced.cluster == 2 and forced.smem_bytes <= cuda_build.SMEM_LIMIT
+    with pytest.raises(ValueError, match="cluster must be"):
+        pk.launch_plan(16, J, C, cluster=3)
 
 
 @pytest.mark.parametrize("J,k,width", [(400, 4, 100), (1000, 16, 64),
@@ -635,6 +703,68 @@ def test_cuda_split_kernel_matches_plain_version(J, C, guard):
     before = dict(p_epoch.launches_by_kernel)
     _kernel_vs_plain(args, "classification", guard=guard)
     assert p_epoch.launches_by_kernel["split"] == before["split"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", [None, "simplex"])
+@pytest.mark.parametrize("k", [2, 4, 8, 16])
+@pytest.mark.parametrize("J,C", [(400, 10), (1000, 26)])
+def test_cuda_split_kernel_at_every_cluster(J, C, k, guard):
+    """The split kernel with its cluster forced to each size (held slices
+    or a streamed ring, whichever the layout gives), unguarded and with
+    the simplex guard."""
+    _need_card()
+    if k > pk.split_max_cluster(0):
+        pytest.skip(f"this card schedules no {k}-CTA cluster")
+    args = _p_inputs("classification", 200, J, C, 16)
+    before = dict(p_epoch.launches_by_kernel)
+    g = make_guard(guard) if guard else None
+    pk_, bk, mk = p_epoch(*args, 1e-2, 0.9, "classification",
+                          kernel="split", guard=g, cluster=k)
+    torch.cuda.synchronize()
+    assert p_epoch.launches_by_kernel["split"] == before["split"] + 1
+    pp, bp, mp = p_epoch_plain(*args, 1e-2, 0.9, "classification", guard=g)
+    torch.testing.assert_close(pk_, pp, **TOL)
+    torch.testing.assert_close(bk, bp, **TOL)
+    torch.testing.assert_close(mk, mp, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", [None, "clip", "simplex"])
+def test_cuda_split_kernel_zoo_shape(guard):
+    """The zoo's covtype_1024 p-solve (J = 1024, C = 7: the rounded
+    8-class instantiation) at a small n_val, bitwise on repeat."""
+    _need_card()
+    args = _p_inputs("classification", 300, 1024, 7, 16)
+    plan = pk.launch_plan(16, 1024, 7, max_cluster=pk.split_max_cluster(0))
+    assert (plan.kernel, plan.classes) == ("split", 8)
+    _kernel_vs_plain(args, "classification", guard=guard)
+    g = make_guard(guard) if guard else None
+    a = p_epoch(*args, 1e-2, 0.9, "classification", guard=g)
+    b = p_epoch(*args, 1e-2, 0.9, "classification", guard=g)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", ["clip", "simplex"])
+@pytest.mark.parametrize("B,J,C", [(8, 4096, 10), (33, 4001, 3),
+                                   (33, 400, 10)])
+def test_cuda_split_kernel_other_batches_guarded(B, J, C, guard):
+    """A guard with B = 8 (streamed at J = 4096, C = 10) and B = 33 (three
+    groups of rows, one exchange a group; J*C odd: element-wise copies),
+    bitwise on repeat."""
+    _need_card()
+    args = _p_inputs("classification", 3 * B + 5, J, C, B)
+    assert pk.launch_plan(B, J, C).kernel == "split"
+    _kernel_vs_plain(args, "classification", guard=guard)
+    g = make_guard(guard)
+    a = p_epoch(*args, 1e-2, 0.9, "classification", guard=g)
+    b = p_epoch(*args, 1e-2, 0.9, "classification", guard=g)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 @pytest.mark.cuda

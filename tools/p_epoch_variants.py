@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time variants of ``csrc/p_epoch.cu``'s staged kernel against each other.
+"""Time variants of ``csrc/p_epoch.cu``'s staged or split kernel.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 tools/p_epoch_variants.py NAME=SOURCE.cu[:INCLUDE_DIR] ...
+    python3 tools/p_epoch_variants.py --kernel split --J 400 \
+        NAME=SOURCE.cu[:INCLUDE_DIR]@CLUSTER ...
 
 Each variant is built with ``cuda_build.NVCC_FLAGS`` (plus ``-I
 INCLUDE_DIR``, default the source's own directory) into
@@ -16,6 +18,11 @@ turns (in order, then reversed, ``--rounds`` times). It prints one JSON
 object: each variant's readings in ms, sorted. A variant's launcher is
 called with the signature its library exports: with a guard argument
 when it has ``p_epoch_launch_split``, else the older one without.
+``--kernel split`` times the split kernel instead at ``--J``, ``--C``
+and ``--n-val`` (with ``--guard``'s p-guard, radius 1 for ``clip``),
+each variant on its own cluster (``@CLUSTER``), holding
+its row slices where its own layout (``p_epoch_split_smem_bytes``) fits
+a block, and adds each one's µs a step and ratio to the byte bound.
 
 To compare a commit's kernel with the working tree's, unpack that
 commit's ``csrc/`` into a directory under ``build/`` (``git archive``)
@@ -40,6 +47,13 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=100)
+    ap.add_argument("--kernel", choices=("staged", "split"),
+                    default="staged")
+    ap.add_argument("--n-val", type=int, default=11983)
+    ap.add_argument("--J", type=int, default=50)
+    ap.add_argument("--C", type=int, default=10)
+    ap.add_argument("--guard", choices=("none", "clip", "simplex"),
+                    default="none", help="split kernel: the p-guard")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("p_epoch_variants: no CUDA device")
@@ -51,11 +65,13 @@ def main():
 
     out_dir = cuda_build.BUILD_DIR.parent / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    sources = {}
+    sources, clusters = {}, {}
     for spec in args.variants:
         name, _, rest = spec.partition("=")
+        rest, _, k = rest.partition("@")
         src, _, inc = rest.partition(":")
         sources[name] = (src, inc or os.path.dirname(os.path.abspath(src)))
+        clusters[name] = int(k or 2)
     procs = {name: subprocess.Popen(
         [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", inc, "-o",
          str(out_dir / f"{name}.so"), src],
@@ -66,13 +82,20 @@ def main():
         log, _ = proc.communicate()
         if proc.returncode:
             sys.exit(f"p_epoch_variants: {name} did not build:\n{log}")
+        symbol = ("21staged_p_epoch_kernelILi10ELb1E"
+                  if args.kernel == "staged" else "20split_p_epoch_kernel")
         report[name] = {f: u for f, u in cuda_build.parse_ptxas(log).items()
-                        if "21staged_p_epoch_kernelILi10ELb1E" in f}
+                        if symbol in f}
 
-    n_val, J, C, B = 11983, 50, 10, 16
+    n_val, J, C, B = args.n_val, args.J, args.C, 16
     gen = torch.Generator().manual_seed(args.seed)
     dev = torch.device("cuda")
-    logits = (torch.randn((n_val, J, C), generator=gen) * 0.1).to(dev)
+    if args.kernel == "split":  # large: drawn on the card
+        logits = torch.randn((n_val, J, C), device=dev, generator=torch.
+                             Generator(device=dev).manual_seed(args.seed))
+        logits /= J ** 0.5
+    else:
+        logits = (torch.randn((n_val, J, C), generator=gen) * 0.1).to(dev)
     y = torch.randint(0, C, (n_val,), generator=gen,
                       dtype=torch.int32).to(dev)
     p = torch.full((J,), 1.0 / J, device=dev)
@@ -89,6 +112,21 @@ def main():
     launch = {}
     for name in sources:
         lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        if args.kernel == "split":
+            fn = lib.p_epoch_launch_split
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                           + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+            lib.p_epoch_split_smem_bytes.restype = ctypes.c_size_t
+            lib.p_epoch_split_smem_bytes.argtypes = [ctypes.c_int] * 6
+            k = clusters[name]
+            hold = int(lib.p_epoch_split_smem_bytes(B, J, C, k, 1, 0)
+                       <= cuda_build.SMEM_LIMIT)
+            code = ("none", "clip", "simplex").index(args.guard)
+            launch[name] = (lambda fn=fn, k=k, hold=hold: fn(
+                *ptrs, None, S, B, J, C, 1, 1, code, k, hold, 0, 1e-3, 0.9,
+                1.0, stream))
+            continue
         fn = lib.p_epoch_launch_staged
         fn.restype = ctypes.c_int
         if hasattr(lib, "p_epoch_launch_split"):
@@ -125,10 +163,20 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    print(json.dumps({
-        "shape": {"n_val": n_val, "J": J, "C": C, "B": B, "S": S},
-        "ptxas_staged_C10": report,
-        "ms": {name: sorted(r) for name, r in readings.items()}}))
+    out = {"kernel": args.kernel, "guard": args.guard,
+           "shape": {"n_val": n_val, "J": J, "C": C, "B": B, "S": S},
+           "ptxas": report,
+           "ms": {name: sorted(r) for name, r in readings.items()}}
+    if args.kernel == "split":
+        # the byte bound: logits, labels, positions, valid, p, buf, cv
+        bound_ms = 4e3 * (n_val * J * C + n_val + 2 * S * B + 5 * J + 3) \
+            / 3.35e12
+        mean = {name: sum(r) / len(r) for name, r in readings.items()}
+        out.update({
+            "cluster": clusters, "bound_ms": bound_ms,
+            "us_per_step": {n: 1e3 * v / S for n, v in mean.items()},
+            "over_bound": {n: v / bound_ms for n, v in mean.items()}})
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":
