@@ -117,16 +117,20 @@ and read just after:
   parsed by the native parser, at the main configuration: kernel 1's
   class-tiled wide plan against its plain version at C = 33 and 105 (the
   registry's and the strong penalties), C = 1,000, C = 105 at
-  D = 10,000 and with bfloat16 rows, and the tie case (every logit
-  equal: the first maximum class 0), two launches bitwise each; kernel
+  D = 10,000 and with bfloat16 and float16 rows, and the tie case (every
+  logit equal: the first maximum class 0), two launches bitwise each,
+  and at C = 105 and 1,000 forced at every cluster the card takes;
+  every instantiation of the class-tiled kernel without spills; kernel
   2's class-tiled split plan at C = 105 and 1,000, unguarded and with
   the simplex guard, bitwise on repeat; FedAvg, FedAMW (2 rounds) and
   Centralized (2 epochs) on the stand-in against their plain runs,
   every launch on a tiled plan; the driver with ``--dataset sector`` in
   a subprocess; the four ``classes_*`` rows of the ``kernels`` line
-  (``client_epoch.classes_105``'s ``ms_forced_c32``: the instantiated and
-  the class-tiled wide kernel forced at 32 classes, in turns, the
-  former's plan and its 0 spills);
+  (``client_epoch.classes_*``: ``ms_by_cluster``, the plan's layout,
+  registers and spills of the instantiation each row type launches;
+  ``classes_105``'s ``ms_forced_c32``: the instantiated and the
+  class-tiled wide kernel forced at 32 classes, in turns, the former's
+  plan and its 0 spills);
 - ``profile``: the device shuffle draw of one round alone
   (``draw_ms_per_round``, CUDA events), then one profiled FedAMW run
   (device time by kernel, the device's busy share of the wall time,
@@ -3750,9 +3754,9 @@ def many_classes(timed, vs_plain, card, sms):
     Kernel 1's class-tiled wide plan against its plain version at the
     reference tolerances: the stand-in's shape at C = 33 and 105 under the
     registry's and strong penalties, C = 1,000 at S = ``ALOI_S``, C = 105
-    at D = 10,000 and with bfloat16 rows, two launches bitwise equal, and
-    the tie case (W = anchor = 0: every logit equal, the first maximum
-    class 0, so each client's hits are its label-0 rows). (c) Kernel 2's
+    at D = 10,000 and with bfloat16 and float16 rows, two launches bitwise
+    equal, and the tie case (W = anchor = 0: every logit equal, the first
+    maximum class 0, so each client's hits are its label-0 rows). (c) Kernel 2's
     class-tiled split plan against its plain version at ``TOL_P``: the
     stand-in's n_val, J = 50, B = 16, C = 105 and 1,000, unguarded and
     with the simplex guard, two launches bitwise. (d) FedAvg and FedAMW
@@ -3762,8 +3766,12 @@ def many_classes(timed, vs_plain, card, sms):
     every kernel-2 launch the split tiled plan. (e) ``python -m
     fedamw_tpu_torch.exp --dataset sector --data_dir ... --round 2`` in a
     subprocess, exit 0 and its (6, 2, 1) pickle. (f) Each tiled plan's
-    time beside its plain version and its bound at C = 105 and 1,000.
-    Returns the four rows of the ``kernels`` line."""
+    time beside its plain version and its bound at C = 105 and 1,000;
+    kernel 1's forced at each cluster the card takes (held against its
+    plain version at the reference tolerances, and timed), the ptxas
+    report of the instantiation each row type launches, and a failure on
+    any spill of the class-tiled kernel's instantiations. Returns the four
+    rows of the ``kernels`` line."""
     import numpy as np
     import torch
 
@@ -3861,8 +3869,9 @@ def many_classes(timed, vs_plain, card, sms):
         k1[f"C={C} D={MANY_WIDE_D} strong"] = epoch_args(
             C, MANY_WIDE_D, 0.05, 0.01, 0.01, 0.1, X=X_wide)
         a = k1[f"C={C} strong"]
-        k1[f"C={C} strong bfloat16"] = a[:2] + (a[2].to(torch.bfloat16),) \
-            + a[3:]
+        for dt in (torch.bfloat16, torch.float16):
+            k1[f"C={C} strong {str(dt).removeprefix('torch.')}"] = (
+                a[:2] + (a[2].to(dt),) + a[3:])
         k1[f"C={C} tie"] = epoch_args(
             C, D, 0.05, 0.01, 0.0, 0.1, rows_=rows[:, :1].contiguous(),
             valid_=valid[:, :1].contiguous(), zero=True)
@@ -4022,6 +4031,17 @@ def many_classes(timed, vs_plain, card, sms):
                  if symbol in f]
             return u[0] if len(u) == 1 else {}
 
+        # every instantiation of the class-tiled kernel (a row type and a
+        # source of W each) must build without spills
+        tiled_usage = {lib: {f: u for f, u in cuda_build.ptxas_usage(
+            lib).items() if "wide_tiled_epoch_kernel" in f}
+            for lib in ek.ROW_LIBRARIES.values()}
+        if any(len(v) != 3 or any(u.get("spill_bytes") != 0
+                                  for u in v.values())
+               for v in tiled_usage.values()):
+            fail(f"the class-tiled kernel's instantiations: ptxas "
+                 f"{tiled_usage}")
+
         launches1 = sum(c["client_epoch_by_kernel"]["wide_tiled"]
                         for c in by_algorithm.values())
         launches2 = sum(c["p_epoch_by_kernel"]["split_tiled"]
@@ -4033,6 +4053,21 @@ def many_classes(timed, vs_plain, card, sms):
             plan = plan1(a)
             saved = client_epoch.launches, dict(client_epoch.launches_by_kernel)
             t_ms = cuda_ms(lambda: client_epoch(*a), 5)
+            # each cluster the card takes, forced, held against the plain
+            # version and timed
+            by_cluster, err_by_cluster = {}, {}
+            wp, _ = client_epoch_plain(*a)
+            for k in ek.WIDE_CLUSTERS:
+                if k > ek.wide_max_cluster(dev.index or 0) or k > Ck:
+                    continue
+                wk, _ = client_epoch(*a, kernel="wide_tiled", cluster=k)
+                ok_k, err_by_cluster[k] = close(wk, wp, **TOL_W)
+                if not ok_k:
+                    fail(f"the tiled client_epoch plan at C={Ck} forced at "
+                         f"cluster {k} disagrees with its plain version")
+                by_cluster[k] = cuda_ms(
+                    lambda: client_epoch(*a, kernel="wide_tiled", cluster=k),
+                    5)
             client_epoch.launches, client_epoch.launches_by_kernel = saved
             p_ms = cuda_ms(lambda: client_epoch_plain(*a), 2)
             n_rows = float(a[5].sum())
@@ -4043,6 +4078,13 @@ def many_classes(timed, vs_plain, card, sms):
             ops = 4 * Ck * D * n_rows + 12 * Ck * D * steps
             t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
             used = ptxas("client_epoch", ek.kernel_symbol(plan, Ck))
+            # the plan and the instantiation each row type launches here
+            by_dtype = {}
+            for dt, lib in ek.ROW_LIBRARIES.items():
+                plan_dt = plan1(a[:2] + (a[2].to(dt),) + a[3:])
+                by_dtype[str(dt).removeprefix("torch.")] = {
+                    "cluster": plan_dt.cluster, "w_res": plan_dt.w_res,
+                    **ptxas(lib, ek.kernel_symbol(plan_dt, Ck))}
             rows_out.append({
                 "name": f"client_epoch.classes_{Ck}", "route": "cuda",
                 "source": f"{src}_torch/csrc/client_epoch.cu",
@@ -4059,8 +4101,11 @@ def many_classes(timed, vs_plain, card, sms):
                           "S": int(a[4].shape[1])},
                 "steps_max": steps_max, "us_per_step": 1e3 * t_ms / steps_max,
                 "plan": dataclasses.asdict(plan),
+                "ms_by_cluster": by_cluster,
+                "max_abs_err_by_cluster": err_by_cluster,
                 "registers": used.get("registers"),
-                "spill_bytes": used.get("spill_bytes")})
+                "spill_bytes": used.get("spill_bytes"),
+                "ptxas_by_dtype": by_dtype})
         # at 32 classes the instantiated wide kernel (the rounded 32, its
         # class loops stopping at C) and the class-tiled one, forced, in
         # turns on the same inputs
@@ -4776,13 +4821,23 @@ def main():
     by_cluster = {k: cuda_ms(lambda: client_epoch(*args, cluster=k), 10)
                   for k in (1, 2, 4, 8)
                   if ek.staged_smem_bytes(B, C, D, k) <= cuda_build.SMEM_LIMIT}
+    # the staged, unstaged and wide kernels forced on the same inputs, in
+    # turns (each order, then reversed): the mean of each one's two
+    # readings (the unstaged kernel holds W and the anchor whole here)
+    saved_by = dict(client_epoch.launches_by_kernel)
+    readings1 = {kern: [] for kern in ("staged", "unstaged", "wide")}
+    for kern in list(readings1) + list(readings1)[::-1]:
+        readings1[kern].append(cuda_ms(
+            lambda: client_epoch(*args, kernel=kern), 10))
+    by_plan1 = {kern: sum(r) / len(r) for kern, r in readings1.items()}
     client_epoch.launches = saved
+    client_epoch.launches_by_kernel = saved_by
     k1.update({"steps_max": steps_max, "us_per_step": 1e3 * k1["ms"]
                / steps_max, "cluster": plan.cluster,
                "spill_bytes": usage[0]["spill_bytes"],
                "registers": usage[0]["registers"],
                "smem_bytes": plan.smem_bytes, "ctas": plan.ctas,
-               "ms_by_cluster": by_cluster})
+               "ms_by_cluster": by_cluster, "ms_by_plan": by_plan1})
     if plan.cluster == 0 or usage[0]["spill_bytes"] != 0:
         fail(f"client_epoch main path: plan {plan}, ptxas {usage[0]}")
     k2e = kernels[1]

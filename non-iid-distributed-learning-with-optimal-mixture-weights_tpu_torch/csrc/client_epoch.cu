@@ -84,22 +84,18 @@
 //     else in a per-CTA global scratch. The ring's size does not grow with
 //     D or B, so it takes any B and D. The sums of squares of the next
 //     step's norms are folded into the update.
-//  4. past 32 classes, at every B and D, the class-tiled wide kernel: the
-//     wide kernel's cluster, slices, chunks, exchange and batch buffer
-//     without its ring (W's slice in W_out, rows read from global memory
-//     in both passes), C a run-time argument, one instantiation a row type.
-//     Its forward pass carries two rows through one tile of 32 classes of
-//     partial logits at a time (the rows read again for each tile), its
-//     gradient pass 32 accumulators a column at a time (the column's rows
-//     read again for each tile), and each row's loss is one warp's
-//     row_loss_grad_tiled, an online logsumexp over the tiles that keeps
-//     the first maximum. The chunk's logits (chunk x C rounded up to 4)
-//     and the batch's loss gradient take the place of the instantiation's
-//     class count in the layout, so the chunk shrinks as C grows (24 rows
-//     at C = 1,000) and only a chunk of 8 rows' logits past a block's
-//     shared memory (some 3,600 classes) bounds it. At C = 105 a step does
-//     ~4 B D C flops a client against ~B D row reads: it may be bound by
-//     operations, still fp32 FMA.
+//  4. past 32 classes, at every B and D, the class-tiled wide kernel, C a
+//     run-time argument (one instantiation a row type and a source of W):
+//     the wide kernel's producer warp, bulk-copy ring and batch buffer,
+//     but its cluster splits the classes, not D (each CTA owns ceil(C / k)
+//     classes over the whole rows), so the cluster exchanges four floats a
+//     row (the CTA's maximum, first class at it, sum of exponentials and
+//     the label's logit) instead of a chunk's partial logits, and the chunk
+//     no longer shrinks as C grows. W's slice stays in shared memory where
+//     it fits; register-blocked fp32 FMAs in both passes (4 rows x 4
+//     classes of logits, 8 classes x 4 columns of the gradient a thread).
+//     The cluster is chosen by a fit to the kernel's measured times, as
+//     the wide kernel's.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -819,9 +815,9 @@ struct WideArgs {
   float* metrics;       // (J, 3)
   float* scratch;       // (J*k, wide_batch_floats) or null: the batch buffer
   int S, B, C, D, k, Dk, chunk;
-  // the ring of wide_epoch_kernel (the class-tiled kernel ignores them):
-  // columns of a stage, stages, W and the anchor held in shared memory, the
-  // step's rows held there from the forward pass to the gradient pass,
+  // the ring: columns of a stage, stages, W (and, in wide_epoch_kernel,
+  // the anchor) held in shared memory, the step's rows held there from the
+  // forward pass to the gradient pass (wide_epoch_kernel only),
   // cp.async.bulk row copies
   int tile, stages, w_res, rows_res, bulk;
   float lr, mu, lam;
@@ -842,8 +838,8 @@ __host__ __device__ size_t wide_batch_floats(int B, int NC) {
   return (size_t)round_up(B, 8) * (round_up(NC, 4) + 2);
 }
 
-// Shared memory of one CTA of the class-tiled wide kernel, and the part
-// the wide kernel's layout starts with: the header, then in floats the
+// The part of the wide kernel's shared memory that its layout starts with:
+// the header, then in floats the
 // double-buffered exchange (2 * (4 + chunk*CP)), the chunk's row loss and
 // hits (2 * chunk) and the block sums (2 * kWarps); then the batch buffer
 // when `hold` keeps it in shared memory.
@@ -1548,27 +1544,143 @@ cudaError_t launch_wide(const WideArgs& p, int J, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The class-tiled wide kernel: the wide kernel for any C, taken at run time
-// (one instantiation a row type). The same cluster, slices, chunks, exchange
-// and batch buffer, but no ring: W's slice is updated in place in W_out and
-// rows are read from global memory in both passes; CP = C rounded up to 4 in place of the
-// instantiation's; what held one accumulator a class walks the classes in
-// tiles: the forward pass carries kTileRows rows through one tile of
-// kTileF partial logits at a time (the rows read again for each tile, from
-// L1 or L2), the gradient pass kTileB accumulators a column at a time (the
-// column's rows read again for each tile), and each chunk row's loss is one
-// warp's row_loss_grad_tiled. A tile past C reads the last class again
-// (clamped) and drops what it computes, so that no load waits behind a
-// branch: a loop that stops at C issues its W loads one at a time.
-constexpr int kTileF = 16;
-constexpr int kTileRows = 4;
-constexpr int kTileB = 32;
+// The class-tiled wide kernel (plan 4): any C, taken at run time, one
+// instantiation a row type and a source of W. Its cluster splits the
+// classes, not D: CTA q of a k-cluster owns classes [q C / k, (q + 1) C / k)
+// (at most Ck = ceil(C / k), at least one for k <= C) over all of D, so its
+// logits are whole and the cluster exchanges four floats a row: the CTA's
+// maximum, its first class at the maximum, its sum of exp(z - max) and
+// the label's logit (for the squared error its sum of squares), pushed
+// into every peer's shared memory before one cluster barrier a chunk. Each
+// CTA combines the k in rank order (the first maximum of the lowest rank
+// is the first maximum of the row) and forms its own classes' d loss / dz.
+// As the wide kernel:
+//  - warp 8, the producer, packs each step's valid rows into the batch
+//    buffer and streams (chunk, tile) tiles of them through a ring of
+//    `stages` stages on full and empty mbarriers (one cp.async.bulk a row
+//    a tile, element-wise copies where a row is not a multiple of 16
+//    bytes), running ahead of the consumers across passes and steps;
+//    every CTA of a cluster reads the whole rows (from L2: its peers read
+//    the same);
+//  - W's (Ck, D) slice stays in shared memory for the launch where it fits
+//    beside 2 stages of the widest tile (w_res; W_out written once at the
+//    end), else it is updated in place in W_out and read through L1 in
+//    both passes; the anchor, one (C, D) array that all J clients share,
+//    is read from global memory, each update's anchor loaded before the
+//    tile's gradient FMAs so that the loads overlap them.
+// The FMAs are register-blocked fp32. In the forward pass a thread holds
+// 4 rows x 4 classes of a chunk's logits (rows r, r + Bc/4, ..., classes
+// c, c + CkP/4, ..., so that a warp's loads fall on distinct banks and
+// each row and W float4 is broadcast to the lanes that share it) over its
+// float4 columns of each tile; where the blocks are fewer than the 256
+// consumer threads, the threads split each tile's columns and their
+// partials are summed in a fixed order through shared memory, and where
+// they are more, the threads walk them in passes over each tile, adding
+// into the chunk's logits in shared memory. In the gradient pass a thread
+// holds 8 classes x 4 columns of G = dz^T X over the step's rows; where
+// those blocks are fewer than the threads, the lanes of a warp split the
+// rows and a butterfly of shuffles sums them; then the prox and ridge
+// terms, the update and the next step's sums of squares. Every sum runs in
+// a fixed order: two launches are bitwise equal.
+//
+// What bounds it: not the bytes (each valid row read once, W and the
+// anchor) but a step's latency, as the other epoch kernels: at the sector
+// stand-in's C = 105 the fp32 FMAs of a CTA's classes (~4 B Ck D a step)
+// and the ring's row copies (every CTA of a cluster reads the whole rows,
+// one bulk copy a row a tile: a stage of 32 rows takes ~1.6 us to issue
+// whatever its width, so tiles are as wide as fit); at C = 1,000 the
+// forward FMAs against W read from global memory, which no longer fits
+// shared memory (read twice and written once a step). The measurements
+// that chose this layout, a multicast ring (slower: a stage then waits
+// for the slowest CTA's release) and the dropped variants are in PERF.md.
+constexpr int kTiledMaxChunk = 32;          // rows of one exchange
+constexpr int kTiledMaxTile = 256;          // columns of one ring stage
+constexpr int kZaccMin = kThreads * 16;     // the forward's split partials
 
-__global__ void __launch_bounds__(kThreads, 1)
+// the ring's mbarriers, and the step's header: packed rows, their weight,
+// the cluster's sums of squares of w - anchor and w
+struct TiledHeader {
+  uint64_t full[kRingMaxStages];
+  uint64_t empty[kRingMaxStages];
+  uint64_t batch_full;
+  uint64_t batch_empty;
+  int n;
+  float cnt;
+  float tot[2];
+};
+static_assert(sizeof(TiledHeader) % 16 == 0, "tiled header layout");
+
+// the classes one CTA of a k-cluster owns at most, and its rows of logits'
+// stride
+__host__ __device__ int tiled_classes(int C, int k) { return (C + k - 1) / k; }
+__host__ __device__ int tiled_stride(int C, int k) {
+  return round_up(tiled_classes(C, k), 8);
+}
+// a row of W's slice in shared memory, and of a ring stage (elements),
+// padded by 16 bytes so that a warp's rows fall on distinct banks
+__host__ __device__ int tiled_w_stride(int D) { return round_up(D, 4) + 4; }
+__host__ __device__ int tiled_row_stride(int tile) { return tile + kRowAlign; }
+
+// The batch buffer of one CTA, in floats: the packed valid rows' ids (Bp
+// ints) and weights (Bp), then the logits, then d loss / dz, of this CTA's
+// classes (Bp * tiled_stride).
+__host__ __device__ size_t tiled_batch_floats(int B, int C, int k) {
+  return (size_t)round_up(B, 8) * (tiled_stride(C, k) + 2);
+}
+
+// Shared memory of one CTA: the header; in floats the pushed row stats
+// (2 exchanges x k ranks x chunk x 4) and sums of squares (2 x k x 4), the
+// chunk's row state (8 x chunk), the block sums (2 x kWarps), the
+// forward's partials (at least kZaccMin, else chunk x tiled_stride); the
+// batch buffer when held; W's slice (Ck x tiled_w_stride) when w_res; and
+// `stages` stages of (chunk, tiled_row_stride(tile)) row elements.
+size_t tiled_smem_bytes(int B, int C, int D, int k, int chunk, int tile,
+                        int stages, bool w_res, bool hold) {
+  const size_t CkP = tiled_stride(C, k);
+  const size_t zacc = (size_t)chunk * CkP > (size_t)kZaccMin
+                          ? (size_t)chunk * CkP
+                          : (size_t)kZaccMin;
+  const size_t floats = 2 * (size_t)k * chunk * 4 + 2 * (size_t)k * 4 +
+                        8 * (size_t)chunk + 2 * kWarps + zacc;
+  return sizeof(TiledHeader) + floats * sizeof(float) +
+         (hold ? tiled_batch_floats(B, C, k) * sizeof(float) : 0) +
+         (w_res ? (size_t)tiled_classes(C, k) * tiled_w_stride(D) *
+                      sizeof(float)
+                : 0) +
+         (size_t)stages * chunk * tiled_row_stride(tile) * sizeof(RowT);
+}
+
+// v stored at the shared::cluster address `a` (16-byte aligned) of a CTA of
+// the cluster; the next cluster barrier (arrive has release semantics, wait
+// acquire) makes it visible there
+__device__ __forceinline__ void st_cluster4(uint32_t a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   a),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+// The class-tiled kernel's phases (WPHASE marks, CTA 0): consumer thread 0,
+// then the producer's lane 0.
+__device__ unsigned long long tiled_phase_clocks[kWidePhases];
+constexpr const char* kTiledPhaseNames =
+    "wait_batch,wait_fwd_tiles,fwd_fma,fwd_sum,row_stats_push,"
+    "cluster_barrier,combine_dz,wait_grad_tiles,grad_fma,grad_update,"
+    "block_sums,producer_wait_empty,producer_issue,producer_wait_batch,"
+    "producer_pack,producer_cluster";
+#endif
+
+// WSRC: where W's slice lives, each its own code path so that shared
+// addresses stay 32-bit: 0 shared memory (w_res), 1 W_out read in float4s
+// (D % 4 == 0), 2 W_out a float at a time.
+template <int WSRC>
+__global__ void __launch_bounds__(kRingThreads, 1)
     wide_tiled_epoch_kernel(const WideArgs p) {
-  const int C = p.C, CP = round_up(C, 4);
-  const int B = p.B, D = p.D, k = p.k, Bc = p.chunk;
-  const int Bp = round_up(B, 8), PS = 4 + Bc * CP;
+  const int C = p.C, B = p.B, D = p.D, k = p.k, Bc = p.chunk;
+  const int Dt = p.tile, NS = p.stages, RS = tiled_row_stride(Dt);
+  const int Ck = tiled_classes(C, k), CkP = round_up(Ck, 8);
+  const int Bp = round_up(B, 8), WS = tiled_w_stride(D);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool cls = p.y_cls != nullptr;
 
@@ -1576,173 +1688,469 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rank = static_cast<int>(cluster.block_rank());
   const int j = p.order[blockIdx.x / k];
   const int T = p.nsteps[j];
-  const int d0 = rank * p.Dk;
-  const int wd = max(0, min(p.Dk, D - d0));  // this CTA's columns of D
+  const int c_lo = rank * C / k;
+  const int cw = (rank + 1) * C / k - c_lo;  // this CTA's classes
+  const int ntiles = (D + Dt - 1) / Dt;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  WideHeader* h = reinterpret_cast<WideHeader*>(smem_raw);
-  // [2][PS]: sp, sr, -, -, z (chunk, CP)
-  float* part = reinterpret_cast<float*>(smem_raw + kWideHeaderBytes);
-  float* row_loss = part + 2 * PS;
-  float* row_hit = row_loss + Bc;
-  float* red = row_hit + Bc;  // [2][kWarps]
-  float* batch = p.scratch == nullptr
-                     ? red + 2 * kWarps
-                     : p.scratch + blockIdx.x * wide_batch_floats(B, C);
+  TiledHeader* h = reinterpret_cast<TiledHeader*>(smem_raw);
+  float* xrow = reinterpret_cast<float*>(h + 1);  // [2][k][Bc][4]
+  float* xnrm = xrow + 2 * k * Bc * 4;            // [2][k][4]
+  float* rst = xnrm + 2 * k * 4;                  // the chunk's row state
+  float* row_m = rst;                             // the row's maximum
+  float* row_z = rst + Bc;                        // its sum of exp(z - max)
+  int* row_lab = reinterpret_cast<int*>(rst + 2 * Bc);
+  float* row_sc = rst + 3 * Bc;                   // w_b / cnt
+  float* row_loss = rst + 4 * Bc;
+  float* row_hit = rst + 5 * Bc;
+  float* row_t = rst + 6 * Bc;                    // the regression target
+  float* red = rst + 8 * Bc;                      // [2][kWarps]
+  float* zacc = red + 2 * kWarps;
+  const int zacc_floats = max(kZaccMin, Bc * CkP);
+  const bool hold = p.scratch == nullptr;
+  const size_t batch_floats = tiled_batch_floats(B, C, k);
+  float* batch =
+      hold ? zacc + zacc_floats : p.scratch + blockIdx.x * batch_floats;
   int* row_id = reinterpret_cast<int*>(batch);
   float* row_w = batch + Bp;
-  float* dz = row_w + Bp;  // [Bp][CP]: the summed logits, then d loss / dz
+  float* dzb = row_w + Bp;  // [Bp][CkP]: the logits, then d loss / dz
+  float* ws = zacc + zacc_floats + (hold ? batch_floats : 0);  // (Ck, WS)
+  RowT* ring =
+      reinterpret_cast<RowT*>(WSRC == 0 ? ws + (size_t)Ck * WS : ws);
+  const int stage_elems = Bc * RS;
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  const bool timing = blockIdx.x == 0 && (tid == 0 || tid == kThreads);
+  long long ph[kWidePhases] = {};
+  long long t_last = clock64();
+#endif
+
+  // the gradient pass's blocks of 8 classes x 4 columns of a tile; where
+  // they are fewer than the threads the lanes of a warp split the rows in
+  // rs groups (a power of 2 up to 8: in the update a lane takes whole
+  // classes), else the threads walk them in passes
+  const int gblocks = (CkP / 8) * (Dt / 4);
+  int rs = 1;
+  while (rs < 8 && gblocks * rs * 2 <= kThreads) rs *= 2;
+  const int gpasses = (gblocks * rs + kThreads - 1) / kThreads;
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&h->full[s], 1);
+      mbar_init(&h->empty[s], kWarps);
+    }
+    mbar_init(&h->batch_full, 1);
+    mbar_init(&h->batch_empty, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // every CTA of the cluster is running before a peer pushes into it
+  cluster.sync();
 
   const size_t CD = (size_t)C * D;
-  const float* Wj = p.W0 + j * CD;
   float* Wo = p.W_out + j * CD;
+
+  if (warp == kWarps) {
+    // ---- the producer warp ----
+    int look = 0;  // cursor over the client's steps
+    // packs the next non-empty step's valid rows (one remains: the caller
+    // counted them) into the batch buffer; returns their count
+    auto pack = [&]() -> int {
+      for (;;) {
+        const size_t base = ((size_t)j * p.S + look) * B;
+        int n = 0;
+        float cnt = 0.f;
+        for (int b0 = 0; b0 < B; b0 += 32) {
+          const int b = b0 + lane;
+          float v = 0.f;
+          int r = 0;
+          if (b < B) {
+            v = p.valid[base + b];
+            r = p.rows[base + b];
+          }
+          const unsigned m = __ballot_sync(0xffffffffu, v != 0.f);
+          if (v != 0.f) {
+            const int slot = n + __popc(m & ((1u << lane) - 1u));
+            row_id[slot] = r;
+            row_w[slot] = v;
+          }
+          n += __popc(m);
+          cnt += warp_sum(v);
+        }
+        ++look;
+        if (n > 0) {
+          if (lane == 0) {
+            h->n = n;
+            h->cnt = cnt;
+          }
+          return n;
+        }
+      }
+    };
+    // copies rows [q0, q0 + nc) of the batch, columns of tile tl, into
+    // ring entry ri's stage, once its last use is released
+    auto issue = [&](int ri, int q0, int nc, int tl) {
+      const int s = ri % NS, u = ri / NS;
+      WPHASE(12);
+      if (u > 0) mbar_wait(&h->empty[s], (unsigned)((u - 1) & 1));
+      WPHASE(11);
+      RowT* dst = ring + s * stage_elems;
+      const int c0 = tl * Dt, wt = min(Dt, D - c0);
+      const RowT* src = p.X + c0;
+      if (p.bulk) {
+        if (lane == 0)
+          mbar_expect_tx(&h->full[s], (unsigned)(nc * wt * sizeof(RowT)));
+        __syncwarp();
+        for (int r = lane; r < nc; r += 32)
+          bulk_copy(dst + r * RS, src + (size_t)row_id[q0 + r] * D,
+                    (unsigned)(wt * sizeof(RowT)), &h->full[s]);
+      } else {
+        for (int i = lane; i < nc * wt; i += 32) {
+          const int r = i / wt, d = i - r * wt;
+          RowT* e = dst + r * RS + d;
+          const RowT* x = src + (size_t)row_id[q0 + r] * D + d;
+          if constexpr (sizeof(RowT) == 4)
+            cp_async4(e, x);
+          else
+            *e = *x;  // cp.async moves 4 bytes at least: a plain copy
+        }
+        if constexpr (sizeof(RowT) == 4) {
+          cp_async_commit();
+          cp_async_wait<0>();
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&h->full[s]);
+      }
+    };
+    int ri = 0;
+    bool pending = false;  // arrived at an exchange not yet waited on
+    for (int t = 0; t < T; ++t) {
+      WPHASE(12);
+      if (t > 0) mbar_wait(&h->batch_empty, (unsigned)((t - 1) & 1));
+      WPHASE(13);
+      const int n = pack();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&h->batch_full);
+      WPHASE(14);
+      const int nch = (n + Bc - 1) / Bc;
+      for (int e = 0; e < nch; ++e) {
+        for (int tl = 0; tl < ntiles; ++tl)
+          issue(ri++, e * Bc, min(Bc, n - e * Bc), tl);
+        WPHASE(12);
+        if (pending) cluster_wait();
+        cluster_arrive();
+        pending = true;
+        WPHASE(15);
+      }
+      // the gradient pass: a tile's chunks, once a pass of its blocks
+      // (once in all where one chunk holds the batch)
+      for (int tl = 0; tl < ntiles; ++tl) {
+        if (nch == 1) {
+          issue(ri++, 0, n, tl);
+          continue;
+        }
+        for (int gp = 0; gp < gpasses; ++gp)
+          for (int e = 0; e < nch; ++e)
+            issue(ri++, e * Bc, min(Bc, n - e * Bc), tl);
+      }
+    }
+    WPHASE(12);
+    if (pending) cluster_wait();
+    WPHASE(15);
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+    if (timing)
+      for (int i = 11; i < kWidePhases; ++i) tiled_phase_clocks[i] = ph[i];
+#endif
+    cluster.sync();  // the consumers' last
+    return;
+  }
+
+  // ---- the 8 consumer warps ----
+  // W's slice (to shared memory, or W_out starts as W0) and the sums of
+  // squares of w - anchor and w over it, kept for the first exchange
+  const float* Wj = p.W0 + j * CD;
   float sp = 0.f, sr = 0.f;
-  for (int c = 0; c < C; ++c) {
-    for (int d = tid; d < wd; d += kThreads) {
-      const size_t i = (size_t)c * D + d0 + d;
+  for (int c = 0; c < cw; ++c) {
+    for (int d = tid; d < D; d += kThreads) {
+      const size_t i = (size_t)(c_lo + c) * D + d;
       const float wv = Wj[i];
-      const float dv = wv - p.anchor[i];
-      Wo[i] = wv;
+      const float av = p.anchor[i];
+      if constexpr (WSRC == 0)
+        ws[c * WS + d] = wv;
+      else
+        Wo[i] = wv;
+      const float dv = wv - av;
       sp = fmaf(dv, dv, sp);
       sr = fmaf(wv, wv, sr);
     }
   }
-  block_sum2(sp, sr, red);
+  consumer_sum2(sp, sr, red);
 
-  // warp 0 packs the next non-empty step's valid rows, as the wide kernel
-  int look = 0;
-  auto pack = [&]() {
-    for (;;) {
-      const size_t base = ((size_t)j * p.S + look) * B;
-      int n = 0;
-      float cnt = 0.f;
-      for (int b0 = 0; b0 < B; b0 += 32) {
-        const int b = b0 + lane;
-        float v = 0.f;
-        int r = 0;
-        if (b < B) {
-          v = p.valid[base + b];
-          r = p.rows[base + b];
-        }
-        const unsigned m = __ballot_sync(0xffffffffu, v != 0.f);
-        if (v != 0.f) {
-          const int slot = n + __popc(m & ((1u << lane) - 1u));
-          row_id[slot] = r;
-          row_w[slot] = v;
-        }
-        n += __popc(m);
-        cnt += warp_sum(v);
-      }
-      ++look;
-      if (n > 0) {
-        if (lane == 0) {
-          h->n = n;
-          h->cnt = cnt;
-        }
-        return;
-      }
-    }
+  // the forward pass's blocks of 4 rows x 4 classes of a chunk: split over
+  // ds thread groups a tile's columns where fewer than the threads, else
+  // walked in fpasses passes
+  const int rb = Bc / 4, cb = CkP / 4, fblocks = rb * cb;
+  const int ds = fblocks >= kThreads ? 1 : kThreads / fblocks;
+  const int fpasses = (fblocks + kThreads - 1) / kThreads;
+  // W's row of class c (clamped to this CTA's last: what a clamped class
+  // computes is dropped) at column d
+  auto wrow = [&](int c) -> const float* {
+    const int cc = min(c, cw - 1);
+    if constexpr (WSRC == 0)
+      return ws + cc * WS;
+    else
+      return Wo + (size_t)(c_lo + cc) * D;
   };
-
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&h->empty[s]);
+  };
   float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // rank 0, thread 0
-  int ex = 0;  // exchanges so far: part is double-buffered by exchange
+  int ex = 0;  // exchanges so far: the pushed stats are double-buffered
+  int ri = 0;  // ring entries consumed
   for (int t = 0; t < T; ++t) {
-    if (warp == 0) pack();
-    __syncthreads();
+    WPHASE(10);
+    mbar_wait(&h->batch_full, (unsigned)(t & 1));
+    WPHASE(0);
     const int n = h->n;
     const float cnt = h->cnt;
     const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
+    const int nch = (n + Bc - 1) / Bc;
     float dl = 0.f, hits = 0.f;  // rank 0, thread 0
 
-    for (int q0 = 0; q0 < n; q0 += Bc, ++ex) {
-      const int nc = min(Bc, n - q0);
-      float* pc = part + (ex & 1) * PS;
-      // partial z of the chunk's rows over this slice: one warp per
-      // kTileRows rows and one tile of classes at a time, lanes over
-      // columns
-      const int groups = (nc + kTileRows - 1) / kTileRows;
-      for (int g = warp; g < groups; g += kWarps) {
-        const RowT* xr[kTileRows];
+    for (int e = 0; e < nch; ++e, ++ex) {
+      const int q0 = e * Bc, nc = min(Bc, n - q0), buf = ex & 1;
+      if (fpasses > 1) {
+        for (int i = tid; i < Bc * CkP; i += kThreads) zacc[i] = 0.f;
+        consumer_sync();
+      }
+      // this thread's block (the one of passes == 1) and its sums
+      const int blk1 = tid % fblocks, dsi = tid / fblocks;
+      float acc[4][4];
 #pragma unroll
-        for (int r = 0; r < kTileRows; ++r)
-          xr[r] = p.X +
-                  (size_t)row_id[q0 + min(g * kTileRows + r, nc - 1)] * D + d0;
-        for (int c0 = 0; c0 < C; c0 += kTileF) {
-          const float* wt[kTileF];
+      for (int a = 0; a < 4; ++a)
 #pragma unroll
-          for (int c = 0; c < kTileF; ++c)
-            wt[c] = Wo + (size_t)min(c0 + c, C - 1) * D + d0;
-          float acc[kTileRows][kTileF];
+        for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+      for (int tl = 0; tl < ntiles; ++tl, ++ri) {
+        const int s = ri % NS;
+        mbar_wait(&h->full[s], (unsigned)((ri / NS) & 1));
+        WPHASE(1);
+        const RowT* xs = ring + s * stage_elems;
+        const int c0 = tl * Dt, wt = min(Dt, D - c0), q4 = wt >> 2;
+        for (int fp = 0; fp < fpasses; ++fp) {
+          const int blk = fpasses == 1 ? blk1 : fp * kThreads + tid;
+          const int di = fpasses == 1 ? dsi : 0;
+          if (blk >= fblocks || di >= ds) continue;
+          if (fpasses > 1) {
 #pragma unroll
-          for (int r = 0; r < kTileRows; ++r)
+            for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int c = 0; c < kTileF; ++c) acc[r][c] = 0.f;
-          for (int d = lane; d < wd; d += 32) {
-            float xv[kTileRows];
+              for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+          }
+          const int rblk = blk % rb, cblk = blk / rb;
+          const RowT* xr[4];
+          const float* wr[4];
 #pragma unroll
-            for (int r = 0; r < kTileRows; ++r) xv[r] = R::one(xr[r] + d);
+          for (int i = 0; i < 4; ++i) {
+            xr[i] = xs + min(rblk + rb * i, nc - 1) * RS;
+            wr[i] = wrow(cblk + cb * i) + c0;
+          }
+#pragma unroll 2
+          for (int q = di; q < q4; q += ds) {
+            float4 xv[4];
 #pragma unroll
-            for (int c = 0; c < kTileF; ++c) {
-              const float wv = wt[c][d];
+            for (int i = 0; i < 4; ++i) xv[i] = R::four(xr[i] + 4 * q);
 #pragma unroll
-              for (int r = 0; r < kTileRows; ++r)
-                acc[r][c] = fmaf(xv[r], wv, acc[r][c]);
+            for (int jj = 0; jj < 4; ++jj) {
+              const float* w4 = wr[jj] + 4 * q;
+              float4 wv;
+              if constexpr (WSRC == 2)
+                wv = make_float4(w4[0], w4[1], w4[2], w4[3]);
+              else
+                wv = *reinterpret_cast<const float4*>(w4);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                float a = acc[i][jj];
+                a = fmaf(xv[i].x, wv.x, a);
+                a = fmaf(xv[i].y, wv.y, a);
+                a = fmaf(xv[i].z, wv.z, a);
+                a = fmaf(xv[i].w, wv.w, a);
+                acc[i][jj] = a;
+              }
             }
           }
+          // the last tile's columns past a multiple of 4 (D % 4 != 0)
+          for (int d = 4 * q4 + di; d < wt; d += ds) {
+            float xv[4];
 #pragma unroll
-          for (int r = 0; r < kTileRows; ++r) {
+            for (int i = 0; i < 4; ++i) xv[i] = R::one(xr[i] + d);
 #pragma unroll
-            for (int c = 0; c < kTileF; ++c) {
-              if (c0 + c >= C) break;
-              const float v = warp_sum(acc[r][c]);
-              if (lane == 0 && g * kTileRows + r < nc)
-                pc[4 + (g * kTileRows + r) * CP + c0 + c] = v;
+            for (int jj = 0; jj < 4; ++jj) {
+              const float wv = wr[jj][d];
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[i][jj] = fmaf(xv[i], wv, acc[i][jj]);
             }
+          }
+          if (fpasses > 1) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                zacc[(rblk + rb * i) * CkP + cblk + cb * jj] += acc[i][jj];
           }
         }
+        release(s);
+        WPHASE(2);
       }
-      if (q0 == 0 && tid == 0) {
-        pc[0] = sp;
-        pc[1] = sr;
+      if (fpasses == 1 && dsi < ds) {
+        const int rblk = blk1 % rb, cblk = blk1 / rb;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            zacc[(dsi * Bc + rblk + rb * i) * CkP + cblk + cb * jj] =
+                acc[i][jj];
       }
-
-      // the chunk's exchange, as the wide kernel's
-      cluster.sync();
-      for (int i = (q0 == 0 ? 0 : 4) + tid; i < 4 + nc * CP; i += kThreads) {
-        if (i == 2 || i == 3) continue;
-        if (i >= 4 && (i - 4) % CP >= C) continue;
+      consumer_sync();
+      // the chunk's logits: the column groups' partials in group order
+      const int nds = fpasses == 1 ? ds : 1;
+      for (int i = tid; i < nc * CkP; i += kThreads) {
         float v = 0.f;
-        for (int q = 0; q < k; ++q) v += cluster.map_shared_rank(pc, q)[i];
-        if (i < 2)
-          h->tot[i] = v;
-        else
-          dz[q0 * CP + i - 4] = v;
+        for (int w = 0; w < nds; ++w) v += zacc[w * Bc * CkP + i];
+        dzb[(size_t)q0 * CkP + i] = v;
       }
-      __syncthreads();
+      consumer_sync();
+      WPHASE(3);
 
-      // per row, one warp: loss, top-1 hit, and dz (overwrites z), scaled
-      // by w_b / cnt
+      // per row, one warp: this CTA's maximum, first class at it, sum of
+      // exp(z - max) and label logit (or sum of squared errors), pushed to
+      // every CTA of the cluster
+      const uint32_t xpush = smem_addr(xrow + (buf * k + rank) * Bc * 4);
       for (int b = warp; b < nc; b += kWarps) {
-        const int q = q0 + b;
-        const float bv = row_w[q];
-        const int r = row_id[q];
-        float hit;
-        const float loss = row_loss_grad_tiled(
-            dz + q * CP, C, cls, cls ? p.y_cls[r] : -1,
-            cls ? 0.f : p.y_reg[r], bv * inv_cnt, &hit);
-        if (lane == 0) {
-          row_loss[b] = loss * bv;
-          row_hit[b] = hit * bv;
+        const int q = q0 + b, r = row_id[q];
+        const float* zr = dzb + (size_t)q * CkP;
+        float4 st;
+        if (cls) {
+          const int lab = p.y_cls[r];
+          float m = -__int_as_float(0x7f800000);
+          int mi = 0x7fffffff;
+          for (int c = lane; c < cw; c += 32) {
+            const float v = zr[c];
+            if (v > m) {
+              m = v;
+              mi = c;
+            }
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            const float om = __shfl_xor_sync(0xffffffffu, m, o);
+            const int oi = __shfl_xor_sync(0xffffffffu, mi, o);
+            if (om > m || (om == m && oi < mi)) {
+              m = om;
+              mi = oi;
+            }
+          }
+          float sum = 0.f;
+          for (int c = lane; c < cw; c += 32) sum += expf(zr[c] - m);
+          sum = warp_sum(sum);
+          const int li = lab - c_lo;
+          const float zl = (li >= 0 && li < cw) ? zr[li] : 0.f;
+          st = make_float4(m, sum, zl, __int_as_float(c_lo + mi));
+          if (lane == 0) row_lab[b] = lab;
+        } else {
+          const float tgt = p.y_reg[r];
+          float e2 = 0.f;
+          for (int c = lane; c < cw; c += 32) {
+            const float d = zr[c] - tgt;
+            e2 = fmaf(d, d, e2);
+          }
+          st = make_float4(warp_sum(e2), 0.f, 0.f, 0.f);
+          if (lane == 0) row_t[b] = tgt;
         }
+        if (lane < k) st_cluster4(cluster_map(xpush + 16 * b, lane), st);
       }
-      __syncthreads();
+      if (e == 0 && tid == 32) {
+        const uint32_t a = smem_addr(xnrm + (buf * k + rank) * 4);
+        for (int q = 0; q < k; ++q)
+          st_cluster4(cluster_map(a, q), make_float4(sp, sr, 0.f, 0.f));
+      }
+      WPHASE(4);
+      // the chunk's exchange. A CTA pushes exchange x + 2's stats only
+      // after the barrier of exchange x + 1, which every CTA reaches after
+      // reading exchange x's.
+      cluster.sync();
+      WPHASE(5);
+      const float* xr = xrow + buf * k * Bc * 4;
+      for (int b = tid; b < nc; b += kThreads) {
+        const float bv = row_w[q0 + b], sc = bv * inv_cnt;
+        float loss, hit = 0.f;
+        if (cls) {
+          float M = xr[b * 4];
+          int pred = __float_as_int(xr[b * 4 + 3]);
+          for (int q = 1; q < k; ++q) {
+            const float mq = xr[(q * Bc + b) * 4];
+            if (mq > M) {
+              M = mq;
+              pred = __float_as_int(xr[(q * Bc + b) * 4 + 3]);
+            }
+          }
+          float Z = 0.f, zl = 0.f;
+          for (int q = 0; q < k; ++q) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(xr + (q * Bc + b) * 4);
+            Z += v.y * expf(v.x - M);
+            zl += v.z;
+          }
+          loss = (logf(Z) + M) - zl;
+          hit = pred == row_lab[b] ? 1.f : 0.f;
+          row_m[b] = M;
+          row_z[b] = Z;
+        } else {
+          float per = 0.f;
+          for (int q = 0; q < k; ++q) per += xr[(q * Bc + b) * 4];
+          loss = per / C;
+        }
+        row_sc[b] = sc;
+        row_loss[b] = loss * bv;
+        row_hit[b] = hit * bv;
+      }
+      if (e == 0 && tid == 32) {
+        float a = 0.f, b = 0.f;
+        for (int q = 0; q < k; ++q) {
+          a += xnrm[(buf * k + q) * 4];
+          b += xnrm[(buf * k + q) * 4 + 1];
+        }
+        h->tot[0] = a;
+        h->tot[1] = b;
+      }
+      consumer_sync();
+      // the step's row ids and weights are no longer read: the producer
+      // may pack the next step's
+      if (e == nch - 1 && tid == 0) mbar_arrive(&h->batch_empty);
       if (rank == 0 && tid == 0) {
         for (int b = 0; b < nc; ++b) {
           dl += row_loss[b];
           hits += row_hit[b];
         }
       }
+      // d loss / dz of this CTA's classes in place of their logits (0 for
+      // the padding past them)
+      for (int i = tid; i < nc * CkP; i += kThreads) {
+        const int b = i / CkP, c = i - b * CkP;
+        float* zp = dzb + (size_t)q0 * CkP + i;
+        float d = 0.f;
+        if (c < cw) {
+          const float z = *zp;
+          d = cls ? (expf(z - row_m[b]) / row_z[b] -
+                     (c_lo + c == row_lab[b] ? 1.f : 0.f)) *
+                        row_sc[b]
+                  : (z - row_t[b]) * (2.f / C) * row_sc[b];
+        }
+        *zp = d;
+      }
+      WPHASE(6);
     }
+    consumer_sync();
 
     const float sq_p = h->tot[0], sq_r = h->tot[1];
     const float norm_p = sq_p > 0.f ? sqrtf(sq_p) : 0.f;
@@ -1754,63 +2162,168 @@ __global__ void __launch_bounds__(kThreads, 1)
       acc_cnt += cnt;
     }
 
-    // grad[c, d] = sum_b dz[b, c] x_b[d] + penalties over this slice, a
-    // column a thread and a tile of classes at a time; the updated w's
-    // sums of squares are the next step's norms
+    // grad[c, d] = sum_b dz[b, c] x_b[d] + penalties, a block of 8 classes
+    // x 4 columns a thread (its rs lanes splitting the rows); the updated
+    // w's sums of squares are the next step's norms
     sp = 0.f;
     sr = 0.f;
-    for (int d = tid; d < wd; d += kThreads) {
-      const RowT* xc = p.X + d0 + d;
-      for (int c0 = 0; c0 < C; c0 += kTileB) {
-        int off[kTileB / 4];  // the tile's float4s of a dz row, clamped
+    const float rp = 1.f / fmaxf(norm_p, 1e-30f);
+    const float rr = 1.f / fmaxf(norm_r, 1e-30f);
+    const int L = 32 / rs, sub = lane % L, rsi = lane / L, nq = Dt / 4;
+    for (int tl = 0; tl < ntiles; ++tl) {
+      const int c0 = tl * Dt, wt = min(Dt, D - c0);
+      int s = 0;
+      for (int gp = 0; gp < gpasses; ++gp) {
+        const int blk = gp * (kThreads / rs) + warp * L + sub;
+        const bool act = blk < gblocks;
+        const int cblk = act ? blk / nq : 0, qd = act ? blk % nq : 0;
+        // lane rsi updates the block's classes cc = rsi mod rs, a float4 of
+        // 4 columns each (scalars past the tile's last column or where
+        // D % 4 != 0; nothing where the block lies past the tile). Their
+        // anchor is loaded before the FMAs, so that the loads overlap them,
+        // and W, where it lives in W_out, prefetched into L1.
+        const int dq = c0 + 4 * qd, nd = act ? min(4, wt - 4 * qd) : 0;
+        const bool vec = nd == 4 && D % 4 == 0;
+        auto owns = [&](int cc) {
+          return nd > 0 && (cc & (rs - 1)) == rsi && 8 * cblk + cc < cw;
+        };
+        auto ld4 = [&](const float* q, bool v) {
+          if (v) return *reinterpret_cast<const float4*>(q);
+          float4 r = make_float4(q[0], 0.f, 0.f, 0.f);
+          if (nd > 1) r.y = q[1];
+          if (nd > 2) r.z = q[2];
+          if (nd > 3) r.w = q[3];
+          return r;
+        };
+        float4 av[8];
 #pragma unroll
-        for (int c4 = 0; c4 < kTileB / 4; ++c4)
-          off[c4] = min(c0 + 4 * c4, CP - 4);
-        float g[kTileB];
-#pragma unroll
-        for (int c = 0; c < kTileB; ++c) g[c] = 0.f;
-#pragma unroll 4
-        for (int b = 0; b < n; ++b) {
-          const float xv = R::one(xc + (size_t)row_id[b] * D);
-          const float* dzb = dz + b * CP;
-#pragma unroll
-          for (int c4 = 0; c4 < kTileB / 4; ++c4) {
-            const float4 dz4 =
-                *reinterpret_cast<const float4*>(dzb + off[c4]);
-            g[4 * c4 + 0] = fmaf(dz4.x, xv, g[4 * c4 + 0]);
-            g[4 * c4 + 1] = fmaf(dz4.y, xv, g[4 * c4 + 1]);
-            g[4 * c4 + 2] = fmaf(dz4.z, xv, g[4 * c4 + 2]);
-            g[4 * c4 + 3] = fmaf(dz4.w, xv, g[4 * c4 + 3]);
+        for (int cc = 0; cc < 8; ++cc) {
+          av[cc] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (owns(cc)) {
+            const size_t i = (size_t)(c_lo + 8 * cblk + cc) * D + dq;
+            av[cc] = ld4(p.anchor + i, vec);
+            if constexpr (WSRC != 0)
+              asm volatile("prefetch.global.L1 [%0];\n" ::"l"(Wo + i));
           }
         }
-        // every load of the tile before any store (a store could alias a
-        // clamped load's address)
-        float wv[kTileB], av[kTileB];
+        float g[8][4];
 #pragma unroll
-        for (int c = 0; c < kTileB; ++c) {
-          const size_t i = (size_t)min(c0 + c, C - 1) * D + d0 + d;
-          wv[c] = Wo[i];
-          av[c] = p.anchor[i];
-        }
+        for (int a = 0; a < 8; ++a)
 #pragma unroll
-        for (int c = 0; c < kTileB; ++c) {
-          if (c0 + c >= C) break;
-          float gc = g[c];
-          if (sq_p > 0.f)
-            gc += p.mu * ((wv[c] - av[c]) / fmaxf(norm_p, 1e-30f));
-          if (sq_r > 0.f) gc += p.lam * (wv[c] / fmaxf(norm_r, 1e-30f));
-          const float nw = wv[c] - p.lr * gc;
-          Wo[(size_t)(c0 + c) * D + d0 + d] = nw;
-          const float dv = nw - av[c];
-          sp = fmaf(dv, dv, sp);
-          sr = fmaf(nw, nw, sr);
+          for (int b = 0; b < 4; ++b) g[a][b] = 0.f;
+        for (int e = 0; e < nch; ++e) {
+          if (nch > 1 || gp == 0) {
+            s = ri % NS;
+            mbar_wait(&h->full[s], (unsigned)((ri / NS) & 1));
+          }
+          WPHASE(7);
+          if (act) {
+            const int nc = min(Bc, n - e * Bc);
+            const RowT* xc = ring + s * stage_elems + 4 * qd;
+            const float* dzq = dzb + (size_t)e * Bc * CkP + 8 * cblk;
+#pragma unroll 2
+            for (int r = rsi; r < nc; r += rs) {
+              const float4 xv = R::four(xc + r * RS);
+              const float4 d0 =
+                  *reinterpret_cast<const float4*>(dzq + (size_t)r * CkP);
+              const float4 d1 =
+                  *reinterpret_cast<const float4*>(dzq + (size_t)r * CkP + 4);
+              const float dv[8] = {d0.x, d0.y, d0.z, d0.w,
+                                   d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+              for (int a = 0; a < 8; ++a) {
+                g[a][0] = fmaf(dv[a], xv.x, g[a][0]);
+                g[a][1] = fmaf(dv[a], xv.y, g[a][1]);
+                g[a][2] = fmaf(dv[a], xv.z, g[a][2]);
+                g[a][3] = fmaf(dv[a], xv.w, g[a][3]);
+              }
+            }
+          }
+          if (nch > 1) {
+            release(s);
+            ++ri;
+          }
+          WPHASE(8);
         }
+        if (nch == 1 && gp == gpasses - 1) {
+          release(s);
+          ++ri;
+        }
+        // the row groups' sums, the same in every lane of the block: each
+        // level of the butterfly over all 32 sums at once
+        for (int o = L; o < 32; o <<= 1) {
+#pragma unroll
+          for (int a = 0; a < 8; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              g[a][b] += __shfl_xor_sync(0xffffffffu, g[a][b], o);
+        }
+        // W of the classes this lane updates (a row of ws is 16-byte
+        // aligned), 4 classes at a time, every load of 4 before their stores
+        auto wptr = [&](int c) -> float* {
+          if constexpr (WSRC == 0)
+            return ws + c * WS + dq;
+          else
+            return Wo + (size_t)(c_lo + c) * D + dq;
+        };
+#pragma unroll
+        for (int h4 = 0; h4 < 8; h4 += 4) {
+          float4 wv[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            wv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (owns(h4 + u))
+              wv[u] = ld4(wptr(8 * cblk + h4 + u),
+                          vec || (WSRC == 0 && nd == 4));
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int cc = h4 + u;
+            if (!owns(cc)) continue;
+            float* wq = wptr(8 * cblk + cc);
+            const float wl[4] = {wv[u].x, wv[u].y, wv[u].z, wv[u].w};
+            const float al[4] = {av[cc].x, av[cc].y, av[cc].z, av[cc].w};
+            float nw[4];
+#pragma unroll
+            for (int e4 = 0; e4 < 4; ++e4) {
+              float gc = g[cc][e4];
+              if (sq_p > 0.f) gc += p.mu * ((wl[e4] - al[e4]) * rp);
+              if (sq_r > 0.f) gc += p.lam * (wl[e4] * rr);
+              nw[e4] = wl[e4] - p.lr * gc;
+              if (e4 < nd) {
+                const float dv = nw[e4] - al[e4];
+                sp = fmaf(dv, dv, sp);
+                sr = fmaf(nw[e4], nw[e4], sr);
+              }
+            }
+            if (nd == 4 && (WSRC == 0 || vec)) {
+              *reinterpret_cast<float4*>(wq) =
+                  make_float4(nw[0], nw[1], nw[2], nw[3]);
+            } else {
+              wq[0] = nw[0];
+              if (nd > 1) wq[1] = nw[1];
+              if (nd > 2) wq[2] = nw[2];
+              if (nd > 3) wq[3] = nw[3];
+            }
+          }
+        }
+        WPHASE(9);
       }
     }
-    // also frees the batch buffer and the header for the next step
-    block_sum2(sp, sr, red);
+    // also frees the batch buffer and the chunk state for the next step
+    consumer_sum2(sp, sr, red);
   }
-  // no CTA leaves while another may still read its partials
+  if constexpr (WSRC == 0) {
+    for (int c = 0; c < cw; ++c)
+      for (int d = tid; d < D; d += kThreads)
+        Wo[(size_t)(c_lo + c) * D + d] = ws[c * WS + d];
+  }
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  WPHASE(10);
+  if (timing)
+    for (int i = 0; i < 11; ++i) tiled_phase_clocks[i] = ph[i];
+#endif
+  // no CTA leaves while a peer may still push into it
   cluster.sync();
   if (rank == 0 && tid == 0) {
     p.metrics[j * 3 + 0] = acc_loss;
@@ -1820,9 +2333,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 cudaError_t launch_wide_tiled(const WideArgs& p, int J, cudaStream_t stream) {
-  return launch_wide_kernel(
-      wide_tiled_epoch_kernel, p, J, kThreads,
-      wide_smem_bytes(p.B, p.C, p.chunk, p.scratch == nullptr), stream);
+  if (p.stages < 2 || p.stages > kRingMaxStages || p.tile < 8 ||
+      p.tile > kTiledMaxTile || p.tile % 8 != 0 || p.chunk > kTiledMaxChunk ||
+      p.k > p.C)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      tiled_smem_bytes(p.B, p.C, p.D, p.k, p.chunk, p.tile, p.stages,
+                       p.w_res != 0, p.scratch == nullptr);
+  if (p.w_res)
+    return launch_wide_kernel(wide_tiled_epoch_kernel<0>, p, J, kRingThreads,
+                              smem, stream);
+  if (p.D % 4 == 0)
+    return launch_wide_kernel(wide_tiled_epoch_kernel<1>, p, J, kRingThreads,
+                              smem, stream);
+  return launch_wide_kernel(wide_tiled_epoch_kernel<2>, p, J, kRingThreads,
+                            smem, stream);
 }
 
 }  // namespace
@@ -1851,15 +2376,21 @@ int client_epoch_row_bytes(void) { return static_cast<int>(sizeof(RowT)); }
 // The slice of D one CTA of a k-cluster holds in this build.
 int client_epoch_slice_width(int D, int k) { return slice_width(D, k); }
 
-// Dynamic shared memory of one CTA of the class-tiled wide kernel working
-// chunks of `chunk` rows, with the batch buffer in shared memory (hold) or
-// not, and the floats of one CTA's batch buffer (its global scratch when
-// not held); `tiled` 0 gives the same part of the wide kernel's layout (the
-// instantiated class count's), which ring_smem_bytes starts with.
-size_t client_epoch_wide_smem_bytes(int B, int C, int chunk, int hold,
-                                    int tiled) {
-  return wide_smem_bytes(B, tiled ? C : instantiated_classes(C), chunk,
-                         hold != 0);
+// Dynamic shared memory of one CTA of the class-tiled wide kernel of a
+// k-cluster: chunks of `chunk` rows, a ring of `stages` stages of `tile`
+// columns, W's slice held in shared memory (w_res) or not, the batch
+// buffer held (hold) or in global scratch.
+size_t client_epoch_tiled_smem_bytes(int B, int C, int D, int k, int chunk,
+                                     int tile, int stages, int w_res,
+                                     int hold) {
+  return tiled_smem_bytes(B, C, D, k, chunk, tile, stages, w_res != 0,
+                          hold != 0);
+}
+
+// The floats of one CTA's batch buffer of the class-tiled wide kernel of a
+// k-cluster (its global scratch when not held).
+size_t client_epoch_tiled_batch_floats(int B, int C, int k) {
+  return tiled_batch_floats(B, C, k);
 }
 
 // Dynamic shared memory of one CTA of the wide kernel of a k-cluster: its
@@ -1878,10 +2409,20 @@ int client_epoch_wide_phase_clocks(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, wide_phase_clocks,
                                                sizeof(wide_phase_clocks)));
 }
+
+// The class-tiled wide kernel's (kWidePhases values, one a name of
+// client_epoch_tiled_phase_names).
+int client_epoch_tiled_phase_clocks(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, tiled_phase_clocks,
+                                               sizeof(tiled_phase_clocks)));
+}
+
+const char* client_epoch_tiled_phase_names(void) { return kTiledPhaseNames; }
 #endif
 
-size_t client_epoch_wide_batch_floats(int B, int C, int tiled) {
-  return wide_batch_floats(B, tiled ? C : instantiated_classes(C));
+// The floats of one CTA's batch buffer of the wide kernel.
+size_t client_epoch_wide_batch_floats(int B, int C) {
+  return wide_batch_floats(B, instantiated_classes(C));
 }
 
 // How many clusters of k CTAs of the wide kernel the card runs at once,
@@ -2000,12 +2541,14 @@ int client_epoch_launch_unstaged(const void* W0, const void* anchor,
 // One launch of a wide kernel: J clusters of k CTAs, cluster i running
 // client order[i], the batch worked in chunks of `chunk` rows (a multiple
 // of 8); scratch holds each CTA's batch buffer (wide_batch_floats floats a
-// CTA), or is null to keep it in shared memory; `tiled` runs the
-// class-tiled instantiation (any C), else the wide kernel that
-// dispatch_classes names (C <= 32) with its ring of `stages` stages of
-// `tile` columns, W's slice held in shared memory (w_res), the step's rows
-// held from pass to pass (rows_res) and cp.async.bulk copies (bulk: a row a
-// multiple of 16 bytes and X 16-byte aligned). Other arguments as
+// CTA, tiled_batch_floats for the class-tiled kernel), or is null to keep
+// it in shared memory; both kernels stream rows through a ring of `stages`
+// stages of `tile` columns, with W's slice held in shared memory (w_res)
+// and cp.async.bulk copies (bulk: a row a multiple of 16 bytes and X
+// 16-byte aligned); `tiled` runs the class-tiled kernel (any C, its
+// cluster splitting the classes), else the wide kernel that
+// dispatch_classes names (C <= 32), which also holds the step's rows from
+// pass to pass (rows_res). Other arguments as
 // client_epoch_launch_staged. Returns cudaGetLastError() after the launch.
 int client_epoch_launch_wide(const void* W0, const void* anchor, const void* X,
                              const void* y, const void* rows,

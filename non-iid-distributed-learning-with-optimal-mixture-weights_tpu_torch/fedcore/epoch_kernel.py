@@ -45,12 +45,16 @@ where they fit (``w_res``), and a step's rows stay in the ring from pass
 to pass where one chunk takes the batch (``rows_res``); the batch is
 worked in chunks of at most ``WARPS * ring_rows`` rows with one exchange
 each, so neither D nor B bounds it. Past 32 classes every shape runs the
-class-tiled wide kernel (``"wide_tiled"``): the wide kernel's cluster and
-chunks without its ring (W in global memory), C taken at run time, its
-accumulators walking the classes in tiles of 32 and each row's loss one
-warp's online logsumexp over the tiles; its chunk shrinks as C grows
-(about 24 rows at C = 1,000), so only a chunk of 8 rows' logits past a
-block's shared memory (some 3,600 classes) bounds it.
+class-tiled wide kernel (``"wide_tiled"``), C taken at run time: the
+wide kernel's producer warp and ring, but its cluster splits the classes,
+not D (``tiled_classes`` of them a CTA, over the whole rows), so the
+cluster exchanges four floats a row (the CTA's maximum, first class at
+it, sum of exponentials and label logit) and each CTA forms its own
+classes' d loss / dz; W's ``(Ck, D)`` slice stays in shared memory where
+it fits (``w_res``), the FMAs are register-blocked in both passes, and
+``_tiled_cluster`` picks ``k`` by a fit to its measured times. Only a
+chunk of 8 rows' logits of a CTA's classes past a block's shared memory
+(some 57,000 classes at 8 CTAs) bounds it.
 
 ``client_epoch`` is the wrapper: CPU tensors go to ``client_epoch_plain``,
 the plain PyTorch version of the same function; CUDA tensors launch the
@@ -76,8 +80,11 @@ STAGED_CLUSTERS = (1, 2, 4, MAX_CLUSTER)
 WIDE_CLUSTERS = STAGED_CLUSTERS + (16,)  # 16 where the card schedules it
 HEADER_BYTES = 48          # mbarriers and per-stage counts (client_epoch.cu)
 WIDE_HEADER_BYTES = 16     # the wide kernel's step header (client_epoch.cu)
-MAX_CHUNK = 128            # rows of one exchange of the class-tiled kernel
-RING_TILE = 256            # the wide kernel's widest ring stage, in columns
+RING_TILE = 256            # the widest ring stage of both wide kernels
+TILED_MAX_CHUNK = 32       # rows of one exchange of the class-tiled kernel
+TILED_MAX_STAGES = 8       # its ring's stages, at most
+TILED_HEADER_BYTES = 8 * (2 * 16 + 2) + 16  # mbarriers, step header
+TILED_ZACC_MIN = 256 * 16  # floats of the forward's split partials
 RING_MIN_STAGES = 3        # its ring's stages: at least, and at most
 RING_MAX_STAGES = 16       # (kRingMaxStages in client_epoch.cu)
 RING_HEADER_BYTES = 8 * (2 * RING_MAX_STAGES + 2) + 16  # mbarriers, metrics
@@ -94,6 +101,20 @@ RING_HEADER_BYTES = 8 * (2 * RING_MAX_STAGES + 2) + 16  # mbarriers, metrics
 WIDE_STEP_US = 4.5
 WIDE_COLUMN_US = 0.012
 WIDE_HBM_BYTES_PER_US = 2.2e6
+# A step of the class-tiled wide kernel (_tiled_cluster), fitted to its
+# times forced at each cluster on an NVIDIA H100 80GB HBM3 at 700 W
+# (tools/client_epoch_variants.py --clusters 1,2,4,8,16: the sector
+# stand-in's C = 105 at J = 50 and at Centralized's J = 1, aloi's C =
+# 1,000 at J = 50): a fixed cost a chunk (its exchange and row losses), a
+# fixed cost a sweep of a tile's columns by a pass of blocks (its stage
+# wait, its update's loads), the FMAs of a CTA's classes at one CTA's
+# rate with W held in shared memory or read from global memory, and W's
+# bytes that every CTA then running moves when it is not held.
+TILED_CHUNK_US = 2.0
+TILED_SWEEP_US = 2.0
+TILED_FMA_PER_US = 1.2e5
+TILED_FMA_STREAMED_PER_US = 7.0e4
+TILED_W_BYTES_PER_US = 8.0e6
 MAX_CLASSES = 32           # of the instantiations; past it the tiled one
 KERNELS = ("staged", "unstaged", "wide", "wide_tiled")
 # class counts with an exact instantiation; any other C runs the next bound
@@ -242,32 +263,59 @@ def unstaged_smem_bytes(B: int, C: int, D: int) -> int:
     return 4 * (2 * C * D + B * C + 3 * B + 2 * WARPS) + 4 * B
 
 
-def _wide_classes(C: int, tiled: bool) -> int:
-    """The classes a wide CTA's layout holds: the instantiation's, or
-    ``C`` itself for the class-tiled kernel (the only one past
-    ``MAX_CLASSES``)."""
-    return C if tiled else (instantiated_classes(C) or C)
-
-
-def wide_batch_floats(B: int, C: int, tiled: bool = False) -> int:
+def wide_batch_floats(B: int, C: int) -> int:
     """Floats of one wide CTA's batch buffer: the packed rows' ids and
     weights and d loss / dz of each (``wide_batch_floats`` in
-    ``client_epoch.cu``); ``tiled`` for the class-tiled kernel."""
-    return _round_up(B, 8) * (_round_up(_wide_classes(C, tiled), 4) + 2)
+    ``client_epoch.cu``)."""
+    return _round_up(B, 8) * (_round_up(instantiated_classes(C) or C, 4) + 2)
 
 
-def wide_smem_bytes(B: int, C: int, chunk: int, hold: bool,
-                    tiled: bool = False) -> int:
-    """Shared memory of one CTA of the class-tiled wide kernel
-    (``wide_smem_bytes`` in ``client_epoch.cu``; ``tiled``), and the part
-    of the wide kernel's layout ``ring_smem_bytes`` starts with: the step
-    header, the double-buffered exchange of a chunk's partial logits, the
-    chunk's row losses and hits, the block sums, and the batch buffer when
-    ``hold`` keeps it there. Independent of D."""
-    CP = _round_up(_wide_classes(C, tiled), 4)
+def wide_smem_bytes(B: int, C: int, chunk: int, hold: bool) -> int:
+    """The part of the wide kernel's shared memory that
+    ``ring_smem_bytes`` starts with (``wide_smem_bytes`` in
+    ``client_epoch.cu``): the step header, the double-buffered exchange of
+    a chunk's partial logits, the chunk's row losses and hits, the block
+    sums, and the batch buffer when ``hold`` keeps it there."""
+    CP = _round_up(instantiated_classes(C) or C, 4)
     floats = 2 * (4 + chunk * CP) + 2 * chunk + 2 * WARPS
     return (WIDE_HEADER_BYTES + 4 * floats
-            + (4 * wide_batch_floats(B, C, tiled) if hold else 0))
+            + (4 * wide_batch_floats(B, C) if hold else 0))
+
+
+def tiled_classes(C: int, k: int) -> int:
+    """Classes one CTA of the class-tiled kernel's ``k``-cluster owns at
+    most, over the whole rows: ``ceil(C / k)`` (CTA q owns classes
+    ``[q C // k, (q + 1) C // k)``, at least one for ``k <= C``)."""
+    return -(-C // k)
+
+
+def tiled_batch_floats(B: int, C: int, k: int) -> int:
+    """Floats of one class-tiled CTA's batch buffer: the packed rows' ids
+    and weights, then the logits, then d loss / dz, of its classes (their
+    count rounded up to 8)."""
+    return _round_up(B, 8) * (_round_up(tiled_classes(C, k), 8) + 2)
+
+
+def tiled_smem_bytes(B: int, C: int, D: int, k: int, chunk: int, tile: int,
+                     stages: int, w_res: bool, hold: bool,
+                     row_bytes: int = 4) -> int:
+    """Shared memory of one CTA of the class-tiled wide kernel of a
+    ``k``-cluster (``tiled_smem_bytes`` in ``client_epoch.cu``): its
+    header; the pushed row stats of two exchanges (k ranks x chunk x 4
+    floats) and sums of squares; the chunk's row state and the block
+    sums; the forward pass's partials (at least ``TILED_ZACC_MIN`` floats,
+    else a chunk of the CTA's logits); the batch buffer when ``hold``; W's
+    ``(tiled_classes, D)`` slice (rows padded to 4 floats and 16 bytes
+    more) when ``w_res``; and ``stages`` stages of ``chunk`` rows of
+    ``tile`` elements of ``row_bytes`` and 16 bytes of padding."""
+    CkP = _round_up(tiled_classes(C, k), 8)
+    floats = (2 * k * chunk * 4 + 2 * k * 4 + 8 * chunk + 2 * WARPS
+              + max(TILED_ZACC_MIN, chunk * CkP))
+    return (TILED_HEADER_BYTES + 4 * floats
+            + (4 * tiled_batch_floats(B, C, k) if hold else 0)
+            + (4 * tiled_classes(C, k) * (_round_up(D, 4) + 4) if w_res
+               else 0)
+            + stages * chunk * (tile * row_bytes + 16))
 
 
 def ring_rows(C: int) -> int:
@@ -352,26 +400,135 @@ def _staged_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes):
                      staged_smem_bytes(B, C, D, k, row_bytes), J * k)
 
 
-def _tiled_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes,
-                max_cluster):
-    sizes = [k for k in WIDE_CLUSTERS if k <= max_cluster]
-    chunk = next((c for c in range(min(_round_up(B, 8), MAX_CHUNK), 0, -8)
-                  if wide_smem_bytes(B, C, c, False, True) <= smem_limit),
-                 None)
-    if cluster is not None and (chunk is None or cluster not in sizes):
-        raise ValueError(
-            f"cluster {cluster} does not fit the wide kernel: it takes "
-            f"{sizes} and needs {wide_smem_bytes(B, C, 8, False, True)} "
-            f"bytes of shared memory at least, of {smem_limit}")
+@functools.lru_cache(maxsize=None)
+def _tiled_layout(B, C, D, k, smem_limit, row_bytes):
+    """``(chunk, tile, stages, w_res, hold)`` of the class-tiled kernel at
+    a ``k``-cluster, or None where no chunk of 8 rows fits: the largest
+    chunk (at most ``TILED_MAX_CHUNK``) that fits 2 stages of 8 columns;
+    the batch buffer held where it then fits; W's slice held where it
+    fits beside 2 stages of the widest tile (at most ``RING_TILE``
+    columns, or the whole row), else the widest tile that fits 3 stages
+    (2 where none does) with W read from global memory; then as many
+    stages as fit, up to ``TILED_MAX_STAGES``. Wide tiles come first:
+    a stage's row copies cost the same at 128 columns as at 256 (the
+    sector stand-in's C = 105 at 8 CTAs took 0.749 ms with W held in 2
+    stages of 256 columns, 1.117 ms in 5 stages of 128, and 1.016 with W
+    streamed through 6 of 256; ``tools/client_epoch_variants.py``)."""
+    def fits(chunk, tile, stages, w_res, hold):
+        return tiled_smem_bytes(B, C, D, k, chunk, tile, stages, w_res,
+                                hold, row_bytes) <= smem_limit
+
+    widest = min(RING_TILE, _round_up(D, 8))
+    tiles = [widest] + [t for t in (128, 64, 32, 16, 8) if t < widest]
+    chunk = next((c for c in range(min(_round_up(B, 8), TILED_MAX_CHUNK), 0,
+                                   -8) if fits(c, 8, 2, False, False)), None)
     if chunk is None:
         return None
-    hold = wide_smem_bytes(B, C, chunk, True, True) <= smem_limit
-    k = cluster if cluster is not None else _no_empty_slice(
-        _one_wave(J, num_sms, sizes), 1, D, row_bytes)
+    hold = fits(chunk, 8, 2, False, True)
+    w_res, tile = fits(chunk, widest, 2, True, hold), widest
+    if not w_res:
+        tile = next((t for t in tiles if fits(chunk, t, 3, False, hold)),
+                    None) or next(t for t in tiles
+                                  if fits(chunk, t, 2, False, hold))
+    stages = max(n for n in range(2, TILED_MAX_STAGES + 1)
+                 if fits(chunk, tile, n, w_res, hold))
+    return chunk, tile, stages, w_res, hold
+
+
+def tiled_passes(C: int, k: int, chunk: int, tile: int) -> tuple[int, int]:
+    """Passes of the class-tiled kernel's thread blocks over one tile:
+    ``(forward, gradient)``. The forward pass's blocks of 4 rows x 4
+    classes of a chunk, and the gradient pass's of 8 classes x 4 columns
+    (its lanes splitting the rows in up to 8 groups while blocks are
+    fewer than the 256 consumer threads), walked 256 at a time."""
+    CkP = _round_up(tiled_classes(C, k), 8)
+    fblocks, gblocks = (chunk // 4) * (CkP // 4), (CkP // 8) * (tile // 4)
+    rs = 1
+    while rs < 8 and gblocks * rs * 2 <= 256:
+        rs *= 2
+    return -(-fblocks // 256), -(-(gblocks * rs) // 256)
+
+
+def tiled_step_us(n: int, C: int, D: int, k: int, chunk: int, tile: int,
+                  w_res: bool, ctas: int) -> float:
+    """The estimated µs of one step of ``n`` rows of the class-tiled
+    kernel, each CTA of a ``k``-cluster running ``ctas`` at once (see
+    ``_tiled_cluster``)."""
+    CkP = _round_up(tiled_classes(C, k), 8)
+    fpasses, gpasses = tiled_passes(C, k, chunk, tile)
+    t = (TILED_CHUNK_US * -(-n // chunk)
+         + TILED_SWEEP_US * -(-D // tile) * (fpasses + gpasses)
+         + 2 * n * CkP * D / (TILED_FMA_PER_US if w_res
+                              else TILED_FMA_STREAMED_PER_US))
+    if not w_res:  # W's slice read in both passes and written a step
+        t += ctas * 12 * tiled_classes(C, k) * D / TILED_W_BYTES_PER_US
+    return t
+
+
+@functools.lru_cache(maxsize=256)
+def _tiled_cluster(steps, B, C, D, row_bytes, layouts, active):
+    """The class-tiled kernel's cluster among the sizes of ``layouts``
+    (pairs of k and its ``_tiled_layout``; ``active`` pairs of k and the
+    clusters of k CTAs the card runs at once): the one of least estimated
+    time, the larger on a tie. A launch lasts the steps of the busiest of
+    the ``active[k]`` clusters running at once (a longest-first schedule
+    of the clients' ``steps``) times ``tiled_step_us`` at B rows:
+    ``TILED_CHUNK_US`` a chunk, ``TILED_SWEEP_US`` a tile's pass of blocks
+    (``tiled_passes``), the FMAs of both passes over the CTA's classes at
+    ``TILED_FMA_PER_US`` with W held or ``TILED_FMA_STREAMED_PER_US``
+    without, and then W's bytes that every CTA running moves at
+    ``TILED_W_BYTES_PER_US``. On an NVIDIA H100 80GB HBM3 at 700 W (132,
+    66, 30, 15 and 7 clusters of 1 to 16 CTAs at once) it picks 8 CTAs
+    at the sector stand-in's C = 105, J = 50 with its steps, 16 at
+    Centralized's J = 1, and 4 at aloi's C = 1,000, J = 50, 20 steps a
+    client: each the size measured fastest there
+    (``tools/client_epoch_variants.py``)."""
+    layouts, active = dict(layouts), dict(active)
+
+    def cost(k):
+        chunk, tile, _, w_res, _ = layouts[k]
+        ctas = k * min(len(steps), active[k])
+        return _busiest_steps(steps, active[k]) * tiled_step_us(
+            B, C, D, k, chunk, tile, w_res, ctas)
+
+    return min(layouts, key=lambda k: (cost(k), -k))
+
+
+def _tiled_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes,
+                max_cluster, active_clusters, steps):
+    # the sizes that leave no CTA without a class
+    sizes = [k for k in WIDE_CLUSTERS if k <= max_cluster and k <= C]
+    if cluster is not None:
+        layout = (_tiled_layout(B, C, D, cluster, smem_limit, row_bytes)
+                  if cluster in sizes else None)
+        if layout is None:
+            raise ValueError(
+                f"cluster {cluster} does not fit the wide kernel: it takes "
+                f"{sizes} and needs {tiled_smem_bytes(B, C, D, cluster, 8, 8, 3, False, False, row_bytes)} "
+                f"bytes of shared memory at least, of {smem_limit}")
+        k = cluster
+    else:
+        if active_clusters is None:  # without the card's answer: the SMs
+            active_clusters = {k: num_sms // k for k in WIDE_CLUSTERS}
+        layouts = {k: _tiled_layout(B, C, D, k, smem_limit, row_bytes)
+                   for k in sizes if active_clusters.get(k, 0) > 0}
+        layouts = {k: lay for k, lay in layouts.items() if lay}
+        if not layouts:
+            return None
+        if J <= min(active_clusters[k] for k in layouts):
+            steps = (1,) * J
+        else:
+            steps = steps() if callable(steps) else steps
+            steps = (1,) * J if steps is None else tuple(steps)
+        k = _tiled_cluster(steps, B, C, D, row_bytes, tuple(layouts.items()),
+                           tuple(sorted(active_clusters.items())))
+        layout = layouts[k]
+    chunk, tile, stages, w_res, hold = layout
     return EpochPlan(
-        k, slice_width(D, k, row_bytes), 0,
-        wide_smem_bytes(B, C, chunk, hold, True), J * k, "wide_tiled", chunk,
-        0 if hold else 4 * J * k * wide_batch_floats(B, C, True))
+        k, D, 0, tiled_smem_bytes(B, C, D, k, chunk, tile, stages, w_res,
+                                  hold, row_bytes), J * k, "wide_tiled",
+        chunk, 0 if hold else 4 * J * k * tiled_batch_floats(B, C, k), tile,
+        stages, w_res)
 
 
 def _ring_tiles(Dk: int, widest: int) -> int:
@@ -546,10 +703,14 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
       some size runs fewer clusters at once than J; None: J clients of
       equal steps); its ring layout by ``_ring_layout``;
     - past ``MAX_CLASSES`` classes, at every B and D, the class-tiled wide
-      kernel (``"wide_tiled"``) by the same rules, its layout holding C.
+      kernel (``"wide_tiled"``): ``k`` among the sizes that leave no CTA
+      without a class by ``_tiled_cluster`` (``active_clusters`` None: the
+      SMs over k), its layout by ``_tiled_layout``; each CTA holds the whole
+      rows (``slice_width`` D) and ``tiled_classes`` classes.
 
     None only for a ``smem_limit`` too small for a chunk of 8 rows (past
-    about 3,600 classes at the card's limit). ``kernel`` forces one of
+    about 57,000 classes at 8 CTAs, 113,000 at 16, at the card's limit).
+    ``kernel`` forces one of
     ``KERNELS`` (``"wide_tiled"`` at any C; the others at most
     ``MAX_CLASSES``) and ``cluster`` its ``k`` (a ``cluster`` alone forces
     the staged kernel's); ``ValueError`` says when they do not fit.
@@ -566,7 +727,7 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
                          "classes; the class-tiled wide kernel takes more")
     if C > MAX_CLASSES or kernel == "wide_tiled":
         return _tiled_plan(J, B, C, D, num_sms, smem_limit, cluster,
-                           row_bytes, max_cluster)
+                           row_bytes, max_cluster, active_clusters, steps)
     if kernel in (None, "staged"):
         plan = _staged_plan(J, B, C, D, num_sms, smem_limit, cluster,
                             row_bytes)
@@ -594,7 +755,9 @@ def kernel_symbol(plan: EpochPlan, C: int) -> str:
     if plan.kernel == "unstaged":
         name, args = "unstaged_epoch_kernel", f"ILi{plan.classes}E"
     elif plan.kernel == "wide_tiled":
-        name, args = "wide_tiled_epoch_kernel", "E"
+        # the source of W: shared memory, W_out in float4s, or in floats
+        src = 0 if plan.w_res else (1 if plan.slice_width % 4 == 0 else 2)
+        name, args = "wide_tiled_epoch_kernel", f"ILi{src}EE"
     else:
         name = f"{plan.kernel}_epoch_kernel"
         args = f"ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
@@ -637,12 +800,14 @@ def _library(name: str = "client_epoch"):
     lib.client_epoch_row_bytes.argtypes = []
     lib.client_epoch_slice_width.restype = ctypes.c_int
     lib.client_epoch_slice_width.argtypes = [ctypes.c_int] * 2
-    lib.client_epoch_wide_smem_bytes.restype = ctypes.c_size_t
-    lib.client_epoch_wide_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.client_epoch_tiled_smem_bytes.restype = ctypes.c_size_t
+    lib.client_epoch_tiled_smem_bytes.argtypes = [ctypes.c_int] * 9
+    lib.client_epoch_tiled_batch_floats.restype = ctypes.c_size_t
+    lib.client_epoch_tiled_batch_floats.argtypes = [ctypes.c_int] * 3
     lib.client_epoch_ring_smem_bytes.restype = ctypes.c_size_t
     lib.client_epoch_ring_smem_bytes.argtypes = [ctypes.c_int] * 9
     lib.client_epoch_wide_batch_floats.restype = ctypes.c_size_t
-    lib.client_epoch_wide_batch_floats.argtypes = [ctypes.c_int] * 3
+    lib.client_epoch_wide_batch_floats.argtypes = [ctypes.c_int] * 2
     lib.client_epoch_wide_max_cluster.restype = ctypes.c_int
     lib.client_epoch_wide_max_cluster.argtypes = []
     lib.client_epoch_wide_active_clusters.restype = ctypes.c_int
@@ -677,7 +842,8 @@ def wide_active_clusters(device_index: int,
 def _check_plan(name: str, plan: EpochPlan, B: int, C: int, D: int,
                 row_bytes: int) -> None:
     """The plan's layout must be the kernel's in library ``name``: same
-    row type, shared memory, instantiation, slice and, wide, scratch."""
+    row type, shared memory, instantiation, slice and, wide, scratch
+    (the class-tiled kernel's CTAs read whole rows: its slice is D)."""
     lib = _library(name)
     scratch = 0
     tiled = int(plan.kernel == "wide_tiled")
@@ -686,18 +852,20 @@ def _check_plan(name: str, plan: EpochPlan, B: int, C: int, D: int,
     elif plan.kernel in ("wide", "wide_tiled"):
         hold = plan.scratch_bytes == 0
         if tiled:
-            smem = lib.client_epoch_wide_smem_bytes(B, C, plan.chunk,
-                                                    int(hold), tiled)
+            smem = lib.client_epoch_tiled_smem_bytes(
+                B, C, D, plan.cluster, plan.chunk, plan.tile, plan.stages,
+                int(plan.w_res), int(hold))
         else:
             smem = lib.client_epoch_ring_smem_bytes(
                 B, C, D, plan.cluster, plan.chunk, plan.tile, plan.stages,
                 int(plan.w_res), int(hold))
         if not hold:
-            scratch = 4 * plan.ctas * lib.client_epoch_wide_batch_floats(
-                B, C, tiled)
+            scratch = 4 * plan.ctas * (
+                lib.client_epoch_tiled_batch_floats(B, C, plan.cluster)
+                if tiled else lib.client_epoch_wide_batch_floats(B, C))
     else:
         smem = lib.client_epoch_unstaged_smem_bytes(B, C, D)
-    if plan.kernel == "unstaged":
+    if plan.kernel in ("unstaged", "wide_tiled"):  # whole rows
         nc, width = plan.classes, D
     else:
         nc = 0 if tiled else lib.client_epoch_instantiated_classes(C)
@@ -716,8 +884,9 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     """One local epoch of all J clients; same contract as
     ``client_epoch_plain``. CPU tensors run the plain version; CUDA
     tensors launch ``csrc/client_epoch.cu`` as ``launch_plan`` says, or
-    raise where no plan takes the shape (a chunk of 8 rows' logits past
-    a block's shared memory: some 3,600 classes).
+    raise where no plan takes the shape (a chunk of 8 rows' logits of a
+    CTA's classes past a block's shared memory: some 57,000 classes at 8
+    CTAs).
     ``kernel`` forces one of ``KERNELS`` and ``cluster`` the cluster size
     (for tests and measurement)."""
     _check(W, anchor, X, y, rows, valid, task)
@@ -750,9 +919,9 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     if plan is None:
         raise ValueError(
             f"no client_epoch kernel takes C={C}: a chunk of 8 rows' "
-            f"logits needs {wide_smem_bytes(B, C, 8, False, True)} bytes "
-            f"of shared memory, a block has {cuda_build.SMEM_LIMIT}: run it "
-            "with kernel_impl='plain'")
+            f"logits of a CTA's {tiled_classes(C, wide_max_cluster(dev, name))} "
+            f"classes needs more than the {cuda_build.SMEM_LIMIT} bytes of "
+            "shared memory of a block: run it with kernel_impl='plain'")
     lib = _library(name)
     _check_plan(name, plan, B, C, D, row_bytes)
     if J == 0:

@@ -307,6 +307,12 @@ H100_SMS = 132
 H100_ACTIVE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 # the plan as an H100 gives it
 launch_plan = functools.partial(ek.launch_plan, active_clusters=H100_ACTIVE)
+# each client's non-empty steps in the first epoch of chip_smoke.py's
+# sector stand-in (50 Dirichlet(0.01) clients, batches of 32), where the
+# class-tiled kernel's cluster rule was measured
+SECTOR_STEPS = (1, 5, 5, 4, 4, 4, 2, 5, 3, 4, 3, 4, 4, 4, 4, 4, 4, 4, 4, 4,
+                2, 3, 4, 4, 2, 3, 3, 5, 3, 3, 3, 4, 4, 4, 3, 4, 2, 4, 5, 4,
+                5, 4, 3, 3, 5, 2, 5, 3, 5, 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -370,13 +376,22 @@ def test_plan_instantiated_classes(C, nc):
 
 def test_plan_refuses_what_fits_nowhere():
     """Past the instantiated classes the class-tiled wide plan; no plan
-    (None) only where a chunk of 8 rows' logits passes a block's shared
-    memory (4,000 classes); a shape past both the staged and the unstaged
-    kernel's shared memory takes the wide plan; a bad shape or a forced
-    cluster or kernel that does not fit raise, the staged, unstaged and
-    wide kernels at more than 32 classes among them."""
+    (None) only where a chunk of 8 rows' logits of a CTA's classes passes
+    a block's shared memory (past 57,152 classes at 8 CTAs, 113,152 at
+    16); a shape past both the staged and the unstaged kernel's shared
+    memory takes the wide plan; a bad shape or a forced cluster or kernel
+    that does not fit raise, the staged, unstaged and wide kernels at
+    more than 32 classes among them, and a class-tiled cluster of more
+    CTAs than classes."""
     assert launch_plan(5, 32, 33, 256, H100_SMS).kernel == "wide_tiled"
-    assert launch_plan(5, 32, 4000, 256, H100_SMS) is None
+    assert launch_plan(5, 32, 4000, 256, H100_SMS).kernel == "wide_tiled"
+    assert launch_plan(5, 32, 57152, 256, H100_SMS).kernel == "wide_tiled"
+    assert launch_plan(5, 32, 57153, 256, H100_SMS) is None
+    assert launch_plan(5, 32, 113152, 256, H100_SMS,
+                       max_cluster=16).kernel == "wide_tiled"
+    assert launch_plan(5, 32, 113153, 256, H100_SMS, max_cluster=16) is None
+    with pytest.raises(ValueError, match="does not fit the wide kernel"):
+        launch_plan(5, 32, 3, 256, H100_SMS, kernel="wide_tiled", cluster=4)
     assert launch_plan(5, 4096, 32, 4000, H100_SMS).kernel == "wide"
     with pytest.raises(ValueError, match="does not fit"):
         launch_plan(5, 32, 10, 10000, H100_SMS, kernel="staged")
@@ -408,7 +423,7 @@ def test_plan_refuses_what_fits_nowhere():
     (50, 1024, 10, 2000, cuda_build.SMEM_LIMIT, ("unstaged", 0)),
     (5, 32, 33, 256, cuda_build.SMEM_LIMIT, ("wide_tiled", 8)),  # > 32
     (50, 32, 105, 2000, cuda_build.SMEM_LIMIT, ("wide_tiled", 2)),  # sector
-    (5, 32, 4000, 256, cuda_build.SMEM_LIMIT, None),  # 8 rows' logits
+    (5, 32, 60000, 256, cuda_build.SMEM_LIMIT, None),  # 8 rows' logits
     (5, 4096, 32, 4000, cuda_build.SMEM_LIMIT, ("wide", 8)),
     (5, 32, 10, 20000, cuda_build.SMEM_LIMIT, ("wide", 8)),  # W too wide
     (50, 32, 10, 2000, 100000, ("staged", 8)),   # a smaller block: wider
@@ -418,7 +433,8 @@ def test_plan_is_none_where_no_kernel_takes_the_shape(J, B, C, D,
                                                       smem_limit, route):
     """The plan by shape alone, with ``num_sms`` and ``smem_limit``
     passed in: its kernel and cluster size, or None where no kernel takes
-    the shape (a chunk of 8 rows' logits past a block's shared memory:
+    the shape (a chunk of 8 rows' logits of a CTA's classes past a block's
+    shared memory at every cluster:
     the wrapper then refuses CUDA tensors before any launch). Shapes past
     the staged and unstaged kernels' shared memory take the wide plan,
     more than 32 classes the class-tiled one."""
@@ -709,8 +725,12 @@ GRID_MANY_C = (33, 64, 71, 105, 1000)
 def test_plan_takes_every_shape_past_32_classes(row_bytes, J):
     """Every B and D at C in {33, 64, 71, 105, 1000} has the class-tiled
     wide plan, at either cluster limit; each fits a block's shared
-    memory, its layout holds C itself, its slices cover D with none
-    empty, and its chunk shrinks as C grows."""
+    memory, its layout is ``tiled_smem_bytes``' at its cluster (no CTA
+    without a class, each reading the whole rows: the slice is D), a
+    chunk of 8 to 32 rows, a ring of 2 to 8 stages of at most 256
+    columns (2 only with W held), and its cluster is the measured rule's
+    choice (J clients of equal steps) among the sizes whose layout
+    fits."""
     for max_cluster in (8, 16):
         for B in GRID_B:
             for C in GRID_MANY_C:
@@ -724,48 +744,206 @@ def test_plan_takes_every_shape_past_32_classes(row_bytes, J):
                     assert plan.classes == 0, shape
                     assert plan.smem_bytes <= cuda_build.SMEM_LIMIT, shape
                     hold = plan.scratch_bytes == 0
-                    assert plan.smem_bytes == ek.wide_smem_bytes(
-                        B, C, plan.chunk, hold, tiled=True), shape
-                    assert plan.cluster <= max_cluster, shape
-                    assert plan.cluster * plan.slice_width >= D, shape
-                    assert (plan.cluster - 1) * plan.slice_width < D, shape
+                    assert plan.smem_bytes == ek.tiled_smem_bytes(
+                        B, C, D, plan.cluster, plan.chunk, plan.tile,
+                        plan.stages, plan.w_res, hold, row_bytes), shape
+                    assert plan.scratch_bytes == (0 if hold else 4 * plan.ctas
+                                                  * ek.tiled_batch_floats(
+                                                      B, C, plan.cluster))
+                    assert plan.cluster <= min(max_cluster, C), shape
+                    assert plan.slice_width == D, shape
                     assert plan.chunk % 8 == 0, shape
-                    assert 8 <= plan.chunk <= ek.MAX_CHUNK, shape
-                    assert plan.ctas <= H100_SMS or plan.cluster == 1
+                    assert 8 <= plan.chunk <= ek.TILED_MAX_CHUNK, shape
+                    assert 2 <= plan.stages <= ek.TILED_MAX_STAGES, shape
+                    assert plan.stages >= 3 or plan.w_res or \
+                        ek.tiled_smem_bytes(
+                            B, C, D, plan.cluster, plan.chunk, plan.tile, 3,
+                            False, hold, row_bytes) > cuda_build.SMEM_LIMIT, shape
+                    assert plan.tile % 8 == 0 and 8 <= plan.tile <= 256
+                    lays = {k: ek._tiled_layout(
+                        B, C, D, k, cuda_build.SMEM_LIMIT, row_bytes)
+                            for k in ek.WIDE_CLUSTERS
+                            if k <= max_cluster and k <= C}
+                    lays = {k: lay for k, lay in lays.items() if lay}
+                    assert plan.cluster == ek._tiled_cluster(
+                        (1,) * J, B, C, D, row_bytes, tuple(lays.items()),
+                        tuple(H100_ACTIVE.items())), shape
 
 
 def test_plan_tiled_layout():
     """The class-tiled wide plan at the sector stand-in's shape (J = 50,
-    B = 32, C = 105, D = 2,000: 2 CTAs a client by the one-wave rule, one
-    chunk of the 32 rows, the batch buffer held) and at aloi's 1,000
-    classes (a chunk of 24 rows, the batch buffer in global scratch);
-    forced at 10 classes its layout holds 10, not the instantiation's 10
-    rounded; its symbol in the compiler's report."""
-    plan = launch_plan(50, 32, 105, 2000, H100_SMS)
-    # header 16 B; floats: two exchange buffers 2*(4 + 32*108), row loss
-    # and hits 2*32, block sums 16; then the batch buffer 32*(108 + 2)
-    smem = 16 + 4 * (2 * (4 + 32 * 108) + 2 * 32 + 16) + 4 * 32 * 110
-    assert plan == ek.EpochPlan(cluster=2, slice_width=1000, classes=0,
-                                smem_bytes=smem, ctas=100,
+    B = 32, C = 105, D = 2,000 with the stand-in's steps: 8 CTAs a client,
+    14 classes a CTA over the whole rows, W's slice held beside 2 stages
+    of 256 columns, the batch buffer held) and at aloi's 1,000 classes (W
+    streamed from W_out, 4 stages); Centralized's one client at 16 CTAs;
+    forced at 11 classes; its layout in bytes; its symbols in the
+    compiler's report, one a source of W."""
+    plan = launch_plan(50, 32, 105, 2000, H100_SMS, steps=SECTOR_STEPS)
+    # header 288 B (34 mbarriers, the step header); floats: the pushed row
+    # stats 2*8*32*4 and sums of squares 2*8*4, the chunk's row state
+    # 8*32, block sums 16, the forward's partials 4096; the batch buffer
+    # 32*(16 + 2); W 14 x (2000 + 4); 2 stages of 32 rows x (256 + 4)
+    floats = 2 * 8 * 32 * 4 + 2 * 8 * 4 + 8 * 32 + 16 + 4096
+    smem = (288 + 4 * floats + 4 * 32 * 18 + 4 * 14 * 2004
+            + 2 * 32 * 260 * 4)
+    assert ek.tiled_smem_bytes(32, 105, 2000, 8, 32, 256, 2, True,
+                               True) == smem
+    assert plan == ek.EpochPlan(cluster=8, slice_width=2000, classes=0,
+                                smem_bytes=smem, ctas=400,
                                 kernel="wide_tiled", chunk=32,
-                                scratch_bytes=0)
-    assert ek.kernel_symbol(plan, 105) == "23wide_tiled_epoch_kernelE"
-    aloi = launch_plan(50, 32, 1000, 2000, H100_SMS)
-    assert (aloi.kernel, aloi.cluster, aloi.chunk) == ("wide_tiled", 2, 24)
-    assert aloi.scratch_bytes == 4 * 100 * 32 * 1002
-    assert aloi.smem_bytes == ek.wide_smem_bytes(32, 1000, 24, False,
-                                                 tiled=True)
-    # Centralized's one client: 16 CTAs where the card takes them
-    one = launch_plan(1, 32, 105, 2000, H100_SMS, max_cluster=16)
-    assert (one.kernel, one.cluster, one.slice_width) == ("wide_tiled", 16,
-                                                          128)
+                                scratch_bytes=0, tile=256, stages=2,
+                                w_res=True)
+    assert ek.tiled_classes(105, 8) == 14
+    assert ek.kernel_symbol(plan, 105) == "23wide_tiled_epoch_kernelILi0EE"
+    aloi = launch_plan(50, 32, 1000, 2000, H100_SMS, steps=(20,) * 50)
+    assert (aloi.kernel, aloi.cluster, aloi.tile, aloi.w_res) == (
+        "wide_tiled", 4, 256, False)
+    assert aloi.smem_bytes == ek.tiled_smem_bytes(
+        32, 1000, 2000, 4, 32, 256, aloi.stages, False, True)
+    assert ek.kernel_symbol(aloi, 1000) == "23wide_tiled_epoch_kernelILi1EE"
+    unaligned = launch_plan(5, 32, 1000, 6001, H100_SMS)
+    assert ek.kernel_symbol(unaligned, 1000) == \
+        "23wide_tiled_epoch_kernelILi2EE"
+    # a batch buffer too large to hold goes to global scratch
+    big = launch_plan(5, 4096, 1000, 2000, H100_SMS)
+    assert big.scratch_bytes == 4 * big.ctas * ek.tiled_batch_floats(
+        4096, 1000, big.cluster)
+    # Centralized's one client: 16 CTAs, 7 classes each, W held
+    one = launch_plan(1, 32, 105, 2000, H100_SMS, max_cluster=16,
+                      steps=(161,))
+    assert (one.kernel, one.cluster, one.slice_width, one.tile,
+            one.w_res) == ("wide_tiled", 16, 2000, 256, True)
     forced = launch_plan(5, 32, 11, 250, H100_SMS, kernel="wide_tiled")
     assert (forced.kernel, forced.classes) == ("wide_tiled", 0)
-    assert forced.smem_bytes == ek.wide_smem_bytes(32, 11, 32, True,
-                                                   tiled=True)
-    assert forced.smem_bytes < ek.wide_smem_bytes(32, 11, 32, True)
-    assert ek.wide_batch_floats(32, 105) == ek.wide_batch_floats(
-        32, 105, tiled=True) == 32 * 110
+    assert forced.smem_bytes == ek.tiled_smem_bytes(
+        32, 11, 250, forced.cluster, 32, 256, forced.stages, True, True)
+    assert ek.wide_batch_floats(32, 10) == 32 * 14
+    assert ek.tiled_batch_floats(32, 105, 8) == 32 * 18
+
+
+def test_plan_tiled_cluster_rule_is_the_measured_one():
+    """The class-tiled kernel's cluster rule pinned where it was measured
+    on an H100 (132, 66, 30, 15 and 7 clusters of 1 to 16 CTAs at once),
+    each pick the size measured fastest there: 8 CTAs a client at the
+    sector stand-in's C = 105, J = 50 with its steps (0.747 ms against
+    0.951 at 4 and 1.236 at 16), 16 at Centralized's J = 1 over its 161
+    steps (6.64 ms; 8 where the card takes no 16), 4 at aloi's
+    C = 1,000, J = 50 of 20 steps (26.86 ms against 27.34 at 2 and 27.21
+    at 8). The steps come from a function, called only where some size
+    runs fewer clusters at once than J; without the card's answer the
+    SMs over k stand in for it; a size the card does not run is never
+    chosen."""
+    def k_of(J, C, **kw):
+        return launch_plan(J, 32, C, 2000, H100_SMS, max_cluster=16,
+                           **kw).cluster
+
+    assert k_of(50, 105, steps=SECTOR_STEPS) == 8
+    assert k_of(50, 1000, steps=(20,) * 50) == 4
+    assert k_of(1, 105, steps=(161,)) == 16
+    assert launch_plan(1, 32, 105, 2000, H100_SMS,
+                       steps=(161,)).cluster == 8
+    assert k_of(50, 105, steps=lambda: SECTOR_STEPS) == 8
+    assert k_of(1, 105, steps=lambda: 1 / 0) == 16
+    assert k_of(7, 105, steps=lambda: 1 / 0) == 16
+    # without the card's clusters at once: 132 // k of each size
+    assert ek.launch_plan(1, 32, 105, 2000, H100_SMS, max_cluster=16,
+                          steps=(161,)).cluster == 16
+    none16 = {**H100_ACTIVE, 16: 0}
+    assert k_of(1, 105, steps=(161,), active_clusters=none16) == 8
+    # the model's parts: passes of a tile (forward, gradient)
+    assert ek.tiled_passes(105, 8, 32, 256) == (1, 1)
+    assert ek.tiled_passes(1000, 2, 32, 128) == (4, 8)
+    assert ek.tiled_passes(1000, 4, 32, 256) == (2, 8)
+    # a step's estimate: chunks, sweeps, FMAs and, W streamed, W's bytes
+    # of every CTA running
+    assert ek.tiled_step_us(32, 1000, 2000, 4, 32, 256, False, 120) == (
+        ek.TILED_CHUNK_US + ek.TILED_SWEEP_US * 8 * 10
+        + 2 * 32 * 256 * 2000 / ek.TILED_FMA_STREAMED_PER_US
+        + 120 * 12 * 250 * 2000 / ek.TILED_W_BYTES_PER_US)
+
+
+def _tiled_plan_before_the_redesign(B, C, smem_limit, cluster=None,
+                                    max_cluster=8):
+    """Whether the first class-tiled wide plan took a shape (its cluster
+    split D and held a chunk's partial logits of all C classes twice):
+    its chunk of at most 128 rows, or None."""
+    CP = -(-C // 4) * 4
+    if cluster is not None and cluster not in [k for k in ek.WIDE_CLUSTERS
+                                               if k <= max_cluster]:
+        return None
+    return next((c for c in range(min(-(-B // 8) * 8, 128), 0, -8)
+                 if 16 + 4 * (2 * (4 + c * CP) + 2 * c + 16) <= smem_limit),
+                None)
+
+
+@pytest.mark.parametrize("row_bytes", [2, 4])
+def test_plan_keeps_every_shape_taken_before_the_tiled_kernel(row_bytes):
+    """Every shape the first class-tiled plan took (every C past 32 by
+    shape, any C forced, up to its 3,628-class limit, at every B and D)
+    still gets the class-tiled plan, and every forced cluster it took
+    with at least one class a CTA still fits; past its limit the
+    redesign takes more classes."""
+    for smem_limit in (cuda_build.SMEM_LIMIT, 100000):
+        for J in (1, 50, 400):
+            for B in (1, 16, 17, 32, 512, 4096):
+                for C in (1, 10, 32, 33, 105, 1000, 3000, 3620, 3700):
+                    for D in (1, 250, 2000, 10000):
+                        for max_cluster in (8, 16):
+                            old = _tiled_plan_before_the_redesign(
+                                B, C, smem_limit)
+                            new = launch_plan(
+                                J, B, C, D, H100_SMS, smem_limit,
+                                row_bytes=row_bytes,
+                                max_cluster=max_cluster,
+                                kernel="wide_tiled" if C <= 32 else None)
+                            shape = (smem_limit, J, B, C, D, max_cluster)
+                            if old is not None:
+                                assert new.kernel == "wide_tiled", shape
+                            for k in ek.WIDE_CLUSTERS:
+                                if k > min(C, max_cluster) or \
+                                        _tiled_plan_before_the_redesign(
+                                            B, C, smem_limit, k,
+                                            max_cluster) is None:
+                                    continue
+                                forced = launch_plan(
+                                    J, B, C, D, H100_SMS, smem_limit,
+                                    row_bytes=row_bytes, cluster=k,
+                                    kernel="wide_tiled",
+                                    max_cluster=max_cluster)
+                                assert forced.cluster == k, shape
+    # the first plan's last class count at a 32-row batch, and past it
+    assert _tiled_plan_before_the_redesign(32, 3628, cuda_build.SMEM_LIMIT)
+    assert not _tiled_plan_before_the_redesign(32, 3629,
+                                               cuda_build.SMEM_LIMIT)
+    assert launch_plan(50, 32, 3629, 2000, H100_SMS).kernel == "wide_tiled"
+
+
+@pytest.mark.parametrize("B", [16, 32, 512])
+@pytest.mark.parametrize("D", [64, 2000, 10000])
+def test_tiled_layout_fits_a_block_at_every_class_count(B, D):
+    """The class-tiled kernel's layout (ring stages, chunk, held W, batch
+    buffer) fits ``cuda_build.SMEM_LIMIT`` at every C from 33 to the
+    first plan's last (3,628 classes), at every cluster, for both row
+    sizes: a chunk of 8 to 32 rows (the whole batch up to 32 wherever a
+    CTA holds at most 1,000 classes), at least 2 stages, W held only with
+    the widest tile (256 columns or the whole row) and then the widest
+    tile whatever the ring's depth."""
+    for row_bytes in (2, 4):
+        for C in range(33, 3629):
+            for k in ek.WIDE_CLUSTERS:
+                lay = ek._tiled_layout(B, C, D, k, cuda_build.SMEM_LIMIT,
+                                       row_bytes)
+                assert lay is not None, (B, C, D, k)
+                chunk, tile, stages, w_res, hold = lay
+                assert ek.tiled_smem_bytes(
+                    B, C, D, k, chunk, tile, stages, w_res, hold,
+                    row_bytes) <= cuda_build.SMEM_LIMIT, (B, C, D, k)
+                assert 8 <= chunk <= min(-(-B // 8) * 8, 32), (B, C, D, k)
+                if ek.tiled_classes(C, k) <= 1000:
+                    assert chunk == min(-(-B // 8) * 8, 32), (B, C, D, k)
+                assert 2 <= stages <= ek.TILED_MAX_STAGES
+                assert not w_res or tile == min(256, -(-D // 8) * 8)
+        ek._tiled_layout.cache_clear()
 
 
 def test_client_order_largest_first_stable():
@@ -864,12 +1042,12 @@ def test_cuda_kernel_unaligned_rows():
 
 @pytest.mark.cuda
 def test_cuda_shape_no_plan_takes_is_refused():
-    """4,000 classes: a chunk of 8 rows' logits passes a block's shared
-    memory, so the wrapper refuses CUDA tensors before any launch
-    (``kernel_impl="plain"`` runs them); a forced staged kernel at 33
-    classes is refused too."""
+    """120,000 classes: a chunk of 8 rows' logits of a CTA's classes
+    passes a block's shared memory even at 16 CTAs, so the wrapper
+    refuses CUDA tensors before any launch (``kernel_impl="plain"`` runs
+    them); a forced staged kernel at 33 classes is refused too."""
     _need_card()
-    args = _epoch_inputs("classification", "cuda", J=5, S=3, C=4000, D=256)
+    args = _epoch_inputs("classification", "cuda", J=5, S=3, C=120000, D=4)
     before = dict(client_epoch.launches_by_kernel)
     with pytest.raises(ValueError, match="no client_epoch kernel takes"):
         client_epoch(*args, 0.1, 0.05, 0.01, "classification")
@@ -1047,11 +1225,13 @@ def test_cuda_wide_kernel_is_deterministic(case):
 
 
 # the class-tiled wide kernel's cases: (J, S, D, B); by shape at every C
-# past 32 (C = 1,000 keeps its batch buffer in global scratch)
+# past 32 (W's slice held in shared memory or read from W_out; D = 6,001
+# copies rows element-wise and reads W_out a float at a time)
 TILED_CASES = {
     "D=2000": (5, 4, 2000, 32),
     "D=250": (70, 3, 250, 17),
     "D=10000": (3, 3, 10000, 32),
+    "D=6001": (3, 2, 6001, 32),
 }
 
 
@@ -1071,6 +1251,23 @@ def test_cuda_tiled_wide_kernel_matches_plain_version(task, C_, case):
     wk, _ = _kernel_vs_plain(task, args)
     assert client_epoch.launches_by_kernel["wide_tiled"] == before + 1
     torch.testing.assert_close(wk[1], args[0][1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_cuda_tiled_wide_kernel_every_cluster_size(cluster):
+    """105 classes forced at each cluster size (16 where the card takes
+    it): 105, 53, 27, 14 or 7 classes a CTA, W's slice held in shared
+    memory from 8 CTAs on, streamed from W_out below."""
+    _need_card()
+    if cluster > ek.wide_max_cluster(0):
+        pytest.skip("the card does not schedule a 16-CTA cluster")
+    args = _epoch_inputs("classification", "cuda", J=5, S=4, C=105, D=2000)
+    plan = launch_plan(5, 32, 105, 2000, H100_SMS, kernel="wide_tiled",
+                       cluster=cluster, max_cluster=16)
+    assert plan.w_res == (cluster >= 8)
+    _kernel_vs_plain("classification", args, kernel="wide_tiled",
+                     cluster=cluster)
 
 
 @pytest.mark.cuda

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where one step of kernel 1's wide plan (``wide_epoch_kernel``) spends its
-time.
+"""Where one step of kernel 1's wide plan (``wide_epoch_kernel``) or its
+class-tiled wide plan (``wide_tiled_epoch_kernel``) spends its time.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 tools/client_epoch_phases.py [--J 50 --S 150 --D 10000 --C 10
                                           --B 32 --clusters 2,8,16]
+    python3 tools/client_epoch_phases.py --kernel wide_tiled --D 2000 \
+        --C 105 --S 20 --clusters 1,2,4,8,16
 
 It compiles ``csrc/client_epoch.cu`` a second time with
 ``-DCLIENT_EPOCH_PHASE_CLOCKS`` (CTA 0, rank 0 of the client with the most
@@ -13,11 +15,14 @@ steps, sums ``clock64`` cycles per phase: consumer thread 0 and producer
 lane 0; the normal build has none of it), and on random inputs (N rows of
 X, client 0 with S non-empty steps and every other client S // 5, as a
 Dirichlet(0.01) split gives the longest client ~5x the mean) launches the
-wide kernel forced at each cluster size, once through that build and 5
-times through the normal one. Prints one JSON line a cluster: the plan's
-layout, both builds' ms, the clock rate implied by the instrumented
-launch's CUDA-event time, and each phase in µs per step. Exits non-zero
-without a card.
+kernel forced at each cluster size that fits, once through that build and
+5 times through the normal one. Prints one JSON line a cluster: the
+plan's layout, both builds' ms, the clock rate implied by the
+instrumented launch's CUDA-event time (from the consumer phases, whose
+sum is the longest client's whole launch), and each phase in µs per
+step. The class-tiled kernel's phase names come from its library
+(``client_epoch_tiled_phase_names``; ``producer_`` marks the producer
+warp's). Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ def main():
                     choices=("float32", "bfloat16"))
     ap.add_argument("--clusters", default="1,2,4,8,16")
     ap.add_argument("--seed", type=int, default=100)
+    ap.add_argument("--kernel", choices=("wide", "wide_tiled"),
+                    default="wide")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("client_epoch_phases: no CUDA device")
@@ -72,8 +79,20 @@ def main():
                         str(cuda_build.source_path(name))],
                        check=True, capture_output=True)
     clocked = ctypes.CDLL(str(lib_path))
-    clocked.client_epoch_wide_phase_clocks.restype = ctypes.c_int
-    clocked.client_epoch_wide_phase_clocks.argtypes = [ctypes.c_void_p]
+    tiled = args.kernel == "wide_tiled"
+    read_clocks = (clocked.client_epoch_tiled_phase_clocks if tiled
+                   else clocked.client_epoch_wide_phase_clocks)
+    read_clocks.restype = ctypes.c_int
+    read_clocks.argtypes = [ctypes.c_void_p]
+    phases = PHASES
+    if tiled:
+        clocked.client_epoch_tiled_phase_names.restype = ctypes.c_char_p
+        phases = tuple(
+            clocked.client_epoch_tiled_phase_names().decode().split(","))
+    consumer = [i for i, p in enumerate(phases)
+                if not p.startswith("producer_")]
+    if not tiled:
+        consumer = list(range(len(CONSUMER)))
 
     J, S, D, C, B, N = args.J, args.S, args.D, args.C, args.B, args.N
     dev = torch.device("cuda")
@@ -102,7 +121,7 @@ def main():
                        for _ in range(2))
         start.record()
         for _ in range(reps):
-            client_epoch(*a, kernel="wide", cluster=k)
+            client_epoch(*a, kernel=args.kernel, cluster=k)
         stop.record()
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
@@ -111,35 +130,43 @@ def main():
     for k in (int(v) for v in args.clusters.split(",")):
         if k > max_k:
             continue
-        plan = ek.launch_plan(J, B, C, D, sms, row_bytes=X.element_size(),
-                              kernel="wide", cluster=k, max_cluster=max_k)
+        try:
+            plan = ek.launch_plan(J, B, C, D, sms,
+                                  row_bytes=X.element_size(),
+                                  kernel=args.kernel, cluster=k,
+                                  max_cluster=max_k)
+        except ValueError as e:  # this cluster does not fit
+            print(json.dumps({"tool": "client_epoch_phases", "cluster": k,
+                              "skipped": str(e)}))
+            continue
         ek._library.cache_clear()
-        client_epoch(*a, kernel="wide", cluster=k)  # warm-up
+        client_epoch(*a, kernel=args.kernel, cluster=k)  # warm-up
         ms = event_ms(5)
         saved = cuda_build.load
         cuda_build.load = lambda _n: clocked
         ek._library.cache_clear()
         try:
-            client_epoch(*a, kernel="wide", cluster=k)  # warm-up
+            client_epoch(*a, kernel=args.kernel, cluster=k)  # warm-up
             ms_clocked = event_ms(1)
         finally:
             cuda_build.load = saved
             ek._library.cache_clear()
-        out = (ctypes.c_ulonglong * len(PHASES))()
-        err = clocked.client_epoch_wide_phase_clocks(out)
+        out = (ctypes.c_ulonglong * len(phases))()
+        err = read_clocks(out)
         if err:
             sys.exit(f"client_epoch_phases: CUDA error {err}")
         cycles = list(out)
-        ghz = sum(cycles[:len(CONSUMER)]) / (ms_clocked * 1e6)
+        ghz = sum(cycles[i] for i in consumer) / (ms_clocked * 1e6)
         print(json.dumps({
-            "tool": "client_epoch_phases", "card": card, "J": J, "S": S,
-            "D": D, "C": C, "B": B, "rows": args.dtype, "cluster": k,
+            "tool": "client_epoch_phases", "card": card,
+            "kernel": args.kernel, "J": J, "S": S, "D": D, "C": C, "B": B,
+            "rows": args.dtype, "cluster": k,
             "plan": {f: getattr(plan, f) for f in (
                 "slice_width", "chunk", "tile", "stages", "w_res",
-                "rows_res", "smem_bytes")},
+                "rows_res", "smem_bytes", "scratch_bytes")},
             "ms": ms, "ms_clocked": ms_clocked, "clock_ghz": ghz,
             "us_per_step": {p: c / ghz / 1e3 / S
-                            for p, c in zip(PHASES, cycles)}}))
+                            for p, c in zip(phases, cycles)}}))
     del normal
 
 
