@@ -121,10 +121,13 @@ and read just after:
   logit equal: the first maximum class 0), two launches bitwise each,
   and at C = 105 and 1,000 forced at every cluster the card takes;
   every instantiation of the class-tiled kernel without spills; kernel
-  2's class-tiled split plan at C = 105 and 1,000, unguarded and with
-  the simplex guard, bitwise on repeat; FedAvg, FedAMW (2 rounds) and
-  Centralized (2 epochs) on the stand-in against their plain runs,
-  every launch on a tiled plan; the driver with ``--dataset sector`` in
+  2's class-tiled split plan at C = 53, 105 and 1,000, unguarded and with
+  the simplex guard, the tie case and J = 400 at C = 1,000 (streaming
+  tiles of clients), bitwise on repeat, its time on its class-split
+  logits at each cluster of six shapes and against the unstaged kernel
+  in turns at six (C = 33–105), its ptxas report (no spill); FedAvg,
+  FedAMW (2 rounds) and Centralized (2 epochs) on the stand-in against
+  their plain runs, every launch on a tiled plan; the driver with ``--dataset sector`` in
   a subprocess; the four ``classes_*`` rows of the ``kernels`` line
   (``client_epoch.classes_*``: ``ms_by_cluster``, the plan's layout,
   registers and spills of the instantiation each row type launches;
@@ -3715,6 +3718,17 @@ ALOI_C = 1000              # aloi's class count (LIBSVM's multiclass page)
 ALOI_S = 20                # steps of kernel 1's C = 1,000 case
 MANY_WIDE_D = 10000        # past the staged plan's D
 MANY_ROUNDS = 2
+RCV1_C = 53                # LIBSVM's rcv1.multiclass: kernel 2 by plan
+RCV1_NVAL = 3113           # 20% of its 15,564 training rows (S = 195)
+STREAM_P = (400, ALOI_C, 200)  # kernel 2 streaming client tiles: J, C, n_val
+# kernel 2's cluster sweep (J, C, n_val; n_val None: the stand-in's), and
+# the shapes the unstaged kernel held before the class-tiled one, timed
+# against it in turns
+TILED_SWEEP = ((50, 33, None), (50, RCV1_C, None), (50, 105, None),
+               (50, ALOI_C, None), (10, 105, None), (400, 105, None))
+UNSTAGED_TURNS = ((50, 33, RCV1_NVAL), (50, RCV1_C, RCV1_NVAL),
+                  (50, 70, RCV1_NVAL), (10, 105, None), (4, 40, None),
+                  (2, 40, None))
 
 
 def write_standin(path, n, d, classes, nnz, seed):
@@ -3759,7 +3773,11 @@ def many_classes(timed, vs_plain, card, sms):
     maximum class 0, so each client's hits are its label-0 rows). (c) Kernel 2's
     class-tiled split plan against its plain version at ``TOL_P``: the
     stand-in's n_val, J = 50, B = 16, C = 105 and 1,000, unguarded and
-    with the simplex guard, two launches bitwise. (d) FedAvg and FedAMW
+    with the simplex guard, two launches bitwise, and also at ``RCV1_C``
+    classes by plan, the tie case (logits constant over the classes: every
+    first maximum is class 0, so the hits are the valid label-0 rows,
+    exactly) and ``STREAM_P`` (the ring streams tiles of clients). (d)
+    FedAvg and FedAMW
     ``MANY_ROUNDS`` rounds of ``EPOCHS`` local epochs and Centralized
     ``EPOCHS`` epochs on the stand-in against their plain runs at
     ``TOL_RUN``, counted, every kernel-1 launch the wide tiled plan and
@@ -3770,8 +3788,13 @@ def many_classes(timed, vs_plain, card, sms):
     kernel 1's forced at each cluster the card takes (held against its
     plain version at the reference tolerances, and timed), the ptxas
     report of the instantiation each row type launches, and a failure on
-    any spill of the class-tiled kernel's instantiations. Returns the four
-    rows of the ``kernels`` line."""
+    any spill of the class-tiled kernel's instantiations; kernel 2's
+    class-tiled kernel timed on its class-split logits (made once, as a
+    p-solve does; ``class_split_ms`` apart), forced to each cluster at
+    ``TILED_SWEEP``'s shapes (``ms_by_cluster``), against the unstaged
+    kernel in turns at ``UNSTAGED_TURNS`` (``ms_vs_unstaged``), its ptxas
+    report and a failure on a spill. Returns the four rows of the
+    ``kernels`` line."""
     import numpy as np
     import torch
 
@@ -3921,25 +3944,43 @@ def many_classes(timed, vs_plain, card, sms):
         ppos = ppos.to(torch.int32)
         S2 = int(ppos.shape[0])
 
-        def p_args(Ck):
-            logits = torch.randn((n_val, J, Ck), generator=dgen,
-                                 device=dev) / J ** 0.5
-            y2 = torch.randint(0, Ck, (n_val,), generator=dgen, device=dev,
+        def p_args(Ck, J_=J, n=None):
+            """One p-epoch's inputs at Ck classes and J_ clients over the
+            stand-in's validation shuffle, or one of ``n`` rows."""
+            pos_, valid_ = ppos, pvalid
+            if n is not None:
+                pos_ = draw_epoch_positions(dgen, n, VB)
+                valid_ = batch_valid(pos_, n)
+                pos_ = pos_.to(torch.int32)
+            n_ = n or n_val
+            logits = torch.randn((n_, J_, Ck), generator=dgen,
+                                 device=dev) / J_ ** 0.5
+            y2 = torch.randint(0, Ck, (n_,), generator=dgen, device=dev,
                                dtype=torch.int32)
-            p0 = torch.rand(J, generator=dgen, device=dev)
-            cv2 = torch.ones(J, device=dev)
+            p0 = torch.rand(J_, generator=dgen, device=dev)
+            cv2 = torch.ones(J_, device=dev)
             cv2[::9] = 0.0
             return ((3.0 * p0 / p0.norm()).contiguous(), torch.zeros_like(p0),
-                    cv2, logits, y2, ppos, pvalid, float(prm.get("lr_p", 1e-3)),
-                    0.9, "classification")
+                    cv2, logits, y2, pos_, valid_,
+                    float(prm.get("lr_p", 1e-3)), 0.9, "classification")
 
-        k2 = {Ck: p_args(Ck) for Ck in (C, ALOI_C)}
+        k2 = {Ck: p_args(Ck) for Ck in (C, ALOI_C, RCV1_C)}
+        tie = list(p_args(C))
+        tie[3] = tie[3][:, :, :1].expand(-1, -1, C).contiguous()
+        tie[4] = torch.where(torch.arange(n_val, device=dev) % 3 == 0, 0,
+                             tie[4]).to(torch.int32)
+        cases2 = {f"C={Ck}": (a, (None, "simplex")) for Ck, a in k2.items()}
+        cases2[f"C={C} tie"] = (tuple(tie), (None,))
+        Js, Cs, ns = STREAM_P
+        cases2[f"J={Js} C={Cs} streamed"] = (p_args(Cs, Js, ns),
+                                             (None, "simplex"))
         k_max = pk.split_max_cluster(dev.index or 0)
         k2_err, k2_plans = {}, {}
-        for Ck, a in k2.items():
-            for guard in (None, "simplex"):
+        for label, (a, guards) in cases2.items():
+            Jk, Ck = int(a[3].shape[1]), int(a[3].shape[2])
+            for guard in guards:
                 g = make_guard(guard) if guard else None
-                plan = pk.launch_plan(VB, J, Ck, max_cluster=k_max)
+                plan = pk.launch_plan(VB, Jk, Ck, max_cluster=k_max)
                 p1 = p_epoch(*a, guard=g)
                 p2 = p_epoch(*a, guard=g)
                 torch.cuda.synchronize()
@@ -3950,9 +3991,9 @@ def many_classes(timed, vs_plain, card, sms):
                                     2e-5)
                 bitwise = all(bool(torch.equal(u, v)) for u, v in zip(p1, p2))
                 row = {"phase": "kernel_check", "kernel": "p_epoch.tiled",
-                       "case": f"C={Ck}", "guard": guard or "none",
-                       "shape": {"n_val": n_val, "J": J, "C": Ck, "B": VB,
-                                 "S": S2},
+                       "case": label, "guard": guard or "none",
+                       "shape": {"n_val": int(a[3].shape[0]), "J": Jk,
+                                 "C": Ck, "B": VB, "S": int(a[5].shape[0])},
                        "plan": dataclasses.asdict(plan),
                        "max_abs_err_p": err_p, "max_abs_err_buf": err_b,
                        "max_abs_err_metrics": err_m, "tol": TOL_P,
@@ -3960,13 +4001,23 @@ def many_classes(timed, vs_plain, card, sms):
                        "two_launches_bitwise": bitwise,
                        "ok": ok_p and ok_b and ok_m and bitwise
                        and plan.kernel == "split_tiled"}
+                if label.endswith("tie"):
+                    # every z row flat: the first maximum over all C is
+                    # class 0 (rank 0's), so the hits are the valid label-0
+                    # rows, exactly
+                    zeros = float(((a[4][a[5].long()] == 0).float()
+                                   * a[6]).sum())
+                    row["hits"], row["label0_rows"] = float(p1[2][1]), zeros
+                    row["ok"] = row["ok"] and row["hits"] == zeros
+                if label.endswith("streamed"):
+                    row["ok"] = row["ok"] and plan.stream
                 emit(row)
                 if not row["ok"]:
-                    fail(f"the tiled p_epoch plan (C={Ck}, guard {guard}) "
+                    fail(f"the tiled p_epoch plan ({label}, guard {guard}) "
                          "disagrees with its plain version, is not "
-                         "deterministic or did not run")
-                k2_err[Ck] = max(k2_err.get(Ck, 0.0), err_p, err_b)
-                k2_plans[Ck] = plan
+                         "deterministic or did not run as planned")
+                k2_err[label] = max(k2_err.get(label, 0.0), err_p, err_b)
+                k2_plans[label] = plan
 
         # (d) the algorithms on the stand-in, counted
         kw = dict(lr=prm["lr"], epoch=EPOCHS, batch_size=B, round=MANY_ROUNDS,
@@ -4125,36 +4176,88 @@ def many_classes(timed, vs_plain, card, sms):
             "smem_bytes": plan32.smem_bytes, **used32}
         if used32.get("spill_bytes") != 0:
             fail(f"the wide kernel's 32-class instantiation: ptxas {used32}")
-        for Ck in (C, ALOI_C):
+        # kernel 2: each size of TILED_SWEEP's shapes forced, on its own
+        # class-split logits; then the unstaged kernel against the
+        # class-tiled one, in turns, where the unstaged kernel took the
+        # shape before
+        saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
+        sweep = {}
+        for Jk, Ck, n in TILED_SWEEP:
+            a = (k2[Ck] if Jk == J and Ck in k2 and n is None
+                 else p_args(Ck, Jk, n))
+            by_k = {}
+            for k in pk.TILED_CLUSTERS:
+                if k > min(k_max, Ck):
+                    continue
+                prep = pk.class_split(a[3], k)
+                by_k[k] = cuda_ms(lambda: p_epoch(
+                    *a, kernel="split_tiled", cluster=k,
+                    split_logits=prep), 3)
+                del prep
+            plan = pk.launch_plan(VB, Jk, Ck, max_cluster=k_max)
+            sweep[f"J={Jk} C={Ck}"] = {
+                "n_val": int(a[3].shape[0]), "ms_by_cluster": by_k,
+                "plan_cluster": plan.cluster,
+                "fastest": min(by_k, key=by_k.get)}
+        vs_unstaged = {}
+        for Jk, Ck, n in UNSTAGED_TURNS:
+            a = p_args(Ck, Jk, n)
+            plan = pk.launch_plan(VB, Jk, Ck, max_cluster=k_max)
+            prep = pk.class_split(a[3], plan.cluster)
+            run = {"unstaged": lambda: p_epoch(*a, kernel="unstaged"),
+                   "split_tiled": lambda: p_epoch(*a, split_logits=prep)}
+            turns = {"unstaged": [], "split_tiled": []}
+            for kern in ("unstaged", "split_tiled", "split_tiled",
+                         "unstaged"):
+                turns[kern].append(cuda_ms(run[kern], 3))
+            vs_unstaged[f"J={Jk} C={Ck}"] = {
+                "n_val": int(a[3].shape[0]), "S": int(a[5].shape[0]),
+                "plan": plan.kernel, "cluster": plan.cluster,
+                **{kern: sum(v) / 2 for kern, v in turns.items()}}
+            del a, prep
+        p_epoch.launches, p_epoch.launches_by_kernel = saved
+        emit({"phase": "many_classes", "part": "p_epoch tiled sweep",
+              "card": card, "B": VB, "ms_by_cluster": sweep,
+              "ms_vs_unstaged": vs_unstaged})
+        for label, Ck in ((f"C={C}", C), (f"C={ALOI_C}", ALOI_C)):
             a = k2[Ck]
-            plan = k2_plans[Ck]
+            plan = k2_plans[label]
+            prep = pk.class_split(a[3], plan.cluster)
             saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
-            t_ms = cuda_ms(lambda: p_epoch(*a), 5)
+            t_ms = cuda_ms(lambda: p_epoch(*a, split_logits=prep), 5)
+            split_ms = cuda_ms(lambda: pk.class_split(a[3], plan.cluster), 2)
             p_epoch.launches, p_epoch.launches_by_kernel = saved
             p_ms = cuda_ms(lambda: p_epoch_plain(*a), 2)
             nbytes = 4 * (n_val * J * Ck + n_val + 2 * S2 * VB + 5 * J + 3)
             ops = 4 * n_val * J * Ck + 4 * J * S2
             t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
             used = ptxas("p_epoch", pk.kernel_symbol(plan, Ck))
+            if used.get("spill_bytes") != 0:
+                fail(f"the class-tiled split kernel: ptxas {used}")
             rows_out.append({
                 "name": f"p_epoch.classes_{Ck}", "route": "cuda",
                 "source": f"{src}_torch/csrc/p_epoch.cu",
                 "replaces": f"{src}/fedcore/pallas_psolver.py:38",
                 "launches": launches2,
                 "launches_path": f"many_classes (FedAMW at C = {C})",
-                "max_abs_err": k2_err[Ck], "ms": t_ms, "plain_ms": p_ms,
+                "max_abs_err": k2_err[label], "ms": t_ms, "plain_ms": p_ms,
                 "bound_ms": 1e3 * max(t_b, t_o),
                 "bound_by": "bytes" if t_b >= t_o else "operations",
                 "bound_bytes": nbytes, "bound_fp32_ops": ops,
                 "library_ms": None, "card": card,
                 "shape": {"n_val": n_val, "J": J, "C": Ck, "B": VB, "S": S2},
                 "us_per_step": 1e3 * t_ms / S2,
+                "class_split_ms": split_ms,
                 "plan": dataclasses.asdict(plan),
+                "ms_by_cluster": sweep[f"J={J} C={Ck}"]["ms_by_cluster"],
                 "registers": used.get("registers"),
                 "spill_bytes": used.get("spill_bytes")})
+            del prep
+        rows_out[-2]["ms_by_shape_and_cluster"] = sweep
+        rows_out[-2]["ms_vs_unstaged"] = vs_unstaged
         emit({"phase": "many_classes", "kernel_rows": rows_out,
               "phase_seconds": time.perf_counter() - t_phase})
-    del ms, k1, k2, X_wide, a
+    del ms, k1, k2, cases2, tie, X_wide, a
     torch.cuda.empty_cache()
     return rows_out
 

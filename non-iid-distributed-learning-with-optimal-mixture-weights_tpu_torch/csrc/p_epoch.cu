@@ -83,17 +83,17 @@
 // The guard's sums take one more exchange each. The cluster is a rule
 // fitted to the card's readings (psolver_kernel._split_cluster).
 //
-// Shapes neither takes (C > 32) run the unstaged kernel below, the port's
-// first design: one CTA of 256 threads that gathers each step's (B, J, C)
-// block after loading the step's row ids, five block barriers per step,
-// where that block fits one CTA (C <= 70 at J = 50, B = 16). Past it, the
-// class-tiled split kernel: the split kernel with C a run-time argument,
-// the row's logits in shared memory instead of registers, lanes over
-// classes for the partial logits, one warp's row_loss_grad_tiled for the
-// loss, and the batch in groups of one row a warp with one exchange a
-// group, so its exchange slots and h hold 16 rows whatever B and C. Only
-// B > 512 (the warps' rows) past the unstaged kernel, or a J whose
-// streamed slices of 16 CTAs pass a block, is left without a kernel.
+// Past 32 classes at B <= 512, the class-tiled split kernel
+// (split_tiled_p_epoch_kernel below): C a run-time argument, the classes
+// over a cluster of 1 to 16 CTAs, each reading its class slices from a
+// class-split copy of the logits through a producer warp's ring, z local,
+// the loss's row statistics and then g pushed between the CTAs, p
+// replicated. B > 512 runs the unstaged kernel below, the port's first
+// design: one CTA of 256 threads that gathers each step's (B, J, C) block
+// after loading the step's row ids, five block barriers per step, where
+// that block fits one CTA. Only B > 512 past the unstaged kernel, or a
+// class slice of which two stages of one row and client pass a block (C
+// past ~220,000 at J = 50), is left without a kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -248,19 +248,16 @@ struct Args {
   float lr, momentum;
 };
 
-// What the guard epilogue and the class-tiled split kernel add, as a
-// parameter of its own: the same fields appended to Args (28 bytes more)
-// made ptxas compile
-// the unguarded staged kernel with 93 registers instead of 123 and ~5%
-// slower a step (1.572 against 1.498 ms at the main shape, same card,
-// same call), even where it never reads them. (The split kernel takes its
-// own, SplitExt.)
+// What the guard epilogue adds, as a parameter of its own: the same fields
+// appended to Args (28 bytes more) made ptxas compile the unguarded staged
+// kernel with 93 registers instead of 123 and ~5% slower a step (1.572
+// against 1.498 ms at the main shape, same card, same call), even where it
+// never reads them. (The split kernels take their own, SplitExt and
+// TiledArgs.)
 struct Ext {
   int* guard_rounds;  // (2,): the simplex's rounds over all steps and in
                       // the step that took most; or null
   int guard;
-  int k, Jk, hold;    // the class-tiled split kernel's cluster, slice and
-                      // ring switch
   float radius;
 };
 
@@ -663,12 +660,6 @@ int instantiated_classes(int C) {
 // clients, so that every slice of a row starts 16-byte aligned when J*C is
 // a multiple of 4. The last slices may be narrower, or empty.
 int split_slice(int J, int k) { return round_up((J + k - 1) / k, 4); }
-
-// One slot of the class-tiled split kernel's cluster exchange, in floats: a
-// group's partial logits (B*C), or the guard's two partial sums.
-__host__ __device__ int exchange_floats(int B, int C) {
-  return round_up(B * C > 2 ? B * C : 2, 4);
-}
 
 // What the split kernel adds to Args: the guard, the cluster and the slice
 // as Ext, and its ring: row tiles of `tile` clients of the slice, `stages`
@@ -1235,333 +1226,623 @@ cudaError_t launch_split(const Args& a, const SplitExt& x, int warps,
 }
 
 // ---------------------------------------------------------------------------
-// The class-tiled split kernel: the split kernel's first design for any C,
-// taken at run time (one instantiation). The same cluster and slices; each
-// warp copies its own rows' slices into a two-stage ring (holding) or reads
-// them from global memory (streaming), prefetches its rows' ids, flags and
-// labels as the staged kernel does, and exchanges partial logits through
-// distributed shared memory behind cluster barriers; the p update and
-// guard are the split kernel's. A row's C logits sit in shared memory, not
-// in each lane's registers, and the batch is worked in groups
-// of one row a warp (rows q*NW .. q*NW + NW - 1, group q), one exchange a
-// group, so that an exchange slot holds NW rows of C partial logits and h
-// one group's rows (not B of each): the slots and h stay small at any C and
-// B. In a group, a warp's partial z[b, c] over the CTA's clients is one
-// lane's sum over j of class c (lanes over the classes, so reads of a row
-// are contiguous), written to the exchange slot; after the cluster barrier
-// the lanes sum each class over the ranks in rank order into the warp's row
-// of the other exchange slot (free until this warp writes the next group's
-// partials there: every CTA read it before this exchange's barrier), the
-// warp's row_loss_grad_tiled turns those logits into d in place, and the
-// warp writes h[w, j] = sum_c L[b, j, c] d[b, c] for the CTA's clients;
-// after a block barrier, thread j adds the group's h[., j] to its g_j in
-// row order (the order of the split kernel's sum over b).
+// The class-tiled split kernel: C over a cluster of k CTAs (1 to 16), any C
+// at run time. CTA q owns classes [qC/k, (q+1)C/k) of every client (a
+// balanced split: any k <= C runs) and reads only those, from the logits in
+// the class-split layout (psolver_kernel.class_split, made once a p-solve):
+// (k, n_val, J, W), rank q's slices of every row, each client's padded with
+// zeros to W = ceil(C/k) rounded up to 4 floats, so that a row's slice (or a
+// tile of its clients) is one contiguous 16-byte aligned span, one
+// cp.async.bulk, at any C (rows of 105 or 53 classes are not 16-byte
+// multiples in the (n_val, J, C) layout, and a slice there is J strided
+// segments).
+//  - A producer warp copies each step's rows, R at a time (a group: one
+//    bulk copy a row, a lane a row), into a ring of NS stages on full and
+//    empty mbarriers, and the step's labels, valid flags and count into two
+//    slots of row information; the consumers issue no copy. Holding (one
+//    tile of all J clients), a group's slices stay in their stage from the z
+//    pass to the h pass: each logit is read once a step. Streaming (a row's
+//    slice past the stages), tiles of Jt clients are copied for the z pass
+//    and again for the h pass.
+//  - z[b, c] for the CTA's classes is a full sum over the J clients: a lane
+//    a (row, quad of 4 classes, j mod 4), float4 loads, the 4 parts summed
+//    over their lanes in a fixed order, into a shared row buffer.
+//  - The loss needs each row's statistics over all C: every CTA pushes its
+//    slice's (st.async, 16 bytes a row, into every CTA's slot for this rank,
+//    completing on that slot set's mbarrier): cross-entropy the slice's
+//    maximum, sum of exp(z - max), the label's logit where it owns the label
+//    (else 0) and its first maximum's class; the squared error its sum of
+//    squared residuals. Each CTA merges the k ranks' in rank order: the
+//    first maximum over all C (a tie across slices to the lower rank, within
+//    one to the lower class), Z = sum_q S_q exp(m_q - M). d[b, c] for its
+//    classes is then local, and each row's loss and hit the same on every
+//    CTA.
+//  - Its partial g_j = sum_b sum_{c of its slice} L[b, j, c] d[b, c] for all
+//    J (a few lanes a client, each its quads of classes over all the rows,
+//    float4 loads, a butterfly sum), over the step's groups in order; then
+//    a second push exchange sums g over the ranks in rank order on every
+//    CTA (GX clients at a time). So p, buf and g are replicated: every CTA
+//    applies the same update to all J with the same bits, and the guard
+//    runs locally with block sums, no cluster sums. Rank 0 writes p, buf
+//    and the metrics.
+//  - Two slot sets alternate for each kind of exchange; a set is written
+//    again two exchanges later, which a peer reaches only after this CTA
+//    pushed the exchange between, after reading this one (every warp that
+//    must push does push every exchange). No cluster barrier inside the
+//    epoch.
+//  - p, buf, cv and g sit in shared memory, or, where J leaves no room for
+//    them beside the ring (the layout's state_global), p, buf and g in a
+//    global scratch of 3 * Jp floats a CTA and cv read where it lies.
+// What bounds it is still a step's latency: the slices' bytes (in L2 at
+// C = 105, from device memory at C = 1,000) overlap the previous group's
+// work; a group costs its passes, two block barriers and one exchange, a
+// step one more exchange and the update. Measured on an H100 (removing
+// one pass at a time, tools/p_epoch_variants.py): the two passes over the
+// stage are bound by the SM's issue of shared-memory instructions, not by
+// their latency (spreading them over more lanes measured slower).
 
-// Shared memory of one CTA of the class-tiled split kernel, in bytes: 2
-// mbarriers per warp, then in floats the ring of its row slices when it
-// holds them (2 stages * B rows * Jk*C), h (NW*Jk), p, buf, cv and g (Jk
-// each), the per-warp sums (4 * warps) and two exchange slots of NW rows.
-size_t split_tiled_smem_bytes(int B, int J, int C, int k, int hold) {
-  const size_t NW = staged_warps(B), Jk = split_slice(J, k);
-  const size_t ring = hold ? 2 * (size_t)B * Jk * C : 0;
-  return 16 * NW + (ring + NW * Jk + 4 * Jk + 4 * NW +
-                    2 * (size_t)exchange_floats(NW, C)) *
-                       sizeof(float);
+constexpr int kTiledWarps = 16;     // consumer warps (the producer is one more)
+constexpr int kTiledMaxRows = 16;   // rows of a group (a lane a row's copy)
+constexpr int kTiledMaxStages = 4;
+constexpr int kTiledGChunk = 256;   // clients of g an exchange carries
+
+// The first class CTA q of a k-cluster owns (q = k: C).
+__host__ __device__ inline int tiled_class_lo(int C, int k, int q) {
+  return (int)(((long long)q * C) / k);
 }
 
-// classes of a row one lane takes at once (32 apart) in the partial logits
-// and their sums over the ranks: that many loads in flight a lane
-constexpr int kLaneTiles = 4;
+// Floats of one client's slice in the class-split layout: the widest slice,
+// ceil(C / k), rounded up to 4.
+__host__ __device__ inline int tiled_width(int C, int k) {
+  return round_up((C + k - 1) / k, 4);
+}
 
-__global__ void __launch_bounds__(32 * kMaxWarps, 1)
-    split_tiled_p_epoch_kernel(const Args a, const Ext e) {
-  const int C = a.C;
-  const int S = a.S, B = a.B, J = a.J, JC = J * C, k = e.k, Jk = e.Jk;
-  const int JkC = Jk * C;  // a multiple of 4, as Jk is
-  const int NW = blockDim.x >> 5, nthreads = blockDim.x;
+// Shared memory of one CTA of the class-tiled split kernel, in bytes: the
+// mbarriers (full and empty a stage, two statistics and two g slot sets,
+// two full and two empty for the row information; padded to 16 bytes),
+// then in floats the two row-information slots, the ring (NS stages of R
+// rows of Jt*W), two row buffers of z and d (R*W each), two statistics slot
+// sets (k ranks * R rows * 4), two g slot sets (k * GX), the per-warp sums
+// (4 * warps) and, unless state_global, p, buf, cv and g (Jp each).
+size_t tiled_bytes(int B, int J, int C, int k, int R, int Jt, int NS, int GX,
+                   int state_global) {
+  const size_t W = tiled_width(C, k), Jp = round_up(J, 4);
+  const size_t header = round_up(8 * (2 * NS + 8), 16);
+  return header +
+         (2 * (size_t)split_info_floats(B) + (size_t)NS * R * Jt * W +
+          2 * (size_t)R * W + 8 * (size_t)k * R + 2 * (size_t)k * GX +
+          4 * (size_t)kTiledWarps + (state_global ? 0 : 4 * Jp)) *
+             sizeof(float);
+}
+
+// The kernel's layout at (B, J, C, k): GX = min(Jp, kTiledGChunk); with the
+// state in shared memory, then in global memory: holding, groups of R rows
+// (min(B, 16), halved while two stages do not fit) of all J clients, as
+// many stages as fit up to kTiledMaxStages; else streaming, the most rows
+// (halved the same way) and for them the widest tile of clients (J halved,
+// and halved again) of which two stages fit. Where nothing fits, the least
+// layout, whose bytes are past the limit.
+struct TiledLayout {
+  size_t smem;
+  int rows, tile, stages, gchunk, state_global;
+};
+
+TiledLayout tiled_layout(int B, int J, int C, int k) {
+  const int GX = min(round_up(J, 4), kTiledGChunk), R0 = min(B, kTiledMaxRows);
+  auto make = [&](int R, int Jt, int sg) -> TiledLayout {
+    int NS = 2;
+    while (NS < kTiledMaxStages &&
+           tiled_bytes(B, J, C, k, R, Jt, NS + 1, GX, sg) <=
+               (size_t)kSmemLimit)
+      ++NS;
+    return {tiled_bytes(B, J, C, k, R, Jt, NS, GX, sg), R, Jt, NS, GX, sg};
+  };
+  auto fits = [&](int R, int Jt, int sg) {
+    return tiled_bytes(B, J, C, k, R, Jt, 2, GX, sg) <= (size_t)kSmemLimit;
+  };
+  for (int sg = 0; sg < 2; ++sg) {
+    for (int R = R0; R >= 1; R /= 2)
+      if (fits(R, J, sg)) return make(R, J, sg);
+    for (int R = R0; R >= 1; R /= 2) {
+      for (int Jt = (J + 1) / 2;; Jt = (Jt + 1) / 2) {
+        if (fits(R, Jt, sg)) return make(R, Jt, sg);
+        if (Jt == 1) break;
+      }
+    }
+  }
+  return {tiled_bytes(B, J, C, k, 1, 1, 2, GX, 1), 1, 1, 2, GX, 1};
+}
+
+struct TiledArgs {
+  const float* p0;      // (J,)
+  const float* buf0;    // (J,)
+  const float* cv;      // (J,)
+  const float* logits;  // (k, n_val, J, W): class_split's layout
+  const int* y;         // (n_val,) int32 labels, or float32 targets' bits
+  const int* positions; // (S, B)
+  const float* valid;   // (S, B)
+  float* p_out;         // (J,)
+  float* buf_out;       // (J,)
+  float* metrics;       // (3,)
+  int* guard_rounds;    // (2,) or null
+  float* scratch;       // (k, 3, Jp) for the GLOBAL_STATE instantiation
+  int S, B, J, C, n_val, cls, guard, k;
+  int W, R, Jt, NS, GX;
+  float lr, momentum, radius;
+};
+
+#ifdef P_EPOCH_PHASE_CLOCKS
+// The class-tiled split kernel's phases: rank 0's consumer thread 0, then
+// its producer lane 0 (p_epoch_tiled_phase_names, in this order).
+constexpr int kTiledPhases = 15;
+__device__ unsigned long long tiled_phase_clocks[kTiledPhases];
+#define TPHASE(i)                     \
+  if (timing) {                       \
+    const long long now_ = clock64(); \
+    ph[i] += now_ - t_last;           \
+    t_last = now_;                    \
+  }
+#else
+#define TPHASE(i)
+#endif
+
+// GLOBAL_STATE: the layout's state_global (p, buf and g in a.scratch);
+// otherwise they and cv are in shared memory, which the compiler then
+// knows (shared loads and stores, not generic ones)
+template <bool GLOBAL_STATE>
+__global__ void __launch_bounds__(32 * (kTiledWarps + 1), 1)
+    split_tiled_p_epoch_kernel(const TiledArgs a) {
+  constexpr int NW = kTiledWarps, nthreads = 32 * NW;
+  const int S = a.S, B = a.B, J = a.J, C = a.C, k = a.k, W = a.W, R = a.R;
+  const int Jt = a.Jt, NS = a.NS, GX = a.GX, Jp = round_up(J, 4);
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int nrows = (B - 1 - w) / NW + 1;  // rows w, w + NW, ... below B
-  const int groups = (B + NW - 1) / NW;    // the most rows of a warp
-  const bool cls = a.cls != 0, hold = e.hold != 0;
-  const int XS = exchange_floats(NW, C);
+  const int G = (B + R - 1) / R;    // groups of rows a step
+  const int T = (J + Jt - 1) / Jt;  // tiles of clients a row
+  const bool hold = T == 1, cls = a.cls != 0;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int j0 = rank * Jk;
-  const int jw = max(0, min(Jk, J - j0));  // this CTA's clients (maybe 0)
+  const int c_lo = tiled_class_lo(C, k, rank);
+  const int cq = tiled_class_lo(C, k, rank + 1) - c_lo;  // this CTA's classes
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem_raw);  // [2][NW]
-  float* ring = reinterpret_cast<float*>(smem_raw + 16 * NW);  // [2][B][JkC]
-  float* h = ring + (hold ? 2 * B * JkC : 0);  // [NW][Jk]
-  float* p = h + NW * Jk;
-  float* buf = p + Jk;
-  float* cvs = buf + Jk;
-  float* gs = cvs + Jk;      // [Jk] the step's g_j, summed over the groups
-  float* red = gs + Jk;      // [4][NW]
-  float* xch = red + 4 * NW; // [2][XS], read by the whole cluster
-
-  for (int j = tid; j < jw; j += nthreads) {
-    p[j] = a.p0[j0 + j];
-    buf[j] = a.buf0[j0 + j];
-    cvs[j] = a.cv[j0 + j];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);  // [NS]
+  uint64_t* empty = full + NS;                              // [NS]
+  uint64_t* sbar = empty + NS;                              // [2]
+  uint64_t* gbar = sbar + 2;                                // [2]
+  uint64_t* ifull = gbar + 2;                               // [2]
+  uint64_t* iempty = ifull + 2;                             // [2]
+  const int IS = split_info_floats(B);
+  float* info = reinterpret_cast<float*>(
+      smem_raw + round_up(8 * (2 * NS + 8), 16));  // [2][IS]
+  float* ring = info + 2 * IS;                      // [NS][R][Jt*W]
+  float* zbuf = ring + (size_t)NS * R * Jt * W;     // [2][R][W]
+  float* sx = zbuf + 2 * R * W;                     // [2][k][R][4]
+  float* gx = sx + 8 * k * R;                       // [2][k][GX]
+  float* red = gx + 2 * k * GX;                     // [4][NW]
+  float *p, *buf, *g;
+  const float* cvs;
+  if constexpr (GLOBAL_STATE) {
+    p = a.scratch + (size_t)rank * 3 * Jp;
+    cvs = a.cv;
+  } else {
+    p = red + 4 * NW;
+    float* cvm = p + 3 * Jp;
+    for (int j = tid; j < J; j += blockDim.x) cvm[j] = a.cv[j];
+    cvs = cvm;
   }
-  if (lane == 0) {
-    mbar_init(&mbar[w], 1);
-    mbar_init(&mbar[NW + w], 1);
+  buf = p + Jp;
+  g = buf + Jp;
+  for (int j = tid; j < Jp; j += blockDim.x) {
+    p[j] = j < J ? a.p0[j] : 0.f;
+    buf[j] = j < J ? a.buf0[j] : 0.f;
+    g[j] = 0.f;  // the pad stays 0: g is pushed 4 clients at a time
+  }
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NW);
+    }
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(&sbar[q], 1);
+      mbar_init(&gbar[q], 1);
+      mbar_init(&ifull[q], 1);
+      mbar_init(&iempty[q], NW);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // every CTA of the cluster has started before any reads another's
-  // shared memory
+  __syncthreads();
+  // every CTA's exchange mbarriers are initialised before any is pushed to
   cluster.sync();
+#ifdef P_EPOCH_PHASE_CLOCKS
+  const bool timing = rank == 0 && (tid == 0 || tid == 32 * NW);
+  long long ph[kTiledPhases] = {}, t_last = clock64();
+#endif
 
-  // the staged kernel's prefetch of row ids, flags and labels
-  auto load_info = [&](int t, int& r, float& v, float& vs) {
-    const size_t base = (size_t)t * B;
-    const int b = w + min(lane, nrows - 1) * NW;
-    r = ld_early(a.positions + base + b);
-    v = ld_early(a.valid + base + b);
-    if (B <= 32) {
-      vs = ld_early(a.valid + base + min(lane, B - 1));
-    } else {
-      vs = 0.f;
-      for (int q = lane; q < B; q += 32) vs += ld_early(a.valid + base + q);
-    }
-  };
-  auto load_label = [&](int r, int& yb) { yb = ld_early(a.y + r); };
-  // copies this CTA's slices of this warp's rows into stage st of the ring
-  // (holding only); the slot was last read by this warp two steps earlier
-  auto issue = [&](int st, int r) {
-    float* dst = ring + (size_t)st * B * JkC;
-    const int n = jw * C;
-    if (a.bulk) {
-      uint64_t* bar = &mbar[st * NW + w];
-      if (lane == 0) mbar_expect_tx(bar, (unsigned)(nrows * n * 4));
+  if (w == NW) {
+    // ---- the producer warp: each step's row information, then its ring
+    // entries in the consumers' order ----
+    const float* plane = a.logits + (size_t)rank * a.n_val * J * W;
+    int ent = 0;
+    for (int s = 0; s < S; ++s) {
+      if (s >= 2) mbar_wait(&iempty[s & 1], (unsigned)(((s >> 1) - 1) & 1));
+      TPHASE(12);
+      float* inf = info + (s & 1) * IS;
+      const size_t base = (size_t)s * B;
+      float vs = 0.f;
+      for (int b = lane; b < B; b += 32) {
+        const float v = ld_early(a.valid + base + b);
+        inf[b] = __int_as_float(ld_early(a.y + ld_early(a.positions + base +
+                                                        b)));
+        inf[B + b] = v;
+        vs += v;
+      }
+      const float cnt = warp_sum(vs);
+      if (lane == 0) inf[2 * B] = cnt;
       __syncwarp();
-      if (lane < nrows && n > 0) {
-        fence_proxy_async_smem();
-        bulk_copy(dst + (w + lane * NW) * JkC,
-                  a.logits + (size_t)r * JC + (size_t)j0 * C,
-                  (unsigned)(n * 4), bar);
+      if (lane == 0) mbar_arrive(&ifull[s & 1]);
+      TPHASE(13);
+      for (int q = 0; q < G; ++q) {
+        const int nr = min(R, B - q * R);
+        const int r = lane < nr ? ld_early(a.positions + base + q * R + lane)
+                                : 0;
+        for (int pass = 0; pass < (hold ? 1 : 2); ++pass) {
+          for (int t = 0; t < T; ++t, ++ent) {
+            const int sl = ent % NS, u = ent / NS;
+            if (u > 0) mbar_wait(&empty[sl], (unsigned)((u - 1) & 1));
+            TPHASE(12);
+            const int wt = min(Jt, J - t * Jt);
+            const unsigned bytes = (unsigned)(wt * W * 4);
+            if (lane == 0) mbar_expect_tx(&full[sl], (unsigned)nr * bytes);
+            __syncwarp();
+            if (lane < nr)
+              bulk_copy(ring + ((size_t)sl * R + lane) * Jt * W,
+                        plane + ((size_t)r * J + t * Jt) * W, bytes,
+                        &full[sl]);
+            TPHASE(14);
+          }
+        }
       }
-    } else {
-      for (int q = 0; q < nrows; ++q) {
-        const int rq = __shfl_sync(kFull, r, q);
-        float* d = dst + (w + q * NW) * JkC;
-        const float* s = a.logits + (size_t)rq * JC + (size_t)j0 * C;
-        for (int i = lane; i < n; i += 32) cp_async4(d + i, s + i);
-      }
-      cp_async_commit();
     }
-  };
-  // L[b, j0 + j, 0..C) of this warp's row (row id rq): the ring's copy
-  // when holding, else the logits in global memory
-  auto row = [&](int st, int b, int rq, int j) -> const float* {
-    return hold ? ring + (size_t)(st * B + b) * JkC + j * C
-                : a.logits + (size_t)rq * JC + (size_t)(j0 + j) * C;
-  };
-
-  int r_cur = 0, r_n1 = 0, r_n2 = 0, y_cur = 0, y_n1 = 0;
-  float v_cur = 0.f, vs_cur = 0.f, v_n1 = 0.f, vs_n1 = 0.f, v_n2 = 0.f,
-        vs_n2 = 0.f;
-  if (S > 0) {
-    load_info(0, r_cur, v_cur, vs_cur);
-    load_label(r_cur, y_cur);
-    if (hold) issue(0, r_cur);
+#ifdef P_EPOCH_PHASE_CLOCKS
+    if (timing)
+      for (int i = 12; i < kTiledPhases; ++i) tiled_phase_clocks[i] = ph[i];
+#endif
+    cluster.sync();  // the consumers' last
+    return;
   }
-  if (S > 1) load_info(1, r_n1, v_n1, vs_n1);
 
-  // The cluster exchanges alternate between two slots: exchange x writes
-  // slot x & 1 before its cluster barrier and reads every rank's after it,
-  // and a CTA writes that slot again (exchange x + 2) only after the
-  // barrier of exchange x + 1, which every CTA reaches after its reads.
-  int xc = 0;
-  auto cluster_sum2 = [&](float& u, float& v, int& par) {
-    block_sum2(u, v, red, par, NW);
-    float* slot = xch + (xc & 1) * XS;
-    if (tid == 0) {
-      slot[0] = u;
-      slot[1] = v;
+  // ---- the NW consumer warps ----
+  const uint32_t sx_a = smem_addr(sx), sbar_a = smem_addr(sbar);
+  const uint32_t gx_a = smem_addr(gx), gbar_a = smem_addr(gbar);
+  auto release = [&](int sl) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[sl]);
+  };
+  // fixed-order sums over the consumer warps, every thread getting both
+  // totals (block_sum2 without the producer warp); the guard's, the same on
+  // every CTA
+  int par = 0;
+  auto sum2 = [&](float& u, float& v) {
+    u = warp_sum(u);
+    v = warp_sum(v);
+    float* sc = red + par * 2 * NW;
+    if (lane == 0) {
+      sc[w] = u;
+      sc[NW + w] = v;
     }
-    cluster.sync();
+    consumers_sync(nthreads);
     u = 0.f;
     v = 0.f;
-    for (int q = 0; q < k; ++q) {
-      const float* rs = cluster.map_shared_rank(slot, q);
-      u += rs[0];
-      v += rs[1];
+    for (int q = 0; q < NW; ++q) {
+      u += sc[q];
+      v += sc[NW + q];
     }
-    ++xc;
+    par ^= 1;
   };
 
-  float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // this warp's
-  int par = 0, rounds_sum = 0, rounds_max = 0;  // the guard's
+  const int RS = Jt * W;  // floats from a stage's row to the next
+  const int nq = W / 4;   // quads of 4 classes in a slice
+  int hl = 1;             // lanes a client in the h pass
+  while (hl < nq && hl < 32) hl <<= 1;
+  float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // this warp's rows'
+  int rounds_sum = 0, rounds_max = 0;                  // the guard's
+  int ent = 0, xs = 0, xg = 0, zg = 0;  // ring entries, exchanges, groups
   for (int s = 0; s < S; ++s) {
-    const int st = s & 1;
-    if (s + 1 < S) {
-      if (hold) issue(st ^ 1, r_n1);
-      load_label(r_n1, y_n1);
-    } else if (hold && !a.bulk) {
-      cp_async_commit();  // an empty group keeps wait_group<1> uniform
-    }
-    if (s + 2 < S) load_info(s + 2, r_n2, v_n2, vs_n2);
-
-    const float cnt = warp_sum(lane < B ? vs_cur : 0.f);
+    mbar_wait(&ifull[s & 1], (unsigned)((s >> 1) & 1));
+    const float* inf = info + (s & 1) * IS;
+    const float cnt = inf[2 * B];
     const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
-    if (hold) {
-      if (a.bulk) {
-        mbar_wait(&mbar[st * NW + w], (unsigned)((s >> 1) & 1));
-      } else {
-        cp_async_wait<1>();
-        __syncwarp();
+    TPHASE(0);
+    for (int q = 0; q < G; ++q, ++zg) {
+      const int nr = min(R, B - q * R);
+      float* z = zbuf + (zg & 1) * R * W;  // the group's z, then d
+      // z over the CTA's classes (its W padded ones), tile by tile: items
+      // (row b, quad u of 4 classes, part jp of the clients: j = jp mod
+      // 4), a lane an item, float4 loads; the 4 parts of a quad (4 lanes)
+      // summed in a fixed order, each part over j in order
+      const int e_z = ent;
+      for (int t = 0; t < T; ++t, ++ent) {
+        const int sl = ent % NS;
+        mbar_wait(&full[sl], (unsigned)((ent / NS) & 1));
+        TPHASE(1);
+        const float* stage = ring + (size_t)sl * R * RS;
+        const float* pt = p + t * Jt;
+        const int wt = min(Jt, J - t * Jt);
+        for (int i0 = 32 * w; i0 < 4 * nr * nq; i0 += nthreads) {
+          const int i = i0 + lane, jp = i & 3;
+          const bool act = i < 4 * nr * nq;
+          const int bu = act ? i >> 2 : 0, b = bu / nq, u = bu - b * nq;
+          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (act) {
+            const float* L = stage + b * RS + 4 * u;
+#pragma unroll 4
+            for (int j = jp; j < wt; j += 4) {
+              const float4 l = *reinterpret_cast<const float4*>(L + j * W);
+              const float pj = pt[j];
+              acc.x = fmaf(l.x, pj, acc.x);
+              acc.y = fmaf(l.y, pj, acc.y);
+              acc.z = fmaf(l.z, pj, acc.z);
+              acc.w = fmaf(l.w, pj, acc.w);
+            }
+          }
+#pragma unroll
+          for (int o = 1; o < 4; o <<= 1) {
+            acc.x += __shfl_xor_sync(kFull, acc.x, o);
+            acc.y += __shfl_xor_sync(kFull, acc.y, o);
+            acc.z += __shfl_xor_sync(kFull, acc.z, o);
+            acc.w += __shfl_xor_sync(kFull, acc.w, o);
+          }
+          if (act && jp == 0) {
+            float4* zq = reinterpret_cast<float4*>(z + b * W + 4 * u);
+            if (t > 0) {
+              const float4 v = *zq;
+              acc.x += v.x;
+              acc.y += v.y;
+              acc.z += v.z;
+              acc.w += v.w;
+            }
+            *zq = acc;
+          }
+        }
+        if (!hold) release(sl);
+        TPHASE(2);
       }
-    }
+      consumers_sync(nthreads);  // the group's z complete
+      TPHASE(3);
 
-    for (int q = 0; q < groups; ++q) {
-      const int b = w + q * NW;  // this warp's row of the group, if any
-      const bool mine = q < nrows;
-      const int rq = __shfl_sync(kFull, r_cur, q & 31);
-      float* xs = xch + (xc & 1) * XS + w * C;
-      float* z = xch + ((xc + 1) & 1) * XS + w * C;
-      // this CTA's partial z of the row over its slice: lane c sums class
-      // c over j in order, kLaneTiles classes a lane at once
-      if (mine) {
-        for (int c0 = lane; c0 < C; c0 += 32 * kLaneTiles) {
-          float acc[kLaneTiles];
-#pragma unroll
-          for (int u = 0; u < kLaneTiles; ++u) acc[u] = 0.f;
-#pragma unroll 2
-          for (int j = 0; j < jw; ++j) {
-            const float* Lj = row(st, b, rq, j);
-            const float pj = p[j];
-#pragma unroll
-            for (int u = 0; u < kLaneTiles; ++u)
-              if (c0 + 32 * u < C)
-                acc[u] = fmaf(Lj[c0 + 32 * u], pj, acc[u]);
+      // each row's statistics over this CTA's slice (a warp a row), pushed
+      // into every CTA's slot for this rank
+      const int set = xs & 1;
+      if (tid == 0) mbar_expect_tx(&sbar[set], (unsigned)(16 * k * nr));
+      for (int bl = w; bl < nr; bl += NW) {
+        const int b = q * R + bl;
+        float* zr = z + bl * W;
+        float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
+        if (cls) {
+          const int lc = __float_as_int(inf[b]) - c_lo;
+          v2 = (lc >= 0 && lc < cq) ? zr[lc] : 0.f;
+          const float neg_inf = -__int_as_float(0x7f800000);
+          float m = neg_inf;
+          int mi = cq;
+          for (int c = lane; c < cq; c += 32) {
+            const float v = zr[c];
+            if (v > m) {
+              m = v;
+              mi = c;
+            }
           }
+          // the slice's first maximum: the larger value, the lower class
+          // on a tie
 #pragma unroll
-          for (int u = 0; u < kLaneTiles; ++u)
-            if (c0 + 32 * u < C) xs[c0 + 32 * u] = acc[u];
+          for (int o = 16; o > 0; o >>= 1) {
+            const float om = __shfl_xor_sync(kFull, m, o);
+            const int oi = __shfl_xor_sync(kFull, mi, o);
+            if (om > m || (om == m && oi < mi)) {
+              m = om;
+              mi = oi;
+            }
+          }
+          // exp(z - m) kept in place of z: d's exp(z - M) is it times
+          // exp(m - M)
+          __syncwarp();
+          float e = 0.f;
+          for (int c = lane; c < cq; c += 32) {
+            const float ec = expf(zr[c] - m);
+            zr[c] = ec;
+            e += ec;
+          }
+          v0 = m;
+          v1 = warp_sum(e);
+          v3 = __int_as_float(c_lo + mi);
+        } else {
+          const float target = inf[b];
+          float e2 = 0.f;
+          for (int c = lane; c < cq; c += 32) {
+            const float e = zr[c] - target;
+            e2 = fmaf(e, e, e2);
+          }
+          v0 = warp_sum(e2);
         }
+        if (lane < k)
+          st_async4(cluster_map(sx_a + 16 * ((set * k + rank) * R + bl), lane),
+                    v0, v1, v2, v3, cluster_map(sbar_a + 8 * set, lane));
       }
-      cluster.sync();  // every CTA's partials are in its slot
-      const float bv = __shfl_sync(kFull, v_cur, q & 31);
-      const int yb = __shfl_sync(kFull, y_cur, q & 31);
-      if (mine) {
-        // lane c sums class c over the ranks in rank order: the same z on
-        // every CTA
-        for (int c0 = lane; c0 < C; c0 += 32 * kLaneTiles) {
-          float v[kLaneTiles];
-#pragma unroll
-          for (int u = 0; u < kLaneTiles; ++u) v[u] = 0.f;
-          for (int r = 0; r < k; ++r) {
-            const float* rs = cluster.map_shared_rank(xs, r);
-#pragma unroll
-            for (int u = 0; u < kLaneTiles; ++u)
-              if (c0 + 32 * u < C) v[u] += rs[c0 + 32 * u];
+      TPHASE(4);
+      mbar_wait_cluster(&sbar[set], (unsigned)((xs >> 1) & 1));
+      ++xs;
+      TPHASE(5);
+      // merged in rank order, each row by its warp: the loss, the hit and d
+      // over this CTA's classes, in place
+      const float* sxs = sx + set * k * R * 4;
+      for (int bl = w; bl < nr; bl += NW) {
+        const int b = q * R + bl;
+        const float bv = inf[B + b], scale = bv * inv_cnt;
+        float* zr = z + bl * W;
+        float loss, hit = 0.f;
+        if (cls) {
+          const int label = __float_as_int(inf[b]);
+          float M = sxs[4 * bl];
+          int pred = __float_as_int(sxs[4 * bl + 3]);
+          for (int r = 1; r < k; ++r) {
+            const float mr = sxs[4 * (r * R + bl)];
+            if (mr > M) {
+              M = mr;
+              pred = __float_as_int(sxs[4 * (r * R + bl) + 3]);
+            }
           }
-#pragma unroll
-          for (int u = 0; u < kLaneTiles; ++u)
-            if (c0 + 32 * u < C) z[c0 + 32 * u] = v[u];
+          // lane r's term of rank r, then summed in rank order
+          const float* v = sxs + 4 * (min(lane, k - 1) * R + bl);
+          const float term = lane < k ? v[1] * expf(v[0] - M) : 0.f;
+          const float zlr = lane < k ? v[2] : 0.f;
+          float Z = 0.f, zl = 0.f;
+          for (int r = 0; r < k; ++r) {
+            Z += __shfl_sync(kFull, term, r);
+            zl += __shfl_sync(kFull, zlr, r);
+          }
+          // softmax over this CTA's classes: exp(z - m) exp(m - M) / Z
+          const float f = expf(sxs[4 * (rank * R + bl)] - M) / Z;
+          for (int c = lane; c < cq; c += 32)
+            zr[c] = (zr[c] * f - (c_lo + c == label ? 1.f : 0.f)) * scale;
+          loss = (logf(Z) + M) - zl;
+          hit = pred == label ? 1.f : 0.f;
+        } else {
+          float sse = 0.f;
+          for (int r = 0; r < k; ++r) sse += sxs[4 * (r * R + bl)];
+          const float target = inf[b];
+          for (int c = lane; c < cq; c += 32)
+            zr[c] = (zr[c] - target) * (2.f / C) * scale;
+          loss = sse / C;
         }
-        float hit;
-        const float loss = row_loss_grad_tiled(
-            z, C, cls, yb, __int_as_float(yb), bv * inv_cnt, &hit);
         acc_loss += loss * bv;
         acc_hit += hit * bv;
-        // h[w, j] over this CTA's slice (the row read a second time). With
-        // few clients a CTA against the classes (jw * 8 < C), the lanes
-        // take the classes and a warp sum each client; else the lanes take
-        // the clients, with four partial sums over the classes (c mod 4)
-        // so that four loads are in flight. Either order is fixed by the
-        // shape.
-        if (jw * 8 < C) {
-          for (int j = 0; j < jw; ++j) {
-            const float* Lj = row(st, b, rq, j);
-            float hv = 0.f;
-            for (int c = lane; c < C; c += 32) hv = fmaf(Lj[c], z[c], hv);
-            hv = warp_sum(hv);
-            if (lane == 0) h[w * Jk + j] = hv;
-          }
-        } else {
-          for (int j = lane; j < jw; j += 32) {
-            const float* Lj = row(st, b, rq, j);
-            float h0 = 0.f, h1 = 0.f, h2 = 0.f, h3 = 0.f;
-            int c = 0;
-            for (; c + 4 <= C; c += 4) {
-              h0 = fmaf(Lj[c], z[c], h0);
-              h1 = fmaf(Lj[c + 1], z[c + 1], h1);
-              h2 = fmaf(Lj[c + 2], z[c + 2], h2);
-              h3 = fmaf(Lj[c + 3], z[c + 3], h3);
+      }
+      consumers_sync(nthreads);  // the group's d complete
+      TPHASE(6);
+
+      // this CTA's partial g over the group's rows: hl lanes a client (the
+      // quads' count rounded up to a power of 2, at most 32), each lane its
+      // quads u, u + hl, ... over all the rows, float4 loads of L and d;
+      // the hl lanes summed in a fixed order; a warp's clients the same
+      // every group, so g adds in group order: the held stage again, or
+      // the tiles' copies
+      int eh = hold ? e_z : ent;
+      for (int t = 0; t < T; ++t, ++eh) {
+        const int sl = eh % NS;
+        if (!hold) {
+          mbar_wait(&full[sl], (unsigned)((eh / NS) & 1));
+          TPHASE(1);
+        }
+        const float* stage = ring + (size_t)sl * R * RS;
+        const int wt = min(Jt, J - t * Jt);
+        for (int j0 = w * (32 / hl); j0 < wt; j0 += NW * (32 / hl)) {
+          const int j = j0 + lane / hl;
+          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (j < wt) {
+            for (int u = lane % hl; u < nq; u += hl) {
+              const float* L = stage + j * W + 4 * u;
+              const float* d = z + 4 * u;
+#pragma unroll 4
+              for (int bl = 0; bl < nr; ++bl) {
+                const float4 l = *reinterpret_cast<const float4*>(L + bl * RS);
+                const float4 dd = *reinterpret_cast<const float4*>(d + bl * W);
+                acc.x = fmaf(l.x, dd.x, acc.x);
+                acc.y = fmaf(l.y, dd.y, acc.y);
+                acc.z = fmaf(l.z, dd.z, acc.z);
+                acc.w = fmaf(l.w, dd.w, acc.w);
+              }
             }
-            for (; c < C; ++c) h0 = fmaf(Lj[c], z[c], h0);
-            h[w * Jk + j] = (h0 + h1) + (h2 + h3);
+          }
+          float hv = (acc.x + acc.y) + (acc.z + acc.w);
+          for (int o = hl / 2; o > 0; o >>= 1)
+            hv += __shfl_xor_sync(kFull, hv, o);
+          if (j < wt && lane % hl == 0) {
+            float* gj = g + t * Jt + j;
+            *gj = q == 0 ? hv : *gj + hv;
           }
         }
+        release(sl);
+        TPHASE(7);
       }
-      ++xc;
-      // the group's h complete, and every lane done with its warp's z row
-      // (the next group's partials go there); the next group's h is
-      // written after its cluster barrier, when these sums are done
-      __syncthreads();
-      for (int j = tid; j < jw; j += nthreads) {
-        float g = q == 0 ? 0.f : gs[j];
-        for (int u = 0; u < NW && q * NW + u < B; ++u) g += h[u * Jk + j];
-        gs[j] = g;
-      }
+      if (!hold) ent = eh;
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&iempty[s & 1]);  // done with the information
     acc_cnt += cnt;
-    __syncthreads();  // g complete; every warp is done reading p
+    consumers_sync(nthreads);  // g's partial complete; p read for the last time
+    TPHASE(8);
 
-    for (int j = tid; j < jw; j += nthreads) {
-      const float g = gs[j] * cvs[j];
-      const float bj = a.momentum * buf[j] + g;
-      buf[j] = bj;
-      p[j] = p[j] - a.lr * bj;
+    // g summed over the ranks in rank order on every CTA, GX clients an
+    // exchange, then the momentum and p updates of those clients
+    for (int j0 = 0; j0 < J; j0 += GX) {
+      const int n = min(GX, Jp - j0), nc = n / 4, gs = xg & 1;
+      if (tid == 0) mbar_expect_tx(&gbar[gs], (unsigned)(4 * k * n));
+      for (int i = tid; i < k * nc; i += nthreads) {
+        const int dst = i / nc, ch = i - dst * nc;
+        const float4 v = *reinterpret_cast<const float4*>(g + j0 + 4 * ch);
+        st_async4(cluster_map(gx_a + 4 * ((gs * k + rank) * GX + 4 * ch), dst),
+                  v.x, v.y, v.z, v.w, cluster_map(gbar_a + 8 * gs, dst));
+      }
+      mbar_wait_cluster(&gbar[gs], (unsigned)((xg >> 1) & 1));
+      ++xg;
+      const float* gr = gx + gs * k * GX;
+      for (int j = tid; j < min(n, J - j0); j += nthreads) {
+        float gj = 0.f;
+        for (int r = 0; r < k; ++r) gj += gr[r * GX + j];
+        const int jj = j0 + j;
+        gj *= cvs[jj];
+        const float bj = a.momentum * buf[jj] + gj;
+        buf[jj] = bj;
+        p[jj] = p[jj] - a.lr * bj;
+      }
+      // every thread done reading this set before this CTA pushes the
+      // next exchange (a peer's pushes two exchanges on overwrite it)
+      if (j0 + GX < J) consumers_sync(nthreads);
     }
-    if (e.guard != kGuardNone) {
-      const int rounds = apply_guard(
-          e.guard, e.radius, p, cvs, jw, J,
-          [&](float& u, float& v) { cluster_sum2(u, v, par); });
+    TPHASE(9);
+    if (a.guard != kGuardNone) {
+      consumers_sync(nthreads);  // every client updated
+      const int rounds =
+          apply_guard(a.guard, a.radius, p, p, cvs, J, J, sum2, tid, nthreads);
       rounds_sum += rounds;
       rounds_max = max(rounds_max, rounds);
     }
-    __syncthreads();  // p updated; h and g free for the next step
-
-    r_cur = r_n1;
-    v_cur = v_n1;
-    vs_cur = vs_n1;
-    y_cur = y_n1;
-    r_n1 = r_n2;
-    v_n1 = v_n2;
-    vs_n1 = vs_n2;
+    TPHASE(10);
+    consumers_sync(nthreads);  // p updated before the next step's z pass
+    TPHASE(11);
   }
-  // no CTA leaves while another may still read its exchange slots
-  cluster.sync();
+#ifdef P_EPOCH_PHASE_CLOCKS
+  if (timing)
+    for (int i = 0; i < 12; ++i) tiled_phase_clocks[i] = ph[i];
+#endif
 
   if (lane == 0) {
     red[w] = acc_loss;
     red[NW + w] = acc_hit;
   }
-  __syncthreads();
-  for (int j = tid; j < jw; j += nthreads) {
-    a.p_out[j0 + j] = p[j];
-    a.buf_out[j0 + j] = buf[j];
-  }
-  if (rank == 0 && tid == 0) {
-    float loss = 0.f, hit = 0.f;
-    for (int q = 0; q < NW; ++q) {
-      loss += red[q];
-      hit += red[NW + q];
+  consumers_sync(nthreads);
+  if (rank == 0) {
+    for (int j = tid; j < J; j += nthreads) {
+      a.p_out[j] = p[j];
+      a.buf_out[j] = buf[j];
     }
-    a.metrics[0] = loss;
-    a.metrics[1] = hit;
-    a.metrics[2] = acc_cnt;
-    if (e.guard_rounds != nullptr) {
-      e.guard_rounds[0] = rounds_sum;
-      e.guard_rounds[1] = rounds_max;
+    if (tid == 0) {
+      float loss = 0.f, hit = 0.f;
+      for (int q = 0; q < NW; ++q) {
+        loss += red[q];
+        hit += red[NW + q];
+      }
+      a.metrics[0] = loss;
+      a.metrics[1] = hit;
+      a.metrics[2] = acc_cnt;
+      if (a.guard_rounds != nullptr) {
+        a.guard_rounds[0] = rounds_sum;
+        a.guard_rounds[1] = rounds_max;
+      }
     }
   }
+  // no CTA leaves while a peer's pushes to it may be in flight
+  cluster.sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1734,14 +2015,10 @@ Args make_args(const void* p0, const void* buf0, const void* cv,
   return a;
 }
 
-Ext make_ext(void* guard_rounds, int guard, float radius, int k, int Jk,
-             int hold) {
+Ext make_ext(void* guard_rounds, int guard, float radius) {
   Ext x;
   x.guard_rounds = static_cast<int*>(guard_rounds);
   x.guard = guard;
-  x.k = k;
-  x.Jk = Jk;
-  x.hold = hold;
   x.radius = radius;
   return x;
 }
@@ -1758,10 +2035,8 @@ size_t p_epoch_staged_smem_bytes(int B, int J, int C) {
   return staged_smem_bytes(B, J, C);
 }
 
-size_t p_epoch_split_smem_bytes(int B, int J, int C, int k, int hold,
-                                int tiled) {
-  return tiled ? split_tiled_smem_bytes(B, J, C, k, hold)
-               : split_layout(B, J, C, k, hold).smem;
+size_t p_epoch_split_smem_bytes(int B, int J, int C, int k, int hold) {
+  return split_layout(B, J, C, k, hold).smem;
 }
 
 size_t p_epoch_unstaged_smem_bytes(int B, int J, int C) {
@@ -1784,6 +2059,20 @@ int p_epoch_split_layout(int B, int J, int C, int k, int hold, int* tile,
 }
 
 int p_epoch_instantiated_classes(int C) { return instantiated_classes(C); }
+
+// The class-tiled split kernel's layout at (B, J, C, k) (tiled_layout):
+// out = {rows, tile, stages, gchunk, state_global, width}; returns 0.
+int p_epoch_tiled_layout(int B, int J, int C, int k, int* out, size_t* smem) {
+  const TiledLayout lay = tiled_layout(B, J, C, k);
+  out[0] = lay.rows;
+  out[1] = lay.tile;
+  out[2] = lay.stages;
+  out[3] = lay.gchunk;
+  out[4] = lay.state_global;
+  out[5] = tiled_width(C, k);
+  *smem = lay.smem;
+  return 0;
+}
 
 // The largest cluster the split kernel may launch on this card: 16 when
 // cudaOccupancyMaxActiveClusters finds room for one 16-CTA cluster of the
@@ -1832,7 +2121,7 @@ int p_epoch_launch_staged(const void* p0, const void* buf0, const void* cv,
   const Args a = make_args(p0, buf0, cv, logits, y, positions, valid, p_out,
                            buf_out, metrics, S, B, J, C, is_cls, bulk, lr,
                            momentum);
-  const Ext x = make_ext(guard_rounds, guard, radius, 1, J, 1);
+  const Ext x = make_ext(guard_rounds, guard, radius);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch_classes(C, [&](auto n, auto exact) {
     constexpr int NC = decltype(n)::value;
@@ -1844,17 +2133,16 @@ int p_epoch_launch_staged(const void* p0, const void* buf0, const void* cv,
 
 // One launch of the split kernel: one epoch on one cluster of k CTAs, each
 // owning split_slice(J, k) clients; hold selects the ring (the slices of a
-// step's rows staged in shared memory) over reading them from global
-// memory; tiled runs the class-tiled instantiation (any C), else the one
-// dispatch_classes names (C <= 32). Other arguments as
-// p_epoch_launch_staged.
+// step's rows held from the z pass to the h pass) over copying them for
+// each pass; the instantiation dispatch_classes names (C <= 32). Other
+// arguments as p_epoch_launch_staged.
 int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
                          const void* logits, const void* y,
                          const void* positions, const void* valid,
                          void* p_out, void* buf_out, void* metrics,
                          void* guard_rounds, int S, int B, int J, int C,
                          int is_cls, int bulk, int guard, int k, int hold,
-                         int tiled, float lr, float momentum, float radius,
+                         float lr, float momentum, float radius,
                          void* stream) {
   if (B < 1 || B > kMaxStagedBatch || J < 1 || C < 1 || k < 2 ||
       k > kMaxCluster)
@@ -1863,13 +2151,6 @@ int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
                            buf_out, metrics, S, B, J, C, is_cls, bulk, lr,
                            momentum);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tiled) {
-    const Ext x = make_ext(guard_rounds, guard, radius, k,
-                           split_slice(J, k), hold);
-    return static_cast<int>(launch_split_kernel(
-        split_tiled_p_epoch_kernel, a, x, 32 * staged_warps(B),
-        split_tiled_smem_bytes(B, J, C, k, hold), s));
-  }
   const SplitLayout lay = split_layout(B, J, C, k, hold);
   if (lay.smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
   SplitExt x;
@@ -1887,6 +2168,82 @@ int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
   }));
 }
 
+// One launch of the class-tiled split kernel: one epoch on one cluster of k
+// CTAs (1 to 16, at most C), CTA q owning classes [qC/k, (q+1)C/k);
+// split_logits is (k, n_val, J, tiled_width(C, k)) in class_split's layout,
+// 16-byte aligned; scratch (k * 3 * round_up(J, 4) floats) is read only
+// where tiled_layout puts the state in global memory, and may be null
+// elsewhere. Other arguments as p_epoch_launch_staged.
+int p_epoch_launch_split_tiled(
+    const void* p0, const void* buf0, const void* cv, const void* split_logits,
+    const void* y, const void* positions, const void* valid, void* p_out,
+    void* buf_out, void* metrics, void* guard_rounds, void* scratch, int S,
+    int B, int J, int C, int n_val, int is_cls, int guard, int k, float lr,
+    float momentum, float radius, void* stream) {
+  if (B < 1 || B > kMaxStagedBatch || J < 1 || C < 1 || k < 1 ||
+      k > kMaxCluster || k > C ||
+      reinterpret_cast<uintptr_t>(split_logits) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const TiledLayout lay = tiled_layout(B, J, C, k);
+  if (lay.smem > (size_t)kSmemLimit ||
+      (lay.state_global && scratch == nullptr))
+    return cudaErrorInvalidValue;
+  TiledArgs a;
+  a.p0 = static_cast<const float*>(p0);
+  a.buf0 = static_cast<const float*>(buf0);
+  a.cv = static_cast<const float*>(cv);
+  a.logits = static_cast<const float*>(split_logits);
+  a.y = static_cast<const int*>(y);
+  a.positions = static_cast<const int*>(positions);
+  a.valid = static_cast<const float*>(valid);
+  a.p_out = static_cast<float*>(p_out);
+  a.buf_out = static_cast<float*>(buf_out);
+  a.metrics = static_cast<float*>(metrics);
+  a.guard_rounds = static_cast<int*>(guard_rounds);
+  a.scratch = static_cast<float*>(scratch);
+  a.S = S;
+  a.B = B;
+  a.J = J;
+  a.C = C;
+  a.n_val = n_val;
+  a.cls = is_cls;
+  a.guard = guard;
+  a.k = k;
+  a.W = tiled_width(C, k);
+  a.R = lay.rows;
+  a.Jt = lay.tile;
+  a.NS = lay.stages;
+  a.GX = lay.gchunk;
+  a.lr = lr;
+  a.momentum = momentum;
+  a.radius = radius;
+  auto kern = lay.state_global ? split_tiled_p_epoch_kernel<true>
+                                : split_tiled_p_epoch_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (k > kMaxPortableCluster) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)k);
+  cfg.blockDim = dim3(32 * (kTiledWarps + 1));
+  cfg.dynamicSmemBytes = lay.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 #ifdef P_EPOCH_PHASE_CLOCKS
 // The phase clocks of the last staged launch (kPhases counters).
 int p_epoch_phase_clocks(unsigned long long* out) {
@@ -1898,6 +2255,19 @@ int p_epoch_phase_clocks(unsigned long long* out) {
 int p_epoch_split_phase_clocks(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, split_phase_clocks,
                                                sizeof(split_phase_clocks)));
+}
+
+// The phase clocks of the last class-tiled split launch (kTiledPhases
+// counters), and their names in order, comma-separated.
+int p_epoch_tiled_phase_clocks(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, tiled_phase_clocks,
+                                               sizeof(tiled_phase_clocks)));
+}
+
+const char* p_epoch_tiled_phase_names(void) {
+  return "row_info,wait_rows,z,z_barrier,stats,stats_exchange,merge_d,h,"
+         "g_barrier,g_exchange_update,guard,barrier,producer_wait,"
+         "producer_info,producer_issue";
 }
 #endif
 

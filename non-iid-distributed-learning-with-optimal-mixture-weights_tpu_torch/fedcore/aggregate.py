@@ -25,7 +25,7 @@ from typing import Callable
 
 import torch
 
-from . import cuda_build, route
+from . import cuda_build, psolver_kernel, route
 from .batching import batch_counts, batch_valid, weighted_epoch_metrics
 from .psolver_kernel import p_epoch, p_epoch_plain
 
@@ -340,13 +340,18 @@ def make_p_solver(
                else torch.zeros(J, dtype=torch.float32, device=p.device))
         valid = batch_valid(positions, n_val)
         positions = positions.to(torch.int32)
+        # the class-tiled split kernel's layout of the logits, once for
+        # every epoch of the solve
+        split = (psolver_kernel.prepare_logits(logits, batch_size)
+                 if kernel_impl == "auto" else None)
+        extra = {} if split is None else {"split_logits": split}
         met = None
         for e in range(positions.shape[0]):
             p, buf, met = epoch_fn(p.contiguous(), buf.contiguous(), cv,
                                    logits, y_val,
                                    positions[e].contiguous(),
                                    valid[e].contiguous(), lr_p, momentum,
-                                   task, guard=guard)
+                                   task, guard=guard, **extra)
         state = {"trace": buf} if momentum > 0 else {}
         return (p, state) + weighted_epoch_metrics(met[0], met[1], met[2])
 

@@ -30,19 +30,25 @@ batch row) pushes its row's partial logits into every CTA with
 ``st.async`` and sums the k ranks' in rank order from its own shared
 memory, so no cluster barrier is left inside the epoch. The cluster is
 fitted to the card's readings (``_split_cluster``); ``_split_reach``
-keeps the shapes the split kernel takes. Shapes neither takes
-(``B > 512`` or ``C > 32``) run the unstaged kernel, the port's first
-design (one CTA of 256 threads, five barriers per step), where the
-step's ``(B, J, C)`` block fits one CTA. What is left of ``B <= 512``
-(more than 32 classes past the unstaged kernel: C >= 71 at J = 50,
-B = 16) runs the class-tiled split kernel (``"split_tiled"``): the split
-kernel with C taken at run time, a row's logits in shared memory instead
-of registers, lanes over classes for the partial logits, one warp's
-online logsumexp over tiles of 32 classes for the loss, and the batch
-worked in groups of one row a warp, one exchange a group, so that its
-exchange slots and ``h`` hold 16 rows at most whatever B. ``launch_plan``
-picks the kernel by shape alone; only ``B > 512`` past the unstaged
-kernel, or a J too wide to stream over 16 CTAs, is left without one.
+keeps the shapes the split kernel takes.
+
+More than 32 classes at ``B <= 512`` run the class-tiled split kernel
+(``"split_tiled"``, any C at run time): the classes over a cluster of
+``k`` CTAs (1 to 16; CTA q owns ``[qC/k, (q+1)C/k)``), reading the
+logits in the class-split layout (``class_split``: ``(k, n_val, J, W)``,
+each CTA's slices padded to ``W = tiled_width(C, k)``, made once a
+p-solve by ``make_p_solver``), a producer warp's ring of groups of rows
+(``tiled_layout``), z of its classes local, the loss's row statistics
+and then ``g`` (J floats) summed over the cluster by push exchanges, and
+p, buf and the guard replicated on every CTA. Its cluster is fitted to
+the card's readings (``_split_tiled_cluster``). Shapes the staged and
+split kernels do not take and ``B > 512`` run the unstaged kernel, the
+port's first design (one CTA of 256 threads, five barriers per step),
+where the step's ``(B, J, C)`` block fits one CTA; at ``C <= 32`` and
+``B <= 512`` the class-tiled kernel takes what is left. ``launch_plan``
+picks the kernel by shape alone; ``B > 512`` past the unstaged kernel,
+or a class slice too wide for two stages of one row, is left without
+one.
 
 Every kernel applies the p-guards of ``aggregate.make_guard`` (``clip:R``
 and the projection onto the simplex over the valid clients, by
@@ -72,6 +78,11 @@ MAX_STAGED_BATCH = 32 * MAX_WARPS  # a lane of its warp per row
 UNSTAGED_WARPS = 8         # kThreads / 32 of the unstaged kernel
 SPLIT_CLUSTERS = (2, 4, 8, 16)  # 16 is non-portable: where the card allows
 SPLIT_MAX_STAGES = 8       # the split kernel's ring (kSplitMaxStages)
+TILED_CLUSTERS = (1, 2, 4, 8, 16)  # the class-tiled split kernel's (k <= C)
+TILED_WARPS = 16           # its consumer warps (kTiledWarps; one producer)
+TILED_MAX_ROWS = 16        # rows of its groups (kTiledMaxRows)
+TILED_MAX_STAGES = 4       # kTiledMaxStages
+TILED_G_CHUNK = 256        # clients of g an exchange carries (kTiledGChunk)
 KERNELS = ("staged", "split", "unstaged", "split_tiled")
 # the kernels' guard argument (kGuard* in p_epoch.cu)
 GUARD_CODES = {"clip": 1, "simplex": 2}
@@ -262,22 +273,118 @@ def split_layout(B: int, J: int, C: int, k: int, stream: bool,
             staged_warps(B))
 
 
-def split_smem_bytes(B: int, J: int, C: int, k: int, stream: bool,
-                     tiled: bool = False) -> int:
+def split_smem_bytes(B: int, J: int, C: int, k: int, stream: bool) -> int:
     """Shared memory of one CTA of the split kernel (``split_layout``'s
-    bytes). ``tiled``: the class-tiled split kernel's
-    (``split_tiled_smem_bytes``): two mbarriers per warp, two stages of
-    its slices of ``B`` rows (``Jk*C`` floats each) unless it streams
-    them (reading them from global memory), ``h`` of one group of a row a
-    warp, its slices of ``p``, ``buf``, ``cv`` and ``g``, the per-warp
-    sums and two cluster-exchange slots of ``NW*C`` floats (at least 2,
-    padded to 4)."""
-    if not tiled:
-        return split_layout(B, J, C, k, stream)[0]
-    nw, jk = staged_warps(B), split_slice(J, k)
-    ring = 0 if stream else 2 * B * jk * C
-    xs = -(-max(nw * C, 2) // 4) * 4
-    return 16 * nw + 4 * (ring + nw * jk + 4 * jk + 4 * nw + 2 * xs)
+    bytes)."""
+    return split_layout(B, J, C, k, stream)[0]
+
+
+def tiled_class_lo(C: int, k: int, q: int) -> int:
+    """The first class CTA ``q`` of a ``k``-cluster of the class-tiled
+    split kernel owns (``q = k``: ``C``): a balanced split."""
+    return q * C // k
+
+
+def tiled_width(C: int, k: int) -> int:
+    """Floats of one client's slice in the class-split layout: the widest
+    slice, ``ceil(C / k)``, rounded up to 4 (16-byte aligned spans)."""
+    return _round_up(-(-C // k), 4)
+
+
+def tiled_bytes(B: int, J: int, C: int, k: int, rows: int, tile: int,
+                stages: int, gchunk: int, state_global: bool) -> int:
+    """Shared memory of one CTA of the class-tiled split kernel
+    (``tiled_bytes`` in ``p_epoch.cu``): the mbarriers (a full and an
+    empty one a stage, two each for the statistics' and g's slot sets and
+    the row information; padded to 16 bytes), then in floats the two
+    row-information slots, ``stages`` stages of ``rows`` rows of ``tile``
+    clients' slices (``W`` floats each), two row buffers of z and d
+    (``rows*W``), two statistics slot sets (``k`` ranks, 4 floats a row),
+    two g slot sets (``k*gchunk``), the per-warp sums and, unless
+    ``state_global``, p, buf, cv and g (``round_up(J, 4)`` each)."""
+    W, jp = tiled_width(C, k), _round_up(J, 4)
+    header = _round_up(8 * (2 * stages + 8), 16)
+    return header + 4 * (2 * _round_up(2 * B + 1, 4)
+                         + stages * rows * tile * W + 2 * rows * W
+                         + 8 * k * rows + 2 * k * gchunk + 4 * TILED_WARPS
+                         + (0 if state_global else 4 * jp))
+
+
+def tiled_layout(B: int, J: int, C: int, k: int,
+                 smem_limit: int = cuda_build.SMEM_LIMIT
+                 ) -> tuple[int, int, int, int, int, bool]:
+    """``(smem_bytes, rows, tile, stages, gchunk, state_global)`` of the
+    class-tiled split kernel at ``(B, J, C, k)`` (``tiled_layout`` in
+    ``p_epoch.cu``, at the card's block): g in exchanges of ``gchunk =
+    min(round_up(J, 4), TILED_G_CHUNK)`` clients; with the state (p, buf,
+    cv, g) in shared memory, else in global memory: holding, groups of
+    ``rows`` rows (``min(B, 16)``, halved while two stages do not fit) of
+    all J clients (``tile == J``); else streaming, the most rows (halved
+    the same way) and for them the widest tile of clients (J halved, then
+    halved again) of which two stages fit; then as many stages as fit up to
+    ``TILED_MAX_STAGES``. Where nothing fits, the least layout, whose
+    bytes pass ``smem_limit``."""
+    gx, r0 = min(_round_up(J, 4), TILED_G_CHUNK), min(B, TILED_MAX_ROWS)
+
+    def fits(rows, tile, sg, stages=2):
+        return tiled_bytes(B, J, C, k, rows, tile, stages, gx,
+                           sg) <= smem_limit
+
+    def make(rows, tile, sg):
+        stages = 2
+        while stages < TILED_MAX_STAGES and fits(rows, tile, sg, stages + 1):
+            stages += 1
+        return (tiled_bytes(B, J, C, k, rows, tile, stages, gx, sg), rows,
+                tile, stages, gx, sg)
+
+    for sg in (False, True):
+        rows = r0
+        while rows >= 1:
+            if fits(rows, J, sg):
+                return make(rows, J, sg)
+            rows //= 2
+        rows = r0
+        while rows >= 1:
+            tile = (J + 1) // 2
+            while True:
+                if fits(rows, tile, sg):
+                    return make(rows, tile, sg)
+                if tile == 1:
+                    break
+                tile = (tile + 1) // 2
+            rows //= 2
+    return (tiled_bytes(B, J, C, k, 1, 1, 2, gx, True), 1, 1, 2, gx, True)
+
+
+def class_split(logits, k: int):
+    """``logits (n_val, J, C)`` in the class-tiled split kernel's layout
+    for a ``k``-cluster: ``(k, n_val, J, W)``, rank q's classes
+    ``[tiled_class_lo(C, k, q), tiled_class_lo(C, k, q + 1))`` of every
+    row and client, zero-padded to ``W = tiled_width(C, k)``: so each
+    CTA's slice of a row (or of a tile of its clients) is one contiguous
+    16-byte aligned span, whatever C. Made once a p-solve
+    (``make_p_solver``), not once an epoch."""
+    n_val, J, C = logits.shape
+    out = torch.zeros((k, n_val, J, tiled_width(C, k)), dtype=logits.dtype,
+                      device=logits.device)
+    for q in range(k):
+        lo, hi = tiled_class_lo(C, k, q), tiled_class_lo(C, k, q + 1)
+        out[q, :, :, :hi - lo] = logits[:, :, lo:hi]
+    return out
+
+
+def prepare_logits(logits, B: int):
+    """What ``p_epoch`` takes as ``split_logits`` at batch ``B`` for every
+    epoch of a p-solve over ``logits``: their ``class_split`` layout where
+    the plan runs the class-tiled split kernel on the card, else None."""
+    if logits.device.type != "cuda":
+        return None
+    _, J, C = logits.shape
+    plan = launch_plan(B, J, C, max_cluster=split_max_cluster(
+        logits.device.index or 0))
+    if plan is None or plan.kernel != "split_tiled":
+        return None
+    return class_split(logits, plan.cluster)
 
 
 def unstaged_smem_bytes(B: int, J: int, C: int) -> int:
@@ -293,12 +400,14 @@ class PEpochPlan:
     of each CTA, the instantiated ``classes`` (0 for the unstaged and the
     class-tiled split kernels, which take C at run time) and one CTA's
     dynamic ``smem_bytes``; for the split kernels, the ``cluster`` of
-    CTAs, the ``slice_width`` of J each owns and whether it ``stream``s
-    its rows from global memory instead of holding them in a ring
-    (the class-tiled kernel) or copies them into its ring again for the
-    h pass (the split kernel); for the split kernel, the ring's ``tile``
-    of clients and its ``stages``. The split kernel's CTA has one
-    producer warp beside its ``warps`` (one a batch row)."""
+    CTAs, the ``slice_width`` each owns (the split kernel's clients, the
+    class-tiled kernel's padded classes ``tiled_width``), whether it
+    ``stream``s its rows (copies them into its ring again for the h pass),
+    the ring's ``tile`` of clients and its ``stages``; for the
+    class-tiled kernel, the ``rows`` of a group, the clients of g an
+    exchange carries (``gchunk``) and whether p, buf and g live in global
+    memory (``global_state``). Both split kernels' CTAs have one producer
+    warp beside their ``warps``."""
 
     kernel: str
     warps: int
@@ -309,6 +418,9 @@ class PEpochPlan:
     stream: bool = False
     tile: int = 0
     stages: int = 0
+    rows: int = 0
+    gchunk: int = 0
+    global_state: bool = False
 
 
 def _split_reach(B: int, J: int, C: int, smem_limit: int,
@@ -368,32 +480,88 @@ def _split_cluster(B: int, J: int, C: int, sizes: list[int],
 def _split_plan(B: int, J: int, C: int, nc: int, smem_limit: int,
                 max_cluster: int, cluster: int | None = None
                 ) -> PEpochPlan | None:
-    """The split kernel's plan for the instantiation of ``nc`` classes
-    (the cluster of ``_split_cluster`` inside ``_split_reach``), or with
-    ``nc`` 0 the class-tiled one's (its own layout): the smallest cluster
-    whose CTAs hold two stages of their row slices, else the largest
-    whose CTAs fit streaming. ``cluster`` forces a size (None where its
-    CTAs fit neither way)."""
+    """The split kernel's plan for the instantiation of ``nc`` classes:
+    the cluster of ``_split_cluster`` inside ``_split_reach``. ``cluster``
+    forces a size (None where its CTAs fit neither way)."""
     sizes = [k for k in SPLIT_CLUSTERS if k <= max_cluster
              and cluster in (None, k)]
-    if nc:
-        if not _split_reach(B, J, C, smem_limit, max_cluster):
-            return None
-        chosen = _split_cluster(B, J, C, sizes, smem_limit)
-        if chosen is None:
-            return None
-        k, stream = chosen
-        smem, tile, stages, warps = split_layout(B, J, C, k, stream,
-                                                 smem_limit)
-        return PEpochPlan("split", warps, nc, smem, k, split_slice(J, k),
-                          stream, tile, stages)
-    for stream, order in ((False, sizes), (True, sizes[::-1])):
-        for k in order:
-            smem = split_smem_bytes(B, J, C, k, stream, tiled=True)
-            if smem <= smem_limit:
-                return PEpochPlan("split_tiled", staged_warps(B), 0, smem, k,
-                                  split_slice(J, k), stream)
-    return None
+    if not _split_reach(B, J, C, smem_limit, max_cluster):
+        return None
+    chosen = _split_cluster(B, J, C, sizes, smem_limit)
+    if chosen is None:
+        return None
+    k, stream = chosen
+    smem, tile, stages, warps = split_layout(B, J, C, k, stream, smem_limit)
+    return PEpochPlan("split", warps, nc, smem, k, split_slice(J, k),
+                      stream, tile, stages)
+
+
+# the class-tiled split kernel's step time, fitted to its readings on an
+# NVIDIA H100 80GB HBM3 at 700 W (_split_tiled_cluster's): a group of rows
+# (its statistics exchange, two block barriers, the passes' fixed part), a
+# float of a step's class slices a CTA reads in both passes, and the
+# cluster's square (the two exchanges and the merge over the ranks)
+TILED_GROUP_US = 4.13
+TILED_FLOAT_US = 0.0951e-3
+TILED_CLUSTER2_US = 0.00409
+
+
+def tiled_step_us(B: int, J: int, C: int, k: int, rows: int,
+                  stream: bool) -> float:
+    """The class-tiled split kernel's estimated µs a step at ``(B, J, C)``
+    on a ``k``-cluster whose layout takes groups of ``rows`` rows
+    (``stream``: its tiles of clients read twice): ``TILED_GROUP_US`` a
+    group, ``TILED_FLOAT_US`` a float of the ``B*J*W`` a CTA reads, and
+    ``TILED_CLUSTER2_US * k**2``."""
+    groups = -(-B // rows)
+    return (TILED_GROUP_US * groups
+            + TILED_FLOAT_US * B * J * tiled_width(C, k) * (2 if stream else 1)
+            + TILED_CLUSTER2_US * k * k)
+
+
+def _split_tiled_cluster(B: int, J: int, C: int, sizes: list[int],
+                         smem_limit: int) -> int:
+    """The class-tiled split kernel's cluster among ``sizes`` (each of
+    which fits): the least ``tiled_step_us`` at its layout, the larger
+    size on a tie. Fitted to ``tools/p_epoch_phases.py --kernel
+    split_tiled --cluster all`` on an H100 (B = 16, n_val 1,262, ms a
+    launch at k = 1, 2, 4, 8, 16; the fastest in brackets): J = 50,
+    C = 105 1.944, 0.819, 0.467, 0.431, 0.452 [8]; C = 1,000 32.49 (k = 1
+    streams), 9.590, 4.366, 2.319, 1.105 [16]; C = 33 0.805, 0.434,
+    0.386, 0.386, 0.442 [4, 8]; C = 53 0.802, 0.452, 0.395, 0.387, 0.443
+    [8]; C = 70 1.776, 0.824, 0.447, 0.420, 0.452 [8]; J = 10, C = 105
+    0.512, 0.388, 0.362, 0.383, 0.434 [4]; J = 200, C = 105 14.30, 4.740,
+    1.936, 0.936, 0.828 [16]; J = 400, C = 105 9.236 (streams), 14.06,
+    5.160, 2.221, 1.841 [16]; J = 4, C = 40 0.358, 0.333, 0.343, 0.370,
+    0.419 [2]. It picks the fastest at each. Fewer CTAs give each more
+    classes to read in both passes, and at large J fewer rows a group
+    (one statistics exchange each); more add to the exchanges and the
+    merge."""
+    def cost(k):
+        _, rows, tile, _, _, _ = tiled_layout(B, J, C, k, smem_limit)
+        return tiled_step_us(B, J, C, k, rows, tile < J)
+
+    return min(sizes, key=lambda k: (cost(k), -k))
+
+
+def _tiled_plan(B: int, J: int, C: int, smem_limit: int, max_cluster: int,
+                cluster: int | None = None) -> PEpochPlan | None:
+    """The class-tiled split kernel's plan: the cluster of
+    ``_split_tiled_cluster`` among the sizes of ``TILED_CLUSTERS`` up to
+    ``max_cluster`` and ``C`` whose layout fits ``smem_limit``, with that
+    size's ``tiled_layout``; ``cluster`` forces a size (None where it does
+    not fit)."""
+    sizes = [k for k in TILED_CLUSTERS if k <= min(max_cluster, C)
+             and cluster in (None, k)
+             and tiled_layout(B, J, C, k, smem_limit)[0] <= smem_limit]
+    if not sizes:
+        return None
+    k = _split_tiled_cluster(B, J, C, sizes, smem_limit)
+    smem, rows, tile, stages, gchunk, sg = tiled_layout(B, J, C, k,
+                                                        smem_limit)
+    return PEpochPlan("split_tiled", TILED_WARPS, 0, smem, k,
+                      tiled_width(C, k), tile < J, tile, stages, rows,
+                      gchunk, sg)
 
 
 def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
@@ -404,19 +572,22 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
     shape alone: the staged kernel when ``B <= 512``, ``C <= 32`` and its
     two stages plus ``h`` fit a block's shared memory (``smem_limit``);
     else, with the same bounds on B and C, the split kernel over a
-    cluster of at most ``max_cluster`` CTAs (``_split_plan``); else the
-    unstaged kernel when its step block fits; else, at ``B <= 512``, the
-    class-tiled split kernel by the split kernel's rules (any C); else
-    None (no kernel takes the shape). ``kernel`` forces one of
-    ``KERNELS`` (``"split_tiled"`` at any C), and ``ValueError`` says
-    when it does not fit; ``cluster`` forces the split kernels' cluster
-    (for measurement; a plan at that size, or ``ValueError``)."""
+    cluster of at most ``max_cluster`` CTAs (``_split_plan``); else, at
+    ``B <= 512`` and ``C > 32``, the class-tiled split kernel
+    (``_tiled_plan``; on an H100 it ran several times under the unstaged
+    kernel at every such shape timed, J = 2 to 50, C = 33 to 105, PERF.md
+    § 6); else the unstaged kernel (B > 512) when its step block fits; else, at ``B <= 512``, the class-tiled split kernel; else None
+    (no kernel takes the shape). ``kernel`` forces one of ``KERNELS``
+    (``"split_tiled"`` at any C), and ``ValueError`` says when it does
+    not fit; ``cluster`` forces the split kernels' cluster (for
+    measurement; a plan at that size, or ``ValueError``; 1 only the
+    class-tiled kernel's)."""
     if B < 1 or J < 1 or C < 1:
         raise ValueError(f"bad shape B={B}, J={J}, C={C}")
     if kernel not in (None,) + KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    if cluster is not None and cluster not in SPLIT_CLUSTERS:
-        raise ValueError(f"cluster must be one of {SPLIT_CLUSTERS}, got "
+    if cluster is not None and cluster not in TILED_CLUSTERS:
+        raise ValueError(f"cluster must be one of {TILED_CLUSTERS}, got "
                          f"{cluster!r}")
     fits = {}
     nc = staged_classes(C)
@@ -427,13 +598,15 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
         split = _split_plan(B, J, C, nc, smem_limit, max_cluster, cluster)
         if split is not None:
             fits["split"] = split
+    tiled = (_tiled_plan(B, J, C, smem_limit, max_cluster, cluster)
+             if B <= MAX_STAGED_BATCH else None)
+    if tiled is not None and C > 32:
+        fits["split_tiled"] = tiled
     smem = unstaged_smem_bytes(B, J, C)
     if smem <= smem_limit:
         fits["unstaged"] = PEpochPlan("unstaged", UNSTAGED_WARPS, 0, smem)
-    if B <= MAX_STAGED_BATCH:
-        tiled = _split_plan(B, J, C, 0, smem_limit, max_cluster, cluster)
-        if tiled is not None:
-            fits["split_tiled"] = tiled
+    if tiled is not None:
+        fits.setdefault("split_tiled", tiled)
     if kernel is not None:
         if kernel not in fits:
             raise ValueError(f"the {kernel} p_epoch kernel does not fit "
@@ -455,7 +628,8 @@ def kernel_symbol(plan: PEpochPlan, C: int, guarded: bool = False) -> str:
     if plan.kernel == "unstaged":
         return "23unstaged_p_epoch_kernel"
     if plan.kernel == "split_tiled":
-        return "26split_tiled_p_epoch_kernelE"
+        # an instantiation by where p, buf and g live
+        return f"26split_tiled_p_epoch_kernelILb{int(plan.global_state)}EE"
     name = f"{plan.kernel}_p_epoch_kernel"
     symbol = f"{len(name)}{name}ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
     if plan.kernel == "staged":
@@ -490,15 +664,16 @@ def guard_code(guard) -> tuple[int, float]:
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("p_epoch")
-    ptrs = [ctypes.c_void_p] * 11
     floats = [ctypes.c_float] * 3
-    for name, ints in (("staged", 7), ("split", 10), ("unstaged", 6)):
+    for name, nptr, ints in (("staged", 11, 7), ("split", 11, 9),
+                             ("unstaged", 11, 6), ("split_tiled", 12, 8)):
         fn = getattr(lib, f"p_epoch_launch_{name}")
         fn.restype = ctypes.c_int
-        fn.argtypes = ptrs + [ctypes.c_int] * ints + floats + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * ints
+                       + floats + [ctypes.c_void_p])
     for name, nargs in (("p_epoch_staged_smem_bytes", 3),
                         ("p_epoch_unstaged_smem_bytes", 3),
-                        ("p_epoch_split_smem_bytes", 6)):
+                        ("p_epoch_split_smem_bytes", 5)):
         getattr(lib, name).restype = ctypes.c_size_t
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
     for name, nargs in (("p_epoch_staged_warps", 1),
@@ -510,6 +685,9 @@ def _library():
     lib.p_epoch_split_layout.restype = ctypes.c_int
     lib.p_epoch_split_layout.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)] * 3
+    lib.p_epoch_tiled_layout.restype = ctypes.c_int
+    lib.p_epoch_tiled_layout.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_size_t)]
     return lib
 
 
@@ -524,18 +702,28 @@ def split_max_cluster(device_index: int) -> int:
 
 def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
     """The plan's layout must be the kernel's: same shared memory, warps,
-    instantiation and, split, slice (and the split kernel's ring)."""
+    instantiation and, split, slice (and the split kernels' rings)."""
+    if plan.kernel == "split_tiled":
+        out, smem = (ctypes.c_int * 6)(), ctypes.c_size_t()
+        lib.p_epoch_tiled_layout(B, J, C, plan.cluster, out,
+                                 ctypes.byref(smem))
+        got = (smem.value, *out)
+        want = (plan.smem_bytes, plan.rows, plan.tile, plan.stages,
+                plan.gchunk, int(plan.global_state), plan.slice_width)
+        if got != want:
+            raise RuntimeError(
+                f"launch plan {plan} disagrees with csrc/p_epoch.cu (bytes, "
+                f"rows, tile, stages, gchunk, global state, width = {got})")
+        return
     if plan.kernel == "staged":
         got = (lib.p_epoch_staged_smem_bytes(B, J, C),
                lib.p_epoch_staged_warps(B),
                lib.p_epoch_instantiated_classes(C), 0)
-    elif plan.kernel in ("split", "split_tiled"):
+    elif plan.kernel == "split":
         got = (lib.p_epoch_split_smem_bytes(B, J, C, plan.cluster,
-                                            int(not plan.stream),
-                                            int(plan.kernel == "split_tiled")),
+                                            int(not plan.stream)),
                lib.p_epoch_staged_warps(B),
-               0 if plan.kernel == "split_tiled"
-               else lib.p_epoch_instantiated_classes(C),
+               lib.p_epoch_instantiated_classes(C),
                lib.p_epoch_split_slice(J, plan.cluster))
     else:
         got = (lib.p_epoch_unstaged_smem_bytes(B, J, C), UNSTAGED_WARPS, 0,
@@ -556,7 +744,8 @@ def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
 
 
 def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
-            kernel=None, guard=None, guard_rounds=None, cluster=None):
+            kernel=None, guard=None, guard_rounds=None, cluster=None,
+            split_logits=None):
     """One p-solver epoch; same contract as ``p_epoch_plain``. CPU
     tensors run the plain version; CUDA tensors launch the kernel of
     ``launch_plan`` from ``csrc/p_epoch.cu`` or raise where no plan takes
@@ -566,7 +755,11 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
     pinned Pallas kernel with a guard). ``guard_rounds``, an int32 ``(2,)``
     CUDA tensor, receives the simplex's fixed-point rounds summed over the
     epoch's steps and in the step that took most. ``cluster`` forces the
-    split kernels' cluster size (for measurement; ``launch_plan``)."""
+    split kernels' cluster size (for measurement; ``launch_plan``).
+    ``split_logits``: ``class_split(logits, k)`` for the class-tiled
+    split kernel's plan, made once for many epochs over the same logits
+    (``prepare_logits``); without it that kernel's launch makes it
+    first."""
     _check(p, buf, cv, logits, y_val, positions, valid, task)
     if p.device.type == "cpu":
         return p_epoch_plain(p, buf, cv, logits, y_val, positions, valid,
@@ -585,13 +778,13 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
     plan = launch_plan(B, J, C, kernel=kernel, max_cluster=k_max,
                        cluster=cluster)
     if plan is None:
-        stream = min(split_smem_bytes(B, J, C, k, True, True)
-                     for k in SPLIT_CLUSTERS if k <= k_max)
+        tiled = min(tiled_layout(B, J, C, k)[0]
+                    for k in TILED_CLUSTERS if k <= min(k_max, C))
         raise ValueError(
             f"no p_epoch kernel takes B={B}, J={J}, C={C}: the staged and "
-            f"split kernels need B <= {MAX_STAGED_BATCH} and, the "
-            f"class-tiled split kernel streaming, {stream} bytes of shared "
-            f"memory a CTA at a {k_max}-CTA cluster; the unstaged kernel "
+            f"split kernels need B <= {MAX_STAGED_BATCH} and the "
+            f"class-tiled split kernel at least {tiled} bytes of shared "
+            f"memory a CTA up to a {k_max}-CTA cluster; the unstaged kernel "
             f"{unstaged_smem_bytes(B, J, C)}; a block has "
             f"{cuda_build.SMEM_LIMIT}: run it with kernel_impl='plain'")
     lib = _library()
@@ -610,11 +803,29 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
         err = lib.p_epoch_launch_staged(
             *ptrs, S, B, J, C, is_cls, int(bulk_rows(logits)), code,
             *scalars)
-    elif plan.kernel in ("split", "split_tiled"):
+    elif plan.kernel == "split":
         err = lib.p_epoch_launch_split(
             *ptrs, S, B, J, C, is_cls, int(bulk_rows(logits)), code,
-            plan.cluster, int(not plan.stream),
-            int(plan.kernel == "split_tiled"), *scalars)
+            plan.cluster, int(not plan.stream), *scalars)
+    elif plan.kernel == "split_tiled":
+        shape = (plan.cluster, logits.shape[0], J, plan.slice_width)
+        if split_logits is None:
+            split_logits = class_split(logits, plan.cluster)
+        elif (tuple(split_logits.shape) != shape
+              or split_logits.dtype != torch.float32
+              or split_logits.device != p.device
+              or not split_logits.is_contiguous()):
+            raise ValueError(
+                f"split_logits must be a contiguous float32 {shape} tensor "
+                f"on {p.device} (class_split at the plan's cluster), got "
+                f"{split_logits.dtype} {tuple(split_logits.shape)}")
+        scratch = torch.empty(
+            plan.cluster * 3 * _round_up(J, 4) if plan.global_state else 0,
+            dtype=torch.float32, device=p.device)
+        err = lib.p_epoch_launch_split_tiled(
+            *ptrs[:3], split_logits.data_ptr(), *ptrs[4:],
+            scratch.data_ptr() or None, S, B, J, C, logits.shape[0], is_cls,
+            code, plan.cluster, *scalars)
     else:
         err = lib.p_epoch_launch_unstaged(
             *ptrs, S, B, J, C, is_cls, code, *scalars)

@@ -102,11 +102,12 @@ def test_port_loads_the_file_as_the_jax_package(data_dir):
 
 def test_shapes_take_the_tiled_plans():
     """On the card kernel 1 runs these shapes on its class-tiled wide
-    plan; kernel 2's validation batch at J = 4 fits the unstaged kernel,
-    and at the main configuration's J = 50 with 105 classes takes the
-    class-tiled split plan."""
+    plan; kernel 2's validation batch at J = 4 (which the unstaged kernel
+    took before the class-tiled split kernel measured faster) and at the
+    main configuration's J = 50 with 105 classes take the class-tiled
+    split plan."""
     assert ek.launch_plan(J, 32, CLASSES, D, 132).kernel == "wide_tiled"
-    assert pk.launch_plan(16, J, CLASSES).kernel == "unstaged"
+    assert pk.launch_plan(16, J, CLASSES).kernel == "split_tiled"
     assert pk.launch_plan(16, 50, 105).kernel == "split_tiled"
 
 

@@ -310,10 +310,12 @@ def test_wrapper_counts_no_launch_on_the_cpu():
     (16, 170, 10, "staged"),    # the widest J two stages hold at B=16
     (16, 171, 10, "split"),     # past two stages: J split over a cluster
     (16, 355, 10, "split"),     # the widest J the unstaged kernel held
-    (16, 50, 33, "unstaged"),   # no staged instantiation above 32 classes
+    (16, 50, 33, "split_tiled"),  # no staged instantiation above 32
+                                  # classes: the class-tiled split kernel
     (513, 2, 1, "unstaged"),    # more rows than 16 warps' lanes
-    (16, 50, 70, "unstaged"),   # the widest C its block holds at J = 50
-    (16, 50, 71, "split_tiled"),  # past it: the class-tiled split kernel
+    (513, 2, 33, "unstaged"),
+    (16, 50, 70, "split_tiled"),  # the unstaged kernel's widest C at J = 50
+    (16, 50, 71, "split_tiled"),
     (16, 50, 1000, "split_tiled"),
 ])
 def test_plan_chooses_kernel(B, J, C, kernel):
@@ -322,9 +324,9 @@ def test_plan_chooses_kernel(B, J, C, kernel):
     assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
     if kernel == "split_tiled":
         assert plan.classes == 0
-        assert plan.smem_bytes == pk.split_smem_bytes(B, J, C, plan.cluster,
-                                                      plan.stream, tiled=True)
-        assert pk.kernel_symbol(plan, C) == "26split_tiled_p_epoch_kernelE"
+        assert plan.smem_bytes == pk.tiled_layout(B, J, C, plan.cluster)[0]
+        assert pk.kernel_symbol(plan, C) == \
+            "26split_tiled_p_epoch_kernelILb0EE"
     if kernel == "split":
         assert plan.smem_bytes == pk.split_smem_bytes(B, J, C, plan.cluster,
                                                       plan.stream)
@@ -343,16 +345,19 @@ def test_plan_instantiated_classes(C, nc):
 
 
 def test_plan_refuses_what_fits_nowhere():
-    """More than 32 classes past the unstaged kernel take the class-tiled
-    split plan (J = 4096 at C = 33 streamed over 16 CTAs); no plan past
-    B = 512 and the unstaged kernel, nor where even a streamed 16-CTA
-    cluster's slices of h pass a block; a forced kernel that does not fit
-    raises, the staged kernel at more than 32 classes among them."""
-    tiled = pk.launch_plan(16, 4096, 33)
-    assert (tiled.kernel, tiled.cluster, tiled.stream) == ("split_tiled", 16,
-                                                           True)
+    """More than 32 classes at B <= 512 take the class-tiled split plan
+    (J = 4096 at C = 33 among them, and J = 100,000 at C = 1,000, its
+    state in global memory and its ring streamed); no plan past B = 512
+    and the unstaged kernel, nor where two stages of one row's class
+    slice and one client pass a block even over 16 CTAs; a forced kernel
+    that does not fit raises, the staged kernel at more than 32 classes
+    among them."""
+    assert pk.launch_plan(16, 4096, 33).kernel == "split_tiled"
+    huge = pk.launch_plan(16, 100000, 1000)
+    assert (huge.kernel, huge.global_state, huge.stream) == ("split_tiled",
+                                                             True, True)
     assert pk.launch_plan(600, 50, 105) is None
-    assert pk.launch_plan(16, 100000, 1000) is None
+    assert pk.launch_plan(16, 50, 400000) is None
     with pytest.raises(ValueError, match="does not fit"):
         pk.launch_plan(16, 50, 33, kernel="staged")
     with pytest.raises(ValueError, match="does not fit"):
@@ -435,18 +440,54 @@ def _plan_before_the_tiled_kernel(B, J, C, smem_limit, max_cluster):
     return None
 
 
+def _tiled_smem_before_the_redesign(B, J, C, k, stream):
+    """Shared memory of one CTA of the class-tiled split kernel's first
+    design (J over the cluster): two mbarriers a warp, two stages of its
+    slices of ``B`` rows unless streamed, ``h`` of a group of a row a
+    warp, its slices of p, buf, cv and g, the per-warp sums and two
+    exchange slots of ``NW*C`` floats."""
+    nw, jk = pk.staged_warps(B), pk.split_slice(J, k)
+    ring = 0 if stream else 2 * B * jk * C
+    xs = -(-max(nw * C, 2) // 4) * 4
+    return 16 * nw + 4 * (ring + nw * jk + 4 * jk + 4 * nw + 2 * xs)
+
+
+def _kernel_before_the_redesign(B, J, C, smem_limit, max_cluster):
+    """``launch_plan``'s kernel before the class-tiled split kernel's
+    redesign, or None: the staged and split kernels, then the unstaged
+    kernel, then, at ``B <= 512``, the first class-tiled design where its
+    slices fit a block, held or streamed, at some cluster of 2 to 16."""
+    nc = pk.staged_classes(C)
+    if B <= pk.MAX_STAGED_BATCH and nc:
+        if pk.staged_smem_bytes(B, J, C) <= smem_limit:
+            return "staged"
+        if pk._split_plan(B, J, C, nc, smem_limit, max_cluster) is not None:
+            return "split"
+    if pk.unstaged_smem_bytes(B, J, C) <= smem_limit:
+        return "unstaged"
+    sizes = [k for k in pk.SPLIT_CLUSTERS if k <= max_cluster]
+    if B <= pk.MAX_STAGED_BATCH and any(
+            _tiled_smem_before_the_redesign(B, J, C, k, stream) <= smem_limit
+            for k in sizes for stream in (False, True)):
+        return "split_tiled"
+    return None
+
+
 GRID_MANY_C = (33, 64, 71, 105, 1000)
 
 
 @pytest.mark.parametrize("max_cluster", [16, 8])
 def test_plan_keeps_every_shape_taken_before_the_tiled_kernel(max_cluster):
-    """Every shape that had a plan keeps its kernel, at the card's block
-    and a smaller one (the unstaged kernel's C = 33 to 70 at J = 50 among
-    them): the staged and unstaged plans field for field, a split plan
-    with the redesigned kernel's layout (``split_layout`` at its cluster,
-    its slices covering J); every shape with none before and B <= 512, C
-    in {33, 64, 71, 105, 1000} among them, now runs the class-tiled split
-    kernel where its streamed slices fit a block."""
+    """Every shape that had a plan keeps one, at the card's block and a
+    smaller one. Against the plan before the class-tiled split kernel:
+    the staged plans and the unstaged plans at ``C <= 32`` or ``B > 512``
+    field for field, a split plan with the redesigned kernel's layout
+    (``split_layout`` at its cluster, its slices covering J). The
+    unstaged kernel's shapes past 32 classes at ``B <= 512`` (C = 33 to
+    70 at J = 50 among them) now run the class-tiled split kernel, which
+    the card measured faster there (PERF.md § 6). Every shape the first
+    class-tiled design took (``_kernel_before_the_redesign``) runs the
+    redesigned one; B > 512 past the unstaged kernel still has none."""
     fields = ("kernel", "warps", "classes", "smem_bytes", "cluster",
               "slice_width", "stream")
     for smem_limit in (cuda_build.SMEM_LIMIT, 40000):
@@ -459,6 +500,9 @@ def test_plan_keeps_every_shape_taken_before_the_tiled_kernel(max_cluster):
                     new = pk.launch_plan(B, J, C, smem_limit=smem_limit,
                                          max_cluster=max_cluster)
                     shape = (smem_limit, B, J, C, max_cluster)
+                    tiled = pk._tiled_plan(B, J, C, smem_limit, max_cluster)
+                    if new is not None:
+                        assert new.smem_bytes <= smem_limit, shape
                     if old is not None and old[0] == "split":
                         assert new.kernel == "split", shape
                         smem, tile, stages, warps = pk.split_layout(
@@ -466,53 +510,94 @@ def test_plan_keeps_every_shape_taken_before_the_tiled_kernel(max_cluster):
                         assert (new.smem_bytes, new.tile, new.stages,
                                 new.warps, new.classes) == (
                             smem, tile, stages, warps, old[2]), shape
-                        assert new.smem_bytes <= smem_limit, shape
                         assert new.cluster <= max_cluster, shape
                         assert new.cluster * new.slice_width >= J, shape
+                        continue
+                    if (old is not None and old[0] == "unstaged" and C > 32
+                            and B <= pk.MAX_STAGED_BATCH):
+                        assert new == tiled and tiled is not None, shape
                         continue
                     if old is not None:
                         assert tuple(getattr(new, f) for f in fields) == old, \
                             shape
                         continue
-                    tiled = pk._split_plan(B, J, C, 0, smem_limit,
-                                           max_cluster)
+                    before = _kernel_before_the_redesign(B, J, C, smem_limit,
+                                                         max_cluster)
+                    if before == "split_tiled":
+                        assert new is not None, shape
                     if B > pk.MAX_STAGED_BATCH or tiled is None:
                         assert new is None, shape
                         continue
                     assert new == tiled and new.kernel == "split_tiled", shape
-                    assert new.smem_bytes <= smem_limit, shape
+                    assert new.cluster <= min(max_cluster, C), shape
 
 
 @pytest.mark.parametrize("max_cluster", [16, 8])
 def test_plan_takes_every_shape_past_32_classes(max_cluster):
     """B in {8, 16, 32}, C in {33, 64, 71, 105, 1000} and every J up to
-    1024 have a plan: the unstaged kernel where its block fits, else the
-    class-tiled split kernel, its cluster within the limit and its slices
-    covering J."""
+    1024 run the class-tiled split kernel: its cluster within the limit
+    and C, its layout ``tiled_layout``'s at that size (rows, tile of
+    clients, stages, g's exchange, where the state lives), its slice the
+    classes' padded width. At the sector stand-in's shape 8 CTAs of 13 or
+    14 classes hold a group of all 16 rows; at aloi's 16 CTAs of 62 or 63
+    hold groups of 8. Forced at C = 10 its own rule's size; at B = 512
+    groups of 16 rows, so the statistics slots hold 16 rows whatever B."""
     for B in (8, 16, 32):
         for C in GRID_MANY_C:
             for J in range(1, 1025):
                 plan = pk.launch_plan(B, J, C, max_cluster=max_cluster)
-                assert plan is not None, (B, J, C)
+                assert plan.kernel == "split_tiled", (B, J, C)
+                assert plan.cluster <= min(max_cluster, C), (B, J, C)
+                assert plan.slice_width == pk.tiled_width(C, plan.cluster)
+                lay = pk.tiled_layout(B, J, C, plan.cluster)
+                assert (plan.smem_bytes, plan.rows, plan.tile, plan.stages,
+                        plan.gchunk, plan.global_state) == lay, (B, J, C)
                 assert plan.smem_bytes <= cuda_build.SMEM_LIMIT
-                assert plan.kernel in ("unstaged", "split_tiled"), (B, J, C)
-                if plan.kernel == "split_tiled":
-                    assert plan.cluster <= max_cluster
-                    assert plan.cluster * plan.slice_width >= J
-                    assert plan.smem_bytes == pk.split_smem_bytes(
-                        B, J, C, plan.cluster, plan.stream, tiled=True)
+                assert plan.stream == (plan.tile < J)
     plan = pk.launch_plan(16, 50, 105)
-    assert (plan.cluster, plan.slice_width, plan.stream) == (4, 16, False)
+    assert (plan.cluster, plan.slice_width, plan.stream, plan.rows) == (
+        8, 16, False, 16)
     plan = pk.launch_plan(16, 50, 1000)
-    assert (plan.cluster, plan.slice_width, plan.stream) == (16, 4, True)
+    assert (plan.cluster, plan.slice_width, plan.stream, plan.rows) == (
+        16, 64, False, 8)
+    # forced at C = 10: 4 CTAs of 2 or 3 classes padded to 4, 4 stages of
+    # 16 rows; 128 bytes of mbarriers, then floats: 2 information slots of
+    # 36, the ring 4*16*50*4, z and d 2*16*4, statistics 8*4*16, g 2*4*52,
+    # the per-warp sums 64, p, buf, cv and g 4*52
     forced = pk.launch_plan(16, 50, 10, kernel="split_tiled")
-    assert forced == pk.PEpochPlan("split_tiled", 16, 0, pk.split_smem_bytes(
-        16, 50, 10, 2, False, tiled=True), 2, 28, False)
-    # a group of one row a warp: at B = 512 the slots hold 16 rows, not 512
+    assert forced == pk.PEpochPlan(
+        "split_tiled", 16, 0, 128 + 4 * (72 + 12800 + 128 + 512 + 416 + 64
+                                         + 208),
+        4, 4, False, 50, 4, 16, 52, False)
     wide_b = pk.launch_plan(512, 50, 1000)
-    assert wide_b.kernel == "split_tiled"
-    assert pk.split_smem_bytes(512, 50, 1000, wide_b.cluster, True) > \
-        cuda_build.SMEM_LIMIT
+    assert wide_b.kernel == "split_tiled" and wide_b.rows <= 16
+
+
+@pytest.mark.parametrize("J,C,cluster", [
+    (50, 105, 8),    # sector's C: 0.431 ms against 0.467 at 4, 0.452 at 16
+    (50, 1000, 16),  # aloi's
+    (50, 33, 8),     # 0.386 at 4 and 8
+    (50, 53, 8),     # rcv1.multiclass's C
+    (50, 70, 8),
+    (10, 105, 4),
+    (200, 105, 16),
+    (400, 105, 16),
+    (4, 40, 2),
+])
+def test_plan_tiled_cluster_rule_is_the_measured_one(J, C, cluster):
+    """The class-tiled split kernel's cluster (``_split_tiled_cluster``,
+    the least ``tiled_step_us``) is the size measured fastest on an H100
+    at each shape of its fit (B = 16; ``tools/p_epoch_phases.py
+    --cluster all``); with 8 CTAs at most, the fastest of those."""
+    plan = pk.launch_plan(16, J, C)
+    assert (plan.kernel, plan.cluster) == ("split_tiled", cluster)
+    cost = {k: pk.tiled_step_us(16, J, C, k, *(lambda lay: (
+        lay[1], lay[2] < J))(pk.tiled_layout(16, J, C, k)))
+        for k in pk.TILED_CLUSTERS if k <= C}
+    assert plan.cluster == min(cost, key=lambda k: (cost[k], -k))
+    eight = pk.launch_plan(16, J, C, max_cluster=8)
+    assert eight.cluster == min((k for k in cost if k <= 8),
+                                key=lambda k: (cost[k], -k))
 
 
 @pytest.mark.parametrize("J,C,cluster,stream", [
@@ -526,8 +611,10 @@ def test_plan_takes_every_shape_past_32_classes(max_cluster):
     (4096, 26, 16, True),
 ])
 def test_plan_split_at_the_first_shapes_past_one_cta(J, C, cluster, stream):
-    """The first J the staged and unstaged kernels refused (356 at C = 10,
-    138 at C = 26, 1658 at C = 2) and the scale shapes run the split
+    """J past the staged kernel's two stages and past where the unstaged
+    kernel's block stops fitting (356 at C = 10, 138 at C = 26, 1658 at
+    C = 2; ``launch_plan(16, J, 10)`` already moves from the staged to
+    the split plan at J = 171) and the scale shapes run the split
     kernel on the measured rule's cluster (``_split_cluster``): the
     smallest that holds its row slices with a lane's share of a row at
     most ``SPLIT_LANE_FLOATS``, else the largest that holds, else the
@@ -866,30 +953,84 @@ def test_cuda_kernel_matches_plain_version(task, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("guard", [None, "simplex"])
-@pytest.mark.parametrize("C", [33, 105, 1000])
+@pytest.mark.parametrize("J,C", [(50, 33), (50, 53), (50, 105), (50, 1000),
+                                 (400, 1000)])
 @pytest.mark.parametrize("task", ["classification", "regression"])
-def test_cuda_tiled_split_kernel_matches_plain_version(task, C, guard):
-    """The class-tiled split kernel at J = 50, B = 16 (C = 33 forced, where
-    the unstaged kernel runs by shape; 105 holding its row slices on 4
-    CTAs; 1,000 streaming them over 16, or 8), with and without the
-    simplex guard."""
+def test_cuda_tiled_split_kernel_matches_plain_version(task, J, C, guard):
+    """The class-tiled split kernel by plan at B = 16: J = 50 at C = 33,
+    53 (rcv1.multiclass's), 105 (sector's) and 1,000 (aloi's), and
+    J = 400 at C = 1,000, where the ring streams tiles of clients and g
+    goes over the cluster in two exchanges; with and without the simplex
+    guard."""
     _need_card()
-    args = _p_inputs(task, 200, 50, C, 16)
-    kernel = "split_tiled" if C == 33 else None
-    plan = pk.launch_plan(16, 50, C, kernel=kernel,
-                          max_cluster=pk.split_max_cluster(0))
+    args = _p_inputs(task, 200, J, C, 16)
+    plan = pk.launch_plan(16, J, C, max_cluster=pk.split_max_cluster(0))
     assert plan.kernel == "split_tiled"
+    assert plan.stream == (J == 400) and (plan.gchunk < J) == (J == 400)
     before = dict(p_epoch.launches_by_kernel)
-    _kernel_vs_plain(args, task, kernel=kernel, guard=guard)
+    _kernel_vs_plain(args, task, guard=guard)
     assert p_epoch.launches_by_kernel["split_tiled"] == \
         before["split_tiled"] + 1
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("guard", [None, "simplex"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("C", [53, 105])
+def test_cuda_tiled_split_kernel_at_every_cluster(C, k, guard):
+    """The class-tiled split kernel forced to each cluster size at J = 50,
+    B = 16: classes [qC/k, (q+1)C/k) a CTA, one CTA to 16."""
+    _need_card()
+    if k > pk.split_max_cluster(0):
+        pytest.skip(f"this card schedules no {k}-CTA cluster")
+    args = _p_inputs("classification", 200, 50, C, 16)
+    g = make_guard(guard) if guard else None
+    pk_, bk, mk = p_epoch(*args, 1e-2, 0.9, "classification",
+                          kernel="split_tiled", guard=g, cluster=k)
+    torch.cuda.synchronize()
+    pp, bp, mp = p_epoch_plain(*args, 1e-2, 0.9, "classification", guard=g)
+    torch.testing.assert_close(pk_, pp, **TOL)
+    torch.testing.assert_close(bk, bp, **TOL)
+    torch.testing.assert_close(mk, mp, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [105, 1000])
+def test_cuda_tiled_split_kernel_tie_case(C):
+    """Logits constant over the classes: every row's z is flat, so its
+    first maximum over all C is class 0 on every CTA (a tie across slices
+    goes to rank 0): the hits are exactly the valid label-0 rows."""
+    _need_card()
+    args = _p_inputs("classification", 200, 50, C, 16)
+    args[3] = args[3][:, :, :1].expand(-1, -1, C).contiguous()
+    args[4] = torch.where(torch.arange(200, device="cuda") % 3 == 0, 0,
+                          args[4]).to(torch.int32)
+    _kernel_vs_plain(args, "classification")
+    _, _, m = p_epoch(*args, 1e-2, 0.9, "classification")
+    pos, valid = args[5].long(), args[6]
+    assert float(m[1]) == float(((args[4][pos] == 0).float() * valid).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", [None, "simplex"])
+def test_cuda_tiled_split_kernel_state_in_global_memory(guard):
+    """J = 13,000 at C = 105: p, buf, cv and g leave no room beside the
+    ring, so p, buf and g live in a global scratch a CTA
+    (``global_state``), the ring streams and g takes 51 exchanges."""
+    _need_card()
+    args = _p_inputs("classification", 48, 13000, 105, 16)
+    plan = pk.launch_plan(16, 13000, 105, max_cluster=pk.split_max_cluster(0))
+    assert plan.kernel == "split_tiled" and plan.global_state and plan.stream
+    _kernel_vs_plain(args, "classification", guard=guard)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("J,C", [(7, 3), (50, 10), (4001, 5)])
 def test_cuda_tiled_split_kernel_forced_at_few_classes(J, C):
-    """Forced at 32 classes or fewer: one partial tile; J*C odd (element
-    -wise copies) and J = 4001 (streamed)."""
+    """Forced at 32 classes or fewer: fewer classes a CTA than a quad of
+    4 (the class-split layout pads them); J*C odd, whose rows are not
+    16-byte multiples in the (n_val, J, C) layout; J = 4001, groups of
+    one row."""
     _need_card()
     args = _p_inputs("classification", 200, J, C, 16)
     _kernel_vs_plain(args, "classification", kernel="split_tiled")
@@ -898,6 +1039,8 @@ def test_cuda_tiled_split_kernel_forced_at_few_classes(J, C):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [105, 1000])
 def test_cuda_tiled_split_kernel_is_deterministic(C):
+    """Two launches bitwise equal, with and without the simplex guard
+    (fixed-order sums on every CTA, no atomics)."""
     _need_card()
     args = _p_inputs("classification", 500, 50, C, 16)
     for guard in (None, make_guard("simplex")):

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where one step of ``p_epoch``'s staged or split kernel spends its time.
+"""Where one step of ``p_epoch``'s staged, split or class-tiled split
+kernel spends its time.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -7,6 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 tools/p_epoch_phases.py --kernel split --J 400 --cluster all
     python3 tools/p_epoch_phases.py --kernel split --J 1024 --C 7 \\
         --n-val 92556 --source build/parent/csrc
+    python3 tools/p_epoch_phases.py --kernel split_tiled --n-val 1262 \\
+        --C 105 --cluster all
 
 It compiles a ``csrc/`` directory's ``p_epoch.cu`` (``--source``, default
 the package's) twice, as it is and with ``-DP_EPOCH_PHASE_CLOCKS`` (thread
@@ -21,13 +24,20 @@ per step, and the instrumented and normal kernels' ms on the same inputs
 (the cost of the clocks), in turns. For the split kernel ``--cluster``
 takes one size, ``plan`` (the port's launch plan) or ``all`` (every size
 whose CTAs fit, each holding its rows where its layout allows); each
-size is its own entry. Exits non-zero without a card.
+size is its own entry. ``--kernel split_tiled`` times the class-tiled
+split kernel the same way (rank 0's thread 0; the phase names come from
+the library, ``p_epoch_tiled_phase_names``): a source with
+``p_epoch_launch_split_tiled`` (classes over the cluster) gets its
+logits in the class-split layout (``psolver_kernel.class_split``) and
+takes clusters 1 to 16, an older one (J over the cluster) 2 to 16
+through ``p_epoch_launch_split``. Exits non-zero without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import hashlib
 import json
 import os
@@ -43,6 +53,7 @@ PHASES = ("copy_expect_tx", "copy_syncwarp", "copy_fence", "copy",
 SPLIT_PHASES = ("copy_issue", "row_info", "valid_count", "wait_rows",
                 "z", "exchange", "loss", "h", "barrier", "update")
 CLUSTERS = (2, 4, 8, 16)
+TILED_CLUSTERS = (1, 2, 4, 8, 16)
 
 
 def _build(cuda_build, src_dir, out_dir):
@@ -77,20 +88,32 @@ def _build(cuda_build, src_dir, out_dir):
 
 def _bind(path):
     lib = ctypes.CDLL(path)
+    # a library from before the class-tiled redesign passes its first
+    # design's switch (tiled) to the split kernel's launcher and layout
+    lib.old_tiled = not hasattr(lib, "p_epoch_launch_split_tiled")
     lib.p_epoch_launch_staged.restype = ctypes.c_int
     lib.p_epoch_launch_staged.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.p_epoch_launch_split.restype = ctypes.c_int
     lib.p_epoch_launch_split.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * (9 + lib.old_tiled)
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.p_epoch_split_smem_bytes.restype = ctypes.c_size_t
-    lib.p_epoch_split_smem_bytes.argtypes = [ctypes.c_int] * 6
-    for name in ("p_epoch_phase_clocks", "p_epoch_split_phase_clocks"):
+    lib.p_epoch_split_smem_bytes.argtypes = [ctypes.c_int] * (
+        5 + lib.old_tiled)
+    for name in ("p_epoch_phase_clocks", "p_epoch_split_phase_clocks",
+                 "p_epoch_tiled_phase_clocks"):
         if hasattr(lib, name):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = [ctypes.c_void_p]
+    if hasattr(lib, "p_epoch_tiled_phase_names"):
+        lib.p_epoch_tiled_phase_names.restype = ctypes.c_char_p
+    if hasattr(lib, "p_epoch_launch_split_tiled"):
+        lib.p_epoch_launch_split_tiled.restype = ctypes.c_int
+        lib.p_epoch_launch_split_tiled.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     return lib
 
 
@@ -98,7 +121,7 @@ def main():
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("staged", "split"),
+    ap.add_argument("--kernel", choices=("staged", "split", "split_tiled"),
                     default="staged")
     ap.add_argument("--n-val", type=int, default=11983)
     ap.add_argument("--J", type=int, default=50)
@@ -149,29 +172,48 @@ def main():
     bulk = int(pk.bulk_rows(logits))
     k_max = pk.split_max_cluster(0)
 
+    tiled = args.kernel == "split_tiled"
+    # classes over the cluster (a launcher of its own), or the first
+    # class-tiled design's J over the cluster
+    by_class = tiled and hasattr(libs["normal"], "p_epoch_launch_split_tiled")
+    sizes = (TILED_CLUSTERS if by_class else CLUSTERS)
     if args.kernel == "staged":
         plan = pk.launch_plan(B, J, C)
         if plan.kernel != "staged":
             sys.exit(f"p_epoch_phases: B={B}, J={J}, C={C} runs {plan}")
         configs = [None]
     elif args.cluster == "plan":
-        plan = pk.launch_plan(B, J, C, max_cluster=k_max)
-        if plan.kernel != "split":
+        plan = pk.launch_plan(B, J, C, max_cluster=k_max,
+                              kernel="split_tiled" if tiled else None)
+        if plan.kernel != args.kernel:
             sys.exit(f"p_epoch_phases: B={B}, J={J}, C={C} runs {plan}")
         configs = [plan.cluster]
     elif args.cluster == "all":
-        configs = [k for k in CLUSTERS if k <= k_max]
+        configs = [k for k in sizes if k <= k_max and (not by_class or k <= C)]
     else:
         configs = [int(args.cluster)]
+    layouts = {}
 
     def launcher(lib, k):
         if k is None:
             return lambda: lib.p_epoch_launch_staged(
                 *ptrs, S, B, J, C, 1, bulk, 0, 1e-3, 0.9, 0.0, stream)
-        hold = int(libs["normal"].p_epoch_split_smem_bytes(B, J, C, k, 1, 0)
-                   <= cuda_build.SMEM_LIMIT)
+        if by_class:
+            if k not in layouts:
+                plan = pk.launch_plan(B, J, C, kernel="split_tiled",
+                                      max_cluster=k_max, cluster=k)
+                layouts[k] = (plan, pk.class_split(logits, k),
+                              torch.empty(k * 3 * (-(-J // 4) * 4),
+                                          device=dev))
+            plan, split, scratch = layouts[k]
+            return lambda: lib.p_epoch_launch_split_tiled(
+                *ptrs[:3], split.data_ptr(), *ptrs[4:], scratch.data_ptr(),
+                S, B, J, C, n_val, 1, 0, k, 1e-3, 0.9, 0.0, stream)
+        old = (int(tiled),) if lib.old_tiled else ()
+        hold = int(libs["normal"].p_epoch_split_smem_bytes(
+            B, J, C, k, 1, *old) <= cuda_build.SMEM_LIMIT)
         return lambda: lib.p_epoch_launch_split(
-            *ptrs, S, B, J, C, 1, bulk, 0, k, hold, 0, 1e-3, 0.9, 0.0,
+            *ptrs, S, B, J, C, 1, bulk, 0, k, hold, *old, 1e-3, 0.9, 0.0,
             stream)
 
     def cuda_ms(fn):
@@ -190,6 +232,9 @@ def main():
     names = PHASES if args.kernel == "staged" else SPLIT_PHASES
     read = ("p_epoch_phase_clocks" if args.kernel == "staged"
             else "p_epoch_split_phase_clocks")
+    if tiled:
+        names = libs["clocks"].p_epoch_tiled_phase_names().decode().split(",")
+        read = "p_epoch_tiled_phase_clocks"
     # the byte bound: logits, labels, positions, valid, p, buf, cv
     nbytes = 4 * (n_val * J * C + n_val + 2 * S * B + 5 * J + 3)
     bound_ms = 1e3 * nbytes / 3.35e12
@@ -204,7 +249,10 @@ def main():
         clocks = (ctypes.c_ulonglong * len(names))()
         if getattr(libs["clocks"], read)(ctypes.addressof(clocks)):
             sys.exit("p_epoch_phases: could not read the phase clocks")
-        total = sum(clocks)
+        # the clock rate from one thread's phases, which sum to its launch
+        # (the producer's, named producer_*, run beside them)
+        total = sum(v for n, v in zip(names, clocks)
+                    if not n.startswith("producer_"))
         inst_ms = sum(ms["clocks"]) / 2
         normal_ms = sum(ms["normal"]) / 2
         hz = total / (inst_ms * 1e-3)
@@ -220,8 +268,12 @@ def main():
                  "normal_over_bound": normal_ms / bound_ms}
         if k is not None:
             entry["cluster"] = k
+        if by_class:
+            entry["plan"] = dataclasses.asdict(layouts[k][0])
+        elif k is not None:
+            old = (int(tiled),) if libs["normal"].old_tiled else ()
             entry["hold"] = bool(libs["normal"].p_epoch_split_smem_bytes(
-                B, J, C, k, 1, 0) <= cuda_build.SMEM_LIMIT)
+                B, J, C, k, 1, *old) <= cuda_build.SMEM_LIMIT)
         entries.append(entry)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -232,8 +284,8 @@ def main():
         "kernel": args.kernel, "source": src_dir,
         "shape": {"n_val": n_val, "J": J, "C": C, "B": B, "S": S},
         "bulk_rows": bool(bulk), "bound_bytes": nbytes,
-        "by_cluster" if args.kernel == "split" else "staged":
-            entries if args.kernel == "split" else entries[0],
+        "by_cluster" if k is not None else "staged":
+            entries if k is not None else entries[0],
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
 

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Time variants of ``csrc/p_epoch.cu``'s staged or split kernel.
+"""Time variants of ``csrc/p_epoch.cu``'s staged, split or class-tiled
+split kernel.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 tools/p_epoch_variants.py NAME=SOURCE.cu[:INCLUDE_DIR] ...
     python3 tools/p_epoch_variants.py --kernel split --J 400 \
         NAME=SOURCE.cu[:INCLUDE_DIR]@CLUSTER ...
+    python3 tools/p_epoch_variants.py --kernel split_tiled --n-val 1262 \
+        --C 105 parent=build/parent/<pkg>_torch/csrc/p_epoch.cu \
+        new=<pkg>_torch/csrc/p_epoch.cu
 
 Each variant is built with ``cuda_build.NVCC_FLAGS`` (plus ``-I
 INCLUDE_DIR``, default the source's own directory) into
@@ -23,6 +27,13 @@ and ``--n-val`` (with ``--guard``'s p-guard, radius 1 for ``clip``),
 each variant on its own cluster (``@CLUSTER``), holding
 its row slices where its own layout (``p_epoch_split_smem_bytes``) fits
 a block, and adds each one's µs a step and ratio to the byte bound.
+``--kernel split_tiled`` times the class-tiled split kernel the same way:
+a source with ``p_epoch_launch_split_tiled`` (classes over the cluster)
+on the logits in the class-split layout (``psolver_kernel.class_split``)
+at the package's plan (or ``@CLUSTER``), an older one (J over the
+cluster) through ``p_epoch_launch_split`` at its own first rule (the
+smallest of 2, 4, 8, 16 whose CTAs hold their row slices, else the
+largest that streams them), or ``@CLUSTER``.
 
 To compare a commit's kernel with the working tree's, unpack that
 commit's ``csrc/`` into a directory under ``build/`` (``git archive``)
@@ -47,7 +58,7 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=100)
-    ap.add_argument("--kernel", choices=("staged", "split"),
+    ap.add_argument("--kernel", choices=("staged", "split", "split_tiled"),
                     default="staged")
     ap.add_argument("--n-val", type=int, default=11983)
     ap.add_argument("--J", type=int, default=50)
@@ -71,7 +82,7 @@ def main():
         rest, _, k = rest.partition("@")
         src, _, inc = rest.partition(":")
         sources[name] = (src, inc or os.path.dirname(os.path.abspath(src)))
-        clusters[name] = int(k or 2)
+        clusters[name] = int(k) if k else None
     procs = {name: subprocess.Popen(
         [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", inc, "-o",
          str(out_dir / f"{name}.so"), src],
@@ -82,15 +93,16 @@ def main():
         log, _ = proc.communicate()
         if proc.returncode:
             sys.exit(f"p_epoch_variants: {name} did not build:\n{log}")
-        symbol = ("21staged_p_epoch_kernelILi10ELb1E"
-                  if args.kernel == "staged" else "20split_p_epoch_kernel")
+        symbol = {"staged": "21staged_p_epoch_kernelILi10ELb1E",
+                  "split": "20split_p_epoch_kernel",
+                  "split_tiled": "26split_tiled_p_epoch_kernel"}[args.kernel]
         report[name] = {f: u for f, u in cuda_build.parse_ptxas(log).items()
                         if symbol in f}
 
     n_val, J, C, B = args.n_val, args.J, args.C, 16
     gen = torch.Generator().manual_seed(args.seed)
     dev = torch.device("cuda")
-    if args.kernel == "split":  # large: drawn on the card
+    if args.kernel != "staged":  # large: drawn on the card
         logits = torch.randn((n_val, J, C), device=dev, generator=torch.
                              Generator(device=dev).manual_seed(args.seed))
         logits /= J ** 0.5
@@ -109,22 +121,66 @@ def main():
             torch.empty(3, device=dev)]
     ptrs = [t.data_ptr() for t in (p, buf, cv, logits, y, pos, valid, *outs)]
     stream = torch.cuda.current_stream().cuda_stream
-    launch = {}
+    launch, keep = {}, {}
+    code = ("none", "clip", "simplex").index(args.guard)
     for name in sources:
         lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        if args.kernel == "split":
+        # a library from before the class-tiled redesign passes its first
+        # design's switch (tiled) to the split kernel's launcher and layout
+        new_abi = hasattr(lib, "p_epoch_launch_split_tiled")
+        old = () if new_abi else (0,)
+        lib.p_epoch_split_smem_bytes.restype = ctypes.c_size_t
+        lib.p_epoch_split_smem_bytes.argtypes = [ctypes.c_int] * (
+            5 + len(old))
+        if args.kernel == "split_tiled" and new_abi:
+            from fedamw_tpu_torch.fedcore import psolver_kernel as pk
+            fn = lib.p_epoch_launch_split_tiled
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                           + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+            plan = pk.launch_plan(B, J, C, kernel="split_tiled",
+                                  max_cluster=pk.split_max_cluster(0),
+                                  cluster=clusters[name])
+            k = clusters[name] = plan.cluster
+            split = pk.class_split(logits, k)
+            scratch = torch.empty(k * 3 * (-(-J // 4) * 4), device=dev)
+            keep[name] = (split, scratch)
+            launch[name] = (lambda fn=fn, k=k, split=split, scratch=scratch:
+                            fn(*ptrs[:3], split.data_ptr(), *ptrs[4:], None,
+                               scratch.data_ptr(), S, B, J, C, n_val, 1,
+                               code, k, 1e-3, 0.9, 1.0, stream))
+            continue
+        if args.kernel == "split_tiled":
+            # the first design: J over the cluster, its own rule
             fn = lib.p_epoch_launch_split
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-            lib.p_epoch_split_smem_bytes.restype = ctypes.c_size_t
-            lib.p_epoch_split_smem_bytes.argtypes = [ctypes.c_int] * 6
+
+            def fits(k, hold, lib=lib):
+                return lib.p_epoch_split_smem_bytes(
+                    B, J, C, k, hold, 1) <= cuda_build.SMEM_LIMIT
             k = clusters[name]
-            hold = int(lib.p_epoch_split_smem_bytes(B, J, C, k, 1, 0)
-                       <= cuda_build.SMEM_LIMIT)
-            code = ("none", "clip", "simplex").index(args.guard)
+            if k is None:
+                k = next((k for k in (2, 4, 8, 16) if fits(k, 1)), 16)
+            hold = int(fits(k, 1))
+            clusters[name] = k
             launch[name] = (lambda fn=fn, k=k, hold=hold: fn(
-                *ptrs, None, S, B, J, C, 1, 1, code, k, hold, 0, 1e-3, 0.9,
+                *ptrs, None, S, B, J, C, 1, int(logits.data_ptr() % 16 == 0
+                                                and J * C % 4 == 0),
+                code, k, hold, 1, 1e-3, 0.9, 1.0, stream))
+            continue
+        if args.kernel == "split":
+            fn = lib.p_epoch_launch_split
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 11
+                           + [ctypes.c_int] * (9 + len(old))
+                           + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+            k = clusters[name] = clusters[name] or 2
+            hold = int(lib.p_epoch_split_smem_bytes(B, J, C, k, 1, *old)
+                       <= cuda_build.SMEM_LIMIT)
+            launch[name] = (lambda fn=fn, k=k, hold=hold: fn(
+                *ptrs, None, S, B, J, C, 1, 1, code, k, hold, *old, 1e-3, 0.9,
                 1.0, stream))
             continue
         fn = lib.p_epoch_launch_staged
@@ -167,7 +223,7 @@ def main():
            "shape": {"n_val": n_val, "J": J, "C": C, "B": B, "S": S},
            "ptxas": report,
            "ms": {name: sorted(r) for name, r in readings.items()}}
-    if args.kernel == "split":
+    if args.kernel != "staged":
         # the byte bound: logits, labels, positions, valid, p, buf, cv
         bound_ms = 4e3 * (n_val * J * C + n_val + 2 * S * B + 5 * J + 3) \
             / 3.35e12
