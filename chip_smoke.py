@@ -1731,12 +1731,15 @@ def zoo(timed, vs_plain, card):
         a = (s.p_fixed.contiguous(), torch.zeros_like(s.p_fixed), cv, logits,
              s.y_val, pos.to(torch.int32), valid, ZOO_AMW["lr_p"], 0.9,
              "classification")
-        # unguarded (the by_shape cells' epoch) and with the runs' guard
+        # unguarded (the by_shape cells' epoch) and with the runs' guard,
+        # whose fixed-point rounds the kernel counts
         guard = make_guard(ZOO_AMW["p_guard"])
         saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
         errs, oks, times = [], [], {}
+        rounds = torch.zeros(2, dtype=torch.int32, device=dev)
         for label, g in (("ms", None), ("ms_simplex", guard)):
-            pk_, bk, mk = p_epoch(*a, guard=g)
+            pk_, bk, mk = p_epoch(*a, guard=g,
+                                  guard_rounds=rounds if g else None)
             torch.cuda.synchronize()
             times[label] = cuda_ms(lambda: p_epoch(*a, guard=g), 5)
             # the plain version, seconds a call: timed once, by CUDA events
@@ -1758,12 +1761,24 @@ def zoo(timed, vs_plain, card):
                 if pk.kernel_symbol(plan, C) in f]
         if len(used) != 1 or used[0]["spill_bytes"] != 0:
             fail(f"p_epoch's {plan} at J={J}, C={C}: ptxas {used}")
+        # the guarded instantiation the zoo's FedAMW runs
+        used_g = [u for f, u in cuda_build.ptxas_usage("p_epoch").items()
+                  if pk.kernel_symbol(plan, C, guarded=True) in f]
+        if len(used_g) != 1 or used_g[0]["spill_bytes"] != 0:
+            fail(f"p_epoch's guarded {plan} at J={J}, C={C}: ptxas {used_g}")
         S2 = int(pos.shape[0])
         nbytes = 4 * (n_val * J * C + n_val + 2 * S2 * VB + 5 * J + 3)
         ops = 4 * n_val * J * C + 4 * J * S2
         t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
+        total, most = rounds.tolist()
         cell = {**times, "n_val": n_val, "S": S2,
                 "us_per_step": 1e3 * times["ms"] / S2,
+                # the guard's cost: the guarded launch less the unguarded
+                # one, a step; and the simplex's rounds a step
+                "guard_us_per_step": 1e3 * (times["ms_simplex"]
+                                            - times["ms"]) / S2,
+                "guard_rounds_per_step": total / S2,
+                "guard_rounds_max": most,
                 "bound_ms": 1e3 * max(t_b, t_o),
                 "bound_by": "bytes" if t_b >= t_o else "operations",
                 "bound_bytes": nbytes,
@@ -1774,6 +1789,8 @@ def zoo(timed, vs_plain, card):
                 "smem_bytes": plan.smem_bytes,
                 "registers": used[0]["registers"],
                 "spill_bytes": used[0]["spill_bytes"],
+                "registers_guarded": used_g[0]["registers"],
+                "spill_bytes_guarded": used_g[0]["spill_bytes"],
                 "max_abs_err": max(errs[0], errs[1], errs[3], errs[4]),
                 "logits_bytes": logits.numel() * 4,
                 "client_logits_seconds": logits_s,
@@ -4011,6 +4028,21 @@ def many_classes(timed, vs_plain, card, sms):
                     row["ok"] = row["ok"] and row["hits"] == zeros
                 if label.endswith("streamed"):
                     row["ok"] = row["ok"] and plan.stream
+                if g is not None:
+                    # the guard's cost (the guarded launch less the
+                    # unguarded one, a step) and the simplex's rounds
+                    saved = p_epoch.launches, dict(p_epoch.launches_by_kernel)
+                    rounds = torch.zeros(2, dtype=torch.int32, device=dev)
+                    p_epoch(*a, guard=g, guard_rounds=rounds)
+                    ms_g = cuda_ms(lambda: p_epoch(*a, guard=g), 3)
+                    ms_u = cuda_ms(lambda: p_epoch(*a), 3)
+                    p_epoch.launches, p_epoch.launches_by_kernel = saved
+                    S_ = int(a[5].shape[0])
+                    row.update({
+                        "ms": ms_g, "ms_unguarded": ms_u,
+                        "guard_us_per_step": 1e3 * (ms_g - ms_u) / S_,
+                        "guard_rounds_per_step": rounds[0].item() / S_,
+                        "guard_rounds_max": rounds[1].item()})
                 emit(row)
                 if not row["ok"]:
                     fail(f"the tiled p_epoch plan ({label}, guard {guard}) "
@@ -4232,8 +4264,10 @@ def many_classes(timed, vs_plain, card, sms):
             ops = 4 * n_val * J * Ck + 4 * J * S2
             t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
             used = ptxas("p_epoch", pk.kernel_symbol(plan, Ck))
-            if used.get("spill_bytes") != 0:
-                fail(f"the class-tiled split kernel: ptxas {used}")
+            used_g = ptxas("p_epoch", pk.kernel_symbol(plan, Ck, guarded=True))
+            if used.get("spill_bytes") != 0 or used_g.get("spill_bytes") != 0:
+                fail(f"the class-tiled split kernel: ptxas {used}, guarded "
+                     f"{used_g}")
             rows_out.append({
                 "name": f"p_epoch.classes_{Ck}", "route": "cuda",
                 "source": f"{src}_torch/csrc/p_epoch.cu",
@@ -4251,7 +4285,9 @@ def many_classes(timed, vs_plain, card, sms):
                 "plan": dataclasses.asdict(plan),
                 "ms_by_cluster": sweep[f"J={J} C={Ck}"]["ms_by_cluster"],
                 "registers": used.get("registers"),
-                "spill_bytes": used.get("spill_bytes")})
+                "spill_bytes": used.get("spill_bytes"),
+                "registers_guarded": used_g.get("registers"),
+                "spill_bytes_guarded": used_g.get("spill_bytes")})
             del prep
         rows_out[-2]["ms_by_shape_and_cluster"] = sweep
         rows_out[-2]["ms_vs_unstaged"] = vs_unstaged
@@ -4488,7 +4524,8 @@ def main():
         ok_b, err_b = close(bk, bp, **TOL_P)
         ok_m, err_m = close(mk[:2] / mk[2], mp[:2] / mp[2], 0, 2e-5)
         _, J2, C2 = args[3].shape
-        plan = pk.launch_plan(VB, J2, C2, kernel=kernel, max_cluster=k_max)
+        plan = pk.launch_plan(VB, J2, C2, kernel=kernel, max_cluster=k_max,
+                              guarded=g is not None)
         row = {"phase": "kernel_check", "kernel": "p_epoch", "case": label,
                "guard": guard or "none",
                "shape": {"n_val": n_val, "J": J2, "C": C2, "B": VB,
@@ -5057,6 +5094,10 @@ def main():
                 cell["simplex_rounds_per_step"] = total / S2
                 cell["simplex_rounds_max"] = most
             p_epoch.launches, p_epoch.launches_by_kernel = saved
+        # each guard's cost: its launch less the unguarded one, a step
+        cell["guard_us_per_step"] = {
+            guard: 1e3 * (cell[guard] - cell["none"]) / S2
+            for guard in ("clip", "simplex")}
         guarded[f"{kern} J={J2}"] = cell
     nbytes, ops, _, _ = p_bound(J, C)
     guard_row = timed_row(
@@ -5066,7 +5107,13 @@ def main():
             "staged"], k2_guard_err, k2e["replaces"], "csrc/p_epoch.cu",
         reps=5, guard=make_guard("simplex"))
     used_g = spill("p_epoch", pk.kernel_symbol(plan2, C, guarded=True))
+    # the split plan's guarded instantiation at J = 400
+    split_g = spill("p_epoch", pk.kernel_symbol(
+        split_plans[MANY_CLIENTS, C], C, guarded=True))
+    if split_g["spill_bytes"] != 0:
+        fail(f"the guarded split p_epoch kernel spills: {split_g}")
     guard_row.update({"launches_path": "options: FedAMW p_guard=simplex",
+                      "split_registers": split_g["registers"],
                       "guard": "simplex", "registers": used_g["registers"],
                       "spill_bytes": used_g["spill_bytes"],
                       "ms_by_plan_and_guard": guarded})
@@ -5178,6 +5225,11 @@ def main():
     for row in kernels[:2]:
         row["launches_by_path"]["zoo"] = zoo_launches[row["name"]]
     split_row["by_shape"].update(zoo_shapes)
+    # every zoo FedAMW runs the simplex guard (ZOO_AMW): its kernel-2
+    # launches are guarded epochs too
+    guard_row["launches_guarded_by_path"] = {
+        "options: FedAMW p_guard=simplex": guard_row["launches"],
+        "zoo": zoo_launches["p_epoch"]}
 
     # -- 10c. serving: checkpoint -> engine -> service, train -> serve -----
     serve_launches = serve(ds, setup, runs["FedAMW"][0], data, card,

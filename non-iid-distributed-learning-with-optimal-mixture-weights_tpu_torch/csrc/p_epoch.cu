@@ -12,9 +12,10 @@
 // d[b, c] times client_valid_j; buf = m * buf + g; p -= lr * buf (torch/optax
 // SGD momentum, no count guard); metrics accumulated. Then, when the launch
 // asks for one, the p-guard of the JAX package's make_p_solver
-// (aggregate.py:_make_guard) as an epilogue of the p update (apply_guard):
-// clip:R or the projection onto the simplex over the valid clients; the
-// momentum buffer is not projected (projected SGD).
+// (aggregate.py:_make_guard) as an epilogue of the p update (warp_guard,
+// one warp over the whole of p in every kernel, with no barrier inside its
+// fixed point): clip:R or the projection onto the simplex over the valid
+// clients; the momentum buffer is not projected (projected SGD).
 //
 // What bounds it on the card: not bytes (one read of the logits per epoch,
 // ~24 MB at the main shapes, which sit in L2 after client_logits wrote them:
@@ -46,9 +47,9 @@
 //    warp keeps its rows' loss and hit sums in registers. Rows are read
 //    from the ring as float2 when C is even (conflict-free at C = 10).
 //  - Barrier 1; threads j < J sum h[:, j] over b in a fixed order and apply
-//    the momentum and p updates (and the guard, whose sums are block
-//    reductions in a fixed order); barrier 2. Two block barriers per
-//    unguarded step.
+//    the momentum and p updates (guarded, the warps holding clients then
+//    meet at a named barrier of their own and warp 0 projects p alone,
+//    warp_guard); barrier 2. Two block barriers a step.
 //  - The metrics are reduced once at the end, in a fixed order: no atomics,
 //    so two launches give bitwise-identical p, buf and metrics.
 //  - The class count is a template parameter (exact for the registry's
@@ -80,8 +81,9 @@
 //  - a ring of whole slices held from the z pass to the h pass where it
 //    fits (rows copied once a step), else narrower tiles copied for each
 //    pass; two block barriers a step around the update of the slice.
-// The guard's sums take one more exchange each. The cluster is a rule
-// fitted to the card's readings (psolver_kernel._split_cluster).
+// A guard takes one more exchange a step, a gather of the whole of p. The
+// cluster is a rule fitted to the card's readings
+// (psolver_kernel._split_cluster).
 //
 // Past 32 classes at B <= 512, the class-tiled split kernel
 // (split_tiled_p_epoch_kernel below): C a run-time argument, the classes
@@ -132,102 +134,184 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The fixed-order sum of (a, b) over the CTA's NW warps; every thread gets
-// both totals. scratch holds two parities of [2][NW] floats and *par
-// alternates, so one barrier a call suffices: a parity is written again two
-// calls later, after the barrier of the call between, which every thread
-// reaches only after reading it.
-__device__ __forceinline__ void block_sum2(float& a, float& b, float* scratch,
-                                           int& par, int NW) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  a = warp_sum(a);
-  b = warp_sum(b);
-  float* s = scratch + par * 2 * NW;
-  if (lane == 0) {
-    s[w] = a;
-    s[NW + w] = b;
-  }
-  __syncthreads();
-  a = 0.f;
-  b = 0.f;
-  for (int q = 0; q < NW; ++q) {
-    a += s[q];
-    b += s[NW + q];
-  }
-  par ^= 1;
+// Clients a lane of the guard's warp holds in registers (warp_guard's NR),
+// the first of its ceil(J / 32); it reads the rest from memory again
+// every sum, four at a time. Each kernel's is the most that adds no spill
+// (the split kernels run 17 warps, 96 registers a thread) and measured
+// fastest (tools/p_epoch_variants.py, PERF.md § 6): 8 in the one-CTA
+// kernels (none in the staged kernel's rounded 32-class instantiation),
+// 16 in the split kernel below 26 classes and none from 26 on or in the
+// class-tiled split kernel.
+constexpr int kGuardRegs = 8;
+template <int NC>
+__host__ __device__ constexpr int staged_guard_regs() {
+  return NC < 32 ? kGuardRegs : 0;
+}
+template <int NC>
+__host__ __device__ constexpr int split_guard_regs() {
+  return NC < 26 ? 16 : 0;
 }
 
-// The p-guard, after the p update, on the slice p[0, n) this CTA holds (all
-// of p in a one-CTA plan), each thread taking entries tid, tid + nthreads,
-// ...; sum2(a, b) turns per-thread partial sums into totals over all J
-// clients, in a fixed order, on every thread. Semantics of the JAX package's
+// The p-guard, after the p update, on the whole of p by one warp: every
+// lane of the warp calls it, no other warp. Semantics of the JAX package's
 // aggregate.py:_make_guard:
 //  - clip: p *= min(1, radius / max(||p||, 1e-30)), the norm over every
 //    client, valid or not;
 //  - simplex: the Euclidean projection onto the simplex over the valid
 //    clients (cv > 0); invalid entries become 0, and every entry does when
 //    no client is valid. Michelot's fixed point instead of a sort: theta
-//    from every valid entry, then theta = (sum of the support - 1) /
-//    |support| with support = {valid j : p_j > theta}, until the support
-//    stops shrinking (its size is all a round compares: supports are upper
-//    sets of one threshold, so nested); p = max(p - theta, 0). The final
-//    theta is the sort-based formula (aggregate.project_simplex) over the
-//    same support. At most J + 1 rounds, a handful in practice.
-// Returns the fixed point's rounds (0 for clip). Out of place: the sums
-// read src and the result goes to dst (the split kernel's warps each run
-// the guard on one copy of p, all writing the same dst, so none may read
-// what another has already written; tid the lane, nthreads 32 there).
-template <typename Sum2>
-__device__ int apply_guard(int guard, float radius, const float* src,
-                           float* dst, const float* cv, int n, int J,
-                           Sum2&& sum2, int tid, int nthreads) {
-  if (guard == kGuardClip) {
-    float ss = 0.f, unused = 0.f;
-    for (int j = tid; j < n; j += nthreads) ss = fmaf(src[j], src[j], ss);
-    sum2(ss, unused);
-    const float scale = fminf(1.f, radius / fmaxf(sqrtf(ss), 1e-30f));
-    for (int j = tid; j < n; j += nthreads) dst[j] = src[j] * scale;
-    return 0;
+//    from a support, then theta = (sum of the support - 1) / |support|
+//    with support = {valid j : p_j > theta}, until the support stops
+//    shrinking (its size is all a round compares: supports are upper sets
+//    of one threshold, so nested); p = max(p - theta, 0). The final theta
+//    is the sort-based formula (aggregate.project_simplex) over the same
+//    support. The first support is {valid j : p_j > start}, start the last
+//    step's theta (-inf at a launch's first step; every valid client where
+//    none passes it): the theta of any set of clients is at most the
+//    projection's, so the rounds from it rise to the same fixed point,
+//    and where the support held from the last step they stop after one.
+//    A round whose theta does not rise (rounding, near a tie) ends them.
+//    start returns the new theta. At most J + 1 rounds.
+// Lane l takes clients l, l + 32, ... (the first NR in registers); for the
+// simplex an invalid client, and for both a client past J, reads as -inf
+// (0 for clip), which passes no theta. Every lane runs the same number of
+// clients (lane 0's), in quads, with selects and no branch, so a round is
+// its loads and adds, a butterfly and a division. A sum is each lane's
+// partial sum over its clients in order, then warp_sum's butterfly, the
+// same bits on every lane (aggregate.warp_order_sum mirrors it); the
+// support's size an integer warp reduction (redux.sync). So no barrier
+// and no cluster exchange sits inside the fixed point, and every CTA that
+// projects the same p gets the same bits. Reads src and cv (J each);
+// writes dst[j - lo] for lo <= j < hi (a CTA's slice of p; the whole of
+// it, in place, with src == dst, lo 0 and hi J: a lane writes only its own
+// clients, after its last read). Returns the fixed point's rounds: the
+// support's sums after the first (0 for clip and where no client is
+// valid).
+#ifdef P_EPOCH_PHASE_CLOCKS
+// A measurement build only: clock64 cycles the split kernel's rank 0 lane 0
+// spends in warp_guard's parts, summed over the last launch: 0 the loads
+// into registers, 1 the first sum, 2 the rounds, 3 the write.
+__device__ unsigned long long guard_part_clocks[4];
+#define GPART(i)                             \
+  if (clk != nullptr) {                      \
+    const long long now_ = clock64();        \
+    clk[i] += now_ - g_last;                 \
+    g_last = now_;                           \
   }
-  float s = 0.f, m = 0.f;
-  for (int j = tid; j < n; j += nthreads) {
-    if (cv[j] > 0.f) {
-      s += src[j];
-      m += 1.f;
-    }
-  }
-  sum2(s, m);
-  if (m == 0.f) {
-    for (int j = tid; j < n; j += nthreads) dst[j] = 0.f;
-    return 0;
-  }
-  float theta = (s - 1.f) / m, prev = m;
-  int rounds = 0;
-  while (rounds <= J) {
-    float t = 0.f, c = 0.f;
-    for (int j = tid; j < n; j += nthreads) {
-      if (cv[j] > 0.f && src[j] > theta) {
-        t += src[j];
-        c += 1.f;
-      }
-    }
-    sum2(t, c);
-    ++rounds;
-    if (c == prev || c == 0.f) break;
-    theta = (t - 1.f) / c;
-    prev = c;
-  }
-  for (int j = tid; j < n; j += nthreads)
-    dst[j] = cv[j] > 0.f ? fmaxf(src[j] - theta, 0.f) : 0.f;
-  return rounds;
-}
+#else
+#define GPART(i)
+#endif
 
-// in place, over the CTA's threads
-template <typename Sum2>
-__device__ int apply_guard(int guard, float radius, float* p, const float* cv,
-                           int n, int J, Sum2&& sum2) {
-  return apply_guard(guard, radius, p, p, cv, n, J, sum2, (int)threadIdx.x,
-                     (int)blockDim.x);
+template <int NR>
+__device__ int warp_guard(int guard, float radius, const float* src,
+                          const float* cv, int J, float* dst, int lo, int hi,
+                          float& start, long long* clk = nullptr) {
+  static_assert(NR % 4 == 0, "a lane's clients in quads");
+#ifdef P_EPOCH_PHASE_CLOCKS
+  long long g_last = clock64();
+#endif
+  const int lane = threadIdx.x & 31;
+  const int rows = (J + 31) / 32;  // lane 0's clients, the most of any lane
+  const bool simplex = guard == kGuardSimplex;
+  const float none = simplex ? -__int_as_float(0x7f800000) : 0.f;
+  // client lane + 32 i as the guard reads it: both loads unconditional
+  // (addresses clamped below J) and the tests without short circuits, so
+  // no branch waits on a load and the loads of a quad issue together
+  auto get = [&](int i) -> float {
+    const int j = lane + 32 * i, jc = min(j, J - 1);
+    const float x = src[jc], c = cv[jc];
+    return ((j < J) & (!simplex | (c > 0.f))) ? x : none;
+  };
+  float v[NR > 0 ? NR : 4];
+#pragma unroll
+  for (int i = 0; i < NR; i += 4) {
+    if (i >= rows) break;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[i + q] = get(i + q);
+  }
+  GPART(0);
+  // f(x) over this lane's clients in order, a quad at a time
+  auto each = [&](auto&& f) {
+#pragma unroll
+    for (int i = 0; i < NR; i += 4) {
+      if (i >= rows) break;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f(v[i + q]);
+    }
+#pragma unroll 2
+    for (int i = NR; i < rows; i += 4) {
+      float x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = get(i + q);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f(x[q]);
+    }
+  };
+  // the warp's sum of the clients above theta, and their count
+  auto above = [&](float theta, int& c) -> float {
+    float t = 0.f;
+    int k = 0;
+    each([&](float x) {
+      const bool in = x > theta;
+      t += in ? x : 0.f;
+      k += in;
+    });
+    c = __reduce_add_sync(kFull, k);
+    return warp_sum(t);
+  };
+  float scale = 1.f, theta = 0.f;
+  int rounds = 0;
+  if (!simplex) {
+    float ss = 0.f;
+    each([&](float x) { ss = fmaf(x, x, ss); });
+    ss = warp_sum(ss);
+    scale = fminf(1.f, radius / fmaxf(sqrtf(ss), 1e-30f));
+  } else {
+    int m;
+    float s = above(start, m);
+    if (m == 0 && start != none) s = above(none, m);  // every valid client
+    GPART(1);
+    if (m > 0) {
+      theta = (s - 1.f) / (float)m;
+      int prev = m;
+      while (rounds <= J) {
+        int c;
+        const float t = above(theta, c);
+        ++rounds;
+        if (c == prev || c == 0) break;
+        const float next = (t - 1.f) / (float)c;
+        // theta only rises: one that does not (an entry within the sums'
+        // rounding of it, whose support would otherwise come and go
+        // every round until J + 1) is the fixed point
+        if (!(next > theta)) break;
+        theta = next;
+        prev = c;
+      }
+      start = theta;
+    }
+    GPART(2);
+  }
+  // clip: p * scale; simplex: max(p - theta, 0), 0 for an invalid client
+  auto out = [&](float x) {
+    return simplex ? fmaxf(x - theta, 0.f) : x * scale;
+  };
+#pragma unroll
+  for (int i = 0; i < NR; i += 4) {
+    if (i >= rows) break;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = lane + 32 * (i + q);
+      if ((j >= lo) & (j < hi)) dst[j - lo] = out(v[i + q]);
+    }
+  }
+  // past the registers, only this lane's clients in [lo, hi)
+  for (int i = max(NR, (lo - lane + 31) / 32); i < rows; ++i) {
+    const int j = lane + 32 * i;
+    if (j >= hi) break;
+    dst[j - lo] = out(get(i));
+  }
+  GPART(3);
+  return rounds;
 }
 
 // ---------------------------------------------------------------------------
@@ -266,8 +350,9 @@ int staged_warps(int B) { return B < kMaxWarps ? B : kMaxWarps; }
 // Shared memory of the staged kernel, in bytes: 2 mbarriers per warp (one
 // per stage), then in floats the ring (2 stages * B rows * JCp, each row
 // padded to 4 floats so every row starts 16-byte aligned), h (B*J), p, buf,
-// cv (J each) and the per-warp sums (4 * warps: the metrics at the end, the
-// guard's block reductions on the way).
+// cv (J each) and the per-warp sums (4 * warps: the metrics at the end use
+// two; the other two held the guard's block reductions before the guard
+// became one warp's, and stay so that every plan keeps its bytes).
 size_t staged_smem_bytes(int B, int J, int C) {
   const size_t NW = staged_warps(B), JCp = round_up(J * C, 4);
   return 16 * NW +
@@ -282,9 +367,10 @@ size_t staged_smem_bytes(int B, int J, int C) {
 // issue (bulk path; the element-wise path counts all of it in 3): 0 the
 // mbarrier's arrive.expect_tx, 1 __syncwarp, 2 the proxy fence, 3 the
 // copy; then 4 prefetch loads, 5 valid count, 6 wait for the staged rows,
-// 7 z and its warp sums, 8 row loss, 9 h, 10 barrier 1, 11 p update (and
-// guard), 12 barrier 2 and the shift of the prefetched registers.
-constexpr int kPhases = 13;
+// 7 z and its warp sums, 8 row loss, 9 h, 10 barrier 1, 11 p update, 12
+// guard, 13 barrier 2 and the shift of the prefetched registers
+// (p_epoch_phase_names).
+constexpr int kPhases = 14;
 __device__ unsigned long long phase_clocks[kPhases];
 #define PHASE(i)                      \
   if (tid == 0) {                     \
@@ -295,8 +381,9 @@ __device__ unsigned long long phase_clocks[kPhases];
 // The split kernel's phases, counted by thread 0 of rank 0 the same way:
 // 0 copy issue, 1 prefetch loads, 2 valid count, 3 wait for the rows, 4 z
 // (partial logits and their warp sums), 5 the cluster exchange, 6 row
-// loss, 7 h, 8 block barriers, 9 p update (and guard).
-constexpr int kSplitPhases = 10;
+// loss, 7 h, 8 block barriers, 9 p update (and the gather's pushes), 10
+// the gather's wait, 11 the guard's projection (p_epoch_split_phase_names).
+constexpr int kSplitPhases = 12;
 __device__ unsigned long long split_phase_clocks[kSplitPhases];
 #define SPHASE(i)                     \
   if (timing) {                       \
@@ -480,7 +567,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   if (S > 1) load_info(1, r_n1, v_n1, vs_n1);
 
   float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // this warp's
-  int par = 0, rounds_sum = 0, rounds_max = 0;  // the guard's (GUARDED)
+  int rounds_sum = 0, rounds_max = 0;  // the guard's (GUARDED: warp 0's)
+  float guard_theta = -__int_as_float(0x7f800000);  // warp_guard's start
 #ifdef P_EPOCH_PHASE_CLOCKS
   for (int i = 0; i < kPhases; ++i) ph[i] = 0;
   t_last = clock64();
@@ -553,23 +641,43 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     __syncthreads();  // 1: h complete; every warp is done reading p
     PHASE(10);
 
-    for (int j = tid; j < J; j += nthreads) {
-      float g = 0.f;
-#pragma unroll 4
-      for (int b = 0; b < B; ++b) g += h[b * J + j];
-      g *= cvs[j];
-      const float bj = a.momentum * buf[j] + g;
-      buf[j] = bj;
-      p[j] = p[j] - a.lr * bj;
-    }
     if constexpr (GUARDED) {
-      const int rounds = apply_guard(
-          e.guard, e.radius, p, cvs, J, J,
-          [&](float& u, float& v) { block_sum2(u, v, red, par, NW); });
-      rounds_sum += rounds;
-      rounds_max = max(rounds_max, rounds);
+      // the warps that hold clients (UW of them) update them, meet at a
+      // named barrier of their own, and warp 0 projects p alone; the other
+      // warps go on to barrier 2
+      const int UW = min(NW, (J + 31) / 32);
+      if (w < UW) {
+        for (int j = tid; j < J; j += 32 * UW) {
+          float g = 0.f;
+#pragma unroll 4
+          for (int b = 0; b < B; ++b) g += h[b * J + j];
+          g *= cvs[j];
+          const float bj = a.momentum * buf[j] + g;
+          buf[j] = bj;
+          p[j] = p[j] - a.lr * bj;
+        }
+        asm volatile("bar.sync 2, %0;\n" ::"r"(32 * UW) : "memory");
+        PHASE(11);
+        if (w == 0) {
+          const int rounds = warp_guard<staged_guard_regs<NC>()>(
+              e.guard, e.radius, p, cvs, J, p, 0, J, guard_theta);
+          rounds_sum += rounds;
+          rounds_max = max(rounds_max, rounds);
+        }
+      }
+    } else {
+      for (int j = tid; j < J; j += nthreads) {
+        float g = 0.f;
+#pragma unroll 4
+        for (int b = 0; b < B; ++b) g += h[b * J + j];
+        g *= cvs[j];
+        const float bj = a.momentum * buf[j] + g;
+        buf[j] = bj;
+        p[j] = p[j] - a.lr * bj;
+      }
+      PHASE(11);
     }
-    PHASE(11);
+    PHASE(12);
     __syncthreads();  // 2: p updated; h free for the next step
 
     v_cur = v_n1;
@@ -578,7 +686,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     r_n1 = r_n2;
     v_n1 = v_n2;
     vs_n1 = vs_n2;
-    PHASE(12);
+    PHASE(13);
   }
 #ifdef P_EPOCH_PHASE_CLOCKS
   if (tid == 0)
@@ -687,6 +795,15 @@ __host__ __device__ int split_info_floats(int B) {
   return round_up(2 * B + 1, 4);
 }
 
+// What a guard adds to one CTA of the split kernel, in floats: the whole of
+// p gathered from the cluster every step and the whole of cv (k*Jk each;
+// clip's k*kMaxWarps partial sums take the same room, at least as much of
+// it), then the exchange's mbarrier (4 floats, with its padding)
+__host__ __device__ int split_guard_floats(int J, int k) {
+  const int Jk = split_slice(J, k);
+  return k * (2 * Jk > kMaxWarps ? 2 * Jk : kMaxWarps) + 4;
+}
+
 // Shared memory of one CTA of the split kernel with NW consumer warps and
 // a ring of `stages` stages of `tile` clients, in bytes: the mbarriers (a
 // full one a stage and warp, an empty one a stage, an exchange one a slot
@@ -694,15 +811,17 @@ __host__ __device__ int split_info_floats(int B) {
 // row information; padded to 16 bytes), the two row-information slots,
 // then in floats the stages (NW rows of tile*C logits each), the two slot
 // sets of the exchange, one slot a rank (2*k*slot), h (NW*Jk: each warp's
-// rows summed), p, buf and cv (Jk each) and the per-warp sums (4*NW).
+// rows summed), p, buf and cv (Jk each) and the per-warp sums (4*NW);
+// guarded, split_guard_floats more.
 size_t split_ring_bytes(int B, int J, int C, int k, int NW, int tile,
-                        int stages) {
+                        int stages, int guarded) {
   const size_t Jk = split_slice(J, k);
   const size_t header = round_up(8 * (stages * (NW + 1) + 2 * NW + 4), 16);
   return header + (2 * (size_t)split_info_floats(B) +
                    (size_t)stages * NW * tile * C +
                    2 * (size_t)k * split_slot_floats(NW, C) +
-                   (size_t)NW * Jk + 3 * Jk + 4 * (size_t)NW) *
+                   (size_t)NW * Jk + 3 * Jk + 4 * (size_t)NW +
+                   (guarded ? split_guard_floats(J, k) : 0)) *
                       sizeof(float);
 }
 
@@ -720,11 +839,11 @@ struct SplitLayout {
   int tile, stages, warps;
 };
 
-SplitLayout split_layout(int B, int J, int C, int k, int hold) {
+SplitLayout split_layout(int B, int J, int C, int k, int hold, int guarded) {
   const int Jk = split_slice(J, k), least_warps = (B + 31) / 32;
   const int first = hold ? Jk : round_up((Jk + 1) / 2, 4);
   auto fits = [&](int NW, int tile, int stages) {
-    return split_ring_bytes(B, J, C, k, NW, tile, stages) <=
+    return split_ring_bytes(B, J, C, k, NW, tile, stages, guarded) <=
            (size_t)kSmemLimit;
   };
   for (int NW = staged_warps(B); NW >= least_warps && NW >= 1; NW /= 2) {
@@ -733,15 +852,15 @@ SplitLayout split_layout(int B, int J, int C, int k, int hold) {
         int stages = 2;
         while (stages < kSplitMaxStages && fits(NW, tile, stages + 1))
           ++stages;
-        return {split_ring_bytes(B, J, C, k, NW, tile, stages), tile, stages,
-                NW};
+        return {split_ring_bytes(B, J, C, k, NW, tile, stages, guarded), tile,
+                stages, NW};
       }
       if (hold || tile == 4) break;
     }
     if (hold) break;
   }
   const int NW = staged_warps(B), tile = hold ? Jk : 4;
-  return {split_ring_bytes(B, J, C, k, NW, tile, 2), tile, 2, NW};
+  return {split_ring_bytes(B, J, C, k, NW, tile, 2, guarded), tile, 2, NW};
 }
 
 // v (4 floats) stored at shared::cluster address `a` (16-byte aligned) of a
@@ -756,13 +875,12 @@ __device__ __forceinline__ void st_async4(uint32_t a, float v0, float v1,
       : "memory");
 }
 
-// the same for 2 floats (8-byte aligned), completing 8 bytes
-__device__ __forceinline__ void st_async2(uint32_t a, float v0, float v1,
-                                          uint32_t bar) {
+// the same for 1 float (4-byte aligned), completing 4 bytes
+__device__ __forceinline__ void st_async1(uint32_t a, float v, uint32_t bar) {
   asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
-      "{%1, %2}, [%3];\n" ::"r"(a),
-      "f"(v0), "f"(v1), "r"(bar)
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(a),
+      "f"(v), "r"(bar)
       : "memory");
 }
 
@@ -832,9 +950,21 @@ __device__ __forceinline__ void split_row(float (&v)[NC], const float* src,
 //    slice by a thread a client (g_j over the warps in order). Each warp
 //    repeating the whole update instead, with no second barrier, measured
 //    slower: its reads of h are NW times the shared-memory traffic.
-//  - The guard's sums: block sums, then exchanged like the logits (every
-//    warp pushes the same totals).
-template <int NC, bool EXACT>
+//  - The simplex guard: the update pushes the slice's new p (a quad of
+//    clients a lane, 16 bytes to every CTA) into a J-float gather on one
+//    mbarrier instead of storing it, and warp 0 of each CTA waits for the
+//    whole of p, projects it (warp_guard, cv loaded whole at the start)
+//    and keeps its slice, while the other warps wait at the step's last
+//    barrier: one exchange a step, none inside the fixed point. Clip keeps
+//    one sum (measured faster than the gather at 1,024 clients): each
+//    warp pushes the squares of its clients' new p to every CTA, and each
+//    thread sums the k*NW partial sums in one order and scales its own
+//    clients. One buffer and one mbarrier suffice: a peer pushes step s +
+//    1's only after its z exchanges of step s + 1, which need this CTA's
+//    pushes of them, made after it read step s's. Whether a guard runs
+//    is a template parameter (GUARDED), as in the staged kernel: the
+//    unguarded instantiation holds none of this code.
+template <int NC, bool EXACT, bool GUARDED>
 __global__ void __launch_bounds__(32 * (kMaxWarps + 1), 1)
     split_p_epoch_kernel(const Args a, const SplitExt e) {
   constexpr int NCH = (NC + 3) / 4;  // 16-byte chunks of a row's logits
@@ -873,12 +1003,21 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1), 1)
   float* buf = p + Jk;
   float* cvs = buf + Jk;
   float* red = cvs + Jk;  // [4][NW]
+  // GUARDED only (split_guard_floats): the gather of p (or clip's partial
+  // sums), cv whole, the exchange's mbarrier
+  float* pall = red + 4 * NW;    // [k * Jk], written by the cluster
+  float* cvall = pall + k * Jk;  // [k * Jk]
+  uint64_t* gbar = reinterpret_cast<uint64_t*>(
+      pall + k * (2 * Jk > kMaxWarps ? 2 * Jk : kMaxWarps));
 
   for (int j = tid; j < jw; j += blockDim.x) {
     p[j] = a.p0[j0 + j];
     buf[j] = a.buf0[j0 + j];
     cvs[j] = a.cv[j0 + j];
   }
+  if constexpr (GUARDED)
+    for (int j = tid; j < k * Jk; j += blockDim.x)
+      cvall[j] = j < J ? a.cv[j] : 0.f;
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) {
       for (int q = 0; q < NW; ++q) mbar_init(&full[s * NW + q], 1);
@@ -889,6 +1028,7 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1), 1)
       mbar_init(&ifull[q], 1);
       mbar_init(&iempty[q], NW);
     }
+    if constexpr (GUARDED) mbar_init(gbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -987,44 +1127,15 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1), 1)
     ++x;
     return xch + set * k * XS + w * CP;
   };
-  // the guard's sums over the cluster: block sums over the consumer warps
-  // (two parities of red, one barrier a call), pushed, the k ranks' summed
-  // in rank order
-  int par = 0;
-  auto cluster_sum2 = [&](float& u, float& v) {
-    u = warp_sum(u);
-    v = warp_sum(v);
-    float* sc = red + par * 2 * NW;
-    if (lane == 0) {
-      sc[w] = u;
-      sc[NW + w] = v;
-    }
-    consumers_sync(nthreads);
-    u = 0.f;
-    v = 0.f;
-    for (int q = 0; q < NW; ++q) {
-      u += sc[q];
-      v += sc[NW + q];
-    }
-    par ^= 1;
-    uint32_t slot, bar;
-    begin(k * 8, slot, bar);
-    if (lane < k) st_async2(slot, u, v, bar);
-    const float* rs = wait_slots();
-    u = 0.f;
-    v = 0.f;
-    for (int q = 0; q < k; ++q) {
-      u += rs[q * XS];
-      v += rs[q * XS + 1];
-    }
-  };
+  const uint32_t pall_a = smem_addr(pall), gbar_a = smem_addr(gbar);
 
   float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // this warp's
-  int rounds_sum = 0, rounds_max = 0;  // the guard's
+  int rounds_sum = 0, rounds_max = 0;  // the guard's (warp 0's)
+  float guard_theta = -__int_as_float(0x7f800000);  // warp_guard's start
   int ent = 0;  // ring entries this warp has waited on
 #ifdef P_EPOCH_PHASE_CLOCKS
   const bool timing = rank == 0 && tid == 0;
-  long long ph[kSplitPhases] = {}, t_last = clock64();
+  long long ph[kSplitPhases] = {}, t_last = clock64(), gph[4] = {};
 #endif
   for (int s = 0; s < S; ++s) {
     // the step's row information, from the producer
@@ -1135,29 +1246,102 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1), 1)
     consumers_sync(nthreads);  // h complete; every warp is done reading p
     SPHASE(8);
 
-    for (int j = tid; j < jw; j += nthreads) {
-      float g = 0.f;
+    if constexpr (GUARDED) {
+      if (e.guard == kGuardClip) {
+        // the update as unguarded, each warp's squares of its new p pushed
+        // by lane q to CTA q's slot of this rank and warp (pall's room)
+        float ss = 0.f;
+        for (int j = tid; j < jw; j += nthreads) {
+          float g = 0.f;
 #pragma unroll 4
-      for (int u = 0; u < NW; ++u) g += h[u * Jk + j];
-      g *= cvs[j];
-      const float bj = a.momentum * buf[j] + g;
-      buf[j] = bj;
-      p[j] = p[j] - a.lr * bj;
+          for (int u = 0; u < NW; ++u) g += h[u * Jk + j];
+          g *= cvs[j];
+          const float bj = a.momentum * buf[j] + g;
+          buf[j] = bj;
+          const float pj = p[j] - a.lr * bj;
+          p[j] = pj;
+          ss = fmaf(pj, pj, ss);
+        }
+        ss = warp_sum(ss);
+        if (tid == 0) mbar_expect_tx(gbar, (unsigned)(4 * k * NW));
+        if (lane < k)
+          st_async1(cluster_map(pall_a + 4 * (rank * NW + w), lane), ss,
+                    cluster_map(gbar_a, lane));
+        SPHASE(9);
+        mbar_wait_cluster(gbar, (unsigned)(s & 1));
+        SPHASE(10);
+        // the k*NW sums in one order on every thread of every CTA
+        float t = 0.f;
+        for (int i = lane; i < k * NW; i += 32) t += pall[i];
+        t = warp_sum(t);
+        const float scale = fminf(1.f, e.radius / fmaxf(sqrtf(t), 1e-30f));
+        for (int j = tid; j < jw; j += nthreads) p[j] *= scale;
+      } else {
+        // the update, warp by warp over the slice (lane l client jb + l);
+        // each quad's first lane pushes its 4 new p to every CTA's gather
+        // (0 past the slice), which warp 0 then projects into p
+        for (int jb = tid - lane; jb < jw; jb += nthreads) {
+          const int j = jb + lane;
+          float pj = 0.f;
+          if (j < jw) {
+            float g = 0.f;
+#pragma unroll 4
+            for (int u = 0; u < NW; ++u) g += h[u * Jk + j];
+            g *= cvs[j];
+            const float bj = a.momentum * buf[j] + g;
+            buf[j] = bj;
+            pj = p[j] - a.lr * bj;
+          }
+          const float p1 = __shfl_down_sync(kFull, pj, 1);
+          const float p2 = __shfl_down_sync(kFull, pj, 2);
+          const float p3 = __shfl_down_sync(kFull, pj, 3);
+          if ((lane & 3) == 0 && j < jw)
+            for (int q = 0; q < k; ++q)
+              st_async4(cluster_map(pall_a + 4 * (j0 + j), q), pj, p1, p2, p3,
+                        cluster_map(gbar_a, q));
+        }
+        SPHASE(9);
+        if (w == 0) {
+          // every rank's quads: 16 bytes each of the ceil(J / 4) (the
+          // slices start at multiples of 4 clients)
+          if (lane == 0) mbar_expect_tx(gbar, (unsigned)(16 * ((J + 3) / 4)));
+          mbar_wait_cluster(gbar, (unsigned)(s & 1));
+          SPHASE(10);
+#ifdef P_EPOCH_PHASE_CLOCKS
+          long long* gclk = timing ? gph : nullptr;
+#else
+          long long* gclk = nullptr;
+#endif
+          const int rounds =
+              warp_guard<split_guard_regs<NC>()>(e.guard, e.radius, pall, cvall,
+                                                 J, p, j0, j0 + jw, guard_theta,
+                                                 gclk);
+          rounds_sum += rounds;
+          rounds_max = max(rounds_max, rounds);
+        }
+      }
+    } else {
+      for (int j = tid; j < jw; j += nthreads) {
+        float g = 0.f;
+#pragma unroll 4
+        for (int u = 0; u < NW; ++u) g += h[u * Jk + j];
+        g *= cvs[j];
+        const float bj = a.momentum * buf[j] + g;
+        buf[j] = bj;
+        p[j] = p[j] - a.lr * bj;
+      }
+      SPHASE(9);
     }
-    if (e.guard != kGuardNone) {
-      const int rounds = apply_guard(e.guard, e.radius, p, p, cvs, jw, J,
-                                     cluster_sum2, tid, nthreads);
-      rounds_sum += rounds;
-      rounds_max = max(rounds_max, rounds);
-    }
-    SPHASE(9);
+    SPHASE(11);
     consumers_sync(nthreads);  // p updated
     SPHASE(8);
 
   }
 #ifdef P_EPOCH_PHASE_CLOCKS
-  if (timing)
+  if (timing) {
     for (int i = 0; i < kSplitPhases; ++i) split_phase_clocks[i] = ph[i];
+    for (int i = 0; i < 4; ++i) guard_part_clocks[i] = gph[i];
+  }
 #endif
 
   if (lane == 0) {
@@ -1221,8 +1405,10 @@ cudaError_t launch_split_kernel(void (*kern)(Args, X), const Args& a,
 template <int NC, bool EXACT>
 cudaError_t launch_split(const Args& a, const SplitExt& x, int warps,
                          size_t smem, cudaStream_t stream) {
-  return launch_split_kernel(split_p_epoch_kernel<NC, EXACT>, a, x,
-                             32 * (warps + 1), smem, stream);
+  return launch_split_kernel(x.guard != kGuardNone
+                                 ? split_p_epoch_kernel<NC, EXACT, true>
+                                 : split_p_epoch_kernel<NC, EXACT, false>,
+                             a, x, 32 * (warps + 1), smem, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1263,8 +1449,8 @@ cudaError_t launch_split(const Args& a, const SplitExt& x, int warps,
 //    a second push exchange sums g over the ranks in rank order on every
 //    CTA (GX clients at a time). So p, buf and g are replicated: every CTA
 //    applies the same update to all J with the same bits, and the guard
-//    runs locally with block sums, no cluster sums. Rank 0 writes p, buf
-//    and the metrics.
+//    runs locally (warp_guard, one warp), no cluster sums. Rank 0 writes p,
+//    buf and the metrics.
 //  - Two slot sets alternate for each kind of exchange; a set is written
 //    again two exchanges later, which a peer reaches only after this CTA
 //    pushed the exchange between, after reading this one (every warp that
@@ -1388,8 +1574,9 @@ __device__ unsigned long long tiled_phase_clocks[kTiledPhases];
 
 // GLOBAL_STATE: the layout's state_global (p, buf and g in a.scratch);
 // otherwise they and cv are in shared memory, which the compiler then
-// knows (shared loads and stores, not generic ones)
-template <bool GLOBAL_STATE>
+// knows (shared loads and stores, not generic ones). GUARDED: a.guard is
+// not kGuardNone (the unguarded instantiation holds no guard code).
+template <bool GLOBAL_STATE, bool GUARDED>
 __global__ void __launch_bounds__(32 * (kTiledWarps + 1), 1)
     split_tiled_p_epoch_kernel(const TiledArgs a) {
   constexpr int NW = kTiledWarps, nthreads = 32 * NW;
@@ -1519,34 +1706,13 @@ __global__ void __launch_bounds__(32 * (kTiledWarps + 1), 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[sl]);
   };
-  // fixed-order sums over the consumer warps, every thread getting both
-  // totals (block_sum2 without the producer warp); the guard's, the same on
-  // every CTA
-  int par = 0;
-  auto sum2 = [&](float& u, float& v) {
-    u = warp_sum(u);
-    v = warp_sum(v);
-    float* sc = red + par * 2 * NW;
-    if (lane == 0) {
-      sc[w] = u;
-      sc[NW + w] = v;
-    }
-    consumers_sync(nthreads);
-    u = 0.f;
-    v = 0.f;
-    for (int q = 0; q < NW; ++q) {
-      u += sc[q];
-      v += sc[NW + q];
-    }
-    par ^= 1;
-  };
-
   const int RS = Jt * W;  // floats from a stage's row to the next
   const int nq = W / 4;   // quads of 4 classes in a slice
   int hl = 1;             // lanes a client in the h pass
   while (hl < nq && hl < 32) hl <<= 1;
   float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // this warp's rows'
-  int rounds_sum = 0, rounds_max = 0;                  // the guard's
+  int rounds_sum = 0, rounds_max = 0;                  // the guard's (warp 0)
+  float guard_theta = -__int_as_float(0x7f800000);     // warp_guard's start
   int ent = 0, xs = 0, xg = 0, zg = 0;  // ring entries, exchanges, groups
   for (int s = 0; s < S; ++s) {
     mbar_wait(&ifull[s & 1], (unsigned)((s >> 1) & 1));
@@ -1800,12 +1966,16 @@ __global__ void __launch_bounds__(32 * (kTiledWarps + 1), 1)
       if (j0 + GX < J) consumers_sync(nthreads);
     }
     TPHASE(9);
-    if (a.guard != kGuardNone) {
+    if constexpr (GUARDED) {
       consumers_sync(nthreads);  // every client updated
-      const int rounds =
-          apply_guard(a.guard, a.radius, p, p, cvs, J, J, sum2, tid, nthreads);
-      rounds_sum += rounds;
-      rounds_max = max(rounds_max, rounds);
+      // warp 0 projects the whole of p, the same bits on every CTA; the
+      // other warps wait at the step's last barrier
+      if (w == 0) {
+        const int rounds = warp_guard<0>(a.guard, a.radius, p, cvs, J, p, 0,
+                                         J, guard_theta);
+        rounds_sum += rounds;
+        rounds_max = max(rounds_max, rounds);
+      }
     }
     TPHASE(10);
     consumers_sync(nthreads);  // p updated before the next step's z pass
@@ -1854,8 +2024,9 @@ constexpr int kThreads = 256;
 constexpr int kUnstagedWarps = kThreads / 32;
 
 // Shared memory, in floats: L block (B*J*C), p (J), buf (J), cv (J),
-// z/d (B*C), row_loss (B), row_hit (B), row_ok (B), the guard's per-warp
-// sums (4 * warps); then row_id (B ints).
+// z/d (B*C), row_loss (B), row_hit (B), row_ok (B), 4 * warps floats (the
+// guard's per-warp sums before the guard became one warp's, kept so that
+// the plans keep their bytes); then row_id (B ints).
 size_t unstaged_smem_bytes(int B, int J, int C) {
   return ((size_t)B * J * C + 3 * (size_t)J + (size_t)B * C + 3 * (size_t)B +
           4 * kUnstagedWarps) *
@@ -1888,8 +2059,7 @@ __global__ void __launch_bounds__(kThreads)
   float* row_loss = z + B * C;
   float* row_hit = row_loss + B;
   float* row_ok = row_hit + B;
-  float* scratch = row_ok + B;  // [4][kUnstagedWarps]
-  int* row_id = reinterpret_cast<int*>(scratch + 4 * kUnstagedWarps);
+  int* row_id = reinterpret_cast<int*>(row_ok + B + 4 * kUnstagedWarps);
 
   const int tid = threadIdx.x;
   for (int j = tid; j < J; j += kThreads) {
@@ -1899,7 +2069,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // thread 0's
-  int par = 0, rounds_sum = 0, rounds_max = 0;          // the guard's
+  int rounds_sum = 0, rounds_max = 0;                   // the guard's
+  float guard_theta = -__int_as_float(0x7f800000);      // warp_guard's start
   for (int s = 0; s < S; ++s) {
     // the previous step's readers of L/z/rows and writers of p are done
     __syncthreads();
@@ -1964,12 +2135,14 @@ __global__ void __launch_bounds__(kThreads)
       p[j] = p[j] - lr * bj;
     }
     if (guard != kGuardNone) {
-      const int rounds = apply_guard(
-          guard, radius, p, cvs, J, J, [&](float& u, float& v) {
-            block_sum2(u, v, scratch, par, kUnstagedWarps);
-          });
-      rounds_sum += rounds;
-      rounds_max = max(rounds_max, rounds);
+      __syncthreads();  // every client updated
+      // warp 0 projects p; the next step's first barrier holds the others
+      if (tid < 32) {
+        const int rounds = warp_guard<kGuardRegs>(guard, radius, p, cvs, J,
+                                                  p, 0, J, guard_theta);
+        rounds_sum += rounds;
+        rounds_max = max(rounds_max, rounds);
+      }
     }
   }
   __syncthreads();
@@ -2035,8 +2208,14 @@ size_t p_epoch_staged_smem_bytes(int B, int J, int C) {
   return staged_smem_bytes(B, J, C);
 }
 
-size_t p_epoch_split_smem_bytes(int B, int J, int C, int k, int hold) {
-  return split_layout(B, J, C, k, hold).smem;
+size_t p_epoch_split_smem_bytes(int B, int J, int C, int k, int hold,
+                                int guarded) {
+  return split_layout(B, J, C, k, hold, guarded).smem;
+}
+
+// The floats a guard adds to one CTA of the split kernel at (J, k).
+int p_epoch_split_guard_floats(int J, int k) {
+  return split_guard_floats(J, k);
 }
 
 size_t p_epoch_unstaged_smem_bytes(int B, int J, int C) {
@@ -2047,11 +2226,11 @@ int p_epoch_staged_warps(int B) { return staged_warps(B); }
 
 int p_epoch_split_slice(int J, int k) { return split_slice(J, k); }
 
-// The split kernel's layout at (B, J, C, k, hold): its tile of clients,
-// its stages and its consumer warps (split_layout); returns 0.
-int p_epoch_split_layout(int B, int J, int C, int k, int hold, int* tile,
-                         int* stages, int* warps) {
-  const SplitLayout lay = split_layout(B, J, C, k, hold);
+// The split kernel's layout at (B, J, C, k, hold, guarded): its tile of
+// clients, its stages and its consumer warps (split_layout); returns 0.
+int p_epoch_split_layout(int B, int J, int C, int k, int hold, int guarded,
+                         int* tile, int* stages, int* warps) {
+  const SplitLayout lay = split_layout(B, J, C, k, hold, guarded);
   *tile = lay.tile;
   *stages = lay.stages;
   *warps = lay.warps;
@@ -2079,7 +2258,7 @@ int p_epoch_tiled_layout(int B, int J, int C, int k, int* out, size_t* smem) {
 // largest CTA (512 threads, a full block of shared memory), else the
 // portable 8.
 int p_epoch_split_max_cluster(void) {
-  auto kern = split_p_epoch_kernel<32, false>;  // 16 consumer warps
+  auto kern = split_p_epoch_kernel<32, false, false>;  // 16 consumer warps
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
                            1) != cudaSuccess ||
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2134,7 +2313,8 @@ int p_epoch_launch_staged(const void* p0, const void* buf0, const void* cv,
 // One launch of the split kernel: one epoch on one cluster of k CTAs, each
 // owning split_slice(J, k) clients; hold selects the ring (the slices of a
 // step's rows held from the z pass to the h pass) over copying them for
-// each pass; the instantiation dispatch_classes names (C <= 32). Other
+// each pass; the instantiation dispatch_classes names (C <= 32); a guard
+// takes the layout with its gather (split_layout's guarded). Other
 // arguments as p_epoch_launch_staged.
 int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
                          const void* logits, const void* y,
@@ -2151,7 +2331,7 @@ int p_epoch_launch_split(const void* p0, const void* buf0, const void* cv,
                            buf_out, metrics, S, B, J, C, is_cls, bulk, lr,
                            momentum);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const SplitLayout lay = split_layout(B, J, C, k, hold);
+  const SplitLayout lay = split_layout(B, J, C, k, hold, guard != kGuardNone);
   if (lay.smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
   SplitExt x;
   x.guard_rounds = static_cast<int*>(guard_rounds);
@@ -2217,8 +2397,12 @@ int p_epoch_launch_split_tiled(
   a.lr = lr;
   a.momentum = momentum;
   a.radius = radius;
-  auto kern = lay.state_global ? split_tiled_p_epoch_kernel<true>
-                                : split_tiled_p_epoch_kernel<false>;
+  const bool guarded = guard != kGuardNone;
+  auto kern = lay.state_global
+                  ? (guarded ? split_tiled_p_epoch_kernel<true, true>
+                             : split_tiled_p_epoch_kernel<true, false>)
+                  : (guarded ? split_tiled_p_epoch_kernel<false, true>
+                             : split_tiled_p_epoch_kernel<false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -2245,16 +2429,36 @@ int p_epoch_launch_split_tiled(
 }
 
 #ifdef P_EPOCH_PHASE_CLOCKS
-// The phase clocks of the last staged launch (kPhases counters).
+// The phase clocks of the last staged launch (kPhases counters), and their
+// names in order, comma-separated.
 int p_epoch_phase_clocks(unsigned long long* out) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(out, phase_clocks, sizeof(phase_clocks)));
 }
 
-// The phase clocks of the last split launch (kSplitPhases counters).
+const char* p_epoch_phase_names(void) {
+  return "copy_expect_tx,copy_syncwarp,copy_fence,copy,prefetch_loads,"
+         "valid_count,wait_rows,z,loss,h,barrier_1,update,guard,"
+         "barrier_2_shift";
+}
+
+// The phase clocks of the last split launch (kSplitPhases counters), and
+// their names.
 int p_epoch_split_phase_clocks(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, split_phase_clocks,
                                                sizeof(split_phase_clocks)));
+}
+
+// The cycles of warp_guard's parts in the last split launch (4 counters:
+// the loads into registers, the first sum, the rounds, the write).
+int p_epoch_guard_part_clocks(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, guard_part_clocks,
+                                               sizeof(guard_part_clocks)));
+}
+
+const char* p_epoch_split_phase_names(void) {
+  return "copy_issue,row_info,valid_count,wait_rows,z,exchange,loss,h,"
+         "barrier,update,gather,guard";
 }
 
 // The phase clocks of the last class-tiled split launch (kTiledPhases

@@ -232,32 +232,72 @@ def project_simplex(v: torch.Tensor, valid=None) -> torch.Tensor:
     return torch.where(valid > 0, torch.clamp(v - theta, min=0.0), 0.0)
 
 
-def project_simplex_fixed_point(v: torch.Tensor, valid=None) -> torch.Tensor:
-    """``project_simplex`` by Michelot's fixed point, the algorithm of the
-    kernels' guard epilogue (``csrc/p_epoch.cu:apply_guard``), kept beside
-    the sort-based one to hold the kernels' arithmetic: ``theta`` from
-    every valid entry, then ``theta = (sum of the support - 1) /
-    |support|`` with ``support = {valid j : v_j > theta}`` until its size
-    stops changing, and ``max(v - theta, 0)`` on the valid entries. The
-    final ``theta`` is the sort-based formula over the same support. The
+def warp_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of ``v (J,)`` in the order of the kernels' warp-local guard
+    (``csrc/p_epoch.cu:warp_guard``): lane ``l`` of 32 adds its entries
+    ``l, l + 32, ...`` in that order from 0, then the butterfly over the
+    warp (``__shfl_xor_sync`` at 16, 8, 4, 2, 1), whose levels each add
+    the upper half of the lanes to the lower."""
+    lanes = torch.zeros(32, dtype=v.dtype, device=v.device)
+    padded = torch.nn.functional.pad(v, (0, -v.shape[0] % 32))
+    for row in padded.reshape(-1, 32):
+        lanes = lanes + row
+    while lanes.shape[0] > 1:
+        half = lanes.shape[0] // 2
+        lanes = lanes[:half] + lanes[half:]
+    return lanes[0]
+
+
+def simplex_fixed_point(v: torch.Tensor, valid=None, start=-math.inf
+                        ) -> tuple[torch.Tensor, int, float]:
+    """``(project_simplex(v, valid), rounds, theta)`` by Michelot's fixed
+    point, the algorithm and the sums of the kernels' guard epilogue
+    (``csrc/p_epoch.cu:warp_guard``): ``theta`` from the first support
+    ``{valid j : v_j > start}`` (every valid entry where none passes
+    ``start``; the kernels start from the last step's ``theta``), then
+    ``theta = (sum of the support - 1) / |support|`` with ``support =
+    {valid j : v_j > theta}`` until its size stops changing, and ``max(v -
+    theta, 0)`` on the valid entries. The theta of any set of entries is
+    at most the projection's, so every ``start`` reaches the same fixed
+    point. Theta only rises (in exact arithmetic), so a round whose new
+    theta does not (an entry within the sums' rounding of it, whose
+    support's size would otherwise alternate) ends the fixed point.
+    ``rounds`` counts the support's sums after the first (the
+    kernels' ``guard_rounds``), 0 when no entry is valid; ``theta`` is the
+    final one (``start`` when no entry is valid). Each sum is
+    ``warp_order_sum``'s; the sizes are exact integers. The final
+    ``theta`` is the sort-based formula over the same support. The
     support's size is read on the host every round."""
     if valid is None:
         valid = torch.ones_like(v)
     ok = valid > 0
-    m = torch.sum(ok.to(v.dtype))
-    if float(m) == 0:
-        return torch.zeros_like(v)
-    theta = (torch.sum(torch.where(ok, v, 0.0)) - 1.0) / m
-    prev, rounds = float(m), 0
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    if not bool(ok.any()):
+        return torch.zeros_like(v), 0, start
+    sup = ok & (v > start)
+    if not bool(sup.any()):
+        sup = ok
+    prev, rounds = int(sup.sum()), 0
+    theta = (warp_order_sum(torch.where(sup, v, zero)) - 1.0) / prev
     while rounds <= v.shape[0]:
         sup = ok & (v > theta)
-        c = torch.sum(sup.to(v.dtype))
+        c = int(sup.sum())
         rounds += 1
-        if float(c) in (prev, 0.0):
+        if c in (prev, 0):
             break
-        theta = (torch.sum(torch.where(sup, v, 0.0)) - 1.0) / c
-        prev = float(c)
-    return torch.where(ok, torch.clamp(v - theta, min=0.0), 0.0)
+        nxt = (warp_order_sum(torch.where(sup, v, zero)) - 1.0) / c
+        if not bool(nxt > theta):
+            break  # theta only rises: a rounding that does not is final
+        theta, prev = nxt, c
+    return (torch.where(ok, torch.clamp(v - theta, min=0.0), zero), rounds,
+            float(theta))
+
+
+def project_simplex_fixed_point(v: torch.Tensor, valid=None) -> torch.Tensor:
+    """``project_simplex`` by Michelot's fixed point, the algorithm of the
+    kernels' guard epilogue (``simplex_fixed_point``), kept beside the
+    sort-based one to hold the kernels' arithmetic."""
+    return simplex_fixed_point(v, valid)[0]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -52,8 +52,15 @@ one.
 
 Every kernel applies the p-guards of ``aggregate.make_guard`` (``clip:R``
 and the projection onto the simplex over the valid clients, by
-Michelot's fixed point) as an epilogue of its p update, selected at
-launch.
+Michelot's fixed point started from the last step's threshold) as an
+epilogue of its p update, selected at launch: one warp projects the
+whole of p with shuffle sums and no barrier inside the fixed point
+(``warp_guard`` in ``p_epoch.cu``; ``aggregate.simplex_fixed_point`` is
+its plain mirror); the split kernel first gathers p from its cluster in
+one push exchange (clip pushes its warps' sums of squares instead), in
+room its guarded layouts reserve (``split_guard_floats``). The staged,
+split and class-tiled kernels each have a guarded and an unguarded
+instantiation.
 
 ``p_epoch`` is the wrapper: CPU tensors go to ``p_epoch_plain``, the
 plain PyTorch version; CUDA tensors launch the kernel the plan names or
@@ -211,8 +218,17 @@ def split_slice(J: int, k: int) -> int:
     return -(-per_cta // 4) * 4
 
 
+def split_guard_floats(J: int, k: int) -> int:
+    """Floats a guard adds to one CTA of the split kernel
+    (``split_guard_floats`` in ``p_epoch.cu``): the whole of p gathered
+    from the cluster every step and the whole of cv (``k * Jk`` each; clip's
+    ``k * MAX_WARPS`` partial sums take the same room, at least as much of
+    it), and the exchange's mbarrier padded to 16 bytes."""
+    return k * max(2 * split_slice(J, k), MAX_WARPS) + 4
+
+
 def split_ring_bytes(B: int, J: int, C: int, k: int, warps: int, tile: int,
-                     stages: int) -> int:
+                     stages: int, guarded: bool = False) -> int:
     """Shared memory of one CTA of the split kernel with ``warps``
     consumer warps and a ring of ``stages`` stages of ``tile`` clients
     (``split_ring_bytes`` in ``p_epoch.cu``): the mbarriers (a full one
@@ -223,18 +239,20 @@ def split_ring_bytes(B: int, J: int, C: int, k: int, warps: int, tile: int,
     4), the stages (``warps`` rows of ``tile*C`` each), two slot sets of
     the exchange (a slot a rank: a row of ``C`` floats padded to 4 a
     warp), ``h (warps, Jk)`` (each warp's rows summed), the slice's
-    ``p``, ``buf`` and ``cv`` and the per-warp sums."""
+    ``p``, ``buf`` and ``cv`` and the per-warp sums; ``guarded``,
+    ``split_guard_floats`` more."""
     jk = split_slice(J, k)
     slot = warps * _round_up(C, 4)
     header = _round_up(8 * (stages * (warps + 1) + 2 * warps + 4), 16)
     return header + 4 * (2 * _round_up(2 * B + 1, 4)
                          + stages * warps * tile * C + 2 * k * slot
-                         + warps * jk + 3 * jk + 4 * warps)
+                         + warps * jk + 3 * jk + 4 * warps
+                         + (split_guard_floats(J, k) if guarded else 0))
 
 
 def split_layout(B: int, J: int, C: int, k: int, stream: bool,
-                 smem_limit: int = cuda_build.SMEM_LIMIT
-                 ) -> tuple[int, int, int, int]:
+                 smem_limit: int = cuda_build.SMEM_LIMIT,
+                 guarded: bool = False) -> tuple[int, int, int, int]:
     """``(smem_bytes, tile, stages, warps)`` of the split kernel
     (``split_layout`` in ``p_epoch.cu``, at the card's block): holding
     (``stream`` False), one tile of the whole slice a stage and a warp a
@@ -243,13 +261,14 @@ def split_layout(B: int, J: int, C: int, k: int, stream: bool,
     rounded up to 4 clients) of which two stages fit, then as many
     stages as fit, with a warp a row or, where no tile fits, half as
     many warps (at most 32 rows a warp), and so on. Where nothing fits,
-    the least layout, whose bytes pass ``smem_limit``."""
+    the least layout, whose bytes pass ``smem_limit``. ``guarded``: the
+    layout of a launch with a p-guard (``split_ring_bytes``)."""
     jk = split_slice(J, k)
     first = _round_up(-(-jk // 2), 4) if stream else jk
 
     def fits(warps, tile, stages):
-        return split_ring_bytes(B, J, C, k, warps, tile,
-                                stages) <= smem_limit
+        return split_ring_bytes(B, J, C, k, warps, tile, stages,
+                                guarded) <= smem_limit
 
     warps = staged_warps(B)
     while warps >= max(1, -(-B // 32)):
@@ -260,8 +279,8 @@ def split_layout(B: int, J: int, C: int, k: int, stream: bool,
                 while (stages < SPLIT_MAX_STAGES
                        and fits(warps, tile, stages + 1)):
                     stages += 1
-                return (split_ring_bytes(B, J, C, k, warps, tile, stages),
-                        tile, stages, warps)
+                return (split_ring_bytes(B, J, C, k, warps, tile, stages,
+                                         guarded), tile, stages, warps)
             if not stream or tile == 4:
                 break
             tile = _round_up(-(-tile // 2), 4)
@@ -269,8 +288,8 @@ def split_layout(B: int, J: int, C: int, k: int, stream: bool,
             break
         warps //= 2
     tile = 4 if stream else jk
-    return (split_ring_bytes(B, J, C, k, staged_warps(B), tile, 2), tile, 2,
-            staged_warps(B))
+    return (split_ring_bytes(B, J, C, k, staged_warps(B), tile, 2, guarded),
+            tile, 2, staged_warps(B))
 
 
 def split_smem_bytes(B: int, J: int, C: int, k: int, stream: bool) -> int:
@@ -445,7 +464,8 @@ SPLIT_LANE_FLOATS = 48
 
 
 def _split_cluster(B: int, J: int, C: int, sizes: list[int],
-                   smem_limit: int) -> tuple[int, bool] | None:
+                   smem_limit: int, guarded: bool = False
+                   ) -> tuple[int, bool] | None:
     """``(k, stream)`` of the split kernel at ``(B, J, C)`` among the
     cluster ``sizes``: the smallest whose CTAs hold their row slices
     (``split_layout`` with ``stream`` False) with ``ceil(Jk/32) * (C + 4)
@@ -464,34 +484,44 @@ def _split_cluster(B: int, J: int, C: int, sizes: list[int],
     fastest at 16. A larger cluster shortens a CTA's passes over its
     slice and lengthens the exchange (0.5 us a step at k = 4, 0.7 at 8,
     1.0 at 16, ``tools/p_epoch_phases.py``); streaming
-    copies every tile twice."""
+    copies every tile twice. A p-guard keeps the rule (``guarded`` only
+    reserves its gather's room in the layouts): with the simplex guard
+    (``--guard simplex --lr 1e-2``, beside the unguarded sweep in one
+    call, k = 2, 4, 8, 16) J = 400 5.15, 3.89, 3.28, 3.64 (unguarded 3.96,
+    2.65, 2.16, 2.41); J = 512 4.62, 3.62, 3.28, 3.70 (4.51, 2.33, 2.09,
+    2.43); J = 1,024, C = 7 7.94, 5.83, 4.63, 4.59 (6.24, 3.73, 2.57,
+    2.58): 16 within 1% of 8 guarded and unguarded alike."""
     held = [k for k in sizes
-            if split_layout(B, J, C, k, False, smem_limit)[0] <= smem_limit]
+            if split_layout(B, J, C, k, False, smem_limit,
+                            guarded)[0] <= smem_limit]
     for k in held:
         if -(-split_slice(J, k) // 32) * (C + 4) <= SPLIT_LANE_FLOATS:
             return k, False
     if held:
         return held[-1], False
     streamed = [k for k in sizes
-                if split_layout(B, J, C, k, True, smem_limit)[0] <= smem_limit]
+                if split_layout(B, J, C, k, True, smem_limit,
+                                guarded)[0] <= smem_limit]
     return (streamed[-1], True) if streamed else None
 
 
 def _split_plan(B: int, J: int, C: int, nc: int, smem_limit: int,
-                max_cluster: int, cluster: int | None = None
-                ) -> PEpochPlan | None:
+                max_cluster: int, cluster: int | None = None,
+                guarded: bool = False) -> PEpochPlan | None:
     """The split kernel's plan for the instantiation of ``nc`` classes:
-    the cluster of ``_split_cluster`` inside ``_split_reach``. ``cluster``
-    forces a size (None where its CTAs fit neither way)."""
+    the cluster of ``_split_cluster`` inside ``_split_reach``, with the
+    guarded layout where ``guarded``. ``cluster`` forces a size (None
+    where its CTAs fit neither way)."""
     sizes = [k for k in SPLIT_CLUSTERS if k <= max_cluster
              and cluster in (None, k)]
     if not _split_reach(B, J, C, smem_limit, max_cluster):
         return None
-    chosen = _split_cluster(B, J, C, sizes, smem_limit)
+    chosen = _split_cluster(B, J, C, sizes, smem_limit, guarded)
     if chosen is None:
         return None
     k, stream = chosen
-    smem, tile, stages, warps = split_layout(B, J, C, k, stream, smem_limit)
+    smem, tile, stages, warps = split_layout(B, J, C, k, stream, smem_limit,
+                                             guarded)
     return PEpochPlan("split", warps, nc, smem, k, split_slice(J, k),
                       stream, tile, stages)
 
@@ -567,7 +597,8 @@ def _tiled_plan(B: int, J: int, C: int, smem_limit: int, max_cluster: int,
 def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
                 smem_limit: int = cuda_build.SMEM_LIMIT,
                 max_cluster: int = SPLIT_CLUSTERS[-1],
-                cluster: int | None = None) -> PEpochPlan | None:
+                cluster: int | None = None,
+                guarded: bool = False) -> PEpochPlan | None:
     """The kernel for batch ``B``, ``J`` clients and ``C`` classes, by
     shape alone: the staged kernel when ``B <= 512``, ``C <= 32`` and its
     two stages plus ``h`` fit a block's shared memory (``smem_limit``);
@@ -581,7 +612,9 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
     (``"split_tiled"`` at any C), and ``ValueError`` says when it does
     not fit; ``cluster`` forces the split kernels' cluster (for
     measurement; a plan at that size, or ``ValueError``; 1 only the
-    class-tiled kernel's)."""
+    class-tiled kernel's). ``guarded``: the plan of a launch with a
+    p-guard, whose split layouts hold its gather of p
+    (``split_guard_floats``); every other kernel's plan is the same."""
     if B < 1 or J < 1 or C < 1:
         raise ValueError(f"bad shape B={B}, J={J}, C={C}")
     if kernel not in (None,) + KERNELS:
@@ -595,7 +628,8 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
         smem = staged_smem_bytes(B, J, C)
         if smem <= smem_limit:
             fits["staged"] = PEpochPlan("staged", staged_warps(B), nc, smem)
-        split = _split_plan(B, J, C, nc, smem_limit, max_cluster, cluster)
+        split = _split_plan(B, J, C, nc, smem_limit, max_cluster, cluster,
+                            guarded)
         if split is not None:
             fits["split"] = split
     tiled = (_tiled_plan(B, J, C, smem_limit, max_cluster, cluster)
@@ -623,18 +657,18 @@ def launch_plan(B: int, J: int, C: int, kernel: str | None = None,
 def kernel_symbol(plan: PEpochPlan, C: int, guarded: bool = False) -> str:
     """The part of the mangled name that picks out the kernel ``plan``
     runs for ``C`` classes in the compiler's report
-    (``cuda_build.ptxas_usage``); the staged kernel has an instantiation
-    with the guard epilogue (``guarded``) and one without."""
+    (``cuda_build.ptxas_usage``); the staged, split and class-tiled split
+    kernels have an instantiation with the guard epilogue (``guarded``)
+    and one without."""
     if plan.kernel == "unstaged":
         return "23unstaged_p_epoch_kernel"
     if plan.kernel == "split_tiled":
         # an instantiation by where p, buf and g live
-        return f"26split_tiled_p_epoch_kernelILb{int(plan.global_state)}EE"
+        return (f"26split_tiled_p_epoch_kernelILb{int(plan.global_state)}E"
+                f"Lb{int(guarded)}EE")
     name = f"{plan.kernel}_p_epoch_kernel"
-    symbol = f"{len(name)}{name}ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
-    if plan.kernel == "staged":
-        symbol += f"Lb{int(guarded)}E"
-    return symbol
+    return (f"{len(name)}{name}ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
+            f"Lb{int(guarded)}E")
 
 
 def bulk_rows(logits) -> bool:
@@ -673,17 +707,18 @@ def _library():
                        + floats + [ctypes.c_void_p])
     for name, nargs in (("p_epoch_staged_smem_bytes", 3),
                         ("p_epoch_unstaged_smem_bytes", 3),
-                        ("p_epoch_split_smem_bytes", 5)):
+                        ("p_epoch_split_smem_bytes", 6)):
         getattr(lib, name).restype = ctypes.c_size_t
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
     for name, nargs in (("p_epoch_staged_warps", 1),
                         ("p_epoch_instantiated_classes", 1),
                         ("p_epoch_split_slice", 2),
+                        ("p_epoch_split_guard_floats", 2),
                         ("p_epoch_split_max_cluster", 0)):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
     lib.p_epoch_split_layout.restype = ctypes.c_int
-    lib.p_epoch_split_layout.argtypes = [ctypes.c_int] * 5 + [
+    lib.p_epoch_split_layout.argtypes = [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int)] * 3
     lib.p_epoch_tiled_layout.restype = ctypes.c_int
     lib.p_epoch_tiled_layout.argtypes = [ctypes.c_int] * 4 + [
@@ -700,9 +735,11 @@ def split_max_cluster(device_index: int) -> int:
         return _library().p_epoch_split_max_cluster()
 
 
-def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
+def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int,
+                guarded: bool = False) -> None:
     """The plan's layout must be the kernel's: same shared memory, warps,
-    instantiation and, split, slice (and the split kernels' rings)."""
+    instantiation and, split, slice (and the split kernels' rings; the
+    split kernel's with its guard's gather where ``guarded``)."""
     if plan.kernel == "split_tiled":
         out, smem = (ctypes.c_int * 6)(), ctypes.c_size_t()
         lib.p_epoch_tiled_layout(B, J, C, plan.cluster, out,
@@ -720,8 +757,14 @@ def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
                lib.p_epoch_staged_warps(B),
                lib.p_epoch_instantiated_classes(C), 0)
     elif plan.kernel == "split":
+        if lib.p_epoch_split_guard_floats(J, plan.cluster) != \
+                split_guard_floats(J, plan.cluster):
+            raise RuntimeError(
+                f"split_guard_floats({J}, {plan.cluster}) disagrees with "
+                "csrc/p_epoch.cu")
         got = (lib.p_epoch_split_smem_bytes(B, J, C, plan.cluster,
-                                            int(not plan.stream)),
+                                            int(not plan.stream),
+                                            int(guarded)),
                lib.p_epoch_staged_warps(B),
                lib.p_epoch_instantiated_classes(C),
                lib.p_epoch_split_slice(J, plan.cluster))
@@ -731,7 +774,7 @@ def _check_plan(lib, plan: PEpochPlan, B: int, J: int, C: int) -> None:
     if plan.kernel == "split":
         lay = [ctypes.c_int() for _ in range(3)]
         lib.p_epoch_split_layout(B, J, C, plan.cluster, int(not plan.stream),
-                                 *map(ctypes.byref, lay))
+                                 int(guarded), *map(ctypes.byref, lay))
         got = got[:1] + (lay[2].value,) + got[2:] + (lay[0].value,
                                                       lay[1].value)
     want = (plan.smem_bytes, plan.warps, plan.classes, plan.slice_width)
@@ -776,7 +819,7 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
     _, J, C = logits.shape
     k_max = split_max_cluster(p.device.index)
     plan = launch_plan(B, J, C, kernel=kernel, max_cluster=k_max,
-                       cluster=cluster)
+                       cluster=cluster, guarded=code != 0)
     if plan is None:
         tiled = min(tiled_layout(B, J, C, k)[0]
                     for k in TILED_CLUSTERS if k <= min(k_max, C))
@@ -788,7 +831,7 @@ def p_epoch(p, buf, cv, logits, y_val, positions, valid, lr, momentum, task,
             f"{unstaged_smem_bytes(B, J, C)}; a block has "
             f"{cuda_build.SMEM_LIMIT}: run it with kernel_impl='plain'")
     lib = _library()
-    _check_plan(lib, plan, B, J, C)
+    _check_plan(lib, plan, B, J, C, code != 0)
     p_out = torch.empty_like(p)
     buf_out = torch.empty_like(buf)
     metrics = torch.empty(3, dtype=torch.float32, device=p.device)

@@ -21,6 +21,8 @@ tests hold the staged, split and unstaged kernels, with and without a
 guard, against ``p_epoch_plain`` over a grid of shapes.
 """
 
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +36,8 @@ from fedamw_tpu_torch.fedcore import cuda_build
 from fedamw_tpu_torch.fedcore import make_p_solver, p_epoch, p_epoch_plain
 from fedamw_tpu_torch.fedcore import psolver_kernel as pk
 from fedamw_tpu_torch.fedcore.aggregate import (
-    make_guard, project_simplex, project_simplex_fixed_point)
+    make_guard, project_simplex, project_simplex_fixed_point,
+    simplex_fixed_point, warp_order_sum)
 from fedamw_tpu_torch.fedcore.batching import batch_valid, epoch_batches
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -198,6 +201,7 @@ def test_guarded_plain_epochs_match_jax(guard, J, cv_kind):
 
 def _simplex_cases():
     rng = np.random.RandomState(11)
+    on_simplex = rng.dirichlet(np.ones(40))
     return {
         "random": (rng.randn(50), None),
         "random masked": (rng.randn(50), (rng.rand(50) > 0.3)),
@@ -209,19 +213,61 @@ def _simplex_cases():
         "one valid": (rng.randn(6), np.eye(6)[2] > 0),
         "none valid": (rng.randn(5), np.zeros(5, bool)),
         "large J": (rng.randn(4096) * 0.01, rng.rand(4096) > 0.1),
+        # the guard warp's lanes: one client, a partial warp, one full
+        # warp, one client past it, several rows of lanes
+        "J=1": (rng.randn(1), None),
+        "J=31": (rng.randn(31), None),
+        "J=32": (rng.randn(32), rng.rand(32) > 0.2),
+        "J=33": (rng.randn(33), None),
+        "J=400": (rng.randn(400) * 0.1, rng.rand(400) > 0.1),
+        "J=1024": (rng.randn(1024) * 0.05, None),
+        # entries equal to the final theta leave the support (p_j > theta)
+        "ties at theta": (np.array([1.5, 0.5, 0.5, 0.5]), None),
+        "every entry above theta": (0.1 + 0.01 * rng.rand(50), None),
+        "one valid of 1024": (rng.randn(1024), np.eye(1024)[700] > 0),
+        "none valid of 33": (rng.randn(33), np.zeros(33, bool)),
+        "on the simplex": (on_simplex, None),
+        # the support shrinks over 7 rounds
+        "one large among 1024": (np.r_[1.0, rng.exponential(0.01, 1023)],
+                                 None),
+        "one ulp above theta": (_one_ulp_above_theta(), None),
     }
+
+
+def _one_ulp_above_theta():
+    """50 entries, one of them the next float above the projection's
+    theta: within the sums' rounding, the support's size alternates
+    between two values every round unless a round whose theta does not
+    rise ends the fixed point (it ran to J + 1 rounds without that)."""
+    v = (np.random.RandomState(12).rand(50) * 2.0 / 50).astype(np.float32)
+    theta = simplex_fixed_point(_t(v))[2]
+    v[14] = np.nextafter(np.float32(theta), np.float32(np.inf))
+    return v
+
+
+def _jax_projection(v, valid):
+    """The JAX package's ``project_simplex`` of ``v`` over ``valid``
+    through one shape (one compilation for every case): ``v`` padded to
+    4096 clients with invalid ones, which the projection zeroes and
+    leaves out of its support."""
+    J, n = v.shape[0], 4096
+    pv, pm = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    pv[:J] = v
+    pm[:J] = 1.0 if valid is None else valid
+    out = np.asarray(jproject_simplex(jnp.asarray(pv), jnp.asarray(pm)))
+    assert not out[J:].any()
+    return out[:J]
 
 
 @pytest.mark.parametrize("case", sorted(_simplex_cases()))
 def test_fixed_point_simplex_matches_jax(case):
-    """Michelot's fixed point (the kernels' simplex guard) against the
-    JAX package's sort-based projection, atol 1e-6; the port's sort-based
-    one agrees too."""
+    """Michelot's fixed point (the kernels' simplex guard), with the sums in
+    the guard warp's order, against the JAX package's sort-based
+    projection, atol 1e-6; the port's sort-based one agrees too."""
     v, valid = _simplex_cases()[case]
     v = v.astype(np.float32)
     valid = None if valid is None else valid.astype(np.float32)
-    want = np.asarray(jproject_simplex(
-        jnp.asarray(v), None if valid is None else jnp.asarray(valid)))
+    want = _jax_projection(v, valid)
     vt = _t(v)
     mt = None if valid is None else _t(valid)
     got = project_simplex_fixed_point(vt, mt).numpy()
@@ -230,6 +276,46 @@ def test_fixed_point_simplex_matches_jax(case):
                                rtol=0, atol=1e-6)
     if valid is None or valid.any():
         assert abs(float(got.sum()) - 1.0) < 1e-5 and got.min() >= 0
+    else:
+        assert not got.any()
+    if valid is not None:
+        assert not got[valid == 0].any()
+    _, rounds, theta = simplex_fixed_point(vt, mt)
+    if case == "one large among 1024":
+        assert rounds >= 6
+    if case in ("every entry above theta", "J=1"):
+        assert rounds == 1
+    if case == "one ulp above theta":
+        assert rounds <= 3
+    if case == "ties at theta":
+        np.testing.assert_array_equal(got, [1.0, 0.0, 0.0, 0.0])
+    # the kernels start each step's fixed point from the last step's theta:
+    # from below, above (none or few pass it), or at it, the same
+    # projection; at it the support holds, and one round confirms it
+    for start in (theta, theta - 0.05, theta + 0.05, theta + 1e3, -1e3):
+        warm, r, t = simplex_fixed_point(vt, mt, start)
+        np.testing.assert_allclose(warm.numpy(), want, rtol=0, atol=1e-6)
+        if valid is None or valid.any():
+            assert r >= 1
+            if start == theta and case != "one ulp above theta":
+                assert r == 1 and t == theta
+
+
+@pytest.mark.parametrize("J", [1, 31, 32, 33, 50, 400, 1024])
+def test_warp_order_sum_is_the_guard_warps(J):
+    """``warp_order_sum`` against a lane-by-lane emulation of the guard
+    warp in float32: lane l sums clients l, l + 32, ... in order, then
+    each butterfly level adds lane l ^ o's value to lane l's; every lane
+    ends with the mirror's bits."""
+    v = np.random.RandomState(J).randn(J).astype(np.float32)
+    lanes = np.zeros(32, np.float32)
+    for j in range(J):
+        lanes[j % 32] = np.float32(lanes[j % 32] + v[j])
+    for o in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[np.arange(32) ^ o]).astype(np.float32)
+    got = warp_order_sum(torch.from_numpy(v))
+    assert (lanes == lanes[0]).all()
+    assert got.dtype == torch.float32 and float(got) == float(lanes[0])
 
 
 def test_guards_carry_their_kernel_code():
@@ -326,11 +412,16 @@ def test_plan_chooses_kernel(B, J, C, kernel):
         assert plan.classes == 0
         assert plan.smem_bytes == pk.tiled_layout(B, J, C, plan.cluster)[0]
         assert pk.kernel_symbol(plan, C) == \
-            "26split_tiled_p_epoch_kernelILb0EE"
+            "26split_tiled_p_epoch_kernelILb0ELb0EE"
+        assert pk.kernel_symbol(plan, C, guarded=True) == \
+            "26split_tiled_p_epoch_kernelILb0ELb1EE"
     if kernel == "split":
         assert plan.smem_bytes == pk.split_smem_bytes(B, J, C, plan.cluster,
                                                       plan.stream)
-        assert pk.kernel_symbol(plan, C) == "20split_p_epoch_kernelILi10ELb1E"
+        assert pk.kernel_symbol(plan, C) == \
+            "20split_p_epoch_kernelILi10ELb1ELb0E"
+        assert pk.kernel_symbol(plan, C, guarded=True) == \
+            "20split_p_epoch_kernelILi10ELb1ELb1E"
     if kernel == "unstaged":
         assert plan == pk.PEpochPlan("unstaged", 8, 0,
                                      pk.unstaged_smem_bytes(B, J, C))
@@ -673,6 +764,58 @@ def test_plan_split_cluster_follows_the_measured_rule(max_cluster, J, C,
         pk.launch_plan(16, J, C, cluster=3)
 
 
+# sha256 of the reprs of launch_plan(B, J, C, smem_limit=..., max_cluster=...)
+# over _frozen_plan_grid(), in its order, as the plans were before the
+# guard's gather (computed from that commit's psolver_kernel.py)
+PLANS_BEFORE_THE_GUARD_GATHER = (
+    "e8e838e27fa9706acd5917b985dff5f4bf8d0d7ccde64bb4af71b4ab31317996")
+
+
+def _frozen_plan_grid():
+    for smem_limit in (cuda_build.SMEM_LIMIT, 40000):
+        for max_cluster in (16, 8):
+            for B in (1, 8, 16, 33, 512, 513):
+                for J in (1, 50, 171, 356, 400, 512, 1000, 1024, 4096):
+                    for C in (1, 2, 7, 10, 26, 33, 105):
+                        yield B, J, C, smem_limit, max_cluster
+
+
+def test_plan_unguarded_keeps_every_kernel_and_cluster():
+    """Every unguarded plan is what it was before the split kernel's guard
+    gathered p (every field: kernel, cluster, layout; frozen as a digest of
+    the grid's plans). A guarded plan differs only where the split kernel
+    runs: its layout holds the gather (``split_guard_floats`` more floats
+    a CTA, the ring refitted around them), in a size that fits; every
+    other kernel's guarded plan is its unguarded one."""
+    digest = hashlib.sha256()
+    for B, J, C, smem_limit, max_cluster in _frozen_plan_grid():
+        kw = dict(smem_limit=smem_limit, max_cluster=max_cluster)
+        plan = pk.launch_plan(B, J, C, **kw)
+        digest.update(repr(plan).encode())
+        if plan is None or plan.kernel != "split":
+            assert pk.launch_plan(B, J, C, guarded=True, **kw) == plan
+            continue
+        guarded = pk.launch_plan(B, J, C, guarded=True, **kw)
+        assert guarded.smem_bytes <= smem_limit
+        if guarded.kernel == "split":
+            assert (guarded.smem_bytes, guarded.tile, guarded.stages,
+                    guarded.warps) == pk.split_layout(
+                B, J, C, guarded.cluster, guarded.stream, smem_limit,
+                guarded=True)
+            assert guarded.smem_bytes == 4 * pk.split_guard_floats(
+                J, guarded.cluster) + pk.split_ring_bytes(
+                B, J, C, guarded.cluster, guarded.warps, guarded.tile,
+                guarded.stages)
+    assert digest.hexdigest() == PLANS_BEFORE_THE_GUARD_GATHER
+    # the shapes the guard runs on the split plan in chip_smoke.py and the
+    # zoo keep their clusters, guarded or not
+    for J, C, k in ((400, 10, 8), (512, 10, 8), (1024, 7, 8)):
+        for guarded in (False, True):
+            plan = pk.launch_plan(16, J, C, guarded=guarded)
+            assert (plan.kernel, plan.cluster, plan.stream) == (
+                "split", k, False)
+
+
 @pytest.mark.parametrize("J,k,width", [(400, 4, 100), (1000, 16, 64),
                                        (4096, 8, 512), (7, 2, 4),
                                        (513, 16, 36)])
@@ -751,15 +894,17 @@ def test_cuda_kernel_grid_matches_plain_version(task, C, J, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_val", [200, 11983])
 @pytest.mark.parametrize("kernel", ["staged", "split", "unstaged"])
 @pytest.mark.parametrize("guard", ["clip", "clip:0.5", "simplex"])
-def test_cuda_guarded_epoch_matches_plain_version(guard, kernel):
+def test_cuda_guarded_epoch_matches_plain_version(guard, kernel, n_val):
     """Each guard in each kernel's epilogue against the plain epoch with
     the same guard, on one shape all three take (some clients masked),
     at an lr that moves p off the simplex and past the clip radius every
-    step; the guard's constraint holds at the end."""
+    step, over 13 steps and over the main path's 749; the guard's
+    constraint holds at the end."""
     _need_card()
-    args = _p_inputs("classification", 200, 50, 10, 16)
+    args = _p_inputs("classification", n_val, 50, 10, 16)
     args[0] = 3.0 * args[0]
     before = dict(p_epoch.launches_by_kernel)
     _kernel_vs_plain(args, "classification", kernel=kernel, guard=guard,
@@ -793,13 +938,14 @@ def test_cuda_split_kernel_matches_plain_version(J, C, guard):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("guard", [None, "simplex"])
+@pytest.mark.parametrize("guard", [None, "clip", "simplex"])
 @pytest.mark.parametrize("k", [2, 4, 8, 16])
-@pytest.mark.parametrize("J,C", [(400, 10), (1000, 26)])
+@pytest.mark.parametrize("J,C", [(400, 10), (512, 10), (1024, 7),
+                                 (1000, 26)])
 def test_cuda_split_kernel_at_every_cluster(J, C, k, guard):
     """The split kernel with its cluster forced to each size (held slices
     or a streamed ring, whichever the layout gives), unguarded and with
-    the simplex guard."""
+    each guard (the gather of p over 2 to 16 CTAs)."""
     _need_card()
     if k > pk.split_max_cluster(0):
         pytest.skip(f"this card schedules no {k}-CTA cluster")
@@ -817,14 +963,41 @@ def test_cuda_split_kernel_at_every_cluster(J, C, k, guard):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("guard", [None, "clip", "simplex"])
-def test_cuda_split_kernel_zoo_shape(guard):
-    """The zoo's covtype_1024 p-solve (J = 1024, C = 7: the rounded
-    8-class instantiation) at a small n_val, bitwise on repeat."""
+@pytest.mark.parametrize("kernel", ["split", "split_tiled"])
+def test_cuda_guard_support_shrinks_over_many_rounds(kernel):
+    """One large entry among 1,023 small ones, exponentially spread (J =
+    1024, C = 7): the first step's projection shrinks its support over
+    five rounds or more (``simplex_fixed_point`` takes 8 on p0 itself, the
+    kernels' first step starting cold), on the split plan and forced onto
+    the class-tiled one; against the plain epoch, and the kernel's rounds
+    counter sees those rounds."""
     _need_card()
     args = _p_inputs("classification", 300, 1024, 7, 16)
-    plan = pk.launch_plan(16, 1024, 7, max_cluster=pk.split_max_cluster(0))
-    assert (plan.kernel, plan.classes) == ("split", 8)
+    rng = np.random.RandomState(3)
+    p0 = np.r_[1.0, rng.exponential(0.01, 1023)].astype(np.float32)
+    args[0] = _t(p0).cuda()
+    args[2] = torch.ones(1024, device="cuda")
+    _kernel_vs_plain(args, "classification", kernel=kernel, guard="simplex")
+    rounds = torch.zeros(2, dtype=torch.int32, device="cuda")
+    p_epoch(*args, 1e-2, 0.9, "classification", kernel=kernel,
+            guard=make_guard("simplex"), guard_rounds=rounds)
+    torch.cuda.synchronize()
+    assert int(rounds[1]) >= 5
+    assert simplex_fixed_point(_t(p0))[1] >= 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", [None, "clip", "simplex"])
+@pytest.mark.parametrize("J,C,nc", [(1024, 7, 8), (512, 10, 10)])
+def test_cuda_split_kernel_zoo_shape(J, C, nc, guard):
+    """The zoo's p-solves, covtype_1024 (J = 1024, C = 7: the rounded
+    8-class instantiation) and mnist_conv_512 (J = 512, C = 10), at a
+    small n_val, bitwise on repeat."""
+    _need_card()
+    args = _p_inputs("classification", 300, J, C, 16)
+    plan = pk.launch_plan(16, J, C, max_cluster=pk.split_max_cluster(0),
+                          guarded=guard is not None)
+    assert (plan.kernel, plan.classes) == ("split", nc)
     _kernel_vs_plain(args, "classification", guard=guard)
     g = make_guard(guard) if guard else None
     a = p_epoch(*args, 1e-2, 0.9, "classification", guard=g)
@@ -952,7 +1125,7 @@ def test_cuda_kernel_matches_plain_version(task, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("guard", [None, "simplex"])
+@pytest.mark.parametrize("guard", [None, "clip", "simplex"])
 @pytest.mark.parametrize("J,C", [(50, 33), (50, 53), (50, 105), (50, 1000),
                                  (400, 1000)])
 @pytest.mark.parametrize("task", ["classification", "regression"])
@@ -960,7 +1133,7 @@ def test_cuda_tiled_split_kernel_matches_plain_version(task, J, C, guard):
     """The class-tiled split kernel by plan at B = 16: J = 50 at C = 33,
     53 (rcv1.multiclass's), 105 (sector's) and 1,000 (aloi's), and
     J = 400 at C = 1,000, where the ring streams tiles of clients and g
-    goes over the cluster in two exchanges; with and without the simplex
+    goes over the cluster in two exchanges; unguarded and with each
     guard."""
     _need_card()
     args = _p_inputs(task, 200, J, C, 16)

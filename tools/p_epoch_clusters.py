@@ -4,6 +4,8 @@
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 tools/p_epoch_clusters.py [--shapes 400x10 1024x7 ...]
+    python3 tools/p_epoch_clusters.py --guard simplex --lr 1e-2 \
+        --shapes 400x10 512x10 1024x7
 
 For each shape ``JxC`` (validation batch 16, ``--n-val`` rows, random
 logits scaled by 1/sqrt(J)) it launches the split kernel through
@@ -12,9 +14,11 @@ CTAs fit (holding their row slices where the layout allows, else
 streaming them), times each with CUDA events over ``--reps`` launches,
 the sizes in turns (in order, then reversed), and prints one JSON line a
 shape: ms and µs a step by size, each size's layout, the size the launch
-plan picks and the fastest. The fitted rule of ``psolver_kernel
-._split_cluster`` is held against these readings. Exits non-zero without
-a card.
+plan picks and the fastest. ``--guard clip|simplex`` runs every launch
+with that p-guard (``aggregate.make_guard``; clip at radius 1, ``--lr``
+the step) and adds the simplex's fixed-point rounds a step at each size.
+The fitted rule of ``psolver_kernel._split_cluster`` is held against
+these readings. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -40,13 +44,16 @@ def main():
     ap.add_argument("--B", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=100)
+    ap.add_argument("--guard", choices=("none", "clip", "simplex"),
+                    default="none")
+    ap.add_argument("--lr", type=float, default=1e-3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("p_epoch_clusters: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import fedamw_tpu_torch  # noqa: F401  (the alias module of this repo)
-    from fedamw_tpu_torch.fedcore import p_epoch
+    from fedamw_tpu_torch.fedcore import make_guard, p_epoch
     from fedamw_tpu_torch.fedcore import psolver_kernel as pk
     from fedamw_tpu_torch.fedcore.batching import batch_valid, epoch_batches
 
@@ -59,6 +66,8 @@ def main():
     pos = pos.to(dev, torch.int32)
     S = int(pos.shape[0])
     k_max = pk.split_max_cluster(0)
+    guard = make_guard(args.guard)
+    rounds = torch.zeros(2, dtype=torch.int32, device=dev)
 
     def cuda_ms(fn):
         fn()
@@ -85,7 +94,7 @@ def main():
                           dtype=torch.int32)
         a = (torch.full((J,), 1.0 / J, device=dev),
              torch.zeros(J, device=dev), torch.ones(J, device=dev), logits,
-             y, pos, valid, 1e-3, 0.9, "classification")
+             y, pos, valid, args.lr, 0.9, "classification")
         plans = {}
         for k in pk.SPLIT_CLUSTERS:
             if k > k_max:
@@ -98,11 +107,19 @@ def main():
         readings = {k: [] for k in plans}
         for k in list(plans) + list(plans)[::-1]:
             readings[k].append(cuda_ms(
-                lambda: p_epoch(*a, kernel="split", cluster=k)))
+                lambda: p_epoch(*a, kernel="split", cluster=k, guard=guard)))
         ms = {k: sum(r) / len(r) for k, r in readings.items()}
+        guard_rounds = {}
+        if args.guard == "simplex":
+            for k in plans:
+                p_epoch(*a, kernel="split", cluster=k, guard=guard,
+                        guard_rounds=rounds)
+                guard_rounds[str(k)] = rounds[0].item() / S
         chosen = pk.launch_plan(B, J, C, max_cluster=k_max)
         print(json.dumps({
             "shape": {"n_val": n_val, "J": J, "C": C, "B": B, "S": S},
+            "guard": args.guard, "lr": args.lr,
+            "guard_rounds_per_step_by_cluster": guard_rounds,
             "ms_by_cluster": {str(k): v for k, v in ms.items()},
             "us_per_step_by_cluster": {str(k): 1e3 * v / S
                                        for k, v in ms.items()},

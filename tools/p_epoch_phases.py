@@ -10,6 +10,8 @@ Run from the repository root on a machine with an NVIDIA H100:
         --n-val 92556 --source build/parent/csrc
     python3 tools/p_epoch_phases.py --kernel split_tiled --n-val 1262 \\
         --C 105 --cluster all
+    python3 tools/p_epoch_phases.py --kernel split --J 1024 --C 7 \\
+        --n-val 92556 --cluster 4,8,16 --guard simplex --lr 1e-2
 
 It compiles a ``csrc/`` directory's ``p_epoch.cu`` (``--source``, default
 the package's) twice, as it is and with ``-DP_EPOCH_PHASE_CLOCKS`` (thread
@@ -30,7 +32,18 @@ the library, ``p_epoch_tiled_phase_names``): a source with
 ``p_epoch_launch_split_tiled`` (classes over the cluster) gets its
 logits in the class-split layout (``psolver_kernel.class_split``) and
 takes clusters 1 to 16, an older one (J over the cluster) 2 to 16
-through ``p_epoch_launch_split``. Exits non-zero without a card.
+through ``p_epoch_launch_split``. ``--guard clip|simplex`` launches every
+kernel with that p-guard (clip at radius 1; ``--lr`` the step): the
+guard is a phase of its own where the library names one
+(``p_epoch_phase_names``, ``p_epoch_split_phase_names``; older sources
+count it in the update; the split kernel's guard also by its parts, the
+loads, the first sum, the rounds and the write,
+``guard_parts_us_per_step``), and each entry adds the normal build's
+unguarded ms in the same turns, the guard's µs a step (the guarded launch
+less the unguarded one, over the steps; any source) and the simplex's
+fixed-point rounds a step and in its longest step (the kernel's
+``guard_rounds`` counter). ``--cluster`` also takes a comma-separated
+list of sizes. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -44,12 +57,13 @@ import os
 import subprocess
 import sys
 
-# the PHASE marks of csrc/p_epoch.cu, in order (the element-wise copy path
-# counts its whole copy issue in "copy")
+# the PHASE marks of csrc/p_epoch.cu before the guard had a phase of its
+# own (newer libraries name theirs: p_epoch_phase_names), in order (the
+# element-wise copy path counts its whole copy issue in "copy")
 PHASES = ("copy_expect_tx", "copy_syncwarp", "copy_fence", "copy",
           "prefetch_loads", "valid_count", "wait_rows", "z", "loss", "h",
           "barrier_1", "update", "barrier_2_shift")
-# the SPHASE marks of the split kernel, in order
+# the SPHASE marks of the split kernel, likewise (p_epoch_split_phase_names)
 SPLIT_PHASES = ("copy_issue", "row_info", "valid_count", "wait_rows",
                 "z", "exchange", "loss", "h", "barrier", "update")
 CLUSTERS = (2, 4, 8, 16)
@@ -99,16 +113,21 @@ def _bind(path):
     lib.p_epoch_launch_split.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * (9 + lib.old_tiled)
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    # a library whose split layout holds a guard's gather takes whether the
+    # launch is guarded
+    lib.guard_abi = hasattr(lib, "p_epoch_split_guard_floats")
     lib.p_epoch_split_smem_bytes.restype = ctypes.c_size_t
     lib.p_epoch_split_smem_bytes.argtypes = [ctypes.c_int] * (
-        5 + lib.old_tiled)
+        5 + lib.old_tiled + lib.guard_abi)
     for name in ("p_epoch_phase_clocks", "p_epoch_split_phase_clocks",
-                 "p_epoch_tiled_phase_clocks"):
+                 "p_epoch_tiled_phase_clocks", "p_epoch_guard_part_clocks"):
         if hasattr(lib, name):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = [ctypes.c_void_p]
-    if hasattr(lib, "p_epoch_tiled_phase_names"):
-        lib.p_epoch_tiled_phase_names.restype = ctypes.c_char_p
+    for name in ("p_epoch_phase_names", "p_epoch_split_phase_names",
+                 "p_epoch_tiled_phase_names"):
+        if hasattr(lib, name):
+            getattr(lib, name).restype = ctypes.c_char_p
     if hasattr(lib, "p_epoch_launch_split_tiled"):
         lib.p_epoch_launch_split_tiled.restype = ctypes.c_int
         lib.p_epoch_launch_split_tiled.argtypes = (
@@ -128,7 +147,11 @@ def main():
     ap.add_argument("--C", type=int, default=10)
     ap.add_argument("--B", type=int, default=16)
     ap.add_argument("--cluster", default="plan",
-                    help="split kernel: a cluster size, 'plan' or 'all'")
+                    help="split kernels: sizes (comma-separated), 'plan' or "
+                    "'all'")
+    ap.add_argument("--guard", choices=("none", "clip", "simplex"),
+                    default="none")
+    ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--source", default=None,
                     help="a csrc/ directory (default: the package's)")
     ap.add_argument("--seed", type=int, default=100)
@@ -167,7 +190,9 @@ def main():
     outs = [torch.empty(J, device=dev), torch.empty(J, device=dev),
             torch.empty(3, device=dev)]
     ptrs = [t.data_ptr() for t in (p, buf, cv, logits, y, pos, valid,
-                                   *outs)] + [None]
+                                   *outs)]
+    code = ("none", "clip", "simplex").index(args.guard)
+    lr = args.lr
     stream = torch.cuda.current_stream().cuda_stream
     bulk = int(pk.bulk_rows(logits))
     k_max = pk.split_max_cluster(0)
@@ -191,13 +216,14 @@ def main():
     elif args.cluster == "all":
         configs = [k for k in sizes if k <= k_max and (not by_class or k <= C)]
     else:
-        configs = [int(args.cluster)]
+        configs = [int(v) for v in args.cluster.split(",")]
     layouts = {}
 
-    def launcher(lib, k):
+    # a launch of lib's kernel at cluster k with guard g, guard_rounds rp
+    def launcher(lib, k, g=code, rp=None):
         if k is None:
             return lambda: lib.p_epoch_launch_staged(
-                *ptrs, S, B, J, C, 1, bulk, 0, 1e-3, 0.9, 0.0, stream)
+                *ptrs, rp, S, B, J, C, 1, bulk, g, lr, 0.9, 1.0, stream)
         if by_class:
             if k not in layouts:
                 plan = pk.launch_plan(B, J, C, kernel="split_tiled",
@@ -207,13 +233,15 @@ def main():
                                           device=dev))
             plan, split, scratch = layouts[k]
             return lambda: lib.p_epoch_launch_split_tiled(
-                *ptrs[:3], split.data_ptr(), *ptrs[4:], scratch.data_ptr(),
-                S, B, J, C, n_val, 1, 0, k, 1e-3, 0.9, 0.0, stream)
+                *ptrs[:3], split.data_ptr(), *ptrs[4:], rp,
+                scratch.data_ptr(), S, B, J, C, n_val, 1, g, k, lr, 0.9, 1.0,
+                stream)
         old = (int(tiled),) if lib.old_tiled else ()
-        hold = int(libs["normal"].p_epoch_split_smem_bytes(
-            B, J, C, k, 1, *old) <= cuda_build.SMEM_LIMIT)
+        gx = (int(g != 0),) if lib.guard_abi else ()
+        hold = int(lib.p_epoch_split_smem_bytes(
+            B, J, C, k, 1, *old, *gx) <= cuda_build.SMEM_LIMIT)
         return lambda: lib.p_epoch_launch_split(
-            *ptrs, S, B, J, C, 1, bulk, 0, k, hold, *old, 1e-3, 0.9, 0.0,
+            *ptrs, rp, S, B, J, C, 1, bulk, g, k, hold, *old, lr, 0.9, 1.0,
             stream)
 
     def cuda_ms(fn):
@@ -232,17 +260,25 @@ def main():
     names = PHASES if args.kernel == "staged" else SPLIT_PHASES
     read = ("p_epoch_phase_clocks" if args.kernel == "staged"
             else "p_epoch_split_phase_clocks")
+    named = ("p_epoch_phase_names" if args.kernel == "staged"
+             else "p_epoch_split_phase_names")
     if tiled:
-        names = libs["clocks"].p_epoch_tiled_phase_names().decode().split(",")
-        read = "p_epoch_tiled_phase_clocks"
+        named, read = "p_epoch_tiled_phase_names", "p_epoch_tiled_phase_clocks"
+    if hasattr(libs["clocks"], named):
+        names = getattr(libs["clocks"], named)().decode().split(",")
+    rounds = torch.zeros(2, dtype=torch.int32, device=dev)
     # the byte bound: logits, labels, positions, valid, p, buf, cv
     nbytes = 4 * (n_val * J * C + n_val + 2 * S * B + 5 * J + 3)
     bound_ms = 1e3 * nbytes / 3.35e12
     entries = []
     for k in configs:
         run = {kind: launcher(lib, k) for kind, lib in libs.items()}
-        ms = {"clocks": [], "normal": []}
-        for kind in ("clocks", "normal", "normal", "clocks"):
+        order = ["clocks", "normal"]
+        if code:
+            run["unguarded"] = launcher(libs["normal"], k, 0)
+            order.append("unguarded")
+        ms = {kind: [] for kind in order}
+        for kind in order + order[::-1]:
             ms[kind].append(cuda_ms(run[kind]))
         run["clocks"]()
         torch.cuda.synchronize()
@@ -266,14 +302,36 @@ def main():
                  "normal_us_per_step": 1e3 * normal_ms / S,
                  "bound_ms": bound_ms,
                  "normal_over_bound": normal_ms / bound_ms}
+        if code and args.kernel == "split" and hasattr(
+                libs["clocks"], "p_epoch_guard_part_clocks"):
+            # the guard's parts on rank 0's lane 0, from the same launch
+            parts = (ctypes.c_ulonglong * 4)()
+            if libs["clocks"].p_epoch_guard_part_clocks(
+                    ctypes.addressof(parts)):
+                sys.exit("p_epoch_phases: could not read the guard's parts")
+            entry["guard_parts_us_per_step"] = {
+                n: 1e6 * v / S / hz for n, v in zip(
+                    ("load", "first_sum", "rounds", "write"), parts)}
+        if code:
+            unguarded_ms = sum(ms["unguarded"]) / 2
+            if launcher(libs["normal"], k, rp=rounds.data_ptr())():
+                sys.exit("p_epoch_phases: a launch failed")
+            total_rounds, most = rounds.tolist()
+            entry.update({
+                "guard": args.guard, "unguarded_ms": unguarded_ms,
+                "guard_us_per_step": 1e3 * (normal_ms - unguarded_ms) / S,
+                "guard_rounds_per_step": total_rounds / S,
+                "guard_rounds_max": most})
         if k is not None:
             entry["cluster"] = k
         if by_class:
             entry["plan"] = dataclasses.asdict(layouts[k][0])
         elif k is not None:
-            old = (int(tiled),) if libs["normal"].old_tiled else ()
-            entry["hold"] = bool(libs["normal"].p_epoch_split_smem_bytes(
-                B, J, C, k, 1, *old) <= cuda_build.SMEM_LIMIT)
+            lib = libs["normal"]
+            old = (int(tiled),) if lib.old_tiled else ()
+            gx = (int(code != 0),) if lib.guard_abi else ()
+            entry["hold"] = bool(lib.p_epoch_split_smem_bytes(
+                B, J, C, k, 1, *old, *gx) <= cuda_build.SMEM_LIMIT)
         entries.append(entry)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -281,7 +339,8 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(json.dumps({
-        "kernel": args.kernel, "source": src_dir,
+        "kernel": args.kernel, "source": src_dir, "guard": args.guard,
+        "lr": lr,
         "shape": {"n_val": n_val, "J": J, "C": C, "B": B, "S": S},
         "bulk_rows": bool(bulk), "bound_bytes": nbytes,
         "by_cluster" if k is not None else "staged":
