@@ -9,8 +9,10 @@ It builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per
 library, all at once: kernel 1 once per row type), holds each kernel
 against its plain PyTorch version on the card at the main path's shapes
 (kernel 1 also at Centralized's one-client shape and with bfloat16 and
-float16 rows; kernel 2 also on its split plan at J = 400, 1000 and 4096,
-and with each p-guard on each plan), and drives the paper's experiment
+float16 rows, and each class-count instantiation of its staged kernel of
+2-byte rows at a small shape, none of which may spill; kernel 2 also on
+its split plan at J = 400, 1000 and 4096, and with each p-guard on each
+plan), and drives the paper's experiment
 through the public
 entry points on the mnist-shaped data (60000 x 784 -> RFF D=2000, 10
 classes, J=50 clients, Dirichlet alpha 0.01, the registry's
@@ -156,7 +158,11 @@ and read just after:
   guarded epochs (clip and simplex at J = 50 and 400, with the simplex's
   fixed-point rounds per step), kernel 1's bfloat16 rows
   (``ms_by_dtype`` beside float32 and float16 at the main shape and at
-  Centralized's) and kernel 1's wide plan at ``wide_d``'s shape
+  Centralized's, the plan's kernel, cluster and ring, registers and
+  spills in both 2-byte types, ``ms_by_cluster_by_dtype`` at every
+  cluster of the staged kernel that fits and ``ms_by_plan``, the staged
+  kernel against the wide kernel forced, in turns, both 2-byte types)
+  and kernel 1's wide plan at ``wide_d``'s shape
   (``client_epoch.wide``: ``us_per_step``, the plan's cluster, chunk,
   ring and shared memory, spills, the byte bound, ``ms_by_cluster``, the
   kernel forced at each cluster the card takes in turns at J = 50 and at
@@ -304,6 +310,9 @@ MANY_CLIENTS = 400         # more clients than one CTA of kernel 2 holds at C=10
 # kernel 2's split plan: (J, C) past one CTA (B = VB, the main n_val)
 SPLIT_SHAPES = ((MANY_CLIENTS, 10), (1000, 26), (4096, 2))
 GUARDS = ("clip", "clip:0.5", "simplex")
+# a class count of each instantiation of kernel 1's staged kernel (exact:
+# 1, 2, 3, 6, 10, 26; rounded: 4, 8, 16, 32 run 4, 5, 11, 27)
+RING_CLASSES = (1, 2, 3, 4, 5, 6, 10, 11, 26, 27)
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -367,6 +376,104 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def narrow_instantiations(dev):
+    """Every instantiation of kernel 1's staged kernel of 2-byte rows (its
+    ring), in both 2-byte types: a class count of each (``RING_CLASSES``)
+    forced at a small shape (an empty client, B not a multiple of 8, the
+    strong penalties) against the plain version at ``TOL_W``, and its
+    compiler report, which must show no spill. Returns one dict a case."""
+    import torch
+
+    from fedamw_tpu_torch.fedcore import (
+        client_epoch, client_epoch_plain, cuda_build)
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+
+    ring_cases = []
+    qgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).removeprefix("torch.")
+        usage = cuda_build.ptxas_usage(ek.ROW_LIBRARIES[dtype])
+        for Cq in RING_CLASSES:
+            Xq = torch.randn((300, 256), generator=qgen, device=dev)
+            yq = torch.randint(0, Cq, (300,), generator=qgen, device=dev,
+                               dtype=torch.int32)
+            rq = torch.randint(0, 300, (5, 6, 20), generator=qgen,
+                               device=dev, dtype=torch.int32)
+            vq = (torch.rand((5, 6, 20), generator=qgen, device=dev)
+                  < 0.7).float()
+            vq[1] = 0.0
+            aq = 0.01 * torch.randn((Cq, 256), generator=qgen, device=dev)
+            Wq = (aq + 0.01 * torch.randn((5, Cq, 256), generator=qgen,
+                                          device=dev)).contiguous()
+            qa = (Wq, aq, Xq.to(dtype), yq, rq, vq, 0.1, 0.05, 0.01,
+                  "classification")
+            plan_q = ek.card_plan(Wq, qa[2], rq, vq, kernel="staged")
+            wk, mk = client_epoch(*qa, kernel="staged")
+            torch.cuda.synchronize()
+            wp, mp = client_epoch_plain(*qa)
+            ok_w, err_w = close(wk, wp, **TOL_W)
+            ok_m, err_m = close(mk, mp, 1e-3, 1e-5)
+            used = [u for f, u in usage.items()
+                    if ek.kernel_symbol(plan_q, Cq) in f]
+            ring_cases.append({
+                "rows": name, "C": Cq, "instantiation": plan_q.classes,
+                "cluster": plan_q.cluster, "stages": plan_q.stages,
+                "max_abs_err_w": err_w, "max_abs_err_metrics": err_m,
+                "registers": used[0]["registers"] if len(used) == 1
+                else None,
+                "spill_bytes": used[0]["spill_bytes"] if len(used) == 1
+                else None, "ok": ok_w and ok_m and len(used) == 1
+                and used[0]["spill_bytes"] == 0})
+    return ring_cases
+
+
+def narrow_timings(args, narrow_args, spill):
+    """The ``client_epoch.bf16`` row's plan and times on 2-byte rows at
+    the main shape: the plan the wrapper takes (the card's clusters, the
+    clients' steps), the compiler's report of its instantiation in both
+    2-byte libraries (``spill(library, symbol)``), each 2-byte type at
+    every cluster of the staged kernel that fits, and the staged kernel
+    against the wide kernel forced, in turns. ``args`` the float32
+    main-shape epoch, ``narrow_args`` the same on bfloat16 rows. Launch
+    counts are left as they were."""
+    import torch
+
+    from fedamw_tpu_torch.fedcore import client_epoch, cuda_build
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+
+    W, X16, rows, valid = (narrow_args[i] for i in (0, 2, 4, 5))
+    _, C, D = W.shape
+    B = rows.shape[2]
+    plan16 = ek.card_plan(W, X16, rows, valid)
+    used16 = spill("client_epoch_bf16", ek.kernel_symbol(plan16, C))
+    usedf16 = spill("client_epoch_f16", ek.kernel_symbol(plan16, C))
+    saved = client_epoch.launches, dict(client_epoch.launches_by_kernel)
+    sizes16 = [k for k in ek.STAGED_CLUSTERS
+               if ek.narrow_stages(B, C, D, k, cuda_build.SMEM_LIMIT)]
+    by_cluster16, by_plan16 = {}, {}
+    for name, a16 in (("bfloat16", narrow_args),
+                      ("float16",
+                       args[:2] + (args[2].to(torch.float16),) + args[3:])):
+        by_cluster16[name] = {k: cuda_ms(
+            lambda: client_epoch(*a16, cluster=k), 10) for k in sizes16}
+        reads = {"staged": [], "wide": []}
+        for kern in ("staged", "wide", "wide", "staged"):
+            reads[kern].append(cuda_ms(
+                lambda: client_epoch(*a16, kernel=kern), 10))
+        by_plan16[name] = {kern: sum(r) / len(r)
+                           for kern, r in reads.items()}
+    client_epoch.launches, client_epoch.launches_by_kernel = saved
+    return {"launches_path": "feature_dtype (FedAvg, FedAMW)",
+            "kernel": plan16.kernel, "cluster": plan16.cluster,
+            "stages": plan16.stages, "smem_bytes": plan16.smem_bytes,
+            "registers": used16["registers"],
+            "spill_bytes": used16["spill_bytes"],
+            "registers_float16": usedf16["registers"],
+            "spill_bytes_float16": usedf16["spill_bytes"],
+            "ms_by_cluster": by_cluster16["bfloat16"],
+            "ms_by_cluster_by_dtype": by_cluster16, "ms_by_plan": by_plan16}
 
 
 def options(ds, setup, prm, kw, amw_kw, timed, vs_plain, card):
@@ -4452,6 +4559,15 @@ def main():
                      "with its plain version")
             k1_narrow_err[name] = max(k1_narrow_err.get(name, 0.0), err_w)
 
+    ring_cases = narrow_instantiations(dev)
+    emit({"phase": "kernel_check", "kernel": "client_epoch",
+          "rows": "2-byte, every staged instantiation", "tol_w": TOL_W,
+          "cases": ring_cases, "ok": all(c["ok"] for c in ring_cases)})
+    bad = [c for c in ring_cases if not c["ok"]]
+    if bad:
+        fail(f"client_epoch's 2-byte staged kernel disagrees with its plain "
+             f"version or spills: {bad}")
+
     n_val = int(setup.X_val.shape[0])
     ppos = draw_epoch_positions(dgen, n_val, VB)
     pvalid = batch_valid(ppos, n_val)
@@ -5142,30 +5258,15 @@ def main():
             aa = a[:2] + (xs[k],) + a[3:]
             reads[k].append(cuda_ms(lambda: client_epoch(*aa), 5))
         client_epoch.launches, client_epoch.launches_by_kernel = saved
-        Jx = int(a[0].shape[0])
-        by_dtype[shape] = {k: {
-            "ms": sum(r) / 2,
-            "cluster": ek.launch_plan(Jx, B, C, D, sms, row_bytes=xs[
-                k].element_size()).cluster} for k, r in reads.items()}
-    plan16 = ek.launch_plan(J, B, C, D, sms, row_bytes=2)
-    used16 = spill("client_epoch_bf16", ek.kernel_symbol(plan16, C))
-    usedf16 = spill("client_epoch_f16", ek.kernel_symbol(plan16, C))
-    saved = client_epoch.launches, dict(client_epoch.launches_by_kernel)
-    by_cluster16 = {k: cuda_ms(lambda: client_epoch(*narrow_args, cluster=k),
-                               10)
-                    for k in (1, 2, 4, 8) if ek.staged_smem_bytes(
-                        B, C, D, k, row_bytes=2) <= cuda_build.SMEM_LIMIT}
-    client_epoch.launches, client_epoch.launches_by_kernel = saved
-    bf16_row.update({"launches_path": "feature_dtype (FedAvg, FedAMW)",
-                     "cluster": plan16.cluster,
-                     "smem_bytes": plan16.smem_bytes,
-                     "registers": used16["registers"],
-                     "spill_bytes": used16["spill_bytes"],
-                     "registers_float16": usedf16["registers"],
-                     "spill_bytes_float16": usedf16["spill_bytes"],
-                     "ms_by_cluster": by_cluster16, "ms_by_dtype": by_dtype})
-    if used16["spill_bytes"] != 0 or usedf16["spill_bytes"] != 0:
-        fail(f"client_epoch with 2-byte rows spills: {used16}, {usedf16}")
+        by_dtype[shape] = {}
+        for k, r in reads.items():
+            plan_k = ek.card_plan(a[0], xs[k], a[4], a[5])
+            by_dtype[shape][k] = {"ms": sum(r) / 2, "kernel": plan_k.kernel,
+                                  "cluster": plan_k.cluster}
+    bf16_row.update(narrow_timings(args, narrow_args, spill))
+    bf16_row["ms_by_dtype"] = by_dtype
+    if bf16_row["spill_bytes"] != 0 or bf16_row["spill_bytes_float16"] != 0:
+        fail(f"client_epoch with 2-byte rows spills: {bf16_row}")
     kernels += [split_row, guard_row, bf16_row, wide_row, *many_rows]
     for row in kernels[2:]:
         if row["launches"] == 0:

@@ -49,13 +49,17 @@
 // under the JAX package's feature_dtype, bfloat16 or float16. This file is
 // built once per row type (cuda_build.BUILDS: -DCLIENT_EPOCH_ROWS_BF16,
 // -DCLIENT_EPOCH_ROWS_F16), the three builds in parallel. 2-byte rows are
-// staged as they are, which halves the ring, and widened to fp32 by the
-// intrinsics as they are read (the product is fp32, as JAX promotes
-// bf16 x f32); W, the anchor, z and the gradient stay fp32.
+// staged as they are, which halves the ring, and widened to fp32 in
+// registers as they are read, 8 or 16 bytes a load (the product is fp32,
+// as JAX promotes bf16 x f32); W, the anchor, z and the gradient stay fp32.
 //
 // Four plans, in the wrapper's order (epoch_kernel.launch_plan):
 //  1. the staged kernel above, where a cluster of 1, 2, 4 or 8 CTAs holds
-//     W's slices and two step tiles in shared memory;
+//     W's slices and two step tiles in shared memory; for 2-byte rows its
+//     redesign for them, staged_ring_epoch_kernel (a producer warp's ring
+//     of up to 4 stages, 16-byte row reads, a reduce-scatter of the
+//     forward partials, the row losses by 8 lanes a row), where 2 stages
+//     fit, its cluster by a rule fitted to its measured times;
 //  2. the unstaged kernel, for batches too large to stage where W and the
 //     anchor still fit one CTA whole: one CTA per client that gathers its
 //     rows from global memory in both passes;
@@ -133,7 +137,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Reads of RowT elements widened to fp32: one, two (4 or 8 bytes aligned)
-// or four (8 or 16 bytes aligned) at a time.
+// or four (8 or 16 bytes aligned) at a time; 2-byte rows also eight, 16
+// bytes aligned. A 2-byte type reads four with one 8-byte load and eight
+// with one 16-byte load, and widens each 32-bit word in registers.
 template <typename T>
 struct Rows;
 
@@ -149,35 +155,56 @@ struct Rows<float> {
   }
 };
 
+// Rows of two 2-byte elements a 32-bit word: `pair` widens one word.
+template <typename T, typename Pair>
+struct NarrowRows {
+  static __device__ __forceinline__ float2 two(const T* p) {
+    return Pair::pair(*reinterpret_cast<const uint32_t*>(p));
+  }
+  static __device__ __forceinline__ float4 four(const T* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = Pair::pair(u.x), hi = Pair::pair(u.y);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  static __device__ __forceinline__ void eight(const T* p, float (&f)[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const float2 a = Pair::pair(u.x), b = Pair::pair(u.y),
+                 c = Pair::pair(u.z), d = Pair::pair(u.w);
+    f[0] = a.x, f[1] = a.y, f[2] = b.x, f[3] = b.y;
+    f[4] = c.x, f[5] = c.y, f[6] = d.x, f[7] = d.y;
+  }
+};
+
 template <>
-struct Rows<__nv_bfloat16> {
+struct Rows<__nv_bfloat16> : NarrowRows<__nv_bfloat16, Rows<__nv_bfloat16>> {
   using T = __nv_bfloat16;
   static __device__ __forceinline__ T zero() { return __float2bfloat16(0.f); }
   static __device__ __forceinline__ float one(const T* p) {
     return __bfloat162float(*p);
   }
-  static __device__ __forceinline__ float2 two(const T* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  static __device__ __forceinline__ float4 four(const T* p) {
-    const float2 lo = two(p), hi = two(p + 2);
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  // a bf16 is the high half of its float: a shift and a mask, exact
+  static __device__ __forceinline__ float2 pair(uint32_t u) {
+    return make_float2(__uint_as_float(u << 16),
+                       __uint_as_float(u & 0xffff0000u));
   }
 };
 
 template <>
-struct Rows<__half> {
+struct Rows<__half> : NarrowRows<__half, Rows<__half>> {
   using T = __half;
   static __device__ __forceinline__ T zero() { return __float2half(0.f); }
   static __device__ __forceinline__ float one(const T* p) {
     return __half2float(*p);
   }
-  static __device__ __forceinline__ float2 two(const T* p) {
-    return __half22float2(*reinterpret_cast<const __half2*>(p));
-  }
-  static __device__ __forceinline__ float4 four(const T* p) {
-    const float2 lo = two(p), hi = two(p + 2);
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  // the word's two halves widened in place: a repack through a __half2
+  // cost the wide kernel registers (48 spill bytes at 8 classes)
+  static __device__ __forceinline__ float2 pair(uint32_t u) {
+    float lo, hi;
+    asm("{\n.reg .f16 l, h;\nmov.b32 {l, h}, %2;\n"
+        "cvt.f32.f16 %0, l;\ncvt.f32.f16 %1, h;\n}\n"
+        : "=f"(lo), "=f"(hi)
+        : "r"(u));
+    return make_float2(lo, hi);
   }
 };
 
@@ -209,6 +236,7 @@ struct Args {
   float* metrics;       // (J, 3)
   int S, B, C, D, k, Dk, bulk;
   float lr, mu, lam;
+  int stages;  // the 2-byte staged kernel's ring depth (0: float32 rows)
 };
 
 struct Header {
@@ -240,6 +268,30 @@ size_t staged_smem_bytes(int B, int C, int NC, int D, int k) {
   return kHeaderBytes + (floats + 2 * Bp) * sizeof(float) +
          2 * Bp * Dk * sizeof(RowT);
 }
+
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+// A measurement build only (tools/client_epoch_phases.py --kernel staged
+// compiles this file with -DCLIENT_EPOCH_PHASE_CLOCKS): clock64 cycles that
+// CTA 0 (rank 0 of the client with the most steps) spends in each phase of
+// the staged kernel's steps, summed over its last launch, one a name of
+// kStagedPhaseNames. Thread 0 (the float32 kernel's packer, the 2-byte
+// kernel's first consumer); the 2-byte kernel's producer lane 0 the last
+// four.
+constexpr int kStagedPhases = 13;
+__device__ unsigned long long staged_phase_clocks[kStagedPhases];
+constexpr const char* kStagedPhaseNames =
+    "wait_rows,pack_issue,fwd_fma_sums,block_sums,cluster_barrier,"
+    "exchange_reads,row_loss,grad_update,closing_barrier,"
+    "producer_wait_empty,producer_pack,producer_issue,producer_cluster";
+#define SPHASE(i)                     \
+  if (timing) {                       \
+    const long long now_ = clock64(); \
+    ph[i] += now_ - t_last;           \
+    t_last = now_;                    \
+  }
+#else
+#define SPHASE(i)
+#endif
 
 // NC: the instantiated class count; EXACT: C == NC (no guard on the class
 // loops), else C < NC and the classes from C on are skipped.
@@ -382,12 +434,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (T > 0) stage(0);
   __syncthreads();
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  const bool timing = blockIdx.x == 0 && tid == 0;
+  long long ph[kStagedPhases] = {};
+  long long t_last = clock64();
+#endif
 
   float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // rank 0, thread 0
   for (int t = 0; t < T; ++t) {
     const int st = t & 1;
     const bool more = t + 1 < T;
     if (more) stage(st ^ 1);
+    SPHASE(1);
     if (p.bulk) {
       mbar_wait(&h->mbar[st], (unsigned)((t >> 1) & 1));
     } else {
@@ -397,6 +455,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         cp_async_wait<0>();
       __syncthreads();
     }
+    SPHASE(0);
     const int n = h->nrow[st];
     const float cnt = h->cnt[st];
     const RowT* xt = tile + st * Bp * Dk;
@@ -442,6 +501,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
+    SPHASE(2);
     float sp = 0.f, sr = 0.f;
     for (int i = tid; i < C * Q; i += kThreads) {
       const float4 wv = *reinterpret_cast<const float4*>(w + 4 * i);
@@ -468,12 +528,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       pc[0] = s0;
       pc[1] = s1;
     }
+    SPHASE(3);
 
     // the one exchange of the step: every CTA sums the k partials in rank
     // order. part is double-buffered by step, and a CTA writes step t+2's
     // partials only after the barrier of step t+1, which every CTA reaches
     // after reading step t's.
     cluster.sync();
+    SPHASE(4);
     for (int i = tid; i < 4 + n * CP; i += kThreads) {
       if (i == 2 || i == 3) continue;
       if (i >= 4 && (i - 4) % CP >= C) continue;
@@ -485,6 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         z[i - 4] = v;
     }
     __syncthreads();
+    SPHASE(5);
 
     // per row: loss, top-1 hit, and dz (overwrites z), scaled by w_b / cnt
     const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
@@ -511,6 +574,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       acc_hit += hit;
       acc_cnt += cnt;
     }
+    SPHASE(6);
 
     // grad[c, d] = sum_b dz[b, c] x_b[d] + penalties over this slice, two
     // columns a thread, the staged rows read from shared memory
@@ -555,9 +619,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         *reinterpret_cast<float2*>(w + i) = wv;
       }
     }
+    SPHASE(7);
     // this step's tile, rows and z are free, and w is updated
     __syncthreads();
+    SPHASE(8);
   }
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  if (timing)
+    for (int i = 0; i < kStagedPhases; ++i) staged_phase_clocks[i] = ph[i];
+#endif
   // no CTA leaves while another may still read its partials
   cluster.sync();
 
@@ -573,16 +643,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int NC, bool EXACT>
-cudaError_t launch_staged(const Args& p, int J, cudaStream_t stream) {
-  const size_t smem = staged_smem_bytes(p.B, p.C, NC, p.D, p.k);
-  auto kern = staged_epoch_kernel<NC, EXACT>;
+// One launch of a staged kernel: J clusters of p.k CTAs of `threads`
+// threads and `smem` bytes each.
+cudaError_t launch_cluster(void (*kern)(Args), const Args& p, int J,
+                           int threads, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(J * p.k));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -595,6 +665,12 @@ cudaError_t launch_staged(const Args& p, int J, cudaStream_t stream) {
   e = cudaLaunchKernelEx(&cfg, kern, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int NC, bool EXACT>
+cudaError_t launch_staged(const Args& p, int J, cudaStream_t stream) {
+  return launch_cluster(staged_epoch_kernel<NC, EXACT>, p, J, kThreads,
+                        staged_smem_bytes(p.B, p.C, NC, p.D, p.k), stream);
 }
 
 // The class counts with an exact instantiation (the registry's datasets:
@@ -1544,6 +1620,615 @@ cudaError_t launch_wide(const WideArgs& p, int J, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// The staged kernel of 2-byte rows (the bfloat16 and float16 builds; plan 1
+// for those rows, its cluster by epoch_kernel._narrow_cluster). The float32
+// kernel's cluster, slices, exchange and update, redesigned for rows of
+// half the bytes. What bounds it is the same serial chain of steps; on
+// 2-byte rows the float32 design spent ~2 µs of its 15 a step packing
+// rows on warp 0, ~5 µs at the cluster barrier at 4 and 8 CTAs, and read
+// rows 4 and 2 bytes a load (tools/client_epoch_phases.py --kernel
+// staged).
+//  - Warp 8, the producer, packs each step's valid rows (ids, weights and
+//    labels: the row losses read no global memory) and issues their copies
+//    into a ring of `stages` stages on full and empty mbarriers, one or
+//    more steps ahead of the 8 consumer warps, and takes part in the
+//    cluster's barriers without waiting on them until it must.
+//  - The forward pass reads 8 columns of a row with one 16-byte load and
+//    widens them in registers (bf16: a shift and a mask a word); W's and
+//    the anchor's slices are held with each group of 8 columns split in
+//    halves, so that W's two float4s of a lane are each contiguous across
+//    the warp, read once for all of the warp's rows; the warp's partial
+//    logits are summed by a reduce-scatter (~1.1 shuffles a value, not 5).
+//  - The row losses take 8 lanes a row: 32 rows a pass of the 256
+//    consumer threads, each row's sums by shuffles within its 8 lanes.
+//  - The gradient pass takes 4, 2 or 1 columns a thread, whichever keeps
+//    the most threads busy for the fewest passes (4 with one 8-byte load),
+//    and folds the next step's sums of squares into the update, so W is
+//    not read again for them.
+// The products stay fp32 FMAs; W, the anchor, z and the gradient fp32.
+#if defined(CLIENT_EPOCH_ROWS_BF16) || defined(CLIENT_EPOCH_ROWS_F16)
+#define CLIENT_EPOCH_NARROW_RING 1
+#endif
+constexpr int kStagedRingMaxStages = 4;
+
+// the ring's mbarriers and each stage's packed count and weight; the
+// cluster's sums of squares of the step
+struct StagedRingHeader {
+  uint64_t full[kStagedRingMaxStages];
+  uint64_t empty[kStagedRingMaxStages];
+  int nrow[kStagedRingMaxStages];
+  float cnt[kStagedRingMaxStages];
+  float tot[2];
+  float pad[2];
+};
+constexpr int kStagedRingHeaderBytes = sizeof(StagedRingHeader);
+static_assert(kStagedRingHeaderBytes == 112, "staged ring header layout");
+
+// Shared memory of one CTA of the 2-byte staged kernel. Layout after the
+// header, in floats: w (C*Dk), anchor (C*Dk); the ring (stages * Bp * Dk
+// RowT elements); part (2 * PS), z (Bp*CP), row_loss (Bp), row_hit (Bp),
+// red (2*kWarps); each stage's row weights, labels and ids (3 * stages *
+// Bp). Bp, CP and PS as staged_smem_bytes.
+size_t staged_ring_smem_bytes(int B, int C, int NC, int D, int k,
+                              int stages) {
+  const size_t Dk = slice_width(D, k), Bp = round_up(B, 8),
+               CP = round_up(NC, 4), PS = 4 + Bp * CP;
+  const size_t floats = 2 * (size_t)C * Dk + 2 * PS + Bp * CP + 2 * Bp +
+                        2 * kWarps + 3 * (size_t)stages * Bp;
+  return kStagedRingHeaderBytes + floats * sizeof(float) +
+         (size_t)stages * Bp * Dk * sizeof(RowT);
+}
+
+// The columns a thread of the gradient pass takes: of 4, 2 and 1, the
+// one whose passes of kThreads over the slice times its columns is least,
+// the wider on a tie (fewer loads of dz a column); 4 only where its 4 * NC
+// sums fit a thread's registers.
+__host__ __device__ constexpr int staged_grad_cols(int Dk, int NC) {
+  int best = 4, cost = 1 << 30;
+  for (int g = 4; g >= 1; g >>= 1) {
+    if (g == 4 && NC > 16) continue;
+    const int c = (Dk / g + kThreads - 1) / kThreads * g;
+    if (c < cost) {
+      cost = c;
+      best = g;
+    }
+  }
+  return best;
+}
+
+// One halving round of warp_reduce_scatter: lanes `o` apart swap halves
+// of their first 2H values, each keeping the sum of the half its bit `o`
+// names in v[0, H).
+template <int O, int H, int VP>
+__device__ __forceinline__ void halve(float (&v)[VP], int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// The sums over a warp's lanes of VP values a lane (VP a multiple of 8):
+// three halving rounds (lanes 16, 8, 4 apart) leave each lane VP / 8
+// values, summed over the 8 lanes that share its two low bits; two
+// butterfly rounds then sum those over the 4 lanes that differ in them.
+// Lane l ends with the sums of values [VP/8 * (l >> 2), + VP/8) in
+// v[0, VP/8): ~1.1 shuffles a value, where a butterfly a value takes 5.
+template <int VP>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[VP],
+                                                    int lane) {
+  static_assert(VP % 8 == 0, "a multiple of 8 values");
+  halve<16, VP / 2>(v, lane);
+  halve<8, VP / 4>(v, lane);
+  halve<4, VP / 8>(v, lane);
+#pragma unroll
+  for (int i = 0; i < VP / 8; ++i) {
+    v[i] += __shfl_xor_sync(0xffffffffu, v[i], 2);
+    v[i] += __shfl_xor_sync(0xffffffffu, v[i], 1);
+  }
+}
+
+// The row loss, top-1 hit and d loss / dz of row b by the 8 lanes of its
+// group (lane g of 8 takes classes g, g + 8, ...; NC <= 32): the first
+// maximum, the sum of exponentials and the label's logit by shuffles
+// within the group, as row_loss_grad computes them one row a thread.
+// z the row's logits (overwritten by dz); returns the loss, *hit the hit.
+// A group without a row (`live` false) takes part in the shuffles only.
+template <int NC, bool EXACT>
+__device__ __forceinline__ float row_loss_grad_group(float* z, bool live,
+                                                     int C, bool cls,
+                                                     int label, float target,
+                                                     float scale,
+                                                     float* hit) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int NG = (NC + 7) / 8;  // classes a lane
+  if (EXACT) C = NC;
+  const int g = threadIdx.x & 7;
+  float zc[NG];
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int c = g + 8 * i;
+    zc[i] = live && c < C ? z[c] : 0.f;
+  }
+  if (cls) {
+    const float neg_inf = -__int_as_float(0x7f800000);
+    float m = neg_inf, zl = 0.f;
+    int pred = C;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int c = g + 8 * i;
+      if (c < C && zc[i] > m) {
+        m = zc[i];
+        pred = c;
+      }
+      if (c == label) zl = zc[i];
+    }
+    // the first maximum: the larger value, the lower class on a tie
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      const float om = __shfl_xor_sync(kAll, m, o);
+      const int oi = __shfl_xor_sync(kAll, pred, o);
+      if (om > m || (om == m && oi < pred)) {
+        m = om;
+        pred = oi;
+      }
+      zl += __shfl_xor_sync(kAll, zl, o);
+    }
+    float e[NG], Z = 0.f;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      e[i] = g + 8 * i < C ? expf(zc[i] - m) : 0.f;
+      Z += e[i];
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) Z += __shfl_xor_sync(kAll, Z, o);
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int c = g + 8 * i;
+      if (live && c < C)
+        z[c] = (e[i] / Z - (c == label ? 1.f : 0.f)) * scale;
+    }
+    *hit = pred == label ? 1.f : 0.f;
+    return (logf(Z) + m) - zl;  // zl 0 for a label outside [0, C)
+  }
+  float per = 0.f;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int c = g + 8 * i;
+    if (c < C) {
+      const float e = zc[i] - target;
+      per = fmaf(e, e, per);
+      if (live) z[c] = e * (2.f / C) * scale;
+    }
+  }
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) per += __shfl_xor_sync(kAll, per, o);
+  *hit = 0.f;
+  return per / C;
+}
+
+#ifdef CLIENT_EPOCH_NARROW_RING
+template <int NC, bool EXACT>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    staged_ring_epoch_kernel(const Args p) {
+  // rows one warp carries through the forward pass at once
+  constexpr int RB = NC <= 4 ? 8 : (NC <= 10 ? 4 : (NC <= 16 ? 2 : 1));
+  constexpr int CP = round_up(NC, 4);
+  constexpr int VP = round_up(RB * NC, 8);
+  const int C = EXACT ? NC : p.C;
+  const int S = p.S, B = p.B, D = p.D, k = p.k, Dk = p.Dk, NS = p.stages;
+  const int Bp = round_up(B, 8), PS = 4 + Bp * CP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int j = p.order[blockIdx.x / k];
+  const int T = p.nsteps[j];
+  const int d0 = rank * Dk;
+  const int wd = max(0, min(Dk, D - d0));  // this CTA's columns of D
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StagedRingHeader* h = reinterpret_cast<StagedRingHeader*>(smem_raw);
+  float* w = reinterpret_cast<float*>(smem_raw + kStagedRingHeaderBytes);
+  float* a = w + C * Dk;
+  RowT* tile = reinterpret_cast<RowT*>(a + C * Dk);  // [NS][Bp][Dk], packed
+  // [2][PS]: sp, sr, -, -, z (Bp, CP)
+  float* part = reinterpret_cast<float*>(tile + NS * Bp * Dk);
+  float* z = part + 2 * PS;  // [Bp][CP] logits, then dz
+  float* row_loss = z + Bp * CP;
+  float* row_hit = row_loss + Bp;
+  float* red = row_hit + Bp;         // [2][kWarps]
+  float* row_w = red + 2 * kWarps;   // [NS][Bp] valid weight of each row
+  float* row_y = row_w + NS * Bp;    // [NS][Bp] its label or target
+  int* row_id = reinterpret_cast<int*>(row_y + NS * Bp);  // [NS][Bp]
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  const bool timing = blockIdx.x == 0 && (tid == 0 || tid == kThreads);
+  long long ph[kStagedPhases] = {};
+  long long t_last = clock64();
+#endif
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&h->full[s], 1);
+      mbar_init(&h->empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the padding columns of every stage stay 0 (copies write [0, wd)), so
+  // the slices' padded widths need no guard in the passes below
+  const int padw = Dk - wd;
+  for (int i = tid; i < NS * Bp * padw; i += kRingThreads) {
+    const int r = i / padw;
+    tile[r * Dk + wd + (i - r * padw)] = R::zero();
+  }
+  // W's and the anchor's slices, each group of 8 columns split in halves:
+  // columns 8q..8q+3 at 4q, 8q+4..8q+7 at Dk/2 + 4q, so that a lane's two
+  // float4s of its 8 columns are each contiguous across the warp (no bank
+  // conflict); and the sums of squares of w - anchor and w over them,
+  // kept for the first exchange
+  const int Dh = Dk / 2;
+  auto wcol = [&](int d) {
+    return ((d >> 3) << 2) + (d & 3) + ((d & 4) ? Dh : 0);
+  };
+  const size_t CD = (size_t)C * D;
+  float sp = 0.f, sr = 0.f;
+  if (warp < kWarps) {
+    const float* Wj = p.W0 + j * CD;
+    for (int i = tid; i < C * Dk; i += kThreads) {
+      const int c = i / Dk, d = i - c * Dk;
+      const bool in = d < wd;
+      const float wv = in ? Wj[(size_t)c * D + d0 + d] : 0.f;
+      const float av = in ? p.anchor[(size_t)c * D + d0 + d] : 0.f;
+      w[c * Dk + wcol(d)] = wv;
+      a[c * Dk + wcol(d)] = av;
+      const float dv = wv - av;
+      sp = fmaf(dv, dv, sp);
+      sr = fmaf(wv, wv, sr);
+    }
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // ---- the producer warp ----
+    int look = 0;          // cursor over the client's steps
+    bool pending = false;  // arrived at an exchange not yet waited on
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+    t_last = clock64();
+#endif
+    for (int t = 0; t < T; ++t) {
+      const int s = t % NS, u = t / NS;
+      SPHASE(12);
+      if (u > 0) mbar_wait(&h->empty[s], (unsigned)((u - 1) & 1));
+      SPHASE(9);
+      // the next non-empty step's valid rows (one remains: the caller
+      // counted them), packed into stage s
+      int n = 0;
+      float cnt = 0.f;
+      for (;;) {
+        const size_t base = ((size_t)j * S + look) * B;
+        for (int b0 = 0; b0 < B; b0 += 32) {
+          const int b = b0 + lane;
+          float v = 0.f;
+          int r = 0;
+          if (b < B) {
+            v = p.valid[base + b];
+            r = p.rows[base + b];
+          }
+          const unsigned m = __ballot_sync(0xffffffffu, v != 0.f);
+          if (v != 0.f) {
+            const int slot = s * Bp + n + __popc(m & ((1u << lane) - 1u));
+            row_id[slot] = r;
+            row_w[slot] = v;
+            if (p.y_cls != nullptr)
+              reinterpret_cast<int*>(row_y)[slot] = p.y_cls[r];
+            else
+              row_y[slot] = p.y_reg[r];
+          }
+          n += __popc(m);
+          cnt += warp_sum(v);
+        }
+        ++look;
+        if (n > 0) break;
+      }
+      if (lane == 0) {
+        h->nrow[s] = n;
+        h->cnt[s] = cnt;
+      }
+      __syncwarp();
+      SPHASE(10);
+      RowT* dst = tile + s * Bp * Dk;
+      const int* ids = row_id + s * Bp;
+      if (p.bulk) {
+        if (lane == 0) {
+          if (wd > 0)
+            mbar_expect_tx(&h->full[s], (unsigned)(n * wd * sizeof(RowT)));
+          else
+            mbar_arrive(&h->full[s]);
+        }
+        __syncwarp();
+        if (wd > 0)
+          for (int q = lane; q < n; q += 32)
+            bulk_copy(dst + q * Dk, p.X + (size_t)ids[q] * D + d0,
+                      (unsigned)(wd * sizeof(RowT)), &h->full[s]);
+      } else {
+        // rows not 16-byte aligned: lane-wise copies (cp.async moves 4
+        // bytes at least)
+        for (int i = lane; i < n * wd; i += 32) {
+          const int q = i / wd, d = i - q * wd;
+          dst[q * Dk + d] = p.X[(size_t)ids[q] * D + d0 + d];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&h->full[s]);
+      }
+      SPHASE(11);
+      if (pending) cluster_wait();
+      cluster_arrive();
+      pending = true;
+    }
+    SPHASE(12);
+    if (pending) cluster_wait();
+    SPHASE(12);
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+    if (timing)
+      for (int i = 9; i < kStagedPhases; ++i) staged_phase_clocks[i] = ph[i];
+#endif
+    cluster.sync();  // the consumers' last
+    return;
+  }
+
+  // ---- the 8 consumer warps ----
+  consumer_sum2(sp, sr, red);
+  const int gcols = staged_grad_cols(Dk, NC);
+  float acc_loss = 0.f, acc_hit = 0.f, acc_cnt = 0.f;  // rank 0, thread 0
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  t_last = clock64();
+#endif
+  for (int t = 0; t < T; ++t) {
+    const int s = t % NS;
+    mbar_wait(&h->full[s], (unsigned)((t / NS) & 1));
+    SPHASE(0);
+    const int n = h->nrow[s];
+    const float cnt = h->cnt[s];
+    const RowT* xt = tile + s * Bp * Dk;
+    float* pc = part + (t & 1) * PS;
+
+    // partial z over this slice: one warp per RB rows, lanes over 8
+    // columns (one 16-byte load a row)
+    const int Q8 = Dk / 8;
+    const int groups = (n + RB - 1) / RB;
+    for (int g = warp; g < groups; g += kWarps) {
+      float acc[VP];
+#pragma unroll
+      for (int i = 0; i < VP; ++i) acc[i] = 0.f;
+      for (int q = lane; q < Q8; q += 32) {
+        float xv[RB][8];
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          R::eight(xt + (g * RB + r) * Dk + 8 * q, xv[r]);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          if (!EXACT && c >= C) break;
+          const float4 w0 =
+              *reinterpret_cast<const float4*>(w + c * Dk + 4 * q);
+          const float4 w1 =
+              *reinterpret_cast<const float4*>(w + c * Dk + Dh + 4 * q);
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w,
+                               w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            float sum = acc[r * NC + c];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) sum = fmaf(xv[r][e], wv[e], sum);
+            acc[r * NC + c] = sum;
+          }
+        }
+      }
+      warp_reduce_scatter(acc, lane);
+      if ((lane & 3) == 0) {
+        const int v0 = (VP / 8) * (lane >> 2);
+#pragma unroll
+        for (int i = 0; i < VP / 8; ++i) {
+          const int vi = v0 + i, r = vi / NC, c = vi - r * NC;
+          if (vi < RB * NC && g * RB + r < n && (EXACT || c < C))
+            pc[4 + (g * RB + r) * CP + c] = acc[i];
+        }
+      }
+    }
+    if (tid == 0) {
+      pc[0] = sp;
+      pc[1] = sr;
+    }
+    SPHASE(2);
+
+    // the one exchange of the step: every CTA sums the k partials in rank
+    // order. part is double-buffered by step, and a CTA writes step t+2's
+    // partials only after the barrier of step t+1, which every CTA's
+    // consumers reach after reading step t's.
+    cluster.sync();
+    SPHASE(4);
+    const uint32_t pc_s = smem_addr(pc);
+    for (int i = tid; i < 4 + n * CP; i += kThreads) {
+      if (i == 2 || i == 3) continue;
+      if (i >= 4 && (i - 4) % CP >= C) continue;
+      // the k partials' loads all in flight, then their sum in rank order
+      float part_q[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < k) part_q[q] = ld_cluster(cluster_map(pc_s + 4 * i, q));
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < k) v += part_q[q];
+      if (i < 2)
+        h->tot[i] = v;
+      else
+        z[i - 4] = v;
+    }
+    consumer_sync();
+    SPHASE(5);
+
+    // per row, by a group of 8 lanes: loss, top-1 hit, and dz (overwrites
+    // z), scaled by w_b / cnt; the labels were packed with the rows
+    const float inv_cnt = 1.f / fmaxf(cnt, 1.f);
+    const float* ys = row_y + s * Bp;
+    const bool cls = p.y_cls != nullptr;
+    for (int b0 = 0; b0 < n; b0 += kThreads / 8) {
+      if (b0 + 4 * warp >= n) break;  // this warp's 4 rows: none left
+      const int b = b0 + (tid >> 3);
+      const bool live = b < n;
+      const int bc = min(b, n - 1);
+      const float bv = row_w[s * Bp + bc];
+      float hit;
+      const float loss = row_loss_grad_group<NC, EXACT>(
+          z + bc * CP, live, C, cls,
+          cls ? reinterpret_cast<const int*>(ys)[bc] : 0,
+          cls ? 0.f : ys[bc], bv * inv_cnt, &hit);
+      if (live && (tid & 7) == 0) {
+        row_loss[b] = loss * bv;
+        row_hit[b] = hit * bv;
+      }
+    }
+    consumer_sync();
+    const float sq_p = h->tot[0], sq_r = h->tot[1];
+    const float norm_p = sq_p > 0.f ? sqrtf(sq_p) : 0.f;
+    const float norm_r = sq_r > 0.f ? sqrtf(sq_r) : 0.f;
+    if (rank == 0 && warp == 0) {
+      float dl = 0.f, hits = 0.f;
+      for (int b = lane; b < n; b += 32) {
+        dl += row_loss[b];
+        hits += row_hit[b];
+      }
+      dl = warp_sum(dl);
+      hits = warp_sum(hits);
+      if (lane == 0) {
+        const float loss = dl * inv_cnt + p.mu * norm_p + p.lam * norm_r;
+        acc_loss += loss * cnt;
+        acc_hit += hits;
+        acc_cnt += cnt;
+      }
+    }
+    SPHASE(6);
+
+    // grad[c, d] = sum_b dz[b, c] x_b[d] + penalties over this slice, 4, 2
+    // or 1 columns a thread (staged_grad_cols), the staged rows read from
+    // shared memory; the updated w's sums of squares are the next step's
+    // norms
+    const float rp = 1.f / fmaxf(norm_p, 1e-30f);
+    const float rr = 1.f / fmaxf(norm_r, 1e-30f);
+    sp = 0.f;
+    sr = 0.f;
+    auto update = [&](int i, float gc) {
+      const float wv = w[i], av = a[i];
+      if (sq_p > 0.f) gc += p.mu * ((wv - av) * rp);
+      if (sq_r > 0.f) gc += p.lam * (wv * rr);
+      const float nw = wv - p.lr * gc;
+      w[i] = nw;
+      const float dv = nw - av;
+      sp = fmaf(dv, dv, sp);
+      sr = fmaf(nw, nw, sr);
+    };
+    auto grad = [&](auto cols_tag) {
+      constexpr int GC = decltype(cols_tag)::value;
+      // where the thread's GC columns start in w's split layout
+      auto c0w = [&](int pi) { return wcol(GC * pi); };
+      for (int pi = tid; pi < Dk / GC; pi += kThreads) {
+        float g[GC][NC];
+#pragma unroll
+        for (int e = 0; e < GC; ++e)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) g[e][c] = 0.f;
+        auto row = [&](int b) {
+          float xv[GC];
+          if constexpr (GC == 4) {
+            const float4 x4 = R::four(xt + b * Dk + 4 * pi);
+            xv[0] = x4.x, xv[1] = x4.y, xv[2] = x4.z, xv[3] = x4.w;
+          } else if constexpr (GC == 2) {
+            const float2 x2 = R::two(xt + b * Dk + 2 * pi);
+            xv[0] = x2.x, xv[1] = x2.y;
+          } else {
+            xv[0] = R::one(xt + b * Dk + pi);
+          }
+#pragma unroll
+          for (int c4 = 0; c4 < CP / 4; ++c4) {
+            const float4 dz4 =
+                *reinterpret_cast<const float4*>(z + b * CP + 4 * c4);
+            const float dzv[4] = {dz4.x, dz4.y, dz4.z, dz4.w};
+#pragma unroll
+            for (int e4 = 0; e4 < 4; ++e4) {
+              const int c = 4 * c4 + e4;
+              if (c < NC) {
+#pragma unroll
+                for (int e = 0; e < GC; ++e)
+                  g[e][c] = fmaf(dzv[e4], xv[e], g[e][c]);
+              }
+            }
+          }
+        };
+        // GU rows' loads in flight together, fewer where a row's dz is wide
+        constexpr int GU = NC * GC <= 40 ? 4 : (NC * GC <= 64 ? 2 : 1);
+        int b = 0;
+        for (; b + GU <= n; b += GU) {
+#pragma unroll
+          for (int u = 0; u < GU; ++u) row(b + u);
+        }
+        for (; b < n; ++b) row(b);
+        const int wc = c0w(pi);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          if (!EXACT && c >= C) break;
+#pragma unroll
+          for (int e = 0; e < GC; ++e) update(c * Dk + wc + e, g[e][c]);
+        }
+      }
+    };
+    if (gcols == 1) {
+      grad(std::integral_constant<int, 1>{});
+    } else if constexpr (NC <= 16) {
+      if (gcols == 4)
+        grad(std::integral_constant<int, 4>{});
+      else
+        grad(std::integral_constant<int, 2>{});
+    } else {
+      grad(std::integral_constant<int, 2>{});
+    }
+    SPHASE(7);
+    // also the step's closing barrier: its stage, rows and z are free
+    consumer_sum2(sp, sr, red);
+    if (tid == 0) mbar_arrive(&h->empty[s]);
+    SPHASE(8);
+  }
+#ifdef CLIENT_EPOCH_PHASE_CLOCKS
+  if (timing)
+    for (int i = 0; i < 9; ++i) staged_phase_clocks[i] = ph[i];
+#endif
+  // no CTA leaves while another may still read its partials
+  cluster.sync();
+
+  float* Wo = p.W_out + j * CD;
+  for (int i = tid; i < C * Dk; i += kThreads) {
+    const int c = i / Dk, d = i - c * Dk;
+    if (d < wd) Wo[(size_t)c * D + d0 + d] = w[c * Dk + wcol(d)];
+  }
+  if (rank == 0 && tid == 0) {
+    p.metrics[j * 3 + 0] = acc_loss;
+    p.metrics[j * 3 + 1] = acc_hit;
+    p.metrics[j * 3 + 2] = acc_cnt;
+  }
+}
+
+template <int NC, bool EXACT>
+cudaError_t launch_staged_ring(const Args& p, int J, cudaStream_t stream) {
+  if (p.stages < 2 || p.stages > kStagedRingMaxStages)
+    return cudaErrorInvalidValue;
+  return launch_cluster(
+      staged_ring_epoch_kernel<NC, EXACT>, p, J, kRingThreads,
+      staged_ring_smem_bytes(p.B, p.C, NC, p.D, p.k, p.stages), stream);
+}
+#endif  // CLIENT_EPOCH_NARROW_RING
+
+// ---------------------------------------------------------------------------
 // The class-tiled wide kernel (plan 4): any C, taken at run time, one
 // instantiation a row type and a source of W. Its cluster splits the
 // classes, not D: CTA q of a k-cluster owns classes [q C / k, (q + 1) C / k)
@@ -2355,10 +3040,16 @@ cudaError_t launch_wide_tiled(const WideArgs& p, int J, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory of one CTA of the staged kernel with a cluster of
-// k, and of the unstaged kernel; the wrapper's launch plan computes the
-// same numbers and checks them against these.
+// k, of its 2-byte ring of `stages` stages (this build's row type), and of
+// the unstaged kernel; the wrapper's launch plan computes the same numbers
+// and checks them against these.
 size_t client_epoch_staged_smem_bytes(int B, int C, int D, int k) {
   return staged_smem_bytes(B, C, instantiated_classes(C), D, k);
+}
+
+size_t client_epoch_staged_ring_smem_bytes(int B, int C, int D, int k,
+                                           int stages) {
+  return staged_ring_smem_bytes(B, C, instantiated_classes(C), D, k, stages);
 }
 
 size_t client_epoch_unstaged_smem_bytes(int B, int C, int D) {
@@ -2404,6 +3095,17 @@ size_t client_epoch_ring_smem_bytes(int B, int C, int D, int k, int chunk,
 }
 
 #ifdef CLIENT_EPOCH_PHASE_CLOCKS
+// The staged kernel's phase clocks of its last launch (kStagedPhases
+// values, one a name of client_epoch_staged_phase_names).
+int client_epoch_staged_phase_clocks(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, staged_phase_clocks,
+                                               sizeof(staged_phase_clocks)));
+}
+
+const char* client_epoch_staged_phase_names(void) {
+  return kStagedPhaseNames;
+}
+
 // The wide kernel's phase clocks of its last launch (kWidePhases values).
 int client_epoch_wide_phase_clocks(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, wide_phase_clocks,
@@ -2467,17 +3169,19 @@ int client_epoch_wide_max_cluster(void) {
 }
 
 // One launch of the staged kernel: J clusters of k CTAs, cluster i running
-// client order[i]. is_cls selects int32 labels or float32 targets behind y;
-// bulk selects cp.async.bulk row copies (a row a multiple of 16 bytes and X
-// 16-byte aligned).
+// client order[i]; float32 rows run staged_epoch_kernel (`stages` 0),
+// 2-byte rows staged_ring_epoch_kernel with a ring of `stages`. is_cls
+// selects int32 labels or float32 targets behind y; bulk selects
+// cp.async.bulk row copies (a row a multiple of 16 bytes and X 16-byte
+// aligned).
 // Returns cudaGetLastError() after the launch.
 int client_epoch_launch_staged(const void* W0, const void* anchor,
                                const void* X, const void* y, const void* rows,
                                const void* valid, const void* order,
                                const void* nsteps, void* W_out, void* metrics,
                                int J, int S, int B, int C, int D, int k,
-                               int is_cls, int bulk, float lr, float mu,
-                               float lam, void* stream) {
+                               int stages, int is_cls, int bulk, float lr,
+                               float mu, float lam, void* stream) {
   if (k < 1 || k > kMaxCluster) return cudaErrorInvalidValue;
   Args p;
   p.W0 = static_cast<const float*>(W0);
@@ -2501,9 +3205,17 @@ int client_epoch_launch_staged(const void* W0, const void* anchor,
   p.lr = lr;
   p.mu = mu;
   p.lam = lam;
+  p.stages = stages;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch_classes(C, [&](auto n, auto exact) {
-    return launch_staged<decltype(n)::value, decltype(exact)::value>(p, J, s);
+    constexpr int NC = decltype(n)::value;
+    constexpr bool EXACT = decltype(exact)::value;
+#ifdef CLIENT_EPOCH_NARROW_RING
+    return launch_staged_ring<NC, EXACT>(p, J, s);
+#else
+    if (stages != 0) return cudaErrorInvalidValue;
+    return launch_staged<NC, EXACT>(p, J, s);
+#endif
   }));
 }
 

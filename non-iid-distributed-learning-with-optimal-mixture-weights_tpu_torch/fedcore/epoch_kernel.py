@@ -27,7 +27,14 @@ that latency (``launch_plan`` chooses its shape):
 - rows are read in the type X is stored in: float32, or bfloat16 or
   float16 under ``prepare_setup(feature_dtype=...)``, staged as they are
   (2-byte rows halve the ring) and widened to fp32 as they are read; one
-  library per row type (``cuda_build.BUILDS``).
+  library per row type (``cuda_build.BUILDS``). 2-byte rows run the
+  staged kernel's redesign for them (``staged_ring_epoch_kernel``): a
+  producer warp packs each step's rows and labels and issues their copies
+  into a ring of up to ``STAGED_RING_MAX_STAGES`` stages a step or more
+  ahead of 8 consumer warps, which read 8 columns a 16-byte load, sum the
+  forward partials by a reduce-scatter, take the row losses 8 lanes a row
+  and fold the next step's norms into the update; ``_narrow_cluster``
+  picks its cluster by a fit to its measured times (``narrow_step_us``).
 
 Two more plans take what the staged kernel cannot (``launch_plan``):
 batches too large to stage run an unstaged kernel where W and the anchor
@@ -79,6 +86,8 @@ MAX_CLUSTER = 8            # the portable cluster size
 STAGED_CLUSTERS = (1, 2, 4, MAX_CLUSTER)
 WIDE_CLUSTERS = STAGED_CLUSTERS + (16,)  # 16 where the card schedules it
 HEADER_BYTES = 48          # mbarriers and per-stage counts (client_epoch.cu)
+STAGED_RING_HEADER_BYTES = 112  # the 2-byte staged kernel's ring header
+STAGED_RING_MAX_STAGES = 4      # its ring's stages, at most (2 at least)
 WIDE_HEADER_BYTES = 16     # the wide kernel's step header (client_epoch.cu)
 RING_TILE = 256            # the widest ring stage of both wide kernels
 TILED_MAX_CHUNK = 32       # rows of one exchange of the class-tiled kernel
@@ -101,6 +110,16 @@ RING_HEADER_BYTES = 8 * (2 * RING_MAX_STAGES + 2) + 16  # mbarriers, metrics
 WIDE_STEP_US = 4.5
 WIDE_COLUMN_US = 0.012
 WIDE_HBM_BYTES_PER_US = 2.2e6
+# A step of the staged kernel of 2-byte rows (_narrow_cluster), fitted to
+# its times forced at each cluster on an NVIDIA H100 80GB HBM3 at 700 W
+# (tools/client_epoch_variants.py --shapes grid, bfloat16 rows, Centralized's
+# one client of 1,501 steps at D = 784 to 8,704: within 5% at every k but
+# one CTA, 8%): fixed work (the exchange's barrier, the row losses, the
+# block barriers), a CTA of the cluster (the exchange reads), and a pass of
+# the warps or threads over a CTA's slice (narrow_passes).
+NARROW_STEP_US = 2.70
+NARROW_CTA_US = 0.083
+NARROW_PASS_US = 0.89
 # A step of the class-tiled wide kernel (_tiled_cluster), fitted to its
 # times forced at each cluster on an NVIDIA H100 80GB HBM3 at 700 W
 # (tools/client_epoch_variants.py --clusters 1,2,4,8,16: the sector
@@ -257,6 +276,21 @@ def staged_smem_bytes(B: int, C: int, D: int, k: int,
     return HEADER_BYTES + 4 * (floats + 2 * Bp) + row_bytes * 2 * Bp * Dk
 
 
+def staged_ring_smem_bytes(B: int, C: int, D: int, k: int,
+                           stages: int) -> int:
+    """Shared memory of one CTA of the staged kernel of 2-byte rows
+    (``staged_ring_smem_bytes`` in ``client_epoch.cu``): its header of
+    mbarriers and stage counts, the W and anchor slices, ``stages`` stages
+    of ``(B, Dk)`` 2-byte rows, the double-buffered exchange, the logits,
+    per-row scratch, the block sums and each stage's row weights, labels
+    and ids."""
+    Dk = slice_width(D, k, 2)
+    Bp, CP = _round_up(B, 8), _round_up(instantiated_classes(C), 4)
+    floats = (2 * C * Dk + 2 * (4 + Bp * CP) + Bp * CP + 2 * Bp
+              + 2 * WARPS + 3 * stages * Bp)
+    return STAGED_RING_HEADER_BYTES + 4 * floats + 2 * stages * Bp * Dk
+
+
 def unstaged_smem_bytes(B: int, C: int, D: int) -> int:
     """Shared memory of the unstaged kernel's CTA: W and the anchor
     whole, the logits and per-row scratch."""
@@ -379,6 +413,103 @@ def _no_empty_slice(k: int, floor: int, D: int, row_bytes: int) -> int:
     while k > floor and (k - 1) * slice_width(D, k, row_bytes) >= D:
         k //= 2
     return k
+
+
+def narrow_stages(B: int, C: int, D: int, k: int, smem_limit: int) -> int:
+    """The ring depth of the staged kernel of 2-byte rows at a
+    ``k``-cluster: as many stages as fit ``smem_limit``, at most
+    ``STAGED_RING_MAX_STAGES``; 0 where two do not."""
+    return max((n for n in range(2, STAGED_RING_MAX_STAGES + 1)
+                if staged_ring_smem_bytes(B, C, D, k, n) <= smem_limit),
+               default=0)
+
+
+def narrow_grad_cols(Dk: int, nc: int) -> int:
+    """Columns a thread of the 2-byte staged kernel's gradient pass takes
+    over a slice of ``Dk`` at ``nc`` instantiated classes
+    (``staged_grad_cols`` in ``client_epoch.cu``): of 4, 2 and 1 the one
+    whose passes of the block's threads times its columns is least, the
+    wider on a tie; 4 only at 16 classes or fewer."""
+    cost = {g: -(-Dk // (g * WARPS * 32)) * g for g in (4, 2, 1)
+            if g < 4 or nc <= 16}
+    return min(cost, key=lambda g: (cost[g], -g))
+
+
+def narrow_passes(B: int, C: int, D: int, k: int) -> float:
+    """Passes over a CTA's slice in one step of B rows of the 2-byte staged
+    kernel at a ``k``-cluster: the forward pass's warps (``ring_rows``
+    rows a warp, 256 columns a pass) and the gradient pass's threads
+    (``narrow_grad_cols`` columns each, B rows), in units of B = 32."""
+    Dk = slice_width(D, k, 2)
+    nc = instantiated_classes(C)
+    fwd = -(-(-(-B // ring_rows(C))) // WARPS) * -(-Dk // 256)
+    g = narrow_grad_cols(Dk, nc)
+    return fwd + -(-Dk // (g * WARPS * 32)) * g * B / 32
+
+
+def narrow_step_us(B: int, C: int, D: int, k: int) -> float:
+    """The estimated µs of one step of B rows of the staged kernel of
+    2-byte rows at a ``k``-cluster (see ``_narrow_cluster``)."""
+    return (NARROW_STEP_US + NARROW_CTA_US * k
+            + NARROW_PASS_US * narrow_passes(B, C, D, k))
+
+
+@functools.lru_cache(maxsize=256)
+def _narrow_cluster(steps, B, C, D, sizes, active):
+    """The staged kernel's cluster for 2-byte rows among ``sizes`` (those
+    whose ring of 2 stages fits, with no empty slice; ``active`` pairs of
+    k and the clusters of k CTAs the card runs at once): the one of least
+    estimated time, the larger on a tie. A launch lasts the steps of the
+    busiest of the ``active[k]`` clusters running at once (a longest-first
+    schedule of the clients' ``steps``) times ``narrow_step_us`` at B
+    rows: ``NARROW_STEP_US`` of fixed work, ``NARROW_CTA_US`` a CTA of
+    the cluster and ``NARROW_PASS_US`` a pass over a CTA's slice
+    (``narrow_passes``). On an NVIDIA H100 80GB HBM3 at 700 W (132, 66,
+    30 and 15 clusters of 1 to 8 CTAs at once) it picks 8 CTAs at the main
+    path's J = 50, D = 2,000 with its steps and at Centralized's J = 1, 4
+    at J = 400 on the mnist stand-in's split: over the grid of J = 1, 5,
+    50, 400 by D = 784 to 8,704 each pick is the size measured fastest or
+    within 0.6% of it (``tools/client_epoch_variants.py --shapes
+    grid``)."""
+    active = dict(active)
+
+    def cost(k):
+        return (_busiest_steps(steps, active[k])
+                * narrow_step_us(B, C, D, k))
+
+    return min(sizes, key=lambda k: (cost(k), -k))
+
+
+def _narrow_plan(J, B, C, D, num_sms, smem_limit, cluster, active_clusters,
+                 steps):
+    """The staged plan of 2-byte rows: the ring kernel at the cluster of
+    ``_narrow_cluster`` (forced: ``cluster``), ``narrow_stages`` deep."""
+    sizes = [k for k in STAGED_CLUSTERS
+             if narrow_stages(B, C, D, k, smem_limit)]
+    if cluster is not None:
+        if cluster not in sizes:
+            raise ValueError(
+                f"cluster {cluster} does not fit: the sizes that fit "
+                f"C={C}, D={D}, B={B} are {sizes}")
+        k = cluster
+    else:
+        if active_clusters is None:  # without the card's answer: the SMs
+            active_clusters = {k: num_sms // k for k in WIDE_CLUSTERS}
+        sizes = [k for k in sizes if active_clusters.get(k, 0) > 0
+                 and (k == sizes[0] or (k - 1) * slice_width(D, k, 2) < D)]
+        if not sizes:
+            return None
+        if J <= min(active_clusters[k] for k in sizes):
+            steps = (1,) * J
+        else:
+            steps = steps() if callable(steps) else steps
+            steps = (1,) * J if steps is None else tuple(steps)
+        k = _narrow_cluster(steps, B, C, D, tuple(sizes),
+                            tuple(sorted(active_clusters.items())))
+    stages = narrow_stages(B, C, D, k, smem_limit)
+    return EpochPlan(k, slice_width(D, k, 2), instantiated_classes(C),
+                     staged_ring_smem_bytes(B, C, D, k, stages), J * k,
+                     stages=stages)
 
 
 def _staged_plan(J, B, C, D, num_sms, smem_limit, cluster, row_bytes):
@@ -693,7 +824,10 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
     - the staged kernel where a cluster of 1, 2, 4 or 8 CTAs fits two
       step tiles in ``smem_limit``: ``k`` is the larger of the smallest
       that fits and the largest whose ``J * k`` CTAs still fit the SMs in
-      one wave, halved while a slice would be empty;
+      one wave, halved while a slice would be empty; for 2-byte rows its
+      ring (``_narrow_plan``) where 2 stages fit, ``k`` by
+      ``_narrow_cluster`` from ``active_clusters`` and ``steps`` (as the
+      wide kernel's: None, the SMs over k), ``narrow_stages`` deep;
     - else the unstaged kernel where W and the anchor fit whole;
     - else the wide kernel: ``k`` among clusters of up to ``max_cluster``
       (8, or 16 where the card schedules it) by ``_wide_cluster``, from
@@ -729,8 +863,10 @@ def launch_plan(J: int, B: int, C: int, D: int, num_sms: int,
         return _tiled_plan(J, B, C, D, num_sms, smem_limit, cluster,
                            row_bytes, max_cluster, active_clusters, steps)
     if kernel in (None, "staged"):
-        plan = _staged_plan(J, B, C, D, num_sms, smem_limit, cluster,
-                            row_bytes)
+        plan = (_narrow_plan(J, B, C, D, num_sms, smem_limit, cluster,
+                             active_clusters, steps) if row_bytes == 2
+                else _staged_plan(J, B, C, D, num_sms, smem_limit, cluster,
+                                  row_bytes))
         if plan is not None:
             return plan
         if kernel == "staged":
@@ -754,6 +890,9 @@ def kernel_symbol(plan: EpochPlan, C: int) -> str:
     (``cuda_build.ptxas_usage``)."""
     if plan.kernel == "unstaged":
         name, args = "unstaged_epoch_kernel", f"ILi{plan.classes}E"
+    elif plan.kernel == "staged" and plan.stages:  # 2-byte rows: the ring
+        name = "staged_ring_epoch_kernel"
+        args = f"ILi{plan.classes}ELb{int(C in EXACT_CLASSES)}E"
     elif plan.kernel == "wide_tiled":
         # the source of W: shared memory, W_out in float4s, or in floats
         src = 0 if plan.w_res else (1 if plan.slice_width % 4 == 0 else 2)
@@ -780,7 +919,7 @@ def _library(name: str = "client_epoch"):
     lib = cuda_build.load(name)
     lib.client_epoch_launch_staged.restype = ctypes.c_int
     lib.client_epoch_launch_staged.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.client_epoch_launch_unstaged.restype = ctypes.c_int
     lib.client_epoch_launch_unstaged.argtypes = (
@@ -792,6 +931,8 @@ def _library(name: str = "client_epoch"):
         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.client_epoch_staged_smem_bytes.restype = ctypes.c_size_t
     lib.client_epoch_staged_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.client_epoch_staged_ring_smem_bytes.restype = ctypes.c_size_t
+    lib.client_epoch_staged_ring_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.client_epoch_unstaged_smem_bytes.restype = ctypes.c_size_t
     lib.client_epoch_unstaged_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.client_epoch_instantiated_classes.restype = ctypes.c_int
@@ -847,7 +988,10 @@ def _check_plan(name: str, plan: EpochPlan, B: int, C: int, D: int,
     lib = _library(name)
     scratch = 0
     tiled = int(plan.kernel == "wide_tiled")
-    if plan.kernel == "staged":
+    if plan.kernel == "staged" and plan.stages:
+        smem = lib.client_epoch_staged_ring_smem_bytes(
+            B, C, D, plan.cluster, plan.stages)
+    elif plan.kernel == "staged":
         smem = lib.client_epoch_staged_smem_bytes(B, C, D, plan.cluster)
     elif plan.kernel in ("wide", "wide_tiled"):
         hold = plan.scratch_bytes == 0
@@ -879,6 +1023,31 @@ def _check_plan(name: str, plan: EpochPlan, B: int, C: int, D: int,
             f"scratch bytes = {got})")
 
 
+def card_plan(W, X, rows, valid, cluster=None, kernel=None, ordered=None):
+    """The plan ``client_epoch`` takes for these CUDA tensors: the card's
+    SMs, its largest cluster and the clusters it runs at once, and, where
+    a cluster rule reads them, each client's steps (one host read of
+    ``client_order(valid)``, appended to ``ordered`` when given)."""
+    J, C, D = W.shape
+    B = rows.shape[2]
+    name = ROW_LIBRARIES[X.dtype]
+    dev = W.device.index
+    sms = torch.cuda.get_device_properties(W.device).multi_processor_count
+
+    def steps():
+        # one host read, made only where there are more clients than some
+        # cluster size runs at once
+        got = client_order(valid)
+        if ordered is not None:
+            ordered.append(got)
+        return got[1].tolist()
+
+    return launch_plan(
+        J, B, C, D, sms, cluster=cluster, row_bytes=X.element_size(),
+        kernel=kernel, max_cluster=wide_max_cluster(dev, name),
+        active_clusters=wide_active_clusters(dev, name), steps=steps)
+
+
 def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
                  cluster=None, kernel=None):
     """One local epoch of all J clients; same contract as
@@ -898,24 +1067,12 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
     J, C, D = W.shape
     S, B = rows.shape[1:]
     row_bytes = X.element_size()
-    sms = torch.cuda.get_device_properties(W.device).multi_processor_count
     name = ROW_LIBRARIES[X.dtype]
     dev = W.device.index
     W_out = torch.empty_like(W)
     metrics = torch.zeros((J, 3), dtype=torch.float32, device=W.device)
     ordered = []
-
-    def steps():
-        # the wide kernel's cluster rule reads each client's steps: one
-        # host read, made only where there are more clients than some
-        # cluster size runs at once
-        ordered.append(client_order(valid))
-        return ordered[0][1].tolist()
-
-    plan = launch_plan(
-        J, B, C, D, sms, cluster=cluster, row_bytes=row_bytes, kernel=kernel,
-        max_cluster=wide_max_cluster(dev, name),
-        active_clusters=wide_active_clusters(dev, name), steps=steps)
+    plan = card_plan(W, X, rows, valid, cluster, kernel, ordered)
     if plan is None:
         raise ValueError(
             f"no client_epoch kernel takes C={C}: a chunk of 8 rows' "
@@ -942,7 +1099,8 @@ def client_epoch(W, anchor, X, y, rows, valid, lr, mu, lam, task,
         bulk = int((D * row_bytes) % 16 == 0 and X.data_ptr() % 16 == 0)
         if plan.kernel == "staged":
             err = lib.client_epoch_launch_staged(
-                *ptrs, J, S, B, C, D, plan.cluster, is_cls, bulk, *scalars)
+                *ptrs, J, S, B, C, D, plan.cluster, plan.stages, is_cls,
+                bulk, *scalars)
         else:
             scratch = (torch.empty(plan.scratch_bytes // 4,
                                    dtype=torch.float32, device=W.device)

@@ -26,10 +26,13 @@ against the plain version there, over a grid of shapes (both tasks, C in
 every cluster size, unaligned rows, 2-byte rows, the unstaged kernel, the
 wide kernel (forced at D = 250, 2000 and 6,001 and at B = 300, by shape
 at D = 6,000, 10,000 and 40,000 and B = 4096, exact and rounded classes,
-every cluster up to 16, 2-byte rows at D = 9,000 and 9,001) and bitwise
+every cluster up to 16, 2-byte rows at D = 9,000 and 9,001), the staged
+kernel of 2-byte rows (its ring: the main and Centralized shapes, rows
+not 16-byte multiples, B = 20, C = 3, 16, 26, every cluster) and bitwise
 determinism checks, and skip on a machine without one. The launch plan
 (kernel, cluster size, client order, shared-memory bytes, refused
-shapes) is pure Python and tested here on the CPU.
+shapes; the 2-byte cluster rule against the times it was fitted to) is
+pure Python and tested here on the CPU.
 """
 
 import functools
@@ -445,21 +448,43 @@ def test_plan_is_none_where_no_kernel_takes_the_shape(J, B, C, D,
 
 
 def test_plan_two_byte_rows_layout():
-    """2-byte rows: slices round to 8 elements (16 bytes), the two step
-    tiles take half the bytes, so a smaller cluster holds the main path
-    and the D limit of the largest cluster rises (C = 10, B = 32: 5,376
-    float32 columns, 8,704 2-byte ones)."""
+    """2-byte rows: slices round to 8 elements (16 bytes); the staged
+    kernel of 2-byte rows (a producer warp's ring) holds as many stages of
+    half-byte tiles as fit, up to 4, so a smaller cluster fits more D;
+    its cluster is the measured rule's (``_narrow_cluster``): 8 CTAs at
+    the main shape with the main path's steps (2 before: the one-wave
+    rule), 4 at J = 400, 8 at Centralized's J = 1. The D limit of the
+    largest cluster stays 8,704 at C = 10, B = 32 (5,376 float32
+    columns); past each limit the wide plan takes over (8 CTAs at J =
+    5)."""
     assert ek.slice_width(2000, 4, 2) == 504 and ek.slice_width(250, 4, 2) == 64
     assert ek.slice_width(2000, 4) == 500
-    f32 = ek.staged_smem_bytes(32, 10, 2000, 4)
-    b16 = ek.staged_smem_bytes(32, 10, 2000, 4, row_bytes=2)
-    # the tiles: 2 * 32 rows of 500 floats against 2 * 32 rows of 504
-    # 2-byte elements; W and the anchor slices grow by 2 * 10 * 4 floats
-    assert f32 - b16 == 4 * 2 * 32 * 500 - 2 * 2 * 32 * 504 - 4 * 2 * 10 * 4
-    plan = launch_plan(50, 32, 10, 2000, H100_SMS, row_bytes=2)
-    assert (plan.cluster, plan.slice_width) == (2, 1000)
+    # the ring's layout at the main shape's 8 CTAs: header 112 B; floats:
+    # w, anchor 2*10*256; two exchange buffers 2*(4 + 32*12); logits
+    # 32*12; row loss and hits 2*32; block sums 16; 4 stages' row weights,
+    # labels and ids 3*4*32; then 4 stages of 32 rows x 256 2-byte columns
+    floats = (2 * 10 * 256 + 2 * (4 + 32 * 12) + 32 * 12 + 2 * 32 + 16
+              + 3 * 4 * 32)
+    smem = 112 + 4 * floats + 2 * 4 * 32 * 256
+    assert ek.staged_ring_smem_bytes(32, 10, 2000, 8, 4) == smem
+    plan = launch_plan(50, 32, 10, 2000, H100_SMS, row_bytes=2,
+                       steps=_main_steps(50))
+    assert plan == ek.EpochPlan(cluster=8, slice_width=256, classes=10,
+                                smem_bytes=smem, ctas=400, stages=4)
+    assert ek.kernel_symbol(plan, 10) == "24staged_ring_epoch_kernelILi10ELb1E"
+    assert launch_plan(400, 32, 10, 2000, H100_SMS, row_bytes=2,
+                       steps=_main_steps(400)).cluster == 4
+    assert launch_plan(1, 32, 10, 2000, H100_SMS, row_bytes=2).cluster == 8
+    # the depth: 2 stages at one CTA's 2,000 do not fit, 2 at k = 2
+    assert [ek.narrow_stages(32, 10, 2000, k, cuda_build.SMEM_LIMIT)
+            for k in (1, 2, 4, 8)] == [0, 2, 4, 4]
+    # the gradient pass's columns a thread: 1 at 256 columns, 2 at 504,
+    # 4 at 1,000 (each measured fastest there); 2 past 16 classes
+    assert [ek.narrow_grad_cols(Dk, 10) for Dk in (256, 504, 1000)] == [
+        1, 2, 4]
+    assert ek.narrow_grad_cols(1000, 26) == 2
     # past each row type's limit the wide plan takes over (8 CTAs: the
-    # one-wave rule at J = 5)
+    # fewest steps at J = 5, every client a cluster of its own)
     for D, f32_k, b16_k in ((5376, "staged", "staged"),
                             (5377, "wide", "staged"),
                             (8704, "wide", "staged"), (8705, "wide", "wide")):
@@ -467,6 +492,65 @@ def test_plan_two_byte_rows_layout():
         b = launch_plan(5, 32, 10, D, H100_SMS, row_bytes=2)
         assert (a.kernel, a.cluster) == (f32_k, 8), D
         assert (b.kernel, b.cluster) == (b16_k, 8), D
+    assert launch_plan(5, 32, 10, 8704, H100_SMS, row_bytes=2).stages == 2
+
+
+# ms of the staged kernel of 2-byte rows forced at each cluster that fits
+# (bfloat16 rows, C = 10, B = 32; J = 1 is Centralized's one client of
+# 1,501 steps, every other J the mnist stand-in's Dirichlet(0.01) split;
+# tools/client_epoch_variants.py --shapes grid on an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md § 6): what _narrow_cluster is fitted to
+NARROW_GRID_MS = {
+    (1, 784): {1: 13.709, 2: 9.714, 4: 7.465, 8: 7.436},
+    (1, 1504): {2: 12.964, 4: 9.758, 8: 7.667},
+    (1, 2000): {2: 15.064, 4: 9.904, 8: 7.933},
+    (1, 3000): {4: 13.26, 8: 10.115},
+    (1, 4096): {4: 15.345, 8: 10.186},
+    (1, 5376): {8: 13.251},
+    (1, 7000): {8: 15.026},
+    (1, 8704): {8: 19.095},
+    (5, 784): {1: 4.447, 2: 3.145, 4: 2.403, 8: 2.389},
+    (5, 1504): {2: 4.217, 4: 3.152, 8: 2.476},
+    (5, 2000): {2: 4.85, 4: 3.169, 8: 2.534},
+    (5, 3000): {4: 4.247, 8: 3.235},
+    (5, 4096): {4: 4.922, 8: 3.261},
+    (5, 5376): {8: 4.222},
+    (5, 7000): {8: 4.832},
+    (5, 8704): {8: 6.148},
+    (50, 784): {1: 1.405, 2: 0.997, 4: 0.759, 8: 0.755},
+    (50, 1504): {2: 1.336, 4: 0.995, 8: 0.784},
+    (50, 2000): {2: 1.56, 4: 1.02, 8: 0.815},
+    (50, 3000): {4: 1.346, 8: 1.025},
+    (50, 4096): {4: 1.584, 8: 1.047},
+    (50, 5376): {8: 1.346},
+    (50, 7000): {8: 1.581},
+    (50, 8704): {8: 1.986},
+    (400, 784): {1: 0.641, 2: 0.457, 4: 0.422, 8: 0.771},
+    (400, 1504): {2: 0.606, 4: 0.548, 8: 0.828},
+    (400, 2000): {2: 0.707, 4: 0.599, 8: 0.899},
+    (400, 3000): {4: 0.779, 8: 1.105},
+    (400, 4096): {4: 0.936, 8: 1.178},
+    (400, 5376): {8: 1.499},
+    (400, 7000): {8: 1.766},
+    (400, 8704): {8: 2.183},
+}
+
+
+@pytest.mark.parametrize("J,D", list(NARROW_GRID_MS))
+def test_plan_two_byte_cluster_rule_is_the_measured_one(J, D):
+    """The staged kernel of 2-byte rows at every shape of the grid its
+    cluster rule was fitted to: the clusters whose ring fits are the ones
+    measured, and the rule's pick, given the card's clusters at once and
+    the clients' steps, is the size measured fastest or within 0.6% of
+    it (4 CTAs at D = 784 where 8 measured 0.4% faster)."""
+    ms = NARROW_GRID_MS[J, D]
+    fits = [k for k in ek.STAGED_CLUSTERS
+            if ek.narrow_stages(32, 10, D, k, cuda_build.SMEM_LIMIT)]
+    assert fits == sorted(ms)
+    steps = (1501,) if J == 1 else _main_steps(J)
+    plan = launch_plan(J, 32, 10, D, H100_SMS, row_bytes=2, steps=steps)
+    assert plan.kernel == "staged" and plan.stages >= 2
+    assert ms[plan.cluster] <= 1.006 * min(ms.values()), (plan, ms)
 
 
 def test_plan_falls_back_to_unstaged_kernel_for_huge_batches():
@@ -568,12 +652,47 @@ def _plan_before_the_wide_kernel(J, B, C, D, num_sms, smem_limit,
             ek.staged_smem_bytes(B, C, D, k, row_bytes), J * k)
 
 
+def _plan_of_the_two_byte_ring(J, B, C, D, smem_limit):
+    """The staged plan of 2-byte rows as the ring kernel's rule set it:
+    (cluster, slice_width, classes, smem_bytes, ctas, stages), or None
+    where no ring of 2 stages fits. J clients of one step each, the
+    clusters ``H100_ACTIVE`` runs at once."""
+    def stages(k):
+        return max((n for n in (2, 3, 4) if ek.staged_ring_smem_bytes(
+            B, C, D, k, n) <= smem_limit), default=0)
+
+    sizes = [k for k in (1, 2, 4, 8) if stages(k)]
+    if not sizes:
+        return None
+    sizes = [k for k in sizes
+             if k == sizes[0] or (k - 1) * ek.slice_width(D, k, 2) < D]
+    nc = ek.instantiated_classes(C)
+    rb = 8 if nc <= 4 else (4 if nc <= 10 else (2 if nc <= 16 else 1))
+
+    def cost(k):
+        Dk = ek.slice_width(D, k, 2)
+        cols = {g: -(-Dk // (256 * g)) * g for g in (4, 2, 1)
+                if g < 4 or nc <= 16}
+        g = min(cols, key=lambda g: (cols[g], -g))
+        passes = -(-(-(-B // rb)) // 8) * -(-Dk // 256) + cols[g] * B / 32
+        return -(-J // H100_ACTIVE[k]) * (2.70 + 0.083 * k + 0.89 * passes)
+
+    k = min(sizes, key=lambda k: (cost(k), -k))
+    return (k, ek.slice_width(D, k, 2), nc,
+            ek.staged_ring_smem_bytes(B, C, D, k, stages(k)), J * k,
+            stages(k))
+
+
 @pytest.mark.parametrize("row_bytes", [2, 4])
 def test_plan_keeps_every_shape_taken_before_the_wide_kernel(row_bytes):
     """Every shape the staged or the unstaged kernel took keeps its
     kernel, cluster, slice, instantiation, shared memory and grid, at
     either cluster limit and at a smaller block too; only shapes neither
-    took run the wide kernel, and past 32 classes the class-tiled one."""
+    took run the wide kernel, and past 32 classes the class-tiled one.
+    2-byte rows are held against the ring kernel's rule
+    (``_plan_of_the_two_byte_ring``): its plan wherever its ring of 2
+    stages fits, else the unstaged kernel's, else the wide kernel, so
+    every shape keeps a kernel and none is refused."""
     for smem_limit in (cuda_build.SMEM_LIMIT, 100000):
         for J in (1, 5, 50, 70, 400):
             for B in (1, 16, 17, 32, 64, 100, 1024, 4096):
@@ -583,12 +702,29 @@ def test_plan_keeps_every_shape_taken_before_the_wide_kernel(row_bytes):
                               8704):
                         old = _plan_before_the_wide_kernel(
                             J, B, C, D, H100_SMS, smem_limit, row_bytes)
+                        ring = (_plan_of_the_two_byte_ring(
+                            J, B, C, D, smem_limit)
+                                if row_bytes == 2 and C <= 32 else None)
                         for max_cluster in (8, 16):
                             new = launch_plan(J, B, C, D, H100_SMS,
                                                  smem_limit,
                                                  row_bytes=row_bytes,
                                                  max_cluster=max_cluster)
                             shape = (smem_limit, J, B, C, D, max_cluster)
+                            if ring is not None:
+                                assert new.kernel == "staged", shape
+                                assert (new.cluster, new.slice_width,
+                                        new.classes, new.smem_bytes,
+                                        new.ctas, new.stages) == ring, shape
+                                continue
+                            if row_bytes == 2 and old is not None and old[0]:
+                                # the old staged kernel's shape past the
+                                # ring: the unstaged kernel where it fits
+                                fits = ek.unstaged_smem_bytes(
+                                    B, C, D) <= smem_limit
+                                assert new.kernel == (
+                                    "unstaged" if fits else "wide"), shape
+                                continue
                             if old is None:
                                 assert new.kernel == ("wide_tiled" if C > 32
                                                       else "wide"), shape
@@ -1111,6 +1247,69 @@ def test_cuda_two_byte_rows_unstaged_and_unaligned(dtype):
     args[2].copy_(X)
     assert args[2].data_ptr() % 16 != 0
     _kernel_vs_plain("classification", args)
+
+
+# the staged kernel of 2-byte rows (its producer warp's ring): (task, J,
+# S, B, C, D). The main shape; Centralized's one client of 1,501 steps; a
+# D whose rows are not 16-byte multiples (lane-wise copies, bulk = 0); B
+# not a multiple of 8; the rounded instantiations' class counts and
+# letter's exact 26; the regression task's packed targets. Every case has
+# an empty client, empty trailing steps and an empty step between others
+# (_epoch_inputs; Centralized's one client has none).
+RING_CASES = {
+    "main": ("classification", 50, 150, 32, 10, 2000),
+    "centralized": ("classification", 1, 1501, 32, 10, 2000),
+    "D=2001": ("classification", 5, 6, 32, 10, 2001),
+    "B=20": ("classification", 5, 6, 20, 10, 2000),
+    "C=3": ("classification", 5, 6, 32, 3, 2000),
+    "C=16": ("classification", 5, 6, 32, 16, 2000),
+    "C=26": ("classification", 5, 6, 32, 26, 2000),
+    "regression": ("regression", 5, 6, 32, 1, 2000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RING_CASES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_staged_ring_kernel_matches_plain_version(dtype, case):
+    """The staged kernel of 2-byte rows, forced, at its plan's cluster and
+    ring, against the plain version under the strong penalties (weights
+    atol 2e-5, rtol 1e-5): the row packing, the labels packed with the
+    rows, the reduce-scatter of the partial logits, both gradient widths
+    and the sums of squares folded into the update."""
+    _need_card()
+    task, J, S, B_, C_, D_ = RING_CASES[case]
+    args = _epoch_inputs(task, "cuda", J=max(J, 5), S=S, C=C_, D=D_, B=B_)
+    if J == 1:  # client 0: every step holds rows
+        args = [args[0][:1].contiguous(), args[1], args[2], args[3],
+                args[4][:1].contiguous(), args[5][:1].contiguous()]
+    args[2] = args[2].to(getattr(torch, dtype))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = launch_plan(J, B_, C_, D_, sms, row_bytes=2, kernel="staged",
+                       active_clusters=ek.wide_active_clusters(0))
+    assert plan.stages >= 2, plan
+    before = client_epoch.launches_by_kernel["staged"]
+    _kernel_vs_plain(task, args, kernel="staged")
+    assert client_epoch.launches_by_kernel["staged"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("D_", [784, 2000])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_staged_ring_every_cluster_size(dtype, D_, cluster):
+    """Every cluster of the 2-byte staged kernel that fits (D = 2,000 at
+    one CTA does not: its two stages pass a block) and its ring's depth
+    there, against the plain version."""
+    _need_card()
+    if ek.narrow_stages(32, 10, D_, cluster, cuda_build.SMEM_LIMIT) == 0:
+        with pytest.raises(ValueError, match="does not fit"):
+            launch_plan(5, 32, 10, D_, H100_SMS, row_bytes=2,
+                        cluster=cluster)
+        return
+    args = _epoch_inputs("classification", "cuda", S=6, C=10, D=D_)
+    args[2] = args[2].to(getattr(torch, dtype))
+    _kernel_vs_plain("classification", args, cluster=cluster)
 
 
 @pytest.mark.cuda

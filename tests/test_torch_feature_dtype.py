@@ -286,3 +286,41 @@ def test_cuda_narrow_run_matches_its_plain_run(dtype):
                                    rtol=0, atol=0.05)
         torch.testing.assert_close(res["params"]["w"], ref["params"]["w"],
                                    rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_main_configuration_runs_the_two_byte_ring(dtype):
+    """At the main configuration (the mnist stand-in's 50 Dirichlet(0.01)
+    clients, D = 2,000) every local epoch of FedAvg on 2-byte features
+    runs the staged kernel of 2-byte rows at the cluster its measured rule
+    picks with the split's steps (8 CTAs), and the run matches its plain
+    run (chip_smoke.py's TOL_RUN)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from fedamw_tpu_torch.fedcore import client_epoch
+    from fedamw_tpu_torch.fedcore import epoch_kernel as ek
+
+    d = load_dataset("mnist", num_partitions=50, alpha=0.01)
+    s = prepare_setup(d, D=2000, seed=100, rng=np.random.RandomState(100),
+                      feature_dtype=dtype)
+    steps = torch.ceil(s.mask.sum(1) / 32).int().tolist()
+    dev = torch.cuda.current_device()
+    plan = ek.launch_plan(
+        50, 32, s.num_classes, 2000,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        row_bytes=2, max_cluster=ek.wide_max_cluster(dev),
+        active_clusters=ek.wide_active_clusters(dev), steps=steps)
+    assert (plan.kernel, plan.cluster) == ("staged", 8) and plan.stages
+    kw = dict(lr=0.5, epoch=2, round=2, seed=0, lr_mode="constant",
+              return_state=True)
+    ref = FedAvg(s, kernel_impl="plain", **kw)
+    before = client_epoch.launches_by_kernel["staged"]
+    res = FedAvg(s, **kw)
+    assert client_epoch.launches_by_kernel["staged"] - before == 4
+    for k in ("train_loss", "test_loss"):
+        np.testing.assert_allclose(res[k], ref[k], rtol=1e-4, atol=0)
+    np.testing.assert_allclose(res["test_acc"], ref["test_acc"], rtol=0,
+                               atol=0.05)
+    torch.testing.assert_close(res["params"]["w"], ref["params"]["w"],
+                               rtol=0, atol=1e-4)

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Where one step of kernel 1's wide plan (``wide_epoch_kernel``) or its
-class-tiled wide plan (``wide_tiled_epoch_kernel``) spends its time.
+"""Where one step of kernel 1's staged plan (``staged_epoch_kernel``, or
+``staged_ring_epoch_kernel`` on 2-byte rows), its wide plan
+(``wide_epoch_kernel``) or its class-tiled wide plan
+(``wide_tiled_epoch_kernel``) spends its time.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 tools/client_epoch_phases.py [--J 50 --S 150 --D 10000 --C 10
                                           --B 32 --clusters 2,8,16]
+    python3 tools/client_epoch_phases.py --kernel staged --D 2000 \
+        --dtype bfloat16 --clusters 1,2,4,8
     python3 tools/client_epoch_phases.py --kernel wide_tiled --D 2000 \
         --C 105 --S 20 --clusters 1,2,4,8,16
 
@@ -20,9 +24,12 @@ kernel forced at each cluster size that fits, once through that build and
 plan's layout, both builds' ms, the clock rate implied by the
 instrumented launch's CUDA-event time (from the consumer phases, whose
 sum is the longest client's whole launch), and each phase in µs per
-step. The class-tiled kernel's phase names come from its library
-(``client_epoch_tiled_phase_names``; ``producer_`` marks the producer
-warp's). Exits non-zero without a card.
+step. The staged and class-tiled kernels' phase names come from their
+library (``client_epoch_staged_phase_names``,
+``client_epoch_tiled_phase_names``; ``producer_`` marks the producer
+warp's: the float32 staged kernel has none, its thread 0 packs). A
+cluster that does not fit the kernel prints a ``skipped`` line. Exits
+non-zero without a card.
 """
 
 from __future__ import annotations
@@ -40,7 +47,6 @@ PHASES = ("wait_batch", "wait_fwd_tiles", "fwd_fma", "warp_sums",
           "grad_fma", "update", "block_sums",
           "producer_wait_empty", "producer_issue", "producer_wait_batch",
           "producer_pack", "producer_cluster")
-CONSUMER = PHASES[:11]
 
 
 def main():
@@ -54,10 +60,10 @@ def main():
     ap.add_argument("--B", type=int, default=32)
     ap.add_argument("--N", type=int, default=20000)
     ap.add_argument("--dtype", default="float32",
-                    choices=("float32", "bfloat16"))
+                    choices=("float32", "bfloat16", "float16"))
     ap.add_argument("--clusters", default="1,2,4,8,16")
     ap.add_argument("--seed", type=int, default=100)
-    ap.add_argument("--kernel", choices=("wide", "wide_tiled"),
+    ap.add_argument("--kernel", choices=("staged", "wide", "wide_tiled"),
                     default="wide")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -79,20 +85,18 @@ def main():
                         str(cuda_build.source_path(name))],
                        check=True, capture_output=True)
     clocked = ctypes.CDLL(str(lib_path))
-    tiled = args.kernel == "wide_tiled"
-    read_clocks = (clocked.client_epoch_tiled_phase_clocks if tiled
-                   else clocked.client_epoch_wide_phase_clocks)
+    named = {"staged": "staged", "wide_tiled": "tiled"}.get(args.kernel)
+    read_clocks = getattr(clocked, f"client_epoch_{named or 'wide'}"
+                                   "_phase_clocks")
     read_clocks.restype = ctypes.c_int
     read_clocks.argtypes = [ctypes.c_void_p]
     phases = PHASES
-    if tiled:
-        clocked.client_epoch_tiled_phase_names.restype = ctypes.c_char_p
-        phases = tuple(
-            clocked.client_epoch_tiled_phase_names().decode().split(","))
+    if named:
+        names = getattr(clocked, f"client_epoch_{named}_phase_names")
+        names.restype = ctypes.c_char_p
+        phases = tuple(names().decode().split(","))
     consumer = [i for i, p in enumerate(phases)
                 if not p.startswith("producer_")]
-    if not tiled:
-        consumer = list(range(len(CONSUMER)))
 
     J, S, D, C, B, N = args.J, args.S, args.D, args.C, args.B, args.N
     dev = torch.device("cuda")
@@ -162,7 +166,7 @@ def main():
             "kernel": args.kernel, "J": J, "S": S, "D": D, "C": C, "B": B,
             "rows": args.dtype, "cluster": k,
             "plan": {f: getattr(plan, f) for f in (
-                "slice_width", "chunk", "tile", "stages", "w_res",
+                "kernel", "slice_width", "chunk", "tile", "stages", "w_res",
                 "rows_res", "smem_bytes", "scratch_bytes")},
             "ms": ms, "ms_clocked": ms_clocked, "clock_ghz": ghz,
             "us_per_step": {p: c / ghz / 1e3 / S
